@@ -5,9 +5,12 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds kernels K1 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum) and K3
+It builds kernels K1 and K2 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum
+from geometry and from delay tables), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
-per-bin GEMM) with nvcc and runs:
+per-bin GEMM) and K4 (``qups_tpu_torch/csrc/fdbf.cu``, the
+frequency-domain adjoint beamformer) with nvcc, one process per source,
+all at once, and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times;
@@ -24,7 +27,20 @@ per-bin GEMM) with nvcc and runs:
    every option the kernels do not carry yet raises ``NotImplementedError``
    on the card;
 4. the headline size, 1024^2 pixels x 256 tx x 256 rx, T = 4096, cubic and
-   linear, timed with CUDA events.
+   linear, timed with CUDA events;
+5. K2 against its plain version for the four samplers, real and complex
+   traces, on geometric tables with a random perturbation of up to +-2
+   samples, with delays off both ends of the traces;
+6. K4 against its plain version for keep '', 'rx' and 'tx', precision
+   'f32' and 'bf16', with 5 plane waves and with 128 FSA transmits, on the
+   bins of a -40 dB band;
+7. the plane-wave imaging demo (``examples/demo_imaging.py``'s system and
+   phantom) unmodified: ``us.greens(scat, device="cuda")`` (K3, then
+   focusTx), ``us.DAS`` (K1), ``us.bfDAS`` and ``us.DAS`` with a sound-speed
+   map (K2), ``us.bfAdjoint`` bf16 and f32 (K4), each with the PSF check and
+   the comparison with ``kernel='plain'``; and that every option K2 and K4
+   do not carry yet raises ``NotImplementedError``;
+8. K2 and K4 at the headline size, each beside its plain version.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -35,10 +51,12 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 TOL = 1e-4  # max|kernel - plain| < TOL * max|plain|: the float32 standard
+TOL_BF16 = 2e-3  # K4 with bf16 dot operands against the plain version at bf16
 
 
 def _ms(fn, reps=3):
@@ -106,10 +124,20 @@ def phase0(torch, ops):
     nv = subprocess.run([ops._nvcc.nvcc(), "--version"], capture_output=True, text=True)
     assert nv.returncode == 0, nv.stderr
     print(f"nvcc: {[l for l in nv.stdout.splitlines() if 'release' in l][0].strip()}")
-    for name, mod in (("K1", ops.das_cuda), ("K3", ops.greens_freq_cuda)):
+    builds = (("K1+K2", ops.das_cuda), ("K3", ops.greens_freq_cuda),
+              ("K4", ops.fdbf_cuda))
+
+    def timed(mod):
         t = time.perf_counter()
         _, log = mod.build()
-        print(f"{name} build: {time.perf_counter() - t:.3f} s")
+        return time.perf_counter() - t, log
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, at once
+        done = list(ex.map(lambda b: timed(b[1]), builds))
+    print(f"kernel builds, in parallel: {time.perf_counter() - t:.3f} s")
+    for (name, _), (dt, log) in zip(builds, done):
+        print(f"{name} build: {dt:.3f} s")
         regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
         spills = sum(int(w.split("bytes spill stores")[0].split(",")[-1])
                      for w in log.splitlines() if "spill stores" in w)
@@ -208,11 +236,11 @@ def phase2(torch, qt, gfc, errs):
     return out
 
 
-def _expect_not_implemented(fn, what):
+def _expect_not_implemented(fn, what, phase):
     try:
         fn()
     except NotImplementedError as e:
-        print(f"phase3 raises as it should: {what}: {e}")
+        print(f"{phase} raises as it should: {what}: {e}")
         return
     raise AssertionError(f"{what} did not raise NotImplementedError on CUDA")
 
@@ -280,7 +308,6 @@ def phase3(torch, qt, ops, errs):
         "keep_tx (K1(c))": lambda: us.DAS(chd, keep_tx=True),
         "dense apodization (K1(d))": lambda: us.DAS(chd, apod=np.ones((1, 1, 1, 128, 1))),
         "Fused apodization (K1(d))": lambda: us.DAS(chd, apod=qt.Fused("aperture_growth", f=1.5)),
-        "per-pixel c0 (K2)": lambda: us.DAS(chd, c0=np.full(us.scan.shape, 1540.0)),
         "precision bf16pair (K1(e))": lambda: us.DAS(rf, precision="bf16pair"),
         "precision i8x4 (K1(e))": lambda: us.DAS(rf, precision="i8x4"),
         "complex128 traces (K1(e))": lambda: us.DAS(chd.replace(data=chd.data.to(torch.complex128))),
@@ -289,7 +316,7 @@ def phase3(torch, qt, ops, errs):
     }
     before = (das_cuda.LAUNCHES, gfc.LAUNCHES)
     for what, fn in checks.items():
-        _expect_not_implemented(fn, what)
+        _expect_not_implemented(fn, what, "phase3")
     assert (das_cuda.LAUNCHES, gfc.LAUNCHES) == before
     return launches
 
@@ -333,7 +360,251 @@ def phase4(torch, das_cuda, root, errs):
     assert r < TOL, r
     print(f"phase4 plain cubic, full size, one run: {plain_ms:.3f} ms; "
           f"K1 vs plain full image: max_abs_err={a:.3e} rel={r:.3e}")
-    return out["cubic"], plain_ms
+    return out, plain_ms
+
+
+def phase5(torch, das_cuda, errs):
+    """K2 vs plain for 4 samplers x real / complex on perturbed tables."""
+    from qups_tpu_torch.ops.das import rx_distance, tx_distance
+
+    T, N, M, n, c0 = 2048, 128, 32, 256, 1540.0
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((T, N, M)).astype(np.float32)
+    xc = (x + 1j * rng.standard_normal((T, N, M))).astype(np.complex64)
+    traces = {"real": torch.as_tensor(x).cuda(), "complex": torch.as_tensor(xc).cuda()}
+    pi, pr, pv, nv = (torch.as_tensor(a).cuda() for a in _line_geometry(n, N, M, "plane"))
+    dr = rx_distance(pi, pr) / c0
+    dv = torch.stack([tx_distance(pi, pv[m], nv[m], "plane") for m in range(M)], 1) / c0
+    lo = float((dv.min(1).values + dr.min(1).values).min())
+    hi = float((dv.max(1).values + dr.max(1).values).max())
+    fs = (T - 1) / (0.8 * (hi - lo))
+    # geometric tables plus a seeded perturbation of up to +-2 samples: not
+    # separable geometry
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tau_rx = dr + (torch.rand(dr.shape, generator=g, device="cuda") * 4 - 2) / fs
+    tau_tx = dv + (torch.rand(dv.shape, generator=g, device="cuda") * 4 - 2) / fs
+    t0 = (lo + 0.1 * (hi - lo) + np.linspace(0, 0.02 * (hi - lo), M)).astype(np.float32)
+    t0g = torch.as_tensor(t0).cuda()
+    ti = torch.stack([((tau_tx[:, m, None] + tau_rx) - t0g[m]) * np.float32(fs)
+                      for m in range(M)])
+    below, above = float((ti < 0).float().mean()), float((ti > T - 1).float().mean())
+    assert below > 0 and above > 0, (below, above)
+    del ti
+    for kind, xg in traces.items():
+        for method in ("nearest", "linear", "cubic", "lanczos3"):
+            kw = dict(fs=fs, method=method)
+            got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw)
+            torch.cuda.synchronize()
+            ref = das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, **kw)
+            a, r = errs.add(got, ref, f"phase5 {method} {kind}")
+            k_ms = _ms(lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw))
+            p_ms = _ms(lambda: das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, **kw))
+            print(f"phase5 {method:8s} {kind:7s} max_abs_err={a:.3e} rel={r:.3e} "
+                  f"ti<0: {below:.3f} ti>T-1: {above:.3f} K2 {k_ms:.3f} ms plain "
+                  f"{p_ms:.3f} ms  (T,N,M,I)={(T, N, M, n * n)}")
+            assert r < TOL, (method, kind, r)
+
+
+def _band_traces(torch, T, N, V, fs, fc, seed):
+    """Random traces (T, N, V) on the card, band-limited to a Gaussian band
+    of 1.2 MHz sigma around fc."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((T, N, V), generator=g, device="cuda")
+    f = torch.fft.rfftfreq(T, device="cuda") * fs
+    H = torch.exp(-0.5 * ((f - fc) / 1.2e6) ** 2)[:, None, None]
+    return torch.fft.irfft(torch.fft.rfft(x, dim=0) * H, n=T, dim=0).contiguous()
+
+
+def phase6(torch, qt, fdbf_cuda, errs):
+    """K4 vs plain: keep '', 'rx', 'tx' x f32 / bf16 x (5 plane waves,
+    128 FSA transmits), 256^2 pixels, N = M = 128, the bins of a -40 dB
+    band."""
+    from qups_tpu_torch.ops.fdbf import bf_adjoint, geom_delays, select_fbins
+
+    xdc = qt.TransducerArray.L11_5v()
+    c0, T, fs = 1540.0, 1024, 4 * xdc.fc
+    pi = _line_geometry(256, 4, 4, "plane")[0]
+    pe = xdc.positions().T
+    tau_rx = geom_delays(pi, pe, np.float32(1 / c0), "cuda")
+    tau_tx = tau_rx
+    for seqname, seq in (("PW 5", qt.SequenceRadial(type="PW", angles=np.arange(-10, 11, 5),
+                                                   c0=c0)),
+                         ("FSA 128", qt.Sequence(type="FSA", numpulse=128, c0=c0))):
+        V = seq.num_pulse
+        t0_off = np.broadcast_to(seq.t0_offset(), (V,))
+        del_tx = seq.delays(xdc) + t0_off[None, :]
+        apod = seq.apodization(xdc)
+        x = _band_traces(torch, T, 128, V, fs, xdc.fc, V)
+        sel = select_fbins(x, fs, -40.0)
+        args = (x, tau_rx, tau_tx, del_tx, apod, 2e-6, t0_off, sel)
+        for keep in ("", "rx", "tx"):
+            for precision, tol in (("f32", TOL), ("bf16", TOL_BF16)):
+                kw = dict(fs=fs, keep_rx=keep == "rx", keep_tx=keep == "tx",
+                          precision=precision)
+                got = fdbf_cuda.bf_adjoint_cuda(*args, **kw)
+                torch.cuda.synchronize()
+                ref = bf_adjoint(*args, **kw)
+                a, r = errs.add(got, ref, f"phase6 {seqname} keep={keep!r} {precision}")
+                k_ms = _ms(lambda: fdbf_cuda.bf_adjoint_cuda(*args, **kw), reps=2)
+                p_ms = _ms(lambda: bf_adjoint(*args, **kw), reps=2)
+                print(f"phase6 {seqname:7s} keep={keep!r:4s} {precision:4s} bins {sel.size} "
+                      f"max_abs_err={a:.3e} rel={r:.3e} K4 {k_ms:.3f} ms plain "
+                      f"{p_ms:.3f} ms  (T,N,M,V,I)={(T, 128, 128, V, pi.shape[0])}")
+                assert r < tol, (seqname, keep, precision, r)
+
+
+def _demo_system(qt):
+    """examples/demo_imaging.py's system and phantom: L11-5v, plane waves
+    at -10:5:10 degrees, 256 x 256 pixels over x +-12 mm, z 15-35 mm,
+    fs = 4 fc, a 4 x 5 grid of point targets."""
+    xdc = qt.TransducerArray.L11_5v()
+    seq = qt.SequenceRadial(type="PW", angles=np.arange(-10, 11, 5), c0=1540.0)
+    scan = qt.ScanCartesian(x=np.linspace(-12e-3, 12e-3, 256),
+                            z=np.linspace(15e-3, 35e-3, 256))
+    us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=seq, scan=scan, fs=4 * xdc.fc)
+    Zs, Xs = np.meshgrid(np.linspace(18e-3, 32e-3, 4), np.linspace(-8e-3, 8e-3, 5),
+                         indexing="ij")
+    pos = np.stack([Xs.ravel(), np.zeros(Xs.size), Zs.ravel()])
+    return us, pos, qt.Scatterers(pos=pos, amp=np.ones(pos.shape[1]), c0=1540.0)
+
+
+def phase7(torch, qt, ops, errs):
+    """The plane-wave demo path unmodified on the card. Returns the launches
+    of each kernel in that run."""
+    das_cuda, gfc, fdbf_cuda = ops.das_cuda, ops.greens_freq_cuda, ops.fdbf_cuda
+    us, pos, scat = _demo_system(qt)
+    cmap = np.full(us.scan.shape, 1540.0)
+    calls = {
+        "DAS (K1)": (lambda chd, **k: us.DAS(chd, **k), "das_k1", TOL),
+        "bfDAS (K2)": (lambda chd, **k: us.bfDAS(chd, **k), "das_lut_k2", TOL),
+        "DAS c0 map (K2)": (lambda chd, **k: us.DAS(chd, c0=cmap, **k), "das_lut_k2", TOL),
+        "bfAdjoint bf16 (K4)": (lambda chd, **k: us.bfAdjoint(chd, **k),
+                                "fdbf_adjoint_k4", TOL_BF16),
+        "bfAdjoint f32 (K4)": (lambda chd, **k: us.bfAdjoint(chd, precision="f32", **k),
+                               "fdbf_adjoint_k4", TOL),
+    }
+
+    das_cuda.LAUNCHES = das_cuda.LUT_LAUNCHES = gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
+    t = time.perf_counter()
+    chd = us.greens(scat, device="cuda")
+    imgs = {name: fn(chd) for name, (fn, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"das_k1": das_cuda.LAUNCHES, "das_lut_k2": das_cuda.LUT_LAUNCHES,
+                "greens_freq_k3": gfc.LAUNCHES, "fdbf_adjoint_k4": fdbf_cuda.LAUNCHES}
+    print(f"phase7 demo path (greens -> DAS, bfDAS, DAS c0 map, bfAdjoint x2): "
+          f"{t_path:.3f} s (first call) -> traces {tuple(chd.data.shape)} "
+          f"{chd.data.dtype}; launches {launches}")
+    assert launches == {"das_k1": 1, "das_lut_k2": 2, "greens_freq_k3": 1,
+                        "fdbf_adjoint_k4": 2}, launches
+    assert chd.data.is_cuda and chd.M == 5
+
+    P = us.scan.positions().reshape(3, -1)
+    chd_p = us.greens(scat, device="cuda", kernel="plain")
+    a, r = errs["greens_freq_k3"].add(chd.data, chd_p.data, "phase7 traces")
+    assert r < TOL, r
+    for name, (fn, kern, tol) in calls.items():
+        b = imgs[name]
+        assert b.is_cuda and b.shape == tuple(us.scan.shape) + (1, 1)
+        assert bool(torch.isfinite(b).all()), name
+        k = int(b.abs().reshape(-1).argmax())
+        d = float(np.linalg.norm(pos - P[:, k:k + 1], axis=0).min())
+        ref, t_plain = _sync_s(torch, lambda: fn(chd, kernel="plain"))
+        a, r = errs[kern].add(b, ref, f"phase7 {name}")
+        _, t_k = _sync_s(torch, lambda: fn(chd))
+        print(f"phase7 {name:20s} peak {d * 1e3:.3f} mm from a target; vs plain: "
+              f"max_abs_err={a:.3e} rel={r:.3e}; wall (host clock, synchronised, "
+              f"warm) {t_k * 1e3:.3f} ms vs plain {t_plain * 1e3:.3f} ms")
+        assert d < 1.1e-3, (name, d)
+        assert r < tol, (name, r)
+    walls = [_sync_s(torch, lambda: us.greens(scat, device="cuda"))[1] for _ in range(3)]
+    print(f"phase7 greens + focusTx wall, 3 warm runs: "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms")
+
+    rf = chd.replace(data=chd.data.real.contiguous())
+    checks = {
+        "bfDAS fmod (K2(b))": lambda: us.bfDAS(chd, fmod=us.xdc.fc),
+        "bfDAS frames (K2(b))": lambda: us.bfDAS(rf.replace(data=rf.data[..., None])),
+        "bfDAS keep_rx (K2(c))": lambda: us.bfDAS(chd, keep_rx=True),
+        "bfDAS keep_tx (K2(c))": lambda: us.bfDAS(chd, keep_tx=True),
+        "bfDAS apodization (K2(d))": lambda: us.bfDAS(chd, apod=np.ones((1, 1, 1, 128, 1))),
+        "bfDAS precision bf16pair (K2(e))": lambda: us.bfDAS(rf, precision="bf16pair"),
+        "bfDASLUT complex128 traces (K2(e))": lambda: us.bfDAS(
+            chd.replace(data=chd.data.to(torch.complex128))),
+        "DAS c0 map keep_rx (K2(c))": lambda: us.DAS(chd, c0=cmap, keep_rx=True),
+        "bfAdjoint 300 pulses (K4(b))": lambda: fdbf_cuda.bf_adjoint_cuda(
+            torch.zeros((64, 4, 300), device="cuda"), np.zeros((8, 4)), np.zeros((8, 2)),
+            np.zeros((2, 300)), np.ones((2, 300)), 0.0, np.zeros(300), np.arange(3),
+            fs=1e6),
+        "bfAdjoint keep_rx 300 receivers (K4(b))": lambda: fdbf_cuda.bf_adjoint_cuda(
+            torch.zeros((64, 300, 4), device="cuda"), np.zeros((8, 300)), np.zeros((8, 2)),
+            np.zeros((2, 4)), np.ones((2, 4)), 0.0, np.zeros(4), np.arange(3),
+            fs=1e6, keep_rx=True),
+    }
+    before = (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES)
+    for what, fn in checks.items():
+        _expect_not_implemented(fn, what, "phase7")
+    assert (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES) == before
+    return launches
+
+
+def phase8(torch, ops, k1_ms, errs):
+    """K2 and K4 at the headline size, 1024^2 pixels x 256 x 256."""
+    import bench  # on the path since phase 4
+    from qups_tpu_torch.ops.das import delay_tables
+    from qups_tpu_torch.ops.fdbf import bf_adjoint, geom_delays
+
+    das_cuda, fdbf_cuda = ops.das_cuda, ops.fdbf_cuda
+    n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
+    x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.as_tensor(x).cuda()
+    del x
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    sums = n * n * N * M
+    k2 = {}
+    for method in ("cubic", "linear"):
+        kw = dict(fs=fs, method=method)
+        ms = _ms(lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw))
+        got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw)
+        ref, t_plain = _sync_s(torch, lambda: das_cuda.das_lut_sum_plain(
+            xg, tau_rx, tau_tx, t0, **kw))
+        a, r = errs["das_lut_k2"].add(got, ref, f"phase8 {method} full image")
+        print(f"phase8 K2 {method:6s} 1024^2 x 256 x 256 T=4096 (plane-wave "
+              f"geometric tables): {ms:.3f} ms, {sums / (ms / 1e3):.4e} sums/s; "
+              f"K1 on the same problem (phase 4): {k1_ms[method]:.3f} ms; plain, "
+              f"one run: {t_plain * 1e3:.3f} ms; K2 vs plain: max_abs_err={a:.3e} "
+              f"rel={r:.3e}")
+        assert r < TOL, (method, r)
+        k2[method] = (ms, t_plain * 1e3)
+    del xg, got, ref, tau_rx, tau_tx
+    k2 = k2["cubic"]
+
+    # K4: 256 receivers, 256 elements firing 256 plane waves (+-20 deg),
+    # 64 bins around the 7.8 MHz of a 4096-sample trace at 31.25 MHz
+    V = 256
+    th = np.radians(np.linspace(-20, 20, V))
+    del_tx = -(pr[:, 0:1] * np.sin(th)[None, :]) / 1540.0
+    apod = np.ones((M, V))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((T, N, V), generator=g, device="cuda")
+    taur = geom_delays(pi, pr, np.float32(1 / 1540.0), "cuda")
+    sel = np.arange(1024 - 32, 1024 + 32)
+    args = (x, taur, taur, del_tx, apod, t0[0], np.zeros(V), sel)
+    k4 = {}
+    for precision, tol in (("bf16", TOL_BF16), ("f32", TOL)):
+        kw = dict(fs=fs, precision=precision)
+        got = fdbf_cuda.bf_adjoint_cuda(*args, **kw)
+        k_ms = _ms(lambda: fdbf_cuda.bf_adjoint_cuda(*args, **kw), reps=1)
+        ref, t_plain = _sync_s(torch, lambda: bf_adjoint(*args, **kw))
+        a, r = errs["fdbf_adjoint_k4"].add(got, ref, f"phase8 {precision} full image")
+        flops = 8.0 * 64 * n * n * (N + M) * V  # 4 FMAs of 2 flops per complex MAC
+        print(f"phase8 K4 {precision:4s} 1024^2 x 256 x 256 x 64 bins: {k_ms:.3f} ms "
+              f"({flops / (k_ms / 1e3) / 1e12:.2f} TFLOP/s of complex MACs); plain, one "
+              f"run: {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < tol, (precision, r)
+        k4[precision] = (k_ms, t_plain * 1e3)
+        del got, ref
+    return k2, k4
 
 
 def main():
@@ -351,19 +622,35 @@ def main():
     assert "jax" not in sys.modules
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = {"das_k1": Errors(), "greens_freq_k3": Errors()}
+    names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4")
+    errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"])
     k3_ms, k3_plain_ms = phase2(torch, qt, ops.greens_freq_cuda, errs["greens_freq_k3"])
     launches = phase3(torch, qt, ops, errs)
     k1_ms, k1_plain_ms = phase4(torch, ops.das_cuda, root, errs["das_k1"])
+    phase5(torch, ops.das_cuda, errs["das_lut_k2"])
+    phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
+    pw_launches = phase7(torch, qt, ops, errs)
+    (k2_ms, k2_plain_ms), k4 = phase8(torch, ops, k1_ms, errs)
     assert "jax" not in sys.modules
+    # the launches in the run of the main path each kernel is on: the FSA
+    # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
+    # (phase 7) for K2 and K4
+    launches.update(das_lut_k2=pw_launches["das_lut_k2"],
+                    fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"])
     rows = [
         ("das_k1", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:174",
-         k1_ms, k1_plain_ms, "1024^2 px x 256 tx x 256 rx, T 4096, cubic"),
+         k1_ms["cubic"], k1_plain_ms, "1024^2 px x 256 tx x 256 rx, T 4096, cubic"),
+        ("das_lut_k2", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:1607",
+         k2_ms, k2_plain_ms, "1024^2 px x 256 tx x 256 rx, T 4096, cubic, "
+         "plane-wave geometric tables"),
         ("greens_freq_k3", "qups_tpu_torch/csrc/greens_freq.cu",
          "qups_tpu/ops/greens_freq_pallas.py:41", k3_ms, k3_plain_ms,
          "the main path's GEMM: 5 targets, 128 x 128 elements"),
+        ("fdbf_adjoint_k4", "qups_tpu_torch/csrc/fdbf.cu", "qups_tpu/ops/fdbf_pallas.py:45",
+         k4["bf16"][0], k4["bf16"][1], "1024^2 px x 256 rx x 256 tx x 256 pulses, "
+         "64 bins, bf16"),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

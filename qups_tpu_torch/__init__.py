@@ -6,7 +6,10 @@ module layout (``core/``, ``ops/``, ``utils/``, ``system.py``) and imports
 kernels on the ported path are hand-written CUDA for Hopper under
 ``csrc/``, built on first use. Slice 1 is sim→image: build an
 :class:`UltrasoundSystem`, simulate with ``us.greens(scat)``, beamform with
-``us.DAS(chd)`` (kernel K1 on a CUDA tensor).
+``us.DAS(chd)`` (kernel K1 on a CUDA tensor). Slice 2 is the plane-wave
+imaging demo: ``greens`` synthesizes any sequence through ``us.focusTx``,
+and ``us.bfDAS`` / ``us.bfDASLUT`` (kernel K2) and ``us.bfAdjoint``
+(kernel K4) beamform it.
 """
 from .core import (
     Waveform, Transducer, TransducerArray, TransducerConvex, TransducerMatrix,

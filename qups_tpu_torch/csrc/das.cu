@@ -40,6 +40,28 @@
 // a*b+c into an FMA (eager PyTorch never does), and the sums are written in
 // the plain version's order. sqrtf is IEEE-rounded without fast math.
 
+// K2: LUT-mode delay-and-sum (das_lut_k2 below), the same sampled sum with
+// the delays read from tables instead of computed from geometry:
+//
+//   ti = ((tau_tx[m, i] + tau_rx[n, i]) - t0_m) * fs
+//
+// in exactly this order, as qups_tpu_torch/ops/das.py::das_lut computes it
+// (the K2(a) sub-slice: summed output, float32 or complex64 traces, no
+// remodulation, scalar or per-transmit t0, the four samplers). It replaces
+// the TPU kernel qups_tpu/ops/das_pallas.py::_kernel with lut=True
+// (launched by _das_lut_call, public entry das_lut_tiled), and shares K1's
+// samplers (sample, tap) so that both take a sample the same way.
+//
+// What bounds K2 beyond K1's trace reads: the table reads. The wrapper
+// stores the tables transposed, tau_rx as (N, I) and tau_tx as (M, I), so
+// that the 32 threads of a warp (32 neighbouring pixels) read 128
+// contiguous bytes at one (m, n). A loop that read tau_rx[n, i] once per
+// (pixel, m, n) would stream the whole (N, I) table M times: 256 GiB at
+// 1024^2 pixels x 256 x 256, ~80 ms of HBM time alone (computed from
+// 3.35 TB/s). So a thread holds a chunk of K2_MC transmits' tau_tx in
+// registers and loops receivers outside the chunk: each tau_rx value is
+// read once per chunk, M / K2_MC times in all.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -190,6 +212,61 @@ cudaError_t launch_tx(int tx_model, int method, const void* x, void* out,
   }
 }
 
+constexpr int K2_MC = 16;  // transmits per register chunk of tau_tx
+
+template <int METHOD, typename V>
+__global__ void __launch_bounds__(256)
+das_k2_kernel(const V* __restrict__ x,         // (M, N, T)
+              const float* __restrict__ taur,  // (N, I)
+              const float* __restrict__ taut,  // (M, I)
+              const float* __restrict__ t0,    // (M,)
+              V* __restrict__ out,             // (I,)
+              int64_t I, int N, int M, int T, float fs) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= I) return;
+  const float tmax = (float)(T - 1);
+  V acc = zero<V>();
+  for (int m0 = 0; m0 < M; m0 += K2_MC) {
+    const int mc = M - m0 < K2_MC ? M - m0 : K2_MC;
+    float tt[K2_MC], t0c[K2_MC];
+#pragma unroll
+    for (int j = 0; j < K2_MC; ++j) {
+      tt[j] = j < mc ? taut[(int64_t)(m0 + j) * I + i] : 0.f;
+      t0c[j] = j < mc ? __ldg(t0 + m0 + j) : 0.f;
+    }
+    for (int n = 0; n < N; ++n) {
+      const float r = taur[(int64_t)n * I + i];
+      const V* __restrict__ xn = x + ((int64_t)m0 * N + n) * T;
+#pragma unroll
+      for (int j = 0; j < K2_MC; ++j) {
+        if (j >= mc) break;
+        const float ti = ((tt[j] + r) - t0c[j]) * fs;
+        if (!(ti >= 0.f && ti <= tmax)) continue;  // also drops NaN
+        acc = add(acc, sample<METHOD>(xn + (int64_t)j * N * T, ti, T));
+      }
+    }
+  }
+  out[i] = acc;
+}
+
+template <typename V>
+cudaError_t launch_k2(int method, const void* x, const float* taur,
+                      const float* taut, const float* t0, void* out, int64_t I,
+                      int N, int M, int T, float fs, cudaStream_t s) {
+  const dim3 block(256);
+  const dim3 grid((unsigned)((I + 255) / 256));
+  const V* xv = (const V*)x;
+  V* ov = (V*)out;
+  switch (method) {
+    case NEAREST: das_k2_kernel<NEAREST, V><<<grid, block, 0, s>>>(xv, taur, taut, t0, ov, I, N, M, T, fs); break;
+    case LINEAR: das_k2_kernel<LINEAR, V><<<grid, block, 0, s>>>(xv, taur, taut, t0, ov, I, N, M, T, fs); break;
+    case CUBIC: das_k2_kernel<CUBIC, V><<<grid, block, 0, s>>>(xv, taur, taut, t0, ov, I, N, M, T, fs); break;
+    case LANCZOS3: das_k2_kernel<LANCZOS3, V><<<grid, block, 0, s>>>(xv, taur, taut, t0, ov, I, N, M, T, fs); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch K1 on `stream` (a cudaStream_t) of device `device`. x is (M, N, T)
@@ -211,5 +288,23 @@ extern "C" int das_k1(const void* x, const float* pix, const float* pr,
   cudaStream_t s = (cudaStream_t)stream;
   err = cplx ? launch_tx<float2>(tx_model, method, x, out, a, grid, block, s)
              : launch_tx<float>(tx_model, method, x, out, a, grid, block, s);
+  return (int)err;
+}
+
+// Launch K2 on `stream` of device `device`. x is (M, N, T) float32, or
+// interleaved complex64 when `cplx` is 1; taur (N, I) and taut (M, I) the
+// transposed delay tables [s]; t0 (M,); out (I,) of the trace type.
+// Returns the cudaError_t of the launch; 0 is success.
+extern "C" int das_lut_k2(const void* x, const float* taur, const float* taut,
+                          const float* t0, void* out, long long I, int N, int M,
+                          int T, float fs, int method, int cplx, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (I <= 0) return (int)cudaSuccess;
+  if (N <= 0 || M <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = cplx ? launch_k2<float2>(method, x, taur, taut, t0, out, I, N, M, T, fs, s)
+             : launch_k2<float>(method, x, taur, taut, t0, out, I, N, M, T, fs, s);
   return (int)err;
 }

@@ -1,13 +1,18 @@
-from .interp import interp1
+from .interp import interp1, interpd, wsinterpd, wsinterpd2
 from .conv import convd, conv_lag0, conv_len
-from .das import das, delay_tables, tx_distance
-from .das_cuda import Fused, das_sum, das_sum_plain
+from .das import das, das_lut, delay_tables, tx_distance
+from .das_cuda import Fused, das_lut_sum, das_lut_sum_plain, das_sum, das_sum_plain
+from .fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
+from .fdbf_cuda import bf_adjoint_cuda
 from .greens import greens_dense, greens_splat
 from .greens_freq import greens_freq
 from .greens_freq_cuda import freq_gemm, freq_gemm_plain
 
 __all__ = [
-    "interp1", "convd", "conv_lag0", "conv_len", "das", "delay_tables",
-    "tx_distance", "Fused", "das_sum", "das_sum_plain", "greens_dense",
-    "greens_splat", "greens_freq", "freq_gemm", "freq_gemm_plain",
+    "interp1", "interpd", "wsinterpd", "wsinterpd2", "convd", "conv_lag0",
+    "conv_len", "das", "das_lut", "delay_tables", "tx_distance", "Fused",
+    "das_sum", "das_sum_plain", "das_lut_sum", "das_lut_sum_plain",
+    "bf_adjoint", "focus_tx_freq", "geom_delays", "select_fbins",
+    "bf_adjoint_cuda", "greens_dense", "greens_splat", "greens_freq",
+    "freq_gemm", "freq_gemm_plain",
 ]

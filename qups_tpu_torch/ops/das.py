@@ -1,7 +1,7 @@
 """Delay-and-sum beamforming, plain PyTorch.
 
 Port of :mod:`qups_tpu.ops.das` (``tx_distance``, ``delay_tables``,
-``das``). Per pixel i, transmit m, receiver n:
+``das``, ``das_lut``). Per pixel i, transmit m, receiver n:
 
     rv  = pi - pv[m]
     dv  = { dot(rv, nv[m])                      plane waves
@@ -12,7 +12,10 @@ Port of :mod:`qups_tpu.ops.das` (``tx_distance``, ``delay_tables``,
     y  += apod(i,n,m) * exp(2j pi fmod tau) * x(tau * fs; n, m)
 
 ``das`` is a Python loop over transmits with O(I*N) memory live, on the
-device of ``x``. It is the plain version of the K1 kernel
+device of ``x``; ``das_lut`` is the same loop with the delays read from
+tables, ``tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m]``, and is the plain
+version of the K2 kernel (``das_cuda.das_lut_sum``). ``das`` is the plain
+version of the K1 kernel
 (:mod:`qups_tpu_torch.ops.das_cuda`): the CPU path, and the oracle the
 kernel is held to on the card. The dot products and norms are written out
 term by term in a fixed order, the same order the kernel uses, so that the
@@ -109,16 +112,32 @@ def das(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float, apod=(),
     """
     dev = x.device
     pi, pr, pv, nv = (as_f32(a, dev) for a in (pi, pr, pv, nv))
-    T, N, M = x.shape[:3]
-    F = tuple(x.shape[3:])
-    I = pi.shape[0]
+    M = x.shape[2]
     t0 = as_f32(t0, dev).reshape(-1).expand(M)
     cinv = as_f32(cinv, dev)
     if cinv.ndim == 1:  # per-pixel map (I,) -> broadcast over rx
         cinv = cinv[:, None]
-    fs = float(np.float32(fs))
     dr = rx_distance(pi, pr)  # tx-independent: once
 
+    def tau(m):
+        dv = tx_distance(pi, pv[m], nv[m], tx_model)  # (I,)
+        return cinv * (dv[:, None] + dr) - t0[m]      # (I, N)
+
+    return _sum_transmits(x, tau, pi.shape[0], fs=fs, apod=apod, fmod=fmod,
+                          keep_rx=keep_rx, keep_tx=keep_tx, method=method,
+                          im_shape=im_shape)
+
+
+def _sum_transmits(x: torch.Tensor, tau, I: int, *, fs: float, apod, fmod,
+                   keep_rx, keep_tx, method, im_shape) -> torch.Tensor:
+    """The transmit loop shared by :func:`das` and :func:`das_lut`:
+    ``tau(m)`` gives the (I, N) delays [s] of transmit m; sample at
+    ``tau * fs`` (fs rounded to float32), remodulate, apodize, and sum or
+    keep the rx / tx axes. Returns (I, N', M', *F)."""
+    dev = x.device
+    T, N, M = x.shape[:3]
+    F = tuple(x.shape[3:])
+    fs = float(np.float32(fs))
     im_shape = tuple(im_shape or (I, 1, 1))
     if int(np.prod(im_shape)) != I:
         raise ValueError(f"im_shape {im_shape} does not hold {I} pixels")
@@ -132,13 +151,12 @@ def das(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float, apod=(),
 
     parts, acc = [], None
     for m in range(M):
-        dv = tx_distance(pi, pv[m], nv[m], tx_model)  # (I,)
-        tau = cinv * (dv[:, None] + dr) - t0[m]       # (I, N)
-        v = interp1(x[:, :, m], tau * fs, method=method)  # (I, N, *F)
+        tau_m = tau(m)
+        v = interp1(x[:, :, m], tau_m * fs, method=method)  # (I, N, *F)
         if cplx:
             v = v.to(out_dtype)
         if fmod != 0.0:
-            ph = (2 * math.pi * fmod) * tau
+            ph = (2 * math.pi * fmod) * tau_m
             v = v * expand_trailing(torch.polar(torch.ones_like(ph), ph), v.ndim)
         if apod_m or apod_c:
             v5 = v.reshape(im_shape + tuple(v.shape[1:]))
@@ -156,3 +174,27 @@ def das(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float, apod=(),
     if acc is None:
         acc = torch.zeros((I, N if keep_rx else 1) + F, dtype=out_dtype, device=dev)
     return acc[:, :, None]  # (I, N', 1, *F)
+
+
+def das_lut(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float, apod=(),
+            fmod: float = 0.0, keep_rx: bool = False, keep_tx: bool = False,
+            method: str = "cubic",
+            im_shape: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """Delay-and-sum from delay tables ("bring your own delays"), the port
+    of :func:`qups_tpu.ops.das.das_lut` and the plain version of kernel K2
+    (:func:`qups_tpu_torch.ops.das_cuda.das_lut_sum`). Per pixel i,
+    transmit m, receiver n:
+
+        tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m],   ti = tau * fs
+
+    with ``fs`` rounded to float32, in exactly this order, so that K2 and
+    this function take the same sample. ``tau_rx (I, N)``, ``tau_tx (I, M)``
+    in seconds; the other arguments and the result as :func:`das`.
+    """
+    dev = x.device
+    tau_rx, tau_tx = as_f32(tau_rx, dev), as_f32(tau_tx, dev)
+    t0 = as_f32(t0, dev).reshape(-1).expand(x.shape[2])
+    return _sum_transmits(
+        x, lambda m: (tau_tx[:, m, None] + tau_rx) - t0[m], tau_rx.shape[0],
+        fs=fs, apod=apod, fmod=fmod, keep_rx=keep_rx, keep_tx=keep_tx,
+        method=method, im_shape=im_shape)

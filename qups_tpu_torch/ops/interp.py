@@ -102,3 +102,121 @@ def interp1(x: torch.Tensor, tau, method: str = "cubic", extrap=0.0):
     validb = expand_trailing(valid, acc.ndim).expand(acc.shape)
     return torch.where(validb, acc,
                        torch.tensor(extrap, dtype=acc.dtype, device=acc.device))
+
+
+def interpd(x: torch.Tensor, tau, method: str = "cubic", extrap=0.0):
+    """Broadcasted 1-D interpolation: ``x`` (T, *B), ``tau`` (*C) of
+    fractional time indices; output ``broadcast(C, B)``. The port of
+    :func:`qups_tpu.ops.interp.interpd`.
+
+    Example:
+        import numpy as np, torch
+        from qups_tpu_torch.ops.interp import interpd
+        x = torch.sin(torch.linspace(0, 6.28, 64))[:, None]
+        y = interpd(x, torch.tensor([[10.5], [20.25]]), method="cubic")
+        assert y.shape == (2, 1)
+        assert abs(float(y[0, 0]) - np.sin(10.5 * 6.28 / 63)) < 1e-3
+    """
+    return interp1(x, tau, method=method, extrap=extrap)
+
+
+def _phase(omega, tau: torch.Tensor):
+    """``exp(1j * omega * tau)`` as complex64, or ``None`` for omega 0."""
+    if isinstance(omega, (int, float)) and omega == 0:
+        return None
+    th = omega * tau
+    return torch.polar(torch.ones_like(th), th).to(torch.complex64)
+
+
+def _sum_dims(v: torch.Tensor, sdim):
+    if sdim is None:
+        return v
+    sdims = (sdim,) if isinstance(sdim, int) else tuple(sdim)
+    return torch.sum(v, dim=sdims, keepdim=True) if sdims else v
+
+
+def wsinterpd(x: torch.Tensor, tau, w=None, sdim=None, omega=0.0,
+              method: str = "cubic", extrap=0.0):
+    """Weighted-sum interpolation
+    ``y = sum_{sdim} w * exp(1j * omega * tau) * sample(x, tau)``, the port
+    of :func:`qups_tpu.ops.interp.wsinterpd`. ``x``: (T, *B); ``tau``:
+    fractional indices, left-aligned broadcastable; ``w``: weights
+    broadcastable to the sampled shape; ``sdim``: output dims to sum over;
+    ``omega`` in radians per unit of ``tau``.
+
+    Example:
+        import torch
+        from qups_tpu_torch.ops.interp import wsinterpd
+        x = torch.arange(32, dtype=torch.float32)[:, None]
+        y = wsinterpd(x, torch.tensor([[4.0, 6.0]]),
+                      w=torch.tensor([[0.5, 0.5]]), sdim=1)
+        assert abs(float(y) - 5.0) < 1e-5
+    """
+    tau = torch.as_tensor(tau, device=x.device)
+    v = interp1(x, tau, method=method, extrap=extrap)
+    ph = _phase(omega, tau)
+    if ph is not None:
+        v = v.to(torch.complex64) * expand_trailing(ph, v.ndim)
+    if w is not None:
+        w = torch.as_tensor(w, device=x.device)
+        if not w.is_complex():
+            w = w.to(v.real.dtype if v.is_complex() else v.dtype)
+        v = v * expand_trailing(w, v.ndim)
+    return _sum_dims(v, sdim)
+
+
+def wsinterpd2(x: torch.Tensor, tau1, tau2, w=None, sdim=None, omega=0.0,
+               method: str = "cubic", extrap=0.0):
+    """Separable-delay weighted-sum interpolation: :func:`wsinterpd` at
+    ``tau = tau1 + tau2``, where the two delay tensors broadcast against
+    each other (left-aligned). The port of
+    :func:`qups_tpu.ops.interp.wsinterpd2`: when a summed dim is singleton
+    in one of the two delay tensors, it loops over that dim, so the joint
+    ``tau1 + tau2`` tensor is only ever live one slice at a time.
+
+    Example:
+        import numpy as np, torch
+        from qups_tpu_torch.ops.interp import wsinterpd, wsinterpd2
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal((32, 3, 1)),
+                            dtype=torch.float32)
+        t1 = torch.linspace(2, 8, 5).reshape(5, 1, 1)
+        t2 = torch.linspace(0, 1, 3).reshape(1, 3, 1)
+        y2 = wsinterpd2(x, t1, t2, sdim=1)
+        assert torch.allclose(y2, wsinterpd(x, t1 + t2, sdim=1), atol=1e-5)
+    """
+    dev = x.device
+    t1 = torch.as_tensor(tau1, device=dev)
+    t2 = torch.as_tensor(tau2, device=dev)
+    sdims = () if sdim is None else (
+        (sdim,) if isinstance(sdim, int) else tuple(sdim))
+    we = None if w is None else torch.as_tensor(w, device=dev)
+    ndo = max(t1.ndim, t2.ndim, x.ndim, 0 if we is None else we.ndim)
+    t1, t2, xe = (expand_trailing(a, ndo) for a in (t1, t2, x))
+    we = None if we is None else expand_trailing(we, ndo)
+
+    # the loop dim: the largest summed dim where the delays separate (one of
+    # tau1 / tau2 singleton), as the reference picks its scan dim
+    best, best_sz = None, 1
+    for d in sdims:
+        if d == 0 or d >= ndo:
+            continue
+        sz = max(t1.shape[d], t2.shape[d], xe.shape[d],
+                 1 if we is None else we.shape[d])
+        if sz > best_sz and (t1.shape[d] == 1 or t2.shape[d] == 1):
+            best, best_sz = d, sz
+    if best is None or best_sz <= 4:
+        return wsinterpd(x, t1 + t2, w=w, sdim=sdim, omega=omega,
+                         method=method, extrap=extrap)
+    d = best
+    rest = tuple(s for s in sdims if s != d)
+
+    def at(a, j):
+        return a if a is None or a.shape[d] == 1 else a.narrow(d, j, 1)
+
+    acc = None
+    for j in range(best_sz):
+        y = wsinterpd(at(xe, j), at(t1, j) + at(t2, j), w=at(we, j),
+                      sdim=rest if rest else None, omega=omega,
+                      method=method, extrap=extrap)
+        acc = y if acc is None else acc + y
+    return acc

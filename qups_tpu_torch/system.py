@@ -1,29 +1,37 @@
-"""UltrasoundSystem: the sim→image slice of the port.
+"""UltrasoundSystem: the sim→image and plane-wave imaging slices of the port.
 
 Port of the parts of :class:`qups_tpu.system.UltrasoundSystem` that the
-main path runs: build a system from a transducer, a sequence and a scan;
-simulate channel data with :meth:`UltrasoundSystem.greens`; beamform with
-:meth:`UltrasoundSystem.DAS`. Host geometry stays float64 numpy and moves to
-the data's device as float32.
+main paths run: build a system from a transducer, a sequence and a scan;
+simulate channel data with :meth:`UltrasoundSystem.greens` and synthesize
+the sequence's transmits with :meth:`UltrasoundSystem.focusTx`; beamform
+with :meth:`UltrasoundSystem.DAS`, :meth:`UltrasoundSystem.bfDAS`,
+:meth:`UltrasoundSystem.bfDASLUT` and :meth:`UltrasoundSystem.bfAdjoint`.
+Host geometry stays float64 numpy and moves to the data's device as
+float32.
 
-Scope of this slice (ROADMAP.md, "Scope decisions of slice 1"):
+Scope (ROADMAP.md, "Scope decisions"):
 
 * ``greens(impl='auto')`` resolves as in the JAX package: the
   frequency-domain engine (``'freq'``, kernel K3, ``ops/greens_freq_cuda.py``)
   on a CUDA device, the splat on the CPU. The Pallas splat (``'pallas'``,
   kernel K5) raises ``NotImplementedError``.
-* ``focusTx`` supports the true-FSA identity only.
-* ``DAS`` on a CUDA tensor runs kernel K1 (``ops/das_cuda.py``) for the
-  eligible case (summed, float32 or complex64 without remodulation, no
-  apodization, scalar c0, one of the four samplers) and raises
-  ``NotImplementedError`` naming the K1 sub-slice for anything else. It never drops to the plain path on its
-  own: ``kernel='plain'`` is an explicit choice. On a CPU tensor ``DAS``
-  runs the plain ``ops.das.das``.
+* ``focusTx`` synthesizes any sequence: 'freq' (the per-bin transmit GEMM,
+  'auto' on a CUDA device) or a time-domain sampler ('cubic', 'auto' on the
+  CPU).
+* On a CUDA tensor, ``DAS`` runs kernel K1 (``ops/das_cuda.py``) and, with a
+  per-pixel sound speed, kernel K2 through ``bfDASLUT``; ``bfDAS`` and
+  ``bfDASLUT`` run K2; ``bfAdjoint`` runs kernel K4 (``ops/fdbf_cuda.py``).
+  An option a kernel does not carry raises ``NotImplementedError`` naming
+  its sub-slice. Nothing drops to the plain path on its own:
+  ``kernel='plain'`` is an explicit choice. On a CPU tensor each runs its
+  plain PyTorch version.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+import os
 import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
@@ -36,15 +44,19 @@ from .core.scan import Scan, ScanCartesian, ScanPolar
 from .core.scat import Scatterers
 from .core.seq import Sequence
 from .core.xdc import Transducer, TransducerArray, TransducerConvex
-from .ops.das import das
+from .ops.das import das, das_lut, delay_tables, rx_distance, tx_distance
 from .ops import das_cuda
-from .ops.das_cuda import Fused, das_sum
+from .ops.das_cuda import Fused, das_lut_sum, das_sum
+from .ops.fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
+from .ops.fdbf_cuda import bf_adjoint_cuda
 from .ops.greens import greens_dense, greens_splat
 from .ops.greens_freq import greens_freq
 from .ops.interp import METHODS
+from .utils.backend import as_f32
 from .utils.maths import box_rbounds
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
+KERNELS = ("auto", "cuda", "plain")
 
 
 @dataclass(frozen=True)
@@ -259,16 +271,46 @@ class UltrasoundSystem:
 
     def focusTx(self, chd: ChannelData, seq: Optional[Sequence] = None,
                 method: str = "auto", buffer: int = 0) -> ChannelData:
-        """Synthesize transmits from FSA data. This slice supports the
-        true-FSA identity (the data comes back as it is); any other
-        sequence raises ``NotImplementedError``."""
+        """Synthesize transmits from FSA data: delay-and-sum across
+        transmits. ``method``: 'freq', the per-bin transmit GEMM
+        ``Y_k = X_k H_k`` (band-limited interpolation), or a time-domain
+        sampler 'nearest' | 'linear' | 'cubic' | 'lanczos3' (through
+        ``ChannelData.sample2sep``); 'auto' is 'freq' on a CUDA device and
+        'cubic' on the CPU, as the JAX package picks 'freq' off the CPU.
+        The true-FSA sequence is the identity.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=[0.0], z=[20e-3]), fs=12e6)
+            rng = np.random.default_rng(0)
+            chd = q.ChannelData(
+                data=rng.standard_normal((64, 4, 4)).astype(np.float32),
+                fs=12e6, t0=0.0)
+            pw = q.SequenceRadial(type="PW", angles=[0.0], c0=1540.0)
+            out = us.focusTx(chd, pw)   # 4 FSA transmits -> 1 plane wave
+            assert out.data.shape[2] == 1
+        """
         seq = seq or self.seq
-        if self._focus_plan(chd.fs, chd.data.ndim, seq, buffer) is None:
+        if method == "auto":
+            method = "cubic" if chd.data.device.type == "cpu" else "freq"
+        plan = self._focus_plan(chd.fs, chd.data.ndim, seq, buffer)
+        if plan is None:
             return chd
-        raise NotImplementedError(
-            f"focusTx to a {seq.type} sequence needs the transmit resampling "
-            "(ChannelData.sample2sep or the freq transmit GEMM), not ported "
-            "yet (ROADMAP Queue 1 item 6); this slice supports FSA only")
+        t2, w, dt0, pad = plan
+        # float32 t0, shifted in float32, as the JAX package's device t0
+        chd = chd.replace(t0=np.asarray(chd.t0, np.float32) + np.float32(dt0))
+        chd = chd.zeropad(0, pad)
+        if method == "freq":
+            M, Mp = t2.shape[2], t2.shape[-1]
+            z = focus_tx_freq(chd.data, t2.reshape(M, Mp), w.reshape(M, Mp),
+                              fs=float(chd.fs))
+            return chd.replace(data=z)
+        z = chd.sample2sep(chd.time, t2, method=method, w=w, sdim=2)
+        return chd.replace(data=torch.movedim(z[:, :, 0], -1, 2))  # (T', N, M', F...)
 
     # ------------------------------------------------------------ beamformers
     def DAS(self, chd: ChannelData, apod=(), fmod: float = 0.0,
@@ -288,7 +330,9 @@ class UltrasoundSystem:
         ``kernel``: 'auto' runs K1 on a CUDA tensor and the plain path on a
         CPU tensor; 'cuda' requires K1; 'plain' forces the plain path on any
         device. On a CUDA tensor, 'auto' and 'cuda' raise
-        ``NotImplementedError`` for options K1 does not carry yet.
+        ``NotImplementedError`` for options K1 does not carry yet, and a
+        per-pixel ``c0`` map (on the scan grid) runs the LUT kernel K2 on
+        delay tables built on the card.
 
         ``precision``: 'auto' and 'f32' run float32; the reduced-precision
         trace modes ('bf16pair', 'i8x4', 'bf16') are sub-slice K1(e) and
@@ -318,7 +362,7 @@ class UltrasoundSystem:
             k = int(img.argmax())
             assert np.linalg.norm(P[:, k] - [0, 0, 20e-3]) < 1.1e-3
         """
-        if kernel not in ("auto", "cuda", "plain"):
+        if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}")
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}")
@@ -352,25 +396,25 @@ class UltrasoundSystem:
                 acc = img if acc is None else acc + img
         return torch.cat(parts, dim=len(self.scan.shape) + 1) if keep_tx else acc
 
-    def _k1_ineligible(self, x: torch.Tensor, apod_t, cinv, *, fmod, keep_rx,
-                       keep_tx, method, precision) -> Optional[str]:
-        """Why K1 cannot beamform this call, naming the K1 sub-slice that
-        will carry it; ``None`` when it can (sub-slice K1(a))."""
+    @staticmethod
+    def _ineligible(kern: str, x: torch.Tensor, apod_t, *, fmod, keep_rx,
+                    keep_tx, precision) -> Optional[str]:
+        """Why the DAS kernel ``kern`` ('K1' or 'K2') cannot beamform this
+        call, naming its sub-slice that will carry it; ``None`` when it can
+        (sub-slice (a)). A per-pixel sound speed never reaches K1:
+        ``_das_block`` sends it to K2."""
         if fmod != 0.0:
-            return "IQ remodulation (fmod) is sub-slice K1(b)"
+            return f"IQ remodulation (fmod) is sub-slice {kern}(b)"
         if x.ndim != 3:
-            return "frame dims beyond (T, N, M) are sub-slice K1(b)"
+            return f"frame dims beyond (T, N, M) are sub-slice {kern}(b)"
         if keep_rx or keep_tx:
-            return "keep_rx / keep_tx are sub-slice K1(c)"
+            return f"keep_rx / keep_tx are sub-slice {kern}(c)"
         if apod_t:
-            return "apodization is sub-slice K1(d)"
-        if np.ndim(cinv) != 0:
-            return ("a per-pixel sound speed runs on the LUT kernel K2 "
-                    "(ROADMAP Queue 1 item 7)")
+            return f"apodization is sub-slice {kern}(d)"
         if precision not in ("auto", "f32") or x.dtype not in das_cuda.DTYPES:
-            return (f"precision={precision!r} with {x.dtype} traces: K1 runs "
+            return (f"precision={precision!r} with {x.dtype} traces: {kern} runs "
                     "float32 and complex64; other trace precisions are "
-                    "sub-slice K1(e)")
+                    f"sub-slice {kern}(e)")
         return None
 
     def _das_block(self, chd: ChannelData, pv, nv, model, cinv, apod_t, *,
@@ -389,9 +433,21 @@ class UltrasoundSystem:
         if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
             if not x.is_cuda:
                 raise ValueError("kernel='cuda' needs the traces on a CUDA device")
-            why = self._k1_ineligible(x, apod_t, cinv, fmod=fmod,
-                                      keep_rx=keep_rx, keep_tx=keep_tx,
-                                      method=method, precision=precision)
+            if np.ndim(cinv) != 0:
+                # a per-pixel sound-speed map: per-pixel delay tables, built
+                # on the device, ride the LUT kernel K2
+                pi = as_f32(self._pixels(), x.device)
+                cv = as_f32(cinv, x.device).reshape(-1, 1)
+                pvg, nvg = as_f32(pv, x.device), as_f32(nv, x.device)
+                tau_rx = rx_distance(pi, as_f32(self.rx.positions().T, x.device)) * cv
+                tau_tx = torch.stack([tx_distance(pi, pvg[m], nvg[m], model)
+                                      for m in range(pvg.shape[0])], 1) * cv
+                return self.bfDASLUT(chd, tau_rx, tau_tx, apod=apod_t, fmod=fmod,
+                                     keep_tx=keep_tx, keep_rx=keep_rx,
+                                     method=method, kernel=kernel,
+                                     precision=precision)
+            why = self._ineligible("K1", x, apod_t, fmod=fmod, keep_rx=keep_rx,
+                                   keep_tx=keep_tx, precision=precision)
             if why is not None:
                 raise NotImplementedError(f"DAS on CUDA (kernel K1): {why}")
             img = das_sum(x, self._pixels(), self.rx.positions().T, pv, nv,
@@ -404,6 +460,203 @@ class UltrasoundSystem:
                       keep_tx=keep_tx, method=method,
                       im_shape=tuple(self.scan.shape))
         return img.reshape(tuple(self.scan.shape) + tuple(img.shape[1:]))
+
+    # ------------------------------------------------------- LUT beamformers
+    def das_delay_tables(self, c0: Optional[float] = None, device=None):
+        """Separable geometric delay tables ``(tau_rx (I, N), tau_tx
+        (I, M))`` in seconds for this system, float32 on ``device`` (default
+        the CPU), as :meth:`bfDAS` uses them."""
+        pv, nv, model = self._tx_geometry()
+        c0v = float(c0 if c0 is not None else self.seq.c0)
+        return delay_tables(self._pixels(), self.rx.positions().T, pv, nv, c0v,
+                            tx_model=model, device=device)
+
+    def bfDAS(self, chd: ChannelData, apod=(), fmod: float = 0.0,
+              c0: Optional[float] = None, keep_tx: bool = False,
+              keep_rx: bool = False, method: str = "auto",
+              kernel: str = "auto", precision: str = "auto") -> torch.Tensor:
+        """Delay-and-sum through delay tables: :meth:`das_delay_tables`,
+        built on the data's device, then :meth:`bfDASLUT` (kernel K2 on a
+        CUDA tensor).
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                                     z=np.linspace(18e-3, 22e-3, 8)),
+                fs=12e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            chd = us.greens(scat)
+            b1, b2 = us.bfDAS(chd).reshape(-1), us.DAS(chd).reshape(-1)
+            c = abs(complex((b1.conj() * b2).sum())) / float(b1.norm() * b2.norm())
+            assert c > 0.99
+        """
+        tau_rx, tau_tx = self.das_delay_tables(c0=c0, device=chd.data.device)
+        return self.bfDASLUT(chd, tau_rx, tau_tx, apod=apod, fmod=fmod,
+                             keep_tx=keep_tx, keep_rx=keep_rx, method=method,
+                             kernel=kernel, precision=precision)
+
+    def bfDASLUT(self, chd: ChannelData, tau_rx, tau_tx, apod=(),
+                 fmod: float = 0.0, keep_tx: bool = False,
+                 keep_rx: bool = False, method: str = "auto",
+                 kernel: str = "auto", precision: str = "auto") -> torch.Tensor:
+        """Beamform from arbitrary delay tables ("bring your own delays"):
+        ``tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m]`` with ``tau_rx
+        (I, N)`` and ``tau_tx (I, M)`` in seconds (numpy or tensors). Returns
+        the image ``(*scan.shape, N', M', *F)``.
+
+        ``kernel``: 'auto' runs K2 on a CUDA tensor and the plain ``das_lut``
+        on a CPU tensor; 'cuda' requires K2; 'plain' forces the plain path.
+        On a CUDA tensor, options K2 does not carry yet raise
+        ``NotImplementedError`` naming the sub-slice. ``method``: the four
+        samplers, 'auto' is cubic. ``precision``: 'auto' and 'f32' (float32
+        or complex64 traces); other trace precisions are sub-slice K2(e).
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                                     z=np.linspace(18e-3, 22e-3, 8)),
+                fs=12e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            chd = us.greens(scat)
+            tau_rx, tau_tx = us.das_delay_tables()  # or eikonal, calibrated, ...
+            b = us.bfDASLUT(chd, tau_rx, tau_tx)
+            assert b.shape[:3] == us.scan.shape
+        """
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}")
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r}")
+        if method == "auto":
+            method = "cubic"
+        if method == "cubic2x":
+            raise NotImplementedError(
+                "method='cubic2x' needs interp.fft_upsample, not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}; expected {METHODS}")
+        apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
+        x = chd.data
+        if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
+            if not x.is_cuda:
+                raise ValueError("kernel='cuda' needs the traces on a CUDA device")
+            why = self._ineligible("K2", x, apod_t, fmod=fmod, keep_rx=keep_rx,
+                                   keep_tx=keep_tx, precision=precision)
+            if why is not None:
+                raise NotImplementedError(f"bfDASLUT on CUDA (kernel K2): {why}")
+            img = das_lut_sum(x, tau_rx, tau_tx, chd.t0_host, fs=float(chd.fs),
+                              method=method)
+        else:
+            img = das_lut(x, tau_rx, tau_tx, chd.t0_host, fs=float(chd.fs),
+                          apod=apod_t, fmod=float(fmod), keep_rx=keep_rx,
+                          keep_tx=keep_tx, method=method,
+                          im_shape=tuple(self.scan.shape))
+        return img.reshape(tuple(self.scan.shape) + tuple(img.shape[1:]))
+
+    # ------------------------------------------- frequency-domain beamformer
+    def bfAdjoint(self, chd: ChannelData, apod=(), fmod: float = 0.0,
+                  c0: Optional[float] = None, fthresh_db: float = -40.0,
+                  max_bins: Optional[int] = None, keep_rx: bool = False,
+                  keep_tx: bool = False, bins=None, kernel: str = "auto",
+                  precision: str = "bf16") -> torch.Tensor:
+        """Frequency-domain adjoint beamformer: per selected bin, the
+        transmit steering ``A = Wtx S_k``, its power normalization, and the
+        receive adjoint ``Wrx X_k`` contracted with ``conj(Ahat)``. Returns
+        the image ``(*scan.shape, N', M', *F)`` (``N' = N`` with keep_rx,
+        ``M' = M`` with keep_tx, else 1).
+
+        The bins are the positive-frequency bins within ``fthresh_db`` of
+        the spectral peak (the strongest ``max_bins`` of them), chosen on
+        the data's device with one (T,) download; ``bins`` (int indices,
+        entries < 0 skipped) bypasses the choice. ``apod`` is accepted for
+        the JAX signature and, as there, unused.
+
+        ``kernel``: 'auto' runs K4 on a CUDA tensor and the plain version on
+        a CPU tensor; 'cuda' requires K4; 'plain' forces the plain version.
+        ``precision``: 'bf16' (default; the operands of the products
+        rounded to bfloat16, sums in float32) or 'f32', on either path.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                                     z=np.linspace(18e-3, 22e-3, 8)),
+                fs=12e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            b = us.bfAdjoint(us.greens(scat))
+            img = b.abs().squeeze()
+            assert img.shape == (8, 8) and bool(img.isfinite().all())
+        """
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}")
+        data = chd.data
+        dev = data.device
+        use_cuda = kernel == "cuda" or (kernel == "auto" and data.is_cuda)
+        if use_cuda and not data.is_cuda:
+            raise ValueError("kernel='cuda' needs the traces on a CUDA device")
+        tau_rx, tau_tx = self._adjoint_tables(
+            float(c0 if c0 is not None else self.seq.c0), dev)
+        t0_off = np.broadcast_to(self.seq.t0_offset(), (self.seq.num_pulse,))
+        del_tx = self.seq.delays(self.tx) + t0_off[None, :]  # (M, V)
+        apod_tx = self.seq.apodization(self.tx)             # (M, V)
+        if bins is not None:
+            sel = np.asarray(bins, np.int32).reshape(-1)
+        else:
+            sel = select_fbins(data, chd.fs, fthresh_db, max_bins)
+        engine = bf_adjoint_cuda if use_cuda else bf_adjoint
+        kw = dict(fs=float(chd.fs), fmod=float(fmod), keep_rx=keep_rx,
+                  keep_tx=keep_tx, precision=precision)
+        args = (tau_rx, tau_tx, del_tx, apod_tx, chd.t0_host, t0_off, sel)
+        fdims = tuple(data.shape[3:])
+        if fdims:  # trailing frame dims fold to one axis, one call per frame
+            xF = data.reshape(tuple(data.shape[:3]) + (-1,))
+            b = torch.stack([engine(xF[..., f], *args, **kw)
+                             for f in range(xF.shape[-1])], dim=-1)
+            b = b.reshape(tuple(b.shape[:-1]) + fdims)
+        else:
+            b = engine(data, *args, **kw)
+        kept = (chd.N, 1) if keep_rx else ((1, chd.M) if keep_tx else (1, 1))
+        return b.reshape(tuple(self.scan.shape) + kept + fdims)
+
+    def _adjoint_tables(self, c0: float, device):
+        """The (I, N) and (I, M) element delay tables of :meth:`bfAdjoint`,
+        built on ``device``. They do not depend on the data, so repeated
+        frames take them from a cache bounded by bytes."""
+        pi32 = np.ascontiguousarray(self._pixels(), np.float32)
+        prx = np.ascontiguousarray(self.rx.positions().T, np.float32)
+        ptx = np.ascontiguousarray(self.tx.positions().T, np.float32)
+        dev = torch.device(device)
+        key = (hashlib.sha1(pi32.tobytes() + prx.tobytes() + ptx.tobytes())
+               .hexdigest(), c0, str(dev))
+        hit = _ADJ_TAU_CACHE.get(key)
+        if hit is not None:
+            return hit
+        cinv = np.float32(1.0 / c0)
+        tabs = (geom_delays(pi32, prx, cinv, dev), geom_delays(pi32, ptx, cinv, dev))
+        nb = 4 * (tabs[0].numel() + tabs[1].numel())
+        if nb <= _ADJ_TAU_CACHE_MAX_BYTES:  # 0 disables the cache
+            while _ADJ_TAU_CACHE and nb + sum(
+                    4 * (a.numel() + b.numel())
+                    for a, b in _ADJ_TAU_CACHE.values()) > _ADJ_TAU_CACHE_MAX_BYTES:
+                _ADJ_TAU_CACHE.pop(next(iter(_ADJ_TAU_CACHE)))
+            _ADJ_TAU_CACHE[key] = tabs
+        return tabs
+
+
+# bfAdjoint's (I, N) / (I, M) device delay tables, ~2 GB at 1024^2 x 256 x 256
+_ADJ_TAU_CACHE: dict = {}
+_ADJ_TAU_CACHE_MAX_BYTES = int(os.environ.get("QUPS_ADJ_TAU_CACHE_BYTES",
+                                              str(4 * 1024**3)))
 
 
 def _slice_tx_apod(a, m0, m1, M):

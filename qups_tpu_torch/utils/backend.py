@@ -18,7 +18,8 @@ def as_f32(a, device) -> torch.Tensor:
     """Host geometry (float64 numpy) or a tensor, as float32 on ``device``."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    a = np.asarray(a, np.float32)
+    return torch.as_tensor(a if a.flags.writeable else a.copy(), device=device)
 
 
 def to_host(x) -> np.ndarray:

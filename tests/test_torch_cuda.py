@@ -1,8 +1,11 @@
-"""Kernels K1 and K3 on a CUDA card: K1 against its plain PyTorch version for
-every transmit model and sampler, real and complex; K3 against its plain
-version; and the main path greens → DAS on CUDA tensors (K3 and K1 for the
-eligible case, NotImplementedError for every option K1 does not carry yet).
-Every test here needs the card and skips without one.
+"""Kernels K1-K4 on a CUDA card: K1 against its plain PyTorch version for
+every transmit model and sampler, real and complex; K2 against das_lut for
+every sampler, real and complex; K3 against its plain version; K4 against
+bf_adjoint for every keep mode and precision; the sim→image path
+greens → DAS and the plane-wave path greens → focusTx → DAS / bfDAS /
+per-pixel-c DAS / bfAdjoint on CUDA tensors; and NotImplementedError for
+every option a kernel does not carry yet. Every test here needs the card
+and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -14,7 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import qups_tpu_torch as qt  # noqa: E402
-from qups_tpu_torch.ops import das_cuda, greens_freq_cuda  # noqa: E402
+from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_freq_cuda  # noqa: E402
+from qups_tpu_torch.ops.fdbf import bf_adjoint  # noqa: E402
 from qups_tpu_torch.ops.greens_freq import prologue  # noqa: E402
 from qups_tpu_torch.ops.interp import METHODS  # noqa: E402
 
@@ -24,7 +28,7 @@ CINV = np.float32(1 / 1540.0)
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("K1 and K3 are CUDA C++; they run only on a CUDA device")
+        pytest.skip("K1-K4 are CUDA C++; they run only on a CUDA device")
     return torch.device("cuda")
 
 
@@ -121,7 +125,116 @@ def test_das_on_card(card):
     for data, kw in ((chd, dict(fmod=3e6)), (rf, dict(keep_rx=True)),
                      (rf, dict(keep_tx=True)),
                      (rf, dict(apod=np.ones((1, 1, 1, 16, 1)))),
-                     (rf, dict(precision="i8x4")),
-                     (rf, dict(c0=np.full(us.scan.shape, 1540.0)))):
+                     (rf, dict(precision="i8x4"))):
         with pytest.raises(NotImplementedError):
             us.DAS(data, **kw)
+    # a per-pixel sound speed rides K2; a constant map is the scalar-c image
+    k2 = das_cuda.LUT_LAUNCHES
+    bc = us.DAS(chd, c0=np.full(us.scan.shape, 1540.0))
+    assert das_cuda.LUT_LAUNCHES == k2 + 1
+    assert float((bc - b).abs().max()) < 1e-4 * float(b.abs().max())
+
+
+def lut_problem(T=512, N=32, M=8, n=64, cplx=False):
+    """Geometric plane-wave tables plus a seeded perturbation of up to +-2
+    samples, and t0 that puts some delays below 0 and some above T-1."""
+    x, pi, pr, pv, nv, t0 = problem("plane", T=T, N=N, M=M, n=n)
+    if cplx:
+        x = (x + 1j * np.random.default_rng(42).standard_normal(x.shape)).astype(np.complex64)
+    fs = 4e6
+    rng = np.random.default_rng(43)
+    tau_rx = (np.linalg.norm(pi[:, None] - pr[None], axis=-1) / 1540.0
+              + rng.uniform(-2, 2, (pi.shape[0], N)) / fs).astype(np.float32)
+    tau_tx = (pi @ nv.T / 1540.0
+              + rng.uniform(-2, 2, (pi.shape[0], M)) / fs).astype(np.float32)
+    return x, tau_rx, tau_tx, t0, fs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cplx", [False, True])
+def test_k2_matches_plain(card, cplx):
+    x, tau_rx, tau_tx, t0, fs = lut_problem(cplx=cplx)
+    xg = torch.as_tensor(x, device=card)
+    for method in METHODS:
+        before = das_cuda.LUT_LAUNCHES
+        got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, fs=fs, method=method)
+        torch.cuda.synchronize()
+        assert das_cuda.LUT_LAUNCHES == before + 1
+        ref = das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, fs=fs, method=method)
+        assert got.dtype == ref.dtype == xg.dtype and got.shape == ref.shape
+        assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), method
+
+
+def adjoint_problem(T=128, N=12, M=10, V=9, I=300, seed=44):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, N, V)).astype(np.float32)
+    tau_rx = rng.uniform(0, 2e-6, (I, N)).astype(np.float32)
+    tau_tx = rng.uniform(0, 2e-6, (I, M)).astype(np.float32)
+    del_tx = rng.uniform(0, 3e-7, (M, V)).astype(np.float32)
+    apod = rng.standard_normal((M, V)).astype(np.float32)
+    t0 = rng.uniform(0, 1e-6, (V,)).astype(np.float32)
+    t0o = rng.uniform(0, 1e-7, (V,)).astype(np.float32)
+    return x, tau_rx, tau_tx, del_tx, apod, t0, t0o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [5, 40, 200])
+@pytest.mark.parametrize("keep", ["", "rx", "tx"])
+def test_k4_matches_plain(card, keep, V):
+    x, *rest = adjoint_problem(V=V)
+    xg = torch.as_tensor(x, device=card)
+    bins = np.array([5, 9, 10, 11, 17, -1, 30], np.int32)
+    kw = dict(fs=40e6, fmod=1e6, keep_rx=keep == "rx", keep_tx=keep == "tx")
+    for precision, tol in (("f32", 1e-4), ("bf16", 2e-3)):
+        before = fdbf_cuda.LAUNCHES
+        got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
+        torch.cuda.synchronize()
+        assert fdbf_cuda.LAUNCHES == before + 1
+        ref = bf_adjoint(xg, *rest, bins, precision=precision, **kw)
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), precision
+    empty = fdbf_cuda.bf_adjoint_cuda(xg, *rest, np.zeros(0, np.int32), **kw)
+    assert empty.shape == got.shape and not bool(empty.abs().any())
+    wide = torch.zeros((64, 12, 300), device=card)  # 300 pulses: K4(b)
+    with pytest.raises(NotImplementedError, match="K4\\(b\\)"):
+        fdbf_cuda.bf_adjoint_cuda(wide, rest[0], rest[1], np.zeros((10, 300)),
+                                  np.ones((10, 300)), 0.0, np.zeros(300), bins, fs=40e6)
+
+
+@pytest.mark.cuda
+def test_plane_wave_path_on_card(card):
+    """greens → focusTx (freq) → DAS (K1), bfDAS and per-pixel-c DAS (K2),
+    bfAdjoint (K4) on a small plane-wave system, each against the same call
+    with kernel='plain', and each image's peak on the target."""
+    xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc,
+        seq=qt.SequenceRadial(type="PW", angles=np.array([-5.0, 0.0, 5.0]), c0=1540.0),
+        scan=qt.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 32),
+                              z=np.linspace(16e-3, 24e-3, 32)))
+    target = np.array([0.0, 0.0, 20e-3])
+    chd = us.greens(qt.Scatterers(pos=target[:, None], c0=1540.0), device=card)
+    assert chd.data.is_cuda and chd.M == 3
+    cmap = np.full(us.scan.shape, 1540.0)
+    P = us.scan.positions().reshape(3, -1)
+    calls = {"DAS": (lambda **k: us.DAS(chd, **k), 1e-4),
+             "bfDAS": (lambda **k: us.bfDAS(chd, **k), 1e-4),
+             "DAS c0 map": (lambda **k: us.DAS(chd, c0=cmap, **k), 1e-4),
+             "bfAdjoint": (lambda **k: us.bfAdjoint(chd, **k), 2e-3),
+             "bfAdjoint f32": (lambda **k: us.bfAdjoint(chd, precision="f32", **k), 1e-4)}
+    counts = (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES)
+    for name, (fn, tol) in calls.items():
+        b, ref = fn(), fn(kernel="plain")
+        assert b.is_cuda and b.shape == ref.shape
+        assert float((b - ref).abs().max()) < tol * float(ref.abs().max()), name
+        k = int(b.abs().reshape(-1).argmax())
+        assert np.linalg.norm(P[:, k] - target) < 1.1e-3, name
+    assert (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES) == \
+        (counts[0] + 1, counts[1] + 2, counts[2] + 2)
+    rf = chd.replace(data=chd.data.real.contiguous())
+    for fn in (lambda: us.bfDAS(chd, fmod=3e6), lambda: us.bfDAS(rf.replace(data=rf.data[..., None])),
+               lambda: us.bfDAS(chd, keep_rx=True), lambda: us.bfDAS(chd, keep_tx=True),
+               lambda: us.bfDAS(chd, apod=np.ones((1, 1, 1, 16, 1))),
+               lambda: us.bfDAS(rf, precision="bf16pair")):
+        with pytest.raises(NotImplementedError, match="K2"):
+            fn()

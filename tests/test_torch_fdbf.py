@@ -1,0 +1,171 @@
+"""The port's frequency-domain beamforming (qups_tpu_torch.ops.fdbf) against
+qups_tpu: spectral_level, select_fbins, geom_delays, focus_tx_freq, and the
+adjoint beamformer bf_adjoint (the plain version of kernel K4) against the
+XLA engine qups_tpu.ops.fdbf.bf_adjoint and against the Pallas engine
+bf_adjoint_tiled in interpret mode, for every keep mode, a ragged and an
+empty bin set; then UltrasoundSystem.bfAdjoint against the JAX system. K4
+itself is tested on the card in test_torch_cuda.py.
+
+Tolerances, max|port - JAX| < tol * max|JAX|: 1e-4 against the Pallas
+engine, which builds its phasors as 2 pi frac(f_k tau) as the port does;
+2e-3 against the XLA engine, whose direct cexp phases differ from that by
+up to ~3e-4 rad (fdbf_pallas.py:27-29)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import qups_tpu as q  # noqa: E402
+from qups_tpu.ops import fdbf as jfdbf  # noqa: E402
+from qups_tpu.ops.fdbf_pallas import bf_adjoint_tiled  # noqa: E402
+from qups_tpu_torch.convert import from_reference  # noqa: E402
+from qups_tpu_torch.ops import fdbf, fdbf_cuda  # noqa: E402
+from qups_tpu_torch import system as tsystem  # noqa: E402
+
+FS = 40e6
+TARGET = np.array([0.0, 0.0, 20e-3])
+
+
+def close(got, ref, tol):
+    got, ref = got.numpy(), np.asarray(ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err < tol, err
+
+
+def adjoint_problem(T=128, N=8, M=6, V=9, I=40, seed=60):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, N, V)).astype(np.float32)
+    tau_rx = rng.uniform(0, 2e-6, (I, N)).astype(np.float32)
+    tau_tx = rng.uniform(0, 2e-6, (I, M)).astype(np.float32)
+    del_tx = rng.uniform(0, 3e-7, (M, V)).astype(np.float32)
+    apod = rng.standard_normal((M, V)).astype(np.float32)
+    t0 = rng.uniform(0, 1e-6, (V,)).astype(np.float32)
+    t0o = rng.uniform(0, 1e-7, (V,)).astype(np.float32)
+    return x, (tau_rx, tau_tx, del_tx, apod, t0, t0o)
+
+
+BINS = {"uniform": np.arange(5, 17), "ragged": np.array([5, 9, 10, 11, 17]),
+        "padded": np.array([5, 6, 7, -1, -1])}
+KEEP = {"sum": {}, "rx": {"keep_rx": True}, "tx": {"keep_tx": True}}
+
+
+def test_spectral_level_and_bins_match_reference():
+    x, _ = adjoint_problem()
+    close(fdbf.spectral_level(torch.as_tensor(x)), jfdbf.spectral_level(x), 1e-5)
+    for thr in (-6.0, -20.0):
+        assert np.array_equal(fdbf.select_fbins(torch.as_tensor(x), FS, thr, max_bins=20),
+                              jfdbf.select_fbins(x, FS, thr, max_bins=20))
+
+
+def test_geom_delays_match_reference():
+    rng = np.random.default_rng(61)
+    pi = rng.uniform(-0.02, 0.02, (50, 3)).astype(np.float32)
+    pos = rng.uniform(-0.02, 0.02, (7, 3)).astype(np.float32)
+    close(fdbf.geom_delays(pi, pos, np.float32(1 / 1540.0)),
+          jfdbf.geom_delays(pi, pos, np.float32(1 / 1540.0)), 1e-6)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_focus_tx_freq_matches_reference(cplx):
+    rng = np.random.default_rng(62)
+    x = rng.standard_normal((96, 5, 6, 2)).astype(np.float32)
+    if cplx:
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    t2 = rng.uniform(-1e-6, 1e-6, (6, 3))
+    w = rng.uniform(size=(6, 3))
+    close(fdbf.focus_tx_freq(torch.as_tensor(x), t2, w, fs=FS),
+          jfdbf.focus_tx_freq(x, t2, w, fs=FS), 1e-4)
+
+
+@pytest.mark.parametrize("bins", sorted(BINS))
+@pytest.mark.parametrize("keep", sorted(KEEP))
+def test_bf_adjoint_matches_xla(keep, bins):
+    x, args = adjoint_problem()
+    kw = dict(fs=FS, fmod=1e6, **KEEP[keep])
+    ref = jfdbf.bf_adjoint(x, *args, BINS[bins].astype(np.int32), **kw)
+    close(fdbf.bf_adjoint(torch.as_tensor(x), *args, BINS[bins], **kw), ref, 2e-3)
+
+
+@pytest.mark.parametrize("bins", ["uniform", "ragged"])
+@pytest.mark.parametrize("keep", sorted(KEEP))
+def test_bf_adjoint_matches_pallas_interpret(keep, bins, monkeypatch):
+    """The plain version against the TPU kernel in interpret mode, with
+    direct sin/cos phasors on both sides (QUPS_ADJ_RECUR=0 turns off the
+    TPU kernel's recurrence for evenly spaced bins)."""
+    monkeypatch.setenv("QUPS_ADJ_RECUR", "0")
+    x, args = adjoint_problem()
+    kw = dict(fs=FS, fmod=1e6, **KEEP[keep])
+    ref = bf_adjoint_tiled(x, *args, BINS[bins].astype(np.int32), precision="f32",
+                           BI=8, interpret=True, **kw)
+    close(fdbf.bf_adjoint(torch.as_tensor(x), *args, BINS[bins], precision="f32",
+                          **kw), ref, 1e-4)
+
+
+def test_bf_adjoint_bf16_matches_pallas_interpret(monkeypatch):
+    """precision='bf16' rounds the dots' operands as the TPU kernel does."""
+    monkeypatch.setenv("QUPS_ADJ_RECUR", "0")
+    x, args = adjoint_problem()
+    bins = BINS["ragged"]
+    ref = bf_adjoint_tiled(x, *args, bins.astype(np.int32), fs=FS, precision="bf16",
+                           BI=8, interpret=True)
+    got = fdbf.bf_adjoint(torch.as_tensor(x), *args, bins, fs=FS, precision="bf16")
+    close(got, ref, 2e-3)
+    f32 = fdbf.bf_adjoint(torch.as_tensor(x), *args, bins, fs=FS, precision="f32")
+    assert float((got - f32).abs().max()) > 0  # the rounding does happen
+
+
+def test_bf_adjoint_empty_bins_and_cpu_wrapper():
+    x, args = adjoint_problem()
+    for keep, shape in (("sum", (40,)), ("rx", (40, 8)), ("tx", (40, 9))):
+        b = fdbf.bf_adjoint(torch.as_tensor(x), *args, np.zeros(0, np.int32), fs=FS,
+                            **KEEP[keep])
+        assert b.shape == shape and not bool(b.abs().any())
+    before = fdbf_cuda.LAUNCHES
+    kw = dict(fs=FS, precision="bf16")
+    got = fdbf_cuda.bf_adjoint_cuda(torch.as_tensor(x), *args, BINS["ragged"], **kw)
+    assert torch.equal(got, fdbf.bf_adjoint(torch.as_tensor(x), *args, BINS["ragged"], **kw))
+    assert fdbf_cuda.LAUNCHES == before
+    with pytest.raises(ValueError):
+        fdbf.bf_adjoint(torch.as_tensor(x), *args, BINS["ragged"], fs=FS,
+                        keep_rx=True, keep_tx=True)
+
+
+@pytest.fixture(scope="module")
+def fsa():
+    xdc = q.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+    us = q.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=16, c0=1540.0),
+        scan=q.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 24),
+                             z=np.linspace(16e-3, 24e-3, 24)))
+    chd = us.greens(q.Scatterers(pos=TARGET[:, None], c0=1540.0))
+    return us, chd, from_reference(us), from_reference(chd)
+
+
+@pytest.mark.parametrize("keep", sorted(KEEP))
+def test_bfadjoint_system_matches_reference(fsa, keep):
+    us, chd, ust, chdt = fsa
+    ref = us.bfAdjoint(chd, fthresh_db=-30, **KEEP[keep])
+    got = ust.bfAdjoint(chdt, fthresh_db=-30, precision="f32", **KEEP[keep])
+    close(got, ref, 2e-3)
+    if keep == "sum":
+        P = ust.scan.positions().reshape(3, -1)
+        assert np.linalg.norm(P[:, int(got.abs().reshape(-1).argmax())] - TARGET) < 1.1e-3
+
+
+def test_bfadjoint_frames_and_table_cache(fsa):
+    """Trailing frame dims run one call per frame; the device delay tables
+    are built once per geometry and sound speed."""
+    _, _, ust, chdt = fsa
+    tsystem._ADJ_TAU_CACHE.clear()
+    b1 = ust.bfAdjoint(chdt, fthresh_db=-30)
+    assert len(tsystem._ADJ_TAU_CACHE) == 1
+    x4 = torch.stack([chdt.data, 2 * chdt.data], dim=-1)
+    b4 = ust.bfAdjoint(chdt.replace(data=x4), fthresh_db=-30)
+    assert len(tsystem._ADJ_TAU_CACHE) == 1
+    assert b4.shape == b1.shape + (2,)
+    assert float((b4[..., 1] - 2 * b1).abs().max()) < 1e-4 * float(b1.abs().max()) * 2
+    ust.bfAdjoint(chdt, fthresh_db=-30, c0=1500.0)
+    assert len(tsystem._ADJ_TAU_CACHE) == 2
+    with pytest.raises(ValueError, match="CUDA"):
+        ust.bfAdjoint(chdt, kernel="cuda")

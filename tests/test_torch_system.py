@@ -1,9 +1,10 @@
-"""The sim→image slice as a whole: the same small system through
+"""The slices as a whole: the same small system through
 UltrasoundSystem.greens → DAS in qups_tpu and in qups_tpu_torch (with the
 splat, which 'auto' picks on the CPU, and with the frequency-domain engine,
 which 'auto' picks on a CUDA card), the point-spread-function check,
-transmit streaming (bsize), and the scope of the slice: what raises on the
-CPU (on a CUDA card: test_torch_cuda.py)."""
+transmit streaming (bsize), the plane-wave demo flow greens → focusTx →
+DAS / bfDAS / bfAdjoint, and what raises on the CPU (on a CUDA card:
+test_torch_cuda.py)."""
 import inspect
 import re
 import textwrap
@@ -94,7 +95,7 @@ def test_bsize_streaming(fsa, keep_tx):
 
 def test_plane_wave_das_matches_reference():
     """Plane-wave data simulated by qups_tpu, beamformed by both packages
-    (the port's focusTx supports the FSA identity only)."""
+    (the port's own plane-wave simulation: test_torch_focus.py)."""
     seq = q.SequenceRadial(type="PW", angles=np.array([-5.0, 0.0, 5.0]), c0=1540.0)
     us, ust, scat, _ = _systems(seq)
     chd = us.greens(scat)
@@ -111,14 +112,39 @@ def test_scope_raises_on_cpu(fsa):
         ust.greens(scatt, impl="pallas")
     with pytest.raises(ValueError, match="CUDA"):
         ust.greens(scatt, impl="freq", kernel="cuda")
-    pw = qt.SequenceRadial(type="PW", angles=np.array([0.0]), c0=1540.0)
-    with pytest.raises(NotImplementedError, match="FSA only"):
-        ust.focusTx(chdt, pw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        chdt.sample(chdt.time, method="freq")
+    with pytest.raises(ValueError, match="CUDA"):
+        ust.bfDASLUT(chdt, *ust.das_delay_tables(), kernel="cuda")
     with pytest.raises(NotImplementedError, match="cubic2x"):
         ust.DAS(chdt, method="cubic2x")
     with pytest.raises(NotImplementedError, match="K1\\(d\\)"):
         ust.DAS(chdt, apod=qt.Fused("aperture_growth", f=1.5))
 
+
+def test_demo_flow_end_to_end():
+    """examples/demo_imaging.py's flow at a reduced size (its L11-5v cut to
+    16 elements, 3 plane waves, 32 x 32 pixels, its 20 point targets):
+    greens → focusTx → DAS, bfDAS and bfAdjoint in the port, each image's
+    peak within 1.1 mm of a target (the demo's own oracle)."""
+    L = qt.TransducerArray.L11_5v()
+    xdc = qt.TransducerArray(numel=16, pitch=L.pitch, fc=L.fc)
+    seq = qt.SequenceRadial(type="PW", angles=np.array([-10.0, 0.0, 10.0]), c0=1540.0)
+    scan = qt.ScanCartesian(x=np.linspace(-12e-3, 12e-3, 32),
+                            z=np.linspace(15e-3, 35e-3, 32))
+    us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=seq, scan=scan, fs=4 * xdc.fc)
+    Zs, Xs = np.meshgrid(np.linspace(18e-3, 32e-3, 4), np.linspace(-8e-3, 8e-3, 5),
+                         indexing="ij")
+    pos = np.stack([Xs.ravel(), np.zeros(Xs.size), Zs.ravel()])
+    chd = us.greens(qt.Scatterers(pos=pos, amp=np.ones(pos.shape[1]), c0=1540.0))
+    assert chd.M == 3
+    P = scan.positions().reshape(3, -1)
+    for name, b in (("DAS", us.DAS(chd)), ("bfDAS", us.bfDAS(chd)),
+                    ("bfAdjoint", us.bfAdjoint(chd))):
+        assert b.shape == tuple(scan.shape) + (1, 1) and bool(torch.isfinite(b).all())
+        k = int(b.abs().reshape(-1).argmax())
+        d = np.linalg.norm(pos - P[:, k:k + 1], axis=0).min()
+        assert d < 1.1e-3, (name, d)
 
 
 def _port_docs():
@@ -126,6 +152,8 @@ def _port_docs():
     text = (ROOT / "README.md").read_text()
     out = [("README.md", b) for b in re.findall(r"```py\n(.*?)```", text, re.S)]
     for obj in (qt.UltrasoundSystem.greens, qt.UltrasoundSystem.DAS,
+                qt.UltrasoundSystem.focusTx, qt.UltrasoundSystem.bfDAS,
+                qt.UltrasoundSystem.bfDASLUT, qt.UltrasoundSystem.bfAdjoint,
                 from_reference):
         ex = inspect.getdoc(obj).split("Example:", 1)[1]
         out.append((obj.__qualname__, textwrap.dedent(ex)))

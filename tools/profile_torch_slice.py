@@ -12,7 +12,11 @@ Traces, with ``torch.profiler`` (CUDA activity), three things:
 2. K1's device time alone per sampler at that size (2 calls each);
 3. the main path at the size of ``chip_smoke.py``: L11-5v, FSA over 128
    elements, 256 x 256 pixels, 5 targets,
-   ``us.DAS(us.greens(scat, device="cuda"))``, 3 runs after a warm-up.
+   ``us.DAS(us.greens(scat, device="cuda"))``, 3 runs after a warm-up;
+4. the plane-wave demo path (``examples/demo_imaging.py``'s system and
+   phantom: L11-5v, 5 plane waves, 256 x 256 pixels, 20 targets):
+   ``us.greens`` (K3, then focusTx), ``us.DAS`` (K1), ``us.bfDAS`` (K2) and
+   ``us.bfAdjoint`` (K4), 3 runs after a warm-up, then each call alone.
 
 Prints a summary and writes the profiler tables to ``--out``. Imports torch,
 numpy and the port, never JAX.
@@ -86,11 +90,11 @@ def main():
     sys.path.insert(0, ROOT)
     import bench  # numpy-only at import
     import qups_tpu_torch as qt
-    from qups_tpu_torch.ops import das_cuda, greens_freq_cuda
+    from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_freq_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    das_cuda.build()
-    greens_freq_cuda.build()
+    for mod in (das_cuda, greens_freq_cuda, fdbf_cuda):
+        mod.build()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     report = open(args.out, "w")
 
@@ -141,6 +145,37 @@ def main():
             f"x{calls:g}  {name}")
     report.write(full.table(sort_by="self_cuda_time_total", row_limit=30) + "\n")
     report.write(full.table(sort_by="self_cpu_time_total", row_limit=20) + "\n")
+
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc,
+        seq=qt.SequenceRadial(type="PW", angles=np.arange(-10, 11, 5), c0=1540.0),
+        scan=qt.ScanCartesian(x=np.linspace(-12e-3, 12e-3, 256),
+                              z=np.linspace(15e-3, 35e-3, 256)), fs=4 * xdc.fc)
+    Zs, Xs = np.meshgrid(np.linspace(18e-3, 32e-3, 4), np.linspace(-8e-3, 8e-3, 5),
+                         indexing="ij")
+    pos = np.stack([Xs.ravel(), np.zeros(Xs.size), Zs.ravel()])
+    scat = qt.Scatterers(pos=pos, amp=np.ones(pos.shape[1]), c0=1540.0)
+    chd = us.greens(scat, device="cuda")
+
+    def demo():
+        c = us.greens(scat, device="cuda")
+        return us.DAS(c), us.bfDAS(c), us.bfAdjoint(c)
+
+    full, ka, wall, busy = profile(torch, demo, 3)
+    say(f"[4] plane-wave demo (L11-5v, 5 PW, 256^2 px, 20 targets; greens, DAS, "
+        f"bfDAS, bfAdjoint): host wall {wall * 1e3:.3f} ms/run, device busy "
+        f"{busy / 1e3:.3f} ms/run ({100 * busy / 1e6 / wall:.1f} % of wall)")
+    for name, ms, calls in top(ka, 3, k=16):
+        say(f"    {ms:10.3f} ms/run {100 * ms * 1e3 / max(busy, 1e-9):6.1f} %  "
+            f"x{calls:g}  {name}")
+    report.write(full.table(sort_by="self_cuda_time_total", row_limit=30) + "\n")
+    for name, fn in (("greens+focusTx", lambda: us.greens(scat, device="cuda")),
+                     ("DAS", lambda: us.DAS(chd)), ("bfDAS", lambda: us.bfDAS(chd)),
+                     ("bfAdjoint", lambda: us.bfAdjoint(chd))):
+        _, ka, wall, busy = profile(torch, fn, 3)
+        say(f"    alone: {name:15s} host wall {wall * 1e3:9.3f} ms, device busy "
+            f"{busy / 1e3:9.3f} ms ({100 * busy / 1e6 / wall:.1f} %); top: "
+            + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms, _ in top(ka, 3, k=3)))
     report.close()
     card = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read()
     print(f"card: {card.strip()}; tables in {args.out}")
