@@ -8,9 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 It builds kernels K1 and K2 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum
 from geometry and from delay tables), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
-per-bin GEMM) and K4 (``qups_tpu_torch/csrc/fdbf.cu``, the
-frequency-domain adjoint beamformer) with nvcc, one process per source,
-all at once, and runs:
+per-bin GEMM, with its bf16 and directivity variants), K4
+(``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer)
+and K5 (``qups_tpu_torch/csrc/greens_splat.cu``, the time-domain splat
+simulator) with nvcc, one process per source, all at once, and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times;
@@ -40,7 +41,24 @@ all at once, and runs:
    map (K2), ``us.bfAdjoint`` bf16 and f32 (K4), each with the PSF check and
    the comparison with ``kernel='plain'``; and that every option K2 and K4
    do not carry yet raises ``NotImplementedError``;
-8. K2 and K4 at the headline size, each beside its plain version.
+8. K2 and K4 at the headline size, each beside its plain version;
+9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
+   speckle scatterers): the deposit grid and the traces of ``greens_tiled``
+   for the linear and cubic bases x the system's complex kernel and its real
+   part, and a sub-element case;
+10. the simulator path unmodified on the same system and phantom: ``greens``
+   with ``impl='pallas'`` (K5) and with ``precision='bf16'`` (K3(b)),
+   ``simus`` with the soft and the hard baffle (K3(c)), ``calc_scat_all``
+   (K3) and ``calc_scat_multi`` with the plane-wave demo sequence, fused and
+   with ``bsize=1`` (K5), and ``calc_hp`` with a focused sequence; launch
+   counts zeroed just before and read just after; each call against
+   ``kernel='plain'``; the PSF check through ``us.DAS`` on the 5-target
+   phantom; K5's and K3(c)'s times against their plain versions; the K3(b)
+   control (K3(a)'s traces against the bf16 plain version fail TOL_K3B);
+11. K3(b) and K3(c) at 10^5 scatterers x 128 x 128 elements (bf16 over the
+   full band, 1025 bins; the directivity over the bins simus selects, ~850),
+   each beside its plain version timed on 32 bins and scaled to the band,
+   with the K3(b) control on the 32 bins.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -57,6 +75,11 @@ import numpy as np
 
 TOL = 1e-4  # max|kernel - plain| < TOL * max|plain|: the float32 standard
 TOL_BF16 = 2e-3  # K4 with bf16 dot operands against the plain version at bf16
+# K3(b) against the plain version at bf16: both round the same operands. The
+# limit sits between the sound reading and a control, K3(a)'s float32
+# operands against the bf16 plain version, which phases 10 and 11 take and
+# require to fail it, so a launch that skips the rounding cannot pass.
+TOL_K3B = 2e-4
 
 
 def _ms(fn, reps=3):
@@ -125,7 +148,7 @@ def phase0(torch, ops):
     assert nv.returncode == 0, nv.stderr
     print(f"nvcc: {[l for l in nv.stdout.splitlines() if 'release' in l][0].strip()}")
     builds = (("K1+K2", ops.das_cuda), ("K3", ops.greens_freq_cuda),
-              ("K4", ops.fdbf_cuda))
+              ("K4", ops.fdbf_cuda), ("K5", ops.greens_cuda))
 
     def timed(mod):
         t = time.perf_counter()
@@ -312,7 +335,6 @@ def phase3(torch, qt, ops, errs):
         "precision i8x4 (K1(e))": lambda: us.DAS(rf, precision="i8x4"),
         "complex128 traces (K1(e))": lambda: us.DAS(chd.replace(data=chd.data.to(torch.complex128))),
         "cubic2x": lambda: us.DAS(chd, method="cubic2x"),
-        "greens impl=pallas (K5)": lambda: us.greens(scat, impl="pallas", device="cuda"),
     }
     before = (das_cuda.LAUNCHES, gfc.LAUNCHES)
     for what, fn in checks.items():
@@ -607,6 +629,239 @@ def phase8(torch, ops, k1_ms, errs):
     return k2, k4
 
 
+def _speckle(qt, S, seed):
+    """S scatterers with standard-normal amplitudes, uniform over the main
+    system's scan (x +-15 mm, z 5-45 mm), from a seed."""
+    rng = np.random.default_rng(seed)
+    pos = np.stack([rng.uniform(-15e-3, 15e-3, S), np.zeros(S), rng.uniform(5e-3, 45e-3, S)])
+    return qt.Scatterers(pos=pos, amp=rng.standard_normal(S), c0=1540.0)
+
+
+def _simus_band(us, T):
+    """(k0, F): the hull of the bins that ``us.simus`` selects at its
+    default -60 dB for a trace length T."""
+    fs = float(us.fs)
+    wv = us.rx.impulse.conv(us.tx.impulse.conv(us.seq.pulse, fs), fs)
+    lev = 20 * np.log10(np.abs(np.fft.rfft(np.real(np.asarray(wv.samples)), n=T)) + 1e-30)
+    sel = np.where(lev >= lev.max() - 60.0)[0]
+    sel = sel[sel > 0]
+    return int(sel.min()), int(sel.max() - sel.min() + 1)
+
+
+def _control(k3a, ref_b, where):
+    """The control reading for TOL_K3B: K3(a)'s result (float32 operands)
+    against the bf16 plain version on the same inputs; it must fail the
+    limit. Returns the relative error."""
+    r = float((k3a - ref_b).abs().max()) / float(ref_b.abs().max())
+    print(f"{where}: control K3(a) (float32 operands) vs the bf16 plain version "
+          f"rel={r:.3e}, must exceed TOL_K3B={TOL_K3B:.0e}")
+    assert r > TOL_K3B, (where, r)
+    return r
+
+
+def phase9(torch, qt, gc, errs):
+    """K5 vs plain at the main path's shapes: deposit grid and traces for
+    linear / cubic x the complex kernel / its real part, and sub-elements.
+    Returns K5's and the plain grid fill's ms (cubic, 10^4 scatterers)."""
+    us, _, _ = _main_system(qt)
+    speck = _speckle(qt, 10_000, 10)
+    cases = [(m, c, (1, 1), speck) for m in ("linear", "cubic") for c in ("complex", "real")]
+    cases.append(("cubic", "complex", (2, 1), _speckle(qt, 2_000, 9)))
+    out = None
+    for method, kind, sub, sc in cases:
+        ps, kern, pn, pv, kw = us._greens_problem(sc, sub)
+        kern = kern if kind == "complex" else np.real(kern)
+        kw = dict(kw, method=method)
+        plan = gc.plan_tiled(kern, ps, sc.amp, pn, pv, **kw)
+        t = {k: torch.as_tensor(plan[k], device="cuda") for k in ("lo", "nc", "scat", "ofs_pad")}
+        args = (t["lo"], t["nc"], t["scat"], torch.as_tensor(plan["pn"][0], device="cuda"),
+                t["ofs_pad"], torch.as_tensor(plan["pv"][0], device="cuda"))
+        got = gc.splat(*args, **plan["st"])
+        torch.cuda.synchronize()
+        ref = gc.splat_plain(*args, **plan["st"])
+        a, r = errs.add(got, ref, f"phase9 grid {method} {kind} sub={sub}")
+        assert r < TOL, (method, kind, sub, r)
+        x = gc.greens_tiled(kern, ps, sc.amp, pn, pv, device="cuda", **kw)
+        xp = gc.greens_tiled(kern, ps, sc.amp, pn, pv, device="cuda", kernel="plain", **kw)
+        at, rt = errs.add(x, xp, f"phase9 traces {method} {kind} sub={sub}")
+        assert rt < TOL, (method, kind, sub, rt)
+        k_ms = _ms(lambda: gc.splat(*args, **plan["st"]))
+        p_ms = _ms(lambda: gc.splat_plain(*args, **plan["st"]), reps=1)
+        print(f"phase9 K5 {method:6s} {kind:7s} sub={sub} S={sc.pos.shape[1]}: grid "
+              f"{tuple(got.shape)}, windows {float(plan['nc'].mean()):.2f} chunks of "
+              f"{plan['st']['CS']} per tile (max {int(plan['nc'].max())}); grid "
+              f"max_abs_err={a:.3e} rel={r:.3e}, traces {tuple(x.shape)} {x.dtype} "
+              f"max_abs_err={at:.3e} rel={rt:.3e}; K5 {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        if method == "cubic" and kind == "complex" and sub == (1, 1):
+            out = (k_ms, p_ms)
+    return out
+
+
+def _psf(us, b, targets, what, phase):
+    """Each target's image peak (within 3 mm of it) lies within 1.1 mm."""
+    img = b.abs().reshape(-1).cpu().numpy()
+    P = us.scan.positions().reshape(3, -1)
+    ds = []
+    for k in range(targets.shape[1]):
+        near = np.linalg.norm(P - targets[:, k:k + 1], axis=0) < 3e-3
+        j = np.flatnonzero(near)[np.argmax(img[near])]
+        ds.append(float(np.linalg.norm(P[:, j] - targets[:, k])))
+    print(f"{phase} PSF {what}: peaks {', '.join(f'{d * 1e3:.3f}' for d in ds)} mm "
+          "from the targets")
+    assert max(ds) < 1.1e-3, (what, ds)
+
+
+def phase10(torch, qt, ops, errs):
+    """The simulator path unmodified at full width (L11-5v, 128 x 128
+    elements, 10^4 speckle scatterers). Returns the launches of each kernel
+    in that run, K3(c)'s and its plain version's ms at its shapes, and the
+    K3(b) control reading on the traces."""
+    gc, gfc = ops.greens_cuda, ops.greens_freq_cuda
+    from qups_tpu_torch.ops.simus import simus_prologue
+
+    us, targets, scat5 = _main_system(qt)
+    speck = _speckle(qt, 10_000, 10)
+    pw = us.replace(seq=qt.SequenceRadial(type="PW", angles=np.arange(-10, 11, 5), c0=1540.0))
+    focus = np.array([[0.0], [0.0], [25e-3]])
+    fc = us.replace(seq=qt.Sequence(type="FC", focus=focus, c0=1540.0))
+    calls = {  # name: (call, kernel whose errors it adds to, tolerance)
+        "greens pallas (K5)": (lambda sc, **k: us.greens(sc, impl="pallas", device="cuda", **k),
+                               "greens_splat_k5", TOL),
+        "greens bf16 (K3(b))": (lambda sc, **k: us.greens(sc, precision="bf16", device="cuda",
+                                                          **k), "greens_freq_k3b", TOL_K3B),
+        "simus soft (K3(c))": (lambda sc, **k: us.simus(sc, device="cuda", **k),
+                               "greens_freq_k3c", TOL),
+        "simus hard (K3(c))": (lambda sc, **k: us.simus(sc, baffle="hard", device="cuda", **k),
+                               "greens_freq_k3c", TOL),
+        "calc_scat_all (K3(a))": (lambda sc, **k: us.calc_scat_all(sc, device="cuda", **k),
+                                  "greens_freq_k3", TOL),
+        "calc_scat_multi PW (K5)": (lambda sc, **k: pw.calc_scat_multi(
+            sc, impl="pallas", device="cuda", **k), "greens_splat_k5", TOL),
+        "calc_scat_multi PW bsize=1 (K5)": (lambda sc, **k: pw.calc_scat_multi(
+            sc, impl="pallas", bsize=1, device="cuda", **k), "greens_splat_k5", TOL),
+    }
+
+    gc.LAUNCHES = gfc.LAUNCHES = 0
+    for v in gfc.VARIANT_LAUNCHES:
+        gfc.VARIANT_LAUNCHES[v] = 0
+    t = time.perf_counter()
+    outs = {name: fn(speck) for name, (fn, _, _) in calls.items()}
+    hp = fc.calc_hp(device="cuda")
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"greens_splat_k5": gc.LAUNCHES, "greens_freq_k3": gfc.VARIANT_LAUNCHES["a"],
+                "greens_freq_k3b": gfc.VARIANT_LAUNCHES["b"],
+                "greens_freq_k3c": gfc.VARIANT_LAUNCHES["c"]}
+    print(f"phase10 simulator path ({', '.join(calls)}, calc_hp FC) on 10^4 scatterers: "
+          f"{t_path:.3f} s (first call); launches {launches}")
+    assert launches["greens_splat_k5"] == 3 and launches["greens_freq_k3b"] == 1 \
+        and launches["greens_freq_k3c"] >= 2 and launches["greens_freq_k3"] >= 1, launches
+
+    for name, (fn, kern, tol) in calls.items():
+        chd = outs[name]
+        assert chd.data.is_cuda and bool(torch.isfinite(chd.data).all()), name
+        ref, t_plain = _sync_s(torch, lambda: fn(speck, kernel="plain"))
+        if kern == "greens_freq_k3b":
+            ref_b = ref.data
+        a, r = errs[kern].add(chd.data, ref.data, f"phase10 {name}")
+        _, t_k = _sync_s(torch, lambda: fn(speck))
+        print(f"phase10 {name:32s} traces {tuple(chd.data.shape)} {chd.data.dtype}; vs "
+              f"plain: max_abs_err={a:.3e} rel={r:.3e}; wall (host clock, synchronised, "
+              f"warm) {t_k * 1e3:.3f} ms vs plain {t_plain * 1e3:.3f} ms")
+        assert r < tol, (name, r)
+    a, b = outs["calc_scat_multi PW (K5)"].data, outs["calc_scat_multi PW bsize=1 (K5)"].data
+    rb = float((a - b).abs().max()) / float(a.abs().max())
+    print(f"phase10 calc_scat_multi blocked (bsize=1) vs fused: rel={rb:.3e}")
+    assert rb < TOL, rb
+    ctl = _control(outs["calc_scat_all (K3(a))"].data, ref_b, "phase10 greens traces")
+
+    # calc_hp: finite, its peak at the focus, and on the card what it is on
+    # the CPU for a 64 x 64 subset of the scan
+    assert hp.is_cuda and hp.shape == tuple(us.scan.shape) + (1,) and bool(torch.isfinite(hp).all())
+    P = us.scan.positions().reshape(3, -1)
+    d = float(np.linalg.norm(P[:, int(hp.reshape(-1).argmax())] - focus[:, 0]))
+    sub = fc.replace(scan=qt.ScanCartesian(x=us.scan.x[::4], z=us.scan.z[::4]))
+    h_card, h_cpu = sub.calc_hp(device="cuda"), sub.calc_hp()
+    rh = float((h_card.cpu() - h_cpu).abs().max()) / float(h_cpu.abs().max())
+    _, t_hp = _sync_s(torch, lambda: fc.calc_hp(device="cuda"))
+    print(f"phase10 calc_hp FC (focus 25 mm) {tuple(hp.shape)}: peak {d * 1e3:.3f} mm from "
+          f"the focus; 64^2-pixel subset, card vs CPU rel={rh:.3e}; wall {t_hp * 1e3:.3f} ms")
+    assert d < 1.1e-3 and rh < TOL, (d, rh)
+
+    # the PSF oracle on the 5-target phantom, through us.DAS (K1)
+    for name in ("greens pallas (K5)", "greens bf16 (K3(b))", "simus soft (K3(c))",
+                 "simus hard (K3(c))", "calc_scat_all (K3(a))", "calc_scat_multi PW (K5)"):
+        sysm = pw if name.startswith("calc_scat_multi") else us
+        _psf(sysm, sysm.DAS(calls[name][0](scat5)), targets, name, "phase10")
+
+    # K3(c) alone at the simus call's shapes, against its plain version
+    ps, kern, pn, pv, kw = us._greens_problem(speck)
+    k0, F = _simus_band(us, kw["T"])
+    sl = np.float32(kw["fs"] / (kw["T"] * 1540.0))
+    q1, w1, s1, q2, w2, s2 = simus_prologue(
+        ps, speck.amp, pn[:, 0], np.zeros(128), pv[:, 0], np.zeros(128),
+        [us.tx.width, us.rx.width], sl, baffle="soft", device="cuda")
+    g = dict(k0=k0, F=F, s1=s1, s2=s2)
+    got = gfc.freq_gemm(q1, w1, q2, w2, **g)
+    ref = gfc.freq_gemm_plain(q1, w1, q2, w2, **g)
+    a, r = errs["greens_freq_k3c"].add(got, ref, "phase10 K3(c) GEMM")
+    k_ms = _ms(lambda: gfc.freq_gemm(q1, w1, q2, w2, **g))
+    p_ms = _ms(lambda: gfc.freq_gemm_plain(q1, w1, q2, w2, **g), reps=1)
+    print(f"phase10 K3(c) alone (S, N, M, F) = (10000, 128, 128, {F}), bins {k0}.."
+          f"{k0 + F}: max_abs_err={a:.3e} rel={r:.3e}; K3(c) {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms")
+    assert r < TOL, r
+    return launches, (k_ms, p_ms), ctl
+
+
+def phase11(torch, qt, gfc, errs):
+    """K3(b) and K3(c) at 10^5 scatterers x 128 x 128. Each kernel runs its
+    whole band; the plain version runs 32 bins of it, and its time is scaled
+    to the band. Returns {name: (ms, scaled plain ms)} and, under
+    'control', the K3(b) control reading on the 32 bins."""
+    from qups_tpu_torch.ops.greens_freq import host_plan, prologue
+    from qups_tpu_torch.ops.simus import simus_prologue
+
+    us, _, _ = _main_system(qt)
+    speck = _speckle(qt, 100_000, 11)
+    ps, kern, pn, pv, kw = us._greens_problem(speck)
+    plan = host_plan(kern, ps, pn, pv, T=kw["T"], s0=kw["s0"], t0k=kw["t0k"], fs=kw["fs"],
+                     cinv=kw["cinv"], fsr=kw["fsr"], rtol=0.0)
+    ops_b = prologue(plan["phc"], ps, speck.amp, pn, pv, R0=kw["R0"], fsr=kw["fsr"],
+                     device="cuda")
+    k0, F = _simus_band(us, kw["T"])
+    sl = np.float32(kw["fs"] / (kw["T"] * 1540.0))
+    q1, w1, s1, q2, w2, s2 = simus_prologue(
+        ps, speck.amp, pn[:, 0], np.zeros(128), pv[:, 0], np.zeros(128),
+        [us.tx.width, us.rx.width], sl, baffle="soft", device="cuda")
+    cases = {"greens_freq_k3b": (ops_b, dict(k0=plan["k0"], bf16=True), plan["k1"] - plan["k0"],
+                                 "greens bf16, full band"),
+             "greens_freq_k3c": ((q1, w1, q2, w2), dict(k0=k0, s1=s1, s2=s2), F,
+                                 "simus directivity, -60 dB band")}
+    out = {}
+    for name, (ops, g, F, what) in cases.items():
+        ms = _ms(lambda: gfc.freq_gemm(*ops, F=F, **g), reps=2)
+        sub = dict(g, k0=g["k0"] + F // 2, F=32)
+        got = gfc.freq_gemm(*ops, **sub)
+        ref, t_plain = _sync_s(torch, lambda: gfc.freq_gemm_plain(*ops, **sub))
+        a, r = errs[name].add(got, ref, f"phase11 {what}, 32 bins")
+        if g.get("bf16"):
+            ctl = _control(gfc.freq_gemm(*ops, **dict(sub, bf16=False)), ref,
+                           "phase11 GEMM, 32 bins")
+        plain_ms = t_plain * 1e3 * F / 32
+        flops = 8.0 * F * 100_000 * 128 * 128
+        print(f"phase11 {name} {what}: (S, N, M, F) = (100000, 128, 128, {F}): "
+              f"{ms:.3f} ms, {flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of complex MACs; plain "
+              f"on 32 bins {t_plain * 1e3:.3f} ms, scaled to the band {plain_ms:.3f} ms; "
+              f"32 bins vs plain: max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < (TOL_K3B if g.get("bf16") else TOL), (name, r)
+        out[name] = (ms, plain_ms)
+    out["control"] = ctl
+    ms32 = _ms(lambda: gfc.freq_gemm(*ops_b, F=plan["k1"] - plan["k0"], k0=plan["k0"]), reps=1)
+    print(f"phase11 K3(a) float32 operands on the same full band: {ms32:.3f} ms")
+    return out
+
+
 def main():
     import torch
 
@@ -622,7 +877,8 @@ def main():
     assert "jax" not in sys.modules
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4")
+    names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
+             "greens_freq_k3b", "greens_freq_k3c")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"])
@@ -633,12 +889,19 @@ def main():
     phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
     pw_launches = phase7(torch, qt, ops, errs)
     (k2_ms, k2_plain_ms), k4 = phase8(torch, ops, k1_ms, errs)
+    k5_ms, k5_plain_ms = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"])
+    sim_launches, k3c_path, ctl10 = phase10(torch, qt, ops, errs)
+    big = phase11(torch, qt, ops.greens_freq_cuda, errs)
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
-    # (phase 7) for K2 and K4
+    # (phase 7) for K2 and K4, the simulator path (phase 10) for K5 and
+    # K3's bf16 and directivity variants
     launches.update(das_lut_k2=pw_launches["das_lut_k2"],
-                    fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"])
+                    fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
+                    greens_splat_k5=sim_launches["greens_splat_k5"],
+                    greens_freq_k3b=sim_launches["greens_freq_k3b"],
+                    greens_freq_k3c=sim_launches["greens_freq_k3c"])
     rows = [
         ("das_k1", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:174",
          k1_ms["cubic"], k1_plain_ms, "1024^2 px x 256 tx x 256 rx, T 4096, cubic"),
@@ -651,6 +914,20 @@ def main():
         ("fdbf_adjoint_k4", "qups_tpu_torch/csrc/fdbf.cu", "qups_tpu/ops/fdbf_pallas.py:45",
          k4["bf16"][0], k4["bf16"][1], "1024^2 px x 256 rx x 256 tx x 256 pulses, "
          "64 bins, bf16"),
+        ("greens_splat_k5", "qups_tpu_torch/csrc/greens_splat.cu",
+         "qups_tpu/ops/greens_pallas.py:45", k5_ms, k5_plain_ms,
+         "the main path's deposit grid: 10^4 scatterers, 128 x 128 elements, cubic"),
+        ("greens_freq_k3b", "qups_tpu_torch/csrc/greens_freq.cu",
+         "qups_tpu/ops/greens_freq_pallas.py:41", *big["greens_freq_k3b"],
+         "bf16 operands: 10^5 scatterers, 128 x 128 elements, 1025 bins; plain "
+         f"timed on 32 bins and scaled; control K3(a) vs the bf16 plain version "
+         f"rel {big['control']:.3e} (phase 11), {ctl10:.3e} (phase 10 traces), "
+         f"limit {TOL_K3B:.0e}"),
+        ("greens_freq_k3c", "qups_tpu_torch/csrc/greens_freq.cu",
+         "qups_tpu/ops/greens_freq_pallas.py:41", *big["greens_freq_k3c"],
+         f"sinc directivity: 10^5 scatterers, 128 x 128 elements, simus's bins; plain "
+         f"timed on 32 bins and scaled (10^4 scatterers: {k3c_path[0]:.3f} ms vs "
+         f"plain {k3c_path[1]:.3f} ms)"),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

@@ -42,6 +42,9 @@ def from_reference(obj, _memo=None):
     ``Sequence*``, ``Scan*``, ``Scatterers``, ``Waveform``, ``ChannelData``
     or ``UltrasoundSystem``. Shared sub-objects stay shared (a system whose
     ``tx is rx`` keeps that). A ``ChannelData``'s traces land on the CPU.
+    Any sequence type (the FC sequence of ``calc_hp`` among them) and any
+    waveform (its function is carried as it is, a complex pulse too) come
+    across.
 
     Example:
         import qups_tpu, qups_tpu_torch

@@ -5,8 +5,10 @@ from .das_cuda import Fused, das_lut_sum, das_lut_sum_plain, das_sum, das_sum_pl
 from .fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
 from .fdbf_cuda import bf_adjoint_cuda
 from .greens import greens_dense, greens_splat
+from .greens_cuda import greens_tiled, splat, splat_plain
 from .greens_freq import greens_freq
 from .greens_freq_cuda import freq_gemm, freq_gemm_plain
+from .simus import simus_fsa
 
 __all__ = [
     "interp1", "interpd", "wsinterpd", "wsinterpd2", "convd", "conv_lag0",
@@ -14,5 +16,6 @@ __all__ = [
     "das_sum", "das_sum_plain", "das_lut_sum", "das_lut_sum_plain",
     "bf_adjoint", "focus_tx_freq", "geom_delays", "select_fbins",
     "bf_adjoint_cuda", "greens_dense", "greens_splat", "greens_freq",
-    "freq_gemm", "freq_gemm_plain",
+    "freq_gemm", "freq_gemm_plain", "greens_tiled", "splat", "splat_plain",
+    "simus_fsa",
 ]

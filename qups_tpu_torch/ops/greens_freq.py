@@ -123,9 +123,13 @@ def synth(G: torch.Tensor, Kf: np.ndarray, *, L: int, k0: int,
     return torch.fft.irfft(full, n=L, dim=0)[:T]
 
 
+PRECISIONS = ("highest", "default", "bf16")
+
+
 def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
                 fs: float, cinv, R0: float, fsr: float = 1.0,
-                rtol: float = 1e-6, alpha0: float = 0.0, kernel: str = "auto",
+                rtol: float = 1e-6, precision: str = "highest",
+                alpha0: float = 0.0, kernel: str = "auto",
                 device="cpu") -> torch.Tensor:
     """Frequency-domain FSA Green's-function simulation on ``device``.
 
@@ -135,6 +139,11 @@ def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
     tx sub-element positions.
 
     ``rtol``: kernel-spectrum bins below ``rtol * max`` are dropped;
+    ``precision``: 'highest' and 'default' run the GEMM in float32 (the JAX
+    package's XLA engine on the CPU runs ``Precision.DEFAULT`` in float32
+    too); 'bf16' rounds each GEMM operand to bfloat16 after the sub-element
+    sum, as the JAX package's ``block_gemm_scan`` does, and sums in float32
+    (sub-slice K3(b)).
     ``alpha0``: frequency-linear absorption [dB/cm/MHz] over both legs.
     ``kernel``: 'auto' runs K3 on a CUDA device and the plain GEMM on the
     CPU; 'cuda' requires K3; 'plain' runs the plain GEMM on any device.
@@ -144,6 +153,8 @@ def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
     """
     if kernel not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown kernel {kernel!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected {PRECISIONS}")
     device = torch.device(device)
     if kernel == "cuda" and device.type != "cuda":
         raise ValueError("kernel='cuda' needs a CUDA device")
@@ -158,7 +169,8 @@ def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
     def gpass(a_real):
         q1, w1, q2, w2 = prologue(plan["phc"], plan["ps"], a_real, plan["pn"],
                                   plan["pv"], R0=R0, fsr=fsr, device=device)
-        return gemm(q1, w1, q2, w2, k0=k0, F=k1 - k0, att=att)
+        return gemm(q1, w1, q2, w2, k0=k0, F=k1 - k0, att=att,
+                    bf16=precision == "bf16")
 
     amp = np.asarray(amp)
     Kr, Ki = plan["Kr"], plan["Ki"]

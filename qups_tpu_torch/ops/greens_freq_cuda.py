@@ -1,15 +1,21 @@
 """K3: the frequency-domain Green's-function GEMM, hand-written CUDA for Hopper.
 
 Replaces the TPU kernel ``qups_tpu/ops/greens_freq_pallas.py::_kernel``
-(launched by ``_gf_call``, public entry ``freq_gemm_pallas``): per DFT bin
-k of the synthesis band, the complex GEMM
+(launched by ``_gf_call``, public entries ``freq_gemm_pallas`` and
+``simus_spectrum_pallas``): per DFT bin k of the synthesis band, the complex
+GEMM
 
     G[k, n, m] = sum_s A_k[s, n] B_k[s, m],
-    A_k[s, n]  = sum_e w1 exp(-att k q1) e^{-i 2 pi frac(k q1)}   (and B_k alike)
+    A_k[s, n]  = D1 sum_e w1 exp(-att k q1) e^{-i 2 pi frac(k q1)}   (and B_k alike)
 
 with ``q = cinv fs r / L`` and ``w`` from
-:func:`qups_tpu_torch.ops.greens_freq.prologue`. The source is
-``csrc/greens_freq.cu``, built and loaded by :mod:`qups_tpu_torch.ops._nvcc`.
+:func:`qups_tpu_torch.ops.greens_freq.prologue` (or
+:func:`qups_tpu_torch.ops.simus.simus_prologue`). Sub-slices: K3(a) the
+float32 GEMM (``D = 1``); K3(b) ``bf16=True``, each operand rounded to
+bfloat16 after the sub-element sum and the directivity, float32 sums;
+K3(c) the element directivity ``D = sinc(s k)`` from slopes ``s1 (S, N)``,
+``s2 (S, M)``. The source is ``csrc/greens_freq.cu``, built and loaded by
+:mod:`qups_tpu_torch.ops._nvcc`.
 
 :func:`freq_gemm` launches the kernel for CUDA tensors, and raises if the
 kernel cannot be built or launched; it never falls back. For CPU tensors it
@@ -20,14 +26,19 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _nvcc
 from ..utils.backend import is_cuda
 
 LAUNCHES = 0  # K3 launches in this process
+# the same launches by sub-slice: 'a' float32, 'b' bf16 operands, 'c' the
+# directivity, 'bc' both
+VARIANT_LAUNCHES = {"a": 0, "b": 0, "c": 0, "bc": 0}
 
 _TWO_PI = 6.283185307179586
+_PI_F32 = float(np.float32(np.pi))  # the float32 pi of the TPU kernel's sinc
 
 
 def build():
@@ -36,29 +47,52 @@ def build():
     failure."""
     lib, log = _nvcc.load("greens_freq")
     fn = lib.freq_gemm_k3
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, log
 
 
-def _phasors(q: torch.Tensor, w: torch.Tensor, k: torch.Tensor, att: float):
-    """(B, S, E') complex64 phasors summed over sub-elements for the bins
-    ``k (B,)``: sum_e w exp(-att k q) e^{-i 2 pi frac(k q)}."""
+def sinc(x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's sinc: ``sin(pi x) / (pi x)``, 1 where
+    ``|pi x| < 1e-6``."""
+    px = _PI_F32 * x
+    return torch.where(px.abs() < 1e-6, torch.ones_like(px), torch.sin(px) / px)
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).to(torch.float32)
+
+
+def _phasors(q: torch.Tensor, w: torch.Tensor, k: torch.Tensor, att: float,
+             s=None, bf16: bool = False):
+    """(B, S, E') complex64 operands for the bins ``k (B,)``: the phasors
+    summed over sub-elements, sum_e w exp(-att k q) e^{-i 2 pi frac(k q)},
+    times ``sinc(s k)`` when ``s (S, E')`` is given, rounded to bfloat16
+    with ``bf16``; in K3's order."""
     kk = k.reshape(-1, 1, 1, 1)
     u = kk * q[None]
     th = (u - torch.floor(u)) * _TWO_PI
     mag = w[None] if not att else w[None] * torch.exp((-att * kk) * q[None])
-    return torch.complex(torch.sum(mag * torch.cos(th), dim=-1),
-                         -torch.sum(mag * torch.sin(th), dim=-1))
+    re = torch.sum(mag * torch.cos(th), dim=-1)
+    im = -torch.sum(mag * torch.sin(th), dim=-1)
+    if s is not None:
+        g = sinc(s[None] * k.reshape(-1, 1, 1))
+        re, im = re * g, im * g
+    if bf16:
+        re, im = _bf16(re), _bf16(im)
+    return torch.complex(re, im)
 
 
 def freq_gemm_plain(q1: torch.Tensor, w1: torch.Tensor, q2: torch.Tensor,
                     w2: torch.Tensor, *, k0: int, F: int, att: float = 0.0,
+                    s1=None, s2=None, bf16: bool = False,
                     max_elems: int = 1 << 24) -> torch.Tensor:
     """The plain PyTorch version of K3: ``G (F, N, M)`` complex64 on the
-    device of ``q1``, bins ``k0 .. k0+F-1``. The bins go in blocks so that
-    at most about ``max_elems`` phasor terms are live at once."""
+    device of ``q1``, bins ``k0 .. k0+F-1``, with the same options as
+    :func:`freq_gemm`. The bins go in blocks so that at most about
+    ``max_elems`` phasor terms are live at once. The products run in float32
+    (a bf16 operand times a bf16 operand is exact in float32)."""
     S, N, E1 = q1.shape
     M, E2 = q2.shape[1:]
     dev = q1.device
@@ -68,25 +102,30 @@ def freq_gemm_plain(q1: torch.Tensor, w1: torch.Tensor, q2: torch.Tensor,
     for f0 in range(0, F, FB):
         f1 = min(F, f0 + FB)
         k = torch.arange(k0 + f0, k0 + f1, dtype=torch.float32, device=dev)
-        A = _phasors(q1, w1, k, att)  # (B, S, N)
-        B = _phasors(q2, w2, k, att)  # (B, S, M)
+        A = _phasors(q1, w1, k, att, s1, bf16)  # (B, S, N)
+        B = _phasors(q2, w2, k, att, s2, bf16)  # (B, S, M)
         out[f0:f1] = torch.bmm(A.transpose(1, 2), B)
     return out
 
 
 def freq_gemm(q1: torch.Tensor, w1: torch.Tensor, q2: torch.Tensor,
-              w2: torch.Tensor, *, k0: int, F: int,
-              att: float = 0.0) -> torch.Tensor:
+              w2: torch.Tensor, *, k0: int, F: int, att: float = 0.0,
+              s1=None, s2=None, bf16: bool = False) -> torch.Tensor:
     """Geometry spectrum ``G (F, N, M)`` complex64 for bins k0 .. k0+F-1.
 
     ``q1, w1``: (S, N, E1) float32 receive phase slopes and weights;
     ``q2, w2``: (S, M, E2) the transmit side, amplitudes folded in;
-    ``att``: attenuation in nepers per unit q per bin. On CUDA tensors this
+    ``att``: attenuation in nepers per unit q per bin; ``s1 (S, N)``,
+    ``s2 (S, M)`` (both or neither): sinc directivity slopes per bin, K3(c);
+    ``bf16``: round the operands to bfloat16, K3(b). On CUDA tensors this
     launches K3; on CPU tensors it runs :func:`freq_gemm_plain`.
     """
     global LAUNCHES
+    if (s1 is None) != (s2 is None):
+        raise ValueError("K3 takes both directivity slopes s1, s2 or neither")
     if not is_cuda(q1):
-        return freq_gemm_plain(q1, w1, q2, w2, k0=k0, F=F, att=att)
+        return freq_gemm_plain(q1, w1, q2, w2, k0=k0, F=F, att=att, s1=s1,
+                               s2=s2, bf16=bf16)
     ops = (q1, w1, q2, w2)
     if any(t.dtype != torch.float32 or t.ndim != 3 or t.device != q1.device
            for t in ops):
@@ -95,16 +134,26 @@ def freq_gemm(q1: torch.Tensor, w1: torch.Tensor, q2: torch.Tensor,
     M, E2 = q2.shape[1:]
     if w1.shape != q1.shape or w2.shape != q2.shape or q2.shape[0] != S:
         raise ValueError(f"K3 operands disagree: {[tuple(t.shape) for t in ops]}")
+    dirs = ()
+    if s1 is not None:
+        if any(not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+               or t.device != q1.device for t in (s1, s2)) \
+                or s1.shape != (S, N) or s2.shape != (S, M):
+            raise ValueError("K3 directivity slopes are float32 (S, N) and "
+                             "(S, M) on the operands' device")
+        dirs = (s1.contiguous(), s2.contiguous())
     if max(S, N, M, F) >= 2**31 or not math.isfinite(att):
         raise ValueError("K3 sizes must fit int32 and att must be finite")
     q1, w1, q2, w2 = (t.contiguous() for t in ops)
     dev = q1.device
     out = torch.empty((F, N, M), dtype=torch.complex64, device=dev)
     fn, _ = build()
-    rc = fn(q1.data_ptr(), w1.data_ptr(), q2.data_ptr(), w2.data_ptr(),
+    sp = (dirs[0].data_ptr(), dirs[1].data_ptr()) if dirs else (None, None)
+    rc = fn(q1.data_ptr(), w1.data_ptr(), q2.data_ptr(), w2.data_ptr(), *sp,
             out.data_ptr(), S, N, M, E1, E2, int(k0), int(F), float(att),
-            *_nvcc.stream_args(dev))
+            int(bool(bf16)), *_nvcc.stream_args(dev))
     if rc != 0:
         raise RuntimeError(f"K3 launch failed with cudaError {rc}")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[("b" if bf16 else "") + ("c" if dirs else "") or "a"] += 1
     return out

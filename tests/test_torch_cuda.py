@@ -1,11 +1,14 @@
-"""Kernels K1-K4 on a CUDA card: K1 against its plain PyTorch version for
+"""Kernels K1-K5 on a CUDA card: K1 against its plain PyTorch version for
 every transmit model and sampler, real and complex; K2 against das_lut for
-every sampler, real and complex; K3 against its plain version; K4 against
-bf_adjoint for every keep mode and precision; the sim→image path
-greens → DAS and the plane-wave path greens → focusTx → DAS / bfDAS /
-per-pixel-c DAS / bfAdjoint on CUDA tensors; and NotImplementedError for
-every option a kernel does not carry yet. Every test here needs the card
-and skips without one.
+every sampler, real and complex; K3 against its plain version, with its
+bf16 operands (K3(b)) and its sinc directivity (K3(c)); K4 against
+bf_adjoint for every keep mode and precision; K5 against splat_plain for
+both bases, sub-elements and a complex kernel; the sim→image path
+greens → DAS, the plane-wave path greens → focusTx → DAS / bfDAS /
+per-pixel-c DAS / bfAdjoint and the simulator family (greens pallas and
+bf16, simus, calc_scat_multi, calc_hp) on CUDA tensors; and
+NotImplementedError for every option a kernel does not carry yet. Every
+test here needs the card and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -17,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import qups_tpu_torch as qt  # noqa: E402
-from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_freq_cuda  # noqa: E402
+from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_cuda, greens_freq_cuda  # noqa: E402
 from qups_tpu_torch.ops.fdbf import bf_adjoint  # noqa: E402
 from qups_tpu_torch.ops.greens_freq import prologue  # noqa: E402
 from qups_tpu_torch.ops.interp import METHODS  # noqa: E402
@@ -28,7 +31,7 @@ CINV = np.float32(1 / 1540.0)
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("K1-K4 are CUDA C++; they run only on a CUDA device")
+        pytest.skip("K1-K5 are CUDA C++; they run only on a CUDA device")
     return torch.device("cuda")
 
 
@@ -238,3 +241,120 @@ def test_plane_wave_path_on_card(card):
                lambda: us.bfDAS(rf, precision="bf16pair")):
         with pytest.raises(NotImplementedError, match="K2"):
             fn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("directivity", [False, True], ids=["plain", "sinc"])
+def test_k3_variants_match_plain(card, directivity, bf16):
+    """K3(b) (bf16 operands) and K3(c) (sinc directivity) against the plain
+    version at bf16 and f32: 130 x 70 elements leave partial tiles. K3(b)'s
+    limit, 2e-4, is one that K3(a) against the bf16 plain version fails."""
+    from qups_tpu_torch.ops.simus import simus_prologue
+
+    rng = np.random.default_rng(45)
+    S = 300
+    ps = np.stack([rng.uniform(-5e-3, 5e-3, S), np.zeros(S), rng.uniform(10e-3, 30e-3, S)], -1)
+    pn = np.stack([np.linspace(-10e-3, 10e-3, 130), np.zeros(130), np.zeros(130)], -1)
+    pv = pn[:70]
+    q1, w1, s1, q2, w2, s2 = simus_prologue(ps, rng.uniform(0.5, 1.5, S), pn, np.zeros(130),
+                                            pv, np.zeros(70), [0.3e-3, 0.3e-3],
+                                            np.float32(20e6 / (4096 * 1540.0)),
+                                            baffle="soft", device=card)
+    kw = dict(k0=40, F=300, bf16=bf16, att=1e-3,
+              **(dict(s1=s1, s2=s2) if directivity else {}))
+    before = greens_freq_cuda.LAUNCHES
+    got = greens_freq_cuda.freq_gemm(q1, w1, q2, w2, **kw)
+    torch.cuda.synchronize()
+    assert greens_freq_cuda.LAUNCHES == before + 1
+    ref = greens_freq_cuda.freq_gemm_plain(q1, w1, q2, w2, **kw)
+    tol = 2e-4 if bf16 else 1e-4
+    assert float((got - ref).abs().max()) < tol * float(ref.abs().max())
+    if bf16:  # the control: float32 operands are told apart from bf16 ones
+        f32 = greens_freq_cuda.freq_gemm(q1, w1, q2, w2, **dict(kw, bf16=False))
+        assert float((f32 - ref).abs().max()) > tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("case", ["real", "complex_kernel", "subelements"])
+def test_k5_matches_plain(card, case, method):
+    """K5's grid against splat_plain on the same plan (several rx lane
+    blocks, partial tile blocks), then greens_tiled's traces through K5
+    against kernel='plain'."""
+    from qups_tpu_torch.ops.greens_cuda import greens_tiled, plan_tiled
+
+    rng = np.random.default_rng(46)
+    S, N, M, fs, c0, K = 700, 150, 6, 30e6, 1540.0, 41
+    kern = (np.hanning(K) * np.sin(2 * np.pi * 5e6 * np.arange(K) / fs)).astype(np.float32)
+    if case == "complex_kernel":
+        kern = kern * np.exp(1j * np.linspace(0, 2, K)).astype(np.complex64)
+    ps = np.stack([rng.uniform(-8e-3, 8e-3, S), np.zeros(S), rng.uniform(8e-3, 30e-3, S)], -1)
+    amp = rng.uniform(0.5, 1.5, S)
+    pn = np.stack([np.linspace(-15e-3, 15e-3, N), np.zeros(N), np.zeros(N)], -1)[:, None]
+    pv = np.stack([np.linspace(-5e-3, 5e-3, M), np.zeros(M), np.zeros(M)], -1)[:, None]
+    if case == "subelements":
+        pn = np.concatenate([pn - [1e-4, 0, 0], pn + [1e-4, 0, 0]], axis=1)
+    kw = dict(T=1200, s0=2 * 7e-3 / c0, t0k=-K / 2 / fs, fs=fs, cinv=1 / c0, R0=3e-4,
+              method=method, CS=128)
+    plan = plan_tiled(kern, ps, amp, pn, pv, **kw)
+    t = {k: torch.as_tensor(plan[k], device=card) for k in ("lo", "nc", "scat", "ofs_pad")}
+    args = (t["lo"], t["nc"], t["scat"], torch.as_tensor(plan["pn"][-1], device=card),
+            t["ofs_pad"], torch.as_tensor(plan["pv"][0], device=card))
+    before = greens_cuda.LAUNCHES
+    got = greens_cuda.splat(*args, **plan["st"])
+    torch.cuda.synchronize()
+    assert greens_cuda.LAUNCHES == before + 1
+    ref = greens_cuda.splat_plain(*args, **plan["st"])
+    assert got.shape == ref.shape and got.shape[2] == 256
+    assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+    again = greens_cuda.splat(*args, **plan["st"])
+    assert torch.equal(again, got)  # no atomics: runs repeat bit for bit
+    x = greens_tiled(kern, ps, amp, pn, pv, device=card, **kw)
+    xp = greens_tiled(kern, ps, amp, pn, pv, device=card, kernel="plain", **kw)
+    assert x.is_cuda and x.dtype == xp.dtype and x.shape == (1200, N, M)
+    assert float((x - xp).abs().max()) < 1e-4 * float(xp.abs().max())
+
+
+@pytest.mark.cuda
+def test_simulators_on_card(card):
+    """The simulator family through the port's entry points on CUDA tensors,
+    each against kernel='plain': greens pallas (K5) and bf16 (K3(b)), simus
+    (K3(c)) with both baffles, calc_scat_multi blocked vs fused, calc_hp."""
+    xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=16),
+        scan=qt.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 32),
+                              z=np.linspace(16e-3, 24e-3, 32)))
+    target = np.array([0.0, 0.0, 20e-3])
+    scat = qt.Scatterers(pos=target[:, None], c0=1540.0)
+    P = us.scan.positions().reshape(3, -1)
+    calls = {"pallas": (dict(impl="pallas"), greens_cuda, 1e-4),
+             "bf16": (dict(precision="bf16"), greens_freq_cuda, 2e-4)}
+    for name, (kw, mod, tol) in calls.items():
+        before = mod.LAUNCHES
+        chd = us.greens(scat, device=card, **kw)
+        assert mod.LAUNCHES == before + 1, name
+        ref = us.greens(scat, device=card, kernel="plain", **kw)
+        assert float((chd.data - ref.data).abs().max()) < tol * float(ref.data.abs().max())
+        if name == "bf16":  # the control: K3(a)'s traces fail K3(b)'s limit
+            f32 = us.greens(scat, device=card).data
+            assert float((f32 - ref.data).abs().max()) > tol * float(ref.data.abs().max())
+        b = us.DAS(chd)
+        assert np.linalg.norm(P[:, int(b.abs().reshape(-1).argmax())] - target) < 1.1e-3
+    for baffle in ("soft", "hard"):
+        before = greens_freq_cuda.LAUNCHES
+        chd = us.simus(scat, baffle=baffle, device=card)
+        assert greens_freq_cuda.LAUNCHES == before + 1 and chd.data.is_cuda
+        ref = us.simus(scat, baffle=baffle, device=card, kernel="plain")
+        assert float((chd.data - ref.data).abs().max()) < 1e-4 * float(ref.data.abs().max())
+    pw = us.replace(seq=qt.SequenceRadial(type="PW", angles=np.array([-5.0, 0.0, 5.0]),
+                                          c0=1540.0))
+    a = pw.calc_scat_multi(scat, impl="pallas", device=card)
+    b = pw.calc_scat_multi(scat, impl="pallas", device=card, bsize=1)
+    assert a.data.is_cuda and float((a.data - b.data).abs().max()) \
+        < 1e-5 * float(a.data.abs().max())
+    fc = us.replace(seq=qt.Sequence(type="FC", focus=target[:, None], c0=1540.0))
+    hp = fc.calc_hp(device=card)
+    hpc = fc.calc_hp()
+    assert hp.is_cuda and float((hp.cpu() - hpc).abs().max()) < 1e-4 * float(hpc.max())

@@ -11,7 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from qups_tpu.ops.greens_freq import _freq_gemm, _host_plan  # noqa: E402
 from qups_tpu.ops.greens_freq import greens_freq as greens_freq_ref  # noqa: E402
-from qups_tpu.ops.greens_freq_pallas import freq_gemm_pallas  # noqa: E402
+from qups_tpu.ops.greens_freq_pallas import _gf_call, freq_gemm_pallas  # noqa: E402
 from qups_tpu_torch.ops import greens_freq_cuda  # noqa: E402
 from qups_tpu_torch.ops.greens_freq import greens_freq, host_plan, prologue  # noqa: E402
 
@@ -109,6 +109,51 @@ def test_greens_freq_resampled_kernel_and_attenuation():
     assert _rel(got.numpy(), ref) < 1e-4
     lossless = greens_freq(k2, ps, amp, pn, pv, **kw)
     assert float(got.abs().max()) < 0.9 * float(lossless.abs().max())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_gemm_directivity_matches_pallas_kernel(bf16):
+    """K3(c), and K3(b) with it: the plain K3 with sinc slopes s1, s2 (and
+    bf16 operands) against the TPU kernel's has_dir variant in interpret
+    mode, on the same operands. bf16: 5e-3 (a torch.sin and an XLA sin that
+    differ by an ulp can round to neighbouring bf16 values)."""
+    rng = np.random.default_rng(50)
+    S, N, M, k0, F = 21, 6, 5, 30, 40
+    q1 = rng.uniform(0, 0.05, (S, N)).astype(np.float32)
+    q2 = rng.uniform(0, 0.05, (S, M)).astype(np.float32)
+    w1 = rng.uniform(0.5, 1.5, (S, N)).astype(np.float32)
+    w2 = rng.uniform(0.5, 1.5, (S, M)).astype(np.float32)
+    s1 = rng.uniform(-0.02, 0.02, (S, N)).astype(np.float32)
+    s2 = rng.uniform(-0.02, 0.02, (S, M)).astype(np.float32)
+    G = np.asarray(_gf_call(*(jnp.asarray(a) for a in (q1.T, w1.T, q2, w2, s1.T, s2)),
+                            F=F, FB=8, SC=128, k0=k0, bf16=bf16, interpret=True))
+    t = [torch.as_tensor(a) for a in (q1, w1, q2, w2, s1, s2)]
+    got = greens_freq_cuda.freq_gemm_plain(t[0][..., None], t[1][..., None],
+                                           t[2][..., None], t[3][..., None], k0=k0,
+                                           F=F, s1=t[4], s2=t[5], bf16=bf16)
+    assert _rel(got.numpy(), G[..., 0] + 1j * G[..., 1]) < (5e-3 if bf16 else 1e-4)
+    plain = greens_freq_cuda.freq_gemm(t[0][..., None], t[1][..., None],
+                                       t[2][..., None], t[3][..., None], k0=k0, F=F)
+    assert float((got - plain).abs().max()) > 1e-3 * float(plain.abs().max())
+    with pytest.raises(ValueError, match="both"):
+        greens_freq_cuda.freq_gemm(t[0][..., None], t[1][..., None], t[2][..., None],
+                                   t[3][..., None], k0=k0, F=F, s1=t[4])
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_greens_freq_bf16_matches_reference(engine):
+    """K3(b): greens_freq(precision='bf16') in both packages, rel-norm
+    < 5e-3 (tests/test_greens_freq.py:186's bound); 'default' is the float32
+    result."""
+    kern, ps, amp, pn, pv, kw = problem(S=11)
+    ref = np.asarray(greens_freq_ref(kern, ps, amp, pn, pv, engine=engine,
+                                     precision="bf16", **kw))
+    got = greens_freq(kern, ps, amp, pn, pv, precision="bf16", **kw).numpy()
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 5e-3
+    f32 = greens_freq(kern, ps, amp, pn, pv, **kw)
+    assert torch.equal(greens_freq(kern, ps, amp, pn, pv, precision="default", **kw), f32)
+    with pytest.raises(ValueError, match="precision"):
+        greens_freq(kern, ps, amp, pn, pv, precision="tf32", **kw)
 
 
 def test_wrapper_on_cpu_runs_plain():

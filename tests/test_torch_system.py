@@ -3,7 +3,9 @@ UltrasoundSystem.greens → DAS in qups_tpu and in qups_tpu_torch (with the
 splat, which 'auto' picks on the CPU, and with the frequency-domain engine,
 which 'auto' picks on a CUDA card), the point-spread-function check,
 transmit streaming (bsize), the plane-wave demo flow greens → focusTx →
-DAS / bfDAS / bfAdjoint, and what raises on the CPU (on a CUDA card:
+DAS / bfDAS / bfAdjoint, the docstring examples (the simulator family's
+among them; its comparisons with qups_tpu are in test_torch_simus.py and
+test_torch_greens_tiled.py), and what raises on the CPU (on a CUDA card:
 test_torch_cuda.py)."""
 import inspect
 import re
@@ -108,8 +110,8 @@ def test_scope_raises_on_cpu(fsa):
     ust, chdt, scatt = fsa["ust"], fsa["chdt"], fsa["scatt"]
     with pytest.raises(ValueError, match="CUDA"):
         ust.DAS(chdt, kernel="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ust.greens(scatt, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        ust.greens(scatt, impl="pallas", kernel="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         ust.greens(scatt, impl="freq", kernel="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -154,7 +156,8 @@ def _port_docs():
     for obj in (qt.UltrasoundSystem.greens, qt.UltrasoundSystem.DAS,
                 qt.UltrasoundSystem.focusTx, qt.UltrasoundSystem.bfDAS,
                 qt.UltrasoundSystem.bfDASLUT, qt.UltrasoundSystem.bfAdjoint,
-                from_reference):
+                qt.UltrasoundSystem.simus, qt.UltrasoundSystem.calc_scat_multi,
+                qt.UltrasoundSystem.calc_hp, from_reference):
         ex = inspect.getdoc(obj).split("Example:", 1)[1]
         out.append((obj.__qualname__, textwrap.dedent(ex)))
     return out

@@ -16,7 +16,12 @@ Traces, with ``torch.profiler`` (CUDA activity), three things:
 4. the plane-wave demo path (``examples/demo_imaging.py``'s system and
    phantom: L11-5v, 5 plane waves, 256 x 256 pixels, 20 targets):
    ``us.greens`` (K3, then focusTx), ``us.DAS`` (K1), ``us.bfDAS`` (K2) and
-   ``us.bfAdjoint`` (K4), 3 runs after a warm-up, then each call alone.
+   ``us.bfAdjoint`` (K4), 3 runs after a warm-up, then each call alone;
+5. the simulator path of ``chip_smoke.py`` phase 10 (the main system, 10^4
+   speckle scatterers): ``greens(impl='pallas')`` (K5), ``greens(precision=
+   'bf16')`` (K3(b)), ``simus`` (K3(c)), ``calc_scat_all`` (K3),
+   ``calc_scat_multi`` with 5 plane waves (K5) and ``calc_hp`` with a
+   focused transmit, 2 runs after a warm-up, then each call alone.
 
 Prints a summary and writes the profiler tables to ``--out``. Imports torch,
 numpy and the port, never JAX.
@@ -90,10 +95,10 @@ def main():
     sys.path.insert(0, ROOT)
     import bench  # numpy-only at import
     import qups_tpu_torch as qt
-    from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_freq_cuda
+    from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_cuda, greens_freq_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    for mod in (das_cuda, greens_freq_cuda, fdbf_cuda):
+    for mod in (das_cuda, greens_freq_cuda, fdbf_cuda, greens_cuda):
         mod.build()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     report = open(args.out, "w")
@@ -176,6 +181,39 @@ def main():
         say(f"    alone: {name:15s} host wall {wall * 1e3:9.3f} ms, device busy "
             f"{busy / 1e3:9.3f} ms ({100 * busy / 1e6 / wall:.1f} %); top: "
             + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms, _ in top(ka, 3, k=3)))
+
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=128),
+        scan=qt.ScanCartesian(x=np.linspace(-15e-3, 15e-3, 256),
+                              z=np.linspace(5e-3, 45e-3, 256)))
+    rng = np.random.default_rng(10)
+    S = 10_000
+    speck = qt.Scatterers(pos=np.stack([rng.uniform(-15e-3, 15e-3, S), np.zeros(S),
+                                        rng.uniform(5e-3, 45e-3, S)]),
+                          amp=rng.standard_normal(S), c0=1540.0)
+    pw = us.replace(seq=qt.SequenceRadial(type="PW", angles=np.arange(-10, 11, 5), c0=1540.0))
+    fc = us.replace(seq=qt.Sequence(type="FC", focus=np.array([[0.0], [0.0], [25e-3]]),
+                                    c0=1540.0))
+    sims = (("greens pallas", lambda: us.greens(speck, impl="pallas", device="cuda")),
+            ("greens bf16", lambda: us.greens(speck, precision="bf16", device="cuda")),
+            ("simus", lambda: us.simus(speck, device="cuda")),
+            ("calc_scat_all", lambda: us.calc_scat_all(speck, device="cuda")),
+            ("calc_scat_multi", lambda: pw.calc_scat_multi(speck, impl="pallas",
+                                                           device="cuda")),
+            ("calc_hp", lambda: fc.calc_hp(device="cuda")))
+    full, ka, wall, busy = profile(torch, lambda: [fn() for _, fn in sims], 2)
+    say(f"[5] simulator path (L11-5v FSA, 10^4 scatterers; {', '.join(n for n, _ in sims)}): "
+        f"host wall {wall * 1e3:.3f} ms/run, device busy {busy / 1e3:.3f} ms/run "
+        f"({100 * busy / 1e6 / wall:.1f} % of wall)")
+    for name, ms, calls in top(ka, 2, k=16):
+        say(f"    {ms:10.3f} ms/run {100 * ms * 1e3 / max(busy, 1e-9):6.1f} %  "
+            f"x{calls:g}  {name}")
+    report.write(full.table(sort_by="self_cuda_time_total", row_limit=30) + "\n")
+    for name, fn in sims:
+        _, ka, wall, busy = profile(torch, fn, 2)
+        say(f"    alone: {name:15s} host wall {wall * 1e3:9.3f} ms, device busy "
+            f"{busy / 1e3:9.3f} ms ({100 * busy / 1e6 / wall:.1f} %); top: "
+            + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms, _ in top(ka, 2, k=3)))
     report.close()
     card = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read()
     print(f"card: {card.strip()}; tables in {args.out}")
