@@ -14,15 +14,19 @@ and K5 (``qups_tpu_torch/csrc/greens_splat.cu``, the time-domain splat
 simulator) with nvcc, one process per source, all at once, and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
-   nvcc version, kernel build times;
+   nvcc version, kernel build times, ptxas registers and spills, and the
+   tensor-core instructions (HMMA / HGMMA, from ``cuobjdump -sass``) in the
+   bf16 variants of K3 and K4;
 1. K1 against its plain PyTorch version on the card, for every transmit
    model x sampler, real and complex traces, with delays that fall off both
    ends of the traces;
 2. K3 against its plain version at the shapes the main path gives it, and
-   on a 4096-scatterer cloud;
+   on a 4096-scatterer cloud; at the main path's shapes its bound and a
+   cuBLAS yardstick;
 3. the main path at a realistic size, unmodified: an L11-5v FSA system (128
-   elements, 256 x 256 pixels), ``us.DAS(us.greens(scat, device="cuda"))``,
-   which runs K3 and then K1 on the complex traces, with the
+   elements, 256 x 256 pixels), ``us.DAS(us.greens(scat))`` with no
+   ``device=`` (the simulators default to the card), which runs K3 and then
+   K1 on the complex traces, with the
    point-spread-function check (each target's peak within 1.1 mm) and the
    comparison with the same path through the plain versions; also that
    every option the kernels do not carry yet raises ``NotImplementedError``
@@ -34,14 +38,16 @@ simulator) with nvcc, one process per source, all at once, and runs:
    samples, with delays off both ends of the traces;
 6. K4 against its plain version for keep '', 'rx' and 'tx', precision
    'f32' and 'bf16', with 5 plane waves and with 128 FSA transmits, on the
-   bins of a -40 dB band;
+   bins of a -40 dB band; and the phase error of its phasors (the special
+   function unit's sincos) against the accurate sincosf;
 7. the plane-wave imaging demo (``examples/demo_imaging.py``'s system and
    phantom) unmodified: ``us.greens(scat, device="cuda")`` (K3, then
    focusTx), ``us.DAS`` (K1), ``us.bfDAS`` and ``us.DAS`` with a sound-speed
    map (K2), ``us.bfAdjoint`` bf16 and f32 (K4), each with the PSF check and
    the comparison with ``kernel='plain'``; and that every option K2 and K4
    do not carry yet raises ``NotImplementedError``;
-8. K2 and K4 at the headline size, each beside its plain version;
+8. K2 and K4 at the headline size, each beside its plain version, K4 also
+   beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
    speckle scatterers): the deposit grid and the traces of ``greens_tiled``
    for the linear and cubic bases x the system's complex kernel and its real
@@ -57,12 +63,15 @@ simulator) with nvcc, one process per source, all at once, and runs:
    control (K3(a)'s traces against the bf16 plain version fail TOL_K3B);
 11. K3(b) and K3(c) at 10^5 scatterers x 128 x 128 elements (bf16 over the
    full band, 1025 bins; the directivity over the bins simus selects, ~850),
-   each beside its plain version timed on 32 bins and scaled to the band,
-   with the K3(b) control on the 32 bins.
+   each beside its plain version and a cuBLAS yardstick, both timed on 32
+   bins and scaled to the band, and its bound, with the K3(b) control on
+   the 32 bins; K3(a) on K3(b)'s band beside its bound.
 
 Every check is an assert. The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-device the script exits with code 1 and prints no result.
+record (launches on the main path, errors, ms beside the plain version's,
+the bound with what bounds it, and the PyTorch yardstick where one call
+computes the products); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits with code 1 and prints no result.
 """
 import json
 import os
@@ -80,6 +89,26 @@ TOL_BF16 = 2e-3  # K4 with bf16 dot operands against the plain version at bf16
 # operands against the bf16 plain version, which phases 10 and 11 take and
 # require to fail it, so a launch that skips the rounding cannot pass.
 TOL_K3B = 2e-4
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# a kernel's bound is the larger of its bytes over the memory rate and its
+# operations over the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12    # float32 outside the tensor cores
+BF16_FLOPS = 989e12  # bf16 on the tensor cores
+
+
+def bound(flops, peak, nbytes):
+    """(least ms, 'operations' or 'bytes'): the card's bound for ``flops``
+    at ``peak`` and ``nbytes`` read or written once."""
+    t_op, t_mem = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def _share(what, ms, b):
+    print(f"{what}: {ms:.3f} ms against a bound of {b[0]:.3f} ms ({b[1]}), "
+          f"{100 * b[0] / ms:.1f} % of it")
 
 
 def _ms(fn, reps=3):
@@ -167,6 +196,28 @@ def phase0(torch, ops):
         if regs:
             print(f"  ptxas: {len(regs)} kernel variants, {min(regs)}-{max(regs)} "
                   f"registers, {spills} bytes of spill stores")
+    # the tensor-core instructions in the SASS of K3's and K4's variants: the
+    # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
+    cuobjdump = os.path.join(os.path.dirname(ops._nvcc.nvcc()), "cuobjdump")
+    for name, lib, is_bf16 in (
+            ("K3", "greens_freq", lambda f: "ELb1EEEv" in f),
+            ("K4", "fdbf", lambda f: "TcEngine" in f)):
+        path = ops._nvcc.load(lib)[0]._name
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True)
+        assert sass.returncode == 0, sass.stderr
+        counts, fn = {}, None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] += 1
+        tc = {f: c for f, c in counts.items() if is_bf16(f)}
+        other = {f: c for f, c in counts.items() if not is_bf16(f)}
+        print(f"  {name} SASS ({os.path.basename(path)}): {len(tc)} bf16 variants with "
+              f"{min(tc.values())}-{max(tc.values())} HMMA/HGMMA each; {len(other)} "
+              f"float32 variants with {max(other.values())} at most")
+        assert tc and min(tc.values()) > 0, (name, tc)
     return card
 
 
@@ -255,7 +306,18 @@ def phase2(torch, qt, gfc, errs):
               f"L {plan['L']}, bins {plan['k0']}..{plan['k1']}; max_abs_err={a:.3e} "
               f"rel={r:.3e}; K3 {k_ms:.3f} ms, plain {p_ms:.3f} ms")
         assert r < TOL, (what, r)
-        out = out or (k_ms, p_ms)
+        if out is None:  # the main path's shapes: K3 against one cuBLAS CGEMM
+            k = torch.arange(g["k0"], g["k0"] + g["F"], dtype=torch.float32, device="cuda")
+            A = gfc._phasors(ops[0], ops[1], k, 0.0)
+            B = gfc._phasors(ops[2], ops[3], k, 0.0)
+            lib_ms = _ms(lambda: torch.bmm(A.transpose(1, 2), B))
+            S_, N_, M_ = ps.shape[0], pn.shape[0], pv.shape[0]
+            b = bound(8.0 * g["F"] * S_ * N_ * M_, F32_FLOPS,
+                      8.0 * S_ * (N_ + M_) + 8.0 * g["F"] * N_ * M_)
+            _share("phase2 K3 main path", k_ms, b)
+            print(f"phase2 library yardstick, torch.bmm of the complex64 phasors (built "
+                  f"outside the timing): {lib_ms:.3f} ms")
+            out = (k_ms, p_ms, b, lib_ms)
     return out
 
 
@@ -281,14 +343,15 @@ def phase3(torch, qt, ops, errs):
     das_cuda, gfc = ops.das_cuda, ops.greens_freq_cuda
     us, targets, scat = _main_system(qt)
 
+    # no device= anywhere: the simulators default to the card
     das_cuda.LAUNCHES = gfc.LAUNCHES = 0
     t = time.perf_counter()
-    chd = us.greens(scat, device="cuda")
+    chd = us.greens(scat)
     b = us.DAS(chd)
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t
     launches = {"das_k1": das_cuda.LAUNCHES, "greens_freq_k3": gfc.LAUNCHES}
-    print(f"phase3 main path us.DAS(us.greens(scat, device='cuda')): {t_path:.3f} s "
+    print(f"phase3 main path us.DAS(us.greens(scat)), no device=: {t_path:.3f} s "
           f"(first call) -> traces {tuple(chd.data.shape)} {chd.data.dtype} on "
           f"{chd.data.device}, image {tuple(b.shape)} {b.dtype}; launches {launches}")
     assert all(v > 0 for v in launches.values()), launches
@@ -441,6 +504,8 @@ def phase6(torch, qt, fdbf_cuda, errs):
     """K4 vs plain: keep '', 'rx', 'tx' x f32 / bf16 x (5 plane waves,
     128 FSA transmits), 256^2 pixels, N = M = 128, the bins of a -40 dB
     band."""
+    import ctypes
+
     from qups_tpu_torch.ops.fdbf import bf_adjoint, geom_delays, select_fbins
 
     xdc = qt.TransducerArray.L11_5v()
@@ -449,6 +514,26 @@ def phase6(torch, qt, fdbf_cuda, errs):
     pe = xdc.positions().T
     tau_rx = geom_delays(pi, pe, np.float32(1 / c0), "cuda")
     tau_tx = tau_rx
+
+    # K4's phasors come from the special function unit: its sin and cos of
+    # 2 pi frac(f tau) against the accurate routine's, on the f tau of this
+    # phase's tables at 64 bins across the band
+    fk = torch.arange(230, 294, device="cuda", dtype=torch.float32) * np.float32(fs / T)
+    u = (fk[:, None] * tau_rx.reshape(-1)[None, ::16]).reshape(-1).contiguous()
+    sc = torch.empty((u.numel(), 4), device="cuda")
+    probe = fdbf_cuda._nvcc.load("fdbf")[0].turns_sincos_probe
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
+    assert probe(u.data_ptr(), sc.data_ptr(), u.numel(),
+                 *fdbf_cuda._nvcc.stream_args(u.device)) == 0
+    torch.cuda.synchronize()
+    d = (sc[:, 2:] - sc[:, :2]).abs().max()
+    dphi = torch.remainder(torch.atan2(sc[:, 2], sc[:, 3]) - torch.atan2(sc[:, 0], sc[:, 1])
+                           + np.pi, 2 * np.pi) - np.pi
+    print(f"phase6 K4 phasors, SFU __sincosf against the accurate sincosf on "
+          f"{u.numel()} angles: max |sin, cos error| {float(d):.3e}, max phase error "
+          f"{float(dphi.abs().max()):.3e} rad")
+    assert float(d) < 1e-5
     for seqname, seq in (("PW 5", qt.SequenceRadial(type="PW", angles=np.arange(-10, 11, 5),
                                                    c0=c0)),
                          ("FSA 128", qt.Sequence(type="FSA", numpulse=128, c0=c0))):
@@ -613,6 +698,13 @@ def phase8(torch, ops, k1_ms, errs):
     sel = np.arange(1024 - 32, 1024 + 32)
     args = (x, taur, taur, del_tx, apod, t0[0], np.zeros(V), sel)
     k4 = {}
+    # the bound: K I (M + N) V complex multiply-adds (8 flops each) on the
+    # tensor cores (bf16) or the CUDA cores (f32); the bytes of the traces,
+    # the two delay tables and the image
+    K = sel.size
+    cmacs = float(K) * n * n * (N + M) * V
+    nbytes = 4.0 * T * N * V + 4.0 * n * n * (N + M) + 8.0 * n * n
+    lib = _k4_library(torch, x, taur, del_tx, apod, t0[0], V, sel, fs)
     for precision, tol in (("bf16", TOL_BF16), ("f32", TOL)):
         kw = dict(fs=fs, precision=precision)
         got = fdbf_cuda.bf_adjoint_cuda(*args, **kw)
@@ -620,13 +712,42 @@ def phase8(torch, ops, k1_ms, errs):
         ref, t_plain = _sync_s(torch, lambda: bf_adjoint(*args, **kw))
         a, r = errs["fdbf_adjoint_k4"].add(got, ref, f"phase8 {precision} full image")
         flops = 8.0 * 64 * n * n * (N + M) * V  # 4 FMAs of 2 flops per complex MAC
+        b = bound(8.0 * cmacs, BF16_FLOPS if precision == "bf16" else F32_FLOPS, nbytes)
         print(f"phase8 K4 {precision:4s} 1024^2 x 256 x 256 x 64 bins: {k_ms:.3f} ms "
               f"({flops / (k_ms / 1e3) / 1e12:.2f} TFLOP/s of complex MACs); plain, one "
-              f"run: {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
+              f"run: {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}; library "
+              f"yardstick {lib[precision]:.3f} ms")
+        _share(f"phase8 K4 {precision}", k_ms, b)
         assert r < tol, (precision, r)
-        k4[precision] = (k_ms, t_plain * 1e3)
+        k4[precision] = (k_ms, t_plain * 1e3, b, lib[precision])
         del got, ref
     return k2, k4
+
+
+def _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, fs, nb=4):
+    """The yardstick of K4 at the headline: the per-bin products of the tx and
+    rx phasors with S_k and X_k as one batched PyTorch GEMM per bin, bf16
+    torch.bmm on the materialized real-block operands and complex64
+    torch.bmm (cmatmul's product in one call), on ``nb`` bins with the
+    operands built outside the timing, scaled to all the bins. Only the
+    products: the norm and the sum over v are left out. Returns {precision:
+    ms}."""
+    from qups_tpu_torch.ops import fdbf_cuda
+    from qups_tpu_torch.ops.fdbf import adjoint_spectra, phasor
+
+    _, fk, Xk, Sk = adjoint_spectra(x, del_tx, apod, t0, np.zeros(V), sel, fs=fs)
+    out = {"bf16": 0.0, "f32": 0.0}
+    I, M = taur.shape
+    for k in np.linspace(0, fk.shape[0] - 1, nb).astype(int):
+        W = torch.stack((phasor(fk[k], taur, -1.0), phasor(fk[k], taur, 1.0)))
+        Q = torch.stack((Sk[k], Xk[k]))  # (2, M, V): tables and arrays as phase 8's
+        out["f32"] += _ms(lambda: torch.bmm(W, Q), reps=2)
+        Wb = torch.view_as_real(W).reshape(2, I, 2 * M).to(torch.bfloat16)
+        Qb = fdbf_cuda.block_operand(Q, M, V)
+        del W
+        out["bf16"] += _ms(lambda: torch.bmm(Wb, Qb), reps=2)
+        del Wb
+    return {p: v * fk.shape[0] / nb for p, v in out.items()}
 
 
 def _speckle(qt, S, seed):
@@ -693,7 +814,7 @@ def phase9(torch, qt, gc, errs):
               f"max_abs_err={a:.3e} rel={r:.3e}, traces {tuple(x.shape)} {x.dtype} "
               f"max_abs_err={at:.3e} rel={rt:.3e}; K5 {k_ms:.3f} ms, plain {p_ms:.3f} ms")
         if method == "cubic" and kind == "complex" and sub == (1, 1):
-            out = (k_ms, p_ms)
+            out = (k_ms, p_ms, got.numel())
     return out
 
 
@@ -781,7 +902,7 @@ def phase10(torch, qt, ops, errs):
     P = us.scan.positions().reshape(3, -1)
     d = float(np.linalg.norm(P[:, int(hp.reshape(-1).argmax())] - focus[:, 0]))
     sub = fc.replace(scan=qt.ScanCartesian(x=us.scan.x[::4], z=us.scan.z[::4]))
-    h_card, h_cpu = sub.calc_hp(device="cuda"), sub.calc_hp()
+    h_card, h_cpu = sub.calc_hp(device="cuda"), sub.calc_hp(device="cpu")
     rh = float((h_card.cpu() - h_cpu).abs().max()) / float(h_cpu.abs().max())
     _, t_hp = _sync_s(torch, lambda: fc.calc_hp(device="cuda"))
     print(f"phase10 calc_hp FC (focus 25 mm) {tuple(hp.shape)}: peak {d * 1e3:.3f} mm from "
@@ -816,9 +937,12 @@ def phase10(torch, qt, ops, errs):
 
 def phase11(torch, qt, gfc, errs):
     """K3(b) and K3(c) at 10^5 scatterers x 128 x 128. Each kernel runs its
-    whole band; the plain version runs 32 bins of it, and its time is scaled
-    to the band. Returns {name: (ms, scaled plain ms)} and, under
-    'control', the K3(b) control reading on the 32 bins."""
+    whole band; the plain version and the library yardstick run 32 bins of
+    it (timed with CUDA events after a warm-up, as the kernels are), and
+    their times are scaled to the band. Returns {name: (ms, scaled plain ms,
+    bound, scaled library ms)} and, under 'control', the K3(b) control
+    reading on the 32 bins, and under 'k3a' K3(a)'s ms and scaled library ms
+    on K3(b)'s band."""
     from qups_tpu_torch.ops.greens_freq import host_plan, prologue
     from qups_tpu_torch.ops.simus import simus_prologue
 
@@ -843,23 +967,61 @@ def phase11(torch, qt, gfc, errs):
         ms = _ms(lambda: gfc.freq_gemm(*ops, F=F, **g), reps=2)
         sub = dict(g, k0=g["k0"] + F // 2, F=32)
         got = gfc.freq_gemm(*ops, **sub)
-        ref, t_plain = _sync_s(torch, lambda: gfc.freq_gemm_plain(*ops, **sub))
+        ref = gfc.freq_gemm_plain(*ops, **sub)
         a, r = errs[name].add(got, ref, f"phase11 {what}, 32 bins")
         if g.get("bf16"):
             ctl = _control(gfc.freq_gemm(*ops, **dict(sub, bf16=False)), ref,
                            "phase11 GEMM, 32 bins")
-        plain_ms = t_plain * 1e3 * F / 32
+            sub_a = sub
+        del ref
+        p32 = _ms(lambda: gfc.freq_gemm_plain(*ops, **sub), reps=2)
+        plain_ms = p32 * F / 32
         flops = 8.0 * F * 100_000 * 128 * 128
+        bf = bool(g.get("bf16"))
+        lib_ms = _k3_library(torch, gfc, ops, sub, bf) * F / 32
         print(f"phase11 {name} {what}: (S, N, M, F) = (100000, 128, 128, {F}): "
               f"{ms:.3f} ms, {flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of complex MACs; plain "
-              f"on 32 bins {t_plain * 1e3:.3f} ms, scaled to the band {plain_ms:.3f} ms; "
+              f"on 32 bins {p32:.3f} ms, scaled to the band {plain_ms:.3f} ms; "
+              f"library yardstick on 32 bins, scaled {lib_ms:.3f} ms; "
               f"32 bins vs plain: max_abs_err={a:.3e} rel={r:.3e}")
-        assert r < (TOL_K3B if g.get("bf16") else TOL), (name, r)
-        out[name] = (ms, plain_ms)
+        b = bound(flops, BF16_FLOPS if bf else F32_FLOPS, _k3_bytes(F, "s1" in g))
+        _share(f"phase11 {name}", ms, b)
+        assert r < (TOL_K3B if bf else TOL), (name, r)
+        out[name] = (ms, plain_ms, b, lib_ms)
     out["control"] = ctl
-    ms32 = _ms(lambda: gfc.freq_gemm(*ops_b, F=plan["k1"] - plan["k0"], k0=plan["k0"]), reps=1)
-    print(f"phase11 K3(a) float32 operands on the same full band: {ms32:.3f} ms")
+    F = plan["k1"] - plan["k0"]
+    ms32 = _ms(lambda: gfc.freq_gemm(*ops_b, F=F, k0=plan["k0"]), reps=1)
+    lib_a = _k3_library(torch, gfc, ops_b, sub_a, False) * F / 32
+    print(f"phase11 K3(a) float32 operands on the same full band: {ms32:.3f} ms; library "
+          f"yardstick (complex64 torch.bmm) on 32 bins, scaled {lib_a:.3f} ms")
+    _share("phase11 K3(a)", ms32, bound(8.0 * F * 100_000 * 128 * 128, F32_FLOPS,
+                                        _k3_bytes(F, False)))
+    out["k3a"] = (ms32, lib_a)
     return out
+
+
+def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
+    """K3's bytes read or written once: q and w of both sides (and the
+    directivity slopes), and G (F, N, M) complex64."""
+    return 4.0 * S * (N + M) * (3 if directivity else 2) + 8.0 * F * N * M
+
+
+def _k3_library(torch, gfc, ops, g, bf16):
+    """The yardstick of K3 on the bins of ``g``: one batched PyTorch GEMM of
+    the plain version's operands (built outside the timing), in bf16 on the
+    real-block form [[Ar^T, -Ai^T], [Ai^T, Ar^T]] . [Br; Bi] for K3(b), in
+    complex64 otherwise. Returns ms."""
+    k = torch.arange(g["k0"], g["k0"] + g["F"], dtype=torch.float32, device="cuda")
+    A = gfc._phasors(ops[0], ops[1], k, 0.0, g.get("s1"), bf16)  # (F, S, N)
+    B = gfc._phasors(ops[2], ops[3], k, 0.0, g.get("s2"), bf16)  # (F, S, M)
+    if not bf16:
+        return _ms(lambda: torch.bmm(A.transpose(1, 2), B), reps=2)
+    At = A.transpose(1, 2)
+    L = torch.cat((torch.cat((At.real, -At.imag), 2), torch.cat((At.imag, At.real), 2)),
+                  1).to(torch.bfloat16)
+    R = torch.cat((B.real, B.imag), 1).to(torch.bfloat16)
+    del A, B, At
+    return _ms(lambda: torch.bmm(L, R), reps=2)
 
 
 def main():
@@ -882,14 +1044,15 @@ def main():
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"])
-    k3_ms, k3_plain_ms = phase2(torch, qt, ops.greens_freq_cuda, errs["greens_freq_k3"])
+    k3_ms, k3_plain_ms, k3_b, k3_lib = phase2(torch, qt, ops.greens_freq_cuda,
+                                              errs["greens_freq_k3"])
     launches = phase3(torch, qt, ops, errs)
     k1_ms, k1_plain_ms = phase4(torch, ops.das_cuda, root, errs["das_k1"])
     phase5(torch, ops.das_cuda, errs["das_lut_k2"])
     phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
     pw_launches = phase7(torch, qt, ops, errs)
     (k2_ms, k2_plain_ms), k4 = phase8(torch, ops, k1_ms, errs)
-    k5_ms, k5_plain_ms = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"])
+    k5_ms, k5_plain_ms, k5_grid = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"])
     sim_launches, k3c_path, ctl10 = phase10(torch, qt, ops, errs)
     big = phase11(torch, qt, ops.greens_freq_cuda, errs)
     assert "jax" not in sys.modules
@@ -897,6 +1060,20 @@ def main():
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
     # (phase 7) for K2 and K4, the simulator path (phase 10) for K5 and
     # K3's bf16 and directivity variants
+    # the bounds of K1, K2 and K5, which no PyTorch call computes alone: one
+    # interpolated term costs TERM_FLOPS (its delays to a sample index 3, the
+    # fraction 2, four cubic weights 9, four tap multiply-adds 8); K1 and K2
+    # take I N M of them at the headline, K5 one per (scatterer, rx, tx)
+    TERM_FLOPS = 22.0
+    terms = 1024.0 ** 2 * 256 * 256
+    k1_b = bound(TERM_FLOPS * terms, F32_FLOPS, 4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2)
+    k2_b = bound(TERM_FLOPS * terms, F32_FLOPS,
+                 4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2 * 512 + 4.0 * 1024 ** 2)
+    k5_b = bound(TERM_FLOPS * 1e4 * 128 * 128, F32_FLOPS, 4.0 * k5_grid)
+    for what, ms, b in (("K1 headline cubic", k1_ms["cubic"], k1_b),
+                        ("K2 headline cubic", k2_ms, k2_b),
+                        ("K5 main-path grid, cubic", k5_ms, k5_b)):
+        _share(what, ms, b)
     launches.update(das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
@@ -904,38 +1081,44 @@ def main():
                     greens_freq_k3c=sim_launches["greens_freq_k3c"])
     rows = [
         ("das_k1", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:174",
-         k1_ms["cubic"], k1_plain_ms, "1024^2 px x 256 tx x 256 rx, T 4096, cubic"),
+         k1_ms["cubic"], k1_plain_ms, k1_b, None,
+         "1024^2 px x 256 tx x 256 rx, T 4096, cubic"),
         ("das_lut_k2", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:1607",
-         k2_ms, k2_plain_ms, "1024^2 px x 256 tx x 256 rx, T 4096, cubic, "
+         k2_ms, k2_plain_ms, k2_b, None, "1024^2 px x 256 tx x 256 rx, T 4096, cubic, "
          "plane-wave geometric tables"),
         ("greens_freq_k3", "qups_tpu_torch/csrc/greens_freq.cu",
-         "qups_tpu/ops/greens_freq_pallas.py:41", k3_ms, k3_plain_ms,
-         "the main path's GEMM: 5 targets, 128 x 128 elements"),
+         "qups_tpu/ops/greens_freq_pallas.py:41", k3_ms, k3_plain_ms, k3_b, k3_lib,
+         "the main path's GEMM: 5 targets, 128 x 128 elements; library: complex64 "
+         "torch.bmm of the phasors"),
         ("fdbf_adjoint_k4", "qups_tpu_torch/csrc/fdbf.cu", "qups_tpu/ops/fdbf_pallas.py:45",
-         k4["bf16"][0], k4["bf16"][1], "1024^2 px x 256 rx x 256 tx x 256 pulses, "
-         "64 bins, bf16"),
+         *k4["bf16"], "1024^2 px x 256 rx x 256 tx x 256 pulses, 64 bins, bf16; "
+         f"f32 {k4['f32'][0]:.3f} ms vs plain {k4['f32'][1]:.3f} ms; library: the "
+         "products alone, bf16 torch.bmm on the real-block operands, 4 bins scaled"),
         ("greens_splat_k5", "qups_tpu_torch/csrc/greens_splat.cu",
-         "qups_tpu/ops/greens_pallas.py:45", k5_ms, k5_plain_ms,
+         "qups_tpu/ops/greens_pallas.py:45", k5_ms, k5_plain_ms, k5_b, None,
          "the main path's deposit grid: 10^4 scatterers, 128 x 128 elements, cubic"),
         ("greens_freq_k3b", "qups_tpu_torch/csrc/greens_freq.cu",
          "qups_tpu/ops/greens_freq_pallas.py:41", *big["greens_freq_k3b"],
          "bf16 operands: 10^5 scatterers, 128 x 128 elements, 1025 bins; plain "
          f"timed on 32 bins and scaled; control K3(a) vs the bf16 plain version "
          f"rel {big['control']:.3e} (phase 11), {ctl10:.3e} (phase 10 traces), "
-         f"limit {TOL_K3B:.0e}"),
+         f"limit {TOL_K3B:.0e}; library: bf16 torch.bmm on the real-block operands, 32 "
+         f"bins scaled; K3(a) on this band {big['k3a'][0]:.3f} ms, its library "
+         f"(complex64 torch.bmm, 32 bins scaled) {big['k3a'][1]:.3f} ms"),
         ("greens_freq_k3c", "qups_tpu_torch/csrc/greens_freq.cu",
          "qups_tpu/ops/greens_freq_pallas.py:41", *big["greens_freq_k3c"],
          f"sinc directivity: 10^5 scatterers, 128 x 128 elements, simus's bins; plain "
          f"timed on 32 bins and scaled (10^4 scatterers: {k3c_path[0]:.3f} ms vs "
-         f"plain {k3c_path[1]:.3f} ms)"),
+         f"plain {k3c_path[1]:.3f} ms); library: complex64 torch.bmm, 32 bins scaled"),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": errs[name].abs,
         "max_rel_err": errs[name].rel, "worst_check": errs[name].where,
-        "ms": ms, "plain_ms": pms, "ms_at": at}
-        for name, src, rep, ms, pms, at in rows]}))
+        "ms": ms, "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": lib, "ms_at": at}
+        for name, src, rep, ms, pms, b, lib, at in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

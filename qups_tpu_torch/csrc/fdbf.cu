@@ -1,11 +1,12 @@
 // K4: the frequency-domain adjoint beamformer, float32 accumulation, with the
-// dot operands in float32 or rounded to bfloat16.
+// dot operands in float32 (on the CUDA cores) or rounded to bfloat16 (on the
+// tensor cores).
 //
 // Replaces the TPU kernel qups_tpu/ops/fdbf_pallas.py::_kernel (launched by
 // _adj_call, public entry bf_adjoint_tiled) for sub-slice K4(a): the three
 // keep modes ('' summed, 'rx', 'tx'), precision 'f32' and 'bf16', up to 256
-// synthesized pulses (and, with keep 'rx', 256 receivers). For every selected bin k (frequency
-// fk) and pixel i it computes what
+// synthesized pulses (and, with keep 'rx', 256 receivers). For every selected
+// bin k (frequency fk) and pixel i it computes what
 // qups_tpu_torch/ops/fdbf.py::bf_adjoint computes:
 //
 //   A(i, v)  = sum_m Wtx(i, m) S_k[m, v],    Wtx = e^{-2 pi i frac(fk taut[i, m])}
@@ -15,75 +16,88 @@
 //   b(i, v) += y(i, v) conj(Ahat(i, v))                  keep 'tx'
 //   b(i, n) += Wrx(i, n) sum_v conj(Ahat(i, v)) X_k[n, v]   keep 'rx'
 //
-// The phasors are evaluated directly, sincos of 2 pi frac(fk tau), as K3
-// does: no recurrence, so no drift along the band (the TPU kernel's phasor
-// recurrence for evenly spaced bins is a later speed item). With 'bf16' the
-// operands of the three dots (the phasors Wtx and Wrx, Ahat in keep 'rx',
-// and S_k, X_k, which the wrapper passes already rounded) are rounded to
-// bfloat16 with round-to-nearest-even, and the products are summed in
-// float32, as the TPU kernel's bf16 dots and the plain version do.
+// The phasors are evaluated directly from the angle 2 pi frac(fk tau), in
+// the float32 order of the plain version: no recurrence, so no drift along
+// the band. Their sin and cos come from the special function unit,
+// __sincosf on the angle shifted to [-pi, pi) (hopper_mma.cuh::
+// sincos_turns_sfu): about 2^-21.4 absolute against the accurate sincosf of
+// the plain version (chip_smoke.py phase 6 measures it), the size of the
+// float32 rounding of the angle itself. The Wrx of the keep 'rx' epilogue
+// stays accurate.
 //
 // What bounds it on the card: the complex multiply-adds, K I (M + N) V of
-// them for the two products (4 float32 FMAs each, on the CUDA cores), plus
-// K I (M + N) sincos. At 1024^2 pixels x 256 x 256 x 64 bins that is 8.8e12
-// complex MACs, about 1 s at the card's float32 FMA peak (computed, not
-// measured). The plain version runs the same products as cuBLAS SGEMMs.
+// them (8.8e12 at 1024^2 pixels x 256 x 256 x 64 bins: 71 ms at the bf16
+// tensor-core peak, 1.05 s at the float32 CUDA-core peak), the K I (M + N)
+// phasors (3.4e10 there), and, for the tensor-core path, the traffic of the
+// per-bin operands S_k and X_k from L2 into every block.
 //
-// The design: one block of 256 threads (8 warps) owns BI = 32 pixels and
-// loops over the bins. Lane l of every warp is pixel i0 + l; warp w owns the
-// R contiguous columns w R .. w R + R - 1 of the block's (BI x V) products
-// (R = 1, 4, 16 or 32, at least V / 8), so each thread accumulates R
-// complex values in registers. Each product runs over chunks of LC = 16
-// rows: the block evaluates the chunk's phasors of its pixels (each phasor
-// once per bin) and copies the chunk of S_k or X_k rows, with coalesced
-// loads, into shared memory; then every thread runs its columns over the
-// chunk, reading two complex values of the right operand per 16-byte
-// shared load (a broadcast within the warp) for 8 FMAs. The row norm
-// couples all v of a pixel: each thread sums |A|^2 over its columns, the 8
-// warps' partial sums meet in shared memory, and every thread then holds
-// the norm of its pixel. In keep '' and 'tx' the rx product y has the same
-// thread layout as A, so y conj(Ahat) is formed in registers; keep 'tx'
-// adds it to the output (each (i, v) belongs to one thread: no atomics),
-// keep '' sums it per thread across bins and the warps' sums meet once at
-// the end. In keep 'rx' the block stores Ahat (V x BI) in shared memory,
-// and the third product z = conj(Ahat) X_k^T runs the same way with warp w
-// on receivers w R .. w R + R - 1. The (I, M) and (I, N) delay tables come
-// transposed, (M, I) and (N, I), so that a chunk's 32 pixels are one
-// 128-byte row. Nothing is atomic; the result is deterministic.
-// Tensor-core products for 'bf16', more pixels per thread and the phasor
-// recurrence are later work.
+// The design. A block of 256 threads (8 warps) owns BI = 64 pixels and loops
+// over the bins; the 2V columns of the products run in tiles of 2 VT
+// columns (VT = 8, 16, 32 or 64, the least that holds V), so registers never
+// hold all of A and y. In the summed mode the norm factors out of the sum,
+// b(i) += (sum_v y conj(A)) / ||A_i||, so per tile a thread only adds up
+// |A|^2 and y conj(A) for its rows; the row sums meet once per bin in shared
+// memory. Keep 'tx' and 'rx' need Ahat before their epilogue: a first pass
+// over the tiles sums |A|^2, a second one recomputes A (bit for bit) and
+// writes b (keep 'tx'), or stores conj(Ahat) in shared memory as the left
+// operand of z = conj(Ahat) X_k^T (keep 'rx'), whose tiles run over the
+// receivers. Each output belongs to one thread: nothing is atomic and two
+// launches on one input are bit-identical.
+//
+// * 'bf16', tensor cores (TcEngine): each complex product of a bin is one
+//   real bf16 GEMM with float32 accumulation, mma.sync m16n8k16, in the
+//   real-block form [Wr | Wi] (BI x 2M) . [[Sr, Si], [-Si, Sr]] (2M x 2V),
+//   with the real and imaginary parts interleaved along both dimensions so
+//   that a thread's accumulator pair is (Re, Im) of one A(i, v). The
+//   wrapper builds the block operands of S_k and X_k (and of X_k^T for keep
+//   'rx') per bin, rounded to bf16; rounding and negation commute, so these
+//   are the plain version's four real products on the same operands. Per
+//   bin the block writes its phasor tiles Wtx and Wrx as bf16 (Re, Im) pairs
+//   into shared memory once, where they serve every column tile; when they
+//   do not fit (M + N above ~780) it builds the phasors of each 16-row chunk
+//   as it goes instead (GEN). The chunks of the block operands arrive by
+//   cp.async through a 3-stage ring, so the copies overlap the MMAs. Warp w
+//   owns the 16 rows 16 (w % 4) .. and half w / 4 of the tile's columns;
+//   at the demo's V = 5 the 10 columns pad to 16 and both halves hold data.
+// * 'f32', CUDA cores (F32Engine): the same loops with register tiling. A
+//   thread holds TM x TN complex outputs of each product (4 x 4 at the
+//   headline), so each 8-byte shared load feeds 2 TN (or 2 TM) explicit
+//   FMAs, and the phasors of a 16-row chunk are built into shared memory
+//   for each column tile.
 //
 // Numerics: built with -fmad=false so that the phase arithmetic rounds as
-// the plain version's; the multiply-adds of the products use explicit
+// the plain version's; the multiply-adds of the f32 products use explicit
 // fmaf, which that flag does not split.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int BI = 32;       // pixels per block: one per lane
-constexpr int NW = 8;        // warps per block; warp w owns columns w R .. w R + R - 1
-constexpr int LC = 16;       // rows of the products' operands per shared-memory chunk
-constexpr float TWO_PI = 6.283185307179586f;
+constexpr int BI = 64;      // pixels per block
+constexpr int NTHR = 256;   // threads per block (8 warps)
+constexpr int KC = 32;      // block-operand rows per ring stage (16 complex rows)
+constexpr int KC2 = KC / 2;  // complex rows per ring stage
+constexpr int STAGES = 3;   // cp.async ring depth
+constexpr int GLD = KC + 8; // row stride of a generated phasor chunk (bf16)
+constexpr int LC = 16;      // f32: complex rows per shared chunk
 
 enum Keep { SUM = 0, KEEP_RX = 1, KEEP_TX = 2 };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+extern __shared__ __align__(16) unsigned char k4_smem[];
 
-// e^{sign 2 pi i frac(fk tau)}, as fdbf.py::phasor builds it
-template <bool BF16>
+// e^{sign 2 pi i frac(fk tau)}, as fdbf.py::phasor builds it; SFU: sin and
+// cos on the special function unit
+template <bool SFU>
 __device__ __forceinline__ float2 phasor(float fk, float tau, float sign) {
   const float u = fk * tau;
-  const float th = (u - floorf(u)) * TWO_PI;
   float sn, cs;
-  sincosf(th, &sn, &cs);
-  float2 p = make_float2(cs, sign * sn);
-  if (BF16) p = make_float2(bf16r(p.x), bf16r(p.y));
-  return p;
+  if (SFU) hmma::sincos_turns_sfu(u, &sn, &cs);
+  else hmma::sincos_turns(u, &sn, &cs);
+  return make_float2(cs, sign * sn);
 }
 
 // acc += p * q (complex), with explicit FMAs
@@ -94,218 +108,570 @@ __device__ __forceinline__ void cmac(float2& acc, float2 p, float2 q) {
   acc.y = fmaf(p.y, q.x, acc.y);
 }
 
-// acc[r] += sum_l P(i0 + lane, l) Q[l, w R + r] over l < L, Q (L, J)
-// row-major: the block stages a chunk of LC rows of P (BI x LC, from
-// fillp(l, ii)) and of Q (LC x 8R, zero past column J) in shared memory,
-// with coalesced loads, then each warp runs its R contiguous columns over
-// the chunk, two complex values of Q per 16-byte shared load.
-template <int R, class FillP>
-__device__ __forceinline__ void block_gemm(float2 (&acc)[R], float2 (*P)[BI],
-                                           float2* Qs, const float2* __restrict__ Q,
-                                           int L, int J, FillP fillp) {
-  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
-  constexpr int JP = NW * R;
-  for (int l0 = 0; l0 < L; l0 += LC) {
-    const int lc = L - l0 < LC ? L - l0 : LC;
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = tid; e < LC * BI; e += NW * 32) {
-      const int l = e / BI, ii = e % BI;
-      P[l][ii] = l < lc ? fillp(l0 + l, ii) : make_float2(0.f, 0.f);
-    }
-    for (int e = tid; e < LC * JP; e += NW * 32) {
-      const int l = e / JP, j = e % JP;
-      Qs[e] = (l < lc && j < J) ? Q[(int64_t)(l0 + l) * J + j] : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-    for (int l = 0; l < lc; ++l) {
-      const float2 p = P[l][lane];
-      const float2* q = Qs + l * JP + w * R;
-      if constexpr (R == 1) {
-        cmac(acc[0], p, q[0]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < R; r += 2) {
-          const float4 q2 = *reinterpret_cast<const float4*>(q + r);
-          cmac(acc[r], p, make_float2(q2.x, q2.y));
-          cmac(acc[r + 1], p, make_float2(q2.z, q2.w));
-        }
-      }
-    }
-  }
-}
-
-template <int KEEP, int R, bool BF16>
-__global__ void __launch_bounds__(NW * 32)
-adjoint_k4_kernel(const float* __restrict__ fvals,  // (K,) bin frequencies [Hz]
-                  const float* __restrict__ taur,   // (N, I) [s]
-                  const float* __restrict__ taut,   // (M, I) [s]
-                  const float2* __restrict__ S,     // (K, M, V)
-                  const float2* __restrict__ X,     // (K, N, V); (K, V, N) for KEEP_RX
-                  float2* __restrict__ out,         // (I,) | (I, N) | (I, V)
-                  int64_t I, int N, int M, int V, int K) {
-  extern __shared__ float4 smem[];  // Q chunk (LC, 8R); then Ahat (V, BI) for KEEP_RX
-  float2* Qs = reinterpret_cast<float2*>(smem);
-  float2* Ash = Qs + LC * NW * R;
-  __shared__ float2 P[LC][BI];
-  __shared__ float red[NW][BI];
-  __shared__ float2 fin[NW][BI];
-  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
-  const int64_t i0 = (int64_t)blockIdx.x * BI, i = i0 + lane;
-  float2 bsum = make_float2(0.f, 0.f);
-
-  for (int k = 0; k < K; ++k) {
-    const float fk = fvals[k];
-    const float2* __restrict__ Sk = S + (int64_t)k * M * V;
-    const float2* __restrict__ Xk = X + (int64_t)k * N * V;
-
-    // tx steering A = Wtx S_k, and its row norm
-    float2 a[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = make_float2(0.f, 0.f);
-    block_gemm<R>(a, P, Qs, Sk, M, V, [&](int m, int ii) {
-      return i0 + ii < I ? phasor<BF16>(fk, taut[(int64_t)m * I + i0 + ii], -1.f)
-                         : make_float2(0.f, 0.f);
-    });
-    float part = 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) part = part + (a[r].x * a[r].x + a[r].y * a[r].y);
-    red[w][lane] = part;
-    __syncthreads();
-    float nrm2 = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < NW; ++ww) nrm2 = nrm2 + red[ww][lane];
-    const float nrm = sqrtf(nrm2);
-    const float inv = 1.f / (nrm == 0.f ? 1.f : nrm);
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = make_float2(a[r].x * inv, a[r].y * inv);
-
-    if (KEEP != KEEP_RX) {
-      // rx adjoint y = Wrx X_k in the layout of A; y conj(Ahat) in registers
-      float2 y[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) y[r] = make_float2(0.f, 0.f);
-      block_gemm<R>(y, P, Qs, Xk, N, V, [&](int n, int ii) {
-        return i0 + ii < I ? phasor<BF16>(fk, taur[(int64_t)n * I + i0 + ii], 1.f)
-                           : make_float2(0.f, 0.f);
-      });
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int v = w * R + r;
-        if (v >= V) continue;
-        const float2 b = make_float2(y[r].x * a[r].x + y[r].y * a[r].y,
-                                     y[r].y * a[r].x - y[r].x * a[r].y);
-        if (KEEP == SUM) {
-          bsum = make_float2(bsum.x + b.x, bsum.y + b.y);
-        } else if (i < I) {
-          float2* o = out + i * V + v;
-          *o = make_float2(o->x + b.x, o->y + b.y);
-        }
-      }
-    } else {
-      // z = conj(Ahat) X_k^T with warp w on receivers n = w R + r
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int v = w * R + r;
-        if (v < V) Ash[v * BI + lane] = BF16 ? make_float2(bf16r(a[r].x), bf16r(a[r].y)) : a[r];
-      }
-      float2 z[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) z[r] = make_float2(0.f, 0.f);
-      block_gemm<R>(z, P, Qs, Xk, V, N, [&](int v, int ii) {
-        const float2 ah = Ash[v * BI + ii];
-        return make_float2(ah.x, -ah.y);
-      });
-      if (i < I) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int n = w * R + r;
-          if (n >= N) continue;
-          const float2 p = phasor<false>(fk, taur[(int64_t)n * I + i], 1.f);
-          float2* o = out + i * N + n;
-          *o = make_float2(o->x + (p.x * z[r].x - p.y * z[r].y),
-                           o->y + (p.x * z[r].y + p.y * z[r].x));
-        }
-      }
-    }
-    __syncthreads();  // red, P and Ash are reused by the next bin
-  }
-
-  if (KEEP == SUM) {
-    fin[w][lane] = bsum;
-    __syncthreads();
-    if (w == 0 && i < I) {
-      float2 s = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int ww = 0; ww < NW; ++ww) s = make_float2(s.x + fin[ww][lane].x, s.y + fin[ww][lane].y);
-      out[i] = s;
-    }
-  }
-}
-
 struct Args {
-  const float *fvals, *taur, *taut;
-  const float2 *S, *X;
-  float2* out;
+  const float* fvals;        // (K,) bin frequencies [Hz]
+  const float *taur, *taut;  // bf16: (I, N), (I, M); f32: (N, I), (M, I) [s]
+  const void *S, *X;         // bf16: block operands (K, 2Mp, 2Vp), (K, 2Np, 2Vp)
+                             // or (K, 2Vp, 2Np) for 'rx'; f32: (K, M, V),
+                             // (K, N, V) or (K, V, N) complex64
+  float2* out;               // (I,) | (I, N) | (I, V)
   int64_t I;
   int N, M, V, K;
+  int Mp, Np, Vp, Vz;        // bf16 paddings: multiples of KC2 (Np, Vp of the tile too)
 };
 
-template <int KEEP, int R, bool BF16>
+// ---------------------------------------------------------------- bf16 path
+
+// acc (this warp's 16 rows x NT n8 tiles of the block's BI x 2 VT tile) +=
+// W (BI x KR) . B[:, col0 .. col0 + 2 VT), B (KR x ldb) bf16 in global
+// memory, streamed through the ring by cp.async. W is resident in shared
+// memory (row stride ldw), or with GEN built per chunk into `gen_buf` from
+// tau (I, L): the phasors e^{sign ...} of complex rows c KC2 .. c KC2 + KC2 - 1.
+template <int NT, bool GEN>
+__device__ __forceinline__ void tc_product(float (&acc)[NT][4], const __nv_bfloat16* W, int ldw,
+                                           const __nv_bfloat16* __restrict__ B, int ldb, int KR,
+                                           int col0, __nv_bfloat16* ring,
+                                           const float* __restrict__ tau, int L, float sign,
+                                           float fk, int64_t i0, int64_t I) {
+  constexpr int VT2 = 16 * NT;  // real columns of the tile
+  constexpr int LDR = VT2 + 8;  // ring row stride: 16 bytes of padding against conflicts
+  constexpr int SEG = VT2 / 8;  // 16-byte segments per ring row
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int mt = w & 3, ch = w >> 2;
+  const int nc = KR / KC;
+  auto load = [&](int c) {
+    __nv_bfloat16* dst = ring + (c % STAGES) * KC * LDR;
+    const __nv_bfloat16* src = B + (int64_t)c * KC * ldb + col0;
+    for (int e = tid; e < KC * SEG; e += NTHR) {
+      const int r = e / SEG, s = e % SEG;
+      hmma::cp_async16(dst + r * LDR + s * 8, src + (int64_t)r * ldb + s * 8, 16);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nc) load(s);
+    hmma::cp_async_commit();
+  }
+  for (int c = 0; c < nc; ++c) {
+    hmma::cp_async_wait<STAGES - 2>();
+    const __nv_bfloat16* Ab = W + c * KC;
+    int lda = ldw;
+    if constexpr (GEN) {
+      uint32_t* g32 = reinterpret_cast<uint32_t*>(const_cast<__nv_bfloat16*>(W))
+                      + (c & 1) * BI * (GLD / 2);
+      const int mm = tid % KC2, m = c * KC2 + mm;
+#pragma unroll
+      for (int r = 0; r < BI * KC2 / NTHR; ++r) {
+        const int ii = tid / KC2 + (NTHR / KC2) * r;
+        uint32_t v = 0u;
+        if (m < L && i0 + ii < I) {
+          const float2 p = phasor<true>(fk, tau[(i0 + ii) * L + m], sign);
+          v = hmma::pack_bf16(p.x, p.y);
+        }
+        g32[ii * (GLD / 2) + mm] = v;
+      }
+      Ab = W + (c & 1) * BI * GLD;
+      lda = GLD;
+    }
+    __syncthreads();  // chunk c (and its phasors) visible; slot (c - 1) % STAGES free
+    if (c + STAGES - 1 < nc) load(c + STAGES - 1);
+    hmma::cp_async_commit();
+    const __nv_bfloat16* Bs = ring + (c % STAGES) * KC * LDR;
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t a[4];
+      hmma::ldsm_x4(a, Ab + (16 * mt + (lane & 15)) * lda + 16 * ks + (lane >> 4) * 8);
+      const __nv_bfloat16* bp = Bs + (16 * ks + (lane & 15)) * LDR + ch * (8 * NT);
+      if constexpr (NT == 1) {
+        uint32_t b[2];
+        hmma::ldsm_x2_t(b, bp);
+        hmma::mma_bf16(acc[0], a, b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          hmma::ldsm_x4_t(b, bp + 8 * j + (lane >> 4) * 8);
+          hmma::mma_bf16(acc[j], a, b[0], b[1]);
+          hmma::mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+  hmma::cp_async_wait<0>();
+  __syncthreads();  // the ring (and the generated chunks) are free again
+}
+
+// W[ii][2m, 2m + 1] = bf16 (Re, Im) of e^{sign 2 pi i frac(fk tau[i0 + ii, m])},
+// zero for m >= L or a pixel past I; one warp per row, lanes along m
+__device__ __forceinline__ void fill_phasors(__nv_bfloat16* W, int ldw,
+                                             const float* __restrict__ tau, int L, int Lp,
+                                             int64_t i0, int64_t I, float fk, float sign) {
+  uint32_t* W32 = reinterpret_cast<uint32_t*>(W);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int ii = w; ii < BI; ii += NTHR / 32) {
+    const bool live = i0 + ii < I;
+    for (int m = lane; m < Lp; m += 32) {
+      uint32_t v = 0u;
+      if (live && m < L) {
+        const float2 p = phasor<true>(fk, tau[(i0 + ii) * L + m], sign);
+        v = hmma::pack_bf16(p.x, p.y);
+      }
+      W32[ii * (ldw / 2) + m] = v;
+    }
+  }
+}
+
+template <int KEEP, int NT, bool GEN>
+struct TcEngine {
+  static constexpr int VT = 8 * NT;  // complex columns of a tile
+  static constexpr int R = 2;        // rows per thread
+  static constexpr int C = NT;       // complex columns per thread
+  static constexpr int HALVES = 2;   // column halves whose row sums meet in shared memory
+  struct Acc { float d[NT][4]; };
+
+  const Args& a;
+  __nv_bfloat16 *Wt, *Wr, *H, *ring;
+  int ldt, ldr, ldh;
+  const __nv_bfloat16 *S, *X, *Sk, *Xk;
+  int64_t i0;
+  float fk;
+  int mt, ch, g, t;
+
+  __device__ explicit TcEngine(const Args& args) : a(args) {
+    ldt = 2 * a.Mp + 8;
+    ldr = 2 * a.Np + 8;
+    ldh = 2 * a.Vp + 8;
+    __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(k4_smem);
+    if (GEN) {
+      Wt = Wr = p;  // the generated chunks, 2 x BI x GLD
+      p += 2 * BI * GLD;
+    } else {
+      Wt = p;
+      p += BI * ldt;
+      Wr = p;
+      if (KEEP != KEEP_RX) p += BI * ldr;
+    }
+    H = p;
+    if (KEEP == KEEP_RX) p += BI * ldh;
+    ring = p;
+    S = static_cast<const __nv_bfloat16*>(a.S);
+    X = static_cast<const __nv_bfloat16*>(a.X);
+    i0 = (int64_t)blockIdx.x * BI;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    mt = w & 3;
+    ch = w >> 2;
+    g = lane >> 2;
+    t = lane & 3;
+  }
+
+  static size_t smem_bytes(const Args& a) {
+    size_t e = GEN ? 2 * BI * GLD : BI * (2 * a.Mp + 8) + (KEEP != KEEP_RX ? BI * (2 * a.Np + 8) : 0);
+    if (KEEP == KEEP_RX) e += BI * (2 * a.Vp + 8);
+    e += (size_t)STAGES * KC * (16 * NT + 8);
+    return e * sizeof(__nv_bfloat16);
+  }
+
+  __device__ void bin(int k) {
+    fk = a.fvals[k];
+    Sk = S + (int64_t)k * (2 * a.Mp) * (2 * a.Vp);
+    Xk = X + (int64_t)k * (2 * a.Np) * (2 * a.Vp);
+    if (!GEN) {
+      __syncthreads();  // the previous bin is done with the tiles
+      fill_phasors(Wt, ldt, a.taut, a.M, a.Mp, i0, a.I, fk, -1.f);
+      if (KEEP != KEEP_RX) fill_phasors(Wr, ldr, a.taur, a.N, a.Np, i0, a.I, fk, 1.f);
+      __syncthreads();
+    }
+  }
+
+  __device__ static void zero(Acc& x) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x.d[j][q] = 0.f;
+  }
+
+  __device__ void prodA(Acc& x, int vt) {
+    tc_product<NT, GEN>(x.d, Wt, ldt, Sk, 2 * a.Vp, 2 * a.Mp, vt * 2 * VT, ring, a.taut, a.M,
+                        -1.f, fk, i0, a.I);
+  }
+  __device__ void prodY(Acc& x, int vt) {
+    tc_product<NT, GEN>(x.d, Wr, ldr, Xk, 2 * a.Vp, 2 * a.Np, vt * 2 * VT, ring, a.taur, a.N,
+                        1.f, fk, i0, a.I);
+  }
+  // z = conj(Ahat) X_k^T over the receivers of tile nt; H is resident
+  __device__ void prodZ(Acc& x, int nt) {
+    tc_product<NT, false>(x.d, H, ldh, Xk, 2 * a.Np, 2 * a.Vz, nt * 2 * VT, ring, a.taur, a.N,
+                          1.f, fk, i0, a.I);
+  }
+
+  // f(r, row, complex column in the tile, x value, y value)
+  template <class F>
+  __device__ void each(const Acc& x, const Acc& y, F f) const {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(h, 16 * mt + g + 8 * h, ch * 4 * NT + 4 * j + t,
+          make_float2(x.d[j][2 * h], x.d[j][2 * h + 1]),
+          make_float2(y.d[j][2 * h], y.d[j][2 * h + 1]));
+  }
+
+  // the four threads of a quad share their rows; half ch writes red[ch]
+  __device__ void reduce_rows(float (&part)[R][3], float (*red)[3][BI]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float v = part[h][q];
+        v = v + __shfl_xor_sync(0xffffffffu, v, 1);
+        v = v + __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) red[ch][q][16 * mt + g + 8 * h] = v;
+      }
+  }
+
+  __device__ void setH(int row, int v, float2 val) {
+    reinterpret_cast<uint32_t*>(H)[row * (ldh / 2) + v] = hmma::pack_bf16(val.x, val.y);
+  }
+  // zero the columns [v0, Vz) of H that no tile wrote
+  __device__ void zeroH(int v0) {
+    for (int e = threadIdx.x; e < BI * (a.Vz - v0); e += NTHR) {
+      const int row = e / (a.Vz - v0), v = v0 + e % (a.Vz - v0);
+      reinterpret_cast<uint32_t*>(H)[row * (ldh / 2) + v] = 0u;
+    }
+  }
+  __device__ float tau_rx(int64_t i, int n) const { return a.taur[i * a.N + n]; }
+};
+
+// ----------------------------------------------------------------- f32 path
+
+template <int KEEP, int TM, int TN>
+struct F32Engine {
+  static constexpr int VT = 4 * TM * TN;  // complex columns of a tile
+  static constexpr int CT = VT / TN;      // threads along the columns (<= 32)
+  static constexpr int RT = BI / TM;      // threads along the rows
+  static constexpr int R = TM;
+  static constexpr int C = TN;
+  static constexpr int HALVES = 1;
+  static_assert(CT * RT == NTHR && CT <= 32, "thread layout");
+  struct Acc { float2 v[TM][TN]; };
+
+  const Args& a;
+  float2 (*P)[BI];  // (LC, BI) the chunk of the left operand
+  float2* Q;        // (LC, VT) the chunk of the right operand
+  float2* H;        // 'rx': (V, BI) conj(Ahat)
+  const float2 *S, *X, *Sk, *Xk;
+  int64_t i0;
+  float fk;
+  int tr, tc;
+
+  __device__ explicit F32Engine(const Args& args) : a(args) {
+    float2* p = reinterpret_cast<float2*>(k4_smem);
+    P = reinterpret_cast<float2(*)[BI]>(p);
+    Q = p + LC * BI;
+    H = Q + LC * VT;
+    S = static_cast<const float2*>(a.S);
+    X = static_cast<const float2*>(a.X);
+    i0 = (int64_t)blockIdx.x * BI;
+    tr = threadIdx.x / CT;
+    tc = threadIdx.x % CT;
+  }
+
+  static size_t smem_bytes(const Args& a) {
+    return ((size_t)LC * BI + (size_t)LC * VT + (KEEP == KEEP_RX ? (size_t)a.V * BI : 0))
+           * sizeof(float2);
+  }
+
+  __device__ void bin(int k) {
+    fk = a.fvals[k];
+    Sk = S + (int64_t)k * a.M * a.V;
+    Xk = X + (int64_t)k * a.N * a.V;
+  }
+
+  __device__ static void zero(Acc& x) {
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) x.v[r][c] = make_float2(0.f, 0.f);
+  }
+
+  // acc[r][c] += sum_l P(row r, l) Qg[l, col0 + col c] over l < L, Qg (L, J)
+  // row-major; P's chunks from fillp(l, ii)
+  template <class FillP>
+  __device__ void gemm(Acc& x, FillP fillp, const float2* __restrict__ Qg, int L, int J,
+                       int col0) {
+    const int tid = threadIdx.x;
+    for (int l0 = 0; l0 < L; l0 += LC) {
+      const int lc = L - l0 < LC ? L - l0 : LC;
+      __syncthreads();  // the previous chunk is consumed
+      for (int e = tid; e < LC * BI; e += NTHR) {
+        const int l = e / BI, ii = e % BI;
+        P[l][ii] = l < lc ? fillp(l0 + l, ii) : make_float2(0.f, 0.f);
+      }
+      for (int e = tid; e < LC * VT; e += NTHR) {
+        const int l = e / VT, j = e % VT;
+        Q[e] = (l < lc && col0 + j < J) ? Qg[(int64_t)(l0 + l) * J + col0 + j]
+                                        : make_float2(0.f, 0.f);
+      }
+      __syncthreads();
+      for (int l = 0; l < lc; ++l) {
+        float2 p[TM], q[TN];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) p[r] = P[l][tr + RT * r];
+#pragma unroll
+        for (int c = 0; c < TN; ++c) q[c] = Q[l * VT + tc + CT * c];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int c = 0; c < TN; ++c) cmac(x.v[r][c], p[r], q[c]);
+      }
+    }
+  }
+
+  __device__ void prodA(Acc& x, int vt) {
+    gemm(x, [&](int m, int ii) {
+      return i0 + ii < a.I ? phasor<true>(fk, a.taut[(int64_t)m * a.I + i0 + ii], -1.f)
+                           : make_float2(0.f, 0.f);
+    }, Sk, a.M, a.V, vt * VT);
+  }
+  __device__ void prodY(Acc& x, int vt) {
+    gemm(x, [&](int n, int ii) {
+      return i0 + ii < a.I ? phasor<true>(fk, a.taur[(int64_t)n * a.I + i0 + ii], 1.f)
+                           : make_float2(0.f, 0.f);
+    }, Xk, a.N, a.V, vt * VT);
+  }
+  __device__ void prodZ(Acc& x, int nt) {
+    gemm(x, [&](int v, int ii) { return H[v * BI + ii]; }, Xk, a.V, a.N, nt * VT);
+  }
+
+  template <class F>
+  __device__ void each(const Acc& x, const Acc& y, F f) const {
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) f(r, tr + RT * r, tc + CT * c, x.v[r][c], y.v[r][c]);
+  }
+
+  // the CT consecutive lanes of one tr share their rows
+  __device__ void reduce_rows(float (&part)[R][3], float (*red)[3][BI]) const {
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float v = part[r][q];
+#pragma unroll
+        for (int o = CT / 2; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+        if (tc == 0) red[0][q][tr + RT * r] = v;
+      }
+  }
+
+  __device__ void setH(int row, int v, float2 val) {
+    if (v < a.V) H[v * BI + row] = val;
+  }
+  __device__ void zeroH(int) {}
+  __device__ float tau_rx(int64_t i, int n) const { return a.taur[(int64_t)n * a.I + i]; }
+};
+
+// ------------------------------------------------------------ the keep modes
+
+template <int HALVES>
+__device__ __forceinline__ float row_total(float (*red)[3][BI], int q, int row) {
+  return HALVES == 2 ? red[0][q][row] + red[1][q][row] : red[0][q][row];
+}
+
+template <int HALVES>
+__device__ __forceinline__ float inv_norm(float (*red)[3][BI], int row) {
+  const float nrm = sqrtf(row_total<HALVES>(red, 0, row));
+  return 1.f / (nrm == 0.f ? 1.f : nrm);
+}
+
+template <int KEEP, class E>
+__global__ void __launch_bounds__(NTHR) adjoint_k4_kernel(const __grid_constant__ Args a) {
+  __shared__ float red[2][3][BI];  // per column half: |A|^2, Re and Im of y conj(A)
+  E e(a);
+  const int tid = threadIdx.x;
+  const int64_t i0 = (int64_t)blockIdx.x * BI;
+  const int nvt = (a.V + E::VT - 1) / E::VT;
+  float2 bsum = make_float2(0.f, 0.f);  // keep '': pixel i0 + tid, tid < BI
+
+  for (int k = 0; k < a.K; ++k) {
+    e.bin(k);
+    float part[E::R][3];
+#pragma unroll
+    for (int r = 0; r < E::R; ++r) part[r][0] = part[r][1] = part[r][2] = 0.f;
+    for (int vt = 0; vt < nvt; ++vt) {
+      typename E::Acc A, Y;
+      E::zero(A);
+      E::zero(Y);
+      e.prodA(A, vt);
+      if (KEEP == SUM) e.prodY(Y, vt);
+      e.each(A, Y, [&](int r, int, int, float2 av, float2 yv) {
+        part[r][0] = part[r][0] + (av.x * av.x + av.y * av.y);
+        if (KEEP == SUM) {
+          part[r][1] = part[r][1] + (yv.x * av.x + yv.y * av.y);
+          part[r][2] = part[r][2] + (yv.y * av.x - yv.x * av.y);
+        }
+      });
+    }
+    e.reduce_rows(part, red);
+    __syncthreads();
+
+    if (KEEP == SUM) {
+      if (tid < BI) {
+        const float inv = inv_norm<E::HALVES>(red, tid);
+        bsum.x = bsum.x + row_total<E::HALVES>(red, 1, tid) * inv;
+        bsum.y = bsum.y + row_total<E::HALVES>(red, 2, tid) * inv;
+      }
+    } else if (KEEP == KEEP_TX) {
+      for (int vt = 0; vt < nvt; ++vt) {
+        typename E::Acc A, Y;
+        E::zero(A);
+        E::zero(Y);
+        e.prodA(A, vt);
+        e.prodY(Y, vt);
+        e.each(A, Y, [&](int, int row, int c, float2 av, float2 yv) {
+          const int v = vt * E::VT + c;
+          const int64_t i = i0 + row;
+          if (v >= a.V || i >= a.I) return;
+          const float inv = inv_norm<E::HALVES>(red, row);
+          const float ar = av.x * inv, ai = av.y * inv;
+          float2* o = a.out + i * a.V + v;
+          *o = make_float2(o->x + (yv.x * ar + yv.y * ai), o->y + (yv.y * ar - yv.x * ai));
+        });
+      }
+    } else {
+      for (int vt = 0; vt < nvt; ++vt) {
+        typename E::Acc A;
+        E::zero(A);
+        e.prodA(A, vt);
+        e.each(A, A, [&](int, int row, int c, float2 av, float2) {
+          const float inv = inv_norm<E::HALVES>(red, row);
+          e.setH(row, vt * E::VT + c, make_float2(av.x * inv, -(av.y * inv)));
+        });
+      }
+      e.zeroH(nvt * E::VT);
+      __syncthreads();  // conj(Ahat) is complete
+      const int nnt = (a.N + E::VT - 1) / E::VT;
+      for (int nt = 0; nt < nnt; ++nt) {
+        typename E::Acc Z;
+        E::zero(Z);
+        e.prodZ(Z, nt);
+        e.each(Z, Z, [&](int, int row, int c, float2 z, float2) {
+          const int n = nt * E::VT + c;
+          const int64_t i = i0 + row;
+          if (n >= a.N || i >= a.I) return;
+          const float2 p = phasor<false>(e.fk, e.tau_rx(i, n), 1.f);
+          float2* o = a.out + i * a.N + n;
+          *o = make_float2(o->x + (p.x * z.x - p.y * z.y), o->y + (p.x * z.y + p.y * z.x));
+        });
+      }
+    }
+  }
+  if (KEEP == SUM && tid < BI && i0 + tid < a.I) a.out[i0 + tid] = bsum;
+}
+
+template <int KEEP, class E>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  auto kern = adjoint_k4_kernel<KEEP, R, BF16>;
-  const size_t smem = ((size_t)LC * NW * R + (KEEP == KEEP_RX ? (size_t)a.V * BI : 0))
-                      * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = adjoint_k4_kernel<KEEP, E>;
+  const size_t smem = E::smem_bytes(a);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((a.I + BI - 1) / BI)), block(NW * 32);
-  kern<<<grid, block, smem, s>>>(a.fvals, a.taur, a.taut, a.S, a.X, a.out,
-                                  a.I, a.N, a.M, a.V, a.K);
+  const dim3 grid((unsigned)((a.I + BI - 1) / BI)), block(NTHR);
+  kern<<<grid, block, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int KEEP, bool BF16>
-cudaError_t launch_r(int R, const Args& a, cudaStream_t s) {
-  switch (R) {
-    case 1: return launch<KEEP, 1, BF16>(a, s);
-    case 4: return launch<KEEP, 4, BF16>(a, s);
-    case 16: return launch<KEEP, 16, BF16>(a, s);
-    case 32: return launch<KEEP, 32, BF16>(a, s);
+// the shared memory a Hopper block may opt into (232448 bytes), less room
+// for the kernel's static arrays
+constexpr size_t SMEM_LIMIT = 232448 - 4096;
+
+// bf16 tiles of VT = 8 NT complex columns. The phasor tiles of a bin stay
+// resident in shared memory where they fit; otherwise each chunk's phasors
+// are built as the product reaches it (GEN).
+template <int KEEP, int NT>
+cudaError_t launch_nt(const Args& a, cudaStream_t s) {
+  if (TcEngine<KEEP, NT, false>::smem_bytes(a) <= SMEM_LIMIT)
+    return launch<KEEP, TcEngine<KEEP, NT, false>>(a, s);
+  return launch<KEEP, TcEngine<KEEP, NT, true>>(a, s);
+}
+
+template <int KEEP>
+cudaError_t launch_tc(int nt, const Args& a, cudaStream_t s) {
+  switch (nt) {
+    case 1: return launch_nt<KEEP, 1>(a, s);
+    case 2: return launch_nt<KEEP, 2>(a, s);
+    case 4: return launch_nt<KEEP, 4>(a, s);
+    case 8: return launch_nt<KEEP, 8>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f32 tiles by VT: 8 (2 x 1 per thread), 16 (2 x 2), 32 (4 x 2), 64 (4 x 4)
+template <int KEEP>
+cudaError_t launch_f32(int vt, const Args& a, cudaStream_t s) {
+  switch (vt) {
+    case 8: return launch<KEEP, F32Engine<KEEP, 2, 1>>(a, s);
+    case 16: return launch<KEEP, F32Engine<KEEP, 2, 2>>(a, s);
+    case 32: return launch<KEEP, F32Engine<KEEP, 4, 2>>(a, s);
+    case 64: return launch<KEEP, F32Engine<KEEP, 4, 4>>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <int KEEP>
-cudaError_t launch_p(int bf16, int R, const Args& a, cudaStream_t s) {
-  return bf16 ? launch_r<KEEP, true>(R, a, s) : launch_r<KEEP, false>(R, a, s);
+cudaError_t launch_p(int bf16, int vt, const Args& a, cudaStream_t s) {
+  return bf16 ? launch_tc<KEEP>(vt / 8, a, s) : launch_f32<KEEP>(vt, a, s);
 }
 
 }  // namespace
 
-// Launch K4 on `stream` of device `device`. fvals (K,); taur (N, I) and taut
-// (M, I) the transposed delay tables [s]; S (K, M, V) and X (K, N, V), or
-// (K, V, N) for keep 1 ('rx'), interleaved complex64; out complex64 (I,)
-// for keep 0 (''), (I, N) for 'rx' and (I, V) for keep 2 ('tx'), zeroed by
-// the caller for 'rx' and 'tx'. R is the columns per thread, one of 1, 4,
-// 16, 32, at least ceil(V / 8) (and ceil(N / 8) for 'rx'). Returns the
-// cudaError_t of the launch; 0 is success.
-extern "C" int adjoint_k4(const float* fvals, const float* taur,
-                          const float* taut, const void* S, const void* X,
-                          void* out, long long I, int N, int M, int V, int K,
-                          int keep, int bf16, int R, int device, void* stream) {
+// For each u[j]: (sin, cos) of 2 pi frac(u) by the accurate routine (the
+// plain version's) and by the special function unit (the products'
+// phasors), as out[j] = (sin, cos, sin_sfu, cos_sfu); a measurement of the
+// phase error.
+__global__ void turns_probe_kernel(const float* __restrict__ u, float4* __restrict__ out, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float s, c, s2, c2;
+  hmma::sincos_turns(u[j], &s, &c);
+  hmma::sincos_turns_sfu(u[j], &s2, &c2);
+  out[j] = make_float4(s, c, s2, c2);
+}
+
+extern "C" int turns_sincos_probe(const float* u, void* out, int n, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || n <= 0) return (int)err;
+  turns_probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(u, (float4*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// Launch K4 on `stream` of device `device`. fvals (K,). bf16 != 0: taur
+// (I, N) and taut (I, M) [s]; S (K, 2Mp, 2Vp) and X (K, 2Np, 2Vp), or
+// (K, 2Vp, 2Np) for keep 1 ('rx'), the bf16 real-block operands. bf16 == 0: taur (N, I), taut (M, I); S (K, M, V)
+// and X (K, N, V), or (K, V, N) for 'rx', interleaved complex64. out
+// complex64 (I,) for keep 0 (''), (I, N) for 'rx' and (I, V) for keep 2
+// ('tx'), zeroed by the caller for 'rx' and 'tx'. vt is the complex columns
+// of a tile, 8, 16, 32 or 64. Mp, Np, Vp and Vz (bf16 only) are M, N, V
+// padded: Mp and Vz to multiples of 16 (the complex rows of a ring stage),
+// Np and Vp to multiples of 16 and of vt. Returns the cudaError_t of the launch; 0 is success.
+extern "C" int adjoint_k4(const float* fvals, const float* taur, const float* taut,
+                          const void* S, const void* X, void* out, long long I, int N, int M,
+                          int V, int K, int Mp, int Np, int Vp, int Vz, int keep, int bf16,
+                          int vt, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (I <= 0) return (int)cudaSuccess;
-  if (N <= 0 || M <= 0 || V <= 0 || K <= 0 || V > NW * R
-      || (keep == KEEP_RX && N > NW * R))
+  if (N <= 0 || M <= 0 || V <= 0 || K <= 0 || (vt != 8 && vt != 16 && vt != 32 && vt != 64))
     return (int)cudaErrorInvalidValue;
-  const Args a{fvals, taur, taut, (const float2*)S, (const float2*)X,
-               (float2*)out, (int64_t)I, N, M, V, K};
+  if (bf16 && (Mp < M || Mp % KC2 || Np < N || Np % KC2 || Np % vt || Vp < V || Vp % KC2
+               || Vp % vt || Vz < V || Vz % KC2 || Vz > Vp))
+    return (int)cudaErrorInvalidValue;
+  const Args a{fvals, taur, taut, S, X, (float2*)out, (int64_t)I, N, M, V, K, Mp, Np, Vp, Vz};
   cudaStream_t s = (cudaStream_t)stream;
   switch (keep) {
-    case SUM: err = launch_p<SUM>(bf16, R, a, s); break;
-    case KEEP_RX: err = launch_p<KEEP_RX>(bf16, R, a, s); break;
-    case KEEP_TX: err = launch_p<KEEP_TX>(bf16, R, a, s); break;
+    case SUM: err = launch_p<SUM>(bf16, vt, a, s); break;
+    case KEEP_RX: err = launch_p<KEEP_RX>(bf16, vt, a, s); break;
+    case KEEP_TX: err = launch_p<KEEP_TX>(bf16, vt, a, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

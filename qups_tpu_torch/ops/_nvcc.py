@@ -2,8 +2,9 @@
 
 Each kernel source under ``qups_tpu_torch/csrc/`` has a plain ``extern "C"``
 entry point. :func:`load` compiles a source with ``nvcc`` for ``sm_90a`` on
-first use, into ``qups_tpu_torch/_build/`` (keyed by a hash of the source and
-the flags, so an edited source is rebuilt), and loads it with ``ctypes``.
+first use, into ``qups_tpu_torch/_build/`` (keyed by a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt), and loads it with ``ctypes``.
 A failed build raises with nvcc's output; nothing falls back.
 """
 from __future__ import annotations
@@ -42,7 +43,8 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}_{key}.so"
     log = ""

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .interp import expand_trailing, interp1
-from ..utils.backend import as_f32
+from ..utils.backend import as_f32, default_device
 
 TX_MODELS = ("plane", "virtual", "diverging")
 
@@ -67,7 +67,9 @@ def rx_distance(pi: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
 def delay_tables(pi, pr, pv, nv, c0: float, tx_model: str = "virtual",
                  device=None):
     """Separable geometric delays ``tau_rx (I, N)`` and ``tau_tx (I, M)`` in
-    seconds (no t0 applied), float32 on ``device``."""
+    seconds (no t0 applied), float32 on ``device`` (default: the CUDA
+    device)."""
+    device = default_device(device)
     pi, pr, pv, nv = (as_f32(a, device) for a in (pi, pr, pv, nv))
     dr = rx_distance(pi, pr)
     dv = torch.stack([tx_distance(pi, pv[m], nv[m], tx_model)

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.backend import as_f32
+from ..utils.backend import as_f32, default_device
 
 _TWO_PI = 6.283185307179586
 PRECISIONS = ("bf16", "f32")
@@ -38,9 +38,11 @@ def spectral_level(x: torch.Tensor) -> torch.Tensor:
 
 def geom_delays(pi, pos, cinv, device=None) -> torch.Tensor:
     """Geometric delay table ``|pi - pos| * cinv`` (I, E), float32, built on
-    ``device`` from pixels (I, 3) and element positions (E, 3): only the
-    small position arrays cross from the host. A float64 host table of size
-    (1e6, 256) would cost seconds of host work and GBs of upload per call."""
+    ``device`` (default: the CUDA device) from pixels (I, 3) and element
+    positions (E, 3): only the small position arrays cross from the host. A
+    float64 host table of size (1e6, 256) would cost seconds of host work and
+    GBs of upload per call."""
+    device = default_device(device)
     pi, pos = as_f32(pi, device), as_f32(pos, device)
     d = pi[:, None, :] - pos[None]
     return torch.sqrt((d * d).sum(-1)) * float(np.float32(cinv))

@@ -2,13 +2,15 @@
 
 Replaces the TPU kernel ``qups_tpu/ops/fdbf_pallas.py::_kernel`` (launched
 by ``_adj_call``, public entry ``bf_adjoint_tiled``) for sub-slice K4(a):
-keep modes '' (summed), 'rx' and 'tx', dot precisions 'f32' and 'bf16', up
-to 256 synthesized pulses (and, with keep_rx, 256 receivers). The source is
-``csrc/fdbf.cu``, built and loaded by :mod:`qups_tpu_torch.ops._nvcc`. The
-host/XLA glue of the TPU engine (``_prep_spectra``, ``_pack``, the
-empty-bin case) is plain torch in :func:`qups_tpu_torch.ops.fdbf.
-adjoint_spectra`, shared with the plain version; the TPU's 128-lane
-padding is gone.
+keep modes '' (summed), 'rx' and 'tx', dot precisions 'f32' (CUDA cores)
+and 'bf16' (tensor cores), up to 256 synthesized pulses (and, with keep_rx,
+256 receivers). The source is ``csrc/fdbf.cu``, built and loaded by
+:mod:`qups_tpu_torch.ops._nvcc`. The host/XLA glue of the TPU engine
+(``_prep_spectra``, ``_pack``, the empty-bin case) is plain torch in
+:func:`qups_tpu_torch.ops.fdbf.adjoint_spectra`, shared with the plain
+version; the TPU's 128-lane padding is gone. For 'bf16' the wrapper packs
+the per-bin spectra into the real-block operands of the tensor-core GEMMs
+(:func:`block_operand`).
 
 :func:`bf_adjoint_cuda` launches the kernel for a CUDA tensor, and raises
 if it cannot be built or launched; it never falls back. For a CPU tensor it
@@ -23,13 +25,12 @@ import numpy as np
 import torch
 
 from . import _nvcc
-from .fdbf import (PRECISIONS, adjoint_spectra, bf_adjoint, keep_mode,
-                   round_operand)
+from .fdbf import PRECISIONS, adjoint_spectra, bf_adjoint, keep_mode
 from ..utils.backend import as_f32, is_cuda
 
 LAUNCHES = 0  # K4 launches in this process
 
-MAX_COLS = 256  # receivers / pulses a block's 8 warps x 32 columns hold
+MAX_COLS = 256  # pulses (and, with keep_rx, receivers) of sub-slice K4(a)
 _KEEP_CODE = {"": 0, "rx": 1, "tx": 2}
 
 
@@ -39,9 +40,49 @@ def build():
     lib, log = _nvcc.load("fdbf")
     fn = lib.adjoint_k4
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, log
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def tile_cols(V: int, N: int, keep: str) -> int:
+    """Complex columns of K4's tiles: the least of 8, 16, 32, 64 that holds
+    the pulses (and, with keep 'rx', the receivers), else 64."""
+    cols = max(V, N if keep == "rx" else 1)
+    return next((vt for vt in (8, 16, 32) if vt >= cols), 64)
+
+
+def block_operand(z: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The real-block form of the complex right operands ``z (K, R, C)`` of
+    K4's tensor-core GEMMs, rounded to bfloat16: (K, 2 rows, 2 cols) with
+    row 2r = (Re, Im) and row 2r + 1 = (-Im, Re) of z[:, r, c] at columns
+    2c, 2c + 1, zero past R and C. A left operand whose (Re, Im) are
+    interleaved along its columns times this block gives the complex
+    product with (Re, Im) interleaved; the four real products of
+    :func:`qups_tpu_torch.ops.fdbf.cmatmul` on the same bf16 operands."""
+    K, R, C = z.shape
+    zr, zi = z.real.to(torch.bfloat16), z.imag.to(torch.bfloat16)
+    out = torch.zeros((K, rows, 2, cols, 2), dtype=torch.bfloat16, device=z.device)
+    out[:, :R, 0, :C, 0] = zr
+    out[:, :R, 0, :C, 1] = zi
+    out[:, :R, 1, :C, 0] = -zi
+    out[:, :R, 1, :C, 1] = zr
+    return out.reshape(K, 2 * rows, 2 * cols)
+
+
+KROWS = 16  # complex rows of a ring stage of the bf16 variant (fdbf.cu's KC2)
+
+
+def tc_layout(M: int, N: int, V: int, keep: str):
+    """(vt, Mp, Np, Vp, Vz) of the bf16 variant: the tile width and the
+    paddings of M, N and V that its operands and shared tiles take."""
+    vt = tile_cols(V, N, keep)
+    q = max(vt, KROWS)
+    return vt, _ceil(M, KROWS), _ceil(N, q), _ceil(V, q), _ceil(V, KROWS)
 
 
 def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
@@ -80,18 +121,28 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
     if spec is None:  # no bins selected: a zero image, as the plain version
         return out
     _, fk, Xk, Sk = spec
-    if keep == "rx":  # the kernel contracts conj(Ahat) (BI, V) x X_k^T (V, N)
-        Xk = Xk.transpose(1, 2)
-    # the operands the kernel reads as they are: rounded here for 'bf16'
-    Sk, Xk = (round_operand(a, precision).contiguous() for a in (Sk, Xk))
-    taur, taut = tau_rx.t().contiguous(), tau_tx.t().contiguous()
-    cols = -(-max(V, N if keep == "rx" else 1) // 8)
-    R = next(r for r in (1, 4, 16, 32) if r >= cols)
     fn, _ = build()
-    rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sk.data_ptr(),
-            Xk.data_ptr(), out.data_ptr(), I, N, M, V, int(fk.shape[0]),
-            _KEEP_CODE[keep], int(precision == "bf16"), R,
-            *_nvcc.stream_args(dev))
+    K = int(fk.shape[0])
+    code = _KEEP_CODE[keep]
+    if precision == "bf16":
+        vt, Mp, Np, Vp, Vz = tc_layout(M, N, V, keep)
+        Sb = block_operand(Sk, Mp, Vp)
+        # keep 'rx' contracts conj(Ahat) (BI, V) x X_k^T (V, N)
+        Xb = block_operand(Xk.transpose(1, 2), Vp, Np) if keep == "rx" \
+            else block_operand(Xk, Np, Vp)
+        taur, taut = tau_rx.contiguous(), tau_tx.contiguous()
+        rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sb.data_ptr(),
+                Xb.data_ptr(), out.data_ptr(), I, N, M, V, K, Mp, Np, Vp, Vz,
+                code, 1, vt, *_nvcc.stream_args(dev))
+    else:
+        vt = tile_cols(V, N, keep)
+        if keep == "rx":
+            Xk = Xk.transpose(1, 2)
+        Sk, Xk = Sk.contiguous(), Xk.contiguous()
+        taur, taut = tau_rx.t().contiguous(), tau_tx.t().contiguous()
+        rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sk.data_ptr(),
+                Xk.data_ptr(), out.data_ptr(), I, N, M, V, K, 0, 0, 0, 0,
+                code, 0, vt, *_nvcc.stream_args(dev))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed with cudaError {rc}")
     LAUNCHES += 1

@@ -24,7 +24,7 @@ import torch
 
 from .conv import convd
 from .interp import _taps, interp1
-from ..utils.backend import as_f32
+from ..utils.backend import as_f32, default_device
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:
@@ -39,7 +39,7 @@ def _kern(kern, device) -> torch.Tensor:
 
 def greens_splat(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
                  fs: float, cinv, R0: float, fsr: float = 1.0,
-                 method: str = "cubic", block: int = 32, device="cpu"):
+                 method: str = "cubic", block: int = 32, device=None):
     """Scatter-splat + convolve Green's-function FSA simulation.
 
     Args:
@@ -55,10 +55,11 @@ def greens_splat(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
         resampled to the output rate.
       method: sampler whose weights are splatted.
       block: scatterers per step (a memory knob).
-      device: where the simulated traces live.
+      device: where the simulated traces live (default: the CUDA device).
 
     Returns: FSA data (T, N, M), complex64 if ``kern`` or ``amp`` is complex.
     """
+    device = default_device(device)
     kern = _kern(kern, device)
     ps = as_f32(ps, device)
     amp_np = np.asarray(amp)
@@ -119,11 +120,12 @@ def greens_splat(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
 
 def greens_dense(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
                  fs: float, cinv, R0: float, fsr: float = 1.0,
-                 method: str = "cubic", device="cpu"):
+                 method: str = "cubic", device=None):
     """Direct (oracle) Green's-function simulation: for each output sample,
     rx n and tx m, the sum over scatterers of the kernel sampled at
     ``fsr * (s - (cinv (r1 + r2) + t0k - s0) fs)``. O(T*S*N*M): for tests
-    and small sizes."""
+    and small sizes. ``device``: default the CUDA device."""
+    device = default_device(device)
     kern = _kern(kern, device)
     ps = as_f32(ps, device)
     amp = np.asarray(amp)

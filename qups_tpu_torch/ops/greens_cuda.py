@@ -40,7 +40,7 @@ import torch
 from . import _nvcc
 from .conv import convd
 from .interp import interp1
-from ..utils.backend import is_cuda
+from ..utils.backend import default_device, is_cuda
 
 LAUNCHES = 0  # K5 launches in this process
 
@@ -332,8 +332,9 @@ def plan_tiled(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
 def greens_tiled(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
                  fs: float, cinv, R0: float, fsr: float = 1.0,
                  method: str = "linear", CS: int = 256, kernel: str = "auto",
-                 device="cpu") -> torch.Tensor:
-    """Green's-function FSA simulation through the splat kernel K5.
+                 device=None) -> torch.Tensor:
+    """Green's-function FSA simulation through the splat kernel K5, on
+    ``device`` (default: the CUDA device).
 
     Same contract as :func:`qups_tpu_torch.ops.greens.greens_splat`:
     ``kern`` (K,) sampled at ``fsr * fs``, real or complex (the deposit grid
@@ -356,7 +357,7 @@ def greens_tiled(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
         raise ValueError("greens_tiled supports linear/cubic splat only")
     if kernel not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown kernel {kernel!r}")
-    device = torch.device(device)
+    device = default_device(device)
     if kernel == "cuda" and device.type != "cuda":
         raise ValueError("kernel='cuda' needs a CUDA device")
     if np.iscomplexobj(np.asarray(amp)):

@@ -23,7 +23,7 @@ import torch
 
 from . import greens_freq_cuda
 from .interp import interp1
-from ..utils.backend import as_f32
+from ..utils.backend import as_f32, default_device
 from ..utils.maths import box_rbounds
 
 _TWO_PI = 6.283185307179586
@@ -130,8 +130,9 @@ def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
                 fs: float, cinv, R0: float, fsr: float = 1.0,
                 rtol: float = 1e-6, precision: str = "highest",
                 alpha0: float = 0.0, kernel: str = "auto",
-                device="cpu") -> torch.Tensor:
-    """Frequency-domain FSA Green's-function simulation on ``device``.
+                device=None) -> torch.Tensor:
+    """Frequency-domain FSA Green's-function simulation on ``device``
+    (default: the CUDA device).
 
     Same contract as :func:`qups_tpu_torch.ops.greens.greens_splat`:
     ``kern`` (K,) real or complex sampled at ``fsr * fs``; ``ps`` (S, 3);
@@ -155,7 +156,7 @@ def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
         raise ValueError(f"unknown kernel {kernel!r}")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected {PRECISIONS}")
-    device = torch.device(device)
+    device = default_device(device)
     if kernel == "cuda" and device.type != "cuda":
         raise ValueError("kernel='cuda' needs a CUDA device")
     gemm = greens_freq_cuda.freq_gemm_plain if kernel == "plain" \

@@ -11,8 +11,9 @@ GEMM
 with ``q = cinv fs r / L`` and ``w`` from
 :func:`qups_tpu_torch.ops.greens_freq.prologue` (or
 :func:`qups_tpu_torch.ops.simus.simus_prologue`). Sub-slices: K3(a) the
-float32 GEMM (``D = 1``); K3(b) ``bf16=True``, each operand rounded to
-bfloat16 after the sub-element sum and the directivity, float32 sums;
+float32 GEMM (``D = 1``, CUDA cores); K3(b) ``bf16=True``, each operand
+rounded to bfloat16 after the sub-element sum and the directivity, the
+product on the tensor cores with float32 sums;
 K3(c) the element directivity ``D = sinc(s k)`` from slopes ``s1 (S, N)``,
 ``s2 (S, M)``. The source is ``csrc/greens_freq.cu``, built and loaded by
 :mod:`qups_tpu_torch.ops._nvcc`.

@@ -24,7 +24,7 @@ import torch
 
 from . import greens_freq_cuda
 from .greens_freq import PRECISIONS, alpha_np_per_bin
-from ..utils.backend import as_f32
+from ..utils.backend import as_f32, default_device
 
 
 def simus_prologue(ps, amp, pn, nn_az, pv, nv_az, widths, sl, *,
@@ -93,7 +93,7 @@ def _simus_synth(Xs, specs, *, T: int, k0s) -> torch.Tensor:
 def simus_fsa(ps, amp, pn, nn_az, pv, nv_az, widths, spec, bin_idx, *,
               T: int, fs: float, c0: float, baffle: str = "soft",
               precision: str = "highest", alpha0: float = 0.0,
-              kernel: str = "auto", device="cpu") -> torch.Tensor:
+              kernel: str = "auto", device=None) -> torch.Tensor:
     """Frequency-domain FSA synthesis with element directivity.
 
     Args:
@@ -111,7 +111,8 @@ def simus_fsa(ps, amp, pn, nn_az, pv, nv_az, widths, spec, bin_idx, *,
       alpha0: frequency-linear absorption [dB/cm/MHz] over both legs.
       kernel: 'auto' runs K3 on a CUDA device and its plain version on the
         CPU; 'cuda' requires K3; 'plain' runs the plain version anywhere.
-      device: where the traces are computed and returned.
+      device: where the traces are computed and returned (default: the
+        CUDA device).
 
     Returns: real (T, N, E) float32 FSA traces on ``device``.
     """
@@ -119,7 +120,7 @@ def simus_fsa(ps, amp, pn, nn_az, pv, nv_az, widths, spec, bin_idx, *,
         raise ValueError(f"unknown kernel {kernel!r}")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected {PRECISIONS}")
-    device = torch.device(device)
+    device = default_device(device)
     if kernel == "cuda" and device.type != "cuda":
         raise ValueError("kernel='cuda' needs a CUDA device")
     bin_idx = np.asarray(bin_idx, np.int64)

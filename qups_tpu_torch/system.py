@@ -61,7 +61,7 @@ from .ops.greens_cuda import greens_tiled
 from .ops.greens_freq import greens_freq
 from .ops.interp import METHODS
 from .ops.simus import simus_fsa
-from .utils.backend import as_f32
+from .utils.backend import as_f32, default_device
 from .utils.maths import box_rbounds
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
@@ -166,7 +166,8 @@ class UltrasoundSystem:
         on a CUDA device and its plain version on the CPU; 'cuda' requires
         the kernel; 'plain' runs the plain version on any device.
 
-        ``device``: where the simulated traces live (default: the CPU).
+        ``device``: where the simulated traces live (default: the CUDA
+        device; ``device="cpu"`` runs the plain versions on the CPU).
 
         Example:
             import numpy as np
@@ -178,13 +179,13 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            chd = us.greens(scat)
+            chd = us.greens(scat, device="cpu")
             # echo arrives at the round-trip time 2 * 20mm / c0 ~ 26 us
             t = chd.time.reshape(-1).numpy()
             t_pk = t[int(chd.data[:, 0, 0].abs().argmax())]
             assert abs(t_pk - 2 * 20e-3 / 1540.0) < 1e-6
         """
-        device = torch.device("cpu" if device is None else device)
+        device = default_device(device)
         on_cpu = device.type == "cpu"
         if impl == "auto":
             impl = "splat" if on_cpu else "freq"
@@ -371,7 +372,7 @@ class UltrasoundSystem:
 
         ``kernel``: 'auto' runs K3 on a CUDA device and its plain version on
         the CPU; 'cuda' requires K3; 'plain' runs the plain version.
-        ``device``: where the traces live (default: the CPU).
+        ``device``: where the traces live (default: the CUDA device).
 
         Example:
             import numpy as np
@@ -383,11 +384,11 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            chd = us.simus(scat)
+            chd = us.simus(scat, device="cpu")
             assert chd.data.shape[1:3] == (4, 4)
             assert bool(chd.data.isfinite().all())
         """
-        device = torch.device("cpu" if device is None else device)
+        device = default_device(device)
         fs = float(self.fs)
         c0 = float(scat.c0)
         wv = self.rx.impulse.conv(self.tx.impulse.conv(self.seq.pulse, fs), fs)
@@ -447,8 +448,8 @@ class UltrasoundSystem:
         so this runs one FSA :meth:`greens` (keyword arguments pass through)
         and folds the sequence ``bsize`` transmits at a time, or all at once
         when ``None``. ``method`` goes to :meth:`greens` as given; for the
-        synthesis 'auto' is 'freq' on a CUDA ``device`` and 'cubic' on the
-        CPU, as :meth:`greens` resolves it. All blocks share one focus plan
+        synthesis 'auto' is 'freq' on a CUDA ``device`` (the default) and
+        'cubic' on the CPU, as :meth:`greens` resolves it. All blocks share one focus plan
         (t0 shift and zero-pad), so blocked and unblocked results agree.
 
         Example:
@@ -462,13 +463,13 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            a = us.calc_scat_multi(scat)            # all transmits at once
-            b = us.calc_scat_multi(scat, bsize=1)   # blocked == fused
+            a = us.calc_scat_multi(scat, device="cpu")           # all at once
+            b = us.calc_scat_multi(scat, bsize=1, device="cpu")  # blocked
             assert float((a.data - b.data).abs().max()) < 1e-5
         """
         kw["method"] = method
         if method == "auto":
-            on_cpu = torch.device(kw.get("device") or "cpu").type == "cpu"
+            on_cpu = default_device(kw.get("device")).type == "cpu"
             method = "cubic" if on_cpu else "freq"
         if self.seq.type == "FSA":
             return self.greens(scat, element_subdivisions, **kw)
@@ -501,7 +502,7 @@ class UltrasoundSystem:
         every (pixel, element) delay into a (time, pixel) grid and one
         convolution with ``wv``, as the JAX package computes it.
 
-        Returns, on ``device`` (default: the CPU), ``out='max'``: the
+        Returns, on ``device`` (default: the CUDA device), ``out='max'``: the
         max-pressure map ``(I1, I2, I3, M)`` float32 tensor; ``out='field'``:
         ``(p (T, I, M), t0)``, the full time series and its start time.
 
@@ -515,7 +516,7 @@ class UltrasoundSystem:
                 scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 9),
                                      z=np.linspace(16e-3, 24e-3, 9)),
                 fs=12e6)
-            p = us.calc_hp()                  # (I1, I2, I3, M) max pressure
+            p = us.calc_hp(device="cpu")      # (I1, I2, I3, M) max pressure
             assert tuple(p.shape) == (9, 9, 1, 1)
             # the focused transmit concentrates pressure on axis (x = 0)
             P = us.scan.positions().reshape(3, -1)
@@ -523,7 +524,7 @@ class UltrasoundSystem:
         """
         if out not in ("max", "field"):
             raise ValueError(f"unknown out {out!r}; expected 'max' or 'field'")
-        device = torch.device("cpu" if device is None else device)
+        device = default_device(device)
         scan = scan or self.scan
         seq = seq or self.seq
         fs = float(self.fs)
@@ -623,7 +624,7 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            b = us.DAS(us.greens(scat))           # (I1, I2, I3, 1, 1)
+            b = us.DAS(us.greens(scat, device="cpu"))  # (I1, I2, I3, 1, 1)
             assert b.shape[:3] == us.scan.shape
             img = b.abs().reshape(-1)
             P = us.scan.positions().reshape(3, -1)
@@ -733,7 +734,8 @@ class UltrasoundSystem:
     def das_delay_tables(self, c0: Optional[float] = None, device=None):
         """Separable geometric delay tables ``(tau_rx (I, N), tau_tx
         (I, M))`` in seconds for this system, float32 on ``device`` (default
-        the CPU), as :meth:`bfDAS` uses them."""
+        the CUDA device), as :meth:`bfDAS` uses them."""
+        device = default_device(device)
         pv, nv, model = self._tx_geometry()
         c0v = float(c0 if c0 is not None else self.seq.c0)
         return delay_tables(self._pixels(), self.rx.positions().T, pv, nv, c0v,
@@ -757,7 +759,7 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            chd = us.greens(scat)
+            chd = us.greens(scat, device="cpu")
             b1, b2 = us.bfDAS(chd).reshape(-1), us.DAS(chd).reshape(-1)
             c = abs(complex((b1.conj() * b2).sum())) / float(b1.norm() * b2.norm())
             assert c > 0.99
@@ -793,8 +795,8 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            chd = us.greens(scat)
-            tau_rx, tau_tx = us.das_delay_tables()  # or eikonal, calibrated, ...
+            chd = us.greens(scat, device="cpu")
+            tau_rx, tau_tx = us.das_delay_tables(device="cpu")  # or eikonal, ...
             b = us.bfDASLUT(chd, tau_rx, tau_tx)
             assert b.shape[:3] == us.scan.shape
         """
@@ -861,7 +863,7 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            b = us.bfAdjoint(us.greens(scat))
+            b = us.bfAdjoint(us.greens(scat, device="cpu"))
             img = b.abs().squeeze()
             assert img.shape == (8, 8) and bool(img.isfinite().all())
         """

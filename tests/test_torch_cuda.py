@@ -1,8 +1,10 @@
 """Kernels K1-K5 on a CUDA card: K1 against its plain PyTorch version for
 every transmit model and sampler, real and complex; K2 against das_lut for
 every sampler, real and complex; K3 against its plain version, with its
-bf16 operands (K3(b)) and its sinc directivity (K3(c)); K4 against
-bf_adjoint for every keep mode and precision; K5 against splat_plain for
+bf16 operands on the tensor cores (K3(b)) and its sinc directivity (K3(c));
+K4 against bf_adjoint for every keep mode and precision, at the main
+arrays' shapes and with the phasors built per chunk; two launches of K3(b)
+and K4 bit-identical; K5 against splat_plain for
 both bases, sub-elements and a complex kernel; the sim→image path
 greens → DAS, the plane-wave path greens → focusTx → DAS / bfDAS /
 per-pixel-c DAS / bfAdjoint and the simulator family (greens pallas and
@@ -205,6 +207,68 @@ def test_k4_matches_plain(card, keep, V):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("V", [5, 128])
+@pytest.mark.parametrize("keep", ["", "rx", "tx"])
+def test_k4_tensor_cores_at_main_shapes(card, keep, V):
+    """K4 at the arrays of the main path (128 receivers, 128 elements): the
+    bf16 variant on the tensor cores (< 2e-3) and f32 (< 1e-4) against the
+    plain version, V = 5 (the demo, 10 columns padded to 16) and V = 128;
+    two launches on one input are bit-identical."""
+    x, *rest = adjoint_problem(T=256, N=128, M=128, V=V, I=700, seed=47)
+    xg = torch.as_tensor(x, device=card)
+    bins = np.arange(20, 44, dtype=np.int32)
+    kw = dict(fs=40e6, keep_rx=keep == "rx", keep_tx=keep == "tx")
+    for precision, tol in (("f32", 1e-4), ("bf16", 2e-3)):
+        got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
+        again = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
+        ref = bf_adjoint(xg, *rest, bins, precision=precision, **kw)
+        assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), precision
+        assert torch.equal(got, again), precision
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["", "rx", "tx"])
+def test_k4_per_chunk_phasors(card, keep):
+    """Arrays whose phasor tiles do not fit in shared memory (M = 900):
+    the bf16 variant builds each chunk's phasors as it goes. The transmit
+    tile alone, 64 px x (2 * 912 + 8) bf16, is 234,496 bytes, above the
+    232,448 a Hopper block may opt into."""
+    x, *rest = adjoint_problem(T=128, N=200, M=900, V=24, I=130, seed=48)
+    assert 64 * (2 * fdbf_cuda.tc_layout(900, 200, 24, keep)[1] + 8) * 2 > 232448
+    xg = torch.as_tensor(x, device=card)
+    bins = np.array([7, 9, 12], np.int32)
+    kw = dict(fs=40e6, keep_rx=keep == "rx", keep_tx=keep == "tx", precision="bf16")
+    got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+    ref = bf_adjoint(xg, *rest, bins, **kw)
+    assert float((got - ref).abs().max()) < 2e-3 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 4])
+def test_k3_bf16_tensor_cores(card, E):
+    """K3(b) on the tensor cores against the bf16 plain version (< 2e-4) at
+    the main arrays' 128 x 128 (one tile per bin) and with 4 sub-elements
+    (too many to stage: the phasors read global memory); K3(a) against the
+    same reference fails the limit (the control); two launches of each are
+    bit-identical."""
+    rng = np.random.default_rng(49)
+    S = 1000
+    ps = np.stack([rng.uniform(-8e-3, 8e-3, S), np.zeros(S), rng.uniform(8e-3, 30e-3, S)], -1)
+    pe = np.stack([np.linspace(-10e-3, 10e-3, 128), np.zeros(128), np.zeros(128)], -1)
+    pe = pe[:, None] + np.arange(E)[None, :, None] * np.array([5e-5, 0, 0])
+    phc = np.float32(2 * np.pi / 1540.0 * 20e6 / 4096)
+    ops = prologue(phc, ps, rng.standard_normal(S), pe, pe, R0=2e-4, fsr=1.0, device=card)
+    kw = dict(k0=300, F=64, bf16=True)
+    got = greens_freq_cuda.freq_gemm(*ops, **kw)
+    assert torch.equal(got, greens_freq_cuda.freq_gemm(*ops, **kw))
+    ref = greens_freq_cuda.freq_gemm_plain(*ops, **kw)
+    assert float((got - ref).abs().max()) < 2e-4 * float(ref.abs().max())
+    f32 = greens_freq_cuda.freq_gemm(*ops, **dict(kw, bf16=False))
+    assert torch.equal(f32, greens_freq_cuda.freq_gemm(*ops, **dict(kw, bf16=False)))
+    assert float((f32 - ref).abs().max()) > 2e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_plane_wave_path_on_card(card):
     """greens → focusTx (freq) → DAS (K1), bfDAS and per-pixel-c DAS (K2),
     bfAdjoint (K4) on a small plane-wave system, each against the same call
@@ -356,5 +420,5 @@ def test_simulators_on_card(card):
         < 1e-5 * float(a.data.abs().max())
     fc = us.replace(seq=qt.Sequence(type="FC", focus=target[:, None], c0=1540.0))
     hp = fc.calc_hp(device=card)
-    hpc = fc.calc_hp()
+    hpc = fc.calc_hp(device="cpu")
     assert hp.is_cuda and float((hp.cpu() - hpc).abs().max()) < 1e-4 * float(hpc.max())

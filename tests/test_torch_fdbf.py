@@ -62,7 +62,7 @@ def test_geom_delays_match_reference():
     rng = np.random.default_rng(61)
     pi = rng.uniform(-0.02, 0.02, (50, 3)).astype(np.float32)
     pos = rng.uniform(-0.02, 0.02, (7, 3)).astype(np.float32)
-    close(fdbf.geom_delays(pi, pos, np.float32(1 / 1540.0)),
+    close(fdbf.geom_delays(pi, pos, np.float32(1 / 1540.0), "cpu"),
           jfdbf.geom_delays(pi, pos, np.float32(1 / 1540.0)), 1e-6)
 
 
@@ -169,3 +169,44 @@ def test_bfadjoint_frames_and_table_cache(fsa):
     assert len(tsystem._ADJ_TAU_CACHE) == 2
     with pytest.raises(ValueError, match="CUDA"):
         ust.bfAdjoint(chdt, kernel="cuda")
+
+
+@pytest.mark.parametrize("M,V,keep", [(10, 5, ""), (128, 5, "tx"), (33, 17, ""),
+                                      (128, 128, "rx"), (256, 200, "")])
+def test_block_operands_match_cmatmul(M, V, keep):
+    """K4's bf16 operands as the wrapper packs them for the tensor cores:
+    phasors with (Re, Im) interleaved along the columns, times the
+    real-block form of S_k (padded as tc_layout pads it), through a plain
+    real float32 product, give cmatmul's bf16 product to float32 rounding.
+    With keep 'rx' the third product's operand, the block of X_k^T, too."""
+    rng = np.random.default_rng(61 + M + V)
+    I, N = 37, 24
+    th = rng.uniform(0, 2 * np.pi, (I, M))
+    W = torch.as_tensor(np.exp(-1j * th).astype(np.complex64))
+    S = torch.as_tensor((rng.standard_normal((M, V)) + 1j * rng.standard_normal((M, V)))
+                        .astype(np.complex64))
+    vt, Mp, Np, Vp, Vz = fdbf_cuda.tc_layout(M, N, V, keep)
+    assert vt in (8, 16, 32, 64) and Vp % vt == 0 and Np % vt == 0
+    assert Mp % fdbf_cuda.KROWS == 0 and Vz % fdbf_cuda.KROWS == 0 and V <= Vz <= Vp
+
+    def left(z, cols):  # (Re, Im) interleaved along the columns, zero-padded
+        z = fdbf.round_operand(z, "bf16")
+        out = torch.zeros((z.shape[0], cols, 2))
+        out[:, :z.shape[1]] = torch.view_as_real(z)
+        return out.reshape(z.shape[0], 2 * cols)
+
+    blk = fdbf_cuda.block_operand(S[None], Mp, Vp)[0]
+    assert blk.dtype == torch.bfloat16 and blk.shape == (2 * Mp, 2 * Vp)
+    got = torch.view_as_complex((left(W, Mp) @ blk.float()).reshape(I, Vp, 2).contiguous())
+    ref = fdbf.cmatmul(W, S, "bf16")
+    assert not bool(got[:, V:].abs().any())  # the padded columns stay zero
+    assert float((got[:, :V] - ref).abs().max()) < 1e-6 * float(ref.abs().max())
+    if keep == "rx":  # z = conj(Ahat) X_k^T with the block of X_k^T (V, N)
+        X = torch.as_tensor((rng.standard_normal((N, V)) + 1j * rng.standard_normal((N, V)))
+                            .astype(np.complex64))
+        H = ref / ref.abs().amax()
+        xb = fdbf_cuda.block_operand(X.T[None], Vp, Np)[0]
+        z = torch.view_as_complex((left(H.conj(), Vz)[:, :2 * Vz] @ xb[:2 * Vz].float())
+                                  .reshape(I, Np, 2).contiguous())[:, :N]
+        zref = fdbf.cmatmul(H.conj(), X.T, "bf16")
+        assert float((z - zref).abs().max()) < 1e-6 * float(zref.abs().max())

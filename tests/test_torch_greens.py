@@ -38,7 +38,7 @@ def test_greens_splat(cplx, method):
     kern, ps, amp, pn, pv, kw = problem(cplx)
     ref = splat_ref(kern.astype(np.complex64 if cplx else np.float32),
                     ps.astype(np.float32), amp, pn, pv, method=method, block=4, **kw)
-    got = greens_splat(kern, ps, amp, pn, pv, method=method, block=4, **kw)
+    got = greens_splat(kern, ps, amp, pn, pv, method=method, block=4, device="cpu", **kw)
     _check(got, ref)
 
 
@@ -47,5 +47,5 @@ def test_greens_dense(cplx):
     kern, ps, amp, pn, pv, kw = problem(cplx)
     ref = dense_ref(kern.astype(np.complex64 if cplx else np.float32),
                     ps.astype(np.float32), amp, pn, pv, **kw)
-    got = greens_dense(kern, ps, amp, pn, pv, **kw)
+    got = greens_dense(kern, ps, amp, pn, pv, device="cpu", **kw)
     _check(got, ref)

@@ -93,7 +93,7 @@ def test_greens_freq_matches_reference(case, engine):
         amp = amp * np.exp(1j * np.linspace(0, 3, amp.shape[0]))
     ref = greens_freq_ref(kern, ps, amp, pn, pv, engine=engine,
                           out="complex" if case != "real" else "auto", **kw)
-    got = greens_freq(kern, ps, amp, pn, pv, **kw)
+    got = greens_freq(kern, ps, amp, pn, pv, device="cpu", **kw)
     assert got.dtype == (torch.float32 if case == "real" else torch.complex64)
     assert _rel(got.numpy(), ref) < 1e-4
 
@@ -105,9 +105,9 @@ def test_greens_freq_resampled_kernel_and_attenuation():
     kw = dict(kw, fsr=2.0)
     k2 = np.interp(np.arange(30) / 2.0, np.arange(15), kern).astype(np.float32)
     ref = greens_freq_ref(k2, ps, amp, pn, pv, engine="xla", alpha0=0.5, **kw)
-    got = greens_freq(k2, ps, amp, pn, pv, alpha0=0.5, **kw)
+    got = greens_freq(k2, ps, amp, pn, pv, alpha0=0.5, device="cpu", **kw)
     assert _rel(got.numpy(), ref) < 1e-4
-    lossless = greens_freq(k2, ps, amp, pn, pv, **kw)
+    lossless = greens_freq(k2, ps, amp, pn, pv, device="cpu", **kw)
     assert float(got.abs().max()) < 0.9 * float(lossless.abs().max())
 
 
@@ -148,20 +148,59 @@ def test_greens_freq_bf16_matches_reference(engine):
     kern, ps, amp, pn, pv, kw = problem(S=11)
     ref = np.asarray(greens_freq_ref(kern, ps, amp, pn, pv, engine=engine,
                                      precision="bf16", **kw))
-    got = greens_freq(kern, ps, amp, pn, pv, precision="bf16", **kw).numpy()
+    got = greens_freq(kern, ps, amp, pn, pv, precision="bf16", device="cpu", **kw).numpy()
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 5e-3
-    f32 = greens_freq(kern, ps, amp, pn, pv, **kw)
-    assert torch.equal(greens_freq(kern, ps, amp, pn, pv, precision="default", **kw), f32)
+    f32 = greens_freq(kern, ps, amp, pn, pv, device="cpu", **kw)
+    assert torch.equal(greens_freq(kern, ps, amp, pn, pv, precision="default", device="cpu",
+                                   **kw), f32)
     with pytest.raises(ValueError, match="precision"):
-        greens_freq(kern, ps, amp, pn, pv, precision="tf32", **kw)
+        greens_freq(kern, ps, amp, pn, pv, precision="tf32", device="cpu", **kw)
 
 
 def test_wrapper_on_cpu_runs_plain():
     kern, ps, amp, pn, pv, kw = problem(S=5)
     before = greens_freq_cuda.LAUNCHES
-    auto = greens_freq(kern, ps, amp, pn, pv, **kw)
-    plain = greens_freq(kern, ps, amp, pn, pv, kernel="plain", **kw)
+    auto = greens_freq(kern, ps, amp, pn, pv, device="cpu", **kw)
+    plain = greens_freq(kern, ps, amp, pn, pv, kernel="plain", device="cpu", **kw)
     assert greens_freq_cuda.LAUNCHES == before
     assert torch.equal(auto, plain)
     with pytest.raises(ValueError, match="CUDA"):
-        greens_freq(kern, ps, amp, pn, pv, kernel="cuda", **kw)
+        greens_freq(kern, ps, amp, pn, pv, kernel="cuda", device="cpu", **kw)
+
+
+def _k3_tensor_core_operands(A: torch.Tensor, B: torch.Tensor):
+    """K3(b)'s operands of one bin in the kernel's layout, as float32: the
+    left (2N x 2S), whose 16-row tiles hold the Gr rows (Re, -Im) of 8
+    receivers and then their Gi rows (Im, Re), and the right (2S x M) with
+    rows (Br, Bi) interleaved; A (S, N), B (S, M) complex, bf16-rounded."""
+    S, N = A.shape
+    Np = -(-N // 8) * 8
+    L = torch.zeros((2 * Np, S, 2))
+    n = torch.arange(N)
+    rr = 16 * (n // 8) + n % 8
+    L[rr, :, 0], L[rr, :, 1] = A.real.T, -A.imag.T
+    L[rr + 8, :, 0], L[rr + 8, :, 1] = A.imag.T, A.real.T
+    R = torch.stack((B.real, B.imag), 1).reshape(2 * S, -1)
+    return L.reshape(2 * Np, 2 * S), R, rr
+
+
+@pytest.mark.parametrize("S,N,M", [(16, 8, 8), (37, 13, 20), (48, 128, 128)])
+def test_k3_tensor_core_layout_matches_plain(S, N, M):
+    """The real-block product of K3(b), in the kernel's row order, through a
+    plain real float32 product on the same bf16 operands, gives
+    freq_gemm_plain(bf16=True) to float32 rounding; the operands are the
+    plain version's own (_phasors, seeded numpy geometry)."""
+    rng = np.random.default_rng(70 + S)
+    q1 = torch.as_tensor(rng.uniform(0.05, 0.5, (S, N, 1)).astype(np.float32))
+    q2 = torch.as_tensor(rng.uniform(0.05, 0.5, (S, M, 1)).astype(np.float32))
+    w1 = torch.as_tensor(rng.uniform(0.5, 1.5, (S, N, 1)).astype(np.float32))
+    w2 = torch.as_tensor(rng.standard_normal((S, M, 1)).astype(np.float32))
+    k = torch.tensor([37.0])
+    A = greens_freq_cuda._phasors(q1, w1, k, 0.0, bf16=True)[0]
+    B = greens_freq_cuda._phasors(q2, w2, k, 0.0, bf16=True)[0]
+    L, R, rr = _k3_tensor_core_operands(A, B)
+    assert torch.equal(L.to(torch.bfloat16).float(), L)  # exact in bf16
+    G = L @ R
+    got = torch.complex(G[rr], G[rr + 8])
+    ref = greens_freq_cuda.freq_gemm_plain(q1, w1, q2, w2, k0=37, F=1, bf16=True)[0]
+    assert float((got - ref).abs().max()) < 1e-6 * float(ref.abs().max())

@@ -142,33 +142,33 @@ def test_greens_tiled_matches_reference(case):
         kern = np.interp(np.arange(30) / 2.0, np.arange(15), kern).astype(np.float32)
     ref = np.asarray(greens_tiled_ref(kern, ps, amp, pn, pv, method=method, out=out,
                                       interpret=True, CS=32, **kw))
-    got = greens_tiled(kern, ps, amp, pn, pv, method=method, CS=32, **kw)
+    got = greens_tiled(kern, ps, amp, pn, pv, method=method, CS=32, device="cpu", **kw)
     assert got.dtype == (torch.complex64 if case == "complex_kernel" else torch.float32)
     assert _rel(got.numpy(), ref) < TOL
 
 
 def test_plain_kernel_equals_auto_on_cpu():
     kern, ps, amp, pn, pv, kw = problem(5)
-    a = greens_tiled(kern, ps, amp, pn, pv, CS=32, **kw)
-    b = greens_tiled(kern, ps, amp, pn, pv, CS=32, kernel="plain", **kw)
+    a = greens_tiled(kern, ps, amp, pn, pv, CS=32, device="cpu", **kw)
+    b = greens_tiled(kern, ps, amp, pn, pv, CS=32, kernel="plain", device="cpu", **kw)
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="CUDA"):
-        greens_tiled(kern, ps, amp, pn, pv, kernel="cuda", **kw)
+        greens_tiled(kern, ps, amp, pn, pv, kernel="cuda", device="cpu", **kw)
     with pytest.raises(ValueError, match="linear/cubic"):
-        greens_tiled(kern, ps, amp, pn, pv, method="lanczos3", **kw)
+        greens_tiled(kern, ps, amp, pn, pv, method="lanczos3", device="cpu", **kw)
     with pytest.raises(ValueError, match="real amplitudes"):
-        greens_tiled(kern, ps, amp * 1j, pn, pv, **kw)
+        greens_tiled(kern, ps, amp * 1j, pn, pv, device="cpu", **kw)
 
 
 def test_slabs_add():
     """More scatterers than SLAB go in slabs whose traces add. Each slab
     plans its own row offsets, so the rows round differently: 1e-4."""
     kern, ps, amp, pn, pv, kw = problem(6, S=12)
-    whole = greens_tiled(kern, ps, amp, pn, pv, CS=32, **kw)
+    whole = greens_tiled(kern, ps, amp, pn, pv, CS=32, device="cpu", **kw)
     old = greens_cuda.SLAB
     greens_cuda.SLAB = 5
     try:
-        slabs = greens_tiled(kern, ps, amp, pn, pv, CS=32, **kw)
+        slabs = greens_tiled(kern, ps, amp, pn, pv, CS=32, device="cpu", **kw)
     finally:
         greens_cuda.SLAB = old
     assert float((slabs - whole).abs().max()) < TOL * float(whole.abs().max())
@@ -185,7 +185,7 @@ def test_empty_window(cplx):
     kw = dict(kw, s0=kw["s0"] + 1e-3)  # the echoes end before s0
     ref = np.asarray(greens_tiled_ref(kern, ps, amp, pn, pv, interpret=True,
                                       CS=32, out="complex", **kw))
-    got = greens_tiled(kern, ps, amp, pn, pv, CS=32, **kw)
+    got = greens_tiled(kern, ps, amp, pn, pv, CS=32, device="cpu", **kw)
     assert ref.dtype == np.float32 and ref.shape == tuple(got.shape)
     assert got.dtype == (torch.complex64 if cplx else torch.float32)
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -237,7 +237,7 @@ def test_system_greens_pallas_matches_reference(case, pallas_interpret):
     us, ust, scat, scatt = _system(seq)
     method = "linear" if case == "FSA linear" else "auto"
     ref = us.greens(scat, impl="pallas", method=method)
-    got = ust.greens(scatt, impl="pallas", method=method)
+    got = ust.greens(scatt, impl="pallas", method=method, device="cpu")
     r = np.asarray(ref.data)
     assert got.data.dtype == (torch.complex64 if np.iscomplexobj(r) else torch.float32)
     np.testing.assert_array_equal(np.asarray(got.t0, np.float32),
@@ -250,7 +250,7 @@ def test_system_greens_pallas_psf():
     lone scatterer (the BFTest oracle)."""
     _, ust, _, _ = _system()
     target = np.array([0.5e-3, 0.0, 20e-3])
-    chd = ust.greens(from_reference(q.Scatterers(pos=target[:, None], c0=1540.0)),
+    chd = ust.greens(from_reference(q.Scatterers(pos=target[:, None], c0=1540.0)), device="cpu",
                      impl="pallas")
     b = ust.DAS(chd)
     P = ust.scan.positions().reshape(3, -1)

@@ -65,7 +65,7 @@ def test_simus_fsa_matches_reference(engine, baffle):
     args, kw = problem()
     ref = np.asarray(simus_fsa_ref(*args, engine=engine, baffle=baffle, **kw))
     before = greens_freq_cuda.LAUNCHES
-    got = simus_fsa(*args, baffle=baffle, **kw)
+    got = simus_fsa(*args, baffle=baffle, device="cpu", **kw)
     assert greens_freq_cuda.LAUNCHES == before  # the plain version, on the CPU
     assert got.dtype == torch.float32
     assert _relnorm(got.numpy(), ref) < 2e-4
@@ -75,9 +75,9 @@ def test_simus_fsa_matches_reference(engine, baffle):
 def test_simus_fsa_attenuation_matches_reference(engine):
     args, kw = problem(seed=7, S=5, N=4, F=30)
     ref = np.asarray(simus_fsa_ref(*args, engine=engine, alpha0=1.0, **kw))
-    got = simus_fsa(*args, alpha0=1.0, **kw).numpy()
+    got = simus_fsa(*args, alpha0=1.0, device="cpu", **kw).numpy()
     assert _relnorm(got, ref) < 2e-4
-    lossless = simus_fsa(*args, **kw).numpy()
+    lossless = simus_fsa(*args, device="cpu", **kw).numpy()
     assert np.abs(got).max() < np.abs(lossless).max()
 
 
@@ -87,9 +87,9 @@ def test_simus_fsa_bf16_matches_reference(engine):
     directivity weight, in both packages."""
     args, kw = problem(seed=12)
     ref = np.asarray(simus_fsa_ref(*args, engine=engine, precision="bf16", **kw))
-    got = simus_fsa(*args, precision="bf16", **kw).numpy()
+    got = simus_fsa(*args, precision="bf16", device="cpu", **kw).numpy()
     assert _relnorm(got, ref) < 5e-3
-    f32 = simus_fsa(*args, **kw).numpy()
+    f32 = simus_fsa(*args, device="cpu", **kw).numpy()
     assert 0 < _relnorm(got, f32) < 5e-3  # the rounding is there, and small
 
 
@@ -101,15 +101,15 @@ def test_simus_fsa_sparse_bins_and_options():
     spec = (np.arange(5) + 1j).astype(np.complex64)
     a = args[:7] + (spec, bins)
     ref = np.asarray(simus_fsa_ref(*a, engine="xla", **kw))
-    assert _relnorm(simus_fsa(*a, **kw).numpy(), ref) < 2e-4
-    zero = simus_fsa(*args[:7], spec[:0], bins[:0], **kw)
+    assert _relnorm(simus_fsa(*a, device="cpu", **kw).numpy(), ref) < 2e-4
+    zero = simus_fsa(*args[:7], spec[:0], bins[:0], device="cpu", **kw)
     assert zero.shape == (kw["T"], 4, 3) and not bool(zero.any())
     with pytest.raises(ValueError, match="baffle"):
-        simus_fsa(*args, baffle="rigid", **kw)
+        simus_fsa(*args, baffle="rigid", device="cpu", **kw)
     with pytest.raises(ValueError, match="precision"):
-        simus_fsa(*args, precision="f16", **kw)
+        simus_fsa(*args, precision="f16", device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        simus_fsa(*args, kernel="cuda", **kw)
+        simus_fsa(*args, kernel="cuda", device="cpu", **kw)
 
 
 def _systems(seq=None, numel=8, fs=20e6):
@@ -130,7 +130,7 @@ def test_system_simus_matches_reference(baffle):
     on the CPU), then the identity focusTx of FSA."""
     us, ust, scat, scatt = _systems()
     ref = us.simus(scat, baffle=baffle)
-    got = ust.simus(scatt, baffle=baffle)
+    got = ust.simus(scatt, baffle=baffle, device="cpu")
     assert got.t0 == ref.t0 and got.data.dtype == torch.float32
     assert _relnorm(got.data.numpy(), np.asarray(ref.data)) < 2e-4
 
@@ -142,12 +142,12 @@ def test_system_simus_plane_waves_and_bf16():
     pw = q.SequenceRadial(type="PW", angles=np.array([-5.0, 0.0, 5.0]), c0=1540.0)
     us, ust, scat, scatt = _systems(pw)
     ref = us.simus(scat)
-    got = ust.simus(scatt)
+    got = ust.simus(scatt, device="cpu")
     assert got.data.shape == tuple(ref.data.shape)
     assert _relnorm(got.data.numpy(), np.asarray(ref.data)) < 2e-4
     kw = dict(impl="freq", precision="bf16")
     ref = np.asarray(us.greens(scat, **kw).data)
-    got = ust.greens(scatt, **kw).data.numpy()
+    got = ust.greens(scatt, device="cpu", **kw).data.numpy()
     assert got.shape == ref.shape and _relnorm(got, ref) < 5e-3
 
 
@@ -158,7 +158,7 @@ def test_simus_tof_oracle():
     xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=5e6)
     us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=16, c0=C0),
                              scan=qt.ScanCartesian(), fs=25e6)
-    chd = us.simus(qt.Scatterers(pos=np.array([[0.0], [0.0], [z_t]]), c0=C0))
+    chd = us.simus(qt.Scatterers(pos=np.array([[0.0], [0.0], [z_t]]), c0=C0), device="cpu")
     x = chd.data[:, 8, 8].numpy()
     t = chd.time.reshape(-1).numpy()
     assert abs(t[np.argmax(np.abs(x))] - 2 * z_t / C0) < 1.5 / xdc.fc
@@ -170,8 +170,8 @@ def test_calc_scat_all_is_greens(impl):
     agrees with the JAX package's."""
     us, ust, scat, scatt = _systems()
     kw = dict(impl="freq", precision="bf16") if impl == "precision bf16" else dict(impl=impl)
-    a = ust.calc_scat_all(scatt, **kw)
-    b = ust.greens(scatt, **kw)
+    a = ust.calc_scat_all(scatt, device="cpu", **kw)
+    b = ust.greens(scatt, device="cpu", **kw)
     assert torch.equal(a.data, b.data) and a.t0 == b.t0
     ref = np.asarray(us.calc_scat_all(scat, **kw).data)
     tol = 5e-3 if impl == "precision bf16" else 2e-4
@@ -190,8 +190,8 @@ def test_calc_scat_multi_matches_reference(bsize):
     the port's blocked and fused results agree with each other (t0 bit for
     bit, traces to 1e-6 of the peak) and with the JAX package's."""
     us, ust, scat, scatt = _systems(_pw())
-    full = ust.calc_scat_multi(scatt, impl="splat")
-    got = ust.calc_scat_multi(scatt, impl="splat", bsize=bsize)
+    full = ust.calc_scat_multi(scatt, impl="splat", device="cpu")
+    got = ust.calc_scat_multi(scatt, impl="splat", bsize=bsize, device="cpu")
     assert got.data.shape == full.data.shape == (full.T, 8, 4)
     np.testing.assert_array_equal(np.asarray(got.t0, np.float64), np.asarray(full.t0, np.float64))
     assert float((got.data - full.data).abs().max()) < 1e-6 * float(full.data.abs().max())
@@ -205,14 +205,15 @@ def test_calc_scat_multi_freq_blocks_and_fsa():
     """The 'freq' synthesis in blocks equals it fused; an FSA sequence is
     greens itself."""
     us, ust, scat, scatt = _systems(_pw())
-    full = ust.calc_scat_multi(scatt, impl="freq", method="freq")
-    blk = ust.calc_scat_multi(scatt, impl="freq", method="freq", bsize=2)
+    full = ust.calc_scat_multi(scatt, impl="freq", method="freq", device="cpu")
+    blk = ust.calc_scat_multi(scatt, impl="freq", method="freq", bsize=2,
+                                device="cpu")
     assert float((blk.data - full.data).abs().max()) < 1e-5 * float(full.data.abs().max())
     ref = us.calc_scat_multi(scat, impl="freq", method="freq", bsize=2)
     assert _rel(blk.data.numpy(), np.asarray(ref.data)) < 2e-4
     _, ust_fsa, _, _ = _systems()
-    a = ust_fsa.calc_scat_multi(scatt, impl="splat")
-    assert torch.equal(a.data, ust_fsa.greens(scatt, impl="splat").data)
+    a = ust_fsa.calc_scat_multi(scatt, impl="splat", device="cpu")
+    assert torch.equal(a.data, ust_fsa.greens(scatt, impl="splat", device="cpu").data)
 
 
 @pytest.mark.parametrize("seq", ["FC", "PW", "DV"])
@@ -234,7 +235,7 @@ def test_calc_hp_matches_reference(seq):
     us = q.UltrasoundSystem(tx=xdc, rx=xdc, seq=s, scan=scan, fs=40e6)
     ust = from_reference(us)
     ref = np.asarray(us.calc_hp())
-    got = ust.calc_hp()
+    got = ust.calc_hp(device="cpu")
     assert isinstance(got, torch.Tensor) and tuple(got.shape) == ref.shape
     assert _rel(got.numpy(), ref) < TOL
     if seq == "FC":
@@ -253,11 +254,11 @@ def test_calc_hp_field():
                             scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 9),
                                                  z=np.linspace(10e-3, 14e-3, 9)))
     ref, t0r = us.calc_hp(out="field")
-    got, t0 = from_reference(us).calc_hp(out="field")
+    got, t0 = from_reference(us).calc_hp(out="field", device="cpu")
     assert t0 == t0r and got.shape == ref.shape
     assert _rel(got.numpy(), np.asarray(ref)) < TOL
     with pytest.raises(ValueError, match="out"):
-        from_reference(us).calc_hp(out="mean")
+        from_reference(us).calc_hp(out="mean", device="cpu")
 
 
 def test_cheat_sheet_simulation_block():
@@ -276,10 +277,10 @@ def test_cheat_sheet_simulation_block():
     us = q.UltrasoundSystem(tx=xdc, rx=xdc, seq=seq_pw, scan=scan, fs=25e6)
     ust, scatt = from_reference(us), from_reference(scat)
     for name, ref, got, tol in (
-            ("greens", us.greens(scat).data, ust.greens(scatt).data, 2e-4),
+            ("greens", us.greens(scat).data, ust.greens(scatt, device="cpu").data, 2e-4),
             ("greens bf16", us.greens(scat, precision="bf16").data,
-             ust.greens(scatt, precision="bf16").data, 2e-4),
-            ("simus", us.simus(scat).data, ust.simus(scatt).data, 2e-4),
+             ust.greens(scatt, precision="bf16", device="cpu").data, 2e-4),
+            ("simus", us.simus(scat).data, ust.simus(scatt, device="cpu").data, 2e-4),
             ("calc_hp", us.replace(seq=seq_fc).calc_hp(),
-             ust.replace(seq=from_reference(seq_fc)).calc_hp(), TOL)):
+             ust.replace(seq=from_reference(seq_fc)).calc_hp(device="cpu"), TOL)):
         assert _rel(got.numpy(), np.asarray(ref)) < tol, name

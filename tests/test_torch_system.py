@@ -40,7 +40,7 @@ def fsa():
     us, ust, scat, scatt = _systems()
     chd = us.greens(scat)
     b = np.asarray(us.DAS(chd))
-    chdt = ust.greens(scatt)
+    chdt = ust.greens(scatt, device="cpu")
     return dict(us=us, ust=ust, chd=chd, b=b, chdt=chdt, bt=ust.DAS(chdt),
                 scatt=scatt)
 
@@ -67,7 +67,7 @@ def test_slice_freq_engine_matches_reference():
     takes on a CUDA card (K3, then K1), here through the plain versions."""
     us, ust, scat, scatt = _systems()
     chd = us.greens(scat, impl="freq")
-    chdt = ust.greens(scatt, impl="freq")
+    chdt = ust.greens(scatt, impl="freq", device="cpu")
     ref, got = np.asarray(chd.data), chdt.data.numpy()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert chdt.t0 == chd.t0
@@ -111,17 +111,44 @@ def test_scope_raises_on_cpu(fsa):
     with pytest.raises(ValueError, match="CUDA"):
         ust.DAS(chdt, kernel="cuda")
     with pytest.raises(ValueError, match="CUDA"):
-        ust.greens(scatt, impl="pallas", kernel="cuda")
+        ust.greens(scatt, impl="pallas", kernel="cuda", device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        ust.greens(scatt, impl="freq", kernel="cuda")
+        ust.greens(scatt, impl="freq", kernel="cuda", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         chdt.sample(chdt.time, method="freq")
     with pytest.raises(ValueError, match="CUDA"):
-        ust.bfDASLUT(chdt, *ust.das_delay_tables(), kernel="cuda")
+        ust.bfDASLUT(chdt, *ust.das_delay_tables(device="cpu"), kernel="cuda")
     with pytest.raises(NotImplementedError, match="cubic2x"):
         ust.DAS(chdt, method="cubic2x")
     with pytest.raises(NotImplementedError, match="K1\\(d\\)"):
         ust.DAS(chdt, apod=qt.Fused("aperture_growth", f=1.5))
+
+
+@pytest.mark.parametrize("entry", ["greens", "simus", "calc_scat_all", "calc_scat_multi",
+                                   "calc_hp", "das_delay_tables", "ops.delay_tables",
+                                   "ops.geom_delays"])
+def test_simulators_default_to_the_card(fsa, entry):
+    """The simulators, and the delay ops behind das_delay_tables, calc_hp and
+    bfAdjoint, run on the CUDA device unless the caller names another: with a
+    card their result is a CUDA tensor; without one the call raises instead
+    of returning CPU traces."""
+    ust, scatt = fsa["ust"], fsa["scatt"]
+    pi, pe = ust._pixels(), ust.rx.positions().T
+    pv, nv, model = ust._tx_geometry()
+    calls = {"greens": lambda: ust.greens(scatt).data,
+             "simus": lambda: ust.simus(scatt).data,
+             "calc_scat_all": lambda: ust.calc_scat_all(scatt).data,
+             "calc_scat_multi": lambda: ust.calc_scat_multi(scatt).data,
+             "calc_hp": lambda: ust.calc_hp(),
+             "das_delay_tables": lambda: ust.das_delay_tables()[0],
+             "ops.delay_tables": lambda: qt.ops.delay_tables(pi, pe, pv, nv, 1540.0,
+                                                             model)[0],
+             "ops.geom_delays": lambda: qt.ops.fdbf.geom_delays(pi, pe, np.float32(1 / 1540.0))}
+    if torch.cuda.is_available():
+        assert calls[entry]().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            calls[entry]()
 
 
 def test_demo_flow_end_to_end():
@@ -138,7 +165,8 @@ def test_demo_flow_end_to_end():
     Zs, Xs = np.meshgrid(np.linspace(18e-3, 32e-3, 4), np.linspace(-8e-3, 8e-3, 5),
                          indexing="ij")
     pos = np.stack([Xs.ravel(), np.zeros(Xs.size), Zs.ravel()])
-    chd = us.greens(qt.Scatterers(pos=pos, amp=np.ones(pos.shape[1]), c0=1540.0))
+    chd = us.greens(qt.Scatterers(pos=pos, amp=np.ones(pos.shape[1]), c0=1540.0),
+                    device="cpu")
     assert chd.M == 3
     P = scan.positions().reshape(3, -1)
     for name, b in (("DAS", us.DAS(chd)), ("bfDAS", us.bfDAS(chd)),

@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_slice.py [--out chiprun_out/profile_torch_slice.txt]
 
-Traces, with ``torch.profiler`` (CUDA activity), three things:
+Traces, with ``torch.profiler`` (CUDA activity):
 
 1. the headline DAS, 1024^2 pixels x 256 tx x 256 rx, T = 4096, plane
    waves, cubic (``bench.das_problem``): 3 calls of ``das_cuda.das_sum``
@@ -21,7 +21,11 @@ Traces, with ``torch.profiler`` (CUDA activity), three things:
    speckle scatterers): ``greens(impl='pallas')`` (K5), ``greens(precision=
    'bf16')`` (K3(b)), ``simus`` (K3(c)), ``calc_scat_all`` (K3),
    ``calc_scat_multi`` with 5 plane waves (K5) and ``calc_hp`` with a
-   focused transmit, 2 runs after a warm-up, then each call alone.
+   focused transmit, 2 runs after a warm-up, then each call alone;
+6. ``bf_adjoint_cuda`` (K4 and its spectra) at the headline's pixels and
+   arrays (1024^2 x 256 x 256, 32 bins) for 8, 64, 128 and 256 pulses,
+   bf16 and f32, timed with CUDA events: how K4's time splits between the
+   per-bin phasors and the column tiles of the products.
 
 Prints a summary and writes the profiler tables to ``--out``. Imports torch,
 numpy and the port, never JAX.
@@ -214,6 +218,39 @@ def main():
         say(f"    alone: {name:15s} host wall {wall * 1e3:9.3f} ms, device busy "
             f"{busy / 1e3:9.3f} ms ({100 * busy / 1e6 / wall:.1f} %); top: "
             + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms, _ in top(ka, 2, k=3)))
+
+    # K4 across V at the headline's pixels and arrays: the kernel's device
+    # time t(V) splits into the per-bin phasor tiles (V-independent) and the
+    # column tiles of the products (proportional to the tiles of 2 VT)
+    from qups_tpu_torch.ops.fdbf import geom_delays
+    taur = geom_delays(pi, pr, np.float32(1 / 1540.0), "cuda")
+    sel = np.arange(1024 - 16, 1024 + 16)
+    def event_ms(fn, reps=2):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    say("[6] bf_adjoint_cuda at 1024^2 px x 256 x 256 x 32 bins, by pulses V "
+        "(CUDA events, mean of 2 calls after a warm-up):")
+    for V in (8, 64, 128, 256):
+        th = np.radians(np.linspace(-20, 20, V))
+        del_tx = -(pr[:, 0:1] * np.sin(th)[None, :]) / 1540.0
+        g = torch.Generator(device="cuda").manual_seed(8)
+        xv = torch.randn((T, N, V), generator=g, device="cuda")
+        row = []
+        for precision in ("bf16", "f32"):
+            t = event_ms(lambda: fdbf_cuda.bf_adjoint_cuda(
+                xv, taur, taur, del_tx, np.ones((M, V)), t0[0], np.zeros(V), sel, fs=fs,
+                precision=precision))
+            row.append(f"{precision} {t:9.3f} ms")
+        say(f"    V {V:3d}: " + ", ".join(row))
+        del xv
     report.close()
     card = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read()
     print(f"card: {card.strip()}; tables in {args.out}")
