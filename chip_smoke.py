@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds kernels K1 and K2 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum
-from geometry and from delay tables), K3
+from geometry and from delay tables, with the layout kernel that writes the
+traces into the layout they read), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
 per-bin GEMM, with its bf16 and directivity variants), K4
 (``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer)
@@ -14,12 +15,15 @@ and K5 (``qups_tpu_torch/csrc/greens_splat.cu``, the time-domain splat
 simulator) with nvcc, one process per source, all at once, and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
-   nvcc version, kernel build times, ptxas registers and spills, and the
-   tensor-core instructions (HMMA / HGMMA, from ``cuobjdump -sass``) in the
-   bf16 variants of K3 and K4;
+   nvcc version, kernel build times, ptxas registers, spills and shared
+   memory, the FFMA count in the SASS (``cuobjdump -sass``) of the nearest
+   variants of K1 and K2 (0: their delays are never contracted), and the
+   tensor-core instructions (HMMA / HGMMA) in the bf16 variants of K3 and
+   K4;
 1. K1 against its plain PyTorch version on the card, for every transmit
    model x sampler, real and complex traces, with delays that fall off both
-   ends of the traces;
+   ends of the traces; the layout kernel against its plain version, bit for
+   bit;
 2. K3 against its plain version at the shapes the main path gives it, and
    on a 4096-scatterer cloud; at the main path's shapes its bound and a
    cuBLAS yardstick;
@@ -31,11 +35,13 @@ simulator) with nvcc, one process per source, all at once, and runs:
    comparison with the same path through the plain versions; also that
    every option the kernels do not carry yet raises ``NotImplementedError``
    on the card;
-4. the headline size, 1024^2 pixels x 256 tx x 256 rx, T = 4096, cubic and
-   linear, timed with CUDA events;
+4. the headline size, 1024^2 pixels x 256 tx x 256 rx, T = 4096, every
+   sampler (lanczos3 one repetition), timed with CUDA events, and the
+   layout kernel alone beside its plain version and its bound;
 5. K2 against its plain version for the four samplers, real and complex
    traces, on geometric tables with a random perturbation of up to +-2
-   samples, with delays off both ends of the traces;
+   samples, with delays off both ends of the traces; the layout kernel
+   again;
 6. K4 against its plain version for keep '', 'rx' and 'tx', precision
    'f32' and 'bf16', with 5 plane waves and with 128 FSA transmits, on the
    bins of a -40 dB band; and the phase error of its phasors (the special
@@ -46,8 +52,8 @@ simulator) with nvcc, one process per source, all at once, and runs:
    map (K2), ``us.bfAdjoint`` bf16 and f32 (K4), each with the PSF check and
    the comparison with ``kernel='plain'``; and that every option K2 and K4
    do not carry yet raises ``NotImplementedError``;
-8. K2 and K4 at the headline size, each beside its plain version, K4 also
-   beside its bound and a cuBLAS yardstick of its products;
+8. K2 (every sampler) and K4 at the headline size, each beside its plain
+   version, K4 also beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
    speckle scatterers): the deposit grid and the traces of ``greens_tiled``
    for the linear and cubic bases x the system's complex kernel and its real
@@ -75,6 +81,7 @@ Without a CUDA device the script exits with code 1 and prints no result.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -193,15 +200,16 @@ def phase0(torch, ops):
         regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
         spills = sum(int(w.split("bytes spill stores")[0].split(",")[-1])
                      for w in log.splitlines() if "spill stores" in w)
+        smem = [int(w.split("bytes smem")[0].split(",")[-1])
+                for w in log.splitlines() if "bytes smem" in w]
         if regs:
             print(f"  ptxas: {len(regs)} kernel variants, {min(regs)}-{max(regs)} "
-                  f"registers, {spills} bytes of spill stores")
-    # the tensor-core instructions in the SASS of K3's and K4's variants: the
-    # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
+                  f"registers, {spills} bytes of spill stores"
+                  + (f", {min(smem)}-{max(smem)} bytes of shared memory" if smem else ""))
     cuobjdump = os.path.join(os.path.dirname(ops._nvcc.nvcc()), "cuobjdump")
-    for name, lib, is_bf16 in (
-            ("K3", "greens_freq", lambda f: "ELb1EEEv" in f),
-            ("K4", "fdbf", lambda f: "TcEngine" in f)):
+
+    def sass_counts(lib, ops_):
+        """{kernel variant: count of SASS instructions naming one of ops_}."""
         path = ops._nvcc.load(lib)[0]._name
         sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True)
         assert sass.returncode == 0, sass.stderr
@@ -210,19 +218,48 @@ def phase0(torch, ops):
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 counts[fn] = 0
-            elif fn and ("HMMA" in line or "HGMMA" in line):
+            elif fn and any(f" {op}" in line for op in ops_):
                 counts[fn] += 1
+        return os.path.basename(path), counts
+
+    # K1's and K2's delays are written with round-to-nearest intrinsics,
+    # which nvcc never contracts: the nearest variants, whose only arithmetic
+    # is the delay path and the sum, must hold no FFMA at all (das_kernel's
+    # template arguments are <source, sampler, value type>)
+    so, ffma = sass_counts("das", ("FFMA",))
+    nearest = {f: c for f, c in ffma.items() if re.search(r"das_kernelILi\dELi0E", f)}
+    other = {f: c for f, c in ffma.items() if "das_kernel" in f and f not in nearest}
+    print(f"  K1+K2 SASS ({so}): {len(nearest)} nearest variants with "
+          f"{sum(nearest.values())} FFMA in all; {len(other)} other variants with "
+          f"{min(other.values())}-{max(other.values())} FFMA each; "
+          f"{len(ffma) - len(nearest) - len(other)} layout kernel variants")
+    assert len(nearest) == 8 and sum(nearest.values()) == 0, nearest
+    # the tensor-core instructions in the SASS of K3's and K4's variants: the
+    # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
+    for name, lib, is_bf16 in (
+            ("K3", "greens_freq", lambda f: "ELb1EEEv" in f),
+            ("K4", "fdbf", lambda f: "TcEngine" in f)):
+        path, counts = sass_counts(lib, ("HMMA", "HGMMA"))
         tc = {f: c for f, c in counts.items() if is_bf16(f)}
         other = {f: c for f, c in counts.items() if not is_bf16(f)}
-        print(f"  {name} SASS ({os.path.basename(path)}): {len(tc)} bf16 variants with "
+        print(f"  {name} SASS ({path}): {len(tc)} bf16 variants with "
               f"{min(tc.values())}-{max(tc.values())} HMMA/HGMMA each; {len(other)} "
               f"float32 variants with {max(other.values())} at most")
         assert tc and min(tc.values()) > 0, (name, tc)
     return card
 
 
-def phase1(torch, das_cuda, errs):
-    """K1 vs plain for 3 transmit models x 4 samplers x real / complex."""
+def _layout_parity(torch, das_cuda, lerrs, method, x, where):
+    """Hold the layout kernel against its plain version, bit for bit."""
+    got = das_cuda.trace_layout(x, method)
+    ref = das_cuda.trace_layout_plain(x, method)
+    lerrs.add(got, ref, where)
+    assert torch.equal(got, ref), where
+
+
+def phase1(torch, das_cuda, errs, lerrs):
+    """K1 vs plain for 3 transmit models x 4 samplers x real / complex; the
+    layout kernel vs its plain version."""
     from qups_tpu_torch.ops.das import rx_distance, tx_distance
 
     T, N, M, n, c0 = 2048, 128, 32, 256, 1540.0
@@ -254,6 +291,9 @@ def phase1(torch, das_cuda, errs):
                 torch.cuda.synchronize()
                 ref = das_cuda.das_sum_plain(*args, **kw)
                 a, r = errs.add(got, ref, f"phase1 {model} {method} {kind}")
+                if model == "plane":
+                    _layout_parity(torch, das_cuda, lerrs, method, xg,
+                                   f"phase1 layout {method} {kind}")
                 k_ms = _ms(lambda: das_cuda.das_sum(*args, **kw))
                 p_ms = _ms(lambda: das_cuda.das_sum_plain(*args, **kw))
                 print(f"phase1 {model:9s} {method:8s} {kind:7s} max_abs_err={a:.3e} "
@@ -344,13 +384,14 @@ def phase3(torch, qt, ops, errs):
     us, targets, scat = _main_system(qt)
 
     # no device= anywhere: the simulators default to the card
-    das_cuda.LAUNCHES = gfc.LAUNCHES = 0
+    das_cuda.LAUNCHES = das_cuda.LAYOUT_LAUNCHES = gfc.LAUNCHES = 0
     t = time.perf_counter()
     chd = us.greens(scat)
     b = us.DAS(chd)
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t
-    launches = {"das_k1": das_cuda.LAUNCHES, "greens_freq_k3": gfc.LAUNCHES}
+    launches = {"das_k1": das_cuda.LAUNCHES, "das_layout": das_cuda.LAYOUT_LAUNCHES,
+                "greens_freq_k3": gfc.LAUNCHES}
     print(f"phase3 main path us.DAS(us.greens(scat)), no device=: {t_path:.3f} s "
           f"(first call) -> traces {tuple(chd.data.shape)} {chd.data.dtype} on "
           f"{chd.data.device}, image {tuple(b.shape)} {b.dtype}; launches {launches}")
@@ -399,15 +440,23 @@ def phase3(torch, qt, ops, errs):
         "complex128 traces (K1(e))": lambda: us.DAS(chd.replace(data=chd.data.to(torch.complex128))),
         "cubic2x": lambda: us.DAS(chd, method="cubic2x"),
     }
-    before = (das_cuda.LAUNCHES, gfc.LAUNCHES)
+    before = (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES)
     for what, fn in checks.items():
         _expect_not_implemented(fn, what, "phase3")
-    assert (das_cuda.LAUNCHES, gfc.LAUNCHES) == before
+    assert (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES) == before
     return launches
 
 
+METHODS = ("nearest", "linear", "cubic", "lanczos3")
+
+
+def _reps(method):
+    return 1 if method == "lanczos3" else 3
+
+
 def phase4(torch, das_cuda, root, errs):
-    """The headline size: 1024^2 pixels x 256 tx x 256 rx, T = 4096."""
+    """The headline size: 1024^2 pixels x 256 tx x 256 rx, T = 4096, every
+    sampler."""
     sys.path.insert(0, root)
     import bench  # numpy-only at import: the problem builder and baseline
 
@@ -418,19 +467,28 @@ def phase4(torch, das_cuda, root, errs):
     cinv = np.float32(1 / 1540.0)
     sub = pi.reshape(n, n, 3)[::16].reshape(-1, 3)  # 64 pixel rows
     out = {}
-    for method in ("cubic", "linear"):
+    for method in METHODS:
         kw = dict(fs=fs, tx_model="plane", method=method)
         got = das_cuda.das_sum(xg, sub, pr, pv, nv, t0, cinv, **kw)
         ref = das_cuda.das_sum_plain(xg, sub, pr, pv, nv, t0, cinv, **kw)
         a, r = errs.add(got, ref, f"phase4 {method} 64-row subset")
         assert r < TOL, (method, r)
-        ms = _ms(lambda: das_cuda.das_sum(xg, pi, pr, pv, nv, t0, cinv, **kw))
+        ms = _ms(lambda: das_cuda.das_sum(xg, pi, pr, pv, nv, t0, cinv, **kw), _reps(method))
         rate = sums / (ms / 1e3)
         out[method] = ms
-        print(f"phase4 {method:6s} 1024^2 x 256 x 256 T=4096: K1 {ms:.3f} ms, "
-              f"{rate:.4e} sums/s, {rate / bench.BASELINE_SUMS_PER_S:.3f}x the "
+        print(f"phase4 {method:8s} 1024^2 x 256 x 256 T=4096: K1 {ms:.3f} ms (layout kernel "
+              f"included), {rate:.4e} sums/s, {rate / bench.BASELINE_SUMS_PER_S:.3f}x the "
               f"RTX-3070 figure ({bench.BASELINE_SUMS_PER_S:.4e} sums/s); "
               f"64-row subset vs plain: max_abs_err={a:.3e} rel={r:.3e}")
+    lay = {}
+    for method in METHODS:  # the layout kernel alone, beside its plain version
+        ms = _ms(lambda: das_cuda.trace_layout(xg, method))
+        p_ms = _ms(lambda: das_cuda.trace_layout_plain(xg, method), 1)
+        floats = {"nearest": T, "linear": 2 * T}.get(method, 4 * T)
+        b = bound(0.0, F32_FLOPS, 4.0 * T * N * M + 4.0 * floats * N * M)
+        lay[method] = (ms, p_ms, b)
+        print(f"phase4 layout kernel alone, {method}: {ms:.3f} ms, plain {p_ms:.3f} ms")
+        _share(f"phase4 layout kernel, {method}", ms, b)
     kw = dict(fs=fs, tx_model="plane", method="cubic")
     full = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, cinv, **kw)
     torch.cuda.synchronize()
@@ -445,11 +503,12 @@ def phase4(torch, das_cuda, root, errs):
     assert r < TOL, r
     print(f"phase4 plain cubic, full size, one run: {plain_ms:.3f} ms; "
           f"K1 vs plain full image: max_abs_err={a:.3e} rel={r:.3e}")
-    return out, plain_ms
+    return out, plain_ms, lay["cubic"]
 
 
-def phase5(torch, das_cuda, errs):
-    """K2 vs plain for 4 samplers x real / complex on perturbed tables."""
+def phase5(torch, das_cuda, errs, lerrs):
+    """K2 vs plain for 4 samplers x real / complex on perturbed tables; the
+    layout kernel vs its plain version."""
     from qups_tpu_torch.ops.das import rx_distance, tx_distance
 
     T, N, M, n, c0 = 2048, 128, 32, 256, 1540.0
@@ -482,6 +541,7 @@ def phase5(torch, das_cuda, errs):
             torch.cuda.synchronize()
             ref = das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, **kw)
             a, r = errs.add(got, ref, f"phase5 {method} {kind}")
+            _layout_parity(torch, das_cuda, lerrs, method, xg, f"phase5 layout {method} {kind}")
             k_ms = _ms(lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw))
             p_ms = _ms(lambda: das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, **kw))
             print(f"phase5 {method:8s} {kind:7s} max_abs_err={a:.3e} rel={r:.3e} "
@@ -591,18 +651,20 @@ def phase7(torch, qt, ops, errs):
                                "fdbf_adjoint_k4", TOL),
     }
 
-    das_cuda.LAUNCHES = das_cuda.LUT_LAUNCHES = gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
+    das_cuda.LAUNCHES = das_cuda.LUT_LAUNCHES = das_cuda.LAYOUT_LAUNCHES = 0
+    gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
     t = time.perf_counter()
     chd = us.greens(scat, device="cuda")
     imgs = {name: fn(chd) for name, (fn, _, _) in calls.items()}
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t
     launches = {"das_k1": das_cuda.LAUNCHES, "das_lut_k2": das_cuda.LUT_LAUNCHES,
-                "greens_freq_k3": gfc.LAUNCHES, "fdbf_adjoint_k4": fdbf_cuda.LAUNCHES}
+                "das_layout": das_cuda.LAYOUT_LAUNCHES, "greens_freq_k3": gfc.LAUNCHES,
+                "fdbf_adjoint_k4": fdbf_cuda.LAUNCHES}
     print(f"phase7 demo path (greens -> DAS, bfDAS, DAS c0 map, bfAdjoint x2): "
           f"{t_path:.3f} s (first call) -> traces {tuple(chd.data.shape)} "
           f"{chd.data.dtype}; launches {launches}")
-    assert launches == {"das_k1": 1, "das_lut_k2": 2, "greens_freq_k3": 1,
+    assert launches == {"das_k1": 1, "das_lut_k2": 2, "das_layout": 3, "greens_freq_k3": 1,
                         "fdbf_adjoint_k4": 2}, launches
     assert chd.data.is_cuda and chd.M == 5
 
@@ -648,10 +710,12 @@ def phase7(torch, qt, ops, errs):
             np.zeros((2, 4)), np.ones((2, 4)), 0.0, np.zeros(4), np.arange(3),
             fs=1e6, keep_rx=True),
     }
-    before = (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES)
+    counts = lambda: (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES,  # noqa: E731
+                      das_cuda.LAYOUT_LAUNCHES, fdbf_cuda.LAUNCHES)
+    before = counts()
     for what, fn in checks.items():
         _expect_not_implemented(fn, what, "phase7")
-    assert (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES) == before
+    assert counts() == before
     return launches
 
 
@@ -669,18 +733,25 @@ def phase8(torch, ops, k1_ms, errs):
     tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
     sums = n * n * N * M
     k2 = {}
-    for method in ("cubic", "linear"):
+    for method in METHODS:
         kw = dict(fs=fs, method=method)
-        ms = _ms(lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw))
+        ms = _ms(lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw), _reps(method))
         got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw)
-        ref, t_plain = _sync_s(torch, lambda: das_cuda.das_lut_sum_plain(
-            xg, tau_rx, tau_tx, t0, **kw))
-        a, r = errs["das_lut_k2"].add(got, ref, f"phase8 {method} full image")
-        print(f"phase8 K2 {method:6s} 1024^2 x 256 x 256 T=4096 (plane-wave "
-              f"geometric tables): {ms:.3f} ms, {sums / (ms / 1e3):.4e} sums/s; "
-              f"K1 on the same problem (phase 4): {k1_ms[method]:.3f} ms; plain, "
-              f"one run: {t_plain * 1e3:.3f} ms; K2 vs plain: max_abs_err={a:.3e} "
-              f"rel={r:.3e}")
+        if method in ("linear", "cubic"):  # the plain version on the full image
+            ref, t_plain = _sync_s(torch, lambda: das_cuda.das_lut_sum_plain(
+                xg, tau_rx, tau_tx, t0, **kw))
+            what = "full image"
+        else:  # ... and on 64 pixel rows
+            rows = torch.arange(n * n, device="cuda").reshape(n, n)[::16].reshape(-1)
+            ref, t_plain = _sync_s(torch, lambda: das_cuda.das_lut_sum_plain(
+                xg, tau_rx[rows], tau_tx[rows], t0, **kw))
+            got, what = got[rows], "64-row subset"
+        a, r = errs["das_lut_k2"].add(got, ref, f"phase8 {method} {what}")
+        print(f"phase8 K2 {method:8s} 1024^2 x 256 x 256 T=4096 (plane-wave "
+              f"geometric tables): {ms:.3f} ms (layout kernel included), "
+              f"{sums / (ms / 1e3):.4e} sums/s; K1 on the same problem (phase 4): "
+              f"{k1_ms[method]:.3f} ms; plain, one run ({what}): {t_plain * 1e3:.3f} ms; "
+              f"K2 vs plain ({what}): max_abs_err={a:.3e} rel={r:.3e}")
         assert r < TOL, (method, r)
         k2[method] = (ms, t_plain * 1e3)
     del xg, got, ref, tau_rx, tau_tx
@@ -1040,15 +1111,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
-             "greens_freq_k3b", "greens_freq_k3c")
+             "greens_freq_k3b", "greens_freq_k3c", "das_layout")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
-    phase1(torch, ops.das_cuda, errs["das_k1"])
+    phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
     k3_ms, k3_plain_ms, k3_b, k3_lib = phase2(torch, qt, ops.greens_freq_cuda,
                                               errs["greens_freq_k3"])
     launches = phase3(torch, qt, ops, errs)
-    k1_ms, k1_plain_ms = phase4(torch, ops.das_cuda, root, errs["das_k1"])
-    phase5(torch, ops.das_cuda, errs["das_lut_k2"])
+    k1_ms, k1_plain_ms, lay = phase4(torch, ops.das_cuda, root, errs["das_k1"])
+    phase5(torch, ops.das_cuda, errs["das_lut_k2"], errs["das_layout"])
     phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
     pw_launches = phase7(torch, qt, ops, errs)
     (k2_ms, k2_plain_ms), k4 = phase8(torch, ops, k1_ms, errs)
@@ -1060,20 +1131,24 @@ def main():
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
     # (phase 7) for K2 and K4, the simulator path (phase 10) for K5 and
     # K3's bf16 and directivity variants
-    # the bounds of K1, K2 and K5, which no PyTorch call computes alone: one
-    # interpolated term costs TERM_FLOPS (its delays to a sample index 3, the
-    # fraction 2, four cubic weights 9, four tap multiply-adds 8); K1 and K2
-    # take I N M of them at the headline, K5 one per (scatterer, rx, tx)
-    TERM_FLOPS = 22.0
+    # the bounds of K1, K2 and K5, which no PyTorch call computes alone. A
+    # cubic term of K1 and K2 costs its delay to a sample index (4 flops K1,
+    # 3 K2), the tap base and fraction 3, the Catmull-Rom cubic in the
+    # fraction from the stencil's coefficients 3 FMAs (6 flops) and the sum
+    # 1; the coefficients cost the layout kernel 10 flops per sample,
+    # counted in its own bound. K1 and K2 take I N M terms at the headline.
+    # A K5 deposit (one per scatterer, rx, tx) costs 22 flops.
     terms = 1024.0 ** 2 * 256 * 256
-    k1_b = bound(TERM_FLOPS * terms, F32_FLOPS, 4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2)
-    k2_b = bound(TERM_FLOPS * terms, F32_FLOPS,
+    k1_b = bound(14.0 * terms, F32_FLOPS, 4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2)
+    k2_b = bound(13.0 * terms, F32_FLOPS,
                  4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2 * 512 + 4.0 * 1024 ** 2)
-    k5_b = bound(TERM_FLOPS * 1e4 * 128 * 128, F32_FLOPS, 4.0 * k5_grid)
+    k5_b = bound(22.0 * 1e4 * 128 * 128, F32_FLOPS, 4.0 * k5_grid)
     for what, ms, b in (("K1 headline cubic", k1_ms["cubic"], k1_b),
                         ("K2 headline cubic", k2_ms, k2_b),
                         ("K5 main-path grid, cubic", k5_ms, k5_b)):
         _share(what, ms, b)
+    # the layout kernel runs before each K1 and K2 launch: its count is
+    # that of the FSA sim->image path, with K1
     launches.update(das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
@@ -1110,6 +1185,10 @@ def main():
          f"sinc directivity: 10^5 scatterers, 128 x 128 elements, simus's bins; plain "
          f"timed on 32 bins and scaled (10^4 scatterers: {k3c_path[0]:.3f} ms vs "
          f"plain {k3c_path[1]:.3f} ms); library: complex64 torch.bmm, 32 bins scaled"),
+        ("das_layout", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:2017",
+         *lay, None, "the traces K1 and K2 read: 4096 x 256 x 256 float32 into the cubic "
+         "stencil (the TPU path builds its layout in XLA, das_pallas.py:2015-2023, with "
+         "no pallas_call); plain: trace_layout_plain"),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

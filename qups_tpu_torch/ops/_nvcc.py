@@ -3,8 +3,8 @@
 Each kernel source under ``qups_tpu_torch/csrc/`` has a plain ``extern "C"``
 entry point. :func:`load` compiles a source with ``nvcc`` for ``sm_90a`` on
 first use, into ``qups_tpu_torch/_build/`` (keyed by a hash of the source, the
-shared headers ``csrc/*.cuh`` and the flags, so an edited source or header is
-rebuilt), and loads it with ``ctypes``.
+shared headers ``csrc/*.cuh`` and the source's :func:`flags`, so an edited
+source or header is rebuilt), and loads it with ``ctypes``.
 A failed build raises with nvcc's output; nothing falls back.
 """
 from __future__ import annotations
@@ -20,11 +20,21 @@ from typing import Dict, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# -fmad=false: nvcc would contract a*b+c into an FMA, eager PyTorch never
-# does; the kernels must round their delays and phases as the plain versions
-# do. No fast math.
+# No fast math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# The sources built with -fmad=false: nvcc would contract a*b+c into an FMA,
+# eager PyTorch never does, and these kernels must round their delays and
+# phases as the plain versions do. das.cu writes its delay path with the
+# round-to-nearest intrinsics instead (nvcc never contracts them), so that
+# the rest of its arithmetic may contract.
+NO_FMAD = ("fdbf", "greens_freq", "greens_splat")
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
+
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
 
@@ -45,13 +55,13 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src.read_bytes() + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(flags(name)).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}_{key}.so"
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(src)]
         r = subprocess.run(cmd, capture_output=True, text=True)
         log = r.stdout + r.stderr
         if r.returncode != 0:

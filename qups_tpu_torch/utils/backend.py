@@ -12,6 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# On the CPU, torch's float sqrt, sin, cos, exp and log run MKL's vector
+# math in chunks of 2048 elements over the intra-op threads. When a
+# process's first such call runs on several threads at once, one worker's
+# chunk can come back with relative errors up to 3e-4 (torch 2.13.0+cpu
+# with MKL 2024.2: 5 of 640 fresh processes; none of 440 after this call),
+# which moved the plain DAS's receive distances by ~9 um. One call of one
+# chunk, on the importing thread, sets MKL up first.
+torch.sqrt(torch.ones(16))
+
 
 def is_cuda(t) -> bool:
     """True when ``t`` is a tensor on a CUDA device."""

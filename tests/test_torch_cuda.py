@@ -1,11 +1,14 @@
 """Kernels K1-K5 on a CUDA card: K1 against its plain PyTorch version for
 every transmit model and sampler, real and complex; K2 against das_lut for
-every sampler, real and complex; K3 against its plain version, with its
-bf16 operands on the tensor cores (K3(b)) and its sinc directivity (K3(c));
-K4 against bf_adjoint for every keep mode and precision, at the main
-arrays' shapes and with the phasors built per chunk; two launches of K3(b)
-and K4 bit-identical; K5 against splat_plain for
-both bases, sub-elements and a complex kernel; the sim→image path
+every sampler, real and complex; both at the receiver-chunk and pixel-block
+edges, with delays exactly on 0 and T-1, and two launches bit-identical;
+K1 and K2 by chunks of transmits, and K1's layout footprint at its limit;
+the layout kernel against its plain version; K3 against its plain
+version, with its bf16 operands on the tensor cores (K3(b)) and its sinc
+directivity (K3(c)); K4 against bf_adjoint for every keep mode and
+precision, at the main arrays' shapes and with the phasors built per
+chunk; two launches of K3(b) and K4 bit-identical; K5 against splat_plain
+for both bases, sub-elements and a complex kernel; the sim→image path
 greens → DAS, the plane-wave path greens → focusTx → DAS / bfDAS /
 per-pixel-c DAS / bfAdjoint and the simulator family (greens pallas and
 bf16, simus, calc_scat_multi, calc_hp) on CUDA tensors; and
@@ -168,6 +171,162 @@ def test_k2_matches_plain(card, cplx):
         ref = das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, fs=fs, method=method)
         assert got.dtype == ref.dtype == xg.dtype and got.shape == ref.shape
         assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), method
+
+
+def edge_problem(N, M, I, T=64, seed=47):
+    """Unit-free delays (cinv = fs = 1, so ti is a distance in samples)
+    that land exactly on 0 and T-1, and fall below 0 and beyond T-1.
+    Geometry for K1: receivers on x in +-20, pixels on x in +-20, z in
+    0-40; transmit 0 a straight plane wave (dv = z), the others tilted up
+    to 20 deg. Pixel 0 lies on receiver 0 (ti = 0 there for transmit 0),
+    pixel 1 at z = (T-1)/2 under receiver N-1 (ti = T-1). Tables for K2:
+    multiples of 1/4 (sums exact in float32), with the same two exact
+    terms."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, N, M)).astype(np.float32)
+    pr = np.stack([np.linspace(-20, 20, N), np.zeros(N), np.zeros(N)], -1).astype(np.float32)
+    pi = np.stack([rng.uniform(-20, 20, I), np.zeros(I), rng.uniform(0, 40, I)],
+                  -1).astype(np.float32)
+    pi[0] = pr[0]
+    if I > 1:
+        pi[1] = (pr[-1, 0], 0.0, (T - 1) / 2)
+    th = np.radians(np.linspace(0, 20, M))
+    nv = np.stack([np.sin(th), np.zeros(M), np.cos(th)], -1).astype(np.float32)
+    pv = np.zeros((M, 3), np.float32)
+    tau_rx = (rng.integers(-8, 4 * T + 8, (I, N)) / 4).astype(np.float32)
+    tau_tx = (rng.integers(-8, 8, (I, M)) / 4).astype(np.float32)
+    tau_rx[0, 0], tau_tx[0, 0] = 0.0, 0.0
+    if I > 1:
+        tau_rx[1, -1], tau_tx[1, 0] = T - 1, 0.0
+    return x, pi, pr, pv, nv, tau_rx, tau_tx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,I", [(100, 1, 1000), (257, 3, 300), (31, 2, 1)])
+def test_k1_k2_chunk_edges_and_repeats(card, N, M, I):
+    """K1 and K2 against their plain versions where N is not a multiple of
+    the receiver chunk (32), I not a multiple of the block (256), M = 1, and
+    delays land exactly on 0 and T-1 (edge taps read from the layouts with
+    no clamp); for every sampler, real and complex traces. Two launches
+    give the same bits (no atomics)."""
+    x, pi, pr, pv, nv, tau_rx, tau_tx = edge_problem(N, M, I)
+    T = x.shape[0]
+    for cplx in (False, True):
+        xc = (x * np.exp(1j * np.linspace(0, 6, T))[:, None, None]).astype(np.complex64)
+        xg = torch.as_tensor(xc if cplx else x, device=card)
+        k1_args, k2_args = (xg, pi, pr, pv, nv, 0.0, 1.0), (xg, tau_rx, tau_tx, 0.0)
+        for method in METHODS:
+            calls = ((das_cuda.das_sum, das_cuda.das_sum_plain, k1_args,
+                      dict(fs=1.0, tx_model="plane", method=method)),
+                     (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain, k2_args,
+                      dict(fs=1.0, method=method)))
+            for kern, plain, args, kw in calls:
+                before = (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES)
+                got = kern(*args, **kw)
+                again = kern(*args, **kw)
+                torch.cuda.synchronize()
+                assert das_cuda.LAUNCHES + das_cuda.LUT_LAUNCHES == sum(before) + 2
+                ref = plain(*args, **kw)
+                assert got.shape == ref.shape == (I, 1, 1) and got.dtype == xg.dtype
+                assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), \
+                    (kern.__name__, method, cplx)
+                assert torch.equal(got, again), (kern.__name__, method, cplx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,M", [(1, 3, 2), (2, 1, 33), (3, 2, 1), (130, 5, 40)])
+def test_layout_kernel_matches_plain(card, T, N, M):
+    """The layout kernel against trace_layout_plain, bit for bit, for every
+    sampler's layout, real and complex: trace lengths and transmit counts
+    that leave partial tiles (64 entries x 32 transmits), and traces of 1-3
+    samples, whose taps are all edge replicas."""
+    rng = np.random.default_rng(48)
+    x = rng.standard_normal((T, N, M)).astype(np.float32)
+    for xa in (x, (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)):
+        xg = torch.as_tensor(xa, device=card)
+        for method in METHODS:
+            before = das_cuda.LAYOUT_LAUNCHES
+            got = das_cuda.trace_layout(xg, method)
+            torch.cuda.synchronize()
+            assert das_cuda.LAYOUT_LAUNCHES == before + 1
+            ref = das_cuda.trace_layout_plain(xg, method)
+            assert got.shape == ref.shape and got.dtype == ref.dtype
+            assert torch.equal(got, ref), (method, xa.dtype)
+            # a chunk of transmits, as K1 and K2 lay them out by chunks
+            m0, m1 = M // 3, M - M // 4
+            got = das_cuda.trace_layout(xg, method, m0, m1)
+            assert torch.equal(got, das_cuda.trace_layout_plain(xg[..., m0:m1], method))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", ["one transmit each", "three", "four of two"])
+def test_k1_k2_by_transmit_chunks(card, chunks, monkeypatch):
+    """K1 and K2 with LAYOUT_BYTES cut so that they lay out and sum the
+    transmits by chunks, each launch adding to the last: one launch of each
+    kernel per chunk, the image against the plain version and the one-chunk
+    image within 1e-4, and two calls bit-identical; every sampler, real and
+    complex traces."""
+    x, tau_rx, tau_tx, t0, fs = lut_problem(M=8, n=32)
+    _, pi, pr, pv, nv, _ = problem("plane", M=8, n=32)
+    T, N, M = x.shape
+    for cplx in (False, True):
+        xa = (x * np.exp(1j * np.linspace(0, 6, T))[:, None, None]).astype(np.complex64) \
+            if cplx else x
+        xg = torch.as_tensor(xa, device=card)
+        for method in METHODS:
+            per_tx = das_cuda.trace_layout(xg, method, 0, 1).numel() * (
+                8 if method == "nearest" and cplx else 4)
+            budget, k = {"one transmit each": (per_tx - 1, M), "three": (3 * per_tx, 3),
+                         "four of two": (3 * per_tx - 1, 4)}[chunks]
+            whole = (das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, fs=fs, tx_model="plane",
+                                      method=method),
+                     das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, fs=fs, method=method))
+            monkeypatch.setattr(das_cuda, "LAYOUT_BYTES", budget)
+            assert len(das_cuda.tx_chunks(xg, method)) == k
+            for kern, plain, args, kw, one in (
+                    (das_cuda.das_sum, das_cuda.das_sum_plain, (xg, pi, pr, pv, nv, t0, CINV),
+                     dict(fs=fs, tx_model="plane", method=method), whole[0]),
+                    (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                     (xg, tau_rx, tau_tx, t0), dict(fs=fs, method=method), whole[1])):
+                before = (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, das_cuda.LAYOUT_LAUNCHES)
+                got = kern(*args, **kw)
+                torch.cuda.synchronize()
+                assert (das_cuda.LAUNCHES + das_cuda.LUT_LAUNCHES - before[0] - before[1],
+                        das_cuda.LAYOUT_LAUNCHES - before[2]) == (k, k)
+                assert torch.equal(got, kern(*args, **kw)), (kern.__name__, method, cplx)
+                ref = plain(*args, **kw)
+                for want in (ref, one):
+                    assert float((got - want).abs().max()) < 1e-4 * float(ref.abs().max()), \
+                        (kern.__name__, method, cplx)
+            monkeypatch.undo()
+
+
+@pytest.mark.cuda
+def test_k1_layout_footprint_at_the_limit(card):
+    """Real traces of 4096 samples x 256 receivers x 260 transmits, whose
+    cubic stencil (4.06 GiB) just exceeds LAYOUT_BYTES (4 GiB): K1 lays
+    them out in two chunks, and the call's peak device memory above the
+    traces and geometry stays within LAYOUT_BYTES plus the output. The image
+    of a few pixels against the plain version."""
+    T, N, M, I = 4096, 256, 260, 256
+    g = torch.Generator(device=card).manual_seed(49)
+    xg = torch.randn((T, N, M), generator=g, device=card)
+    _, pi, pr, pv, nv, t0 = problem("plane", N=N, M=M, n=16)
+    pg = [torch.as_tensor(a, device=card) for a in (pi, pr, pv, nv, t0)]
+    assert das_cuda.tx_chunks(xg, "cubic") == [(0, 130), (130, 260)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    before = das_cuda.LAUNCHES
+    got = das_cuda.das_sum(xg, *pg[:4], pg[4], CINV, fs=20e6, tx_model="plane",
+                           method="cubic")
+    torch.cuda.synchronize()
+    assert das_cuda.LAUNCHES == before + 2
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert peak <= das_cuda.LAYOUT_BYTES + 8 * I + (1 << 20), peak
+    ref = das_cuda.das_sum_plain(xg, *pg[:4], pg[4], CINV, fs=20e6, tx_model="plane",
+                                 method="cubic")
+    assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
 
 
 def adjoint_problem(T=128, N=12, M=10, V=9, I=300, seed=44):

@@ -9,7 +9,9 @@ Traces, with ``torch.profiler`` (CUDA activity):
    waves, cubic (``bench.das_problem``): 3 calls of ``das_cuda.das_sum``
    after a warm-up; device time per op, device busy time and host wall time
    per call;
-2. K1's device time alone per sampler at that size (2 calls each);
+2. K1's and K2's device time alone per sampler at that size (2 calls
+   each; K2 on the plane-wave geometric tables), and the layout kernel's
+   that runs before each;
 3. the main path at the size of ``chip_smoke.py``: L11-5v, FSA over 128
    elements, 256 x 256 pixels, 5 targets,
    ``us.DAS(us.greens(scat, device="cuda"))``, 3 runs after a warm-up;
@@ -130,12 +132,21 @@ def main():
             f"x{calls:g}  {name}")
     report.write(full.table(sort_by="self_cuda_time_total", row_limit=25) + "\n")
 
-    say("[2] K1 device time alone, headline size, per sampler:")
+    from qups_tpu_torch.ops.das import delay_tables
+
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    say("[2] K1 and K2 device time alone, headline size, per sampler, and the layout "
+        "kernel before each:")
     for method in ("nearest", "linear", "cubic", "lanczos3"):
-        _, ka, _, _ = profile(torch, das(method), 2)
-        k1 = sum(_dev_us(e) for e in ka if "das_k1_kernel" in e.key) / 2
-        say(f"    {method:8s} {k1 / 1e3:10.3f} ms")
-    del xg
+        row = []
+        for name, fn in (("K1", das(method)), ("K2", lambda: das_cuda.das_lut_sum(
+                xg, tau_rx, tau_tx, t0, fs=fs, method=method))):
+            _, ka, _, _ = profile(torch, fn, 2)
+            k = sum(_dev_us(e) for e in ka if "das_kernel" in e.key) / 2
+            lay = sum(_dev_us(e) for e in ka if "layout_kernel" in e.key) / 2
+            row.append(f"{name} {k / 1e3:10.3f} ms (layout {lay / 1e3:.3f} ms)")
+        say(f"    {method:8s} " + "   ".join(row))
+    del xg, tau_rx, tau_tx
 
     xdc = qt.TransducerArray.L11_5v()
     us = qt.UltrasoundSystem(
