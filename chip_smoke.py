@@ -10,9 +10,10 @@ from geometry and from delay tables, with the layout kernel that writes the
 traces into the layout they read), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
 per-bin GEMM, with its bf16 and directivity variants), K4
-(``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer)
-and K5 (``qups_tpu_torch/csrc/greens_splat.cu``, the time-domain splat
-simulator) with nvcc, one process per source, all at once, and runs:
+(``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer),
+K5 (``qups_tpu_torch/csrc/greens_splat.cu``, the time-domain splat
+simulator) and the splat's finish kernel (``csrc/greens_finish.cu``) with
+nvcc, one process per source, all at once, and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times, ptxas registers, spills and shared
@@ -55,9 +56,14 @@ simulator) with nvcc, one process per source, all at once, and runs:
 8. K2 (every sampler) and K4 at the headline size, each beside its plain
    version, K4 also beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
-   speckle scatterers): the deposit grid and the traces of ``greens_tiled``
-   for the linear and cubic bases x the system's complex kernel and its real
-   part, and a sub-element case;
+   speckle scatterers), on the device plan: the deposit grid (and a second
+   launch, bit for bit) and the traces of ``greens_tiled`` for the linear
+   and cubic bases x the system's complex kernel and its real part, and a
+   sub-element case; the finish kernel against its plain version on each
+   grid; the device plan against the numpy plan (the JAX package's): the
+   same P0, Gtime and scatterers, row offsets within 1, and the traces
+   against the plain splat and finish run on the numpy plan; the visits K5
+   makes beside those the tile windows of the numpy plan would make;
 10. the simulator path unmodified on the same system and phantom: ``greens``
    with ``impl='pallas'`` (K5) and with ``precision='bf16'`` (K3(b)),
    ``simus`` with the soft and the hard baffle (K3(c)), ``calc_scat_all``
@@ -65,7 +71,7 @@ simulator) with nvcc, one process per source, all at once, and runs:
    with ``bsize=1`` (K5), and ``calc_hp`` with a focused sequence; launch
    counts zeroed just before and read just after; each call against
    ``kernel='plain'``; the PSF check through ``us.DAS`` on the 5-target
-   phantom; K5's and K3(c)'s times against their plain versions; the K3(b)
+   phantom; K3(c)'s time against its plain version; the K3(b)
    control (K3(a)'s traces against the bf16 plain version fail TOL_K3B);
 11. K3(b) and K3(c) at 10^5 scatterers x 128 x 128 elements (bf16 over the
    full band, 1025 bins; the directivity over the bins simus selects, ~850),
@@ -183,12 +189,13 @@ def phase0(torch, ops):
     nv = subprocess.run([ops._nvcc.nvcc(), "--version"], capture_output=True, text=True)
     assert nv.returncode == 0, nv.stderr
     print(f"nvcc: {[l for l in nv.stdout.splitlines() if 'release' in l][0].strip()}")
-    builds = (("K1+K2", ops.das_cuda), ("K3", ops.greens_freq_cuda),
-              ("K4", ops.fdbf_cuda), ("K5", ops.greens_cuda))
+    builds = (("K1+K2", ops.das_cuda.build), ("K3", ops.greens_freq_cuda.build),
+              ("K4", ops.fdbf_cuda.build), ("K5", ops.greens_cuda.build),
+              ("finish", ops.greens_cuda.build_finish))
 
-    def timed(mod):
+    def timed(build):
         t = time.perf_counter()
-        _, log = mod.build()
+        _, log = build()
         return time.perf_counter() - t, log
 
     t = time.perf_counter()
@@ -851,10 +858,47 @@ def _control(k3a, ref_b, where):
     return r
 
 
-def phase9(torch, qt, gc, errs):
-    """K5 vs plain at the main path's shapes: deposit grid and traces for
-    linear / cubic x the complex kernel / its real part, and sub-elements.
-    Returns K5's and the plain grid fill's ms (cubic, 10^4 scatterers)."""
+def _numpy_plan_traces(torch, gc, npl, T):
+    """Traces through splat_plain and finish_plain on the card from the
+    numpy plan (the JAX package's plan), uploaded: a path that shares
+    nothing with the device plan. splat_plain takes no windows; it gets
+    empty ones of K5's shape."""
+    up = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    st = {k: v for k, v in npl["st"].items() if k != "CS"}
+    M, Npad = npl["pv"].shape[2], npl["pn"].shape[2]
+    win = torch.zeros((M, -(-st["Gtime"] // gc.BAND), Npad // gc.GROUP), dtype=torch.int32,
+                      device="cuda")
+    grid = sum(gc.splat_plain(win, win, up(npl["scat"]), up(pnk), up(npl["ofs_pad"]), up(pvk),
+                              **st) for pnk in npl["pn"] for pvk in npl["pv"])
+    return gc.finish_plain(grid, up(npl["kern"]), T=T, P0=npl["P0"], ofs=npl["ofs"])
+
+
+def _plan_vs_numpy(plan, npl):
+    """The device plan against the numpy plan on the same problem: P0 and
+    Gtime equal, the row offsets within 1 (the card's float32 rows may round
+    a median at a half-integer the other way), the same scatterers (as a
+    multiset: a changed offset may reorder ties). Returns (offsets that
+    differ, share of sorted rows in the numpy plan's order)."""
+    assert (plan["P0"], plan["st"]["Gtime"]) == (npl["P0"], npl["st"]["Gtime"]), \
+        (plan["P0"], plan["st"]["Gtime"], npl["P0"], npl["st"]["Gtime"])
+    dofs = np.abs(plan["ofs"].cpu().numpy() - npl["ofs"])
+    assert dofs.max() <= 1, dofs.max()
+    got = plan["scat"].cpu().numpy()
+    ref = npl["scat"][:got.shape[0]]
+    assert not npl["scat"][got.shape[0]:, 3].any()  # the rest is zero-amplitude padding
+    lex = lambda a: a[np.lexsort(a.T[::-1])]  # noqa: E731
+    np.testing.assert_array_equal(lex(got), lex(ref))
+    return int((dofs > 0).sum()), float((got == ref).all(1).mean())
+
+
+def phase9(torch, qt, gc, errs, ferrs):
+    """K5 vs plain at the main path's shapes on the device plan: deposit grid
+    (a second launch bit for bit) and traces for linear / cubic x the
+    complex kernel / its real part, and sub-elements; the finish kernel vs
+    its plain version on each grid; the device plan vs the numpy plan, and
+    the traces vs the plain versions on the numpy plan. Returns the main
+    grid's (cubic, complex kernel, 10^4 scatterers) numbers for the kernels'
+    JSON rows."""
     us, _, _ = _main_system(qt)
     speck = _speckle(qt, 10_000, 10)
     cases = [(m, c, (1, 1), speck) for m in ("linear", "cubic") for c in ("complex", "real")]
@@ -864,28 +908,70 @@ def phase9(torch, qt, gc, errs):
         ps, kern, pn, pv, kw = us._greens_problem(sc, sub)
         kern = kern if kind == "complex" else np.real(kern)
         kw = dict(kw, method=method)
-        plan = gc.plan_tiled(kern, ps, sc.amp, pn, pv, **kw)
-        t = {k: torch.as_tensor(plan[k], device="cuda") for k in ("lo", "nc", "scat", "ofs_pad")}
-        args = (t["lo"], t["nc"], t["scat"], torch.as_tensor(plan["pn"][0], device="cuda"),
-                t["ofs_pad"], torch.as_tensor(plan["pv"][0], device="cuda"))
+        plan = gc.plan_tiled_device(kern, ps, sc.amp, pn, pv, device="cuda", **kw)
+        args = (plan["lo"], plan["hi"], plan["scat"], plan["pn"][0], plan["ofs_pad"],
+                plan["pv"][0])
         got = gc.splat(*args, **plan["st"])
+        again = gc.splat(*args, **plan["st"])
         torch.cuda.synchronize()
         ref = gc.splat_plain(*args, **plan["st"])
         a, r = errs.add(got, ref, f"phase9 grid {method} {kind} sub={sub}")
         assert r < TOL, (method, kind, sub, r)
+        assert torch.equal(got, again), (method, kind, sub)
+        kt = torch.as_tensor(plan["kern"], device="cuda")
+        fin = dict(T=kw["T"], P0=plan["P0"], ofs=plan["ofs"])
+        fx = gc.finish(got, kt, **fin)
+        torch.cuda.synchronize()
+        fp = gc.finish_plain(got, kt, **fin)
+        af, rf = ferrs.add(fx, fp, f"phase9 finish {method} {kind} sub={sub}")
+        assert rf < TOL, (method, kind, sub, rf)
         x = gc.greens_tiled(kern, ps, sc.amp, pn, pv, device="cuda", **kw)
         xp = gc.greens_tiled(kern, ps, sc.amp, pn, pv, device="cuda", kernel="plain", **kw)
         at, rt = errs.add(x, xp, f"phase9 traces {method} {kind} sub={sub}")
         assert rt < TOL, (method, kind, sub, rt)
+        npl = gc.plan_tiled(kern, ps, sc.amp, pn, pv, **kw)
+        nofs, same = _plan_vs_numpy(plan, npl)
+        xn = _numpy_plan_traces(torch, gc, npl, kw["T"])
+        an, rn = errs.add(x, xn, f"phase9 traces vs the numpy plan {method} {kind} sub={sub}")
+        assert rn < TOL, (method, kind, sub, rn)
+        print(f"phase9 device plan vs numpy plan {method} {kind} sub={sub}: P0 {plan['P0']}, "
+              f"Gtime {plan['st']['Gtime']} equal; {nofs} of {plan['ofs'].numel()} row "
+              f"offsets differ by 1; the same scatterers, {100 * same:.2f} % of them in the "
+              f"same place; traces vs the plain versions on the numpy plan "
+              f"max_abs_err={an:.3e} rel={rn:.3e}")
         k_ms = _ms(lambda: gc.splat(*args, **plan["st"]))
         p_ms = _ms(lambda: gc.splat_plain(*args, **plan["st"]), reps=1)
+        f_ms = _ms(lambda: gc.finish(got, kt, **fin))
+        fp_ms = _ms(lambda: gc.finish_plain(got, kt, **fin), reps=1)
+        plan_s = min(_sync_s(torch, lambda: gc.plan_tiled_device(
+            kern, ps, sc.amp, pn, pv, device="cuda", **kw))[1] for _ in range(3))
+        vis = gc.visits(plan)
+        lo = plan["lo"]
         print(f"phase9 K5 {method:6s} {kind:7s} sub={sub} S={sc.pos.shape[1]}: grid "
-              f"{tuple(got.shape)}, windows {float(plan['nc'].mean()):.2f} chunks of "
-              f"{plan['st']['CS']} per tile (max {int(plan['nc'].max())}); grid "
-              f"max_abs_err={a:.3e} rel={r:.3e}, traces {tuple(x.shape)} {x.dtype} "
-              f"max_abs_err={at:.3e} rel={rt:.3e}; K5 {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        if method == "cubic" and kind == "complex" and sub == (1, 1):
-            out = (k_ms, p_ms, got.numel())
+              f"{tuple(got.shape)}, windows (m, band, group) {tuple(lo.shape)} of "
+              f"{float((plan['hi'] - lo).float().mean()):.1f} scatterers on average, "
+              f"{vis:.4e} visits; grid max_abs_err={a:.3e} rel={r:.3e}, repeat bit-equal; "
+              f"traces {tuple(x.shape)} {x.dtype} max_abs_err={at:.3e} rel={rt:.3e}; "
+              f"K5 {k_ms:.3f} ms, plain {p_ms:.3f} ms; finish kernel {f_ms:.3f} ms vs plain "
+              f"{fp_ms:.3f} ms, max_abs_err={af:.3e} rel={rf:.3e} "
+              f"(bit-equal: {bool(torch.equal(fx, fp))}); device plan {plan_s * 1e3:.3f} ms "
+              "(host clock, synchronised, best of 3)")
+        if (method, kind, sub) == ("cubic", "complex", (1, 1)):
+            # the visits of the tile windows (per 8-row tile, over all
+            # receivers) that the numpy plan, the JAX package's, gives
+            old = int(npl["nc"].astype(np.int64).sum()) * npl["st"]["CS"] * npl["pn"].shape[2]
+            print(f"phase9 K5 visits per main-path grid: {vis:.4e} (bands of "
+                  f"{gc.BAND} rows, groups of {gc.GROUP} receivers) against "
+                  f"{old:.4e} with the numpy plan's tile windows ({old / vis:.1f}x fewer); "
+                  f"deposits S N M = {sc.pos.shape[1] * 128 * 128:.4e}")
+            assert 10 * vis <= old, (vis, old)
+            T, N, M = x.shape
+            K = plan["kern"].shape[0]
+            out = dict(k5=(k_ms, p_ms), finish=(f_ms, fp_ms), deposits=ps.shape[0] * N * M,
+                       radii=ps.shape[0] * (N + M),
+                       grid=got.numel(), fin_bytes=4.0 * M * got.shape[1] * N + 8.0 * T * N * M,
+                       fin_flops=4.0 * K * T * N * M, plan_ms=plan_s * 1e3, visits=vis,
+                       old_visits=old)
     return out
 
 
@@ -933,7 +1019,7 @@ def phase10(torch, qt, ops, errs):
             sc, impl="pallas", bsize=1, device="cuda", **k), "greens_splat_k5", TOL),
     }
 
-    gc.LAUNCHES = gfc.LAUNCHES = 0
+    gc.LAUNCHES = gc.FINISH_LAUNCHES = gfc.LAUNCHES = 0
     for v in gfc.VARIANT_LAUNCHES:
         gfc.VARIANT_LAUNCHES[v] = 0
     t = time.perf_counter()
@@ -941,12 +1027,14 @@ def phase10(torch, qt, ops, errs):
     hp = fc.calc_hp(device="cuda")
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t
-    launches = {"greens_splat_k5": gc.LAUNCHES, "greens_freq_k3": gfc.VARIANT_LAUNCHES["a"],
+    launches = {"greens_splat_k5": gc.LAUNCHES, "greens_finish": gc.FINISH_LAUNCHES,
+                "greens_freq_k3": gfc.VARIANT_LAUNCHES["a"],
                 "greens_freq_k3b": gfc.VARIANT_LAUNCHES["b"],
                 "greens_freq_k3c": gfc.VARIANT_LAUNCHES["c"]}
     print(f"phase10 simulator path ({', '.join(calls)}, calc_hp FC) on 10^4 scatterers: "
           f"{t_path:.3f} s (first call); launches {launches}")
-    assert launches["greens_splat_k5"] == 3 and launches["greens_freq_k3b"] == 1 \
+    assert launches["greens_splat_k5"] == 3 and launches["greens_finish"] == 3 \
+        and launches["greens_freq_k3b"] == 1 \
         and launches["greens_freq_k3c"] >= 2 and launches["greens_freq_k3"] >= 1, launches
 
     for name, (fn, kern, tol) in calls.items():
@@ -1111,7 +1199,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
-             "greens_freq_k3b", "greens_freq_k3c", "das_layout")
+             "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
@@ -1123,7 +1211,7 @@ def main():
     phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
     pw_launches = phase7(torch, qt, ops, errs)
     (k2_ms, k2_plain_ms), k4 = phase8(torch, ops, k1_ms, errs)
-    k5_ms, k5_plain_ms, k5_grid = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"])
+    k5 = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"], errs["greens_finish"])
     sim_launches, k3c_path, ctl10 = phase10(torch, qt, ops, errs)
     big = phase11(torch, qt, ops.greens_freq_cuda, errs)
     assert "jax" not in sys.modules
@@ -1137,21 +1225,31 @@ def main():
     # fraction from the stencil's coefficients 3 FMAs (6 flops) and the sum
     # 1; the coefficients cost the layout kernel 10 flops per sample,
     # counted in its own bound. K1 and K2 take I N M terms at the headline.
-    # A K5 deposit (one per scatterer, rx, tx) costs 22 flops.
+    # A cubic K5 deposit (one per scatterer, rx, tx) costs 42 flops: p 4
+    # (the sum of the radii, a product, two sums), the weight 2 (the product
+    # of the clamped radii, a division), and its 4 taps 9 each (d 2, the
+    # cubic 5, the weight 1, the sum 1). A radius and its clamp cost 10 (3
+    # differences, 3 products, 2 sums, a square root, a max), r1 once per
+    # scatterer and rx, r2 once per scatterer and tx: 10 S (N + M).
+    # The finish reads the grid's N columns once and writes the traces once;
+    # its 2 K flops per output and part are far below that.
     terms = 1024.0 ** 2 * 256 * 256
     k1_b = bound(14.0 * terms, F32_FLOPS, 4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2)
     k2_b = bound(13.0 * terms, F32_FLOPS,
                  4.0 * 4096 * 256 * 256 + 4.0 * 1024 ** 2 * 512 + 4.0 * 1024 ** 2)
-    k5_b = bound(22.0 * 1e4 * 128 * 128, F32_FLOPS, 4.0 * k5_grid)
+    k5_b = bound(42.0 * k5["deposits"] + 10.0 * k5["radii"], F32_FLOPS, 4.0 * k5["grid"])
+    fin_b = bound(k5["fin_flops"], F32_FLOPS, k5["fin_bytes"])
     for what, ms, b in (("K1 headline cubic", k1_ms["cubic"], k1_b),
                         ("K2 headline cubic", k2_ms, k2_b),
-                        ("K5 main-path grid, cubic", k5_ms, k5_b)):
+                        ("K5 main-path grid, cubic", k5["k5"][0], k5_b),
+                        ("finish kernel, main-path grid, complex", k5["finish"][0], fin_b)):
         _share(what, ms, b)
     # the layout kernel runs before each K1 and K2 launch: its count is
     # that of the FSA sim->image path, with K1
     launches.update(das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
+                    greens_finish=sim_launches["greens_finish"],
                     greens_freq_k3b=sim_launches["greens_freq_k3b"],
                     greens_freq_k3c=sim_launches["greens_freq_k3c"])
     rows = [
@@ -1170,8 +1268,10 @@ def main():
          f"f32 {k4['f32'][0]:.3f} ms vs plain {k4['f32'][1]:.3f} ms; library: the "
          "products alone, bf16 torch.bmm on the real-block operands, 4 bins scaled"),
         ("greens_splat_k5", "qups_tpu_torch/csrc/greens_splat.cu",
-         "qups_tpu/ops/greens_pallas.py:45", k5_ms, k5_plain_ms, k5_b, None,
-         "the main path's deposit grid: 10^4 scatterers, 128 x 128 elements, cubic"),
+         "qups_tpu/ops/greens_pallas.py:45", *k5["k5"], k5_b, None,
+         "the main path's deposit grid: 10^4 scatterers, 128 x 128 elements, cubic, bands "
+         f"of 128 rows: {k5['visits']:.4e} visits ({k5['old_visits']:.4e} with tile "
+         f"windows); the device plan {k5['plan_ms']:.3f} ms"),
         ("greens_freq_k3b", "qups_tpu_torch/csrc/greens_freq.cu",
          "qups_tpu/ops/greens_freq_pallas.py:41", *big["greens_freq_k3b"],
          "bf16 operands: 10^5 scatterers, 128 x 128 elements, 1025 bins; plain "
@@ -1189,6 +1289,11 @@ def main():
          *lay, None, "the traces K1 and K2 read: 4096 x 256 x 256 float32 into the cubic "
          "stencil (the TPU path builds its layout in XLA, das_pallas.py:2015-2023, with "
          "no pallas_call); plain: trace_layout_plain"),
+        ("greens_finish", "qups_tpu_torch/csrc/greens_finish.cu",
+         "qups_tpu/ops/greens_pallas.py:380", *k5["finish"], fin_b, None,
+         "the pulse convolution and row shift of the main path's grid into (T, N, M) "
+         "complex64 traces (the TPU path runs it in XLA, greens_pallas.py:400-413, with "
+         "no pallas_call); plain: finish_plain (convd direct, then a gather)"),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{

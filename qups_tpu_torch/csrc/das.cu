@@ -384,9 +384,11 @@ int launch(int src, int method, int cplx, Args a, int device, void* stream) {
 // The layout kernel: traces x (T, N, ldm) of C floats (1 real, 2 complex64),
 // transmits 0..M-1 of them, into the layout the sampler METHOD reads, out
 // (M, N, T, C, E) floats, E the floats of one entry of one component. A
-// block transposes a tile of LM transmits x LT entries of one receiver
+// block transposes tiles of LM transmits x LT entries of one receiver
 // through shared memory: coalesced reads along m, coalesced 4- to 16-byte
-// writes along k. It replaces what the TPU path
+// writes along k. The grid's y and z (transmit tiles, receivers) hold at
+// most 65535 blocks each, so a block walks them with the grid's stride: any
+// number of receivers and transmits. It replaces what the TPU path
 // does in XLA before its kernel (the transpose and _pack_quads of
 // qups_tpu/ops/das_pallas.py:2015-2023) and computes exactly what
 // ops/das_cuda.py::trace_layout_plain computes: the stencil entries with
@@ -419,27 +421,32 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
                                                      int M, int64_t ldm) {
   constexpr int E = Entry<METHOD, float>::E;
   __shared__ float tile[C][LM][LS];
-  const int k0 = blockIdx.x * LT, m0 = blockIdx.y * LM, n = blockIdx.z;
+  const int k0 = blockIdx.x * LT;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (m0 + lane < M) {
-    for (int r = w; r < LS; r += 8) {
-      const int t = min(max(k0 - 1 + r, 0), T - 1);
-      const int64_t at = ((int64_t)t * N + n) * ldm + m0 + lane;
-      if constexpr (C == 2) {
-        const float2 v = __ldg(reinterpret_cast<const float2*>(x) + at);
-        tile[0][lane][r] = v.x;
-        tile[1][lane][r] = v.y;
-      } else {
-        tile[0][lane][r] = __ldg(x + at);
+  for (int n = blockIdx.z; n < N; n += gridDim.z) {
+    for (int m0 = blockIdx.y * LM; m0 < M; m0 += gridDim.y * LM) {
+      __syncthreads();  // the last tile's reads are done
+      if (m0 + lane < M) {
+        for (int r = w; r < LS; r += 8) {
+          const int t = min(max(k0 - 1 + r, 0), T - 1);
+          const int64_t at = ((int64_t)t * N + n) * ldm + m0 + lane;
+          if constexpr (C == 2) {
+            const float2 v = __ldg(reinterpret_cast<const float2*>(x) + at);
+            tile[0][lane][r] = v.x;
+            tile[1][lane][r] = v.y;
+          } else {
+            tile[0][lane][r] = __ldg(x + at);
+          }
+        }
       }
-    }
-  }
-  __syncthreads();
-  for (int mm = w; mm < LM && m0 + mm < M; mm += 8) {
-    for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-      float* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
+      __syncthreads();
+      for (int mm = w; mm < LM && m0 + mm < M; mm += 8) {
+        for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
+          float* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
 #pragma unroll
-      for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+          for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+        }
+      }
     }
   }
 }
@@ -447,7 +454,8 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
 template <int METHOD>
 cudaError_t run_layout(const float* x, float* out, int T, int N, int M, int64_t ldm,
                        int cplx, cudaStream_t s) {
-  const dim3 grid((T + LT - 1) / LT, (M + LM - 1) / LM, N);
+  const int mt = (M + LM - 1) / LM;
+  const dim3 grid((T + LT - 1) / LT, mt < 65535 ? mt : 65535, N < 65535 ? N : 65535);
   if (cplx)
     layout_kernel<METHOD, 2><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm);
   else
@@ -497,7 +505,7 @@ extern "C" int das_layout(const float* x, float* out, int T, int N, int M, long 
                           int method, int cplx, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (T <= 0 || N <= 0 || M <= 0 || ldm < M || N > 65535 || T > TMAX)
+  if (T <= 0 || N <= 0 || M <= 0 || ldm < M || T > TMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (method) {

@@ -25,10 +25,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 # The sources built with -fmad=false: nvcc would contract a*b+c into an FMA,
 # eager PyTorch never does, and these kernels must round their delays and
-# phases as the plain versions do. das.cu writes its delay path with the
-# round-to-nearest intrinsics instead (nvcc never contracts them), so that
-# the rest of its arithmetic may contract.
-NO_FMAD = ("fdbf", "greens_freq", "greens_splat")
+# phases as the plain versions do (greens_finish: sum the taps to the plain
+# version's bits). das.cu writes its delay path with the round-to-nearest
+# intrinsics instead (nvcc never contracts them), so that the rest of its
+# arithmetic may contract.
+NO_FMAD = ("fdbf", "greens_freq", "greens_splat", "greens_finish")
 
 
 def flags(name: str) -> Tuple[str, ...]:

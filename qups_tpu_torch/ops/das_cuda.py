@@ -50,6 +50,7 @@ LAUNCHES = 0  # K1 launches in this process
 LUT_LAUNCHES = 0  # K2 launches in this process
 LAYOUT_LAUNCHES = 0  # launches of the layout kernel, which K1 and K2 read
 LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
+TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
 
 _TX_CODE = {"plane": 0, "diverging": 1, "virtual": 2}
 _METHOD_CODE = {"nearest": 0, "linear": 1, "cubic": 2, "lanczos3": 3}
@@ -153,6 +154,8 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None) -> torch.Te
     T, N, M = x.shape
     if not 0 <= m0 < m1 <= M:
         raise ValueError(f"transmits {m0}:{m1} not in 0:{M}")
+    if T > TMAX:
+        raise ValueError(f"K1 and K2 take traces of at most {TMAX} samples, got {T}")
     cplx = x.is_complex()
     if method == "nearest":
         shape, dtype = (m1 - m0, N, T), x.dtype

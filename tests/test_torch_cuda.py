@@ -498,45 +498,172 @@ def test_k3_variants_match_plain(card, directivity, bf16):
         assert float((f32 - ref).abs().max()) > tol * float(ref.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("method", ["linear", "cubic"])
-@pytest.mark.parametrize("case", ["real", "complex_kernel", "subelements"])
-def test_k5_matches_plain(card, case, method):
-    """K5's grid against splat_plain on the same plan (several rx lane
-    blocks, partial tile blocks), then greens_tiled's traces through K5
-    against kernel='plain'."""
-    from qups_tpu_torch.ops.greens_cuda import greens_tiled, plan_tiled
-
-    rng = np.random.default_rng(46)
-    S, N, M, fs, c0, K = 700, 150, 6, 30e6, 1540.0, 41
+def k5_problem(case, S=700, N=150, M=6, z=(8e-3, 30e-3), width=15e-3, seed=46):
+    """A splat problem: S scatterers over x in +-8 mm and the given depths,
+    N receivers over x in +-width, M transmits; a 41-tap kernel."""
+    rng = np.random.default_rng(seed)
+    fs, c0, K = 30e6, 1540.0, 41
     kern = (np.hanning(K) * np.sin(2 * np.pi * 5e6 * np.arange(K) / fs)).astype(np.float32)
     if case == "complex_kernel":
         kern = kern * np.exp(1j * np.linspace(0, 2, K)).astype(np.complex64)
-    ps = np.stack([rng.uniform(-8e-3, 8e-3, S), np.zeros(S), rng.uniform(8e-3, 30e-3, S)], -1)
+    ps = np.stack([rng.uniform(-8e-3, 8e-3, S), np.zeros(S), rng.uniform(*z, S)], -1)
     amp = rng.uniform(0.5, 1.5, S)
-    pn = np.stack([np.linspace(-15e-3, 15e-3, N), np.zeros(N), np.zeros(N)], -1)[:, None]
+    pn = np.stack([np.linspace(-width, width, N), np.zeros(N), np.zeros(N)], -1)[:, None]
     pv = np.stack([np.linspace(-5e-3, 5e-3, M), np.zeros(M), np.zeros(M)], -1)[:, None]
     if case == "subelements":
         pn = np.concatenate([pn - [1e-4, 0, 0], pn + [1e-4, 0, 0]], axis=1)
-    kw = dict(T=1200, s0=2 * 7e-3 / c0, t0k=-K / 2 / fs, fs=fs, cinv=1 / c0, R0=3e-4,
-              method=method, CS=128)
-    plan = plan_tiled(kern, ps, amp, pn, pv, **kw)
-    t = {k: torch.as_tensor(plan[k], device=card) for k in ("lo", "nc", "scat", "ofs_pad")}
-    args = (t["lo"], t["nc"], t["scat"], torch.as_tensor(plan["pn"][-1], device=card),
-            t["ofs_pad"], torch.as_tensor(plan["pv"][0], device=card))
+    kw = dict(T=1200, s0=2 * z[0] / c0 - 1e-6, t0k=-K / 2 / fs, fs=fs, cinv=1 / c0,
+              R0=3e-4)
+    return kern, ps, amp, pn, pv, kw
+
+
+def _k5_grid_checks(card, plan, en=-1):
+    """K5 against splat_plain on a device plan: one launch, within 1e-4, and
+    a second launch bit-identical. Returns the grid."""
+    args = (plan["lo"], plan["hi"], plan["scat"], plan["pn"][en], plan["ofs_pad"],
+            plan["pv"][0])
     before = greens_cuda.LAUNCHES
     got = greens_cuda.splat(*args, **plan["st"])
     torch.cuda.synchronize()
     assert greens_cuda.LAUNCHES == before + 1
     ref = greens_cuda.splat_plain(*args, **plan["st"])
-    assert got.shape == ref.shape and got.shape[2] == 256
+    assert got.shape == ref.shape
     assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
-    again = greens_cuda.splat(*args, **plan["st"])
-    assert torch.equal(again, got)  # no atomics: runs repeat bit for bit
+    assert torch.equal(greens_cuda.splat(*args, **plan["st"]), got)  # runs repeat bit for bit
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("case", ["real", "complex_kernel", "subelements"])
+def test_k5_matches_plain(card, case, method):
+    """K5's grid against splat_plain on the device plan (several receiver
+    groups, a partial band), two launches bit-identical; then greens_tiled's
+    traces through the device plan, K5 and the finish kernel against
+    kernel='plain'."""
+    from qups_tpu_torch.ops.greens_cuda import greens_tiled, plan_tiled_device
+
+    kern, ps, amp, pn, pv, kw = k5_problem(case)
+    kw = dict(kw, method=method)
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, device=card, **kw)
+    assert plan["scat"].is_cuda and plan["lo"].is_cuda
+    assert _k5_grid_checks(card, plan).shape[2] == 256
+    before = (greens_cuda.LAUNCHES, greens_cuda.FINISH_LAUNCHES)
     x = greens_tiled(kern, ps, amp, pn, pv, device=card, **kw)
+    assert (greens_cuda.LAUNCHES, greens_cuda.FINISH_LAUNCHES) == (
+        before[0] + pn.shape[1], before[1] + 1)
     xp = greens_tiled(kern, ps, amp, pn, pv, device=card, kernel="plain", **kw)
-    assert x.is_cuda and x.dtype == xp.dtype and x.shape == (1200, N, M)
+    assert x.is_cuda and x.dtype == xp.dtype and x.shape == (1200, 150, 6)
     assert float((x - xp).abs().max()) < 1e-4 * float(xp.abs().max())
+
+
+@pytest.mark.cuda
+def test_k5_windows_cross_bands_and_groups(card):
+    """A wide aperture (300 receivers over +-40 mm: 12 groups of 32) and
+    shallow scatterers (2-10 mm), so that the groups' windows differ and a
+    scatterer's rows cross several bands: K5 against splat_plain, two
+    launches bit-identical, and the visits fewer than the windows of whole
+    receiver blocks would make."""
+    from qups_tpu_torch.ops.greens_cuda import plan_tiled_device, visits
+
+    kern, ps, amp, pn, pv, kw = k5_problem("real", S=900, N=300, M=5, z=(2e-3, 10e-3),
+                                           width=40e-3, seed=50)
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, method="cubic", device=card, **kw)
+    lo, hi = plan["lo"], plan["hi"]
+    assert lo.shape[1] > 2 and lo.shape[2] == 12
+    assert bool((lo != lo[:, :, :1]).any())  # the groups' windows differ
+    _k5_grid_checks(card, plan, en=0)
+    whole = (hi.amax(2) - lo.amin(2)).clamp(min=0).sum() * 32 * lo.shape[2]
+    assert visits(plan) < int(whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["real", "complex_kernel", "subelements"])
+def test_device_plan_on_card_matches_numpy(card, case):
+    """The plan as the card computes it against the numpy plan (the JAX
+    package's): P0 and Gtime equal, row offsets within 1 (a float32 median
+    at a half-integer may round the other way on the card), the same
+    scatterers; and greens_tiled's traces against splat_plain and
+    finish_plain run on the numpy plan, uploaded, which share nothing with
+    the device plan."""
+    from qups_tpu_torch.ops.greens_cuda import (GROUP, BAND, finish_plain, greens_tiled,
+                                                plan_tiled, plan_tiled_device, splat_plain)
+
+    kern, ps, amp, pn, pv, kw = k5_problem(case)
+    kw = dict(kw, method="cubic")
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, device=card, **kw)
+    npl = plan_tiled(kern, ps, amp, pn, pv, **kw)
+    assert (plan["P0"], plan["st"]["Gtime"]) == (npl["P0"], npl["st"]["Gtime"])
+    assert int(np.abs(plan["ofs"].cpu().numpy() - npl["ofs"]).max()) <= 1
+    S = ps.shape[0]
+    lex = lambda a: a[np.lexsort(a.T[::-1])]  # noqa: E731
+    np.testing.assert_array_equal(lex(plan["scat"].cpu().numpy()), lex(npl["scat"][:S]))
+    assert not npl["scat"][S:, 3].any()
+    up = lambda a: torch.as_tensor(a, device=card)  # noqa: E731
+    st = {k: v for k, v in npl["st"].items() if k != "CS"}
+    M, Npad = npl["pv"].shape[2], npl["pn"].shape[2]
+    win = torch.zeros((M, -(-st["Gtime"] // BAND), Npad // GROUP), dtype=torch.int32,
+                      device=card)
+    grid = sum(splat_plain(win, win, up(npl["scat"]), up(pnk), up(npl["ofs_pad"]), up(pvk),
+                           **st) for pnk in npl["pn"] for pvk in npl["pv"])
+    ref = finish_plain(grid, up(npl["kern"]), T=kw["T"], P0=npl["P0"], ofs=npl["ofs"])
+    x = greens_tiled(kern, ps, amp, pn, pv, device=card, **kw)
+    assert x.shape == ref.shape and x.dtype == ref.dtype
+    assert float((x - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [35, 80])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_finish_kernel_matches_plain(card, cplx, K):
+    """The finish kernel against finish_plain on a random grid: shifts that
+    take rows off both ends of the grid, receivers and transmits that leave
+    partial tiles. With K = 35 taps the plain version multiplies and adds
+    directly in the kernel's order: bit for bit; K = 80 goes through its FFT
+    (1e-4)."""
+    g = torch.Generator(device=card).manual_seed(51)
+    M, Gtime, Npad, N, T = 13, 300, 128, 100, 290
+    grid = torch.randn((M, Gtime, Npad), generator=g, device=card)
+    kern = torch.randn((K,), generator=g, device=card)
+    if cplx:
+        kern = torch.complex(kern, torch.randn((K,), generator=g, device=card))
+    ofs = torch.randint(0, 60, (N,), generator=g, device=card)
+    before = greens_cuda.FINISH_LAUNCHES
+    got = greens_cuda.finish(grid, kern, T=T, P0=30, ofs=ofs)
+    torch.cuda.synchronize()
+    assert greens_cuda.FINISH_LAUNCHES == before + 1
+    ref = greens_cuda.finish_plain(grid, kern, T=T, P0=30, ofs=ofs)
+    assert got.shape == ref.shape == (T, N, M) and got.dtype == ref.dtype
+    if K <= 64:
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_layout_and_k1_at_65536_receivers(card):
+    """A 256 x 256 matrix array's 65536 receivers, more than a grid
+    dimension's 65535 blocks: the layout kernel bit for bit against its plain
+    version for every sampler, and DAS on such traces runs K1 and matches
+    the plain version."""
+    N, T, M = 65536, 6, 2
+    rng = np.random.default_rng(52)
+    x = torch.as_tensor(rng.standard_normal((T, N, M)).astype(np.float32), device=card)
+    for method in METHODS:
+        got = das_cuda.trace_layout(x, method)
+        assert torch.equal(got, das_cuda.trace_layout_plain(x, method)), method
+    gx, gy = np.meshgrid(np.linspace(-5, 5, 256), np.linspace(-5, 5, 256))
+    pr = np.stack([gx.ravel(), gy.ravel(), np.zeros(N)], -1).astype(np.float32)
+    pi = np.stack([rng.uniform(-3, 3, 16), rng.uniform(-3, 3, 16), rng.uniform(1, 2, 16)],
+                  -1).astype(np.float32)
+    pv, nv = np.zeros((M, 3), np.float32), np.tile([0.0, 0.0, 1.0], (M, 1)).astype(np.float32)
+    kw = dict(fs=1.0, tx_model="plane", method="linear")
+    before = das_cuda.LAUNCHES
+    b = das_cuda.das_sum(x, pi, pr, pv, nv, np.zeros(M, np.float32), 1.0, **kw)
+    torch.cuda.synchronize()
+    assert das_cuda.LAUNCHES == before + 1
+    ref = das_cuda.das_sum_plain(x, pi, pr, pv, nv, np.zeros(M, np.float32), 1.0, **kw)
+    assert float((b - ref).abs().max()) < 1e-4 * float(ref.abs().max())
 
 
 @pytest.mark.cuda

@@ -24,7 +24,8 @@ from qups_tpu.ops.greens_pallas import greens_tiled as greens_tiled_ref  # noqa:
 from qups_tpu_torch.convert import from_reference  # noqa: E402
 from qups_tpu_torch.ops import greens_cuda  # noqa: E402
 from qups_tpu_torch.ops.greens_cuda import (_plan_scat_windows, greens_tiled,  # noqa: E402
-                                            plan_tiled, splat, splat_plain)
+                                            plan_tiled, plan_tiled_device, splat,
+                                            splat_plain)
 
 TOL = 1e-4
 
@@ -85,18 +86,20 @@ def _jax_grid(plan, en=0, em=0):
 
 
 def _port_grid(plan, en=0, em=0, fn=splat):
-    t = {k: torch.as_tensor(plan[k]) for k in ("lo", "nc", "scat", "ofs_pad")}
-    return fn(t["lo"], t["nc"], t["scat"], torch.as_tensor(plan["pn"][en]),
-              t["ofs_pad"], torch.as_tensor(plan["pv"][em]), **plan["st"])
+    """The port's grid on a plan of plan_tiled_device (CPU tensors)."""
+    return fn(plan["lo"], plan["hi"], plan["scat"], plan["pn"][en], plan["ofs_pad"],
+              plan["pv"][em], **plan["st"])
 
 
 @pytest.mark.parametrize("method", ["linear", "cubic"])
 def test_grid_matches_tpu_kernel(method):
-    """The deposit grid: the plain K5 against the TPU kernel (interpret
-    mode) on one plan."""
+    """The deposit grid: the plain K5 on the device plan against the TPU
+    kernel (interpret mode) on the numpy plan, which is the same plan
+    (test_device_plan_matches_numpy)."""
     kern, ps, amp, pn, pv, kw = problem(21)
     plan = plan_tiled(kern, ps, amp, pn, pv, method=method, CS=32, **kw)
-    got = _port_grid(plan).numpy()
+    dplan = plan_tiled_device(kern, ps, amp, pn, pv, method=method, device="cpu", **kw)
+    got = _port_grid(dplan).numpy()
     ref = _jax_grid(plan)
     assert got.shape == ref.shape == (3, plan["st"]["Gtime"], 128)
     assert _rel(got, ref) < TOL
@@ -106,14 +109,182 @@ def test_plain_ignores_windows():
     """splat_plain takes no windows: empty windows leave its grid as it is,
     and the CPU wrapper runs it without a launch."""
     kern, ps, amp, pn, pv, kw = problem(22)
-    plan = plan_tiled(kern, ps, amp, pn, pv, method="cubic", CS=32, **kw)
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, method="cubic", device="cpu", **kw)
     before = greens_cuda.LAUNCHES
     g = _port_grid(plan)
     assert greens_cuda.LAUNCHES == before
-    plan0 = dict(plan, nc=np.zeros_like(plan["nc"]))
+    plan0 = dict(plan, hi=plan["lo"].clone())
     assert torch.equal(_port_grid(plan0, fn=splat_plain), g)
     with pytest.raises(ValueError, match="basis"):
         _port_grid(dict(plan, st=dict(plan["st"], basis="lanczos3")))
+
+
+def _case(case):
+    """Problems of the plan tests: an even and an odd count of scatterers,
+    sub-elements, a resampled kernel, and 9 transmits over a wider array."""
+    kw2 = {"even S": {}, "odd S": dict(S=11), "subelements": dict(S=6, N=4, M=2, T=96),
+           "resampled": {}, "wide": dict(S=40, N=150, M=9)}[case]
+    kern, ps, amp, pn, pv, kw = problem(30, **kw2)
+    if case == "subelements":
+        pn = np.concatenate([pn + np.float32([0.2e-3, 0, 0]),
+                             pn - np.float32([0.2e-3, 0, 0])], axis=1)
+        pv = np.concatenate([pv, pv + np.float32([0.1e-3, 0, 0])], axis=1)
+    if case == "resampled":
+        kw = dict(kw, fsr=2.0)
+    return kern, ps, amp, pn, pv, kw
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("case", ["even S", "odd S", "subelements", "resampled", "wide"])
+def test_device_plan_matches_numpy(case, method):
+    """plan_tiled_device on CPU tensors against the numpy plan_tiled (the
+    JAX package's plan): the same row offsets, scatterer order and packing
+    (the numpy plan's rows before its padding to CS), P0, Gtime, receiver
+    and transmit rows and kernel. For an even count the
+    median is the mean of the two middle rows, where torch.median would take
+    the lower."""
+    kern, ps, amp, pn, pv, kw = _case(case)
+    ref = plan_tiled(kern, ps, amp, pn, pv, method=method, CS=32, **kw)
+    got = plan_tiled_device(kern, ps, amp, pn, pv, method=method, device="cpu", **kw)
+    assert (got["P0"], got["st"]["Gtime"]) == (ref["P0"], ref["st"]["Gtime"])
+    np.testing.assert_array_equal(got["scat"].numpy(), ref["scat"][:ps.shape[0]])
+    for k in ("ofs", "ofs_pad", "pn", "pv"):
+        np.testing.assert_array_equal(got[k].numpy(), ref[k], err_msg=k)
+    np.testing.assert_array_equal(got["kern"], ref["kern"])
+    assert got["st"]["pconst"] == ref["st"]["pconst"]
+    assert got["st"]["cinv_fs"] == ref["st"]["cinv_fs"]
+    M, Npad = ref["pv"].shape[2], ref["pn"].shape[2]
+    assert got["lo"].shape == got["hi"].shape == (M, -(-ref["st"]["Gtime"] // greens_cuda.BAND),
+                                                  Npad // 32)
+    if case == "even S":
+        cn = np.asarray(pn, np.float32).mean(axis=1)
+        a1 = kw["cinv"] * kw["fs"] * np.linalg.norm(ps[:, None, :] - cn[None], axis=-1)
+        assert not np.array_equal(torch.median(torch.as_tensor(a1), 0).values.numpy(),
+                                  np.median(a1, axis=0))
+
+
+def _taps(plan, m, method):
+    """(sorted scatterer, receiver, row) of every nonzero tap of transmit m in
+    a device plan's grid, the rows p computed as splat_plain computes them."""
+    st, sc = plan["st"], plan["scat"]
+    pn, pv, ofs = plan["pn"][0], plan["pv"][0], plan["ofs_pad"]
+    cinv_fs, pconst = (float(np.float32(st[k])) for k in ("cinv_fs", "pconst"))
+    r1 = torch.sqrt(sum((sc[:, i:i + 1] - pn[i][None]) ** 2 for i in range(3)))
+    r2 = torch.sqrt(sum((sc[:, i:i + 1] - pv[i, m]) ** 2 for i in range(3)))
+    p = (cinv_fs * (r1 + r2) + pconst) - ofs[None]  # (Spad, Npad)
+    sup = 2 if method == "cubic" else 1
+    out = []
+    for o in range(-sup, sup + 1):
+        j = torch.floor(p).to(torch.int64) + o
+        ok = ((j - p).abs() < sup) & (j >= 0) & (j < st["Gtime"]) & (sc[:, 3:] != 0)
+        s, n = torch.nonzero(ok, as_tuple=True)
+        out.append(torch.stack((s, n, j[s, n]), 1))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("band", [16, 32])
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+def test_band_windows_conservative(method, band, monkeypatch):
+    """Brute force over every (scatterer, m, n): each nonzero tap's row lies
+    in a band whose window, for the receiver's group of 32, holds the
+    scatterer. 150 receivers padded to 8 groups (the pad lanes replicate the
+    last receiver), sub-elements on the receive side, several bands."""
+    kern, ps, amp, pn, pv, kw = problem(31, S=50, N=150, M=4)
+    pn = np.concatenate([pn + np.float32([0.1e-3, 0, 0]), pn], axis=1)
+    monkeypatch.setattr(greens_cuda, "BAND", band)
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, method=method, device="cpu", **kw)
+    lo, hi = plan["lo"], plan["hi"]
+    assert lo.shape[1] > 2 and lo.shape[2] == 8
+    for m in range(lo.shape[0]):
+        s, n, j = _taps(plan, m, method).T
+        assert s.numel() > 0
+        b, g = j // band, n // 32
+        assert bool(((lo[m, b, g] <= s) & (s < hi[m, b, g])).all()), m
+    # and the windows are far from the whole cloud
+    assert greens_cuda.visits(plan) < 0.5 * lo.numel() * 32 * plan["scat"].shape[0]
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+def test_windowed_grid_equals_plain(method, monkeypatch):
+    """K5's design on the CPU: each (m, band, group) adds only the taps of
+    its window's scatterers that fall in its rows and lanes; the bands put
+    together are splat_plain's grid (to the order of the sums). Bands of 16
+    rows, so that this small grid has several."""
+    kern, ps, amp, pn, pv, kw = problem(32, S=40, N=70, M=3)
+    band = 16
+    monkeypatch.setattr(greens_cuda, "BAND", band)
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, method=method, device="cpu", **kw)
+    args = (plan["scat"], plan["pn"][0], plan["ofs_pad"], plan["pv"][0])
+    ref = splat_plain(plan["lo"], plan["hi"], *args, **plan["st"])
+    got = torch.zeros_like(ref)
+    Gtime = plan["st"]["Gtime"]
+    one = torch.zeros((1, plan["lo"].shape[1], 1), dtype=torch.int32)
+    for m in range(ref.shape[0]):
+        for b in range(plan["lo"].shape[1]):
+            for g in range(plan["lo"].shape[2]):
+                lo, hi = int(plan["lo"][m, b, g]), int(plan["hi"][m, b, g])
+                if hi <= lo:
+                    continue
+                sub = splat_plain(one, one, plan["scat"][lo:hi], args[1][:, g * 32:(g + 1) * 32],
+                                  args[2][g * 32:(g + 1) * 32], args[3][:, m:m + 1],
+                                  **plan["st"])
+                rows = slice(b * band, min(Gtime, (b + 1) * band))
+                got[m, rows, g * 32:(g + 1) * 32] = sub[0, rows]
+    assert float((got - ref).abs().max()) < 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", ["cubic subelements", "long kernel"])
+def test_complex_kernel_finish_matches_reference(case):
+    """The plain finish with a complex kernel, through greens_tiled, against
+    JAX greens_tiled(interpret=True): with sub-elements (cubic), and a
+    80-tap kernel, past convd's direct method (an FFT)."""
+    kern, ps, amp, pn, pv, kw = problem(33, S=8, N=5, M=3, T=110)
+    method = "cubic"
+    if case == "cubic subelements":
+        pn = np.concatenate([pn + np.float32([0.15e-3, 0, 0]), pn], axis=1)
+    else:
+        kern = np.interp(np.arange(80) * 15 / 80, np.arange(15), kern).astype(np.float32)
+        kw = dict(kw, t0k=-40 / kw["fs"])
+        method = "linear"
+    kern = kern.astype(np.complex64) * np.exp(
+        1j * np.linspace(0, 2 * np.pi, kern.size)).astype(np.complex64)
+    ref = np.asarray(greens_tiled_ref(kern, ps, amp, pn, pv, method=method, out="complex",
+                                      interpret=True, CS=32, **kw))
+    got = greens_tiled(kern, ps, amp, pn, pv, method=method, CS=32, device="cpu", **kw)
+    assert got.dtype == torch.complex64
+    assert _rel(got.numpy(), ref) < TOL
+
+
+def test_finish_on_cpu_runs_the_plain_version():
+    """finish on CPU tensors is finish_plain, with no launch: row offsets as
+    numpy or as a tensor, and a complex kernel as its two parts."""
+    rng = np.random.default_rng(34)
+    grid = torch.as_tensor(rng.standard_normal((3, 40, 128)).astype(np.float32))
+    kr, ki = (torch.as_tensor(rng.standard_normal(9).astype(np.float32)) for _ in range(2))
+    ofs = rng.integers(0, 10, 7)
+    before = greens_cuda.FINISH_LAUNCHES
+    x = greens_cuda.finish(grid, torch.complex(kr, ki), T=30, P0=5, ofs=ofs)
+    assert greens_cuda.FINISH_LAUNCHES == before and x.shape == (30, 7, 3)
+    assert torch.equal(x.real, greens_cuda.finish_plain(grid, kr, T=30, P0=5,
+                                                        ofs=torch.as_tensor(ofs)))
+    assert torch.equal(x.imag, greens_cuda.finish_plain(grid, ki, T=30, P0=5, ofs=ofs))
+    # x[t, n, m] = sum_k kern[k] grid[m, t + P0 - ofs[n] - k, n]
+    t, n, m = 12, 3, 1
+    rows = t + 5 - int(ofs[n]) - np.arange(9)
+    want = sum(float(kr[k]) * float(grid[m, r, n]) for k, r in enumerate(rows) if 0 <= r < 40)
+    assert abs(float(x.real[t, n, m]) - want) < 1e-5
+
+
+def test_splat_checks_its_windows():
+    """Windows of another shape than (M, ceil(Gtime / BAND), Npad / 32)
+    are refused."""
+    kern, ps, amp, pn, pv, kw = problem(35)
+    plan = plan_tiled_device(kern, ps, amp, pn, pv, device="cpu", **kw)
+    with pytest.raises(ValueError, match="lo and hi"):
+        _port_grid(dict(plan, lo=plan["lo"][:, :, :2], hi=plan["hi"][:, :, :2]))
+    lo, hi = (torch.cat((plan[k], plan[k][:, :1]), 1) for k in ("lo", "hi"))
+    with pytest.raises(ValueError, match="lo and hi"):
+        _port_grid(dict(plan, lo=lo, hi=hi))
 
 
 @pytest.mark.parametrize("case", ["linear", "cubic", "complex_kernel", "subelements",

@@ -23,7 +23,9 @@ Traces, with ``torch.profiler`` (CUDA activity):
    speckle scatterers): ``greens(impl='pallas')`` (K5), ``greens(precision=
    'bf16')`` (K3(b)), ``simus`` (K3(c)), ``calc_scat_all`` (K3),
    ``calc_scat_multi`` with 5 plane waves (K5) and ``calc_hp`` with a
-   focused transmit, 2 runs after a warm-up, then each call alone;
+   focused transmit, 2 runs after a warm-up, then each call alone, and
+   ``greens(impl='pallas')`` by the ranges of ``greens_tiled`` (its plan on
+   the device, K5, the finish kernel);
 6. ``bf_adjoint_cuda`` (K4 and its spectra) at the headline's pixels and
    arrays (1024^2 x 256 x 256, 32 bins) for 8, 64, 128 and 256 pulses,
    bf16 and f32, timed with CUDA events: how K4's time splits between the
@@ -53,11 +55,15 @@ def _dev_us(evt, self_only=True):
     return 0.0
 
 
+RANGES = ("greens_tiled plan", "greens_tiled splat", "greens_tiled finish")
+
+
 def _on_device(torch, evt):
     """True for the device-side records (kernels, copies, memsets); the
-    host-side ops that launched them carry the same device time again."""
+    host-side ops that launched them, and the device side of a named range,
+    carry the same device time again."""
     return (evt.device_type == torch.autograd.DeviceType.CUDA
-            and "Activity Buffer" not in evt.key)
+            and "Activity Buffer" not in evt.key and evt.key not in RANGES)
 
 
 def profile(torch, fn, reps):
@@ -106,6 +112,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     for mod in (das_cuda, greens_freq_cuda, fdbf_cuda, greens_cuda):
         mod.build()
+    greens_cuda.build_finish()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     report = open(args.out, "w")
 
@@ -225,10 +232,17 @@ def main():
             f"x{calls:g}  {name}")
     report.write(full.table(sort_by="self_cuda_time_total", row_limit=30) + "\n")
     for name, fn in sims:
-        _, ka, wall, busy = profile(torch, fn, 2)
+        full, ka, wall, busy = profile(torch, fn, 2)
         say(f"    alone: {name:15s} host wall {wall * 1e3:9.3f} ms, device busy "
             f"{busy / 1e3:9.3f} ms ({100 * busy / 1e6 / wall:.1f} %); top: "
             + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms, _ in top(ka, 2, k=3)))
+        for e in full:  # greens_tiled's ranges: host time and device span
+            if e.key in RANGES and e.device_type == torch.autograd.DeviceType.CPU:
+                dev = sum(_dev_us(d, False) for d in full if d.key == e.key
+                          and d.device_type == torch.autograd.DeviceType.CUDA)
+                say(f"        range {e.key:20s} host {e.cpu_time_total / 2e3:9.3f} ms, "
+                    f"device span {max(dev, _dev_us(e, False)) / 2e3:9.3f} ms per call "
+                    "(from its first kernel's start to its last's end)")
 
     # K4 across V at the headline's pixels and arrays: the kernel's device
     # time t(V) splits into the per-bin phasor tiles (V-independent) and the
