@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds kernels K1 and K2 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum
 from geometry and from delay tables, with the layout kernel that writes the
-traces into the layout they read), K3
+traces into the layout they read; ``das_iq.cu``, the same body, their
+remodulating variants K1(b) and K2(b)), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
 per-bin GEMM, with its bf16 and directivity variants), K4
 (``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer),
@@ -16,9 +17,10 @@ simulator) and the splat's finish kernel (``csrc/greens_finish.cu``) with
 nvcc, one process per source, all at once, and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
-   nvcc version, kernel build times, ptxas registers, spills and shared
-   memory, the FFMA count in the SASS (``cuobjdump -sass``) of the nearest
-   variants of K1 and K2 (0: their delays are never contracted), and the
+   nvcc version, kernel build times, ptxas registers, spills, stack frames
+   and shared memory, the FFMA count in the SASS (``cuobjdump -sass``) of
+   the nearest variants of K1 and K2 (0 without remodulation: their delays
+   are never contracted), and the
    tensor-core instructions (HMMA / HGMMA) in the bf16 variants of K3 and
    K4;
 1. K1 against its plain PyTorch version on the card, for every transmit
@@ -33,9 +35,10 @@ nvcc, one process per source, all at once, and runs:
    ``device=`` (the simulators default to the card), which runs K3 and then
    K1 on the complex traces, with the
    point-spread-function check (each target's peak within 1.1 mm) and the
-   comparison with the same path through the plain versions; also that
-   every option the kernels do not carry yet raises ``NotImplementedError``
-   on the card;
+   comparison with the same path through the plain versions; ``fmod``, a
+   frame dim and ``method='cubic2x'`` through K1 against the plain path;
+   and that every option the kernels do not carry yet raises
+   ``NotImplementedError`` on the card;
 4. the headline size, 1024^2 pixels x 256 tx x 256 rx, T = 4096, every
    sampler (lanczos3 one repetition), timed with CUDA events, and the
    layout kernel alone beside its plain version and its bound;
@@ -51,8 +54,9 @@ nvcc, one process per source, all at once, and runs:
    phantom) unmodified: ``us.greens(scat, device="cuda")`` (K3, then
    focusTx), ``us.DAS`` (K1), ``us.bfDAS`` and ``us.DAS`` with a sound-speed
    map (K2), ``us.bfAdjoint`` bf16 and f32 (K4), each with the PSF check and
-   the comparison with ``kernel='plain'``; and that every option K2 and K4
-   do not carry yet raises ``NotImplementedError``;
+   the comparison with ``kernel='plain'``; ``bfDAS`` with ``fmod`` and with a
+   frame dim (K2(b)) against the plain path; and that every option K2 and
+   K4 do not carry yet raises ``NotImplementedError``;
 8. K2 (every sampler) and K4 at the headline size, each beside its plain
    version, K4 also beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
@@ -77,7 +81,25 @@ nvcc, one process per source, all at once, and runs:
    full band, 1025 bins; the directivity over the bins simus selects, ~850),
    each beside its plain version and a cuBLAS yardstick, both timed on 32
    bins and scaled to the band, and its bound, with the K3(b) control on
-   the 32 bins; K3(a) on K3(b)'s band beside its bound.
+   the 32 bins; K3(a) on K3(b)'s band beside its bound;
+12. K1(b) and K2(b) against their plain versions: every sampler x (the
+   three transmit models | perturbed tables) x (real traces with fmod,
+   complex with and without) x frames 1, 3, 6 (a ragged block of the 4 a
+   launch takes) and dims (2, 3), delays off both ends; the layout kernel
+   with frames bit for bit;
+13. the IQ ensemble path on the demo's system, unmodified, no ``device=``:
+   4 frames of a 5-target phantom (0.3 mm deeper each frame) through
+   ``greens`` (K3), ``join``, ``hilbert``, ``downmix``, ``resample``, then
+   ``DAS`` (K1(b)), ``bfDAS`` and the c0-map ``DAS`` (K2(b)), ``cubic2x``
+   and ``bfAdjoint`` (K4), all with ``fmod = fc``; launch counts zeroed just
+   before and read just after; each frame's PSF; each call against
+   ``kernel='plain'``;
+14. the headline in IQ: 4096 x 256 x 256 x 4 frames at 31.25 MHz (frame 0
+   ``bench.das_problem``'s, three seeded draws) through ``hilbert``,
+   ``downmix(5 MHz)``, ``resample(fs / 4)`` (timed), then K1(b) and K2(b)
+   for every sampler: 4 frames in one call and 4 one-frame calls, each with
+   and without fmod, with CUDA events, each against the plain version on
+   every 64th pixel, beside its bound.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -189,9 +211,10 @@ def phase0(torch, ops):
     nv = subprocess.run([ops._nvcc.nvcc(), "--version"], capture_output=True, text=True)
     assert nv.returncode == 0, nv.stderr
     print(f"nvcc: {[l for l in nv.stdout.splitlines() if 'release' in l][0].strip()}")
-    builds = (("K1+K2", ops.das_cuda.build), ("K3", ops.greens_freq_cuda.build),
-              ("K4", ops.fdbf_cuda.build), ("K5", ops.greens_cuda.build),
-              ("finish", ops.greens_cuda.build_finish))
+    builds = (("K1+K2", ops.das_cuda.build),
+              ("K1(b)+K2(b) fmod", lambda: ops.das_cuda.build(iq=True)),
+              ("K3", ops.greens_freq_cuda.build), ("K4", ops.fdbf_cuda.build),
+              ("K5", ops.greens_cuda.build), ("finish", ops.greens_cuda.build_finish))
 
     def timed(build):
         t = time.perf_counter()
@@ -209,9 +232,12 @@ def phase0(torch, ops):
                      for w in log.splitlines() if "spill stores" in w)
         smem = [int(w.split("bytes smem")[0].split(",")[-1])
                 for w in log.splitlines() if "bytes smem" in w]
+        stack = [int(w.split("bytes stack frame")[0].split()[-1])
+                 for w in log.splitlines() if "bytes stack frame" in w]
         if regs:
             print(f"  ptxas: {len(regs)} kernel variants, {min(regs)}-{max(regs)} "
-                  f"registers, {spills} bytes of spill stores"
+                  f"registers, {spills} bytes of spill stores, stack frames "
+                  f"{min(stack)}-{max(stack)} bytes"
                   + (f", {min(smem)}-{max(smem)} bytes of shared memory" if smem else ""))
     cuobjdump = os.path.join(os.path.dirname(ops._nvcc.nvcc()), "cuobjdump")
 
@@ -230,17 +256,25 @@ def phase0(torch, ops):
         return os.path.basename(path), counts
 
     # K1's and K2's delays are written with round-to-nearest intrinsics,
-    # which nvcc never contracts: the nearest variants, whose only arithmetic
-    # is the delay path and the sum, must hold no FFMA at all (das_kernel's
-    # template arguments are <source, sampler, value type>)
-    so, ffma = sass_counts("das", ("FFMA",))
-    nearest = {f: c for f, c in ffma.items() if re.search(r"das_kernelILi\dELi0E", f)}
-    other = {f: c for f, c in ffma.items() if "das_kernel" in f and f not in nearest}
-    print(f"  K1+K2 SASS ({so}): {len(nearest)} nearest variants with "
-          f"{sum(nearest.values())} FFMA in all; {len(other)} other variants with "
-          f"{min(other.values())}-{max(other.values())} FFMA each; "
-          f"{len(ffma) - len(nearest) - len(other)} layout kernel variants")
-    assert len(nearest) == 8 and sum(nearest.values()) == 0, nearest
+    # which nvcc never contracts: the nearest variants without remodulation,
+    # whose only arithmetic is the delay path and the sums, must hold no
+    # FFMA at all (the template arguments of das_kernel and
+    # das_frames_kernel begin <source, sampler, ...>: 4 sources x 2 value
+    # types, one frame (das_kernel) and 4 frames); the remodulating
+    # variants (das_iq.cu, one frame and 4) contract their rotation and
+    # sincosf
+    for lib, n_near, zero in (("das", 16, True), ("das_iq", 16, False)):
+        so, ffma = sass_counts(lib, ("FFMA",))
+        das = {f: c for f, c in ffma.items() if re.search(r"das_(frames_)?kernelI", f)}
+        nearest = {f: c for f, c in das.items()
+                   if re.search(r"das_(frames_)?kernelILi\dELi0E", f)}
+        other = {f: c for f, c in das.items() if f not in nearest}
+        print(f"  {lib} SASS ({so}): {len(nearest)} nearest variants with "
+              f"{min(nearest.values())}-{max(nearest.values())} FFMA each; {len(other)} "
+              f"other variants with {min(other.values())}-{max(other.values())} FFMA each; "
+              f"{len(ffma) - len(nearest) - len(other)} layout kernel variants")
+        assert len(nearest) == n_near, nearest
+        assert not zero or sum(nearest.values()) == 0, nearest
     # the tensor-core instructions in the SASS of K3's and K4's variants: the
     # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
     for name, lib, is_bf16 in (
@@ -264,32 +298,60 @@ def _layout_parity(torch, das_cuda, lerrs, method, x, where):
     assert torch.equal(got, ref), where
 
 
+def _crossing_problem(torch, model, T, N, M, n, c0=1540.0):
+    """_line_geometry with a t0 per transmit and an fs that put ti = 0 at
+    10 % and ti = T-1 at 90 % of the delay range, so both trace ends are
+    crossed. Returns (pi, pr, pv, nv, t0, fs, (share of ti < 0, share of
+    ti > T-1))."""
+    from qups_tpu_torch.ops.das import rx_distance, tx_distance
+
+    pi, pr, pv, nv = _line_geometry(n, N, M, model)
+    pig, prg, pvg, nvg = (torch.as_tensor(a).cuda() for a in (pi, pr, pv, nv))
+    dr = rx_distance(pig, prg)
+    dv = torch.stack([tx_distance(pig, pvg[m], nvg[m], model) for m in range(M)], 1)
+    lo = float((dv.min(1).values + dr.min(1).values).min()) / c0
+    hi = float((dv.max(1).values + dr.max(1).values).max()) / c0
+    fs = (T - 1) / (0.8 * (hi - lo))
+    t0 = (lo + 0.1 * (hi - lo) + np.linspace(0, 0.02 * (hi - lo), M)).astype(np.float32)
+    t0g = torch.as_tensor(t0).cuda()
+    ti = torch.stack([((dv[:, m, None] + dr) * np.float32(1 / c0) - t0g[m]) * fs
+                      for m in range(M)])
+    below, above = float((ti < 0).float().mean()), float((ti > T - 1).float().mean())
+    assert below > 0 and above > 0, (model, below, above)
+    return pi, pr, pv, nv, t0, fs, (below, above)
+
+
+def _lut_problem(torch, T, N, M, n, seed, c0=1540.0):
+    """The plane-wave problem of _crossing_problem as delay tables, plus a
+    seeded perturbation of up to +-2 samples (not separable geometry).
+    Returns (tau_rx, tau_tx, t0, fs, (share of ti < 0, share of ti > T-1))."""
+    from qups_tpu_torch.ops.das import rx_distance, tx_distance
+
+    pi, pr, pv, nv, t0, fs, _ = _crossing_problem(torch, "plane", T, N, M, n, c0)
+    pi, pr, pv, nv = (torch.as_tensor(a).cuda() for a in (pi, pr, pv, nv))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tau_rx = rx_distance(pi, pr) / c0
+    tau_tx = torch.stack([tx_distance(pi, pv[m], nv[m], "plane") for m in range(M)], 1) / c0
+    tau_rx = tau_rx + (torch.rand(tau_rx.shape, generator=g, device="cuda") * 4 - 2) / fs
+    tau_tx = tau_tx + (torch.rand(tau_tx.shape, generator=g, device="cuda") * 4 - 2) / fs
+    t0g = torch.as_tensor(t0).cuda()
+    ti = torch.stack([((tau_tx[:, m, None] + tau_rx) - t0g[m]) * np.float32(fs)
+                      for m in range(M)])
+    below, above = float((ti < 0).float().mean()), float((ti > T - 1).float().mean())
+    assert below > 0 and above > 0, (below, above)
+    return tau_rx, tau_tx, t0, fs, (below, above)
+
+
 def phase1(torch, das_cuda, errs, lerrs):
     """K1 vs plain for 3 transmit models x 4 samplers x real / complex; the
     layout kernel vs its plain version."""
-    from qups_tpu_torch.ops.das import rx_distance, tx_distance
-
     T, N, M, n, c0 = 2048, 128, 32, 256, 1540.0
     rng = np.random.default_rng(0)
     x = rng.standard_normal((T, N, M)).astype(np.float32)
     xc = (x + 1j * rng.standard_normal((T, N, M))).astype(np.complex64)
     traces = {"real": torch.as_tensor(x).cuda(), "complex": torch.as_tensor(xc).cuda()}
     for model in ("plane", "diverging", "virtual"):
-        pi, pr, pv, nv = _line_geometry(n, N, M, model)
-        # delay bounds -> t0 and fs that put ti = 0 at 10 % and ti = T-1 at
-        # 90 % of the delay range, so both trace ends are crossed
-        pig, prg, pvg, nvg = (torch.as_tensor(a).cuda() for a in (pi, pr, pv, nv))
-        dr = rx_distance(pig, prg)
-        dv = torch.stack([tx_distance(pig, pvg[m], nvg[m], model) for m in range(M)], 1)
-        lo = float((dv.min(1).values + dr.min(1).values).min()) / c0
-        hi = float((dv.max(1).values + dr.max(1).values).max()) / c0
-        fs = (T - 1) / (0.8 * (hi - lo))
-        t0 = (lo + 0.1 * (hi - lo) + np.linspace(0, 0.02 * (hi - lo), M)).astype(np.float32)
-        t0g = torch.as_tensor(t0).cuda()
-        ti = torch.stack([((dv[:, m, None] + dr) * np.float32(1 / c0) - t0g[m]) * fs
-                          for m in range(M)])
-        below, above = float((ti < 0).float().mean()), float((ti > T - 1).float().mean())
-        assert below > 0 and above > 0, (model, below, above)
+        pi, pr, pv, nv, t0, fs, (below, above) = _crossing_problem(torch, model, T, N, M, n)
         for kind, xg in traces.items():
             args = (xg, pi, pr, pv, nv, t0, np.float32(1 / c0))
             for method in ("nearest", "linear", "cubic", "lanczos3"):
@@ -435,9 +497,21 @@ def phase3(torch, qt, ops, errs):
           f"sim->image wall, 3 runs: {', '.join(f'{w:.4f}' for w in walls)} s")
 
     rf = chd.replace(data=chd.data.real.contiguous())
+    # what the kernel now carries (K1(b)) runs, against kernel='plain'
+    runs = {"fmod (K1(b))": lambda **k: us.DAS(chd, fmod=us.xdc.fc, **k),
+            "a frame dim (K1(b))": lambda **k: us.DAS(rf.replace(data=rf.data[..., None]), **k),
+            "cubic2x (K1 linear, 2x traces)": lambda **k: us.DAS(chd, method="cubic2x", **k)}
+    for what, fn in runs.items():
+        before = das_cuda.LAUNCHES
+        got = fn()
+        torch.cuda.synchronize()
+        assert das_cuda.LAUNCHES == before + 1, what
+        a, r = errs["das_k1b" if "b)" in what else "das_k1"].add(
+            got, fn(kernel="plain"), f"phase3 {what}")
+        print(f"phase3 {what} runs on K1: {tuple(got.shape)} {got.dtype}; vs plain: "
+              f"max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < TOL, (what, r)
     checks = {
-        "fmod (K1(b))": lambda: us.DAS(chd, fmod=us.xdc.fc),
-        "frames (K1(b))": lambda: us.DAS(rf.replace(data=rf.data[..., None])),
         "keep_rx (K1(c))": lambda: us.DAS(chd, keep_rx=True),
         "keep_tx (K1(c))": lambda: us.DAS(chd, keep_tx=True),
         "dense apodization (K1(d))": lambda: us.DAS(chd, apod=np.ones((1, 1, 1, 128, 1))),
@@ -445,7 +519,6 @@ def phase3(torch, qt, ops, errs):
         "precision bf16pair (K1(e))": lambda: us.DAS(rf, precision="bf16pair"),
         "precision i8x4 (K1(e))": lambda: us.DAS(rf, precision="i8x4"),
         "complex128 traces (K1(e))": lambda: us.DAS(chd.replace(data=chd.data.to(torch.complex128))),
-        "cubic2x": lambda: us.DAS(chd, method="cubic2x"),
     }
     before = (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES)
     for what, fn in checks.items():
@@ -516,31 +589,12 @@ def phase4(torch, das_cuda, root, errs):
 def phase5(torch, das_cuda, errs, lerrs):
     """K2 vs plain for 4 samplers x real / complex on perturbed tables; the
     layout kernel vs its plain version."""
-    from qups_tpu_torch.ops.das import rx_distance, tx_distance
-
-    T, N, M, n, c0 = 2048, 128, 32, 256, 1540.0
+    T, N, M, n = 2048, 128, 32, 256
     rng = np.random.default_rng(5)
     x = rng.standard_normal((T, N, M)).astype(np.float32)
     xc = (x + 1j * rng.standard_normal((T, N, M))).astype(np.complex64)
     traces = {"real": torch.as_tensor(x).cuda(), "complex": torch.as_tensor(xc).cuda()}
-    pi, pr, pv, nv = (torch.as_tensor(a).cuda() for a in _line_geometry(n, N, M, "plane"))
-    dr = rx_distance(pi, pr) / c0
-    dv = torch.stack([tx_distance(pi, pv[m], nv[m], "plane") for m in range(M)], 1) / c0
-    lo = float((dv.min(1).values + dr.min(1).values).min())
-    hi = float((dv.max(1).values + dr.max(1).values).max())
-    fs = (T - 1) / (0.8 * (hi - lo))
-    # geometric tables plus a seeded perturbation of up to +-2 samples: not
-    # separable geometry
-    g = torch.Generator(device="cuda").manual_seed(5)
-    tau_rx = dr + (torch.rand(dr.shape, generator=g, device="cuda") * 4 - 2) / fs
-    tau_tx = dv + (torch.rand(dv.shape, generator=g, device="cuda") * 4 - 2) / fs
-    t0 = (lo + 0.1 * (hi - lo) + np.linspace(0, 0.02 * (hi - lo), M)).astype(np.float32)
-    t0g = torch.as_tensor(t0).cuda()
-    ti = torch.stack([((tau_tx[:, m, None] + tau_rx) - t0g[m]) * np.float32(fs)
-                      for m in range(M)])
-    below, above = float((ti < 0).float().mean()), float((ti > T - 1).float().mean())
-    assert below > 0 and above > 0, (below, above)
-    del ti
+    tau_rx, tau_tx, t0, fs, (below, above) = _lut_problem(torch, T, N, M, n, 5)
     for kind, xg in traces.items():
         for method in ("nearest", "linear", "cubic", "lanczos3"):
             kw = dict(fs=fs, method=method)
@@ -698,9 +752,20 @@ def phase7(torch, qt, ops, errs):
           f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms")
 
     rf = chd.replace(data=chd.data.real.contiguous())
+    # what the kernel now carries (K2(b)) runs, against kernel='plain'
+    runs = {"bfDAS fmod (K2(b))": lambda **k: us.bfDAS(chd, fmod=us.xdc.fc, **k),
+            "bfDAS a frame dim (K2(b))": lambda **k: us.bfDAS(
+                rf.replace(data=rf.data[..., None]), **k)}
+    for what, fn in runs.items():
+        before = das_cuda.LUT_LAUNCHES
+        got = fn()
+        torch.cuda.synchronize()
+        assert das_cuda.LUT_LAUNCHES == before + 1, what
+        a, r = errs["das_lut_k2b"].add(got, fn(kernel="plain"), f"phase7 {what}")
+        print(f"phase7 {what} runs on K2: {tuple(got.shape)} {got.dtype}; vs plain: "
+              f"max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < TOL, (what, r)
     checks = {
-        "bfDAS fmod (K2(b))": lambda: us.bfDAS(chd, fmod=us.xdc.fc),
-        "bfDAS frames (K2(b))": lambda: us.bfDAS(rf.replace(data=rf.data[..., None])),
         "bfDAS keep_rx (K2(c))": lambda: us.bfDAS(chd, keep_rx=True),
         "bfDAS keep_tx (K2(c))": lambda: us.bfDAS(chd, keep_tx=True),
         "bfDAS apodization (K2(d))": lambda: us.bfDAS(chd, apod=np.ones((1, 1, 1, 128, 1))),
@@ -1159,6 +1224,248 @@ def phase11(torch, qt, gfc, errs):
     return out
 
 
+# K1(b) and K2(b): the trace kinds (complex traces, remodulated), the frame
+# shapes of phase 12, and the remodulation frequency of phases 12 and 14
+IQ_CASES = {"real+fmod": (False, True), "complex+fmod": (True, True),
+            "complex": (True, False)}
+FRAME_SHAPES = ((1,), (3,), (6,), (2, 3))
+FMOD = 5e6
+
+
+def _frame_traces(torch, T, N, M, fdims, cplx, seed):
+    """Seeded traces (T, N, M, *fdims) on the card, complex64 or float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (T, N, M) + tuple(fdims)
+    x = torch.randn(shape, generator=g, device="cuda")
+    if cplx:
+        x = torch.complex(x, torch.randn(shape, generator=g, device="cuda"))
+    return x
+
+
+def phase12(torch, das_cuda, errs, lerrs):
+    """K1(b) and K2(b) vs plain: every sampler x (the three transmit models |
+    geometric tables +-2 samples) x (real + fmod, complex + fmod, complex) x
+    frames (1, 3, 6: a ragged block of 4, and dims (2, 3)), delays off both
+    ends of the traces; the layout kernel with frames vs its plain version,
+    bit for bit."""
+    T, N, M, n, c0 = 2048, 128, 32, 128, 1540.0
+    srcs = {m: _crossing_problem(torch, m, T, N, M, n) for m in ("plane", "diverging",
+                                                                 "virtual")}
+    tau_rx, tau_tx, t0, fs, _ = _lut_problem(torch, T, N, M, n, 12)
+    seed = 120
+    for fdims in FRAME_SHAPES:
+        blocks = -(-int(np.prod(fdims)) // das_cuda.FB)
+        for case, (cplx, rot) in IQ_CASES.items():
+            seed += 1
+            xg = _frame_traces(torch, T, N, M, fdims, cplx, seed)
+            worst = {}
+            for src in ("plane", "diverging", "virtual", "tables"):
+                for method in METHODS:
+                    kw = dict(method=method, fmod=FMOD if rot else 0.0)
+                    if src == "tables":
+                        kern, plain, counter, e = (das_cuda.das_lut_sum,
+                                                   das_cuda.das_lut_sum_plain,
+                                                   "LUT_LAUNCHES", errs["das_lut_k2b"])
+                        args, kw = (xg, tau_rx, tau_tx, t0), dict(kw, fs=fs)
+                    else:
+                        kern, plain, counter, e = (das_cuda.das_sum, das_cuda.das_sum_plain,
+                                                   "LAUNCHES", errs["das_k1b"])
+                        p = srcs[src]
+                        args, kw = (xg,) + p[:5] + (np.float32(1 / c0),), dict(
+                            kw, fs=p[5], tx_model=src)
+                    before = getattr(das_cuda, counter)
+                    got = kern(*args, **kw)
+                    torch.cuda.synchronize()
+                    assert getattr(das_cuda, counter) == before + blocks
+                    ref = plain(*args, **kw)
+                    a, r = e.add(got, ref, f"phase12 F={fdims} {case} {src} {method}")
+                    assert got.shape == (n * n, 1, 1) + fdims
+                    assert r < TOL, (fdims, case, src, method, r)
+                    worst[src] = max(worst.get(src, 0.0), r)
+            print(f"phase12 F={str(fdims):7s} {case:13s} worst rel over the 4 samplers: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                  + f"  ({blocks} launch(es) per call; (T,N,M,I)={(T, N, M, n * n)})")
+            if fdims in ((3,), (6,)) and case != "complex+fmod":
+                for method in METHODS:
+                    _layout_parity(torch, das_cuda, lerrs, method, xg,
+                                   f"phase12 layout F={fdims} {case} {method}")
+    print("phase12 layout kernel with frames: bit-identical to trace_layout_plain for F = 3 "
+          "and 6, real and complex, every sampler")
+
+
+def _demo_frames(qt, us, F, step=0.3e-3):
+    """F frames of a 5-target phantom inside the demo's scan, the targets
+    0.3 mm deeper each frame, each with two silent scatterers (at 12 and 38
+    mm) that give every frame the same time window. Returns (targets of
+    each frame (3, 5), Scatterers of each frame)."""
+    base = np.array([[-8e-3, 0.0, 18e-3], [4e-3, 0.0, 21e-3], [0.0, 0.0, 25e-3],
+                     [-4e-3, 0.0, 28e-3], [8e-3, 0.0, 31e-3]]).T
+    silent = np.array([[0.0, 0.0], [0.0, 0.0], [12e-3, 38e-3]])
+    tg = [base + np.array([[0.0], [0.0], [step * f]]) for f in range(F)]
+    return tg, [qt.Scatterers(pos=np.concatenate([p, silent], 1),
+                              amp=np.r_[np.ones(5), 0.0, 0.0], c0=1540.0) for p in tg]
+
+
+def phase13(torch, qt, ops, errs):
+    """The IQ ensemble path on the plane-wave demo's system, unmodified, with
+    no device=: 4 frames (greens, K3) joined, hilbert, downmix(fc),
+    resample(fs / 2), then DAS (K1(b)), bfDAS and the c0-map DAS (K2(b)),
+    cubic2x (K1(b) on 2x traces) and bfAdjoint (K4), all with fmod = fc;
+    launch counts zeroed just before and read just after; each frame's PSF;
+    each call against kernel='plain'. Returns the launches."""
+    das_cuda, gfc, fdbf_cuda = ops.das_cuda, ops.greens_freq_cuda, ops.fdbf_cuda
+    us = _demo_system(qt)[0]
+    F = 4
+    targets, scats = _demo_frames(qt, us, F)
+    cmap = np.full(us.scan.shape, 1540.0)
+    calls = {
+        "DAS (K1(b))": (lambda iq, **k: us.DAS(iq, fmod=us.fc, **k), "das_k1b", TOL),
+        "bfDAS (K2(b))": (lambda iq, **k: us.bfDAS(iq, fmod=us.fc, **k), "das_lut_k2b", TOL),
+        "DAS c0 map (K2(b))": (lambda iq, **k: us.DAS(iq, fmod=us.fc, c0=cmap, **k),
+                               "das_lut_k2b", TOL),
+        "DAS cubic2x (K1(b))": (lambda iq, **k: us.DAS(iq, fmod=us.fc, method="cubic2x", **k),
+                                "das_k1b", TOL),
+        "bfAdjoint (K4)": (lambda iq, **k: us.bfAdjoint(iq, fmod=us.fc, **k),
+                           "fdbf_adjoint_k4", TOL_BF16),
+    }
+
+    def chain():
+        chds = [us.greens(sc) for sc in scats]
+        return chds[0].join(chds[1:]).hilbert().downmix(us.fc).resample(us.fs / 2)
+
+    das_cuda.LAUNCHES = das_cuda.LUT_LAUNCHES = das_cuda.LAYOUT_LAUNCHES = 0
+    gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
+    t = time.perf_counter()
+    iq = chain()
+    imgs = {name: fn(iq) for name, (fn, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"das_k1b": das_cuda.LAUNCHES, "das_lut_k2b": das_cuda.LUT_LAUNCHES,
+                "das_layout": das_cuda.LAYOUT_LAUNCHES, "greens_freq_k3": gfc.LAUNCHES,
+                "fdbf_adjoint_k4": fdbf_cuda.LAUNCHES}
+    print(f"phase13 IQ ensemble path (4 x greens -> join -> hilbert -> downmix -> resample "
+          f"-> DAS, bfDAS, DAS c0 map, DAS cubic2x, bfAdjoint, fmod = fc): {t_path:.3f} s "
+          f"(first call) -> IQ {tuple(iq.data.shape)} {iq.data.dtype} at {iq.fs / 1e6} MHz on "
+          f"{iq.data.device}; launches {launches}")
+    assert iq.data.is_cuda and iq.data.is_complex() and iq.data.shape[2:] == (5, F)
+    assert launches["das_k1b"] == 2 and launches["das_lut_k2b"] == 2, launches
+    assert launches["das_layout"] == 4 and all(v > 0 for v in launches.values()), launches
+    _, t_chain = _sync_s(torch, chain)
+    print(f"phase13 the 4 frames' simulation and DSP chain, warm (host clock, synchronised): "
+          f"{t_chain * 1e3:.3f} ms")
+    for name, (fn, kern, tol) in calls.items():
+        b = imgs[name]
+        assert b.is_cuda and b.dtype == torch.complex64
+        assert b.shape == tuple(us.scan.shape) + (1, 1, F), (name, b.shape)
+        assert bool(torch.isfinite(b).all()), name
+        for f in range(F):
+            _psf(us, b[..., f], targets[f], f"{name} frame {f}", "phase13")
+        ref, t_plain = _sync_s(torch, lambda: fn(iq, kernel="plain"))
+        a, r = errs[kern].add(b, ref, f"phase13 {name}")
+        _, t_k = _sync_s(torch, lambda: fn(iq))
+        print(f"phase13 {name:20s} vs plain: max_abs_err={a:.3e} rel={r:.3e}; wall (host "
+              f"clock, synchronised, warm) {t_k * 1e3:.3f} ms vs plain {t_plain * 1e3:.3f} ms")
+        assert r < tol, (name, r)
+    return launches
+
+
+# flops of a K1(b) / K2(b) term, as phase 14's bound counts them. Once per
+# term: the delay (K1 4: add, product, difference, scale; K2 3), the tap
+# base and fraction 3, the phase 1 and its sincosf 20 (a 3-FMA reduction
+# and two short polynomials); per frame: the sampler on complex traces
+# (cubic 2 x 3 FMA, 12; linear 2 FMA, 4; nearest 0; lanczos3 2 x 4 taps, 16,
+# with its weights 30 once per term), the complex product 6 and the sum 2.
+TERM_FLOPS = {"nearest": 0, "linear": 4, "cubic": 12, "lanczos3": 16}
+
+
+def _iq_term_flops(method, lut, F, rot=True):
+    once = (3 if lut else 4) + 3 + (21 if rot else 0) + (30 if method == "lanczos3" else 0)
+    return once + F * (TERM_FLOPS[method] + (6 if rot else 0) + 2)
+
+
+def phase14(torch, qt, das_cuda, errs):
+    """The headline in IQ: bench.das_problem's traces as frame 0 and three
+    seeded draws, 4096 x 256 x 256 x 4 at 31.25 MHz, through hilbert,
+    downmix(5 MHz) and resample(fs / 4) on the card (T' 1024, complex, 2 GiB;
+    the cubic layout 8 GiB, two chunks); then K1(b) and K2(b) for every
+    sampler: the 4 frames in one call, the same frames as 4 one-frame calls,
+    and both without fmod, timed with CUDA events (mean of 3
+    after a warm-up, lanczos3 1), each against the plain version on every
+    64th pixel. Returns {kernel: (ms, plain ms scaled, bound)} at cubic."""
+    import bench  # on the path since phase 4
+    from qups_tpu_torch.ops.das import delay_tables
+
+    n, T, N, M, fs, F = 1024, 4096, 256, 256, 31.25e6, 4
+    x0, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.empty((T, N, M, F), device="cuda")
+    xg[..., 0] = torch.as_tensor(x0)
+    del x0
+    for f in range(1, F):
+        xg[..., f] = torch.as_tensor(np.random.default_rng(f).standard_normal(
+            (T, N, M), dtype=np.float32))
+    rf = qt.ChannelData(data=xg, fs=fs, t0=t0)
+    dsp = lambda: rf.hilbert().downmix(FMOD).resample(fs / 4)  # noqa: E731
+    dsp_ms = _ms(dsp, reps=1)
+    iq = dsp()
+    del rf, xg
+    torch.cuda.synchronize()
+    x = iq.data
+    Tq = x.shape[0]
+    print(f"phase14 DSP chain hilbert -> downmix(5 MHz) -> resample(fs / 4) on "
+          f"{(T, N, M, F)} float32: {dsp_ms:.3f} ms (CUDA events, one run after a warm-up) "
+          f"-> IQ {tuple(x.shape)} {x.dtype} ({x.numel() * 8 / 2**30:.2f} GiB), "
+          f"t0 {tuple(np.shape(iq.t0))}; the cubic layout in "
+          f"{len(das_cuda.tx_chunks(x, 'cubic'))} chunks")
+    assert Tq == 1024 and x.is_complex()
+    ones = [x[..., f].contiguous() for f in range(F)]
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    cinv, fsq = np.float32(1 / 1540.0), iq.fs
+    sub = torch.arange(0, n * n, 64, device="cuda")  # every 64th pixel
+    pig = torch.as_tensor(pi).cuda()
+    k1 = (das_cuda.das_sum, das_cuda.das_sum_plain,
+          lambda xx, rows=None: (xx, pig if rows is None else pig[rows], pr, pv, nv, iq.t0,
+                                 cinv),
+          dict(fs=fsq, tx_model="plane"), "das_k1b", False)
+    k2 = (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+          lambda xx, rows=None: (xx, tau_rx if rows is None else tau_rx[rows],
+                                 tau_tx if rows is None else tau_tx[rows], iq.t0),
+          dict(fs=fsq), "das_lut_k2b", True)
+    terms = float(n * n) * N * M
+    nbytes = lambda lut: x.numel() * 8.0 + n * n * F * 8.0 + (  # noqa: E731
+        4.0 * n * n * (N + M) if lut else 12.0 * n * n)
+    out = {}
+    for kern, plain, args, kw, name, lut in (k1, k2):
+        for method in METHODS:
+            k = dict(kw, method=method)
+            reps = _reps(method)
+            t4 = _ms(lambda: kern(*args(x), fmod=FMOD, **k), reps)
+            t1 = _ms(lambda: [kern(*args(o), fmod=FMOD, **k) for o in ones], reps)
+            t0f = _ms(lambda: kern(*args(x), fmod=0.0, **k), reps)
+            t10 = _ms(lambda: [kern(*args(o), fmod=0.0, **k) for o in ones], reps)
+            got = kern(*args(x), fmod=FMOD, **k)[sub]
+            ref, t_plain = _sync_s(torch, lambda: plain(*args(x, sub), fmod=FMOD, **k))
+            a, r = errs[name].add(got, ref, f"phase14 {method} every 64th pixel")
+            assert r < TOL, (name, method, r)
+            b = bound(_iq_term_flops(method, lut, F) * terms, F32_FLOPS, nbytes(lut))
+            b1 = bound(_iq_term_flops(method, lut, 1) * terms, F32_FLOPS, nbytes(lut) / F)
+            b0 = bound(_iq_term_flops(method, lut, F, rot=False) * terms, F32_FLOPS,
+                       nbytes(lut))
+            rate = terms * F / (t4 / 1e3)
+            print(f"phase14 {name} {method:8s} 1024^2 x 256 x 256 x 4 frames, T' {Tq} IQ: "
+                  f"4 frames in one call {t4:.3f} ms ({rate:.4e} sums/s, "
+                  f"{rate / bench.BASELINE_SUMS_PER_S:.3f}x the RTX-3070 figure); 4 one-frame "
+                  f"calls {t1:.3f} ms; without fmod {t0f:.3f} ms, as 4 one-frame calls "
+                  f"{t10:.3f} ms; bounds (ops) "
+                  f"{b[0]:.3f} / {4 * b1[0]:.3f} / {b0[0]:.3f} ms "
+                  f"({_iq_term_flops(method, lut, F)} / {4 * _iq_term_flops(method, lut, 1)} / "
+                  f"{_iq_term_flops(method, lut, F, rot=False)} flop per term); plain on every "
+                  f"64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
+            if method == "cubic":
+                out[name] = (t4, 64 * t_plain * 1e3, b)
+            del got, ref
+    return out
+
+
 def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     """K3's bytes read or written once: q and w of both sides (and the
     directivity slopes), and G (F, N, M) complex64."""
@@ -1199,7 +1506,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
-             "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish")
+             "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish", "das_k1b",
+             "das_lut_k2b")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
@@ -1214,6 +1522,9 @@ def main():
     k5 = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"], errs["greens_finish"])
     sim_launches, k3c_path, ctl10 = phase10(torch, qt, ops, errs)
     big = phase11(torch, qt, ops.greens_freq_cuda, errs)
+    phase12(torch, ops.das_cuda, errs, errs["das_layout"])
+    iq_launches = phase13(torch, qt, ops, errs)
+    iqh = phase14(torch, qt, ops.das_cuda, errs)
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -1246,7 +1557,8 @@ def main():
         _share(what, ms, b)
     # the layout kernel runs before each K1 and K2 launch: its count is
     # that of the FSA sim->image path, with K1
-    launches.update(das_lut_k2=pw_launches["das_lut_k2"],
+    launches.update(das_k1b=iq_launches["das_k1b"], das_lut_k2b=iq_launches["das_lut_k2b"],
+                    das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
                     greens_finish=sim_launches["greens_finish"],
@@ -1289,6 +1601,17 @@ def main():
          *lay, None, "the traces K1 and K2 read: 4096 x 256 x 256 float32 into the cubic "
          "stencil (the TPU path builds its layout in XLA, das_pallas.py:2015-2023, with "
          "no pallas_call); plain: trace_layout_plain"),
+        ("das_k1b", "qups_tpu_torch/csrc/das.cu (das_iq.cu)",
+         "qups_tpu/ops/das_pallas.py:174 (fmod :898-910, frames :1386-1393)",
+         *iqh["das_k1b"], None, "K1(b): the headline in IQ, 1024^2 px x 256 tx x 256 rx x "
+         "4 frames, T' 1024 complex64, fmod 5 MHz, cubic, the 4 frames in one call (layout "
+         "kernel included, two chunks); bound: "
+         f"{_iq_term_flops('cubic', False, 4)} flop per term; plain timed on every 64th "
+         "pixel and scaled; launches: the IQ ensemble path (phase 13)"),
+        ("das_lut_k2b", "qups_tpu_torch/csrc/das.cu (das_iq.cu)",
+         "qups_tpu/ops/das_pallas.py:1607 (fmod :898-910, frames :1386-1393)",
+         *iqh["das_lut_k2b"], None, "K2(b): as K1(b) on plane-wave geometric tables; bound: "
+         f"{_iq_term_flops('cubic', True, 4)} flop per term (+ 2 GiB of tables)"),
         ("greens_finish", "qups_tpu_torch/csrc/greens_finish.cu",
          "qups_tpu/ops/greens_pallas.py:380", *k5["finish"], fin_b, None,
          "the pulse convolution and row shift of the main path's grid into (T, N, M) "

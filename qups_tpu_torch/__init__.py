@@ -9,7 +9,10 @@ kernels on the ported path are hand-written CUDA for Hopper under
 ``us.DAS(chd)`` (kernel K1 on a CUDA tensor). Slice 2 is the plane-wave
 imaging demo: ``greens`` synthesizes any sequence through ``us.focusTx``,
 and ``us.bfDAS`` / ``us.bfDASLUT`` (kernel K2) and ``us.bfAdjoint``
-(kernel K4) beamform it.
+(kernel K4) beamform it. IQ and frame ensembles: ``ChannelData``'s DSP
+(``join``, ``hilbert``, ``downmix``, ``resample``, ...) makes baseband
+frames, which ``us.DAS(iq, fmod=fc)`` and ``us.bfDAS`` beamform on K1(b)
+and K2(b). The entry points run on the card unless given ``device=``.
 """
 from .core import (
     Waveform, Transducer, TransducerArray, TransducerConvex, TransducerMatrix,

@@ -1,7 +1,9 @@
 // K1 and K2: delay-and-sum, summed output, float32 traces, real or complex
-// (interleaved complex64, such as the analytic traces greens returns). One
-// kernel body, das_kernel below, serves both; a compile-time switch (SRC)
-// says where a term's transmit and receive parts come from.
+// (interleaved complex64, such as the analytic traces greens returns), with
+// frames and IQ remodulation (sub-slices K1(b), K2(b)). Two kernel bodies
+// serve both, das_kernel (one frame, no remodulation) and
+// das_frames_kernel below; a compile-time switch (SRC) says where a term's
+// transmit and receive parts come from.
 //
 // K1 (SRC = PLANE, DIVERGING or VIRTUAL) replaces the TPU kernel
 // qups_tpu/ops/das_pallas.py::_kernel in geometry mode (launched by
@@ -11,19 +13,25 @@
 //   dv  = rv.nv (plane) | |rv| (diverging) | copysign(|rv|, rv.nv) (virtual),
 //         rv = p_i - pv_m
 //   dr  = |p_i - pr_n|
-//   ti  = (cinv * (dv + dr) - t0_m) * fs
+//   tau = cinv * (dv + dr) - t0_m,   ti = tau * fs
 //
 // K2 (SRC = LUT) replaces the same TPU kernel with lut=True (launched by
 // _das_lut_call, public entry das_lut_tiled) and computes what
-// ops/das.py::das_lut computes: ti = ((tau_tx[i, m] + tau_rx[i, n]) - t0_m) * fs.
+// ops/das.py::das_lut computes: tau = (tau_tx[i, m] + tau_rx[i, n]) - t0_m,
+// ti = tau * fs.
 // Both then sum
 //
-//   out_i = sum_{m,n} sample(x[m, n, :], ti)   for 0 <= ti <= T-1, else 0
+//   out_if = sum_{m,n} exp(2 pi i fmod tau) sample(x[m, n, :, f], ti)
+//            for 0 <= ti <= T-1, else 0
 //
 // with the samplers of ops/interp.py: nearest (round half to even), linear,
 // cubic (Catmull-Rom) and lanczos3, taps clamp-replicated to [0, T-1].
 // Complex traces take the same delays and weights; the real and imaginary
-// parts are summed in two float32 accumulators.
+// parts are summed in two float32 accumulators. With frames (any trailing
+// dims of the traces, folded to one axis F) each frame f has its own sum
+// out_if over the same terms. With remodulation (fmod != 0, IQ data) each
+// sample is first rotated by exp(2 pi i fmod tau), tau = ti / fs the delay
+// in seconds; real traces then give a complex sum.
 //
 // What bounds them on the card, as far as the measurements show: the
 // instructions issued per term (the time followed them through the
@@ -61,6 +69,20 @@
 //   transmits by chunks whose layout fits a fixed budget
 //   (ops/das_cuda.py::LAYOUT_BYTES); a launch after the first adds its sum
 //   to what out holds. One chunk covers the main paths' sizes.
+// - Frames and remodulation (K1(b), K2(b)) run in das_frames_kernel, the
+//   same loops with FB frames' sums per thread in registers (one launch per
+//   block of FB frames; one frame with fmod a variant of its own): a term's
+//   delay, validity, tap base, fraction and rotation are formed once for
+//   all its frames. The layout keeps a term's frames innermost, (M, N, T,
+//   F, entry), so a term's FB entries share cache lines at constant
+//   offsets. One frame without fmod runs das_kernel, unchanged, with the
+//   arguments it always took: with the frames' fields among them, its
+//   variants gained registers (K2's real linear sampler 62 -> 72, 3 blocks
+//   per SM) and ran up to 1.24x slower (PERF.md §6).
+// - Remodulation is one sincosf per term, then a complex product per frame.
+//   Its instantiations live in a second translation unit, das_iq.cu (this
+//   file built with DAS_IQ defined), so the two build in parallel; without
+//   fmod the kernels hold no rotation at all.
 // - Few instructions per term: the tap base and fraction come from one add
 //   of 2^23 rounded down (nearest: to nearest), with no conversion, and the
 //   entry's address from one shift-add on a 32-bit offset in the chunk and
@@ -78,9 +100,14 @@
 // (53 >= 2 * 24 + 2) without the FFMA steps of the float sqrt sequence.
 // The file is built without -fmad=false: the interpolation contracts to
 // FMAs and differs from the plain version by float32 roundings. The nearest
-// variants contain no FFMA at all (chip_smoke.py checks the SASS). Each
-// thread sums in registers and writes its pixel once: no atomics, so two
-// launches give the same bits.
+// variants contain no FFMA at all (chip_smoke.py checks the SASS). The
+// phase of the rotation rounds as the plain version's does too: w =
+// float32(2 pi fmod) from the host, __fmul_rn(w, tau) with the kernel's own
+// float32 tau, then sincosf (the accurate one: at IQ sizes the phase
+// reaches thousands of radians, where __sincosf's error grows, and another
+// rounding of the phase moves a term by ~1e-4 rad). Each thread sums in
+// registers and writes its pixel once: no atomics, so two launches give
+// the same bits.
 //
 // PERF.md §5 compares the tile sizes below and the launch bound with the
 // alternatives measured.
@@ -99,6 +126,7 @@ constexpr int MC = 8;         // transmits per chunk of transmit terms
 constexpr int UNROLL = 2;     // groups of 4 receivers per unrolled step
 constexpr int RS = NC + 4;    // row stride of R: 16-byte rows, conflict-free 16-byte reads
 constexpr int TMAX = 1 << 22;  // longest trace: the index arithmetic of sample()
+constexpr int FB = 4;         // frames per launch, their sums in registers
 static_assert(NC % 4 == 0, "R is read four receivers at a time");
 static_assert((int64_t)NC * 8 * TMAX < (int64_t)1 << 31, "a chunk's offsets fit an int");
 
@@ -112,6 +140,17 @@ struct Args {
   int N, M, T;
   float cinv, fs;
   int add;                        // 1: add the sum to what out holds
+};
+
+// das_frames_kernel's arguments: Args (x and out at the launch's first
+// frame, out (I, ldo)) and the frames and remodulation. das_kernel takes
+// Args alone: a larger argument block cost its variants registers (K2's
+// real linear sampler 62 -> 72, PERF.md §6).
+struct FrameArgs {
+  Args a;
+  int64_t ldo;                    // sums per pixel in out: F
+  int S, fb;                      // floats per tap base (F entries); frames here
+  float w;                        // 2 pi fmod, rounded to float32
 };
 
 __device__ __forceinline__ float2 operator+(float2 a, float2 b) {
@@ -175,40 +214,44 @@ __device__ __forceinline__ float dot4(float4 w, float4 v) {
   return w.x * v.x + w.y * v.y + w.z * v.z + w.w * v.w;
 }
 
-// Where a sampler finds tap base k in its trace's row: at float k E, E the
-// floats of one entry (nearest: one sample; the others: one stencil entry).
+// Where a sampler finds tap base k in its trace's row: at float k S, S the
+// floats of a term's entries (F of them with F frames; nearest: one sample
+// each, the others one stencil entry each); E the floats of one entry.
 template <int METHOD, typename V>
 struct Entry {
   static constexpr int C = sizeof(V) / sizeof(float);  // 1 real, 2 complex
   static constexpr int E = (METHOD == NEAREST ? 1 : METHOD == LINEAR ? 2 : 4) * C;
 };
 
-// Floats per trace: T entries.
-int64_t row_floats(int method, int T, int cplx) {
-  return (int64_t)T * (cplx ? 2 : 1) * (method == NEAREST ? 1 : method == LINEAR ? 2 : 4);
+// Floats of one entry of one frame, E.
+int entry_floats(int method, int cplx) {
+  return (cplx ? 2 : 1) * (method == NEAREST ? 1 : method == LINEAR ? 2 : 4);
 }
 
 // The offset o that sample() takes for the trace at float `start` of xm:
-// start - (bits of 2^23) E, wrapping.
+// start - (bits of 2^23) S, wrapping.
 template <int METHOD, typename V>
-__device__ __forceinline__ unsigned row_origin(unsigned start) {
-  return start - 0x4B000000u * (unsigned)Entry<METHOD, V>::E;
+__device__ __forceinline__ unsigned row_origin(unsigned start,
+                                               unsigned S = Entry<METHOD, V>::E) {
+  return start - 0x4B000000u * S;
 }
 
 // The sample at ti, 0 <= ti <= T-1 (any ti in that range: the caller
 // passes 0 for an invalid term and drops its value), of the trace whose
-// row starts at float o of xm. 2^23 + ti, rounded, holds the tap base in
+// row starts at float o of xm, its tap bases S floats apart. 2^23 + ti,
+// rounded, holds the tap base in
 // its low mantissa bits: rounded to nearest (half to even, as torch.round)
 // for nearest, down (floor) for the others; subtracting 2^23 again is
 // exact, and so is the fraction u. The bits of 2^23 are subtracted from
 // the entry's offset in unsigned (wrapping) arithmetic as part of o (see
 // row_origin), so the offset costs one shift-add.
 template <int METHOD, typename V>
-__device__ __forceinline__ V sample(const float* __restrict__ xm, unsigned o, float ti) {
+__device__ __forceinline__ V sample(const float* __restrict__ xm, unsigned o, float ti,
+                                    unsigned S = Entry<METHOD, V>::E) {
   using L = Entry<METHOD, V>;
   constexpr bool CPLX = L::C == 2;
   const float r = METHOD == NEAREST ? __fadd_rn(ti, 0x1p23f) : __fadd_rd(ti, 0x1p23f);
-  const float* __restrict__ e = xm + (o + (unsigned)__float_as_int(r) * L::E);
+  const float* __restrict__ e = xm + (o + (unsigned)__float_as_int(r) * S);
   if constexpr (METHOD == NEAREST) {
     return __ldg(reinterpret_cast<const V*>(e));
   } else {
@@ -242,6 +285,19 @@ __device__ __forceinline__ V sample(const float* __restrict__ xm, unsigned o, fl
   }
 }
 
+// A sample rotated by (c, s) = (cos, sin) of its phase, as the plain
+// version's complex product (v + 0i or v) * (c + is); unrotated without ROT.
+template <bool ROT, typename V>
+__device__ __forceinline__ auto rotate(V v, float c, float s) {
+  if constexpr (!ROT) {
+    return v;
+  } else if constexpr (sizeof(V) == sizeof(float)) {
+    return make_float2(v * c, v * s);
+  } else {
+    return make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
+  }
+}
+
 // The transmit term of transmit m for pixel i (at px, py, pz): K1 its
 // distance dv as ops/das.py::tx_distance rounds it, K2 tau_tx[i, m].
 template <int SRC>
@@ -262,7 +318,8 @@ __device__ __forceinline__ float tx_term(const Args& a, int m, int64_t i, float 
 // __launch_bounds__(P, 1): with no minimum of blocks per SM given, ptxas
 // held the variants to 48 registers (5 blocks per SM) and spilled, and K2
 // linear took 124 ms at the headline against 67 ms with the registers it
-// needs (PERF.md §5).
+// needs (PERF.md §5). This kernel: one frame, no remodulation (K1(a),
+// K2(a)).
 template <int SRC, int METHOD, typename V>
 __global__ void __launch_bounds__(P, 1) das_kernel(const Args a) {
   __shared__ __align__(16) float R[P * RS];  // R[p][n]
@@ -341,60 +398,193 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const Args a) {
   if (live) static_cast<V*>(a.out)[i] = acc;
 }
 
-template <int SRC, int METHOD, typename V>
-cudaError_t run(const Args& a, cudaStream_t s) {
-  das_kernel<SRC, METHOD, V><<<(unsigned)((a.I + P - 1) / P), P, 0, s>>>(a);
+// K1(b), K2(b): das_kernel's loops with NF frames' sums per thread (1 with
+// fmod and one frame, else FB), each term's samples rotated by exp(2 pi i
+// fmod tau) when ROT. A (float2 with ROT or complex traces, else float) is
+// the sums' type.
+template <int SRC, int METHOD, typename V, bool ROT, int NF>
+__global__ void __launch_bounds__(P, 1) das_frames_kernel(const FrameArgs fa) {
+  using A = decltype(rotate<ROT, V>(V{}, 1.f, 0.f));
+  const Args& a = fa.a;
+  constexpr int E = Entry<METHOD, V>::E;
+  __shared__ __align__(16) float R[P * RS];  // R[p][n]
+  __shared__ float TX[MC * P];  // TX[j][p], each thread's own column: no barrier
+  const float* __restrict__ x = a.x;
+  const int p = threadIdx.x;
+  const int64_t i0 = (int64_t)blockIdx.x * P;
+  const int64_t i = i0 + p;
+  const bool live = i < a.I;
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if constexpr (SRC != LUT) {
+    const int64_t ic = live ? i : a.I - 1;  // the last pixel stands in for a dead thread
+    px = a.pix[3 * ic];
+    py = a.pix[3 * ic + 1];
+    pz = a.pix[3 * ic + 2];
+  }
+  const float tmax = (float)(a.T - 1);
+  const unsigned row = (unsigned)a.row;  // a chunk's NC traces span < 2^31 floats
+  // floats between tap bases: one entry, or a term's F entries
+  const unsigned S = NF == 1 ? (unsigned)E : (unsigned)fa.S;
+  const int fb = NF == 1 ? 1 : fa.fb;
+  const float4* __restrict__ r4 = reinterpret_cast<const float4*>(R + p * RS);
+  const int64_t io = i * fa.ldo;  // pixel i's first sum in out
+  A acc[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) acc[j] = A{};
+  if (a.add && live) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      if (j < fb) acc[j] = static_cast<const A*>(a.out)[io + j];
+  }
+  for (int n0 = 0; n0 < a.N; n0 += NC) {
+    const int nc = min(NC, a.N - n0);
+    __syncthreads();  // the previous chunk's reads of R are done
+    if constexpr (SRC == LUT) {
+      // warp w copies rows w, w + 8, ... of the (P, nc) tile of tau_rx, one
+      // receiver per lane: coalesced reads, conflict-free writes
+      const int lane = p & 31, rows = a.I - i0 < P ? (int)(a.I - i0) : P;
+      for (int q = p >> 5; q < rows; q += P / 32)
+        for (int n = lane; n < nc; n += 32)
+          R[q * RS + n] = __ldg(a.taur + (i0 + q) * a.N + n0 + n);
+    } else {
+      // dr as ops/das.py::rx_distance rounds it: pixel minus receiver
+      for (int n = 0; n < nc; ++n) {
+        const float* prn = a.pr + 3 * (n0 + n);
+        R[p * RS + n] = norm3(__fsub_rn(px, __ldg(prn)), __fsub_rn(py, __ldg(prn + 1)),
+                              __fsub_rn(pz, __ldg(prn + 2)));
+      }
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int m0 = 0; m0 < a.M; m0 += MC) {
+      // the terms of MC transmits at once: K2's loads are then in flight
+      // together, not one per transmit ahead of its receivers
+      const int mc = min(MC, a.M - m0);
+#pragma unroll
+      for (int j = 0; j < MC; ++j)
+        if (j < mc) TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
+      for (int j = 0; j < mc; ++j) {
+        const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m0 + j);
+        const float* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
+        // one term: the receiver whose trace starts at float o of xm (as
+        // row_origin gives it), r its entry of R
+        auto term = [&](float r, unsigned o) {
+          const float tau = SRC == LUT
+              ? __fsub_rn(__fadd_rn(tx, r), t0m)
+              : __fsub_rn(__fmul_rn(a.cinv, __fadd_rn(tx, r)), t0m);
+          const float ti = __fmul_rn(tau, a.fs);
+          const bool ok = ti >= 0.f && ti <= tmax;  // false for NaN
+          float sn = 0.f, cs = 1.f;
+          if constexpr (ROT) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &sn, &cs);
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            // frame f's entries lie f E floats on. Frame 0 always runs (fb
+            // >= 1), so the later frames' tap base, fraction, weights and
+            // address come from its sample as common subexpressions.
+            if (f == 0 || f < fb) {
+              const A v = rotate<ROT>(sample<METHOD, V>(xm + f * E, o, ok ? ti : 0.f, S),
+                                      cs, sn);
+              if (ok) acc[f] = acc[f] + v;
+            }
+          }
+        };
+        unsigned o = row_origin<METHOD, V>(0u, S);
+        int n = 0;
+#pragma unroll UNROLL
+        for (; n + 4 <= nc; n += 4, o += 4 * row) {
+          const float4 r = r4[n >> 2];
+          term(r.x, o);
+          term(r.y, o + row);
+          term(r.z, o + 2 * row);
+          term(r.w, o + 3 * row);
+        }
+        for (; n < nc; ++n, o += row) term(R[p * RS + n], o);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      if (j < fb) static_cast<A*>(a.out)[io + j] = acc[j];
+  }
+}
+
+// One frame in all (ldo 1): das_kernel, or with ROT the frames kernel's
+// one-frame variant; else the frames kernel, FB frames at a time.
+template <int SRC, int METHOD, typename V, bool ROT>
+cudaError_t run(const FrameArgs& fa, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((fa.a.I + P - 1) / P);
+  if (fa.ldo != 1)
+    das_frames_kernel<SRC, METHOD, V, ROT, FB><<<blocks, P, 0, s>>>(fa);
+  else if constexpr (ROT)
+    das_frames_kernel<SRC, METHOD, V, ROT, 1><<<blocks, P, 0, s>>>(fa);
+  else
+    das_kernel<SRC, METHOD, V><<<blocks, P, 0, s>>>(fa.a);
   return cudaGetLastError();
 }
 
-template <int SRC, typename V>
-cudaError_t by_method(int method, const Args& a, cudaStream_t s) {
+template <int SRC, typename V, bool ROT>
+cudaError_t by_method(int method, const FrameArgs& a, cudaStream_t s) {
   switch (method) {
-    case NEAREST: return run<SRC, NEAREST, V>(a, s);
-    case LINEAR: return run<SRC, LINEAR, V>(a, s);
-    case CUBIC: return run<SRC, CUBIC, V>(a, s);
-    case LANCZOS3: return run<SRC, LANCZOS3, V>(a, s);
+    case NEAREST: return run<SRC, NEAREST, V, ROT>(a, s);
+    case LINEAR: return run<SRC, LINEAR, V, ROT>(a, s);
+    case CUBIC: return run<SRC, CUBIC, V, ROT>(a, s);
+    case LANCZOS3: return run<SRC, LANCZOS3, V, ROT>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename V>
-cudaError_t by_src(int src, int method, const Args& a, cudaStream_t s) {
+template <typename V, bool ROT>
+cudaError_t by_src(int src, int method, const FrameArgs& a, cudaStream_t s) {
   switch (src) {
-    case PLANE: return by_method<PLANE, V>(method, a, s);
-    case DIVERGING: return by_method<DIVERGING, V>(method, a, s);
-    case VIRTUAL: return by_method<VIRTUAL, V>(method, a, s);
-    case LUT: return by_method<LUT, V>(method, a, s);
+    case PLANE: return by_method<PLANE, V, ROT>(method, a, s);
+    case DIVERGING: return by_method<DIVERGING, V, ROT>(method, a, s);
+    case VIRTUAL: return by_method<VIRTUAL, V, ROT>(method, a, s);
+    case LUT: return by_method<LUT, V, ROT>(method, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int launch(int src, int method, int cplx, Args a, int device, void* stream) {
+// Frames f0 .. f0 + fb - 1 of F: x and out move to frame f0; with F = 1 the
+// one-frame variants run. ROT selects the rotating variants, whose sums are
+// complex.
+template <bool ROT>
+int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a.I <= 0) return (int)cudaSuccess;
-  if (a.N <= 0 || a.M <= 0 || a.T <= 0 || a.T > TMAX || method < NEAREST || method > LANCZOS3)
+  if (a.N <= 0 || a.M <= 0 || a.T <= 0 || a.T > TMAX || method < NEAREST || method > LANCZOS3
+      || F < 1 || f0 < 0 || fb < 1 || fb > FB || f0 + fb > F)
     return (int)cudaErrorInvalidValue;
-  a.row = row_floats(method, a.T, cplx);
+  const int E = entry_floats(method, cplx);
+  a.row = (int64_t)a.T * F * E;
+  if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  a.x += (int64_t)f0 * E;
+  a.out = static_cast<char*>(a.out) + (int64_t)f0 * ((cplx || ROT) ? 8 : 4);
+  const FrameArgs fa{a, F, F * E, fb, w};
   cudaStream_t s = (cudaStream_t)stream;
-  err = cplx ? by_src<float2>(src, method, a, s) : by_src<float>(src, method, a, s);
+  err = cplx ? by_src<float2, ROT>(src, method, fa, s) : by_src<float, ROT>(src, method, fa, s);
   return (int)err;
 }
 
-// The layout kernel: traces x (T, N, ldm) of C floats (1 real, 2 complex64),
-// transmits 0..M-1 of them, into the layout the sampler METHOD reads, out
-// (M, N, T, C, E) floats, E the floats of one entry of one component. A
-// block transposes tiles of LM transmits x LT entries of one receiver
-// through shared memory: coalesced reads along m, coalesced 4- to 16-byte
-// writes along k. The grid's y and z (transmit tiles, receivers) hold at
-// most 65535 blocks each, so a block walks them with the grid's stride: any
-// number of receivers and transmits. It replaces what the TPU path
-// does in XLA before its kernel (the transpose and _pack_quads of
-// qups_tpu/ops/das_pallas.py:2015-2023) and computes exactly what
-// ops/das_cuda.py::trace_layout_plain computes: the stencil entries with
-// the round-to-nearest intrinsics, in stencil_entry's order.
+// The layout kernel: traces x (T, N, ldm) of C floats (1 real, 2
+// complex64), of which entries 0..M-1 of the last axis are laid out as the
+// sampler METHOD reads them, out (M, N, T, C, E) floats, E the floats of
+// one entry of one component. With frames (FR), an entry q of the last
+// axis is frame f of transmit m, q = m F + f, and out is (M / F, N, T, F,
+// C, E): a term's frames next to each other. A block transposes tiles of
+// LM entries q x LT entries k of one receiver through shared memory:
+// coalesced reads along q, 4- to 16-byte writes along k. The grid's y and
+// z (q tiles, receivers) hold at most 65535 blocks each, so a block walks
+// them with the grid's stride: any number of receivers, transmits and
+// frames. It replaces what the TPU path does in XLA before its kernel (the
+// transpose and _pack_quads of qups_tpu/ops/das_pallas.py:2015-2023) and
+// computes exactly what ops/das_cuda.py::trace_layout_plain computes: the
+// stencil entries with the round-to-nearest intrinsics, in stencil_entry's
+// order.
 constexpr int LT = 64;       // entries per layout block
-constexpr int LM = 32;       // transmits per layout block
+constexpr int LM = 32;       // transmits (frames) per layout block
 constexpr int LS = LT + 3;   // tile rows x[k0-1 .. k0+LT+1]; odd, so conflict-free
 
 template <int METHOD>
@@ -415,10 +605,10 @@ __device__ __forceinline__ void put_entry(const float* q, float* __restrict__ ds
   }
 }
 
-template <int METHOD, int C>
+template <int METHOD, int C, bool FR>
 __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x,
                                                      float* __restrict__ out, int T, int N,
-                                                     int M, int64_t ldm) {
+                                                     int M, int64_t ldm, int F) {
   constexpr int E = Entry<METHOD, float>::E;
   __shared__ float tile[C][LM][LS];
   const int k0 = blockIdx.x * LT;
@@ -441,78 +631,114 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
       }
       __syncthreads();
       for (int mm = w; mm < LM && m0 + mm < M; mm += 8) {
-        for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-          float* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
+        if constexpr (FR) {
+          const int m = (m0 + mm) / F, f = m0 + mm - m * F;
+          for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
+            float* dst = out + ((((int64_t)m * N + n) * T + k0 + kk) * F + f) * (C * E);
 #pragma unroll
-          for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+            for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+          }
+        } else {
+          for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
+            float* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
+#pragma unroll
+            for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+          }
         }
       }
     }
   }
 }
 
-template <int METHOD>
-cudaError_t run_layout(const float* x, float* out, int T, int N, int M, int64_t ldm,
+// F frames a transmit: the last axis holds M F entries, ldm F a row.
+template <int METHOD, bool FR>
+cudaError_t run_layout(const float* x, float* out, int T, int N, int M, int64_t ldm, int F,
                        int cplx, cudaStream_t s) {
   const int mt = (M + LM - 1) / LM;
   const dim3 grid((T + LT - 1) / LT, mt < 65535 ? mt : 65535, N < 65535 ? N : 65535);
   if (cplx)
-    layout_kernel<METHOD, 2><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm);
+    layout_kernel<METHOD, 2, FR><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F);
   else
-    layout_kernel<METHOD, 1><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm);
+    layout_kernel<METHOD, 1, FR><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F);
   return cudaGetLastError();
+}
+
+template <int METHOD>
+cudaError_t layout_frames(const float* x, float* out, int T, int N, int M, int64_t ldm,
+                          int F, int cplx, cudaStream_t s) {
+  return F == 1 ? run_layout<METHOD, false>(x, out, T, N, M, ldm, 1, cplx, s)
+                : run_layout<METHOD, true>(x, out, T, N, M * F, ldm * F, F, cplx, s);
 }
 
 }  // namespace
 
+// The entry points. This file builds twice: as das.cu, K1 and K2 without
+// remodulation and the layout kernel; with DAS_IQ defined (das_iq.cu), K1
+// and K2 with remodulation, das_k1_iq and das_lut_k2_iq, which take the
+// same arguments. ROT_ is the variants' rotation, SUFFIX_ their names'.
+#ifdef DAS_IQ
+#define ROT_ true
+#define SUFFIX_(name) name##_iq
+#else
+#define ROT_ false
+#define SUFFIX_(name) name
+#endif
+
 // Launch K1 on `stream` (a cudaStream_t) of device `device` for M
-// transmits. x holds their traces in the layout of `method` (das_layout's
-// output), float32, or complex64 when `cplx` is 1; pv, nv (M, 3) and t0
-// (M,) theirs; out (I,) of the trace type, to which the sum is added when
-// `add` is 1. Returns the cudaError_t of the launch (cudaGetLastError right
-// after it); 0 is success.
-extern "C" int das_k1(const float* x, const float* pix, const float* pr,
-                      const float* pv, const float* nv, const float* t0,
-                      void* out, long long I, int N, int M, int T, float cinv,
-                      float fs, int tx_model, int method, int cplx, int add, int device,
-                      void* stream) {
+// transmits and frames f0 .. f0 + fb - 1 (fb <= 4) of F. x holds their
+// traces in the layout of `method` (das_layout's output: (M, N, T, F,
+// entry)), float32, or complex64 when `cplx` is 1; pv, nv (M, 3) and t0
+// (M,) theirs; out (I, F) of the sums' type (complex64 when `cplx` is 1 or
+// for the remodulating entry, else float32), to which the sums are added
+// when `add` is 1; w = 2 pi fmod (the remodulating entry; the other ignores
+// it). Returns the cudaError_t of the launch (cudaGetLastError right after
+// it); 0 is success.
+extern "C" int SUFFIX_(das_k1)(const float* x, const float* pix, const float* pr,
+                               const float* pv, const float* nv, const float* t0, void* out,
+                               long long I, int N, int M, int T, int F, int f0, int fb,
+                               float cinv, float fs, float w, int tx_model, int method,
+                               int cplx, int add, int device, void* stream) {
   if (tx_model < PLANE || tx_model > VIRTUAL) return (int)cudaErrorInvalidValue;
   const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
                cinv, fs, add};
-  return launch(tx_model, method, cplx, a, device, stream);
+  return launch<ROT_>(tx_model, method, cplx, a, F, f0, fb, w, device, stream);
 }
 
-// Launch K2 on `stream` of device `device` for M transmits. x, out and add
-// as for das_k1; taur (I, N) and taut (I, ldt), of which the first M columns
-// are these transmits', the delay tables [s]; t0 (M,). Returns the
-// cudaError_t of the launch; 0 is success.
-extern "C" int das_lut_k2(const float* x, const float* taur, const float* taut,
-                          const float* t0, void* out, long long I, int N, int M,
-                          long long ldt, int T, float fs, int method, int cplx, int add,
-                          int device, void* stream) {
+// Launch K2 on `stream` of device `device` for M transmits and frames f0 ..
+// f0 + fb - 1 of F. x, out, w and add as for das_k1; taur (I, N) and taut
+// (I, ldt), of which the first M columns are these transmits', the delay
+// tables [s]; t0 (M,). Returns the cudaError_t of the launch; 0 is success.
+extern "C" int SUFFIX_(das_lut_k2)(const float* x, const float* taur, const float* taut,
+                                   const float* t0, void* out, long long I, int N, int M,
+                                   long long ldt, int T, int F, int f0, int fb, float fs,
+                                   float w, int method, int cplx, int add, int device,
+                                   void* stream) {
   if (ldt < M) return (int)cudaErrorInvalidValue;
   const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
                (int64_t)ldt, N, M, T, 0.f, fs, add};
-  return launch(LUT, method, cplx, a, device, stream);
+  return launch<ROT_>(LUT, method, cplx, a, F, f0, fb, w, device, stream);
 }
 
-// Launch the layout kernel on `stream` of device `device`: x (T, N, ldm)
-// float32, or complex64 when `cplx` is 1, contiguous, of which the first M
-// of the last axis are laid out; out the layout of `method` (0 nearest: the
-// traces; 1 linear, 2 cubic, 3 lanczos3: stencils), (M, N, T, [2,] E)
-// floats. Returns the cudaError_t of the launch; 0 is success.
+#ifndef DAS_IQ
+// Launch the layout kernel on `stream` of device `device`: x (T, N, ldm, F)
+// float32, or complex64 when `cplx` is 1, contiguous, of which transmits
+// 0 .. M-1 of the third axis are laid out; out the layout of `method` (0
+// nearest: the traces; 1 linear, 2 cubic, 3 lanczos3: stencils), (M, N, T,
+// F, [2,] E) floats. Returns the cudaError_t of the launch; 0 is success.
 extern "C" int das_layout(const float* x, float* out, int T, int N, int M, long long ldm,
-                          int method, int cplx, int device, void* stream) {
+                          int F, int method, int cplx, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (T <= 0 || N <= 0 || M <= 0 || ldm < M || T > TMAX)
+  if (T <= 0 || N <= 0 || M <= 0 || F <= 0 || ldm < M || T > TMAX
+      || (int64_t)M * F >= (int64_t)1 << 31)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (method) {
-    case NEAREST: return (int)run_layout<NEAREST>(x, out, T, N, M, ldm, cplx, s);
-    case LINEAR: return (int)run_layout<LINEAR>(x, out, T, N, M, ldm, cplx, s);
-    case CUBIC: return (int)run_layout<CUBIC>(x, out, T, N, M, ldm, cplx, s);
-    case LANCZOS3: return (int)run_layout<LANCZOS3>(x, out, T, N, M, ldm, cplx, s);
+    case NEAREST: return (int)layout_frames<NEAREST>(x, out, T, N, M, ldm, F, cplx, s);
+    case LINEAR: return (int)layout_frames<LINEAR>(x, out, T, N, M, ldm, F, cplx, s);
+    case CUBIC: return (int)layout_frames<CUBIC>(x, out, T, N, M, ldm, F, cplx, s);
+    case LANCZOS3: return (int)layout_frames<LANCZOS3>(x, out, T, N, M, ldm, F, cplx, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif

@@ -1,5 +1,5 @@
-from .interp import interp1, interpd, wsinterpd, wsinterpd2
-from .conv import convd, conv_lag0, conv_len
+from .interp import fft_upsample, interp1, interpd, interpf, wsinterpd, wsinterpd2
+from .conv import convd, conv_lag0, conv_len, xcorr
 from .das import das, das_lut, delay_tables, tx_distance
 from .das_cuda import Fused, das_lut_sum, das_lut_sum_plain, das_sum, das_sum_plain
 from .fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
@@ -11,8 +11,8 @@ from .greens_freq_cuda import freq_gemm, freq_gemm_plain
 from .simus import simus_fsa
 
 __all__ = [
-    "interp1", "interpd", "wsinterpd", "wsinterpd2", "convd", "conv_lag0",
-    "conv_len", "das", "das_lut", "delay_tables", "tx_distance", "Fused",
+    "fft_upsample", "interp1", "interpd", "interpf", "wsinterpd", "wsinterpd2",
+    "convd", "conv_lag0", "conv_len", "xcorr", "das", "das_lut", "delay_tables", "tx_distance", "Fused",
     "das_sum", "das_sum_plain", "das_lut_sum", "das_lut_sum_plain",
     "bf_adjoint", "focus_tx_freq", "geom_delays", "select_fbins",
     "bf_adjoint_cuda", "greens_dense", "greens_splat", "greens_freq",

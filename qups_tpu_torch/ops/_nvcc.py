@@ -3,8 +3,9 @@
 Each kernel source under ``qups_tpu_torch/csrc/`` has a plain ``extern "C"``
 entry point. :func:`load` compiles a source with ``nvcc`` for ``sm_90a`` on
 first use, into ``qups_tpu_torch/_build/`` (keyed by a hash of the source, the
-shared headers ``csrc/*.cuh`` and the source's :func:`flags`, so an edited
-source or header is rebuilt), and loads it with ``ctypes``.
+shared headers ``csrc/*.cuh``, the sources it includes (``INCLUDES``) and
+its :func:`flags`, so an edited source or header is rebuilt), and loads it
+with ``ctypes``.
 A failed build raises with nvcc's output; nothing falls back.
 """
 from __future__ import annotations
@@ -30,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # intrinsics instead (nvcc never contracts them), so that the rest of its
 # arithmetic may contract.
 NO_FMAD = ("fdbf", "greens_freq", "greens_splat", "greens_finish")
+# Sources that include another source of csrc/ (its bytes join the build key).
+INCLUDES = {"das_iq": ("das.cu",)}
 
 
 def flags(name: str) -> Tuple[str, ...]:
@@ -55,6 +58,7 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    headers += b"".join((CSRC / f).read_bytes() for f in INCLUDES.get(name, ()))
     key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(flags(name)).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}_{key}.so"

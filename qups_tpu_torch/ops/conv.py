@@ -1,6 +1,7 @@
 """Batched 1-D convolution along one axis.
 
-Port of :func:`qups_tpu.ops.conv.convd` with its two methods: ``"direct"``
+Port of :func:`qups_tpu.ops.conv.convd` and ``xcorr``, with convd's two
+methods: ``"direct"``
 (a sliding multiply-add over the kernel taps, for short kernels) and
 ``"fft"`` (an FFT product, for long ones). Output shapes are
 ``full | same | valid`` with the same lag bookkeeping.
@@ -61,3 +62,10 @@ def convd(x: torch.Tensor, y: torch.Tensor, axis: int = 0, shape: str = "full",
     l0 = conv_lag0(nx, ny, shape)
     out = full[..., l0: l0 + conv_len(nx, ny, shape)]
     return torch.movedim(out, -1, axis % nd if nd else 0)
+
+
+def xcorr(x: torch.Tensor, y: torch.Tensor, axis: int = 0, shape: str = "full",
+          method: str = "auto") -> torch.Tensor:
+    """Cross-correlation ``x (*) conj(reverse(y))`` along ``axis``."""
+    return convd(x, torch.flip(y.conj().resolve_conj(), dims=(axis,)), axis=axis,
+                 shape=shape, method=method)

@@ -1,8 +1,11 @@
 """Fractional-delay sampling along the time axis.
 
-Port of the sampler core of :mod:`qups_tpu.ops.interp` (``_lanczos_w``,
-``_taps``, ``expand_trailing``, ``_gather_time``, ``interp1``). These
-semantics are the contract that the DAS kernel (``csrc/das.cu``) follows:
+Port of :mod:`qups_tpu.ops.interp`: the sampler core (``_lanczos_w``,
+``_taps``, ``expand_trailing``, ``_gather_time``, ``interp1``), the
+weighted sums (``wsinterpd``, ``wsinterpd2``), the Fourier interpolant
+``interpf`` and the band-limited ``fft_upsample`` of ``method='cubic2x'``.
+The sampler's semantics are the contract that the DAS kernel
+(``csrc/das.cu``) follows:
 
 * the valid domain is ``0 <= tau <= T-1``, both ends included; outside it
   the sample is the extrapolation value;
@@ -118,6 +121,86 @@ def interpd(x: torch.Tensor, tau, method: str = "cubic", extrap=0.0):
         assert abs(float(y[0, 0]) - np.sin(10.5 * 6.28 / 63)) < 1e-3
     """
     return interp1(x, tau, method=method, extrap=extrap)
+
+
+def interpf(x: torch.Tensor, tau, extrap=None, chunk: int = 2048):
+    """Frequency-domain (Fourier) interpolation, the port of
+    :func:`qups_tpu.ops.interp.interpf`: the trigonometric interpolant of
+    ``x (T, *B)`` at fractional indices ``tau (I, *C)`` (C left-aligned
+    broadcastable against B), ``y = sum_k X[k] exp(2i pi f_k tau) / T``,
+    by blocks of ``chunk`` leading indices. Real ``x`` gives the real part.
+    ``extrap`` is accepted for the signature and, as there, unused.
+
+    Example:
+        import numpy as np, torch
+        from qups_tpu_torch.ops.interp import interpf
+        t = torch.arange(32, dtype=torch.float32)
+        x = torch.cos(2 * np.pi * 3 * t / 32)[:, None]
+        y = interpf(x, torch.tensor([[2.5]]))
+        assert abs(float(y) - np.cos(2 * np.pi * 3 * 2.5 / 32)) < 1e-5
+    """
+    tau = torch.as_tensor(tau, device=x.device)
+    if tau.ndim == 0:
+        tau = tau[None]
+    X = torch.fft.fft(x, dim=0)
+    T, B = x.shape[0], tuple(x.shape[1:])
+    f = torch.fft.fftfreq(T, device=x.device)  # cycles per sample
+
+    def blk(tb):
+        D = bshape_left(tuple(tb.shape[1:]), B)
+        taue = expand_trailing(tb, 1 + len(D)).expand((tb.shape[0],) + D)
+        Xe = expand_trailing(X, 1 + len(D)).expand((T,) + D)
+        th = 2 * math.pi * taue[..., None] * f  # (i, *D, T)
+        y = (torch.polar(torch.ones_like(th), th) * torch.movedim(Xe, 0, -1)[None]
+             ).sum(-1) / T
+        return y if x.is_complex() else y.real
+
+    if not chunk or tau.shape[0] <= chunk:
+        return blk(tau)
+    return torch.cat([blk(tau[i:i + chunk]) for i in range(0, tau.shape[0], chunk)])
+
+
+def fft_upsample(x: torch.Tensor, r: int = 2, axis: int = 0) -> torch.Tensor:
+    """Band-limited ``r``-times upsampling along ``axis`` by zero-padding the
+    spectrum (the Nyquist bin split in two for an even length), the port of
+    :func:`qups_tpu.ops.interp.fft_upsample`: output sample ``n`` is the
+    trigonometric interpolant of ``x`` at ``n / r``. The trace step of the
+    ``cubic2x`` DAS sampler. Integer input gives floating output (the JAX
+    package casts back to the input's type).
+
+    Example:
+        import numpy as np, torch
+        from qups_tpu_torch.ops.interp import fft_upsample
+        t = torch.arange(64) / 64.0
+        y = fft_upsample(torch.sin(2 * np.pi * 5 * t), 2)
+        t2 = torch.arange(128) / 128.0
+        assert float((y - torch.sin(2 * np.pi * 5 * t2)).abs().max()) < 1e-5
+    """
+    r = int(r)
+    if r == 1:
+        return x
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.get_default_dtype())
+    x = torch.movedim(x, axis, 0)
+    T = x.shape[0]
+    if x.is_complex():
+        X = torch.fft.fft(x, dim=0)
+        zeros = lambda n: X.new_zeros((n,) + tuple(X.shape[1:]))  # noqa: E731
+        if T % 2 == 0:  # split the Nyquist bin across +/- f_N
+            hi = T // 2
+            nyq = X[hi:hi + 1] * 0.5
+            Xp = torch.cat([X[:hi], nyq, zeros(r * T - T - 1), nyq, X[hi + 1:]])
+        else:
+            h = (T + 1) // 2
+            Xp = torch.cat([X[:h], zeros(r * T - T), X[h:]])
+        y = torch.fft.ifft(Xp, dim=0) * r
+    else:
+        X = torch.fft.rfft(x, dim=0)
+        if T % 2 == 0:
+            X[-1] *= 0.5  # the Nyquist split (the conjugate half is implicit)
+        Xp = torch.cat([X, X.new_zeros((r * T // 2 + 1 - X.shape[0],) + tuple(X.shape[1:]))])
+        y = (torch.fft.irfft(Xp, n=r * T, dim=0) * r).to(x.dtype)
+    return torch.movedim(y, 0, axis)
 
 
 def _phase(omega, tau: torch.Tensor):

@@ -24,13 +24,16 @@ Scope (ROADMAP.md, "Scope decisions"):
 * ``focusTx`` synthesizes any sequence: 'freq' (the per-bin transmit GEMM,
   'auto' on a CUDA device) or a time-domain sampler ('cubic', 'auto' on the
   CPU).
-* On a CUDA tensor, ``DAS`` runs kernel K1 (``ops/das_cuda.py``) and, with a
-  per-pixel sound speed, kernel K2 through ``bfDASLUT``; ``bfDAS`` and
-  ``bfDASLUT`` run K2; ``bfAdjoint`` runs kernel K4 (``ops/fdbf_cuda.py``).
-  An option a kernel does not carry raises ``NotImplementedError`` naming
-  its sub-slice. Nothing drops to the plain path on its own:
-  ``kernel='plain'`` is an explicit choice. On a CPU tensor each runs its
-  plain PyTorch version.
+* The beamformers (``DAS``, ``bfDAS``, ``bfDASLUT``, ``bfAdjoint``) and
+  ``focusTx``, like the simulators, run on the CUDA device unless given
+  ``device=``, and move the traces there. On a CUDA tensor, ``DAS`` runs
+  kernel K1 (``ops/das_cuda.py``) and, with a per-pixel sound speed,
+  kernel K2 through ``bfDASLUT``; ``bfDAS`` and ``bfDASLUT`` run K2; both
+  take frame dims and IQ remodulation (``fmod``); ``bfAdjoint`` runs
+  kernel K4 (``ops/fdbf_cuda.py``). An option a kernel does not carry
+  raises ``NotImplementedError`` naming its sub-slice. Nothing drops to
+  the plain path on its own: ``kernel='plain'`` is an explicit choice.
+  With ``device="cpu"`` each runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from .ops.fdbf_cuda import bf_adjoint_cuda
 from .ops.greens import greens_dense, greens_splat
 from .ops.greens_cuda import greens_tiled
 from .ops.greens_freq import greens_freq
-from .ops.interp import METHODS
+from .ops.interp import METHODS, fft_upsample
 from .ops.simus import simus_fsa
 from .utils.backend import as_f32, default_device
 from .utils.maths import box_rbounds
@@ -207,7 +210,7 @@ class UltrasoundSystem:
                             precision=precision, alpha0=float(scat.alpha0),
                             kernel=kernel, device=device, **kw)
             return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq,
-                                method=fmethod)
+                                method=fmethod, device=device)
         if float(scat.alpha0):
             warnings.warn(
                 "greens: Scatterers.alpha0 attenuation requires the "
@@ -220,7 +223,7 @@ class UltrasoundSystem:
             if not (np.iscomplexobj(kern) or np.iscomplexobj(amp)):
                 x = greens_tiled(kern, ps, amp, pn, pv, **kw)
                 return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq,
-                                    method=fmethod)
+                                    method=fmethod, device=device)
             # complex kernel or amplitudes: a splat pass per real amplitude
             # part, joined as x1 + i x2; the JAX package then focuses with t0
             # = s0 + dt0 taken in float64 (its _ri_focus), so the port does
@@ -241,7 +244,7 @@ class UltrasoundSystem:
         else:
             x = greens_dense(kern, ps, scat.amp, pn, pv, **kw)
         chd = ChannelData(data=x, fs=fs, t0=s0)
-        return self.focusTx(chd, self.seq, method=fmethod)
+        return self.focusTx(chd, self.seq, method=fmethod, device=device)
 
     def _greens_problem(self, scat: Scatterers,
                         element_subdivisions: Tuple[int, int] = (1, 1),
@@ -302,14 +305,15 @@ class UltrasoundSystem:
         return t2, w, nmin / fs, (nmax - nmin) + buffer
 
     def focusTx(self, chd: ChannelData, seq: Optional[Sequence] = None,
-                method: str = "auto", buffer: int = 0) -> ChannelData:
+                method: str = "auto", buffer: int = 0, device=None) -> ChannelData:
         """Synthesize transmits from FSA data: delay-and-sum across
         transmits. ``method``: 'freq', the per-bin transmit GEMM
         ``Y_k = X_k H_k`` (band-limited interpolation), or a time-domain
         sampler 'nearest' | 'linear' | 'cubic' | 'lanczos3' (through
         ``ChannelData.sample2sep``); 'auto' is 'freq' on a CUDA device and
         'cubic' on the CPU, as the JAX package picks 'freq' off the CPU.
-        The true-FSA sequence is the identity.
+        The true-FSA sequence is the identity. ``device``: where to
+        synthesize (default: the CUDA device; the traces move there).
 
         Example:
             import numpy as np
@@ -323,12 +327,14 @@ class UltrasoundSystem:
                 data=rng.standard_normal((64, 4, 4)).astype(np.float32),
                 fs=12e6, t0=0.0)
             pw = q.SequenceRadial(type="PW", angles=[0.0], c0=1540.0)
-            out = us.focusTx(chd, pw)   # 4 FSA transmits -> 1 plane wave
+            out = us.focusTx(chd, pw, device="cpu")   # 4 FSA transmits -> 1 PW
             assert out.data.shape[2] == 1
         """
         seq = seq or self.seq
+        device = default_device(device)
+        chd = chd.replace(data=chd.data.to(device))
         if method == "auto":
-            method = "cubic" if chd.data.device.type == "cpu" else "freq"
+            method = "cubic" if device.type == "cpu" else "freq"
         plan = self._focus_plan(chd.fs, chd.data.ndim, seq, buffer)
         if plan is None:
             return chd
@@ -426,7 +432,7 @@ class UltrasoundSystem:
                       spec.astype(np.complex64), sel.astype(np.int32), T=T,
                       fs=fs, c0=c0, baffle=baffle, alpha0=float(scat.alpha0),
                       kernel=kernel, device=device)
-        return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq)
+        return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq, device=device)
 
     def calc_scat_all(self, scat: Scatterers,
                       element_subdivisions: Tuple[int, int] = (1, 1),
@@ -483,7 +489,7 @@ class UltrasoundSystem:
         Mp = t2.shape[-1]
         b = int(bsize) if bsize else Mp
         if b >= Mp:
-            return self.focusTx(chd, self.seq, method=method)
+            return self.focusTx(chd, self.seq, method=method, device=chd.data.device)
         chd = self._focus_t0(chd, dt0, pad)
         outs = [self._focus_apply(chd, t2[..., i:i + b], w[..., i:i + b], method).data
                 for i in range(0, Mp, b)]
@@ -590,18 +596,21 @@ class UltrasoundSystem:
             device=None) -> torch.Tensor:
         """Delay-and-sum beamformer. Returns the image shaped
         ``(*scan.shape, N', M', *F)`` where the rx/tx dims are kept (N/M) or
-        summed (1) per the flags, on the device the traces were beamformed
-        on.
+        summed (1) per the flags, complex64 for complex traces or
+        ``fmod != 0`` (IQ data remodulated at ``fmod``), on ``device``.
 
-        ``method``: 'nearest' | 'linear' | 'cubic' | 'lanczos3' | 'auto'
-        ('auto' is cubic, the reference default).
+        ``method``: 'nearest' | 'linear' | 'cubic' | 'lanczos3' | 'cubic2x'
+        | 'auto' ('auto' is cubic, the reference default; 'cubic2x' is the
+        linear sampler on traces upsampled 2x by ``fft_upsample``).
 
         ``kernel``: 'auto' runs K1 on a CUDA tensor and the plain path on a
         CPU tensor; 'cuda' requires K1; 'plain' forces the plain path on any
-        device. On a CUDA tensor, 'auto' and 'cuda' raise
-        ``NotImplementedError`` for options K1 does not carry yet, and a
-        per-pixel ``c0`` map (on the scan grid) runs the LUT kernel K2 on
-        delay tables built on the card.
+        device. On a CUDA tensor, 'auto' and 'cuda' run frames and ``fmod``
+        in the kernel (K1(b)) and raise ``NotImplementedError`` for options
+        K1 does not carry yet, and a per-pixel ``c0`` map (on the scan grid)
+        runs the LUT kernel K2 on delay tables built on the card. The kernel
+        takes one ``t0`` per transmit: one that varies over receivers or
+        frames raises ``ValueError``.
 
         ``precision``: 'auto' and 'f32' run float32; the reduced-precision
         trace modes ('bf16pair', 'i8x4', 'bf16') are sub-slice K1(e) and
@@ -612,7 +621,8 @@ class UltrasoundSystem:
         whole trace set stays on the host and one block at a time moves to
         ``device``, where the partial images accumulate.
 
-        ``device``: where to beamform (default: the device of ``chd.data``).
+        ``device``: where to beamform (default: the CUDA device; the traces
+        move there, and ``device="cpu"`` runs the plain path on the CPU).
 
         Example:
             import numpy as np
@@ -624,7 +634,7 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            b = us.DAS(us.greens(scat, device="cpu"))  # (I1, I2, I3, 1, 1)
+            b = us.DAS(us.greens(scat, device="cpu"), device="cpu")  # (I1, I2, I3, 1, 1)
             assert b.shape[:3] == us.scan.shape
             img = b.abs().reshape(-1)
             P = us.scan.positions().reshape(3, -1)
@@ -643,7 +653,7 @@ class UltrasoundSystem:
         if cinv.ndim > 1:  # per-pixel map on the scan grid
             cinv = cinv.reshape(-1)
         apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
-        dev = chd.data.device if device is None else torch.device(device)
+        dev = default_device(device)
         kw = dict(fmod=fmod, keep_tx=keep_tx, keep_rx=keep_rx, method=method,
                   kernel=kernel, precision=precision)
         if bsize is None or chd.M <= bsize:
@@ -666,16 +676,12 @@ class UltrasoundSystem:
         return torch.cat(parts, dim=len(self.scan.shape) + 1) if keep_tx else acc
 
     @staticmethod
-    def _ineligible(kern: str, x: torch.Tensor, apod_t, *, fmod, keep_rx,
-                    keep_tx, precision) -> Optional[str]:
+    def _ineligible(kern: str, x: torch.Tensor, apod_t, *, keep_rx, keep_tx,
+                    precision) -> Optional[str]:
         """Why the DAS kernel ``kern`` ('K1' or 'K2') cannot beamform this
         call, naming its sub-slice that will carry it; ``None`` when it can
-        (sub-slice (a)). A per-pixel sound speed never reaches K1:
-        ``_das_block`` sends it to K2."""
-        if fmod != 0.0:
-            return f"IQ remodulation (fmod) is sub-slice {kern}(b)"
-        if x.ndim != 3:
-            return f"frame dims beyond (T, N, M) are sub-slice {kern}(b)"
+        (sub-slices (a) and (b): any frame dims, any ``fmod``). A per-pixel
+        sound speed never reaches K1: ``_das_block`` sends it to K2."""
         if keep_rx or keep_tx:
             return f"keep_rx / keep_tx are sub-slice {kern}(c)"
         if apod_t:
@@ -690,9 +696,10 @@ class UltrasoundSystem:
                    fmod, keep_tx, keep_rx, method, kernel, precision):
         """One DAS dispatch over a (possibly tx-sliced) trace block."""
         if method == "cubic2x":
-            raise NotImplementedError(
-                "method='cubic2x' needs interp.fft_upsample, not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+            # the linear sampler on traces upsampled 2x, band-limited, as
+            # the JAX package's cubic2x
+            chd = chd.replace(data=fft_upsample(chd.data, 2, axis=0), fs=chd.fs * 2.0)
+            method = "linear"
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; expected {METHODS}")
         if any(isinstance(a, Fused) for a in apod_t):
@@ -714,14 +721,14 @@ class UltrasoundSystem:
                 return self.bfDASLUT(chd, tau_rx, tau_tx, apod=apod_t, fmod=fmod,
                                      keep_tx=keep_tx, keep_rx=keep_rx,
                                      method=method, kernel=kernel,
-                                     precision=precision)
-            why = self._ineligible("K1", x, apod_t, fmod=fmod, keep_rx=keep_rx,
+                                     precision=precision, device=x.device)
+            why = self._ineligible("K1", x, apod_t, keep_rx=keep_rx,
                                    keep_tx=keep_tx, precision=precision)
             if why is not None:
                 raise NotImplementedError(f"DAS on CUDA (kernel K1): {why}")
             img = das_sum(x, self._pixels(), self.rx.positions().T, pv, nv,
-                          chd.t0_host, cinv, fs=float(chd.fs), tx_model=model,
-                          method=method)
+                          chd.t0, cinv, fs=float(chd.fs), tx_model=model,
+                          method=method, fmod=float(fmod))
         else:
             img = das(x, self._pixels(), self.rx.positions().T, pv, nv,
                       chd.t0_host, cinv, fs=float(chd.fs), apod=apod_t,
@@ -744,10 +751,11 @@ class UltrasoundSystem:
     def bfDAS(self, chd: ChannelData, apod=(), fmod: float = 0.0,
               c0: Optional[float] = None, keep_tx: bool = False,
               keep_rx: bool = False, method: str = "auto",
-              kernel: str = "auto", precision: str = "auto") -> torch.Tensor:
+              kernel: str = "auto", precision: str = "auto",
+              device=None) -> torch.Tensor:
         """Delay-and-sum through delay tables: :meth:`das_delay_tables`,
-        built on the data's device, then :meth:`bfDASLUT` (kernel K2 on a
-        CUDA tensor).
+        built on ``device`` (default: the CUDA device), then
+        :meth:`bfDASLUT` there (kernel K2 on a CUDA tensor).
 
         Example:
             import numpy as np
@@ -760,30 +768,37 @@ class UltrasoundSystem:
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
             chd = us.greens(scat, device="cpu")
-            b1, b2 = us.bfDAS(chd).reshape(-1), us.DAS(chd).reshape(-1)
+            b1 = us.bfDAS(chd, device="cpu").reshape(-1)
+            b2 = us.DAS(chd, device="cpu").reshape(-1)
             c = abs(complex((b1.conj() * b2).sum())) / float(b1.norm() * b2.norm())
             assert c > 0.99
         """
-        tau_rx, tau_tx = self.das_delay_tables(c0=c0, device=chd.data.device)
+        tau_rx, tau_tx = self.das_delay_tables(c0=c0, device=device)
         return self.bfDASLUT(chd, tau_rx, tau_tx, apod=apod, fmod=fmod,
                              keep_tx=keep_tx, keep_rx=keep_rx, method=method,
-                             kernel=kernel, precision=precision)
+                             kernel=kernel, precision=precision, device=device)
 
     def bfDASLUT(self, chd: ChannelData, tau_rx, tau_tx, apod=(),
                  fmod: float = 0.0, keep_tx: bool = False,
                  keep_rx: bool = False, method: str = "auto",
-                 kernel: str = "auto", precision: str = "auto") -> torch.Tensor:
+                 kernel: str = "auto", precision: str = "auto",
+                 device=None) -> torch.Tensor:
         """Beamform from arbitrary delay tables ("bring your own delays"):
         ``tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m]`` with ``tau_rx
-        (I, N)`` and ``tau_tx (I, M)`` in seconds (numpy or tensors). Returns
-        the image ``(*scan.shape, N', M', *F)``.
+        (I, N)`` and ``tau_tx (I, M)`` in seconds (numpy or tensors), the
+        samples remodulated at ``fmod``. Returns the image ``(*scan.shape,
+        N', M', *F)`` on ``device`` (default: the CUDA device; the traces
+        move there, and ``device="cpu"`` runs the plain path on the CPU).
 
         ``kernel``: 'auto' runs K2 on a CUDA tensor and the plain ``das_lut``
         on a CPU tensor; 'cuda' requires K2; 'plain' forces the plain path.
-        On a CUDA tensor, options K2 does not carry yet raise
-        ``NotImplementedError`` naming the sub-slice. ``method``: the four
-        samplers, 'auto' is cubic. ``precision``: 'auto' and 'f32' (float32
-        or complex64 traces); other trace precisions are sub-slice K2(e).
+        On a CUDA tensor, frames and ``fmod`` run in K2 (K2(b)), a ``t0``
+        that varies over receivers or frames raises ``ValueError``, and
+        options K2 does not carry yet raise ``NotImplementedError`` naming
+        the sub-slice. ``method``: the four samplers or 'cubic2x' (linear on
+        traces upsampled 2x), 'auto' is cubic. ``precision``: 'auto' and
+        'f32' (float32 or complex64 traces); other trace precisions are
+        sub-slice K2(e).
 
         Example:
             import numpy as np
@@ -797,7 +812,7 @@ class UltrasoundSystem:
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
             chd = us.greens(scat, device="cpu")
             tau_rx, tau_tx = us.das_delay_tables(device="cpu")  # or eikonal, ...
-            b = us.bfDASLUT(chd, tau_rx, tau_tx)
+            b = us.bfDASLUT(chd, tau_rx, tau_tx, device="cpu")
             assert b.shape[:3] == us.scan.shape
         """
         if kernel not in KERNELS:
@@ -806,10 +821,10 @@ class UltrasoundSystem:
             raise ValueError(f"unknown precision {precision!r}")
         if method == "auto":
             method = "cubic"
+        chd = chd.replace(data=chd.data.to(default_device(device)))
         if method == "cubic2x":
-            raise NotImplementedError(
-                "method='cubic2x' needs interp.fft_upsample, not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+            chd = chd.replace(data=fft_upsample(chd.data, 2, axis=0), fs=chd.fs * 2.0)
+            method = "linear"
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; expected {METHODS}")
         apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
@@ -817,12 +832,12 @@ class UltrasoundSystem:
         if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
             if not x.is_cuda:
                 raise ValueError("kernel='cuda' needs the traces on a CUDA device")
-            why = self._ineligible("K2", x, apod_t, fmod=fmod, keep_rx=keep_rx,
+            why = self._ineligible("K2", x, apod_t, keep_rx=keep_rx,
                                    keep_tx=keep_tx, precision=precision)
             if why is not None:
                 raise NotImplementedError(f"bfDASLUT on CUDA (kernel K2): {why}")
-            img = das_lut_sum(x, tau_rx, tau_tx, chd.t0_host, fs=float(chd.fs),
-                              method=method)
+            img = das_lut_sum(x, tau_rx, tau_tx, chd.t0, fs=float(chd.fs),
+                              method=method, fmod=float(fmod))
         else:
             img = das_lut(x, tau_rx, tau_tx, chd.t0_host, fs=float(chd.fs),
                           apod=apod_t, fmod=float(fmod), keep_rx=keep_rx,
@@ -835,7 +850,7 @@ class UltrasoundSystem:
                   c0: Optional[float] = None, fthresh_db: float = -40.0,
                   max_bins: Optional[int] = None, keep_rx: bool = False,
                   keep_tx: bool = False, bins=None, kernel: str = "auto",
-                  precision: str = "bf16") -> torch.Tensor:
+                  precision: str = "bf16", device=None) -> torch.Tensor:
         """Frequency-domain adjoint beamformer: per selected bin, the
         transmit steering ``A = Wtx S_k``, its power normalization, and the
         receive adjoint ``Wrx X_k`` contracted with ``conj(Ahat)``. Returns
@@ -852,6 +867,9 @@ class UltrasoundSystem:
         a CPU tensor; 'cuda' requires K4; 'plain' forces the plain version.
         ``precision``: 'bf16' (default; the operands of the products
         rounded to bfloat16, sums in float32) or 'f32', on either path.
+        ``device``: where to beamform (default: the CUDA device; the traces
+        move there, and ``device="cpu"`` runs the plain version on the
+        CPU).
 
         Example:
             import numpy as np
@@ -863,14 +881,14 @@ class UltrasoundSystem:
                                      z=np.linspace(18e-3, 22e-3, 8)),
                 fs=12e6)
             scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
-            b = us.bfAdjoint(us.greens(scat, device="cpu"))
+            b = us.bfAdjoint(us.greens(scat, device="cpu"), device="cpu")
             img = b.abs().squeeze()
             assert img.shape == (8, 8) and bool(img.isfinite().all())
         """
         if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}")
-        data = chd.data
-        dev = data.device
+        dev = default_device(device)
+        data = chd.data.to(dev)
         use_cuda = kernel == "cuda" or (kernel == "auto" and data.is_cuda)
         if use_cuda and not data.is_cuda:
             raise ValueError("kernel='cuda' needs the traces on a CUDA device")

@@ -1,11 +1,14 @@
 """Device helpers.
 
-The simulators (``UltrasoundSystem.greens``, ``simus``, ``calc_scat_all``,
+The port's entry points run on the CUDA device unless the caller passes
+``device=`` (``device="cpu"`` for the plain versions on the CPU), and
+without a card they raise rather than run on the CPU: the simulators
+(``UltrasoundSystem.greens``, ``simus``, ``calc_scat_all``,
 ``calc_scat_multi``, ``calc_hp``, ``das_delay_tables`` and the ``ops``
-functions behind them) run on the CUDA device unless the caller passes
-``device=`` (``device="cpu"`` for the plain versions on the CPU); without a
-card they raise rather than run on the CPU. Every other function computes
-on the device of its input tensor.
+functions behind them) and the beamformers (``DAS``, ``bfDAS``,
+``bfDASLUT``, ``bfAdjoint``, ``focusTx``), which move their traces there.
+Every other function, ``ChannelData``'s methods among them, computes on
+the device of its input tensor.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ def default_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {str(dev)!r} (the default of the port's simulators) needs a "
+            f"device {str(dev)!r} (the default of the port's entry points) needs a "
             "CUDA card and none is available; pass device='cpu' to run the "
             "plain versions on the CPU")
     return dev

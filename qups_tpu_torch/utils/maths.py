@@ -1,5 +1,7 @@
-"""Numeric helpers: the part of :mod:`qups_tpu.utils.maths` that the
-sim→image slice uses."""
+"""Numeric helpers, the port of :mod:`qups_tpu.utils.maths` (all but
+``gridded_interp``, the host interpolation of the eikonal tables, which
+comes with the eikonal beamformer). The tensor helpers compute on the
+device of their input; arrays and numbers become tensors on the CPU."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,6 +11,70 @@ import torch
 def mod2db(x) -> torch.Tensor:
     """Log-compressed magnitude ``20*log10(|x|)`` of a tensor or array."""
     return 20.0 * torch.log10(torch.abs(torch.as_tensor(x)))
+
+
+def db2pow(x) -> torch.Tensor:
+    return 10.0 ** (torch.as_tensor(x) / 10.0)
+
+
+def pow2db(x) -> torch.Tensor:
+    return 10.0 * torch.log10(torch.as_tensor(x))
+
+
+def nan2zero(x) -> torch.Tensor:
+    """NaNs replaced by zeros."""
+    x = torch.as_tensor(x)
+    return torch.where(torch.isnan(x), torch.zeros_like(x), x)
+
+
+def rsqrt(x) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.as_tensor(x))
+
+
+def isalmostn(a, b, tol=None) -> bool:
+    """NaN-tolerant almost-equal, the reference's test comparator: the same
+    shape, NaNs in the same places, and the other entries within ``tol``
+    (default 100 eps of the wider of the two types, at least float32)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if tol is None:
+        tol = 1e2 * np.finfo(np.result_type(a.dtype, b.dtype, np.float32)).eps
+    if not (np.isnan(a) == np.isnan(b)).all():
+        return False
+    m = ~np.isnan(a)
+    return bool((np.abs(a[m] - b[m]) < tol).all())
+
+
+def deg2rad(x) -> torch.Tensor:
+    return torch.as_tensor(x) * (np.pi / 180.0)
+
+
+def rad2deg(x) -> torch.Tensor:
+    return torch.as_tensor(x) * (180.0 / np.pi)
+
+
+def cosd(x) -> torch.Tensor:
+    return torch.cos(deg2rad(x))
+
+
+def sind(x) -> torch.Tensor:
+    return torch.sin(deg2rad(x))
+
+
+def vecnorm(x, axis: int = 0, keepdims: bool = False) -> torch.Tensor:
+    """Euclidean norm along ``axis`` (MATLAB ``vecnorm``)."""
+    x = torch.as_tensor(x)
+    sq = x.real ** 2 + x.imag ** 2 if x.is_complex() else x * x
+    return torch.sqrt(torch.sum(sq, dim=axis, keepdim=keepdims))
+
+
+def next_pow2(n: int) -> int:
+    """The least power of two >= ``n`` (1 for ``n`` <= 1)."""
+    n, p = int(n), 1
+    while p < n:
+        p <<= 1
+    return p
 
 
 def box_rbounds(pa, pb):

@@ -1,7 +1,9 @@
 """Kernels K1-K5 on a CUDA card: K1 against its plain PyTorch version for
 every transmit model and sampler, real and complex; K2 against das_lut for
-every sampler, real and complex; both at the receiver-chunk and pixel-block
-edges, with delays exactly on 0 and T-1, and two launches bit-identical;
+every sampler, real and complex; both with frames and IQ remodulation
+(K1(b), K2(b)), and the layout kernel with frames; both at the
+receiver-chunk and pixel-block edges, with delays exactly on 0 and T-1,
+and two launches bit-identical;
 K1 and K2 by chunks of transmits, and K1's layout footprint at its limit;
 the layout kernel against its plain version; K3 against its plain
 version, with its bf16 operands on the tensor cores (K3(b)) and its sinc
@@ -130,8 +132,7 @@ def test_das_on_card(card):
     bs = us.DAS(chd.replace(data=chd.data.cpu()), bsize=5, device=card)
     assert float((bs - b).abs().max()) < 1e-4 * float(b.abs().max())
     rf = chd.replace(data=chd.data.real.contiguous())
-    for data, kw in ((chd, dict(fmod=3e6)), (rf, dict(keep_rx=True)),
-                     (rf, dict(keep_tx=True)),
+    for data, kw in ((rf, dict(keep_rx=True)), (rf, dict(keep_tx=True)),
                      (rf, dict(apod=np.ones((1, 1, 1, 16, 1)))),
                      (rf, dict(precision="i8x4"))):
         with pytest.raises(NotImplementedError):
@@ -329,6 +330,131 @@ def test_k1_layout_footprint_at_the_limit(card):
     assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
 
 
+# K1(b) and K2(b): (complex traces, fmod)
+IQ = {"real_fmod": (False, 1e6), "complex_fmod": (True, 1e6), "complex": (True, 0.0)}
+FRAMES = {"F1": (1,), "F3": (3,), "F6": (6,), "F2x3": (2, 3)}
+
+
+def frame_traces(x, fdims, cplx, seed=60):
+    """Traces (T, N, M, *fdims) on the card: frame 0 is ``x``, the others
+    seeded draws; complex with a random imaginary part."""
+    rng = np.random.default_rng(seed)
+    xf = rng.standard_normal(x.shape + tuple(fdims)).astype(np.float32)
+    if cplx:
+        xf = (xf + 1j * rng.standard_normal(xf.shape)).astype(np.complex64)
+    xf.reshape(x.shape + (-1,))[..., 0] = x
+    return torch.as_tensor(xf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", sorted(FRAMES))
+@pytest.mark.parametrize("iq", sorted(IQ))
+def test_k1b_k2b_match_plain(card, iq, frames):
+    """K1(b) and K2(b): frames (F = 1, 3, 6 (a ragged block of 4) and dims
+    (2, 3)) and remodulation, real traces with fmod (complex sums), complex
+    with and without, for every sampler and (K1) transmit model, delays off
+    both ends of the traces, against their plain versions: one launch per
+    block of 4 frames, and the image (I, 1, 1, *F)."""
+    cplx, fmod = IQ[iq]
+    fdims = FRAMES[frames]
+    blocks = -(-int(np.prod(fdims)) // das_cuda.FB)
+    x, tau_rx, tau_tx, t0, fs = lut_problem()
+    xf = frame_traces(x, fdims, cplx).to(card)
+    calls = [(das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain, (xf, tau_rx, tau_tx, t0),
+              dict(fs=fs), "LUT_LAUNCHES")]
+    for model in ("plane", "diverging", "virtual"):
+        _, pi, pr, pv, nv, t0m = problem(model)
+        calls.append((das_cuda.das_sum, das_cuda.das_sum_plain,
+                      (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model=model),
+                      "LAUNCHES"))
+    for kern, plain, args, kw, counter in calls:
+        for method in METHODS:
+            kw = dict(kw, method=method, fmod=fmod)
+            before = getattr(das_cuda, counter)
+            got = kern(*args, **kw)
+            torch.cuda.synchronize()
+            assert getattr(das_cuda, counter) == before + blocks
+            ref = plain(*args, **kw)
+            assert got.shape == ref.shape == (args[1].shape[0] if counter == "LUT_LAUNCHES"
+                                              else 64 * 64, 1, 1) + fdims
+            assert got.dtype == ref.dtype == (torch.complex64 if cplx or fmod
+                                              else torch.float32)
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            assert err < 1e-4, (kern.__name__, kw, iq, frames, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,M,F", [(1, 3, 2, 3), (3, 2, 1, 5), (130, 5, 40, 3), (70, 2, 7, 9)])
+def test_layout_kernel_frames_matches_plain(card, T, N, M, F):
+    """The layout kernel with frames, (M, N, T, F, [2,] entry), against
+    trace_layout_plain, bit for bit, for every sampler, real and complex,
+    whole and by a chunk of transmits."""
+    rng = np.random.default_rng(61)
+    x = rng.standard_normal((T, N, M, F)).astype(np.float32)
+    for xa in (x, (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)):
+        xg = torch.as_tensor(xa, device=card)
+        for method in METHODS:
+            got = das_cuda.trace_layout(xg, method)
+            ref = das_cuda.trace_layout_plain(xg, method)
+            assert got.shape == ref.shape and torch.equal(got, ref), (method, xa.dtype)
+            m0, m1 = M // 3, M - M // 4
+            got = das_cuda.trace_layout(xg, method, m0, m1)
+            assert torch.equal(got, das_cuda.trace_layout_plain(xg[:, :, m0:m1], method))
+
+
+@pytest.mark.cuda
+def test_iq_ensemble_on_card(card):
+    """The IQ ensemble path on a small plane-wave system: two frames of the
+    target (the second 0.3 mm deeper) joined, hilbert, downmix, resample,
+    then us.DAS (K1(b)), us.bfDAS and the c0-map DAS (K2(b)) and
+    method='cubic2x' with fmod = fc, with no device=: launches counted, each
+    against kernel='plain', each frame's peak on its target. A t0 that
+    varies over frames is refused; keep modes still raise."""
+    xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc,
+        seq=qt.SequenceRadial(type="PW", angles=np.array([-5.0, 0.0, 5.0]), c0=1540.0),
+        scan=qt.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 32),
+                              z=np.linspace(16e-3, 24e-3, 32)), fs=12e6)
+    targets = [np.array([0.0, 0.0, 20e-3]), np.array([0.0, 0.0, 20.3e-3])]
+    pad = np.array([[0.0, 0.0], [0.0, 0.0], [14e-3, 26e-3]])  # two silent bounds: one window
+    chds = [us.greens(qt.Scatterers(pos=np.concatenate([t[:, None], pad], 1),
+                                    amp=np.array([1.0, 0.0, 0.0]), c0=1540.0))
+            for t in targets]
+    iq = chds[0].join(chds[1:]).hilbert().downmix(us.fc).resample(us.fs / 2)
+    assert iq.data.is_cuda and iq.data.shape[3] == 2 and iq.is_complex
+    cmap = np.full(us.scan.shape, 1540.0)
+    P = us.scan.positions().reshape(3, -1)
+    for data in (iq.data, iq.data.real.contiguous()):
+        chd = iq.replace(data=data)
+        calls = {"DAS": (lambda **k: us.DAS(chd, fmod=us.fc, **k), "LAUNCHES"),
+                 "bfDAS": (lambda **k: us.bfDAS(chd, fmod=us.fc, **k), "LUT_LAUNCHES"),
+                 "DAS c0 map": (lambda **k: us.DAS(chd, fmod=us.fc, c0=cmap, **k),
+                                "LUT_LAUNCHES"),
+                 "DAS cubic2x": (lambda **k: us.DAS(chd, fmod=us.fc, method="cubic2x", **k),
+                                 "LAUNCHES")}
+        for name, (fn, counter) in calls.items():
+            before = getattr(das_cuda, counter)
+            b = fn()
+            torch.cuda.synchronize()
+            assert getattr(das_cuda, counter) == before + 1, name
+            ref = fn(kernel="plain")
+            assert b.is_cuda and b.dtype == torch.complex64
+            assert b.shape == ref.shape == tuple(us.scan.shape) + (1, 1, 2)
+            assert float((b - ref).abs().max()) < 1e-4 * float(ref.abs().max()), name
+            if data.is_complex():
+                for f, t in enumerate(targets):
+                    k = int(b[..., f].abs().reshape(-1).argmax())
+                    assert np.linalg.norm(P[:, k] - t) < 1.1e-3, (name, f)
+    bad = iq.replace(t0=np.zeros((1, 1, 3, 2), np.float32))
+    with pytest.raises(ValueError, match="frames"):
+        us.DAS(bad, fmod=us.fc)
+    for fn in (lambda: us.DAS(iq, fmod=us.fc, keep_rx=True),
+               lambda: us.bfDAS(iq, fmod=us.fc, keep_tx=True)):
+        with pytest.raises(NotImplementedError, match="\\(c\\)"):
+            fn()
+
+
 def adjoint_problem(T=128, N=12, M=10, V=9, I=300, seed=44):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((T, N, V)).astype(np.float32)
@@ -458,8 +584,7 @@ def test_plane_wave_path_on_card(card):
     assert (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES) == \
         (counts[0] + 1, counts[1] + 2, counts[2] + 2)
     rf = chd.replace(data=chd.data.real.contiguous())
-    for fn in (lambda: us.bfDAS(chd, fmod=3e6), lambda: us.bfDAS(rf.replace(data=rf.data[..., None])),
-               lambda: us.bfDAS(chd, keep_rx=True), lambda: us.bfDAS(chd, keep_tx=True),
+    for fn in (lambda: us.bfDAS(chd, keep_rx=True), lambda: us.bfDAS(chd, keep_tx=True),
                lambda: us.bfDAS(chd, apod=np.ones((1, 1, 1, 16, 1))),
                lambda: us.bfDAS(rf, precision="bf16pair")):
         with pytest.raises(NotImplementedError, match="K2"):

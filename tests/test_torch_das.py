@@ -1,9 +1,11 @@
 """The port's delay-and-sum (qups_tpu_torch.ops.das.das, the plain version
 of kernel K1) against qups_tpu's das for 3 transmit models x 4 samplers,
-one case against the Pallas kernel das_tiled in interpret mode, the
-wrapper's CPU path, and the trace layouts K1 and K2 read (against the
-clamped gather of ops/interp.py). K1 itself is tested on the card in
-test_torch_cuda.py."""
+cases against the Pallas kernel das_tiled in interpret mode (among them
+frames and IQ remodulation, sub-slice K1(b)), the wrapper's CPU path, the
+trace layouts K1 and K2 read (against the clamped gather of
+ops/interp.py, with frames too), the chunks of transmits, and which
+options the kernels leave to later sub-slices. K1 itself is tested on the
+card in test_torch_cuda.py."""
 import numpy as np
 import pytest
 
@@ -12,6 +14,7 @@ torch = pytest.importorskip("torch")
 from qups_tpu.ops.das import das as das_ref  # noqa: E402
 from qups_tpu.ops.das import delay_tables as delay_tables_ref  # noqa: E402
 from qups_tpu.ops.das_pallas import das_tiled  # noqa: E402
+import qups_tpu_torch as qt  # noqa: E402
 from qups_tpu_torch.ops import das_cuda, interp  # noqa: E402
 from qups_tpu_torch.ops.das import das, delay_tables  # noqa: E402
 from qups_tpu_torch.ops.interp import METHODS  # noqa: E402
@@ -146,6 +149,46 @@ def test_das_matches_pallas_interpret():
     assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()
 
 
+def frame_traces(x, fdims, cplx, seed=23):
+    """Traces (T, N, M, *fdims): frame 0 is ``x`` (made complex with a
+    random imaginary part when ``cplx``), the others seeded draws."""
+    rng = np.random.default_rng(seed)
+    xf = rng.standard_normal(x.shape + tuple(fdims)).astype(np.float32)
+    if cplx:
+        xf = (xf + 1j * rng.standard_normal(xf.shape)).astype(np.complex64)
+    xf.reshape(x.shape + (-1,))[..., 0] = x
+    return xf
+
+
+# (frame dims, complex traces, fmod): K1(b)'s and K2(b)'s cases
+IQ_CASES = {"real_fmod_F3": ((3,), False, 1e6), "complex_fmod_F3": ((3,), True, 1e6),
+            "complex_F3": ((3,), True, 0.0), "complex_fmod_F2x3": ((2, 3), True, 1.5e6),
+            "real_F2x3": ((2, 3), False, 0.0)}
+
+
+@pytest.mark.parametrize("case", sorted(IQ_CASES))
+def test_das_frames_fmod_match_pallas_interpret(case):
+    """Frames and IQ remodulation (sub-slice K1(b)) in the plain das, the
+    version K1 is held to on the card, against the TPU kernel in interpret
+    mode."""
+    fdims, cplx, fmod = IQ_CASES[case]
+    x, pi, pr, pv, nv, t0 = problem("plane", I1=8, I2=128)
+    xf = frame_traces(x, fdims, cplx)
+    kw = dict(fs=4e6, tx_model="plane", method="cubic", fmod=fmod)
+    ref = np.asarray(das_tiled(xf, pi, pr, pv, nv, t0, CINV, im_shape=(8, 128, 1),
+                               interpret=True, **kw))
+    got = das(torch.as_tensor(xf), pi, pr, pv, nv, t0, CINV, **kw).numpy()
+    assert got.shape == (pi.shape[0], 1, 1) + fdims
+    assert got.dtype == (np.complex64 if cplx or fmod else np.float32)
+    ref = ref.reshape(got.shape)
+    assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()
+    # each frame is the one-frame image of its traces
+    x3 = xf.reshape(xf.shape[:3] + (-1,))[..., -1]
+    one = das(torch.as_tensor(x3), pi, pr, pv, nv, t0, CINV, **kw).numpy()
+    assert np.abs(got.reshape(got.shape[:3] + (-1,))[..., -1] - one).max() \
+        < 1e-6 * np.abs(one).max()
+
+
 @pytest.mark.parametrize("case", ["keep_rx", "keep_tx", "apod_fmod_complex"])
 def test_das_general_modes(case):
     """The plain path carries the modes that K1 leaves to later sub-slices."""
@@ -178,6 +221,41 @@ def test_das_sum_cpu_is_plain():
     assert torch.equal(got, das(*args, **kw))
     assert das_cuda.LAUNCHES == before
 
+
+
+@pytest.mark.parametrize("case", sorted(IQ_CASES))
+def test_das_sum_frames_fmod_cpu_is_plain(case):
+    """On a CPU tensor the K1 wrapper takes frames and fmod to the plain
+    version, with no launch; a t0 that varies over frames or receivers is
+    refused, as the kernel refuses it."""
+    fdims, cplx, fmod = IQ_CASES[case]
+    x, pi, pr, pv, nv, t0 = problem("virtual")
+    xf = torch.as_tensor(frame_traces(x, fdims, cplx))
+    before = das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES
+    kw = dict(fs=4e6, tx_model="virtual", method="linear", fmod=fmod)
+    got = das_cuda.das_sum(xf, pi, pr, pv, nv, t0[None, None], CINV, **kw)
+    assert torch.equal(got, das(xf, pi, pr, pv, nv, t0, CINV, **kw))
+    assert got.shape == (pi.shape[0], 1, 1) + fdims
+    assert (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES) == before
+    for bad in (np.zeros((1, 16, 4), np.float32), np.zeros((1, 1, 4, 3), np.float32)):
+        with pytest.raises(ValueError, match="receivers or frames"):
+            das_cuda.das_sum(xf, pi, pr, pv, nv, bad, CINV, **kw)
+
+
+def test_kernels_leave_c_d_e_to_later_sub_slices():
+    """K1 and K2 now take frames and fmod (sub-slice (b)); keep modes,
+    apodization and trace precisions still name sub-slices (c), (d), (e)."""
+    x = torch.zeros((8, 2, 3, 2, 3))
+    why = lambda kern, **k: qt.UltrasoundSystem._ineligible(  # noqa: E731
+        kern, x, k.pop("apod", ()), **dict(dict(keep_rx=False, keep_tx=False,
+                                                precision="auto"), **k))
+    for kern in ("K1", "K2"):
+        assert why(kern) is None
+        assert f"{kern}(c)" in why(kern, keep_rx=True)
+        assert f"{kern}(c)" in why(kern, keep_tx=True)
+        assert f"{kern}(d)" in why(kern, apod=(np.ones((1, 1, 1, 2, 1)),))
+        assert f"{kern}(e)" in why(kern, precision="bf16pair")
+        assert "(b)" not in str([why(kern, keep_rx=True), why(kern, precision="i8x4")])
 
 
 def test_trace_layout_cpu_is_plain():
@@ -271,6 +349,62 @@ def test_trace_layout_reads_clamped_taps(T, method, cplx):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fdims", [(3,), (2, 2)], ids=["F3", "F2x2"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("method", METHODS)
+def test_trace_layout_frames_reads_clamped_taps(method, cplx, fdims):
+    """With frames, the layout holds a term's frames next to each other,
+    (M, N, T, F, [2,] entry): frame f of it, read at every tap base with
+    no clamp, gives what ops/interp.py gathers from frame f's traces with
+    its index clamped to [0, T-1]; a chunk of transmits is the same
+    chunk's layout."""
+    T = 7
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((T, 3, 2) + fdims).astype(np.float32)
+    if cplx:
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    xF = torch.as_tensor(x).reshape(T, 3, 2, -1)
+    xl = das_cuda.trace_layout(xF, method)
+    F = xF.shape[3]
+    assert xl.is_contiguous() and tuple(xl.shape[:4]) == (2, 3, T, F)
+    tau = torch.arange(T * 4, dtype=torch.float32) / 4
+    tau = tau[tau <= T - 1]
+    bases = (torch.round(tau) if method == "nearest" else torch.floor(tau)).long()
+    for f in range(F):
+        x = xF[..., f]
+        got = kernel_reads(xl[:, :, :, f], method, tau)
+        taps = [interp._gather_time(x, torch.clamp(bases + j, 0, T - 1)) for j in (-1, 0, 1, 2)]
+        if method == "nearest":
+            want = taps[1:2]
+        elif cplx:
+            want = [torch.complex(*e.unbind(-1)) for e in das_cuda.stencil_entry(
+                [torch.view_as_real(t) for t in taps], method)]
+        else:
+            want = das_cuda.stencil_entry(taps, method)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert torch.equal(das_cuda.trace_layout(xF, method, 1, 2),
+                       das_cuda.trace_layout_plain(xF[:, :, 1:2], method))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_tx_chunks_count_the_frames(method, monkeypatch):
+    """A transmit's layout holds all its frames: the chunks shrink with the
+    frame count and each stays within LAYOUT_BYTES."""
+    x = torch.zeros((9, 3, 7, 2, 3), dtype=torch.complex64)
+    per_tx = das_cuda.trace_layout_plain(x.reshape(9, 3, 7, 6)[:, :, :1], method).numel() \
+        * (8 if method == "nearest" else 4)
+    monkeypatch.setattr(das_cuda, "LAYOUT_BYTES", 2 * per_tx)
+    got = das_cuda.tx_chunks(x, method)
+    assert len(got) == 4 and [m for c in got for m in range(*c)] == list(range(7))
+    assert all((m1 - m0) * per_tx <= 2 * per_tx for m0, m1 in got)
+    assert das_cuda.tx_chunks(x[..., :1, :1], method) == [(0, 7)]
+    monkeypatch.setattr(das_cuda, "LAYOUT_BYTES", 6 * per_tx)
+    assert len(das_cuda.tx_chunks(x, method)) == 2
+    assert len(das_cuda.tx_chunks(x[..., :1, :1], method)) == 1
 
 
 @pytest.mark.parametrize("method", ["linear", "cubic", "lanczos3"])

@@ -1,6 +1,8 @@
 """The port's LUT delay-and-sum (qups_tpu_torch.ops.das.das_lut, the plain
 version of kernel K2) against qups_tpu's das_lut in every mode and against
-the Pallas LUT kernel das_lut_tiled in interpret mode; and the system's
+the Pallas LUT kernel das_lut_tiled in interpret mode, frames and IQ
+remodulation (sub-slice K2(b)) among them; the wrapper's CPU path; and the
+system's
 das_delay_tables, bfDAS, bfDASLUT and per-pixel sound-speed DAS against the
 JAX system. K2 itself is tested on the card in test_torch_cuda.py.
 Tolerance: max|port - JAX| < 1e-4 * max|JAX|."""
@@ -16,7 +18,8 @@ from qups_tpu_torch.convert import from_reference  # noqa: E402
 from qups_tpu_torch.ops import das_cuda  # noqa: E402
 from qups_tpu_torch.ops.das import das_lut  # noqa: E402
 from qups_tpu_torch.ops.interp import METHODS  # noqa: E402
-from test_torch_das import assert_flips_only, steady  # noqa: E402 (the nearest attribution)
+from test_torch_das import (IQ_CASES, assert_flips_only, frame_traces,  # noqa: E402
+                            steady)  # (the nearest attribution)
 
 FS = 4e6
 TARGET = np.array([0.0, 0.0, 20e-3])
@@ -112,6 +115,27 @@ def test_das_lut_matches_pallas_interpret():
     assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("case", sorted(IQ_CASES))
+def test_das_lut_frames_fmod_match_pallas_interpret(case):
+    """Frames and IQ remodulation (sub-slice K2(b)) in the plain das_lut,
+    the version K2 is held to on the card, against the TPU kernel in LUT
+    mode, interpret mode; and the K2 wrapper on a CPU tensor is that plain
+    version, with no launch."""
+    fdims, cplx, fmod = IQ_CASES[case]
+    x, tau_rx, tau_tx, t0 = lut_problem(I1=8, I2=128)
+    xf = frame_traces(x, fdims, cplx, seed=52)
+    kw = dict(fs=FS, method="cubic", fmod=fmod)
+    ref = np.asarray(das_lut_tiled(xf, tau_rx, tau_tx, t0, im_shape=(8, 128, 1),
+                                   precision="f32", interpret=True, **kw))
+    got = das_lut(torch.as_tensor(xf), tau_rx, tau_tx, t0, **kw)
+    assert tuple(got.shape) == (tau_rx.shape[0], 1, 1) + fdims
+    check(got, ref.reshape(got.shape))
+    before = das_cuda.LUT_LAUNCHES, das_cuda.LAYOUT_LAUNCHES
+    assert torch.equal(das_cuda.das_lut_sum(torch.as_tensor(xf), tau_rx, tau_tx,
+                                            t0[None, None], **kw), got)
+    assert (das_cuda.LUT_LAUNCHES, das_cuda.LAYOUT_LAUNCHES) == before
+
+
 def test_das_lut_sum_cpu_is_plain():
     """On a CPU tensor the K2 wrapper runs the plain version and launches
     nothing."""
@@ -147,32 +171,33 @@ def test_das_delay_tables_match_reference(pw):
 def test_lut_beamformers_match_reference(pw, call):
     us, chd, ust, chdt = pw
     if call == "bfDAS":
-        ref, got = us.bfDAS(chd), ust.bfDAS(chdt)
+        ref, got = us.bfDAS(chd), ust.bfDAS(chdt, device="cpu")
     elif call == "bfDAS_keep_rx":
-        ref, got = us.bfDAS(chd, keep_rx=True), ust.bfDAS(chdt, keep_rx=True)
+        ref, got = us.bfDAS(chd, keep_rx=True), ust.bfDAS(chdt, keep_rx=True, device="cpu")
     elif call == "bfDASLUT":
         tau_rx, tau_tx = (np.asarray(a) for a in us.das_delay_tables(c0=1500.0))
         ref = us.bfDASLUT(chd, tau_rx, tau_tx, method="lanczos3")
-        got = ust.bfDASLUT(chdt, tau_rx, tau_tx, method="lanczos3")
+        got = ust.bfDASLUT(chdt, tau_rx, tau_tx, method="lanczos3", device="cpu")
     else:
         cmap = np.linspace(1500.0, 1580.0, 32 * 32).reshape(us.scan.shape)
-        ref, got = us.DAS(chd, c0=cmap), ust.DAS(chdt, c0=cmap)
+        ref, got = us.DAS(chd, c0=cmap), ust.DAS(chdt, c0=cmap, device="cpu")
     check(got, ref)
 
 
 def test_constant_c_map_is_scalar_c(pw):
     """A constant per-pixel sound-speed map gives the scalar-c image."""
     _, _, ust, chdt = pw
-    b = ust.DAS(chdt)
-    bc = ust.DAS(chdt, c0=np.full(ust.scan.shape, 1540.0))
+    b = ust.DAS(chdt, device="cpu")
+    bc = ust.DAS(chdt, c0=np.full(ust.scan.shape, 1540.0), device="cpu")
     assert float((bc - b).abs().max()) < 1e-4 * float(b.abs().max())
-    bl = ust.bfDAS(chdt)
+    bl = ust.bfDAS(chdt, device="cpu")
     assert float((bl - b).abs().max()) < 1e-4 * float(b.abs().max())
 
 
 def test_lut_scope_on_cpu(pw):
-    _, _, ust, chdt = pw
+    """kernel='cuda' needs CUDA traces; 'cubic2x' (the linear sampler on
+    traces upsampled 2x) runs on the CPU as in the JAX package."""
+    us, chd, ust, chdt = pw
     with pytest.raises(ValueError, match="CUDA"):
-        ust.bfDAS(chdt, kernel="cuda")
-    with pytest.raises(NotImplementedError, match="cubic2x"):
-        ust.bfDAS(chdt, method="cubic2x")
+        ust.bfDAS(chdt, kernel="cuda", device="cpu")
+    check(ust.bfDAS(chdt, method="cubic2x", device="cpu"), us.bfDAS(chd, method="cubic2x"))

@@ -146,7 +146,7 @@ def fsa():
 def test_bfadjoint_system_matches_reference(fsa, keep):
     us, chd, ust, chdt = fsa
     ref = us.bfAdjoint(chd, fthresh_db=-30, **KEEP[keep])
-    got = ust.bfAdjoint(chdt, fthresh_db=-30, precision="f32", **KEEP[keep])
+    got = ust.bfAdjoint(chdt, fthresh_db=-30, precision="f32", device="cpu", **KEEP[keep])
     close(got, ref, 2e-3)
     if keep == "sum":
         P = ust.scan.positions().reshape(3, -1)
@@ -158,17 +158,17 @@ def test_bfadjoint_frames_and_table_cache(fsa):
     are built once per geometry and sound speed."""
     _, _, ust, chdt = fsa
     tsystem._ADJ_TAU_CACHE.clear()
-    b1 = ust.bfAdjoint(chdt, fthresh_db=-30)
+    b1 = ust.bfAdjoint(chdt, fthresh_db=-30, device="cpu")
     assert len(tsystem._ADJ_TAU_CACHE) == 1
     x4 = torch.stack([chdt.data, 2 * chdt.data], dim=-1)
-    b4 = ust.bfAdjoint(chdt.replace(data=x4), fthresh_db=-30)
+    b4 = ust.bfAdjoint(chdt.replace(data=x4), fthresh_db=-30, device="cpu")
     assert len(tsystem._ADJ_TAU_CACHE) == 1
     assert b4.shape == b1.shape + (2,)
     assert float((b4[..., 1] - 2 * b1).abs().max()) < 1e-4 * float(b1.abs().max()) * 2
-    ust.bfAdjoint(chdt, fthresh_db=-30, c0=1500.0)
+    ust.bfAdjoint(chdt, fthresh_db=-30, c0=1500.0, device="cpu")
     assert len(tsystem._ADJ_TAU_CACHE) == 2
     with pytest.raises(ValueError, match="CUDA"):
-        ust.bfAdjoint(chdt, kernel="cuda")
+        ust.bfAdjoint(chdt, kernel="cuda", device="cpu")
 
 
 @pytest.mark.parametrize("M,V,keep", [(10, 5, ""), (128, 5, "tx"), (33, 17, ""),

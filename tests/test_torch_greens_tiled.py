@@ -423,6 +423,6 @@ def test_system_greens_pallas_psf():
     target = np.array([0.5e-3, 0.0, 20e-3])
     chd = ust.greens(from_reference(q.Scatterers(pos=target[:, None], c0=1540.0)), device="cpu",
                      impl="pallas")
-    b = ust.DAS(chd)
+    b = ust.DAS(chd, device="cpu")
     P = ust.scan.positions().reshape(3, -1)
     assert np.linalg.norm(P[:, int(b.abs().reshape(-1).argmax())] - target) < 1.1e-3

@@ -8,7 +8,8 @@ headline size (1024^2 pixels x 256 tx x 256 rx, T = 4096, plane waves,
 
 ``samplers`` times the kernels (``csrc/das.cu``) for every sampler, real
 and complex traces, each with its trace layout (the traces transposed for
-nearest, stencil entries for the others), and the layout kernel alone.
+nearest, stencil entries for the others), and the layout kernel alone;
+it first prints the registers ptxas gave each kernel variant it built.
 
 ``tiles`` times them with the headline's pixels listed in tiles of
 lateral x depth pixels instead of rows (a block takes 256 consecutive
@@ -19,6 +20,7 @@ lines to ``--out``. Imports torch, numpy and the port, never JAX.
 """
 import argparse
 import os
+import re
 import subprocess
 import sys
 
@@ -48,7 +50,19 @@ def samplers(torch, prob, say):
     x, pi, pr, pv, nv, t0, fs, cinv = prob
     xs = {"real": x, "complex": torch.complex(x, x.roll(1, 0))}
     tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
-    das_cuda.build()
+    _, log = das_cuda.build()
+    regs, fn = {}, None  # (kernel, sampler, trace type) -> registers
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        fn = m.group(1) if m else fn
+        m = re.search(r"Used (\d+) registers", line)
+        k = fn and re.search(r"das_kernelILi(\d)ELi(\d)E(f|6float2)E", fn)
+        if m and k:
+            regs[("K2" if k.group(1) == "3" else "K1", METHODS[int(k.group(2))],
+                  "real" if k.group(3) == "f" else "complex")] = m.group(1)
+    if regs:
+        say("registers (ptxas) of das_kernel, the one-frame kernel timed here: " + ", ".join(
+            f"{a} {b} {c}: {r}" for (a, b, c), r in sorted(regs.items())))
     say("samplers: K1 and K2 at the headline, per trace type and sampler (ms, CUDA "
         "events, mean of 2 after a warm-up, lanczos3 of 1; K1 and K2 include the layout "
         "kernel, which is also timed alone):")
