@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 It builds kernels K1 and K2 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum
 from geometry and from delay tables, with the layout kernel that writes the
 traces into the layout they read; ``das_iq.cu``, the same body, their
-remodulating variants K1(b) and K2(b)), K3
+remodulating variants K1(b) and K2(b); ``das_keep.cu`` and
+``das_keep_iq.cu``, the same body's keep modes and apodization weights,
+K1(c), K1(d) and K2(c)), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
 per-bin GEMM, with its bf16 and directivity variants), K4
 (``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer),
@@ -37,8 +39,13 @@ nvcc, one process per source, all at once, and runs:
    point-spread-function check (each target's peak within 1.1 mm) and the
    comparison with the same path through the plain versions; ``fmod``, a
    frame dim and ``method='cubic2x'`` through K1 against the plain path;
-   and that every option the kernels do not carry yet raises
-   ``NotImplementedError`` on the card;
+   apodized and aperture-coherence imaging: DAS with fused aperture growth
+   and acceptance angle and with the dense ``ap_aperture_growth`` (K1(d)),
+   ``keep_rx``, ``keep_tx`` and ``coherence_image`` with cohfac and slsc
+   (K1(c)), launches counted, each with the PSF check and against
+   ``kernel='plain'``; and that every option the kernels do not carry yet
+   (the trace precisions, K1(e)) raises ``NotImplementedError`` on the
+   card;
 4. the headline size, 1024^2 pixels x 256 tx x 256 rx, T = 4096, every
    sampler (lanczos3 one repetition), timed with CUDA events, and the
    layout kernel alone beside its plain version and its bound;
@@ -54,9 +61,11 @@ nvcc, one process per source, all at once, and runs:
    phantom) unmodified: ``us.greens(scat, device="cuda")`` (K3, then
    focusTx), ``us.DAS`` (K1), ``us.bfDAS`` and ``us.DAS`` with a sound-speed
    map (K2), ``us.bfAdjoint`` bf16 and f32 (K4), each with the PSF check and
-   the comparison with ``kernel='plain'``; ``bfDAS`` with ``fmod`` and with a
-   frame dim (K2(b)) against the plain path; and that every option K2 and
-   K4 do not carry yet raises ``NotImplementedError``;
+   the comparison with ``kernel='plain'``, and its fourth image,
+   ``us.coherence_image(chd)`` (K1(c)); ``bfDAS`` with ``fmod`` and with a
+   frame dim (K2(b)), ``bfDAS(keep_rx=True)`` and the c0-map DAS with a
+   dense weight (K2(c)) against the plain path; and that every option K2
+   and K4 do not carry yet raises ``NotImplementedError``;
 8. K2 (every sampler) and K4 at the headline size, each beside its plain
    version, K4 also beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
@@ -99,7 +108,16 @@ nvcc, one process per source, all at once, and runs:
    ``downmix(5 MHz)``, ``resample(fs / 4)`` (timed), then K1(b) and K2(b)
    for every sampler: 4 frames in one call and 4 one-frame calls, each with
    and without fmod, with CUDA events, each against the plain version on
-   every 64th pixel, beside its bound.
+   every 64th pixel, beside its bound;
+15. K1(c), K1(d) and K2(c) against their plain versions at phase 12's
+   shapes: every keep mode x each fused kind, two mixed and two dense
+   weights x (the three transmit models | perturbed tables) x real / complex
+   +- fmod x frames 1 and 3 in turn, nearest and cubic (keep_rx: every
+   sampler);
+16. the headline, 1024^2 x 256 x 256, T 4096, cubic: keep_rx, keep_tx, the
+   apodized summed call (K1(c), K1(d)), K2 keep_rx (K2(c)), and
+   coherence_image's keep_rx call and its reduction (cohfac, slsc), each
+   against the plain version on every 64th pixel, beside its bound.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -213,6 +231,9 @@ def phase0(torch, ops):
     print(f"nvcc: {[l for l in nv.stdout.splitlines() if 'release' in l][0].strip()}")
     builds = (("K1+K2", ops.das_cuda.build),
               ("K1(b)+K2(b) fmod", lambda: ops.das_cuda.build(iq=True)),
+              ("K1(c)/(d)+K2(c) keep and weights", ops.das_cuda.build_keep),
+              ("K1(c)/(d)+K2(c) keep and weights, fmod",
+               lambda: ops.das_cuda.build_keep(iq=True)),
               ("K3", ops.greens_freq_cuda.build), ("K4", ops.fdbf_cuda.build),
               ("K5", ops.greens_cuda.build), ("finish", ops.greens_cuda.build_finish))
 
@@ -511,19 +532,88 @@ def phase3(torch, qt, ops, errs):
         print(f"phase3 {what} runs on K1: {tuple(got.shape)} {got.dtype}; vs plain: "
               f"max_abs_err={a:.3e} rel={r:.3e}")
         assert r < TOL, (what, r)
+    launches.update(_phase3_keep(torch, qt, das_cuda, us, targets, chd, b, errs))
     checks = {
-        "keep_rx (K1(c))": lambda: us.DAS(chd, keep_rx=True),
-        "keep_tx (K1(c))": lambda: us.DAS(chd, keep_tx=True),
-        "dense apodization (K1(d))": lambda: us.DAS(chd, apod=np.ones((1, 1, 1, 128, 1))),
-        "Fused apodization (K1(d))": lambda: us.DAS(chd, apod=qt.Fused("aperture_growth", f=1.5)),
         "precision bf16pair (K1(e))": lambda: us.DAS(rf, precision="bf16pair"),
         "precision i8x4 (K1(e))": lambda: us.DAS(rf, precision="i8x4"),
         "complex128 traces (K1(e))": lambda: us.DAS(chd.replace(data=chd.data.to(torch.complex128))),
     }
-    before = (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES)
+    before = (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES,
+              das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES)
     for what, fn in checks.items():
         _expect_not_implemented(fn, what, "phase3")
-    assert (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES) == before
+    assert (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES,
+            das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES) == before
+    return launches
+
+
+def _coherence_psf(us, cf, b, targets, what, phase):
+    """The PSF check of a coherence image: on the coherence-weighted image
+    max(cf, 0) |b|, b the summed DAS image (a coherence factor alone is
+    near 1 wherever one target dominates the aperture)."""
+    _psf(us, cf.real.clamp(min=0) * b.abs().reshape(cf.shape), targets, what, phase)
+
+
+def _phase3_keep(torch, qt, das_cuda, us, targets, chd, b, errs):
+    """Phase 3's apodized and aperture-coherence imaging on the FSA system:
+    DAS with fused aperture growth and acceptance angle and with the dense
+    ap_aperture_growth (K1(d)), keep_rx and keep_tx (K1(c)), and
+    coherence_image with cohfac and slsc (K1(c), then the reduction), with
+    no device=; launch counts zeroed just before and read just after; each
+    with the PSF check and against kernel='plain'. Returns the launches."""
+    fused = (qt.Fused("aperture_growth", f=1.5), qt.Fused("acceptance_angle", theta=45.0))
+    runs = {  # name: (call, kernel, (keep, apod) launches, image for the PSF)
+        "DAS Fused aperture_growth + acceptance_angle (K1(d))": (
+            lambda **k: us.DAS(chd, apod=fused, **k), "das_k1d", (0, 1), lambda v: v),
+        "DAS dense ap_aperture_growth (K1(d))": (
+            lambda **k: us.DAS(chd, apod=us.ap_aperture_growth(f=1.5), **k), "das_k1d", (0, 1),
+            lambda v: v),
+        "DAS keep_rx (K1(c))": (lambda **k: us.DAS(chd, keep_rx=True, **k), "das_k1c", (1, 0),
+                                lambda v: v.sum(3)),
+        "DAS keep_tx (K1(c))": (lambda **k: us.DAS(chd, keep_tx=True, **k), "das_k1c", (1, 0),
+                                lambda v: v.sum(4)),
+        "coherence_image cohfac (K1(c))": (lambda **k: us.coherence_image(chd, **k), None,
+                                           (1, 0), None),
+        "coherence_image slsc (K1(c))": (lambda **k: us.coherence_image(chd, post="slsc", **k),
+                                         None, (1, 0), None),
+    }
+    das_cuda.KEEP_LAUNCHES = das_cuda.APOD_LAUNCHES = das_cuda.LUT_KEEP_LAUNCHES = 0
+    t = time.perf_counter()
+    imgs = {}
+    for name, (fn, _, (nk, na), _) in runs.items():
+        before = das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES
+        imgs[name] = fn()
+        assert (das_cuda.KEEP_LAUNCHES - before[0], das_cuda.APOD_LAUNCHES - before[1]) \
+            == (nk, na), name
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"das_k1c": das_cuda.KEEP_LAUNCHES, "das_k1d": das_cuda.APOD_LAUNCHES}
+    print(f"phase3 apodized and coherence imaging (6 calls, no device=): {t_path:.3f} s "
+          f"(first calls); launches {launches}")
+    assert launches == {"das_k1c": 4, "das_k1d": 2} and das_cuda.LUT_KEEP_LAUNCHES == 0
+    for name, (fn, kern, _, view) in runs.items():
+        got = imgs[name]
+        assert got.is_cuda and bool(torch.isfinite(got).all()), name
+        ref, t_plain = _sync_s(torch, lambda: fn(kernel="plain"))
+        _, t_k = _sync_s(torch, lambda: fn())
+        if kern is not None:
+            _psf(us, view(got), targets, name, "phase3")
+            a, r = errs[kern].add(got, ref, f"phase3 {name}")
+            tol = TOL
+        else:
+            assert got.shape == tuple(us.scan.shape), (name, got.shape)
+            _coherence_psf(us, got, b, targets, name, "phase3")
+            if "cohfac" in name:
+                assert float(got.max()) <= 1 + 1e-6, float(got.max())
+            # slsc scales each receiver's sample to unit magnitude, so a
+            # sample at the rounding floor carries the rounding's phase
+            tol = TOL if "cohfac" in name else 1e-3
+            a = float((got - ref).abs().max())
+            r = a / float(ref.abs().max())
+        print(f"phase3 {name:52s} {tuple(got.shape)} vs plain: max_abs_err={a:.3e} "
+              f"rel={r:.3e}; wall (host clock, synchronised, warm) {t_k * 1e3:.3f} ms vs "
+              f"plain {t_plain * 1e3:.3f} ms")
+        assert r < tol, (name, r)
     return launches
 
 
@@ -713,20 +803,22 @@ def phase7(torch, qt, ops, errs):
     }
 
     das_cuda.LAUNCHES = das_cuda.LUT_LAUNCHES = das_cuda.LAYOUT_LAUNCHES = 0
+    das_cuda.KEEP_LAUNCHES = das_cuda.APOD_LAUNCHES = das_cuda.LUT_KEEP_LAUNCHES = 0
     gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
     t = time.perf_counter()
     chd = us.greens(scat, device="cuda")
     imgs = {name: fn(chd) for name, (fn, _, _) in calls.items()}
+    coh = us.coherence_image(chd)  # the demo's fourth image, as it calls it
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t
     launches = {"das_k1": das_cuda.LAUNCHES, "das_lut_k2": das_cuda.LUT_LAUNCHES,
                 "das_layout": das_cuda.LAYOUT_LAUNCHES, "greens_freq_k3": gfc.LAUNCHES,
-                "fdbf_adjoint_k4": fdbf_cuda.LAUNCHES}
-    print(f"phase7 demo path (greens -> DAS, bfDAS, DAS c0 map, bfAdjoint x2): "
-          f"{t_path:.3f} s (first call) -> traces {tuple(chd.data.shape)} "
+                "fdbf_adjoint_k4": fdbf_cuda.LAUNCHES, "das_k1c": das_cuda.KEEP_LAUNCHES}
+    print(f"phase7 demo path (greens -> DAS, bfDAS, DAS c0 map, bfAdjoint x2, "
+          f"coherence_image): {t_path:.3f} s (first call) -> traces {tuple(chd.data.shape)} "
           f"{chd.data.dtype}; launches {launches}")
-    assert launches == {"das_k1": 1, "das_lut_k2": 2, "das_layout": 3, "greens_freq_k3": 1,
-                        "fdbf_adjoint_k4": 2}, launches
+    assert launches == {"das_k1": 1, "das_lut_k2": 2, "das_layout": 4, "greens_freq_k3": 1,
+                        "fdbf_adjoint_k4": 2, "das_k1c": 1}, launches
     assert chd.data.is_cuda and chd.M == 5
 
     P = us.scan.positions().reshape(3, -1)
@@ -747,6 +839,19 @@ def phase7(torch, qt, ops, errs):
               f"warm) {t_k * 1e3:.3f} ms vs plain {t_plain * 1e3:.3f} ms")
         assert d < 1.1e-3, (name, d)
         assert r < tol, (name, r)
+    # the coherence image: finite, a coherence factor <= 1, its PSF, and
+    # against kernel='plain'
+    assert coh.is_cuda and coh.shape == tuple(us.scan.shape) and bool(torch.isfinite(coh).all())
+    assert float(coh.max()) <= 1 + 1e-6
+    _coherence_psf(us, coh, imgs["DAS (K1)"], pos, "coherence_image (K1(c))", "phase7")
+    ref, t_plain = _sync_s(torch, lambda: us.coherence_image(chd, kernel="plain"))
+    _, t_k = _sync_s(torch, lambda: us.coherence_image(chd))
+    a = float((coh - ref).abs().max())
+    r = a / float(ref.abs().max())
+    print(f"phase7 coherence_image (K1(c) keep_rx, cohfac) vs plain: max_abs_err={a:.3e} "
+          f"rel={r:.3e}; wall (host clock, synchronised, warm) {t_k * 1e3:.3f} ms vs plain "
+          f"{t_plain * 1e3:.3f} ms")
+    assert r < TOL, r
     walls = [_sync_s(torch, lambda: us.greens(scat, device="cuda"))[1] for _ in range(3)]
     print(f"phase7 greens + focusTx wall, 3 warm runs: "
           f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms")
@@ -765,14 +870,29 @@ def phase7(torch, qt, ops, errs):
         print(f"phase7 {what} runs on K2: {tuple(got.shape)} {got.dtype}; vs plain: "
               f"max_abs_err={a:.3e} rel={r:.3e}")
         assert r < TOL, (what, r)
+    # K2(c): bfDAS keep_rx and the c0-map DAS with a dense weight, counted
+    dense = us.ap_aperture_growth(f=1.5)
+    k2c = {"bfDAS keep_rx (K2(c))": (lambda **k: us.bfDAS(chd, keep_rx=True, **k),
+                                     lambda v: v.sum(3)),
+           "DAS c0 map, dense ap_aperture_growth (K2(c))": (
+               lambda **k: us.DAS(chd, c0=cmap, apod=dense, **k), lambda v: v)}
+    das_cuda.LUT_KEEP_LAUNCHES = 0
+    got = {what: fn() for what, (fn, _) in k2c.items()}
+    torch.cuda.synchronize()
+    launches["das_lut_k2c"] = das_cuda.LUT_KEEP_LAUNCHES
+    assert launches["das_lut_k2c"] == 2, launches
+    for what, (fn, view) in k2c.items():
+        _psf(us, view(got[what]), pos, what, "phase7")
+        a, r = errs["das_lut_k2c"].add(got[what], fn(kernel="plain"), f"phase7 {what}")
+        print(f"phase7 {what} runs on K2: {tuple(got[what].shape)} {got[what].dtype}; vs "
+              f"plain: max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < TOL, (what, r)
     checks = {
-        "bfDAS keep_rx (K2(c))": lambda: us.bfDAS(chd, keep_rx=True),
-        "bfDAS keep_tx (K2(c))": lambda: us.bfDAS(chd, keep_tx=True),
-        "bfDAS apodization (K2(d))": lambda: us.bfDAS(chd, apod=np.ones((1, 1, 1, 128, 1))),
         "bfDAS precision bf16pair (K2(e))": lambda: us.bfDAS(rf, precision="bf16pair"),
         "bfDASLUT complex128 traces (K2(e))": lambda: us.bfDAS(
             chd.replace(data=chd.data.to(torch.complex128))),
-        "DAS c0 map keep_rx (K2(c))": lambda: us.DAS(chd, c0=cmap, keep_rx=True),
+        "coherence_image precision bf16pair (K1(e))": lambda: us.coherence_image(
+            chd, precision="bf16pair"),
         "bfAdjoint 300 pulses (K4(b))": lambda: fdbf_cuda.bf_adjoint_cuda(
             torch.zeros((64, 4, 300), device="cuda"), np.zeros((8, 4)), np.zeros((8, 2)),
             np.zeros((2, 300)), np.ones((2, 300)), 0.0, np.zeros(300), np.arange(3),
@@ -783,7 +903,8 @@ def phase7(torch, qt, ops, errs):
             fs=1e6, keep_rx=True),
     }
     counts = lambda: (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES,  # noqa: E731
-                      das_cuda.LAYOUT_LAUNCHES, fdbf_cuda.LAUNCHES)
+                      das_cuda.LAYOUT_LAUNCHES, fdbf_cuda.LAUNCHES, das_cuda.KEEP_LAUNCHES,
+                      das_cuda.LUT_KEEP_LAUNCHES)
     before = counts()
     for what, fn in checks.items():
         _expect_not_implemented(fn, what, "phase7")
@@ -1466,6 +1587,187 @@ def phase14(torch, qt, das_cuda, errs):
     return out
 
 
+KEEP_MODES = {"": {}, "rx": dict(keep_rx=True), "tx": dict(keep_tx=True),
+              "both": dict(keep_rx=True, keep_tx=True)}
+WEIGHT_KINDS = ("none", "aperture_growth", "acceptance_angle", "tx_scanline", "tx_multiline",
+                "tx_parallelogram", "mixed", "dense (I, N, 1)", "dense (1, N, M)")
+
+
+def _phase15_weights(qt, kind, n, N, M, rng):
+    """Phase 15's apodization of one kind at its shapes (pixels on x in
+    +-15 mm, receivers on x in +-19 mm, M transmits)."""
+    lat_tx = np.linspace(-15e-3, 15e-3, M)
+    return {
+        "none": (),
+        "aperture_growth": (qt.Fused("aperture_growth", f=1.0, Dmax=20e-3),),
+        "acceptance_angle": (qt.Fused("acceptance_angle", theta=40.0),),
+        "tx_scanline": (qt.Fused("tx_scanline", tol=1.5e-3, lat_tx=lat_tx),),
+        "tx_multiline": (qt.Fused("tx_multiline", dlat=1.2e-3, lat_tx=lat_tx),),
+        "tx_parallelogram": (qt.Fused("tx_parallelogram", xlo=-12e-3, xhi=14e-3),),
+        "mixed": (qt.Fused("aperture_growth", f=1.5), qt.Fused("tx_parallelogram",
+                                                               xlo=-12e-3, xhi=14e-3)),
+        "dense (I, N, 1)": (rng.uniform(0, 1, (n, n, 1, N, 1)).astype(np.float32),),
+        "dense (1, N, M)": (rng.uniform(0, 1, (1, 1, 1, N, M)).astype(np.float32),),
+    }[kind]
+
+
+def phase15(torch, qt, das_cuda, errs):
+    """K1(c), K1(d) and K2(c) against their plain versions at phase 12's
+    shapes (T 2048, N 128, M 32, 128^2 px): every keep mode x each fused
+    kind alone, two mixed and two dense weights x (the three transmit
+    models | perturbed tables, which take no Fused) x one of (real + fmod,
+    complex, complex + fmod) x frames (1, 3) in turn, nearest and cubic
+    (keep_rx unweighted and mixed: all four samplers); delays off both ends
+    of the traces; receivers tilted up to +-10 degrees."""
+    T, N, M, n, c0 = 2048, 128, 32, 128, 1540.0
+    srcs = {m: _crossing_problem(torch, m, T, N, M, n) for m in ("plane", "diverging",
+                                                                 "virtual")}
+    tau_rx, tau_tx, t0l, fsl, _ = _lut_problem(torch, T, N, M, n, 15)
+    az = np.radians(np.linspace(-10.0, 10.0, N))
+    ori = np.stack([np.sin(az), np.cos(az)])
+    rng = np.random.default_rng(15)
+    cases = [(cplx, rot, F) for (cplx, rot) in ((False, True), (True, False), (True, True))
+             for F in ((), (3,))]
+    traces = {}
+    t = time.perf_counter()
+    count, worst = 0, {}
+    for ki, keep in enumerate(KEEP_MODES):
+        for wi, kind in enumerate(WEIGHT_KINDS):
+            if keep == "" and kind == "none":
+                continue
+            apod = _phase15_weights(qt, kind, n, N, M, rng)
+            fused = any(isinstance(a, qt.Fused) for a in apod)
+            for si, src in enumerate(("plane", "diverging", "virtual", "tables")):
+                if src == "tables" and fused:
+                    continue  # K2 takes dense weights (Fused.materialize)
+                cplx, rot, fd = cases[(ki + wi + si) % len(cases)]
+                key = (cplx, fd)
+                if key not in traces:
+                    traces[key] = _frame_traces(torch, T, N, M, fd, cplx, 150 + len(traces))
+                xg = traces[key]
+                methods = METHODS if keep == "rx" and kind in ("none", "mixed") \
+                    else ("nearest", "cubic")
+                for method in methods:
+                    kw = dict(method=method, fmod=FMOD if rot else 0.0, apod=apod,
+                              im_shape=(n, n, 1), **KEEP_MODES[keep])
+                    if src == "tables":
+                        kern, plain, name = (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                                             "das_lut_k2c")
+                        args, kw = (xg, tau_rx, tau_tx, t0l), dict(kw, fs=fsl)
+                    else:
+                        kern, plain = das_cuda.das_sum, das_cuda.das_sum_plain
+                        name = "das_k1c" if keep else "das_k1d"
+                        p = srcs[src]
+                        args = (xg,) + p[:5] + (np.float32(1 / c0),)
+                        kw = dict(kw, fs=p[5], tx_model=src, orientations=ori)
+                    got = kern(*args, **kw)
+                    torch.cuda.synchronize()
+                    ref = plain(*args, **kw)
+                    a, r = errs[name].add(got, ref, f"phase15 keep={keep!r} {kind} {src} "
+                                                    f"{method} cplx={cplx} fmod={rot} F={fd}")
+                    assert got.shape == (n * n, N if "keep_rx" in kw else 1,
+                                         M if "keep_tx" in kw else 1) + fd, got.shape
+                    assert r < TOL, (keep, kind, src, method, cplx, rot, fd, r)
+                    worst[keep] = max(worst.get(keep, 0.0), r)
+                    count += 1
+                    del got, ref
+    print(f"phase15 K1(c)/(d), K2(c) vs plain: {count} calls in {time.perf_counter() - t:.1f} s; "
+          "worst rel per keep mode: " + ", ".join(f"{k or 'summed'} {v:.3e}"
+                                                 for k, v in worst.items())
+          + f"  ((T,N,M,I)={(T, N, M, n * n)})")
+
+
+def phase16(torch, qt, das_cuda, k1_cubic_ms, errs):
+    """The headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic, real
+    traces (bench.das_problem's): the summed call (phase 4's time),
+    keep_rx (1 GiB out), keep_tx, the summed call with aperture_growth +
+    acceptance_angle + tx_parallelogram, K2 keep_rx on the plane-wave
+    tables, and coherence_image's two steps, keep_rx then cohfac or slsc
+    (64 lags) on its output; CUDA events, each against the plain version on
+    every 64th pixel, beside its bound. Returns {kernel: (ms, plain ms
+    scaled, bound)} and the coherence times."""
+    import bench  # on the path since phase 4
+    from qups_tpu_torch.ops.coherence import cohfac, slsc
+    from qups_tpu_torch.ops.das import delay_tables
+
+    n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
+    x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.as_tensor(x).cuda()
+    del x
+    I = n * n
+    terms = float(I) * N * M
+    sub = np.arange(0, I, 64)  # every 64th pixel
+    pig = torch.as_tensor(pi).cuda()
+    bounds = pr[:, 0].min() - 1e-4, pr[:, 0].max() + 1e-4
+    fused = (qt.Fused("aperture_growth", f=1.5), qt.Fused("acceptance_angle", theta=45.0),
+             qt.Fused("tx_parallelogram", xlo=float(bounds[0]), xhi=float(bounds[1])))
+    # flops, from csrc/das.cu: a cubic term 14 (its delay 4, base and
+    # fraction 3, the cubic 6, its sum 1); a weighted term 2 more (the
+    # product of its factors and the sample times it); a receive factor of
+    # aperture growth and acceptance angle 16 a (pixel, receiver) (d and z
+    # 6, their test 2, Dmax 1, the cosine test 4, the receiver's
+    # difference 3) and a parallelogram factor 5 a (pixel, transmit)
+    tr = 4.0 * T * N * M + 12.0 * I
+    cases = {
+        "keep_rx (K1(c))": ("das_k1c", dict(keep_rx=True), 14.0 * terms, 4.0 * I * N),
+        "keep_tx (K1(c))": ("das_k1c", dict(keep_tx=True), 14.0 * terms, 4.0 * I * M),
+        "aperture_growth + acceptance_angle + tx_parallelogram (K1(d))": (
+            "das_k1d", dict(apod=fused), 16.0 * terms + 16.0 * I * N + 5.0 * I * M, 4.0 * I),
+    }
+    out, t_rx = {}, None
+    for what, (name, extra, flops, obytes) in cases.items():
+        kw = dict(fs=fs, tx_model="plane", method="cubic", **extra)
+        ms = _ms(lambda: das_cuda.das_sum(xg, pig, pr, pv, nv, t0, np.float32(1 / 1540.0), **kw),
+                 reps=2)
+        got = das_cuda.das_sum(xg, pig, pr, pv, nv, t0, np.float32(1 / 1540.0), **kw)
+        ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(
+            xg, pig[sub], pr, pv, nv, t0, np.float32(1 / 1540.0), **kw))
+        a, r = errs[name].add(got[sub], ref, f"phase16 {what} every 64th pixel")
+        assert r < TOL, (what, r)
+        b = bound(flops, F32_FLOPS, tr + obytes)
+        print(f"phase16 {what}: 1024^2 x 256 x 256 T=4096 cubic, {ms:.3f} ms (layout kernel "
+              f"included; the summed call, phase 4: {k1_cubic_ms:.3f} ms) -> "
+              f"{tuple(got.shape)}; plain on every 64th pixel {t_plain * 1e3:.3f} ms; "
+              f"max_abs_err={a:.3e} rel={r:.3e}")
+        _share(f"phase16 {what}", ms, b)
+        if name not in out:
+            out[name] = (ms, 64 * t_plain * 1e3, b)
+        if "keep_rx" in extra:
+            t_rx = ms
+            brx = got[:, :, 0]  # (I, N)
+        del got, ref
+    # coherence_image's two steps on the keep_rx output: the reduction alone
+    coh = {}
+    for post, fn in (("cohfac", lambda: cohfac(brx, axis=1).abs()),
+                     ("slsc", lambda: slsc(brx, axis=1, lags=None))):
+        r_ms = _ms(fn, reps=2)
+        v = fn()
+        assert bool(torch.isfinite(v).all()) and v.shape == (I,)
+        assert post != "cohfac" or float(v.max()) <= 1 + 1e-6
+        b = bound(0.0, F32_FLOPS, 4.0 * I * N + 4.0 * I)
+        coh[post] = (t_rx, r_ms)
+        print(f"phase16 coherence_image {post} (lags 64): keep_rx {t_rx:.3f} ms + the reduction "
+              f"{r_ms:.3f} ms = {t_rx + r_ms:.3f} ms; the reduction's bound "
+              f"{b[0]:.3f} ms (bytes), {100 * b[0] / r_ms:.1f} % of it")
+    del brx
+    # K2(c): keep_rx on the plane-wave tables
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    kw = dict(fs=fs, method="cubic", keep_rx=True)
+    ms = _ms(lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw), reps=2)
+    got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw)
+    rows = torch.as_tensor(sub, device="cuda")
+    ref, t_plain = _sync_s(torch, lambda: das_cuda.das_lut_sum_plain(
+        xg, tau_rx[rows], tau_tx[rows], t0, **kw))
+    a, r = errs["das_lut_k2c"].add(got[rows], ref, "phase16 K2 keep_rx every 64th pixel")
+    assert r < TOL, r
+    b = bound(13.0 * terms, F32_FLOPS, tr + 4.0 * I * (N + M) + 4.0 * I * N)
+    print(f"phase16 K2 keep_rx (K2(c)) on the plane-wave tables: {ms:.3f} ms; plain on every "
+          f"64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
+    _share("phase16 K2 keep_rx (K2(c))", ms, b)
+    out["das_lut_k2c"] = (ms, 64 * t_plain * 1e3, b)
+    return out, coh
+
+
 def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     """K3's bytes read or written once: q and w of both sides (and the
     directivity slopes), and G (F, N, M) complex64."""
@@ -1507,7 +1809,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
              "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish", "das_k1b",
-             "das_lut_k2b")
+             "das_lut_k2b", "das_k1c", "das_k1d", "das_lut_k2c")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
@@ -1525,6 +1827,8 @@ def main():
     phase12(torch, ops.das_cuda, errs, errs["das_layout"])
     iq_launches = phase13(torch, qt, ops, errs)
     iqh = phase14(torch, qt, ops.das_cuda, errs)
+    phase15(torch, qt, ops.das_cuda, errs)
+    keep, coh = phase16(torch, qt, ops.das_cuda, k1_ms["cubic"], errs)
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -1557,7 +1861,11 @@ def main():
         _share(what, ms, b)
     # the layout kernel runs before each K1 and K2 launch: its count is
     # that of the FSA sim->image path, with K1
+    # K1(c) and K1(d): the apodized and coherence imaging of the FSA path
+    # (phase 3, in launches already); K2(c): the demo path's bfDAS keep_rx
+    # and c0-map DAS with a dense weight (phase 7)
     launches.update(das_k1b=iq_launches["das_k1b"], das_lut_k2b=iq_launches["das_lut_k2b"],
+                    das_lut_k2c=pw_launches["das_lut_k2c"],
                     das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
@@ -1612,6 +1920,24 @@ def main():
          "qups_tpu/ops/das_pallas.py:1607 (fmod :898-910, frames :1386-1393)",
          *iqh["das_lut_k2b"], None, "K2(b): as K1(b) on plane-wave geometric tables; bound: "
          f"{_iq_term_flops('cubic', True, 4)} flop per term (+ 2 GiB of tables)"),
+        ("das_k1c", "qups_tpu_torch/csrc/das.cu (das_keep.cu, das_keep_iq.cu)",
+         "qups_tpu/ops/das_pallas.py:174 (keep modes :940-1060)", *keep["das_k1c"], None,
+         "K1(c): keep_rx at the headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic, real "
+         "(1 GiB out); keep_tx and the coherence reductions in phase 16's lines "
+         f"(cohfac {coh['cohfac'][1]:.3f} ms, slsc {coh['slsc'][1]:.3f} ms after the "
+         "keep_rx call); plain on every 64th pixel, scaled; launches: phase 3's keep_rx, "
+         "keep_tx and two coherence_image calls"),
+        ("das_k1d", "qups_tpu_torch/csrc/das.cu (das_keep.cu, das_keep_iq.cu)",
+         "qups_tpu/ops/das_pallas.py:102-155 (_rx_apod_weight, _tx_apod_weight)",
+         *keep["das_k1d"], None, "K1(d): the summed headline with aperture_growth + "
+         "acceptance_angle + tx_parallelogram evaluated in the kernel; plain: "
+         "fused_weights + das on every 64th pixel, scaled; launches: phase 3's Fused and "
+         "dense apodization"),
+        ("das_lut_k2c", "qups_tpu_torch/csrc/das.cu (das_keep.cu, das_keep_iq.cu)",
+         "qups_tpu/ops/das_pallas.py:1607 (keep modes :940-1060)", *keep["das_lut_k2c"], None,
+         "K2(c): keep_rx at the headline on the plane-wave tables (+ 2 GiB of tables); plain "
+         "on every 64th pixel, scaled; launches: phase 7's bfDAS keep_rx and c0-map DAS with "
+         "a dense weight"),
         ("greens_finish", "qups_tpu_torch/csrc/greens_finish.cu",
          "qups_tpu/ops/greens_pallas.py:380", *k5["finish"], fin_b, None,
          "the pulse convolution and row shift of the main path's grid into (T, N, M) "

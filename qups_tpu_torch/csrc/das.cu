@@ -1,8 +1,9 @@
-// K1 and K2: delay-and-sum, summed output, float32 traces, real or complex
-// (interleaved complex64, such as the analytic traces greens returns), with
-// frames and IQ remodulation (sub-slices K1(b), K2(b)). Two kernel bodies
-// serve both, das_kernel (one frame, no remodulation) and
-// das_frames_kernel below; a compile-time switch (SRC) says where a term's
+// K1 and K2: delay-and-sum, float32 traces, real or complex (interleaved
+// complex64, such as the analytic traces greens returns), with frames and
+// IQ remodulation (sub-slices K1(b), K2(b)), keep modes and apodization
+// weights (K1(c), K1(d), K2(c)). Three kernel bodies serve both:
+// das_kernel (summed, one frame, no remodulation), das_frames_kernel and
+// das_keep_kernel below; a compile-time switch (SRC) says where a term's
 // transmit and receive parts come from.
 //
 // K1 (SRC = PLANE, DIVERGING or VIRTUAL) replaces the TPU kernel
@@ -509,6 +510,364 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const FrameArgs fa) {
   }
 }
 
+#ifdef DAS_KEEP
+// K1(c), K1(d), K2(c): das_frames_kernel's loops with a keep mode and
+// apodization weights, both runtime flags uniform across a launch, so that
+// they add no variants (this file built with DAS_KEEP defined: das_keep.cu
+// and, with rotation, das_keep_iq.cu, 64 variants each, source x sampler x
+// trace type x 1 or FB frames' sums).
+//
+// Keep modes (the TPU kernel's, das_pallas.py:940-1060): summed (I, 1, 1,
+// F); KEEP_RX (I, N, 1, F): a (pixel, receiver) sum is complete once a
+// receiver chunk's transmits are done, so it lives in shared memory beside
+// R (NC sums a pixel and frame, one column per thread: no barrier, no
+// conflicts) and is written once per (pixel, receiver, frame) and launch;
+// KEEP_TX (I, 1, M, F): a (pixel, transmit) sum is complete at the end of
+// each receiver chunk, added to out once per chunk by the one thread that
+// owns it (no atomics: two launches give the same bits); KEEP_BOTH (I, N,
+// M, F): one store per term. out is (N', M', F, I), pixels innermost, so a
+// warp's stores are coalesced; the wrapper permutes the view.
+//
+// Weights (das_pallas.py:102-155, on unscaled geometry; the TPU kernel
+// folds cinv into its positions and scales Dmax, xlo, xhi and lat_tx with
+// it): a receive factor, evaluated once per (pixel, receiver) beside R into
+// WR, and a transmit factor, once per (pixel, transmit) beside TX into WT,
+// each the product of the fused kinds the launch names and a dense weight
+// that varies over (pixel, receiver) or (pixel, transmit) only; a dense
+// weight that varies over both is read per term with its strides (0 on a
+// broadcast axis). A term whose weight is 0 reads no sample.
+enum Keep { SUM = 0, KEEP_RX = 1, KEEP_TX = 2, KEEP_BOTH = 3 };
+enum RxKind { AP_GROWTH = 1, AP_DMAX = 2, ACCEPT = 4 };
+enum TxKind { TX_SCANLINE = 1, TX_MULTILINE = 2, TX_PARALLELOGRAM = 4 };
+constexpr int KR_BYTES = 64 << 10;  // the keep_rx sums' shared memory, at most
+
+// A dense weight broadcastable to (I1, I2, I3, N, M): its element strides,
+// 0 on a broadcast axis; p null when the launch has none.
+struct Dense {
+  const float* p;
+  int64_t s1, s2, s3, sn, sm;
+};
+
+struct KeepArgs {
+  FrameArgs fa;        // a.out at the launch's first frame and transmit
+  int keep;            // Keep
+  int64_t on, om, of;  // out's strides of n, m and f (i's is 1), in sums
+  int I2, I3;          // the image's trailing dims: a pixel's (i1, i2, i3)
+  Dense wr, wt, wd;    // dense weights over (i, n), (i, m), (i, n, m)
+  int rx_kinds, tx_kinds;  // RxKind, TxKind bits: the fused kinds
+  const float* ori;    // (N, 2): sin, cos of each receiver's azimuth
+  const float* lat;    // (I,): each pixel's lateral coordinate
+  const float* lat_tx; // (M,): each transmit's
+  float f2, dmax, cth, tol, dlat, xlo, xhi;  // 2 f, Dmax, cos(theta), ...
+};
+
+// The fused receive factor of receiver n for a pixel at (dx, dz) from it,
+// dr = |pixel - receiver|, in the order and roundings of
+// ops/das_cuda.py::fused_weights.
+__device__ __forceinline__ float rx_weight(const KeepArgs& k, int n, float dx, float dz,
+                                           float dr) {
+  const float sa = __ldg(k.ori + 2 * n), ca = __ldg(k.ori + 2 * n + 1);
+  float w = 1.f;
+  if (k.rx_kinds & AP_GROWTH) {
+    const float d = __fsub_rn(__fmul_rn(dx, ca), __fmul_rn(dz, sa));
+    const float z = __fadd_rn(__fmul_rn(dz, ca), __fmul_rn(dx, sa));
+    if (!(fabsf(z) > __fmul_rn(k.f2, fabsf(d)))) w = 0.f;
+    if ((k.rx_kinds & AP_DMAX) && !(__fmul_rn(2.f, fabsf(d)) < k.dmax)) w = 0.f;
+  }
+  if ((k.rx_kinds & ACCEPT)
+      && !(__fadd_rn(__fmul_rn(dx, sa), __fmul_rn(dz, ca)) >= __fmul_rn(k.cth, dr)))
+    w = 0.f;
+  return w;
+}
+
+// The fused transmit factor of transmit m (of the launch) for a pixel at
+// (px, pz) with lateral coordinate lat.
+__device__ __forceinline__ float tx_weight(const KeepArgs& k, int m, float px, float pz,
+                                           float lat) {
+  float w = 1.f;
+  if (k.tx_kinds & (TX_SCANLINE | TX_MULTILINE)) {
+    const float dl = fabsf(__fsub_rn(lat, __ldg(k.lat_tx + m)));
+    if ((k.tx_kinds & TX_SCANLINE) && !(dl < k.tol)) w = 0.f;
+    if (k.tx_kinds & TX_MULTILINE)
+      w = __fmul_rn(w, fmaxf(0.f, __fsub_rn(1.f, __fdiv_rn(dl, k.dlat))));
+  }
+  if (k.tx_kinds & TX_PARALLELOGRAM) {
+    const float* nvm = k.fa.a.nv + 3 * m;
+    const float x0 = __fsub_rn(px, __fmul_rn(__ldg(nvm), __fdiv_rn(pz, __ldg(nvm + 2))));
+    if (!(x0 > k.xlo && x0 <= k.xhi)) w = 0.f;
+  }
+  return w;
+}
+
+template <typename A>
+__device__ __forceinline__ A scaled(A v, float w) {
+  if constexpr (sizeof(A) == sizeof(float)) {
+    return v * w;
+  } else {
+    return make_float2(v.x * w, v.y * w);
+  }
+}
+
+// Shared memory: R and TX as das_frames_kernel's, WR (P x RS) and WT (MC x
+// P) when the launch has receive or transmit factors, KR (NC x fb x P sums)
+// for KEEP_RX; sized by the launcher (keep_smem). NF frames' sums a thread:
+// 1 (a launch of one frame) or FB.
+//
+// The receivers of a chunk run 4 at a time, in three steps: the 4 terms'
+// delays, weights and phases; their samples, whose loads are then in
+// flight together (no branch between them when NF is 1); then their sums
+// by the keep mode, one uniform branch for the 4. With the keep mode's
+// branch after each term instead, a term's load waited for the last
+// term's sum, and the kernel took 6-8x das_kernel's time (PERF.md §6).
+template <int SRC, int METHOD, typename V, bool ROT, int NF>
+__global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
+  using A = decltype(rotate<ROT, V>(V{}, 1.f, 0.f));
+  const FrameArgs& fa = k.fa;
+  const Args& a = fa.a;
+  constexpr int E = Entry<METHOD, V>::E;
+  extern __shared__ __align__(16) float smem[];
+  const bool has_wr = k.rx_kinds || k.wr.p, has_wt = k.tx_kinds || k.wt.p;
+  const bool weighted = has_wr || has_wt || k.wd.p;
+  float* R = smem;                                   // R[p][n]
+  float* TX = R + P * RS;                            // TX[j][p]
+  float* WR = TX + MC * P;                           // WR[p][n]
+  float* WT = WR + (has_wr ? P * RS : 0);            // WT[j][p]
+  A* KR = reinterpret_cast<A*>(WT + (has_wt ? MC * P : 0));  // KR[f][n][p]
+  const float* __restrict__ x = a.x;
+  A* __restrict__ out = static_cast<A*>(a.out);
+  const int p = threadIdx.x;
+  const int64_t i0 = (int64_t)blockIdx.x * P;
+  const int64_t i = i0 + p;
+  const bool live = i < a.I;
+  const int64_t ic = live ? i : a.I - 1;  // the last pixel stands in for a dead thread
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if constexpr (SRC != LUT) {
+    px = a.pix[3 * ic];
+    py = a.pix[3 * ic + 1];
+    pz = a.pix[3 * ic + 2];
+  }
+  // the pixel's (i1, i2, i3) and its offset in each dense weight
+  const int64_t i3 = ic % k.I3, i2 = (ic / k.I3) % k.I2, i1 = ic / ((int64_t)k.I3 * k.I2);
+  const int64_t owr = i1 * k.wr.s1 + i2 * k.wr.s2 + i3 * k.wr.s3;
+  const int64_t owt = i1 * k.wt.s1 + i2 * k.wt.s2 + i3 * k.wt.s3;
+  const int64_t owd = i1 * k.wd.s1 + i2 * k.wd.s2 + i3 * k.wd.s3;
+  const float lat = (k.tx_kinds & (TX_SCANLINE | TX_MULTILINE)) ? __ldg(k.lat + ic) : 0.f;
+  const float tmax = (float)(a.T - 1);
+  const unsigned row = (unsigned)a.row;
+  const unsigned S = (unsigned)fa.S;
+  const int fb = NF == 1 ? 1 : fa.fb, keep = k.keep;
+  const float4* __restrict__ r4 = reinterpret_cast<const float4*>(R + p * RS);
+  const float4* __restrict__ w4 = reinterpret_cast<const float4*>(WR + p * RS);
+  A acc[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) acc[j] = A{};
+  if (keep == SUM && a.add && live) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      if (j < fb) acc[j] = out[i + j * k.of];
+  }
+  for (int n0 = 0; n0 < a.N; n0 += NC) {
+    const int nc = min(NC, a.N - n0);
+    __syncthreads();  // the previous chunk's reads of R are done
+    if constexpr (SRC == LUT) {
+      const int lane = p & 31, rows = a.I - i0 < P ? (int)(a.I - i0) : P;
+      for (int q = p >> 5; q < rows; q += P / 32)
+        for (int n = lane; n < nc; n += 32)
+          R[q * RS + n] = __ldg(a.taur + (i0 + q) * a.N + n0 + n);
+    } else {
+      for (int n = 0; n < nc; ++n) {
+        const float* prn = a.pr + 3 * (n0 + n);
+        R[p * RS + n] = norm3(__fsub_rn(px, __ldg(prn)), __fsub_rn(py, __ldg(prn + 1)),
+                              __fsub_rn(pz, __ldg(prn + 2)));
+      }
+    }
+    if (has_wr) {  // the receive factors of this thread's pixel: its own row
+      for (int n = 0; n < nc; ++n) {
+        float w = 1.f;
+        if constexpr (SRC != LUT) {
+          if (k.rx_kinds) {
+            const float* prn = a.pr + 3 * (n0 + n);
+            w = rx_weight(k, n0 + n, __fsub_rn(px, __ldg(prn)), __fsub_rn(pz, __ldg(prn + 2)),
+                          R[p * RS + n]);
+          }
+        }
+        if (k.wr.p) w *= __ldg(k.wr.p + owr + (int64_t)(n0 + n) * k.wr.sn);
+        WR[p * RS + n] = w;
+      }
+    }
+    __syncthreads();
+    if (!live) continue;
+    if (keep == KEEP_RX) {  // this chunk's (pixel, receiver) sums
+      for (int f = 0; f < fb; ++f)
+        for (int n = 0; n < nc; ++n)
+          KR[(f * NC + n) * P + p] = a.add ? out[i + (n0 + n) * k.on + f * k.of] : A{};
+    }
+    for (int m0 = 0; m0 < a.M; m0 += MC) {
+      const int mc = min(MC, a.M - m0);
+#pragma unroll
+      for (int j = 0; j < MC; ++j) {
+        if (j < mc) {
+          TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
+          if (has_wt) {
+            float w = 1.f;
+            if constexpr (SRC != LUT) {
+              if (k.tx_kinds) w = tx_weight(k, m0 + j, px, pz, lat);
+            }
+            if (k.wt.p) w *= __ldg(k.wt.p + owt + (int64_t)(m0 + j) * k.wt.sm);
+            WT[j * P + p] = w;
+          }
+        }
+      }
+      for (int j = 0; j < mc; ++j) {
+        const int m = m0 + j;
+        const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m);
+        const float wtj = has_wt ? WT[j * P + p] : 1.f;
+        const float* __restrict__ xm = opaque(x + ((int64_t)m * a.N + n0) * a.row);
+        const float* __restrict__ wdm =
+            k.wd.p ? k.wd.p + owd + (int64_t)m * k.wd.sm + (int64_t)n0 * k.wd.sn : nullptr;
+        if (keep == KEEP_TX) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f) acc[f] = A{};
+        }
+        // a term's delay ti, weight w (1 without weights, exact), validity
+        // and phase (c, s), from r its entry of R and its receive and dense
+        // factors wrn, wdn
+        auto prep = [&](float r, float wrn, float wdn, float& ti, float& w, bool& ok,
+                        float& c, float& s) {
+          const float tau = SRC == LUT
+              ? __fsub_rn(__fadd_rn(tx, r), t0m)
+              : __fsub_rn(__fmul_rn(a.cinv, __fadd_rn(tx, r)), t0m);
+          ti = __fmul_rn(tau, a.fs);
+          w = wrn * wtj * wdn;
+          ok = ti >= 0.f && ti <= tmax && w != 0.f;  // false for NaN
+          s = 0.f;
+          c = 1.f;
+          if constexpr (ROT) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &s, &c);
+        };
+        // its samples, frame f's entries f E floats on, at float o of xm
+        auto fetch = [&](float ti, float w, bool ok, float c, float s, unsigned o, A (&v)[NF]) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+            if (f == 0 || f < fb)
+              v[f] = scaled(rotate<ROT>(sample<METHOD, V>(xm + f * E, o, ok ? ti : 0.f, S), c, s),
+                            w);
+        };
+        // its sums, receiver n0 + n, by the keep mode
+        auto put = [&](const A (&v)[NF], bool ok, int n) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {
+            if (f == 0 || f < fb) {
+              if (keep == KEEP_BOTH) {
+                out[i + (n0 + n) * k.on + m * k.om + f * k.of] = ok ? v[f] : A{};
+              } else if (keep == KEEP_RX) {
+                if (ok) KR[(f * NC + n) * P + p] = KR[(f * NC + n) * P + p] + v[f];
+              } else if (ok) {
+                acc[f] = acc[f] + v[f];
+              }
+            }
+          }
+        };
+        unsigned o = row_origin<METHOD, V>(0u, S);
+        int n = 0;
+        for (; n + 4 <= nc; n += 4, o += 4 * row) {
+          const float4 r = r4[n >> 2];
+          float4 wr = make_float4(1.f, 1.f, 1.f, 1.f), wd = wr;
+          if (has_wr) wr = w4[n >> 2];
+          if (wdm) wd = make_float4(__ldg(wdm + n * k.wd.sn), __ldg(wdm + (n + 1) * k.wd.sn),
+                                    __ldg(wdm + (n + 2) * k.wd.sn), __ldg(wdm + (n + 3) * k.wd.sn));
+          float ti0, ti1, ti2, ti3, w0, w1, w2, w3, c0, c1, c2, c3, s0, s1, s2, s3;
+          bool k0, k1, k2, k3;
+          prep(r.x, wr.x, wd.x, ti0, w0, k0, c0, s0);
+          prep(r.y, wr.y, wd.y, ti1, w1, k1, c1, s1);
+          prep(r.z, wr.z, wd.z, ti2, w2, k2, c2, s2);
+          prep(r.w, wr.w, wd.w, ti3, w3, k3, c3, s3);
+          A v0[NF], v1[NF], v2[NF], v3[NF];
+          fetch(ti0, w0, k0, c0, s0, o, v0);
+          fetch(ti1, w1, k1, c1, s1, o + row, v1);
+          fetch(ti2, w2, k2, c2, s2, o + 2 * row, v2);
+          fetch(ti3, w3, k3, c3, s3, o + 3 * row, v3);
+          put(v0, k0, n);
+          put(v1, k1, n + 1);
+          put(v2, k2, n + 2);
+          put(v3, k3, n + 3);
+        }
+        for (; n < nc; ++n, o += row) {
+          float ti, w, c, s;
+          bool ok;
+          prep(R[p * RS + n], has_wr ? WR[p * RS + n] : 1.f,
+               wdm ? __ldg(wdm + n * k.wd.sn) : 1.f, ti, w, ok, c, s);
+          A v[NF];
+          fetch(ti, w, ok, c, s, o, v);
+          put(v, ok, n);
+        }
+        if (keep == KEEP_TX) {  // this chunk's part of the (pixel, transmit) sums
+#pragma unroll
+          for (int f = 0; f < NF; ++f) {  // constant indices: acc stays in registers
+            if (f < fb) {
+              A* q = out + i + m * k.om + f * k.of;
+              *q = n0 == 0 ? acc[f] : *q + acc[f];
+            }
+          }
+        }
+      }
+    }
+    if (keep == KEEP_RX) {
+      for (int f = 0; f < fb; ++f)
+        for (int n = 0; n < nc; ++n)
+          out[i + (n0 + n) * k.on + f * k.of] = KR[(f * NC + n) * P + p];
+    }
+  }
+  if (keep == SUM && live) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      if (j < fb) out[i + j * k.of] = acc[j];
+  }
+}
+
+// Bytes of das_keep_kernel's shared memory for a launch.
+size_t keep_smem(const KeepArgs& k, size_t sum_bytes) {
+  const bool has_wr = k.rx_kinds || k.wr.p, has_wt = k.tx_kinds || k.wt.p;
+  size_t floats = (size_t)P * RS + MC * P + (has_wr ? P * RS : 0) + (has_wt ? MC * P : 0);
+  return floats * 4 + (k.keep == KEEP_RX ? (size_t)NC * k.fa.fb * P * sum_bytes : 0);
+}
+
+template <int SRC, int METHOD, typename V, bool ROT>
+cudaError_t run_keep(const KeepArgs& k, size_t smem, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((k.fa.a.I + P - 1) / P);
+  auto kernel = k.fa.fb == 1 ? das_keep_kernel<SRC, METHOD, V, ROT, 1>
+                             : das_keep_kernel<SRC, METHOD, V, ROT, FB>;
+  if (smem > (48 << 10)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, P, smem, s>>>(k);
+  return cudaGetLastError();
+}
+
+template <int SRC, typename V, bool ROT>
+cudaError_t keep_by_method(int method, const KeepArgs& k, size_t smem, cudaStream_t s) {
+  switch (method) {
+    case NEAREST: return run_keep<SRC, NEAREST, V, ROT>(k, smem, s);
+    case LINEAR: return run_keep<SRC, LINEAR, V, ROT>(k, smem, s);
+    case CUBIC: return run_keep<SRC, CUBIC, V, ROT>(k, smem, s);
+    case LANCZOS3: return run_keep<SRC, LANCZOS3, V, ROT>(k, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename V, bool ROT>
+cudaError_t keep_by_src(int src, int method, const KeepArgs& k, size_t smem, cudaStream_t s) {
+  switch (src) {
+    case PLANE: return keep_by_method<PLANE, V, ROT>(method, k, smem, s);
+    case DIVERGING: return keep_by_method<DIVERGING, V, ROT>(method, k, smem, s);
+    case VIRTUAL: return keep_by_method<VIRTUAL, V, ROT>(method, k, smem, s);
+    case LUT: return keep_by_method<LUT, V, ROT>(method, k, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif  // DAS_KEEP
+
 // One frame in all (ldo 1): das_kernel, or with ROT the frames kernel's
 // one-frame variant; else the frames kernel, FB frames at a time.
 template <int SRC, int METHOD, typename V, bool ROT>
@@ -672,10 +1031,13 @@ cudaError_t layout_frames(const float* x, float* out, int T, int N, int M, int64
 
 }  // namespace
 
-// The entry points. This file builds twice: as das.cu, K1 and K2 without
-// remodulation and the layout kernel; with DAS_IQ defined (das_iq.cu), K1
-// and K2 with remodulation, das_k1_iq and das_lut_k2_iq, which take the
-// same arguments. ROT_ is the variants' rotation, SUFFIX_ their names'.
+// The entry points. This file builds four times: as das.cu, K1 and K2
+// without remodulation and the layout kernel; with DAS_IQ defined
+// (das_iq.cu), K1 and K2 with remodulation, das_k1_iq and das_lut_k2_iq,
+// which take the same arguments; with DAS_KEEP defined (das_keep.cu), the
+// keep modes and weights of K1 and K2 without remodulation, das_keep, and
+// with both defined (das_keep_iq.cu) with it, das_keep_iq. ROT_ is the
+// variants' rotation, SUFFIX_ their names'.
 #ifdef DAS_IQ
 #define ROT_ true
 #define SUFFIX_(name) name##_iq
@@ -683,6 +1045,61 @@ cudaError_t layout_frames(const float* x, float* out, int T, int N, int M, int64
 #define ROT_ false
 #define SUFFIX_(name) name
 #endif
+
+#ifdef DAS_KEEP
+// Launch das_keep_kernel on `stream` of device `device` for M transmits
+// and frames f0 .. f0 + fb - 1 of F: K1 (src 0 plane, 1 diverging, 2
+// virtual; pix, pr, pv, nv, cinv) or K2 (src 3; taur (I, N), taut (I, ldt),
+// whose first M columns are these transmits'). x, t0, fs, w, method, cplx
+// as for das_k1; rot 1 for the remodulating variants (das_keep_iq, which
+// refuses rot 0, as das_keep refuses 1); out at frame 0 and
+// the launch's first transmit, (N', M', F, I) with the strides on, om, of
+// (in sums: complex64 when cplx or rot, else float32), to which the sums
+// are added when add is 1 (summed and keep_rx only); keep 0 summed, 1 rx,
+// 2 tx, 3 both; I2, I3 the image's trailing dims. wr, wt, wd the dense
+// weights over (i, n), (i, m), (i, n, m) or null, strides (host, 15
+// int64: s1 s2 s3 sn sm of each, wt and wd at the launch's first
+// transmit); rx_kinds, tx_kinds the fused kinds (K1 only), ori (N, 2), lat
+// (I,), lat_tx (M,) and prm (host, 7 floats: 2 f, Dmax, cos theta, tol,
+// dlat, xlo, xhi) their operands. Returns the cudaError_t of the launch; 0
+// is success.
+extern "C" int SUFFIX_(das_keep)(const float* x, const float* pix, const float* pr, const float* pv,
+                        const float* nv, const float* taur, const float* taut, long long ldt,
+                        const float* t0, void* out, long long I, int N, int M, int T, int F,
+                        int f0, int fb, float cinv, float fs, float w, int src, int method,
+                        int cplx, int rot, int add, int keep, long long on, long long om,
+                        long long of, int I2, int I3, const float* wr, const float* wt,
+                        const float* wd, const long long* strides, int rx_kinds, int tx_kinds,
+                        const float* ori, const float* lat, const float* lat_tx,
+                        const float* prm, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (I <= 0) return (int)cudaSuccess;
+  if (N <= 0 || M <= 0 || T <= 0 || T > TMAX || method < NEAREST || method > LANCZOS3
+      || src < PLANE || src > LUT || keep < SUM || keep > KEEP_BOTH || F < 1 || f0 < 0
+      || fb < 1 || fb > FB || f0 + fb > F || I2 < 1 || I3 < 1 || (src == LUT && ldt < M)
+      || (src == LUT && (rx_kinds || tx_kinds)) || (rot != 0) != ROT_)
+    return (int)cudaErrorInvalidValue;
+  const int E = entry_floats(method, cplx);
+  const size_t sum_bytes = (cplx || rot) ? 8 : 4;
+  Args a{x + (int64_t)f0 * E, pix, pr, pv, nv, taur, taut, t0,
+         static_cast<char*>(out) + (int64_t)f0 * of * (int64_t)sum_bytes, (int64_t)I,
+         (int64_t)T * F * E, (int64_t)ldt, N, M, T, cinv, fs, add};
+  if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  KeepArgs k{FrameArgs{a, F, F * E, fb, w}, keep, on, om, of, I2, I3,
+             Dense{wr, s[0], s[1], s[2], s[3], s[4]}, Dense{wt, s[5], s[6], s[7], s[8], s[9]},
+             Dense{wd, s[10], s[11], s[12], s[13], s[14]}, rx_kinds, tx_kinds, ori, lat, lat_tx,
+             prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], prm[6]};
+  const size_t smem = keep_smem(k, sum_bytes);
+  if (keep == KEEP_RX && (size_t)NC * fb * P * sum_bytes > (size_t)KR_BYTES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  err = cplx ? keep_by_src<float2, ROT_>(src, method, k, smem, st)
+             : keep_by_src<float, ROT_>(src, method, k, smem, st);
+  return (int)err;
+}
+#else
 
 // Launch K1 on `stream` (a cudaStream_t) of device `device` for M
 // transmits and frames f0 .. f0 + fb - 1 (fb <= 4) of F. x holds their
@@ -742,3 +1159,4 @@ extern "C" int das_layout(const float* x, float* out, int T, int N, int M, long 
   }
 }
 #endif
+#endif  // DAS_KEEP

@@ -1,7 +1,9 @@
 from .interp import fft_upsample, interp1, interpd, interpf, wsinterpd, wsinterpd2
+from .coherence import cohfac, dmas, pcf, pwznxcorr, slsc
 from .conv import convd, conv_lag0, conv_len, xcorr
 from .das import das, das_lut, delay_tables, tx_distance
-from .das_cuda import Fused, das_lut_sum, das_lut_sum_plain, das_sum, das_sum_plain
+from .das_cuda import (Fused, das_lut_sum, das_lut_sum_plain, das_sum, das_sum_plain,
+                       fused_weights)
 from .fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
 from .fdbf_cuda import bf_adjoint_cuda
 from .greens import greens_dense, greens_splat
@@ -12,8 +14,9 @@ from .simus import simus_fsa
 
 __all__ = [
     "fft_upsample", "interp1", "interpd", "interpf", "wsinterpd", "wsinterpd2",
+    "cohfac", "dmas", "pcf", "pwznxcorr", "slsc",
     "convd", "conv_lag0", "conv_len", "xcorr", "das", "das_lut", "delay_tables", "tx_distance", "Fused",
-    "das_sum", "das_sum_plain", "das_lut_sum", "das_lut_sum_plain",
+    "das_sum", "das_sum_plain", "das_lut_sum", "das_lut_sum_plain", "fused_weights",
     "bf_adjoint", "focus_tx_freq", "geom_delays", "select_fbins",
     "bf_adjoint_cuda", "greens_dense", "greens_splat", "greens_freq",
     "freq_gemm", "freq_gemm_plain", "greens_tiled", "splat", "splat_plain",

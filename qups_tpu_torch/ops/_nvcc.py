@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # arithmetic may contract.
 NO_FMAD = ("fdbf", "greens_freq", "greens_splat", "greens_finish")
 # Sources that include another source of csrc/ (its bytes join the build key).
-INCLUDES = {"das_iq": ("das.cu",)}
+INCLUDES = {"das_iq": ("das.cu",), "das_keep": ("das.cu",), "das_keep_iq": ("das.cu",)}
 
 
 def flags(name: str) -> Tuple[str, ...]:

@@ -2,12 +2,12 @@
 
 K1 replaces the TPU kernel ``qups_tpu/ops/das_pallas.py::_kernel``
 (geometry mode, launched by ``_das_call``, public entry ``das_tiled``) for
-sub-slices K1(a) and K1(b): summed output, float32 traces, real or complex
-(complex64), the three transmit models, the four samplers, any trailing
-frame dims, and IQ remodulation (``fmod``). K2 replaces the same TPU kernel
-in LUT mode (``lut=True``, launched by ``_das_lut_call``, public entry
-``das_lut_tiled``) for K2(a) and K2(b): the same sum with the delays read
-from tables. Both are one kernel body in ``csrc/das.cu``, built twice by
+sub-slices K1(a)-(d): float32 traces, real or complex (complex64), the
+three transmit models, the four samplers, any trailing frame dims, IQ
+remodulation (``fmod``), the keep modes and apodization. K2 replaces the
+same TPU kernel in LUT mode (``lut=True``, launched by ``_das_lut_call``,
+public entry ``das_lut_tiled``) for K2(a)-(c): the same sum with the delays
+read from tables. Both are one kernel body in ``csrc/das.cu``, built twice by
 :mod:`qups_tpu_torch.ops._nvcc`: ``das.cu`` without remodulation (with the
 layout kernel) and ``das_iq.cu`` with it.
 
@@ -32,29 +32,46 @@ is then the traces, the tables or geometry, the output and at most
 per block of ``FB`` frames, one of K1 or K2, which adds its sums to the
 chunks' before it.
 
-``Fused`` is the descriptor class of the fused apodizations; the kernel does
-not evaluate them yet (sub-slice K1(d)).
+Keep modes and apodization (K1(c), K1(d), K2(c)) run in a third kernel of
+the same body, ``das_keep_kernel`` (``csrc/das_keep.cu``, its remodulating
+variants ``csrc/das_keep_iq.cu``): ``keep_rx``,
+``keep_tx`` or both, any mix of :class:`Fused` descriptors (K1: evaluated
+in the kernel, the plain version :func:`fused_weights`) and dense weight
+arrays (K1 and K2), with frames and ``fmod``. ``KEEP_LAUNCHES`` counts its
+K1 launches with a keep mode, ``APOD_LAUNCHES`` its K1 launches with
+weights (a launch with both counts in both) and ``LUT_KEEP_LAUNCHES`` its
+K2 launches. Calls without keep modes or weights run the kernels above,
+unchanged.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+import functools
+import operator
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _nvcc
-from .das import TX_MODELS, das, das_lut
+from .das import TX_MODELS, _lift5, das, das_lut, rx_distance
 from .interp import METHODS
 from ..utils.backend import as_f32, is_cuda
 
 LAUNCHES = 0  # K1 launches in this process
 LUT_LAUNCHES = 0  # K2 launches in this process
 LAYOUT_LAUNCHES = 0  # launches of the layout kernel, which K1 and K2 read
+KEEP_LAUNCHES = 0  # das_keep_kernel's K1 launches with a keep mode (K1(c))
+APOD_LAUNCHES = 0  # das_keep_kernel's K1 launches with weights (K1(d))
+LUT_KEEP_LAUNCHES = 0  # das_keep_kernel's K2 launches (K2(c), dense weights)
 LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
 TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
 FB = 4  # frames per launch (csrc/das.cu)
+BLOCK, NC = 256, 32  # pixels per block, receivers per chunk (csrc/das.cu)
+KR_BYTES = 64 << 10  # keep_rx's sums in shared memory, at most (csrc/das.cu)
+RX_KINDS = {"aperture_growth": 1, "acceptance_angle": 4}  # csrc/das.cu RxKind
+TX_KINDS = {"tx_scanline": 1, "tx_multiline": 2, "tx_parallelogram": 4}  # TxKind
 
 _TX_CODE = {"plane": 0, "diverging": 1, "virtual": 2}
 _METHOD_CODE = {"nearest": 0, "linear": 1, "cubic": 2, "lanczos3": 3}
@@ -64,10 +81,15 @@ DTYPES = (torch.float32, torch.complex64)
 @dataclasses.dataclass(frozen=True)
 class Fused:
     """A fused-geometry apodization descriptor, as
-    :class:`qups_tpu.ops.das_pallas.Fused`: ``kind`` is 'aperture_growth',
-    'acceptance_angle', 'tx_scanline', 'tx_multiline' or 'tx_parallelogram',
-    with its parameters. Descriptor only: evaluating it, in the kernel or
-    as a dense array, is sub-slice K1(d)."""
+    :class:`qups_tpu.ops.das_pallas.Fused`: ``kind`` is 'aperture_growth'
+    (``f``, ``Dmax``), 'acceptance_angle' (``theta`` degrees),
+    'tx_scanline' (``tol``, ``lat_tx``), 'tx_multiline' (``dlat``,
+    ``lat_tx``) or 'tx_parallelogram' (``xlo``, ``xhi``). K1 evaluates it in
+    the kernel (K1(d); its plain version :func:`fused_weights`), in the
+    scan's own units: ``lat_tx`` per transmit, ``tol``, ``dlat`` and the
+    bounds on the pixels' lateral coordinate (x, or the angle of a polar
+    scan). :meth:`materialize` gives the dense array of the system's
+    generators instead, as the JAX package's XLA path takes it."""
     kind: str
     params: Tuple[Tuple[str, object], ...] = ()
 
@@ -79,11 +101,150 @@ class Fused:
     def p(self):
         return dict(self.params)
 
+    def materialize(self, us):
+        """The dense (I1, I2, I3, N, M)-broadcastable float32 array of this
+        descriptor from ``us``'s apodization generators, as the JAX
+        package's ``Fused.materialize``: the transmit kinds take the
+        sequence's foci (``tx_parallelogram`` also the array's bounds), not
+        ``lat_tx``, ``dlat``, ``xlo`` or ``xhi``."""
+        from ..system import (_ap_acceptance_angle, _ap_aperture_growth, _ap_multiline,
+                              _ap_scanline, _ap_tx_parallelogram)
+        p = self.p
+        if self.kind == "aperture_growth":
+            return _ap_aperture_growth(us, f=p.get("f", 1.5), Dmax=p.get("Dmax", np.inf))
+        if self.kind == "acceptance_angle":
+            return _ap_acceptance_angle(us, theta=p.get("theta", 45.0))
+        if self.kind == "tx_scanline":
+            return _ap_scanline(us, tol=p.get("tol"))
+        if self.kind == "tx_multiline":
+            return _ap_multiline(us)
+        if self.kind == "tx_parallelogram":
+            return _ap_tx_parallelogram(us)
+        raise ValueError(f"unknown fused apodization {self.kind!r}")
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def _lat_tx(a: "Fused") -> np.ndarray:
+    if "lat_tx" not in a.p:
+        raise ValueError(f"Fused({a.kind!r}) needs lat_tx, one lateral position a transmit")
+    return np.asarray(a.p["lat_tx"], np.float32).reshape(-1)
+
+
+def _param(a: "Fused", name: str) -> float:
+    if name not in a.p:
+        raise ValueError(f"Fused({a.kind!r}) needs {name}")
+    return _f32(a.p[name])
+
+
+def _orientations(orientations, N: int, dev) -> torch.Tensor:
+    """(N, 2): sin and cos of each receiver's azimuth, from ``orientations``
+    (2, N) as the JAX package passes them, default azimuth 0."""
+    if orientations is None:
+        return torch.tensor([[0.0, 1.0]], device=dev).expand(N, 2).contiguous()
+    return as_f32(orientations, dev).reshape(2, N).T.contiguous()
+
+
+def _rx_factor(a: "Fused", pi, pr, ori) -> torch.Tensor:
+    """The (I, N) receive factor of one fused kind, as K1 computes it."""
+    dx = pi[:, None, 0] - pr[None, :, 0]
+    dz = pi[:, None, 2] - pr[None, :, 2]
+    sa, ca = ori[None, :, 0], ori[None, :, 1]
+    p = a.p
+    if a.kind == "aperture_growth":
+        d = dx * ca - dz * sa
+        z = dz * ca + dx * sa
+        m = z.abs() > _f32(2.0 * p.get("f", 1.5)) * d.abs()
+        Dmax = float(p.get("Dmax", np.inf))
+        if np.isfinite(Dmax):
+            m = m & (2.0 * d.abs() < _f32(Dmax))
+        return m.float()
+    cth = _f32(np.cos(np.radians(p.get("theta", 45.0))))
+    return ((dx * sa + dz * ca) >= cth * rx_distance(pi, pr)).float()
+
+
+def _tx_factor(a: "Fused", pi, nv, lat) -> torch.Tensor:
+    """The (I, M) transmit factor of one fused kind, as K1 computes it."""
+    if a.kind == "tx_parallelogram":
+        x0 = pi[:, None, 0] - nv[None, :, 0] * (pi[:, None, 2] / nv[None, :, 2])
+        return ((x0 > _param(a, "xlo")) & (x0 <= _param(a, "xhi"))).float()
+    lt = torch.as_tensor(_lat_tx(a), device=pi.device)
+    dl = (lat[:, None] - lt[None, :]).abs()
+    if a.kind == "tx_scanline":
+        return (dl < _param(a, "tol")).float()
+    return torch.clamp(1 - dl / _param(a, "dlat"), min=0.0)
+
+
+def fused_weights(apod, pi, pr, nv, *, orientations=None, lat=None, device=None):
+    """The plain version of K1(d): what the kernel computes in registers for
+    :class:`Fused` descriptors (the TPU kernel's ``_rx_apod_weight`` and
+    ``_tx_apod_weight``, on unscaled geometry), densely. Returns ``(wr,
+    wt)``: the product of the receive kinds' factors (I, N) and of the
+    transmit kinds' (I, M), float32 on ``device`` (default: that of ``pi``),
+    ``None`` for a side without descriptors.
+
+    Receive kinds, with (dx, dz) the pixel minus the receiver and (sa, ca)
+    the sine and cosine of the receiver's azimuth (``orientations`` (2, N),
+    default 0): 'aperture_growth' ``|dz ca + dx sa| > 2 f |dx ca - dz sa|``
+    (and ``2 |d| < Dmax``), 'acceptance_angle' ``dx sa + dz ca >= cos(theta)
+    |pixel - receiver|``. Transmit kinds, with ``lat`` (I,) the pixels'
+    lateral coordinate (default their x): 'tx_scanline' ``|lat - lat_tx| <
+    tol``, 'tx_multiline' ``max(0, 1 - |lat - lat_tx| / dlat)``,
+    'tx_parallelogram' ``xlo < x - nvx z / nvz <= xhi`` with ``nv`` (M, 3)
+    the transmits' directions."""
+    dev = device if device is not None else (pi.device if isinstance(pi, torch.Tensor)
+                                             else "cpu")
+    pi, pr, nv = (as_f32(a, dev).reshape(-1, 3) for a in (pi, pr, nv))
+    ori = _orientations(orientations, pr.shape[0], dev)
+    lat = pi[:, 0] if lat is None else as_f32(lat, dev).reshape(-1)
+    wr = wt = None
+    for a in apod:
+        if a.kind in RX_KINDS:
+            w = _rx_factor(a, pi, pr, ori)
+            wr = w if wr is None else wr * w
+        elif a.kind in TX_KINDS:
+            w = _tx_factor(a, pi, nv, lat)
+            wt = w if wt is None else wt * w
+        else:
+            raise ValueError(f"unknown fused apodization {a.kind!r}")
+    return wr, wt
+
+
+def _apod_tuple(apod) -> tuple:
+    return tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
+
+
+def _im_shape(im_shape, I: int) -> Tuple[int, int, int]:
+    im_shape = tuple(int(d) for d in (im_shape or (I, 1, 1)))
+    if len(im_shape) != 3 or int(np.prod(im_shape)) != I:
+        raise ValueError(f"im_shape {im_shape} does not hold {I} pixels")
+    return im_shape
+
+
+def dense_apod(apod, pi, pr, nv, *, im_shape=None, orientations=None, lat=None,
+               device=None) -> tuple:
+    """``apod`` as dense arrays broadcastable to (I1, I2, I3, N, M): each
+    :class:`Fused` through :func:`fused_weights` (receive factors as (I1,
+    I2, I3, N, 1), transmit factors as (I1, I2, I3, 1, M)), dense arrays as
+    they are. What the plain versions of K1(d) take."""
+    fused = tuple(a for a in apod if isinstance(a, Fused))
+    out = tuple(a for a in apod if not isinstance(a, Fused))
+    if not fused:
+        return out
+    wr, wt = fused_weights(fused, pi, pr, nv, orientations=orientations, lat=lat,
+                           device=device)
+    im = _im_shape(im_shape, (wr if wr is not None else wt).shape[0])
+    return out + tuple(w.reshape(im + shape) for w, shape in (
+        (wr, (-1, 1)), (wt, (1, -1))) if w is not None)
+
 
 def _entry(name: str, iq: bool):
     """The entry point ``name`` (``name_iq`` with remodulation) in its
     library, and nvcc's log of the library's build."""
-    lib, log = _nvcc.load("das_iq" if iq else "das")
+    lib = "das_keep" if name == "das_keep" else "das"
+    lib, log = _nvcc.load(lib + ("_iq" if iq else ""))
     return getattr(lib, name + ("_iq" if iq else "")), log
 
 
@@ -107,6 +268,20 @@ def build_lut(iq: bool = False):
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def build_keep(iq: bool = False):
+    """Build (if needed) and load ``csrc/das_keep.cu`` (das_keep_kernel:
+    keep modes and weights of K1 and K2; ``das_keep_iq.cu`` with ``iq``,
+    its remodulating variants); return ``(its entry point, nvcc log)``."""
+    fn, log = _entry("das_keep", iq)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, log
 
 
 def stencil_entry(taps, method: str):
@@ -238,18 +413,18 @@ def tx_t0(t0, M: int) -> np.ndarray:
     return np.broadcast_to(a, (M,)).copy()
 
 
-def _launch_frames(x, method, fmod, launch):
+def _launch_frames(x, method, fmod, launch, fb_max=FB):
     """Lay out the chunks of transmits of ``x (T, N, M, *F)`` and call
     ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
-    FB frames of each chunk: w = 2 pi fmod in float32, add 1 after the
-    first chunk."""
+    ``fb_max`` frames of each chunk: w = 2 pi fmod in float32, add 1 after
+    the first chunk."""
     xF = _frames(x)
     F = xF.shape[3]
     w = float(np.float32(2 * np.pi * fmod))
     for j, (m0, m1) in enumerate(tx_chunks(xF, method)):
         xl = trace_layout(xF, method, m0, m1)
-        for f0 in range(0, F, FB):
-            launch(xl, m0, m1, F, f0, min(FB, F - f0), w, int(j > 0))
+        for f0 in range(0, F, fb_max):
+            launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
         del xl  # the next chunk's layout may take its memory
 
 
@@ -261,30 +436,182 @@ def _check_traces(x: torch.Tensor, kern: str):
         raise ValueError(f"{kern} takes traces of at most {TMAX} samples, got {x.shape[0]}")
 
 
+def _kernel_fused(apod):
+    """Split ``apod`` into (the Fused descriptors K1 evaluates in the kernel:
+    the first of each kind, one ``lat_tx`` for the transmit kinds that take
+    one; the other Fused descriptors; the dense arrays)."""
+    kern, extra, dense, lat_tx = [], [], [], None
+    for a in apod:
+        if not isinstance(a, Fused):
+            dense.append(a)
+            continue
+        if a.kind not in RX_KINDS and a.kind not in TX_KINDS:
+            raise ValueError(f"unknown fused apodization {a.kind!r}")
+        lt = _lat_tx(a) if a.kind in ("tx_scanline", "tx_multiline") else None
+        if any(b.kind == a.kind for b in kern) or (
+                lt is not None and lat_tx is not None and not np.array_equal(lt, lat_tx)):
+            extra.append(a)
+            continue
+        kern.append(a)
+        lat_tx = lt if lt is not None else lat_tx
+    return kern, extra, dense, lat_tx
+
+
+def _dense_weights(dense, im_shape, N: int, M: int, dev):
+    """The dense weights as the kernel reads them: {'wr' | 'wt' | 'wd':
+    (tensor, its 5 element strides over (I1, I2, I3, N, M), 0 on a
+    broadcast axis)}, the product of the arrays that vary over the
+    receivers only ('wr'; or over neither), the transmits only ('wt'), or
+    both ('wd')."""
+    full = tuple(im_shape) + (N, M)
+    groups = {"wr": [], "wt": [], "wd": []}
+    for a in dense:
+        if a.is_complex() if isinstance(a, torch.Tensor) else np.iscomplexobj(a):
+            raise ValueError("dense apodization must be real arrays")
+        t = _lift5(as_f32(a, dev))
+        if any(d not in (1, f) for d, f in zip(t.shape, full)):
+            raise ValueError(f"apodization {tuple(t.shape)} does not broadcast to {full}")
+        key = "wd" if t.shape[3] != 1 and t.shape[4] != 1 else ("wt" if t.shape[4] != 1
+                                                                  else "wr")
+        groups[key].append(t)
+    out = {}
+    for key, ts in groups.items():
+        if ts:
+            prod = functools.reduce(operator.mul, ts).contiguous()
+            shape = full[:3] + ((1,) if key == "wt" else (N,)) + ((1,) if key == "wr" else (M,))
+            out[key] = (prod, prod.expand(shape).stride())
+    return out
+
+
+def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, apod,
+              keep_rx, keep_tx, im_shape, k1=None, k2=None, cinv=0.0, tx_model="plane",
+              orientations=None, lat=None) -> torch.Tensor:
+    """K1 (``k1 = (pi, pr, pv, nv)`` on the card) or K2 (``k2 = (tau_rx,
+    tau_tx)``) through das_keep_kernel: keep modes and weights. Returns (I,
+    N', M', *F), a view of the kernel's (N', M', F, I) output."""
+    dev = x.device
+    T, N, M = x.shape[:3]
+    fd = tuple(x.shape[3:])
+    F = int(np.prod(fd, dtype=np.int64))
+    im_shape = _im_shape(im_shape, I)
+    kern, extra, dense, lat_tx = _kernel_fused(apod)
+    if k2 is not None and (kern or extra):
+        raise TypeError("K2 takes dense apodization arrays; materialize a Fused descriptor "
+                        "first (Fused.materialize)")
+    if extra:  # a second descriptor of a kind: its plain version, as a dense weight
+        dense += list(dense_apod(extra, k1[0], k1[1], k1[3], im_shape=im_shape,
+                                 orientations=orientations, lat=lat, device=dev))
+    wts = _dense_weights(dense, im_shape, N, M, dev)
+    rx_bits = sum(RX_KINDS[a.kind] for a in kern if a.kind in RX_KINDS)
+    tx_bits = sum(TX_KINDS[a.kind] for a in kern if a.kind in TX_KINDS)
+    prm = [0.0, np.inf, 0.0, 0.0, 1.0, 0.0, 0.0]  # 2 f, Dmax, cos theta, tol, dlat, xlo, xhi
+    for a in kern:
+        p = a.p
+        if a.kind == "aperture_growth":
+            prm[0], prm[1] = _f32(2.0 * p.get("f", 1.5)), _f32(p.get("Dmax", np.inf))
+            rx_bits |= 2 if np.isfinite(prm[1]) else 0  # AP_DMAX
+        elif a.kind == "acceptance_angle":
+            prm[2] = _f32(np.cos(np.radians(p.get("theta", 45.0))))
+        elif a.kind == "tx_scanline":
+            prm[3] = _param(a, "tol")
+        elif a.kind == "tx_multiline":
+            prm[4] = _param(a, "dlat")
+        elif a.kind == "tx_parallelogram":
+            prm[5], prm[6] = _param(a, "xlo"), _param(a, "xhi")
+    ori = _orientations(orientations, N, dev) if rx_bits else None
+    if tx_bits & 3:
+        latg = (k1[0][:, 0] if lat is None else as_f32(lat, dev).reshape(-1)).contiguous()
+        ltg = torch.as_tensor(lat_tx, device=dev)
+        if latg.numel() != I or ltg.numel() != M:
+            raise ValueError(f"lat ({latg.numel()}) and lat_tx ({ltg.numel()}) do not match "
+                             f"{I} pixels and {M} transmits")
+    else:
+        latg = ltg = None
+    cplx, iq = x.is_complex(), fmod != 0
+    Np, Mp = (N if keep_rx else 1), (M if keep_tx else 1)
+    out = torch.empty((Np, Mp, F, I), dtype=torch.complex64 if cplx or iq else torch.float32,
+                      device=dev)
+    of, om, on = I, F * I, Mp * F * I
+    keep = int(keep_rx) + 2 * int(keep_tx)
+    fb_max = FB if keep != 1 else max(1, min(FB, KR_BYTES // (BLOCK * NC * out.element_size())))
+    fn, _ = build_keep(iq)
+    nul = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lut = k2 is not None
+    if lut:
+        tau_rx, tau_tx = k2
+    else:
+        pi, pr, pv, nv = k1
+
+    def launch(xl, m0, m1, F, f0, fb, w, add):
+        global KEEP_LAUNCHES, APOD_LAUNCHES, LUT_KEEP_LAUNCHES
+        strides, ptrs = [], []
+        for key in ("wr", "wt", "wd"):
+            t, st = wts.get(key, (None, (0,) * 5))
+            strides += list(st)
+            ptrs.append(None if t is None else t.data_ptr() + 4 * m0 * st[4])
+        sa = (ctypes.c_longlong * 15)(*strides)
+        pa = (ctypes.c_float * 7)(*prm)
+        o = out.data_ptr() + (m0 * om * out.element_size() if keep_tx else 0)
+        geo = ((None,) * 4 + (tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(), M) if lut else
+               (pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(), nv[m0:].data_ptr(), None,
+                None, 0))
+        rc = fn(xl.data_ptr(), *geo, t0[m0:].data_ptr(), o, I, N, m1 - m0, T, F, f0, fb,
+                _f32(cinv), _f32(fs), w, 3 if lut else _TX_CODE[tx_model], _METHOD_CODE[method],
+                int(cplx), int(iq), 0 if keep_tx else add, keep, on, om, of, im_shape[1],
+                im_shape[2], *ptrs, ctypes.addressof(sa), rx_bits, tx_bits, nul(ori),
+                nul(latg), None if ltg is None else ltg[m0:].data_ptr(), ctypes.addressof(pa),
+                *_nvcc.stream_args(dev))
+        if rc != 0:
+            raise RuntimeError(f"{'K2' if lut else 'K1'} keep/apodization launch failed "
+                               f"with cudaError {rc}")
+        if lut:
+            LUT_KEEP_LAUNCHES += 1
+        else:
+            KEEP_LAUNCHES += int(keep != 0)
+            APOD_LAUNCHES += int(bool(kern or wts))
+
+    _launch_frames(x, method, fmod, launch, fb_max)
+    return out.permute(3, 0, 1, 2).reshape((I, Np, Mp) + fd)
+
+
 def das_sum_plain(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
-                  tx_model: str = "virtual", method: str = "cubic",
-                  fmod: float = 0.0) -> torch.Tensor:
-    """The plain PyTorch version of K1: summed DAS image (I, 1, 1, *F) on
-    the device of ``x``."""
+                  tx_model: str = "virtual", method: str = "cubic", fmod: float = 0.0,
+                  apod=(), keep_rx: bool = False, keep_tx: bool = False, im_shape=None,
+                  orientations=None, lat=None) -> torch.Tensor:
+    """The plain PyTorch version of K1 (K1(c), K1(d)): the image (I, N',
+    M', *F) on the device of ``x``, ``Fused`` descriptors through
+    :func:`fused_weights`."""
+    apod = dense_apod(_apod_tuple(apod), pi, pr, nv, im_shape=im_shape,
+                      orientations=orientations, lat=lat, device=x.device)
     return das(x, pi, pr, pv, nv, tx_t0(t0, x.shape[2]), cinv, fs=fs,
-               tx_model=tx_model, method=method, fmod=float(fmod))
+               tx_model=tx_model, method=method, fmod=float(fmod), apod=apod,
+               keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape)
 
 
 def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
-            tx_model: str = "virtual", method: str = "cubic",
-            fmod: float = 0.0) -> torch.Tensor:
-    """Summed geometry DAS image (I, 1, 1, *F) of traces ``x (T, N, M,
-    *F)``, remodulated at ``fmod`` (complex64 when ``fmod != 0`` or the
-    traces are complex).
+            tx_model: str = "virtual", method: str = "cubic", fmod: float = 0.0,
+            apod=(), keep_rx: bool = False, keep_tx: bool = False, im_shape=None,
+            orientations=None, lat=None) -> torch.Tensor:
+    """Geometry DAS image (I, N', M', *F) of traces ``x (T, N, M, *F)``,
+    remodulated at ``fmod`` (complex64 when ``fmod != 0`` or the traces are
+    complex), summed over the receivers unless ``keep_rx`` (N' = N) and the
+    transmits unless ``keep_tx`` (M' = M).
 
     Arguments as :func:`qups_tpu_torch.ops.das.das`, with ``cinv`` a scalar
-    and ``t0`` one start time per transmit (:func:`tx_t0`). On a CUDA
-    tensor this launches K1 (float32 or complex64 traces); on a CPU tensor
-    it runs :func:`das_sum_plain`.
+    and ``t0`` one start time per transmit (:func:`tx_t0`); ``apod`` dense
+    arrays broadcastable to ``im_shape + (N, M)`` and :class:`Fused`
+    descriptors, with ``orientations`` (2, N) the sine and cosine of each
+    receiver's azimuth and ``lat`` (I,) each pixel's lateral coordinate
+    (default its x) for them. On a CUDA tensor this launches K1 (summed and
+    unweighted) or das_keep_kernel (K1(c), K1(d)); on a CPU tensor it runs
+    :func:`das_sum_plain`.
     """
+    apod = _apod_tuple(apod)
     if not is_cuda(x):
         return das_sum_plain(x, pi, pr, pv, nv, t0, cinv, fs=fs, tx_model=tx_model,
-                             method=method, fmod=fmod)
+                             method=method, fmod=fmod, apod=apod, keep_rx=keep_rx,
+                             keep_tx=keep_tx, im_shape=im_shape, orientations=orientations,
+                             lat=lat)
     if tx_model not in TX_MODELS:
         raise ValueError(f"unknown tx model {tx_model!r}; expected {TX_MODELS}")
     if np.ndim(cinv) != 0:
@@ -298,6 +625,11 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
         raise ValueError(f"geometry does not match traces (T, N, M) = {(T, N, M)}")
     t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
     I = pi.shape[0]
+    if apod or keep_rx or keep_tx:
+        return _das_keep(x, I, t0, fs=fs, method=method, fmod=fmod, apod=apod,
+                         keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape,
+                         k1=(pi, pr, pv, nv), cinv=cinv, tx_model=tx_model,
+                         orientations=orientations, lat=lat)
     cplx = x.is_complex()
     iq = fmod != 0
     fd = tuple(x.shape[3:])
@@ -320,25 +652,42 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     return out.view((I, 1, 1) + fd)
 
 
+def _no_fused(apod):
+    if any(isinstance(a, Fused) for a in apod):
+        raise TypeError("K2 and das_lut take dense apodization arrays; materialize a Fused "
+                        "descriptor first (Fused.materialize)")
+
+
 def das_lut_sum_plain(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
-                      method: str = "cubic", fmod: float = 0.0) -> torch.Tensor:
-    """The plain PyTorch version of K2: summed LUT DAS image (I, 1, 1, *F)
-    on the device of ``x``."""
+                      method: str = "cubic", fmod: float = 0.0, apod=(),
+                      keep_rx: bool = False, keep_tx: bool = False,
+                      im_shape=None) -> torch.Tensor:
+    """The plain PyTorch version of K2 (K2(c)): the LUT DAS image (I, N',
+    M', *F) on the device of ``x``."""
+    apod = _apod_tuple(apod)
+    _no_fused(apod)
     return das_lut(x, tau_rx, tau_tx, tx_t0(t0, x.shape[2]), fs=fs, method=method,
-                   fmod=float(fmod))
+                   fmod=float(fmod), apod=apod, keep_rx=keep_rx, keep_tx=keep_tx,
+                   im_shape=im_shape)
 
 
 def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
-                method: str = "cubic", fmod: float = 0.0) -> torch.Tensor:
-    """Summed LUT DAS image (I, 1, 1, *F) of traces ``x (T, N, M, *F)`` with
-    the delays ``tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m]``, remodulated
-    at ``fmod``: tables ``tau_rx (I, N)``, ``tau_tx (I, M)`` [s], ``t0`` one
-    start time per transmit (:func:`tx_t0`). On a CUDA tensor this launches
-    K2 (float32 or complex64 traces); on a CPU tensor it runs
-    :func:`das_lut_sum_plain`.
+                method: str = "cubic", fmod: float = 0.0, apod=(), keep_rx: bool = False,
+                keep_tx: bool = False, im_shape=None) -> torch.Tensor:
+    """LUT DAS image (I, N', M', *F) of traces ``x (T, N, M, *F)`` with the
+    delays ``tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m]``, remodulated at
+    ``fmod``: tables ``tau_rx (I, N)``, ``tau_tx (I, M)`` [s], ``t0`` one
+    start time per transmit (:func:`tx_t0`); keep modes and dense ``apod``
+    as :func:`das_sum` (no :class:`Fused`). On a CUDA tensor this launches
+    K2 (summed and unweighted) or das_keep_kernel (K2(c)); on a CPU tensor
+    it runs :func:`das_lut_sum_plain`.
     """
+    apod = _apod_tuple(apod)
     if not is_cuda(x):
-        return das_lut_sum_plain(x, tau_rx, tau_tx, t0, fs=fs, method=method, fmod=fmod)
+        return das_lut_sum_plain(x, tau_rx, tau_tx, t0, fs=fs, method=method, fmod=fmod,
+                                 apod=apod, keep_rx=keep_rx, keep_tx=keep_tx,
+                                 im_shape=im_shape)
+    _no_fused(apod)
     _check_traces(x, "K2")
     dev = x.device
     T, N, M = x.shape[:3]
@@ -348,6 +697,10 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
         raise ValueError(f"tables {tuple(tau_rx.shape)}, {tuple(tau_tx.shape)} do "
                          f"not match traces (T, N, M) = {(T, N, M)}")
     t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
+    if apod or keep_rx or keep_tx:
+        return _das_keep(x, I, t0, fs=fs, method=method, fmod=fmod, apod=apod,
+                         keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape,
+                         k2=(tau_rx, tau_tx))
     cplx = x.is_complex()
     iq = fmod != 0
     fd = tuple(x.shape[3:])

@@ -29,7 +29,9 @@ Scope (ROADMAP.md, "Scope decisions"):
   ``device=``, and move the traces there. On a CUDA tensor, ``DAS`` runs
   kernel K1 (``ops/das_cuda.py``) and, with a per-pixel sound speed,
   kernel K2 through ``bfDASLUT``; ``bfDAS`` and ``bfDASLUT`` run K2; both
-  take frame dims and IQ remodulation (``fmod``); ``bfAdjoint`` runs
+  take frame dims and IQ remodulation (``fmod``), keep modes and
+  apodization; ``coherence_image`` reduces ``DAS(keep_rx=True)`` over the
+  aperture; ``bfAdjoint`` runs
   kernel K4 (``ops/fdbf_cuda.py``). An option a kernel does not carry
   raises ``NotImplementedError`` naming its sub-slice. Nothing drops to
   the plain path on its own: ``kernel='plain'`` is an explicit choice.
@@ -55,7 +57,8 @@ from .core.seq import Sequence
 from .core.xdc import Transducer, TransducerArray, TransducerConvex
 from .ops.das import das, das_lut, delay_tables, rx_distance, tx_distance
 from .ops import das_cuda
-from .ops.das_cuda import Fused, das_lut_sum, das_sum
+from .ops.das_cuda import Fused, das_lut_sum, das_sum, dense_apod
+from .ops.coherence import cohfac, slsc
 from .ops.conv import convd
 from .ops.fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
 from .ops.fdbf_cuda import bf_adjoint_cuda
@@ -120,6 +123,16 @@ class UltrasoundSystem:
 
     def replace(self, **changes) -> "UltrasoundSystem":
         return dataclasses.replace(self, **changes)
+
+    def scale(self, dist: float = 1.0, time: float = 1.0) -> "UltrasoundSystem":
+        """Consistent unit rescale of all linked objects, e.g.
+        ``scale(dist=1e3, time=1e6)`` for mm and us units."""
+        same = self.tx is self.rx
+        tx = self.tx.scale(dist=dist, time=time)
+        return dataclasses.replace(
+            self, tx=tx, rx=tx if same else self.rx.scale(dist=dist, time=time),
+            seq=self.seq.scale(dist=dist, time=time),
+            scan=self.scan.scale(dist=dist), fs=self.fs / time)
 
     # ------------------------------------------------------- geometry helpers
     def _tx_geometry(self):
@@ -606,11 +619,20 @@ class UltrasoundSystem:
         ``kernel``: 'auto' runs K1 on a CUDA tensor and the plain path on a
         CPU tensor; 'cuda' requires K1; 'plain' forces the plain path on any
         device. On a CUDA tensor, 'auto' and 'cuda' run frames and ``fmod``
-        in the kernel (K1(b)) and raise ``NotImplementedError`` for options
-        K1 does not carry yet, and a per-pixel ``c0`` map (on the scan grid)
-        runs the LUT kernel K2 on delay tables built on the card. The kernel
-        takes one ``t0`` per transmit: one that varies over receivers or
-        frames raises ``ValueError``.
+        (K1(b)), the keep modes (K1(c)) and apodization (K1(d): dense arrays
+        and :class:`Fused` descriptors, evaluated in the kernel) in the
+        kernel, and raise ``NotImplementedError`` for what K1 does not carry
+        yet; a per-pixel ``c0`` map (on the scan grid) runs the LUT kernel
+        K2 on delay tables built on the card. The kernel takes one ``t0``
+        per transmit: one that varies over receivers or frames raises
+        ``ValueError``.
+
+        ``apod``: arrays broadcastable to ``(*scan.shape, N, M)`` (e.g. the
+        ``ap_*`` generators') and :class:`Fused` descriptors, multiplied
+        together. A ``Fused`` takes the kernel's definition
+        (``ops.das_cuda.fused_weights``) on K1 and with ``kernel='plain'``;
+        on the CPU with ``kernel='auto'`` and with a ``c0`` map it takes
+        ``Fused.materialize``'s dense array, as the JAX package's XLA path.
 
         ``precision``: 'auto' and 'f32' run float32; the reduced-precision
         trace modes ('bf16pair', 'i8x4', 'bf16') are sub-slice K1(e) and
@@ -656,6 +678,8 @@ class UltrasoundSystem:
         dev = default_device(device)
         kw = dict(fmod=fmod, keep_tx=keep_tx, keep_rx=keep_rx, method=method,
                   kernel=kernel, precision=precision)
+        if np.ndim(cinv) != 0 or (kernel == "auto" and dev.type != "cuda"):
+            apod_t = self._materialize(apod_t)
         if bsize is None or chd.M <= bsize:
             return self._das_block(chd.replace(data=chd.data.to(dev)), pv, nv,
                                    model, cinv, apod_t, **kw)
@@ -675,17 +699,33 @@ class UltrasoundSystem:
                 acc = img if acc is None else acc + img
         return torch.cat(parts, dim=len(self.scan.shape) + 1) if keep_tx else acc
 
+    def _materialize(self, apod_t) -> tuple:
+        """``Fused`` descriptors as their dense arrays (``Fused.materialize``),
+        as the JAX package's XLA path takes them."""
+        return tuple(a.materialize(self) if isinstance(a, Fused) else a for a in apod_t)
+
+    def _fused_operands(self, apod_t) -> dict:
+        """The receivers' orientations (2, N) and, on a polar scan with a
+        transmit kind, the pixels' lateral coordinate (the angle a, (I,)),
+        that K1 and ``fused_weights`` take for ``Fused`` descriptors."""
+        fused = [a for a in apod_t if isinstance(a, Fused)]
+        if not fused:
+            return {}
+        az = np.radians(np.asarray(self.rx.orientations()[0], np.float64))
+        out = dict(orientations=np.stack([np.sin(az), np.cos(az)]).astype(np.float32))
+        if isinstance(self.scan, ScanPolar) and any(a.kind.startswith("tx_") for a in fused):
+            lat = np.broadcast_to(_place(self.scan.a, self.scan.order.index("A"), 3),
+                                  self.scan.shape)
+            out["lat"] = lat.reshape(-1).astype(np.float32)
+        return out
+
     @staticmethod
-    def _ineligible(kern: str, x: torch.Tensor, apod_t, *, keep_rx, keep_tx,
-                    precision) -> Optional[str]:
+    def _ineligible(kern: str, x: torch.Tensor, precision) -> Optional[str]:
         """Why the DAS kernel ``kern`` ('K1' or 'K2') cannot beamform this
         call, naming its sub-slice that will carry it; ``None`` when it can
-        (sub-slices (a) and (b): any frame dims, any ``fmod``). A per-pixel
-        sound speed never reaches K1: ``_das_block`` sends it to K2."""
-        if keep_rx or keep_tx:
-            return f"keep_rx / keep_tx are sub-slice {kern}(c)"
-        if apod_t:
-            return f"apodization is sub-slice {kern}(d)"
+        (sub-slices (a)-(d): any frame dims, ``fmod``, keep mode and
+        apodization). A per-pixel sound speed never reaches K1:
+        ``_das_block`` sends it to K2."""
         if precision not in ("auto", "f32") or x.dtype not in das_cuda.DTYPES:
             return (f"precision={precision!r} with {x.dtype} traces: {kern} runs "
                     "float32 and complex64; other trace precisions are "
@@ -702,40 +742,86 @@ class UltrasoundSystem:
             method = "linear"
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; expected {METHODS}")
-        if any(isinstance(a, Fused) for a in apod_t):
-            raise NotImplementedError(
-                "Fused apodization is sub-slice K1(d), not ported yet")
         x = chd.data
+        pi, pr = self._pixels(), self.rx.positions().T
+        im_shape = tuple(self.scan.shape)
+        fk = self._fused_operands(apod_t)
         if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
             if not x.is_cuda:
                 raise ValueError("kernel='cuda' needs the traces on a CUDA device")
             if np.ndim(cinv) != 0:
                 # a per-pixel sound-speed map: per-pixel delay tables, built
                 # on the device, ride the LUT kernel K2
-                pi = as_f32(self._pixels(), x.device)
+                pig = as_f32(pi, x.device)
                 cv = as_f32(cinv, x.device).reshape(-1, 1)
                 pvg, nvg = as_f32(pv, x.device), as_f32(nv, x.device)
-                tau_rx = rx_distance(pi, as_f32(self.rx.positions().T, x.device)) * cv
-                tau_tx = torch.stack([tx_distance(pi, pvg[m], nvg[m], model)
+                tau_rx = rx_distance(pig, as_f32(pr, x.device)) * cv
+                tau_tx = torch.stack([tx_distance(pig, pvg[m], nvg[m], model)
                                       for m in range(pvg.shape[0])], 1) * cv
                 return self.bfDASLUT(chd, tau_rx, tau_tx, apod=apod_t, fmod=fmod,
                                      keep_tx=keep_tx, keep_rx=keep_rx,
                                      method=method, kernel=kernel,
                                      precision=precision, device=x.device)
-            why = self._ineligible("K1", x, apod_t, keep_rx=keep_rx,
-                                   keep_tx=keep_tx, precision=precision)
+            why = self._ineligible("K1", x, precision)
             if why is not None:
                 raise NotImplementedError(f"DAS on CUDA (kernel K1): {why}")
-            img = das_sum(x, self._pixels(), self.rx.positions().T, pv, nv,
-                          chd.t0, cinv, fs=float(chd.fs), tx_model=model,
-                          method=method, fmod=float(fmod))
+            img = das_sum(x, pi, pr, pv, nv, chd.t0, cinv, fs=float(chd.fs),
+                          tx_model=model, method=method, fmod=float(fmod), apod=apod_t,
+                          keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape, **fk)
         else:
-            img = das(x, self._pixels(), self.rx.positions().T, pv, nv,
-                      chd.t0_host, cinv, fs=float(chd.fs), apod=apod_t,
+            img = das(x, pi, pr, pv, nv, chd.t0_host, cinv, fs=float(chd.fs),
+                      apod=dense_apod(apod_t, pi, pr, nv, im_shape=im_shape,
+                                      device=x.device, **fk),
                       fmod=float(fmod), tx_model=model, keep_rx=keep_rx,
-                      keep_tx=keep_tx, method=method,
-                      im_shape=tuple(self.scan.shape))
+                      keep_tx=keep_tx, method=method, im_shape=im_shape)
         return img.reshape(tuple(self.scan.shape) + tuple(img.shape[1:]))
+
+    def coherence_image(self, chd: ChannelData, post: str = "cohfac", lags=None,
+                        apod=(), fmod: float = 0.0, c0: Optional[float] = None,
+                        method: str = "auto", precision: str = "auto", mesh=None,
+                        kernel: str = "auto", device=None) -> torch.Tensor:
+        """Aperture-coherence image: :meth:`DAS` with ``keep_rx=True`` (K1(c)
+        on the card), then the reduction over the receive aperture on the
+        same device, ``post='cohfac'`` (the magnitude of
+        :func:`~qups_tpu_torch.ops.coherence.cohfac`) or ``'slsc'``
+        (:func:`~qups_tpu_torch.ops.coherence.slsc` with ``lags``). Returns
+        ``(*scan.shape, *F)``: one image per frame (the JAX package's
+        two-step path sums the frames first).
+
+        ``precision``: 'auto' and 'f32' beamform in float32; the trace
+        precisions 'bf16pair' and 'i8x4' are sub-slice K1(e) and raise.
+        ``mesh`` (several cards) is not ported and raises. ``kernel`` and
+        ``device`` as for :meth:`DAS`.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=8, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=8),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                                     z=np.linspace(18e-3, 22e-3, 8)),
+                fs=12e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            cf = us.coherence_image(us.greens(scat, device="cpu"), device="cpu")
+            assert cf.shape == us.scan.shape
+            assert bool(cf.isfinite().all()) and float(cf.max()) <= 1.0 + 1e-6
+        """
+        if post not in ("cohfac", "slsc"):
+            raise ValueError(f"unknown post {post!r}")
+        if mesh is not None:
+            raise NotImplementedError("coherence_image on a mesh of cards is not ported "
+                                      "(ROADMAP Queue 1 item 11)")
+        if precision in ("bf16pair", "i8x4"):
+            raise NotImplementedError(f"precision={precision!r} is sub-slice K1(e), not "
+                                      "ported yet")
+        brx = self.DAS(chd, apod=apod, fmod=fmod, c0=c0, keep_rx=True, method=method,
+                       kernel=kernel, precision=precision, device=device)
+        nd = len(self.scan.shape)
+        brx = brx.select(nd + 1, 0)  # (*scan.shape, N, *F)
+        if post == "cohfac":
+            return cohfac(brx, axis=nd).abs()
+        return slsc(brx, axis=nd, lags=lags)
 
     # ------------------------------------------------------- LUT beamformers
     def das_delay_tables(self, c0: Optional[float] = None, device=None):
@@ -792,10 +878,11 @@ class UltrasoundSystem:
 
         ``kernel``: 'auto' runs K2 on a CUDA tensor and the plain ``das_lut``
         on a CPU tensor; 'cuda' requires K2; 'plain' forces the plain path.
-        On a CUDA tensor, frames and ``fmod`` run in K2 (K2(b)), a ``t0``
-        that varies over receivers or frames raises ``ValueError``, and
-        options K2 does not carry yet raise ``NotImplementedError`` naming
-        the sub-slice. ``method``: the four samplers or 'cubic2x' (linear on
+        On a CUDA tensor, frames and ``fmod`` (K2(b)), the keep modes and
+        dense ``apod`` arrays (K2(c)) run in K2, a ``t0`` that varies over
+        receivers or frames raises ``ValueError``, and options K2 does not
+        carry yet raise ``NotImplementedError`` naming the sub-slice. A
+        :class:`Fused` descriptor raises ``TypeError`` (materialize it). ``method``: the four samplers or 'cubic2x' (linear on
         traces upsampled 2x), 'auto' is cubic. ``precision``: 'auto' and
         'f32' (float32 or complex64 traces); other trace precisions are
         sub-slice K2(e).
@@ -828,16 +915,21 @@ class UltrasoundSystem:
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; expected {METHODS}")
         apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
+        if any(isinstance(a, Fused) for a in apod_t):
+            raise TypeError("bfDASLUT takes dense apodization arrays, as the JAX package's "
+                            "das_lut; materialize a Fused descriptor first "
+                            "(Fused.materialize)")
         x = chd.data
         if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
             if not x.is_cuda:
                 raise ValueError("kernel='cuda' needs the traces on a CUDA device")
-            why = self._ineligible("K2", x, apod_t, keep_rx=keep_rx,
-                                   keep_tx=keep_tx, precision=precision)
+            why = self._ineligible("K2", x, precision)
             if why is not None:
                 raise NotImplementedError(f"bfDASLUT on CUDA (kernel K2): {why}")
             img = das_lut_sum(x, tau_rx, tau_tx, chd.t0, fs=float(chd.fs),
-                              method=method, fmod=float(fmod))
+                              method=method, fmod=float(fmod), apod=apod_t,
+                              keep_rx=keep_rx, keep_tx=keep_tx,
+                              im_shape=tuple(self.scan.shape))
         else:
             img = das_lut(x, tau_rx, tau_tx, chd.t0_host, fs=float(chd.fs),
                           apod=apod_t, fmod=float(fmod), keep_rx=keep_rx,
@@ -948,11 +1040,174 @@ _ADJ_TAU_CACHE_MAX_BYTES = int(os.environ.get("QUPS_ADJ_TAU_CACHE_BYTES",
 
 
 def _slice_tx_apod(a, m0, m1, M):
-    """Slice the transmit axis of one dense apodization for a ``bsize``
-    block when it spans all M transmits."""
+    """Slice the transmit axis of one apodization for a ``bsize`` block:
+    a dense array when its axis 4 spans all M transmits; a :class:`Fused`
+    with a per-transmit ``lat_tx`` of M values is rebuilt with the block's
+    slice (the other Fused are pure geometry and pass through)."""
     if isinstance(a, Fused):
+        lt = a.p.get("lat_tx")
+        if lt is not None and np.ndim(lt) and np.shape(lt)[0] == M:
+            return Fused(a.kind, **dict(a.p, lat_tx=np.asarray(lt)[m0:m1]))
         return a
     a = a if isinstance(a, torch.Tensor) else np.asarray(a)
     if a.ndim >= 5 and a.shape[4] == M:
         return a[:, :, :, :, m0:m1]
     return a
+
+
+# ----------------------------------------------------------------------------
+# Apodization generators: geometry masks and weights broadcastable to
+# (I1, I2, I3, N, M), host numpy in float64, returned as float32, as the JAX
+# package's (qups_tpu/system.py).
+# ----------------------------------------------------------------------------
+def _place(vec, dim, ndim=5):
+    """Place a 1-D vector along dimension ``dim`` of an ndim-D array."""
+    v = np.asarray(vec)
+    shape = [1] * ndim
+    shape[dim] = v.size
+    return v.reshape(shape)
+
+
+def _lat_axis(scan):
+    """(values, data dim) of the lateral axis: x (cartesian) or a (polar)."""
+    if isinstance(scan, ScanCartesian):
+        return scan.x, scan.order.index("X")
+    if isinstance(scan, ScanPolar):
+        return scan.a, scan.order.index("A")
+    raise TypeError(f"unsupported scan type {type(scan).__name__}")
+
+
+def _lat_tx(us):
+    """Per-transmit lateral coordinate: the focus x (cartesian) or angle."""
+    if isinstance(us.scan, ScanPolar):
+        return np.degrees(np.arctan2(us.seq.focus_array[0] - us.scan.origin[0],
+                                     us.seq.focus_array[2] - us.scan.origin[2]))
+    return us.seq.focus_array[0]
+
+
+def _ap_scanline(us, tol: Optional[float] = None) -> np.ndarray:
+    """Scanline matching for focused line-by-line imaging: pixels whose
+    lateral coordinate is within ``tol`` (default: the lateral step) of
+    each transmit's. Returns an (I1, I2, I3, 1, M)-broadcastable mask."""
+    xi, xdim = _lat_axis(us.scan)
+    xv = _lat_tx(us)
+    if tol is None:
+        d = np.diff(xi)
+        tol = float(d[0]) if d.size else np.inf
+    return (np.abs(_place(xi, xdim) - _place(xv, 4)) < tol).astype(np.float32)
+
+
+def _ap_multiline(us) -> np.ndarray:
+    """Linear interpolation between the two nearest transmit scanlines."""
+    xi, xdim = _lat_axis(us.scan)
+    xv = _lat_tx(us)
+    M, X = xv.size, xi.size
+    apod = np.zeros((X, M), np.float32)
+    order = np.argsort(xv)
+    xs = xv[order]
+    for ix, x in enumerate(xi):
+        li = np.searchsorted(xs, x, side="right") - 1  # the last xs <= x
+        ri = np.searchsorted(xs, x, side="left")       # the first xs >= x
+        if li < 0 or ri >= M:
+            continue  # outside the transmits' span
+        d = xs[ri] - xs[li]
+        if d == 0:
+            apod[ix, order[li]] += 1.0
+        else:
+            apod[ix, order[li]] += 1.0 - abs(xs[li] - x) / d
+            apod[ix, order[ri]] += 1.0 - abs(xs[ri] - x) / d
+    shape = [1] * 5
+    shape[xdim], shape[4] = X, M
+    return apod.reshape(shape)
+
+
+def _ap_translating_aperture(us, tol=None) -> np.ndarray:
+    """Receive aperture translating with the transmit scanline: pixels
+    within ``tol[0]`` of the transmit's lateral position and receivers
+    within ``tol[1]`` of the pixel's (default: the lateral step)."""
+    xi, xdim = _lat_axis(us.scan)
+    xv = _lat_tx(us)
+    xn = np.asarray(us.rx.orientations()[0]) if isinstance(us.scan, ScanPolar) \
+        else us.rx.positions()[0]
+    if tol is None:
+        d = np.diff(xi)
+        tol = (float(d[0]) if d.size else np.inf,) * 2
+    tol = np.broadcast_to(np.atleast_1d(tol), (2,))
+    m = (np.abs(_place(xi, xdim) - _place(xv, 4)) <= tol[0]) \
+        & (np.abs(_place(xi, xdim) - _place(xn, 3)) <= tol[1])
+    return m.astype(np.float32)
+
+
+def _ap_aperture_growth(us, f: float = 1.5, Dmax: float = np.inf) -> np.ndarray:
+    """F-number-limited aperture growth: receiver n takes pixel i when
+    ``z > f |2 d|`` with ``d`` the (element-frame) lateral offset, and
+    ``|2 d| < Dmax``. Returns (I1, I2, I3, N, 1)."""
+    pn = us.rx.positions()
+    P = us.scan.positions()
+    Xi, Zi = P[0][..., None], P[2][..., None]
+    Xn, Zn = pn[0].reshape(1, 1, 1, -1), pn[2].reshape(1, 1, 1, -1)
+    th = us.rx.orientations()[0]
+    if np.any(np.abs(th) > 1e-12):  # a non-planar array (convex)
+        ae = np.radians(th).reshape(1, 1, 1, -1)
+        rp = np.hypot(Xi - Xn, Zi - Zn)
+        ap = np.arctan2(Xi - Xn, Zi - Zn)
+        d = rp * np.sin(ap - ae)
+        z = np.abs(rp * np.cos(ap - ae))
+    else:
+        d = Xn - Xi
+        z = Zi
+    m = (z > f * np.abs(2 * d)) & (np.abs(2 * d) < Dmax)
+    return m.astype(np.float32)[..., None]
+
+
+def _ap_tx_parallelogram(us, theta=None, phi=(0.0, 0.0)) -> np.ndarray:
+    """Plane-wave parallelogram: pixels whose projection along the steering
+    direction (within the spread ``phi``) lands inside the transducer's
+    bounds. Returns (I1, I2, I3, 1, M)."""
+    fx = us.seq.focus_array
+    if theta is None:
+        theta = np.degrees(np.arctan2(fx[0], fx[2]))
+    theta = np.atleast_1d(theta)
+    M = theta.size
+    P = us.scan.positions()
+    pb = us.xdc.bounds()
+    ok = None
+    for ph in phi:
+        ang = np.radians(theta + ph)
+        nvx, nvz = np.sin(ang).reshape(1, 1, 1, M), np.cos(ang).reshape(1, 1, 1, M)
+        x0 = P[0][..., None] - nvx * (P[2][..., None] / nvz)  # projected to z = 0
+        mk = (pb[0, 0] < x0) & (x0 <= pb[0, 1])
+        ok = mk if ok is None else ok | mk
+    return ok.astype(np.float32)[:, :, :, None, :]
+
+
+def _rx_pixel_cos(us):
+    """<element normal, unit(pixel - element)>, (I1, I2, I3, N)."""
+    pn = us.rx.positions()
+    nn = us.rx.orientations()[2]
+    P = us.scan.positions()
+    r = P[:, :, :, :, None] - pn[:, None, None, None, :]
+    r = r / np.maximum(np.linalg.norm(r, axis=0, keepdims=True), 1e-30)
+    return np.einsum("cn,cijkn->ijkn", nn, r)
+
+
+def _ap_acceptance_angle(us, theta: float = 45.0) -> np.ndarray:
+    """Element acceptance angle: ``<n, r_hat> >= cos(theta)``."""
+    return (_rx_pixel_cos(us) >= np.cos(np.radians(theta))).astype(np.float32)[..., None]
+
+
+def _ap_cosine_angle(us, theta: float = 45.0) -> np.ndarray:
+    """Cosine taper over the receiver-to-pixel angle,
+    ``cos(min(90, 90 / theta * angle))``."""
+    ang = np.degrees(np.arccos(np.clip(_rx_pixel_cos(us), -1.0, 1.0)))
+    w = np.cos(np.radians(np.minimum(90.0, (90.0 / theta) * ang)))
+    return w.astype(np.float32)[..., None]
+
+
+UltrasoundSystem.ap_scanline = _ap_scanline
+UltrasoundSystem.ap_multiline = _ap_multiline
+UltrasoundSystem.ap_translating_aperture = _ap_translating_aperture
+UltrasoundSystem.ap_aperture_growth = _ap_aperture_growth
+UltrasoundSystem.ap_tx_parallelogram = _ap_tx_parallelogram
+UltrasoundSystem.ap_acceptance_angle = _ap_acceptance_angle
+UltrasoundSystem.ap_cosine_angle = _ap_cosine_angle

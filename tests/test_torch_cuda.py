@@ -132,11 +132,20 @@ def test_das_on_card(card):
     bs = us.DAS(chd.replace(data=chd.data.cpu()), bsize=5, device=card)
     assert float((bs - b).abs().max()) < 1e-4 * float(b.abs().max())
     rf = chd.replace(data=chd.data.real.contiguous())
-    for data, kw in ((rf, dict(keep_rx=True)), (rf, dict(keep_tx=True)),
-                     (rf, dict(apod=np.ones((1, 1, 1, 16, 1)))),
-                     (rf, dict(precision="i8x4"))):
-        with pytest.raises(NotImplementedError):
-            us.DAS(data, **kw)
+    # keep modes and apodization run on K1(c)/(d), against kernel='plain'
+    for kw in (dict(keep_rx=True), dict(keep_tx=True), dict(keep_rx=True, keep_tx=True),
+               dict(apod=np.linspace(0.5, 1.5, 16).reshape(1, 1, 1, 16, 1)),
+               dict(apod=qt.Fused("aperture_growth", f=1.5), keep_rx=True)):
+        counts = das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES
+        got = us.DAS(rf, **kw)
+        torch.cuda.synchronize()
+        assert das_cuda.KEEP_LAUNCHES == counts[0] + int("keep_rx" in kw or "keep_tx" in kw)
+        assert das_cuda.APOD_LAUNCHES == counts[1] + int("apod" in kw)
+        ref = us.DAS(rf, kernel="plain", **kw)
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), kw
+    with pytest.raises(NotImplementedError, match="K1\\(e\\)"):
+        us.DAS(rf, precision="i8x4")
     # a per-pixel sound speed rides K2; a constant map is the scalar-c image
     k2 = das_cuda.LUT_LAUNCHES
     bc = us.DAS(chd, c0=np.full(us.scan.shape, 1540.0))
@@ -383,6 +392,114 @@ def test_k1b_k2b_match_plain(card, iq, frames):
             assert err < 1e-4, (kern.__name__, kw, iq, frames, err)
 
 
+KEEPS = {"": {}, "rx": dict(keep_rx=True), "tx": dict(keep_tx=True),
+         "both": dict(keep_rx=True, keep_tx=True)}
+
+
+def _weights(kind, n=64, N=32, M=8):
+    """The apodizations of the K1(c)/(d), K2(c) card tests: each fused kind
+    alone, two mixed, a dense (I, N, 1) and a dense (1, X, 1, N, M)."""
+    rng = np.random.default_rng(46)
+    lat_tx = np.linspace(-9e-3, 9e-3, M)
+    return {
+        "none": (),
+        "aperture_growth": (qt.Fused("aperture_growth", f=1.0, Dmax=15e-3),),
+        "acceptance_angle": (qt.Fused("acceptance_angle", theta=35.0),),
+        "tx_scanline": (qt.Fused("tx_scanline", tol=3e-3, lat_tx=lat_tx),),
+        "tx_multiline": (qt.Fused("tx_multiline", dlat=3e-3, lat_tx=lat_tx),),
+        "tx_parallelogram": (qt.Fused("tx_parallelogram", xlo=-8e-3, xhi=9e-3),),
+        "mixed": (qt.Fused("acceptance_angle", theta=40.0),
+                  qt.Fused("tx_parallelogram", xlo=-8e-3, xhi=9e-3)),
+        "dense rx": (rng.uniform(0, 1, (n, n, 1, N, 1)).astype(np.float32),),
+        "dense rx tx": (rng.uniform(0, 1, (1, n, 1, N, M)).astype(np.float32),),
+    }[kind]
+
+
+WEIGHTS = ("none", "aperture_growth", "acceptance_angle", "tx_scanline", "tx_multiline",
+           "tx_parallelogram", "mixed", "dense rx", "dense rx tx")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep,weights", [(k, w) for k in sorted(KEEPS) for w in WEIGHTS
+                                          if (k, w) != ("", "none")])
+def test_k1c_k1d_match_plain(card, keep, weights):
+    """K1(c) and K1(d): every keep mode x each fused kind alone, two mixed
+    and dense weights, on real traces with fmod and on complex ones with 3
+    frames, for the three transmit models and every sampler, against the
+    plain version (fused_weights + das): one launch per block of frames
+    (keep_rx: 2 real or 1 complex frames a launch, its sums in shared
+    memory), the image (I, N', M', *F)."""
+    apod = _weights(weights)
+    az = np.radians(np.linspace(-8.0, 8.0, 32))
+    ori = np.stack([np.sin(az), np.cos(az)])
+    for model in ("plane", "diverging", "virtual"):
+        x, pi, pr, pv, nv, t0 = problem(model)
+        for xg, fmod in ((torch.as_tensor(x).to(card), 1e6),
+                         (frame_traces(x, (3,), True).to(card), 0.0)):
+            for method in METHODS:
+                kw = dict(fs=4e6, tx_model=model, method=method, fmod=fmod, apod=apod,
+                          im_shape=(64, 64, 1), orientations=ori, **KEEPS[keep])
+                counts = das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES
+                got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
+                torch.cuda.synchronize()
+                assert das_cuda.KEEP_LAUNCHES - counts[0] == (
+                    0 if keep == "" else (3 if keep == "rx" and xg.ndim == 4 else 1))
+                assert (das_cuda.APOD_LAUNCHES > counts[1]) == bool(apod)
+                ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
+                assert got.shape == ref.shape and got.dtype == ref.dtype
+                err = float((got - ref).abs().max()) / float(ref.abs().max())
+                assert err < 1e-4, (model, method, fmod, xg.ndim, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", sorted(KEEPS))
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_k2c_matches_plain(card, keep, cplx):
+    """K2(c): every keep mode x (no weight, dense (I, N, 1), dense (1, X, 1,
+    N, M)) on perturbed tables, real with fmod and complex with 3 frames,
+    every sampler, against das_lut; a Fused descriptor raises TypeError."""
+    x, tau_rx, tau_tx, t0, fs = lut_problem(cplx=cplx)
+    xg = (frame_traces(x, (3,), True) if cplx else torch.as_tensor(x)).to(card)
+    for weights in ("none", "dense rx", "dense rx tx"):
+        if keep == "" and weights == "none":
+            continue
+        for method in METHODS:
+            kw = dict(fs=fs, method=method, fmod=0.0 if cplx else 1e6,
+                      apod=_weights(weights), im_shape=(64, 64, 1), **KEEPS[keep])
+            before = das_cuda.LUT_KEEP_LAUNCHES
+            got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw)
+            torch.cuda.synchronize()
+            assert das_cuda.LUT_KEEP_LAUNCHES > before
+            ref = das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, **kw)
+            assert got.shape == ref.shape and got.dtype == ref.dtype
+            err = float((got - ref).abs().max()) / float(ref.abs().max())
+            assert err < 1e-4, (weights, method, err)
+    with pytest.raises(TypeError):
+        das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, fs=fs, apod=_weights("aperture_growth"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["rx", "tx", "both"])
+def test_keep_kernel_by_transmit_chunks_and_repeats(card, keep, monkeypatch):
+    """das_keep_kernel across chunks of transmits (the layout budget cut to
+    force 3) and across receiver chunks (N 70: 32 + 32 + 6) with 300
+    pixels (a ragged block): the same image as in one chunk, within
+    float32 rounding, and two launches bit-identical."""
+    x, pi, pr, pv, nv, t0 = problem("virtual", N=70, M=9, n=20)
+    pi = pi[:300]
+    xg = torch.as_tensor(x).to(card)
+    kw = dict(fs=4e6, tx_model="virtual", method="cubic", apod=_weights("acceptance_angle"),
+              **KEEPS[keep])
+    one = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    assert torch.equal(one, das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw))
+    monkeypatch.setattr(das_cuda, "LAYOUT_BYTES", 3 * 4 * 4 * 512 * 70)
+    assert len(das_cuda.tx_chunks(xg, "cubic")) == 3
+    got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    assert float((got - one).abs().max()) <= 1e-5 * float(one.abs().max())
+    assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,N,M,F", [(1, 3, 2, 3), (3, 2, 1, 5), (130, 5, 40, 3), (70, 2, 7, 9)])
 def test_layout_kernel_frames_matches_plain(card, T, N, M, F):
@@ -409,7 +526,8 @@ def test_iq_ensemble_on_card(card):
     then us.DAS (K1(b)), us.bfDAS and the c0-map DAS (K2(b)) and
     method='cubic2x' with fmod = fc, with no device=: launches counted, each
     against kernel='plain', each frame's peak on its target. A t0 that
-    varies over frames is refused; keep modes still raise."""
+    varies over frames is refused; the keep modes run on K1(c) and K2(c),
+    and coherence_image on K1(c), each frame against kernel='plain'."""
     xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
     us = qt.UltrasoundSystem(
         tx=xdc, rx=xdc,
@@ -449,10 +567,18 @@ def test_iq_ensemble_on_card(card):
     bad = iq.replace(t0=np.zeros((1, 1, 3, 2), np.float32))
     with pytest.raises(ValueError, match="frames"):
         us.DAS(bad, fmod=us.fc)
-    for fn in (lambda: us.DAS(iq, fmod=us.fc, keep_rx=True),
-               lambda: us.bfDAS(iq, fmod=us.fc, keep_tx=True)):
-        with pytest.raises(NotImplementedError, match="\\(c\\)"):
-            fn()
+    # keep_rx holds one complex frame's sums a launch (2 launches), keep_tx 4
+    for fn, counter, launches in (
+            (lambda **k: us.DAS(iq, fmod=us.fc, keep_rx=True, **k), "KEEP_LAUNCHES", 2),
+            (lambda **k: us.bfDAS(iq, fmod=us.fc, keep_tx=True, **k), "LUT_KEEP_LAUNCHES", 1),
+            (lambda **k: us.coherence_image(iq, fmod=us.fc, **k), "KEEP_LAUNCHES", 2)):
+        before = getattr(das_cuda, counter)
+        b = fn()
+        torch.cuda.synchronize()
+        assert getattr(das_cuda, counter) == before + launches
+        ref = fn(kernel="plain")
+        assert b.shape == ref.shape and b.shape[-1] == 2
+        assert float((b - ref).abs().max()) < 1e-4 * float(ref.abs().max())
 
 
 def adjoint_problem(T=128, N=12, M=10, V=9, I=300, seed=44):
@@ -584,11 +710,21 @@ def test_plane_wave_path_on_card(card):
     assert (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES, fdbf_cuda.LAUNCHES) == \
         (counts[0] + 1, counts[1] + 2, counts[2] + 2)
     rf = chd.replace(data=chd.data.real.contiguous())
-    for fn in (lambda: us.bfDAS(chd, keep_rx=True), lambda: us.bfDAS(chd, keep_tx=True),
-               lambda: us.bfDAS(chd, apod=np.ones((1, 1, 1, 16, 1))),
-               lambda: us.bfDAS(rf, precision="bf16pair")):
-        with pytest.raises(NotImplementedError, match="K2"):
-            fn()
+    # K2(c): keep modes and dense weights, against kernel='plain'
+    for kw in (dict(keep_rx=True), dict(keep_tx=True),
+               dict(apod=np.linspace(0.5, 1.5, 16).reshape(1, 1, 1, 16, 1)),
+               dict(c0=cmap, apod=us.ap_aperture_growth(f=1.0), keep_tx=True)):
+        before = das_cuda.LUT_KEEP_LAUNCHES
+        fn = us.DAS if "c0" in kw else us.bfDAS
+        got = fn(chd, **kw)
+        torch.cuda.synchronize()
+        assert das_cuda.LUT_KEEP_LAUNCHES == before + 1
+        ref = fn(chd, kernel="plain", **kw)
+        assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), kw
+    with pytest.raises(NotImplementedError, match="K2\\(e\\)"):
+        us.bfDAS(rf, precision="bf16pair")
+    with pytest.raises(TypeError):
+        us.bfDAS(chd, apod=qt.Fused("aperture_growth"))
 
 
 @pytest.mark.cuda

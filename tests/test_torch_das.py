@@ -243,19 +243,18 @@ def test_das_sum_frames_fmod_cpu_is_plain(case):
 
 
 def test_kernels_leave_c_d_e_to_later_sub_slices():
-    """K1 and K2 now take frames and fmod (sub-slice (b)); keep modes,
-    apodization and trace precisions still name sub-slices (c), (d), (e)."""
+    """K1 and K2 now take frames and fmod (sub-slice (b)), keep modes and
+    apodization ((c), (d)): only the trace precisions still name a later
+    sub-slice, (e)."""
     x = torch.zeros((8, 2, 3, 2, 3))
-    why = lambda kern, **k: qt.UltrasoundSystem._ineligible(  # noqa: E731
-        kern, x, k.pop("apod", ()), **dict(dict(keep_rx=False, keep_tx=False,
-                                                precision="auto"), **k))
     for kern in ("K1", "K2"):
-        assert why(kern) is None
-        assert f"{kern}(c)" in why(kern, keep_rx=True)
-        assert f"{kern}(c)" in why(kern, keep_tx=True)
-        assert f"{kern}(d)" in why(kern, apod=(np.ones((1, 1, 1, 2, 1)),))
-        assert f"{kern}(e)" in why(kern, precision="bf16pair")
-        assert "(b)" not in str([why(kern, keep_rx=True), why(kern, precision="i8x4")])
+        for precision in ("auto", "f32"):
+            assert qt.UltrasoundSystem._ineligible(kern, x, precision) is None
+        for precision in ("bf16pair", "i8x4", "bf16"):
+            why = qt.UltrasoundSystem._ineligible(kern, x, precision)
+            assert f"{kern}(e)" in why and "(c)" not in why and "(d)" not in why
+        why = qt.UltrasoundSystem._ineligible(kern, x.to(torch.float64), "auto")
+        assert f"{kern}(e)" in why
 
 
 def test_trace_layout_cpu_is_plain():

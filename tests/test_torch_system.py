@@ -109,9 +109,10 @@ def test_plane_wave_das_matches_reference():
 
 
 def test_scope_raises_on_cpu(fsa):
-    """What raises with device="cpu" (kernel='cuda', Fused apodization), and
-    what no longer does: ``sample(method='freq')`` and ``method='cubic2x'``
-    run on the CPU, against the JAX package."""
+    """What raises with device="cpu" (kernel='cuda'), and what no longer
+    does: ``sample(method='freq')``, ``method='cubic2x'`` and Fused
+    apodization (materialized, as the JAX package's XLA path) run on the
+    CPU, against the JAX package."""
     us, chd, ust, chdt, scatt = fsa["us"], fsa["chd"], fsa["ust"], fsa["chdt"], fsa["scatt"]
     with pytest.raises(ValueError, match="CUDA"):
         ust.DAS(chdt, kernel="cuda", device="cpu")
@@ -129,8 +130,10 @@ def test_scope_raises_on_cpu(fsa):
     got = ust.DAS(chdt, method="cubic2x", device="cpu").numpy()
     ref = np.asarray(us.DAS(chd, method="cubic2x"))
     assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()
-    with pytest.raises(NotImplementedError, match="K1\\(d\\)"):
-        ust.DAS(chdt, apod=qt.Fused("aperture_growth", f=1.5), device="cpu")
+    got = ust.DAS(chdt, apod=qt.Fused("aperture_growth", f=1.5), device="cpu").numpy()
+    ref = np.asarray(us.DAS(chd, apod=q.Fused("aperture_growth", f=1.5)))
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("entry", ["greens", "simus", "calc_scat_all", "calc_scat_multi",
@@ -292,7 +295,8 @@ def _port_docs():
                 qt.UltrasoundSystem.focusTx, qt.UltrasoundSystem.bfDAS,
                 qt.UltrasoundSystem.bfDASLUT, qt.UltrasoundSystem.bfAdjoint,
                 qt.UltrasoundSystem.simus, qt.UltrasoundSystem.calc_scat_multi,
-                qt.UltrasoundSystem.calc_hp, from_reference):
+                qt.UltrasoundSystem.calc_hp, qt.UltrasoundSystem.coherence_image,
+                from_reference):
         ex = inspect.getdoc(obj).split("Example:", 1)[1]
         out.append((obj.__qualname__, textwrap.dedent(ex)))
     return out

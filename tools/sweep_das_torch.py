@@ -5,11 +5,18 @@ headline size (1024^2 pixels x 256 tx x 256 rx, T = 4096, plane waves,
 
     python3 tools/sweep_das_torch.py samplers  # every sampler and trace type
     python3 tools/sweep_das_torch.py tiles     # ... by the pixels' order
+    python3 tools/sweep_das_torch.py keep      # keep modes and weights
 
 ``samplers`` times the kernels (``csrc/das.cu``) for every sampler, real
 and complex traces, each with its trace layout (the traces transposed for
 nearest, stencil entries for the others), and the layout kernel alone;
 it first prints the registers ptxas gave each kernel variant it built.
+
+``keep`` times das_keep_kernel (``csrc/das_keep.cu``: K1(c), K1(d),
+K2(c)) beside the summed K1 for nearest and cubic: keep_rx, keep_tx, the
+summed call with fused aperture growth, acceptance angle and
+parallelogram, the summed call with a dense (I, N) weight, and K2
+keep_rx; it first prints the registers and stack frames of its variants.
 
 ``tiles`` times them with the headline's pixels listed in tiles of
 lateral x depth pixels instead of rows (a block takes 256 consecutive
@@ -78,6 +85,50 @@ def samplers(torch, prob, say):
                 f"layout kernel {lay:8.3f}")
 
 
+def keep(torch, prob, say):
+    from qups_tpu_torch.ops import das_cuda
+    from qups_tpu_torch.ops.das import delay_tables
+
+    x, pi, pr, pv, nv, t0, fs, cinv = prob
+    _, log = das_cuda.build_keep()
+    das_cuda.build()
+    fn, got = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        fn = m.group(1) if m else fn
+        k = fn and re.search(r"das_keep_kernelILi(\d)ELi(\d)E(f|6float2)Lb0ELi(\d)E", fn)
+        key = k and (k.group(1), METHODS[int(k.group(2))], k.group(3), k.group(4))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and k:
+            got.setdefault(key, [0, 0])[0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and k:
+            got.setdefault(key, [0, 0])[1] = int(m.group(1))
+    say("registers / stack bytes (ptxas) of das_keep_kernel, no rotation, by frames a "
+        "launch: " + ", ".join(
+            f"{'K2' if s == '3' else 'K1 src ' + s} {mth} {'real' if t == 'f' else 'complex'}"
+            f" F{nf}: {r} / {st}" for (s, mth, t, nf), (r, st) in sorted(got.items())))
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    n2 = pi.shape[0]
+    lo, hi = float(pr[:, 0].min()) - 1e-4, float(pr[:, 0].max()) + 1e-4
+    fused = (das_cuda.Fused("aperture_growth", f=1.5),
+             das_cuda.Fused("acceptance_angle", theta=45.0),
+             das_cuda.Fused("tx_parallelogram", xlo=lo, xhi=hi))
+    dense = torch.rand((n2, 1, 1, pr.shape[0], 1), device="cuda")
+    say("keep: the headline, real traces (ms, CUDA events, mean of 2 after a warm-up; "
+        "the layout kernel included):")
+    for method in ("nearest", "cubic"):
+        k1 = lambda **kw: das_cuda.das_sum(  # noqa: E731
+            x, pi, pr, pv, nv, t0, cinv, fs=fs, tx_model="plane", method=method, **kw)
+        cases = {"K1 summed": lambda: k1(), "keep_rx": lambda: k1(keep_rx=True),
+                 "keep_tx": lambda: k1(keep_tx=True), "fused x3": lambda: k1(apod=fused),
+                 "dense (I, N)": lambda: k1(apod=(dense,)),
+                 "K2 keep_rx": lambda: das_cuda.das_lut_sum(
+                     x, tau_rx, tau_tx, t0, fs=fs, method=method, keep_rx=True)}
+        say(f"    {method:8s} " + "   ".join(f"{name} {event_ms(torch, f, 2):9.3f}"
+                                           for name, f in cases.items()))
+
+
 def tile_order(n, tx, tz):
     """A permutation of the z-major n x n grid (rows iso-depth) that lists
     it in tiles of tx lateral x tz depth pixels."""
@@ -119,7 +170,7 @@ def tiles(torch, prob, say):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("samplers", "tiles"))
+    ap.add_argument("what", choices=("samplers", "tiles", "keep"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -145,7 +196,7 @@ def main():
         x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
         prob = (torch.as_tensor(x).cuda(), pi, pr, pv, nv, t0, fs, np.float32(1 / 1540.0))
         del x
-        {"samplers": samplers, "tiles": tiles}[args.what](torch, prob, say)
+        {"samplers": samplers, "tiles": tiles, "keep": keep}[args.what](torch, prob, say)
         say(f"card: {card}")
 
 
