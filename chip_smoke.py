@@ -16,7 +16,10 @@ per-bin GEMM, with its bf16 and directivity variants), K4
 (``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer),
 K5 (``qups_tpu_torch/csrc/greens_splat.cu``, the time-domain splat
 simulator) and the splat's finish kernel (``csrc/greens_finish.cu``) with
-nvcc, one process per source, all at once, and runs:
+nvcc, one process per source, all at once (with the reduced-precision
+units of K1 and K2, one per entry type and rotation: ``das_bf16.cu``,
+``das_i8.cu``, ``das_keep_bf16.cu``, ``das_keep_i8.cu``,
+``das_keep_acc16.cu`` and their ``_iq`` twins, K1(e) and K2(e)), and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times, ptxas registers, spills, stack frames
@@ -43,9 +46,10 @@ nvcc, one process per source, all at once, and runs:
    and acceptance angle and with the dense ``ap_aperture_growth`` (K1(d)),
    ``keep_rx``, ``keep_tx`` and ``coherence_image`` with cohfac and slsc
    (K1(c)), launches counted, each with the PSF check and against
-   ``kernel='plain'``; and that every option the kernels do not carry yet
-   (the trace precisions, K1(e)) raises ``NotImplementedError`` on the
-   card;
+   ``kernel='plain'``; the reduced trace precisions (K1(e)): DAS in
+   bf16pair and i8x4 and ``coherence_image`` in bf16pair, counted, each
+   with the PSF check, against its plain version at the same precision and
+   within 2e-2 of ``kernel='plain'`` (float32); complex128 traces cast;
 4. the headline size, 1024^2 pixels x 256 tx x 256 rx, T = 4096, every
    sampler (lanczos3 one repetition), timed with CUDA events, and the
    layout kernel alone beside its plain version and its bound;
@@ -64,8 +68,10 @@ nvcc, one process per source, all at once, and runs:
    the comparison with ``kernel='plain'``, and its fourth image,
    ``us.coherence_image(chd)`` (K1(c)); ``bfDAS`` with ``fmod`` and with a
    frame dim (K2(b)), ``bfDAS(keep_rx=True)`` and the c0-map DAS with a
-   dense weight (K2(c)) against the plain path; and that every option K2
-   and K4 do not carry yet raises ``NotImplementedError``;
+   dense weight (K2(c)) against the plain path; ``bfDAS`` in i8x4 (K2(e),
+   one scale per call) and the ``coherence_image`` in bf16pair (K1(e)),
+   counted, as phase 3's; complex128 traces cast; and that every option K4
+   does not carry yet raises ``NotImplementedError``;
 8. K2 (every sampler) and K4 at the headline size, each beside its plain
    version, K4 also beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
@@ -117,7 +123,19 @@ nvcc, one process per source, all at once, and runs:
 16. the headline, 1024^2 x 256 x 256, T 4096, cubic: keep_rx, keep_tx, the
    apodized summed call (K1(c), K1(d)), K2 keep_rx (K2(c)), and
    coherence_image's keep_rx call and its reduction (cohfac, slsc), each
-   against the plain version on every 64th pixel, beside its bound.
+   against the plain version on every 64th pixel, beside its bound;
+17. K1(e) and K2(e) against their plain versions at phase 12's shapes: the
+   layout kernel's bf16 and int8 entries bit for bit; every precision
+   (bf16pair, bf16 (K1), i8x4) x each sampler it takes x (the three
+   transmit models | perturbed tables) x two of real / real + fmod /
+   complex +- fmod x frames 1 | 3; keep modes x weights in bf16pair and
+   i8x4; the bfloat16 kept sums of ``QUPS_DAS_ACC16``;
+18. the headline at each reduced precision: K1(e) and K2(e) for every
+   sampler each precision takes, the layout kernel alone in each entry
+   width, the IQ headline in bf16pair cubic (phase 14's traces, 4 frames)
+   and keep_rx in i8x4 and, on float32 traces, with the bfloat16 kept sums
+   of ``QUPS_DAS_ACC16``, each beside the float32 time, the plain version
+   on every 64th pixel and its bound.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -136,6 +154,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 TOL = 1e-4  # max|kernel - plain| < TOL * max|plain|: the float32 standard
+BAND = 2e-2  # a reduced trace precision against float32, as the JAX package's tests hold it
 TOL_BF16 = 2e-3  # K4 with bf16 dot operands against the plain version at bf16
 # K3(b) against the plain version at bf16: both round the same operands. The
 # limit sits between the sound reading and a control, K3(a)'s float32
@@ -236,6 +255,13 @@ def phase0(torch, ops):
                lambda: ops.das_cuda.build_keep(iq=True)),
               ("K3", ops.greens_freq_cuda.build), ("K4", ops.fdbf_cuda.build),
               ("K5", ops.greens_cuda.build), ("finish", ops.greens_cuda.build_finish))
+    dc = ops.das_cuda
+    for q, what in ((1, "bf16"), (2, "int8")):  # K1(e), K2(e): one unit per entry type
+        builds += ((f"K1(e)+K2(e) {what}", lambda q=q: dc.build_q(q)),
+                   (f"K1(e)+K2(e) {what}, fmod", lambda q=q: dc.build_q(q, True)))
+    for q, what in ((1, "bf16"), (2, "int8"), (dc.F32X, "float32, bf16 kept sums")):
+        builds += ((f"K1(e)+K2(e) keep, {what}", lambda q=q: dc.build_keep_q(q)),
+                   (f"K1(e)+K2(e) keep, {what}, fmod", lambda q=q: dc.build_keep_q(q, True)))
 
     def timed(build):
         t = time.perf_counter()
@@ -533,17 +559,89 @@ def phase3(torch, qt, ops, errs):
               f"max_abs_err={a:.3e} rel={r:.3e}")
         assert r < TOL, (what, r)
     launches.update(_phase3_keep(torch, qt, das_cuda, us, targets, chd, b, errs))
-    checks = {
-        "precision bf16pair (K1(e))": lambda: us.DAS(rf, precision="bf16pair"),
-        "precision i8x4 (K1(e))": lambda: us.DAS(rf, precision="i8x4"),
-        "complex128 traces (K1(e))": lambda: us.DAS(chd.replace(data=chd.data.to(torch.complex128))),
+    launches.update(_phase3_precision(torch, das_cuda, us, targets, chd, b, errs))
+    # complex128 traces are cast to complex64 before K1: the same image
+    before = das_cuda.LAUNCHES
+    wide = us.DAS(chd.replace(data=chd.data.to(torch.complex128)))
+    torch.cuda.synchronize()
+    assert das_cuda.LAUNCHES == before + 1 and torch.equal(wide, b)
+    print("phase3 complex128 traces run on K1 after the cast: the complex64 image, bit for bit")
+    return launches
+
+
+def _k1_plain(das_cuda, us, chd, precision, **kw):
+    """The plain version of K1 at ``precision`` on ``us``'s geometry, shaped
+    as ``us.DAS`` returns it (cubic)."""
+    pv, nv, model = us._tx_geometry()
+    img = das_cuda.das_sum_plain(chd.data, us._pixels(), us.rx.positions().T, pv, nv, chd.t0,
+                                 np.reciprocal(np.float32(us.seq.c0)), fs=float(chd.fs),
+                                 tx_model=model, method="cubic", precision=precision, **kw)
+    return img.reshape(tuple(us.scan.shape) + tuple(img.shape[1:]))
+
+
+def _cohfac_image(img, nd):
+    """coherence_image's cohfac reduction of a keep_rx image (*scan, N, 1)."""
+    from qups_tpu_torch.ops.coherence import cohfac
+
+    return cohfac(img.select(nd + 1, 0), axis=nd).abs()
+
+
+def _precision_checks(torch, us, targets, b, runs, errs, phase):
+    """Each of ``runs`` ({name: (call, plain at its precision, errs key or
+    None for a coherence image)}), already run into ``imgs``: the PSF, the
+    limit TOL against the plain version at the same precision, and BAND
+    against kernel='plain' (float32: the plain path ignores precision)."""
+    for name, (fn, plain, kern, got) in runs.items():
+        assert got.is_cuda and bool(torch.isfinite(got).all()), name
+        ref, t_plain = _sync_s(torch, plain)
+        f32, _ = _sync_s(torch, lambda: fn(kernel="plain"))
+        _, t_k = _sync_s(torch, fn)
+        assert got.shape == ref.shape == f32.shape, (name, got.shape, ref.shape, f32.shape)
+        if kern is None:
+            _coherence_psf(us, got, b, targets, name, phase)
+            a = float((got - ref).abs().max())
+            r = a / float(ref.abs().max())
+        else:
+            _psf(us, got, targets, name, phase)
+            a, r = errs[kern].add(got, ref, f"{phase} {name}")
+        band = float((got - f32).abs().max()) / float(f32.abs().max())
+        print(f"{phase} {name:44s} {tuple(got.shape)} vs plain at its precision: "
+              f"max_abs_err={a:.3e} rel={r:.3e}; vs kernel='plain' (float32): rel {band:.3e}; "
+              f"wall (host clock, synchronised, warm) {t_k * 1e3:.3f} ms vs plain "
+              f"{t_plain * 1e3:.3f} ms")
+        assert r < TOL and band < BAND, (name, r, band)
+
+
+def _phase3_precision(torch, das_cuda, us, targets, chd, b, errs):
+    """Phase 3's reduced precisions (K1(e)) on the FSA path, no device=:
+    DAS in bf16pair and i8x4, coherence_image in bf16pair; PREC_LAUNCHES
+    zeroed just before and read just after; each with the PSF check,
+    against its plain version at the same precision and against
+    kernel='plain' within the precision's band. Returns the launches."""
+    nd = len(us.scan.shape)
+    calls = {
+        "DAS bf16pair (K1(e))": (
+            lambda **k: us.DAS(chd, precision="bf16pair", **k),
+            lambda: _k1_plain(das_cuda, us, chd, "bf16pair"), "das_k1e"),
+        "DAS i8x4 (K1(e))": (
+            lambda **k: us.DAS(chd, precision="i8x4", **k),
+            lambda: _k1_plain(das_cuda, us, chd, "i8x4"), "das_k1e"),
+        "coherence_image bf16pair (K1(e) keep_rx)": (
+            lambda **k: us.coherence_image(chd, precision="bf16pair", **k),
+            lambda: _cohfac_image(_k1_plain(das_cuda, us, chd, "bf16pair", keep_rx=True), nd),
+            None),
     }
-    before = (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES,
-              das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES)
-    for what, fn in checks.items():
-        _expect_not_implemented(fn, what, "phase3")
-    assert (das_cuda.LAUNCHES, das_cuda.LAYOUT_LAUNCHES, gfc.LAUNCHES,
-            das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES) == before
+    das_cuda.PREC_LAUNCHES = 0
+    t = time.perf_counter()
+    imgs = {name: fn() for name, (fn, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"das_k1e": das_cuda.PREC_LAUNCHES}
+    print(f"phase3 reduced precisions (3 calls, no device=): {t_path:.3f} s (first calls); "
+          f"launches {launches}")
+    assert launches == {"das_k1e": 3}, launches
+    _precision_checks(torch, us, targets, b, {n: c + (imgs[n],) for n, c in calls.items()},
+                      errs, "phase3")
     return launches
 
 
@@ -887,12 +985,37 @@ def phase7(torch, qt, ops, errs):
         print(f"phase7 {what} runs on K2: {tuple(got[what].shape)} {got[what].dtype}; vs "
               f"plain: max_abs_err={a:.3e} rel={r:.3e}")
         assert r < TOL, (what, r)
+    # K2(e) and K1(e) on the demo: bfDAS in i8x4 (one scale per call) and
+    # the demo's coherence image in bf16pair, counted; complex128 traces
+    tables = us.das_delay_tables(device="cuda")
+    nd = len(us.scan.shape)
+
+    def k2_plain(precision):
+        img = das_cuda.das_lut_sum_plain(chd.data, *tables, chd.t0, fs=float(chd.fs),
+                                         method="cubic", precision=precision)
+        return img.reshape(tuple(us.scan.shape) + tuple(img.shape[1:]))
+
+    e_calls = {
+        "bfDAS i8x4 (K2(e))": (lambda **k: us.bfDAS(chd, precision="i8x4", **k),
+                               lambda: k2_plain("i8x4"), "das_lut_k2e"),
+        "coherence_image bf16pair (K1(e) keep_rx)": (
+            lambda **k: us.coherence_image(chd, precision="bf16pair", **k),
+            lambda: _cohfac_image(_k1_plain(das_cuda, us, chd, "bf16pair", keep_rx=True), nd),
+            None),
+    }
+    das_cuda.PREC_LAUNCHES = das_cuda.LUT_PREC_LAUNCHES = 0
+    e_imgs = {name: fn() for name, (fn, _, _) in e_calls.items()}
+    torch.cuda.synchronize()
+    launches["das_lut_k2e"] = das_cuda.LUT_PREC_LAUNCHES
+    assert (das_cuda.LUT_PREC_LAUNCHES, das_cuda.PREC_LAUNCHES) == (1, 1), launches
+    _precision_checks(torch, us, pos, imgs["DAS (K1)"],
+                      {n: c + (e_imgs[n],) for n, c in e_calls.items()}, errs, "phase7")
+    before = das_cuda.LUT_LAUNCHES
+    wide = us.bfDAS(chd.replace(data=chd.data.to(torch.complex128)))
+    torch.cuda.synchronize()
+    assert das_cuda.LUT_LAUNCHES == before + 1 and torch.equal(wide, imgs["bfDAS (K2)"])
+    print("phase7 complex128 traces run on K2 after the cast: the complex64 image, bit for bit")
     checks = {
-        "bfDAS precision bf16pair (K2(e))": lambda: us.bfDAS(rf, precision="bf16pair"),
-        "bfDASLUT complex128 traces (K2(e))": lambda: us.bfDAS(
-            chd.replace(data=chd.data.to(torch.complex128))),
-        "coherence_image precision bf16pair (K1(e))": lambda: us.coherence_image(
-            chd, precision="bf16pair"),
         "bfAdjoint 300 pulses (K4(b))": lambda: fdbf_cuda.bf_adjoint_cuda(
             torch.zeros((64, 4, 300), device="cuda"), np.zeros((8, 4)), np.zeros((8, 2)),
             np.zeros((2, 300)), np.ones((2, 300)), 0.0, np.zeros(300), np.arange(3),
@@ -948,7 +1071,7 @@ def phase8(torch, ops, k1_ms, errs):
         assert r < TOL, (method, r)
         k2[method] = (ms, t_plain * 1e3)
     del xg, got, ref, tau_rx, tau_tx
-    k2 = k2["cubic"]
+    k2_all, k2 = {m: v[0] for m, v in k2.items()}, k2["cubic"]
 
     # K4: 256 receivers, 256 elements firing 256 plane waves (+-20 deg),
     # 64 bins around the 7.8 MHz of a 4096-sample trace at 31.25 MHz
@@ -985,7 +1108,7 @@ def phase8(torch, ops, k1_ms, errs):
         assert r < tol, (precision, r)
         k4[precision] = (k_ms, t_plain * 1e3, b, lib[precision])
         del got, ref
-    return k2, k4
+    return k2, k4, k2_all
 
 
 def _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, fs, nb=4):
@@ -1512,7 +1635,8 @@ def phase14(torch, qt, das_cuda, errs):
     sampler: the 4 frames in one call, the same frames as 4 one-frame calls,
     and both without fmod, timed with CUDA events (mean of 3
     after a warm-up, lanczos3 1), each against the plain version on every
-    64th pixel. Returns {kernel: (ms, plain ms scaled, bound)} at cubic."""
+    64th pixel. Returns {kernel: (ms, plain ms scaled, bound)} at cubic, and
+    the IQ traces with the geometry and pixel subset, for phase 18."""
     import bench  # on the path since phase 4
     from qups_tpu_torch.ops.das import delay_tables
 
@@ -1584,7 +1708,7 @@ def phase14(torch, qt, das_cuda, errs):
             if method == "cubic":
                 out[name] = (t4, 64 * t_plain * 1e3, b)
             del got, ref
-    return out
+    return out, (iq, pig, pr, pv, nv, sub)
 
 
 KEEP_MODES = {"": {}, "rx": dict(keep_rx=True), "tx": dict(keep_tx=True),
@@ -1768,6 +1892,301 @@ def phase16(torch, qt, das_cuda, k1_cubic_ms, errs):
     return out, coh
 
 
+# K1(e) and K2(e): each reduced precision and the samplers it takes
+PREC_METHODS = {"bf16pair": METHODS, "bf16": METHODS, "i8x4": ("cubic", "lanczos3")}
+# The flops of a K1(e) / K2(e) term, as phase 18's bounds count them: the
+# least arithmetic the function needs, an FMA 2 flops (the float32 peak's
+# count), nothing for the storage format's decode. Once per term: the delay
+# (K1 4, K2 3) and the tap base (nearest 1) and fraction (3 in all); the
+# sampler on the rounded taps of each of the term's s tap sets (s = F
+# frames, 2 F for complex traces) in its cheapest form: linear 3 a set (a
+# difference and an FMA); cubic min(1 + 15 s, 11 + 7 s), either Horner on
+# tap differences (2a = (p3 - p0) + 3 (p1 - p2) 4, 2b = (p0 + p2) - 2 p1 - 2a
+# 4, 2c = p2 - p0 1, then three FMAs on u and u / 2, 6, 15 a set; u / 2 1
+# once) or the Catmull-Rom weights of u once (11, their sum being 1) and a
+# 4-tap dot a set (7); lanczos3 its weights 30 once and the dot 7 a set;
+# the sum 1 a frame and part; remodulation the phase and its sincosf 21
+# once, the product 6 a complex frame (2 a real one). 'i8x4' scales each
+# transmit's sum once: 2 flops a frame and part per (pixel, transmit), 2 / N
+# a term, or, where the receivers are kept (keep_rx), the sum becomes an FMA
+# with s_m / 127, 1 more a frame and part.
+
+
+def _lp_term_ops(precision, method, lut, F=1, cplx=False, rot=False, keep_rx=False, N=256):
+    parts = 2 if cplx else 1
+    sets = F * parts
+    sampler = {"nearest": 0, "linear": 3 * sets, "cubic": min(1 + 15 * sets, 11 + 7 * sets),
+               "lanczos3": 30 + 7 * sets}[method]
+    sums = F * (2 if cplx or rot else 1)
+    scale = (1.0 if keep_rx else 2.0 / N) * sums if precision == "i8x4" else 0.0
+    remod = 21 + F * (6 if cplx else 2) if rot else 0
+    return (3 if lut else 4) + (1 if method == "nearest" else 3) + sampler + sums + scale + remod
+
+
+def _layout_parity_q(torch, das_cuda, lerrs, x, method, precision, where):
+    """The layout kernel's narrow entries against trace_layout_plain, bit
+    for bit (int16 bf16 bits or int8 taps)."""
+    sc = das_cuda.i8_scale(x) if precision == "i8x4" else None
+    got = das_cuda.trace_layout(x, method, precision=precision, scale=sc)
+    ref = das_cuda.trace_layout_plain(x, method, precision, sc)
+    assert got.dtype == ref.dtype and torch.equal(got, ref), where
+    lerrs.add(got.to(torch.int32), ref.to(torch.int32), where)
+
+
+def _acc16_check(torch, das_cuda, got, ref, k, where):
+    """QUPS_DAS_ACC16's limit: every value of ``got`` a bfloat16, within
+    TOL of the largest plus k bfloat16 steps (2^-7 of its size) of the
+    plain version ``ref``, which rounds at the same k stores (a sum whose
+    float32 value lies within rounding of a tie may round the other way),
+    and fewer than 1 % of values past TOL; returns that share."""
+    assert torch.equal(got, das_cuda.round_bf16_even(got)), where
+    off = (got - ref).abs() - TOL * float(ref.abs().max())
+    assert bool((off <= k * 2.0 ** -7 * ref.abs()).all()), where
+    share = float((off > 0).float().mean())
+    assert share < 1e-2, (where, share)
+    return share
+
+
+def phase17(torch, qt, das_cuda, errs):
+    """K1(e) and K2(e) against their plain versions at phase 12's and 15's
+    shapes (T 2048, N 128, M 32, 128^2 px): the layout kernel's narrow
+    entries bit for bit; every precision x each sampler it takes x (the
+    three transmit models | perturbed tables, not 'bf16') x two of (real,
+    real + fmod, complex, complex + fmod) x frames 1 | 3 in turn; keep
+    modes x weights (none, fused mixed, dense (I, N, 1), tx_multiline) in
+    bf16pair and i8x4; the bfloat16 kept sums of QUPS_DAS_ACC16 (keep_rx,
+    keep_tx at f32, bf16pair, i8x4), whose limit allows one bfloat16 step at
+    a value whose float32 sum lies within rounding of a tie."""
+    T, N, M, n, c0 = 2048, 128, 32, 128, 1540.0
+    srcs = {m: _crossing_problem(torch, m, T, N, M, n) for m in ("plane", "diverging",
+                                                                 "virtual")}
+    tau_rx, tau_tx, t0l, fsl, _ = _lut_problem(torch, T, N, M, n, 17)
+    az = np.radians(np.linspace(-10.0, 10.0, N))
+    ori = np.stack([np.sin(az), np.cos(az)])
+    rng = np.random.default_rng(17)
+    kinds = [(cplx, rot, fd) for cplx, rot in ((False, False), (False, True), (True, False),
+                                                (True, True)) for fd in ((), (3,))]
+    traces = {}
+
+    def trace(cplx, fd):
+        if (cplx, fd) not in traces:
+            traces[cplx, fd] = _frame_traces(torch, T, N, M, fd, cplx, 170 + len(traces))
+        return traces[cplx, fd]
+
+    t = time.perf_counter()
+    for precision, methods in PREC_METHODS.items():
+        for method in methods:
+            for cplx, fd in ((False, ()), (True, (3,))):
+                _layout_parity_q(torch, das_cuda, errs["das_layout"], trace(cplx, fd), method,
+                                 precision, f"phase17 layout {precision} {method} "
+                                            f"cplx={cplx} F={fd}")
+
+    def call(src, precision, method, cplx, rot, fd, **extra):
+        xg = trace(cplx, fd)
+        kw = dict(method=method, fmod=FMOD if rot else 0.0, precision=precision, **extra)
+        if src == "tables":
+            return (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                    (xg, tau_rx, tau_tx, t0l), dict(kw, fs=fsl), "das_lut_k2e")
+        p = srcs[src]
+        return (das_cuda.das_sum, das_cuda.das_sum_plain, (xg,) + p[:5] + (np.float32(1 / c0),),
+                dict(kw, fs=p[5], tx_model=src, orientations=ori), "das_k1e")
+
+    def check(kern, plain, args, kw, name, where):
+        before = das_cuda.PREC_LAUNCHES + das_cuda.LUT_PREC_LAUNCHES
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        assert das_cuda.PREC_LAUNCHES + das_cuda.LUT_PREC_LAUNCHES > before, where
+        ref = plain(*args, **kw)
+        a, r = errs[name].add(got, ref, where)
+        assert r < TOL, (where, r)
+        return r
+
+    count, worst = 0, {}
+    for pi_, (precision, methods) in enumerate(PREC_METHODS.items()):
+        for mi, method in enumerate(methods):
+            for si, src in enumerate(("plane", "diverging", "virtual", "tables")):
+                if src == "tables" and precision == "bf16":
+                    continue  # K2 takes no 'bf16', as das_lut_plan
+                for j in range(2):
+                    cplx, rot, fd = kinds[(pi_ + mi + si + 4 * j) % len(kinds)]
+                    c = call(src, precision, method, cplx, rot, fd)
+                    r = check(*c, f"phase17 {precision} {method} {src} cplx={cplx} "
+                                  f"fmod={rot} F={fd}")
+                    worst[precision] = max(worst.get(precision, 0.0), r)
+                    count += 1
+    weights = {"none": (), "mixed": (qt.Fused("aperture_growth", f=1.5),
+                                     qt.Fused("tx_parallelogram", xlo=-12e-3, xhi=14e-3)),
+               "dense (I, N, 1)": (rng.uniform(0, 1, (n, n, 1, N, 1)).astype(np.float32),),
+               "tx_multiline": (qt.Fused("tx_multiline", dlat=1.2e-3,
+                                         lat_tx=np.linspace(-15e-3, 15e-3, M)),)}
+    for pi_, precision in enumerate(("bf16pair", "i8x4")):
+        for ki, keep in enumerate(KEEP_MODES):
+            for wi, (kind, apod) in enumerate(weights.items()):
+                if keep == "" and kind == "none":
+                    continue
+                fused = any(isinstance(a, qt.Fused) for a in apod)
+                src = ("plane", "diverging", "virtual", "tables")[(ki + wi) % (3 if fused else 4)]
+                cplx, rot, fd = kinds[(pi_ + ki + wi) % len(kinds)]
+                method = (("nearest", "cubic") if precision == "bf16pair"
+                          else ("cubic", "lanczos3"))[(ki + wi) % 2]
+                c = call(src, precision, method, cplx, rot, fd, apod=apod, im_shape=(n, n, 1),
+                         **KEEP_MODES[keep])
+                r = check(*c, f"phase17 keep={keep!r} {kind} {precision} {method} {src} "
+                              f"cplx={cplx} fmod={rot} F={fd}")
+                worst[f"{precision} keep"] = max(worst.get(f"{precision} keep", 0.0), r)
+                count += 1
+    # QUPS_DAS_ACC16: the kept sums stored as bfloat16, K1 only
+    os.environ["QUPS_DAS_ACC16"] = "1"
+    try:
+        acc = []
+        for precision in ("f32", "bf16pair", "i8x4"):
+            for keep, k in (("rx", 1), ("tx", -(-N // das_cuda.NC))):
+                kern, plain, args, kw, _ = call("virtual", precision, "cubic", False, True, (),
+                                                **KEEP_MODES[keep])
+                before = das_cuda.PREC_LAUNCHES
+                got = kern(*args, **kw)
+                torch.cuda.synchronize()
+                assert das_cuda.PREC_LAUNCHES == before + 1
+                ref = plain(*args, **kw)
+                share = _acc16_check(torch, das_cuda, got, ref, k, (precision, keep))
+                acc.append(f"{precision} keep_{keep} {share:.2e}")
+                count += 1
+    finally:
+        del os.environ["QUPS_DAS_ACC16"]
+    print(f"phase17 K1(e), K2(e) vs plain: {count} calls in {time.perf_counter() - t:.1f} s; "
+          "worst rel: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + "; QUPS_DAS_ACC16 (every value a bfloat16; share of values off by one bfloat16 "
+          "step): " + ", ".join(acc) + f"  ((T,N,M,I)={(T, N, M, n * n)})")
+
+
+def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
+    """The headline (1024^2 px x 256 tx x 256 rx, T 4096, plane wave, real)
+    at each reduced precision: K1(e) for bf16pair (every sampler), bf16
+    (cubic: the same kernel, its layout rounds half to even) and i8x4
+    (cubic, lanczos3), K2(e) for bf16pair and i8x4, the layout kernel
+    alone in each entry width; then the IQ headline (phase 14's traces,
+    4 frames, fmod 5 MHz) in bf16pair cubic and the headline's keep_rx in
+    i8x4 and with QUPS_DAS_ACC16 (float32 traces). CUDA events (mean of 3 after a warm-up; lanczos3 1), each beside
+    the float32 time (phases 4, 8, 14, 16), the plain version on every 64th
+    pixel and its bound. Returns {kernel: (ms, plain ms scaled, bound)} for
+    the JSON rows (bf16pair cubic)."""
+    import bench  # on the path since phase 4
+    from qups_tpu_torch.ops.das import delay_tables
+
+    n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
+    x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.as_tensor(x).cuda()
+    del x
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    I = n * n
+    terms = float(I) * N * M
+    sub = torch.arange(0, I, 64, device="cuda")
+    pig = torch.as_tensor(pi).cuda()
+    cinv = np.float32(1 / 1540.0)
+    out = {}
+    cases = [("K1", p, m) for p in ("bf16pair", "bf16", "i8x4") for m in PREC_METHODS[p]
+             if p != "bf16" or m == "cubic"]
+    cases += [("K2", p, m) for p in ("bf16pair", "i8x4") for m in PREC_METHODS[p]]
+    for kern, precision, method in cases:
+        lut = kern == "K2"
+        kw = dict(fs=fs, method=method, precision=precision)
+        if lut:
+            run = lambda rows=None, f=das_cuda.das_lut_sum: f(  # noqa: E731
+                xg, tau_rx if rows is None else tau_rx[rows],
+                tau_tx if rows is None else tau_tx[rows], t0, **kw)
+            plain = lambda rows: run(rows, das_cuda.das_lut_sum_plain)  # noqa: E731
+        else:
+            run = lambda rows=None, f=das_cuda.das_sum: f(  # noqa: E731
+                xg, pig if rows is None else pig[rows], pr, pv, nv, t0, cinv,
+                tx_model="plane", **kw)
+            plain = lambda rows: run(rows, das_cuda.das_sum_plain)  # noqa: E731
+        ms = _ms(run, _reps(method))
+        got = run()[sub]
+        ref, t_plain = _sync_s(torch, lambda: plain(sub))
+        name = "das_lut_k2e" if lut else "das_k1e"
+        a, r = errs[name].add(got, ref, f"phase18 {kern} {precision} {method} every 64th pixel")
+        assert r < TOL, (kern, precision, method, r)
+        unit = 1 if precision == "i8x4" else 2
+        lay = unit * {"nearest": 1, "linear": 2}.get(method, 4) * float(T) * N * M
+        ops = _lp_term_ops(precision, method, lut)
+        b = bound(ops * terms, F32_FLOPS, lay + 4.0 * I + (4.0 * I * (N + M) if lut else 0.0))
+        f32 = (k2_ms if lut else k1_ms)[method]
+        print(f"phase18 {kern}(e) {precision:8s} {method:8s} 1024^2 x 256 x 256 T=4096: "
+              f"{ms:.3f} ms (layout kernel included; float32 {f32:.3f} ms, x{ms / f32:.3f}); "
+              f"{terms / (ms / 1e3):.4e} sums/s; plain on every 64th pixel "
+              f"{t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}; bound {ops:.6g} flop "
+              f"per term, {lay / 2**30:.2f} GiB of entries")
+        _share(f"phase18 {kern}(e) {precision} {method}", ms, b)
+        if precision == "bf16pair" and method == "cubic":
+            out[name] = (ms, 64 * t_plain * 1e3, b)
+        del got, ref
+    for precision in ("f32", "bf16pair", "i8x4"):  # the layout kernel alone, cubic
+        sc = das_cuda.i8_scale(xg) if precision == "i8x4" else None
+        ms = _ms(lambda: das_cuda.trace_layout(xg, "cubic", precision=precision, scale=sc))
+        unit = {"f32": 4, "bf16pair": 2, "i8x4": 1}[precision]
+        b = bound(0.0, F32_FLOPS, 4.0 * T * N * M + unit * 4.0 * T * N * M)
+        print(f"phase18 layout kernel alone, cubic, {precision}: {ms:.3f} ms")
+        _share(f"phase18 layout kernel, cubic, {precision}", ms, b)
+    # the headline's keep_rx in i8x4 (K1(e) in the keep kernel)
+    kw = dict(fs=fs, tx_model="plane", method="cubic", keep_rx=True, precision="i8x4")
+    ms = _ms(lambda: das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw), reps=2)
+    got = das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw)[sub]
+    ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(xg, pig[sub], pr, pv, nv, t0,
+                                                                 cinv, **kw))
+    a, r = errs["das_k1e"].add(got, ref, "phase18 keep_rx i8x4 every 64th pixel")
+    assert r < TOL, r
+    ops = _lp_term_ops("i8x4", "cubic", False, keep_rx=True)
+    b = bound(ops * terms, F32_FLOPS, float(T) * N * M * 4 + 4.0 * I * N)
+    print(f"phase18 keep_rx i8x4 (K1(e) keep kernel) cubic: {ms:.3f} ms (float32, phase 16: "
+          f"{keep['das_k1c'][0]:.3f} ms); plain on every 64th pixel {t_plain * 1e3:.3f} ms; "
+          f"max_abs_err={a:.3e} rel={r:.3e}; bound {ops:.6g} flop per term")
+    _share("phase18 keep_rx i8x4", ms, b)
+    # the headline's keep_rx on float32 traces with QUPS_DAS_ACC16: the kept
+    # sums stored as bfloat16 (2 of the output's 4 bytes a sum; K1(c)'s 14
+    # flops a term, as phase 16)
+    kw = dict(fs=fs, tx_model="plane", method="cubic", keep_rx=True)
+    os.environ["QUPS_DAS_ACC16"] = "1"
+    try:
+        ms = _ms(lambda: das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw), reps=2)
+        got = das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw)[sub]
+        ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(xg, pig[sub], pr, pv, nv,
+                                                                     t0, cinv, **kw))
+    finally:
+        del os.environ["QUPS_DAS_ACC16"]
+    chunks = len(das_cuda.tx_chunks(xg, "cubic"))  # keep_rx stores once a chunk
+    share = _acc16_check(torch, das_cuda, got, ref, chunks, "phase18 keep_rx f32 ACC16")
+    a = float((got - ref).abs().max())
+    r = a / float(ref.abs().max())
+    b = bound(14.0 * terms, F32_FLOPS, 4.0 * T * N * M + 12.0 * I + 2.0 * I * N)
+    print(f"phase18 keep_rx f32 QUPS_DAS_ACC16=1 (K1(e) keep kernel, bfloat16 kept sums) "
+          f"cubic: {ms:.3f} ms (float32 sums, phase 16: {keep['das_k1c'][0]:.3f} ms); plain on "
+          f"every 64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e} "
+          f"({chunks} store(s) a value; {share:.2e} of values one bfloat16 step off)")
+    _share("phase18 keep_rx f32 ACC16", ms, b)
+    del xg, got, ref, tau_rx, tau_tx
+    # the IQ headline in bf16pair cubic, 4 frames in one call
+    iq, pigq, prq, pvq, nvq, subq = iq_args
+    xq = iq.data
+    F = xq.shape[3]
+    kw = dict(fs=iq.fs, tx_model="plane", method="cubic", fmod=FMOD, precision="bf16pair")
+    args = lambda rows=None: (xq, pigq if rows is None else pigq[rows], prq, pvq, nvq,  # noqa
+                              iq.t0, cinv)
+    ms = _ms(lambda: das_cuda.das_sum(*args(), **kw))
+    got = das_cuda.das_sum(*args(), **kw)[subq]
+    ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(*args(subq), **kw))
+    a, r = errs["das_k1e"].add(got, ref, "phase18 IQ bf16pair cubic every 64th pixel")
+    assert r < TOL, r
+    ops = _lp_term_ops("bf16pair", "cubic", False, F=F, cplx=True, rot=True)
+    b = bound(ops * terms, F32_FLOPS, 2.0 * 2 * 4 * xq.numel() + 8.0 * I * F)
+    print(f"phase18 IQ headline, K1(e) bf16pair cubic, 4 frames in one call, T' "
+          f"{xq.shape[0]}: {ms:.3f} ms (float32, phase 14: {iqh['das_k1b'][0]:.3f} ms); "
+          f"layout in {len(das_cuda.tx_chunks(xq, 'cubic', 'bf16pair'))} chunk(s); plain on "
+          f"every 64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}; bound "
+          f"{ops:.6g} flop per term")
+    _share("phase18 IQ bf16pair cubic", ms, b)
+    return out
+
+
 def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     """K3's bytes read or written once: q and w of both sides (and the
     directivity slopes), and G (F, N, M) complex64."""
@@ -1809,7 +2228,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
              "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish", "das_k1b",
-             "das_lut_k2b", "das_k1c", "das_k1d", "das_lut_k2c")
+             "das_lut_k2b", "das_k1c", "das_k1d", "das_lut_k2c", "das_k1e", "das_lut_k2e")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
@@ -1820,15 +2239,18 @@ def main():
     phase5(torch, ops.das_cuda, errs["das_lut_k2"], errs["das_layout"])
     phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
     pw_launches = phase7(torch, qt, ops, errs)
-    (k2_ms, k2_plain_ms), k4 = phase8(torch, ops, k1_ms, errs)
+    (k2_ms, k2_plain_ms), k4, k2_all = phase8(torch, ops, k1_ms, errs)
     k5 = phase9(torch, qt, ops.greens_cuda, errs["greens_splat_k5"], errs["greens_finish"])
     sim_launches, k3c_path, ctl10 = phase10(torch, qt, ops, errs)
     big = phase11(torch, qt, ops.greens_freq_cuda, errs)
     phase12(torch, ops.das_cuda, errs, errs["das_layout"])
     iq_launches = phase13(torch, qt, ops, errs)
-    iqh = phase14(torch, qt, ops.das_cuda, errs)
+    iqh, iq_args = phase14(torch, qt, ops.das_cuda, errs)
     phase15(torch, qt, ops.das_cuda, errs)
     keep, coh = phase16(torch, qt, ops.das_cuda, k1_ms["cubic"], errs)
+    phase17(torch, qt, ops.das_cuda, errs)
+    lp = phase18(torch, ops.das_cuda, k1_ms, k2_all, iqh, iq_args, keep, errs)
+    del iq_args
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -1864,8 +2286,11 @@ def main():
     # K1(c) and K1(d): the apodized and coherence imaging of the FSA path
     # (phase 3, in launches already); K2(c): the demo path's bfDAS keep_rx
     # and c0-map DAS with a dense weight (phase 7)
+    # K1(e): the FSA path's DAS bf16pair, i8x4 and coherence_image bf16pair
+    # (phase 3, in launches already); K2(e): the demo path's bfDAS i8x4
     launches.update(das_k1b=iq_launches["das_k1b"], das_lut_k2b=iq_launches["das_lut_k2b"],
                     das_lut_k2c=pw_launches["das_lut_k2c"],
+                    das_lut_k2e=pw_launches["das_lut_k2e"],
                     das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
@@ -1938,6 +2363,22 @@ def main():
          "K2(c): keep_rx at the headline on the plane-wave tables (+ 2 GiB of tables); plain "
          "on every 64th pixel, scaled; launches: phase 7's bfDAS keep_rx and c0-map DAS with "
          "a dense weight"),
+        ("das_k1e", "qups_tpu_torch/csrc/das.cu (das_bf16.cu, das_i8.cu, das_keep_bf16.cu, "
+         "das_keep_i8.cu, das_keep_acc16.cu and their _iq twins)",
+         "qups_tpu/ops/das_pallas.py:174 (precisions: _pack_pairs :1346, _pack_quads :1323, "
+         "_quad_mix :1309, bf16 :2628, acc16 :2592)", *lp["das_k1e"], None,
+         "K1(e): the headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic, real, in bf16pair "
+         f"(bf16 taps, 8-byte entries; {_lp_term_ops('bf16pair', 'cubic', False):.6g} flop "
+         "per term, the least the cubic of four taps needs); the other widths, i8x4, the IQ "
+         "headline, keep_rx i8x4 and keep_rx with QUPS_DAS_ACC16 in phase 18's "
+         "lines; plain on every 64th pixel, scaled; launches: phase 3's DAS bf16pair, i8x4 "
+         "and coherence_image bf16pair"),
+        ("das_lut_k2e", "qups_tpu_torch/csrc/das.cu (das_bf16.cu, das_i8.cu, das_keep_bf16.cu, "
+         "das_keep_i8.cu and their _iq twins)",
+         "qups_tpu/ops/das_pallas.py:1607 (precisions: das_lut_plan :1906-1910, per-call "
+         "scale :2076-2083)", *lp["das_lut_k2e"], None,
+         "K2(e): as K1(e) on the plane-wave geometric tables (+ 2 GiB of tables); launches: "
+         "phase 7's bfDAS i8x4"),
         ("greens_finish", "qups_tpu_torch/csrc/greens_finish.cu",
          "qups_tpu/ops/greens_pallas.py:380", *k5["finish"], fin_b, None,
          "the pulse convolution and row shift of the main path's grid into (T, N, M) "

@@ -1,7 +1,8 @@
 // K1 and K2: delay-and-sum, float32 traces, real or complex (interleaved
 // complex64, such as the analytic traces greens returns), with frames and
 // IQ remodulation (sub-slices K1(b), K2(b)), keep modes and apodization
-// weights (K1(c), K1(d), K2(c)). Three kernel bodies serve both:
+// weights (K1(c), K1(d), K2(c)) and reduced-precision traces (K1(e),
+// K2(e); see "Reduced-precision traces" below). Three kernel bodies serve both:
 // das_kernel (summed, one frame, no remodulation), das_frames_kernel and
 // das_keep_kernel below; a compile-time switch (SRC) says where a term's
 // transmit and receive parts come from.
@@ -112,14 +113,44 @@
 //
 // PERF.md §5 compares the tile sizes below and the launch bound with the
 // alternatives measured.
+//
+// Reduced-precision traces (K1(e), K2(e); the TPU kernel's precision modes,
+// das_pallas.py:1323-1354 and :2441-2479): the entry type Q is a template
+// parameter of Entry, sample(), the kernels and the layout kernel. F32 is
+// the float32 layout above, whose instantiations keep their code and
+// arguments. BF16 entries hold the taps as bfloat16 bits, 2 bytes each,
+// rounded by the layout kernel half away from zero ('bf16pair', the TPU
+// kernel's _pack_pairs) or half to even ('bf16'): nearest one sample,
+// linear (x[k], x[k+1]) in one 4-byte load, cubic and lanczos3 the four
+// taps x[k-1..k+2] in one 8-byte load. I8 entries hold the four taps as
+// int8, q = clip(rint(x 127 / s), -127, 127) with s one scale per transmit
+// (K1) or per call (K2, the same s for every transmit), in one 4-byte load
+// ('i8x4', _pack_quads; cubic and lanczos3 only). sample() widens the taps
+// (bf16: a shift; int8: a sign extension and a conversion) and forms the
+// sampler's weights from the fraction in float32; I8 takes s / 127 once
+// per (pixel, transmit, chunk of NC receivers) in the summed kernels, on
+// the transmit's sum over the chunk, and per term in the keep kernel,
+// folded into its transmit factor. Coefficients are not rounded: the coefficients of
+// rounded taps differ from rounded coefficients. F32X is the float32 layout
+// with the reduced-precision units' arguments: the keep kernel's kept sums
+// stored as bfloat16 (QUPS_DAS_ACC16, half the bytes of its output), which
+// the other entry types take too. These instantiations build in translation units of their own, one
+// per entry type and rotation (DAS_Q: das_bf16.cu, das_i8.cu,
+// das_keep_bf16.cu, das_keep_i8.cu, das_keep_acc16.cu and their _iq
+// twins), so the float32 units' variants stay as they were and the builds
+// run in parallel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 enum Src { PLANE = 0, DIVERGING = 1, VIRTUAL = 2, LUT = 3 };
 enum Method { NEAREST = 0, LINEAR = 1, CUBIC = 2, LANCZOS3 = 3 };
+// The entry types (ops/das_cuda.py _ENTRY): see the head of this file.
+enum Prec { F32 = 0, BF16 = 1, I8 = 2, F32X = 3 };
 
 constexpr int P = 256;        // pixels per block, one per thread
 constexpr int NC = 32;        // receivers per chunk of the receive table
@@ -142,6 +173,38 @@ struct Args {
   float cinv, fs;
   int add;                        // 1: add the sum to what out holds
 };
+
+// The unit of a layout of entry type Q: a float, a bfloat16's bits, an int8.
+template <int Q> struct UnitOf { using type = float; };
+template <> struct UnitOf<BF16> { using type = uint16_t; };
+template <> struct UnitOf<I8> { using type = uint8_t; };
+template <int Q> using Unit = typename UnitOf<Q>::type;
+
+// The reduced-precision units' arguments beside a kernel's own: qs the
+// dequantization scale s / 127 of each of the launch's transmits (I8), and
+// acc16, 1 when the keep kernel stores its kept sums as bfloat16.
+struct Lp {
+  const float* qs;
+  int acc16;
+};
+template <class B> struct WithLp : B {
+  Lp lp;
+};
+// A kernel's argument block: B for F32, B and Lp for the other entry types.
+template <int Q, class B> using QArgs = std::conditional_t<Q == F32, B, WithLp<B>>;
+
+template <int Q, class B> QArgs<Q, B> with_lp(const B& b, Lp lp) {
+  if constexpr (Q == F32) {
+    return b;
+  } else {
+    return WithLp<B>{b, lp};
+  }
+}
+
+// x advanced by `units` units of entry type Q (x points at a layout).
+template <int Q> const float* xadv(const float* x, int64_t units) {
+  return reinterpret_cast<const float*>(reinterpret_cast<const Unit<Q>*>(x) + units);
+}
 
 // das_frames_kernel's arguments: Args (x and out at the launch's first
 // frame, out (I, ldo)) and the frames and remodulation. das_kernel takes
@@ -175,7 +238,8 @@ __device__ __forceinline__ float dot3(float x, float y, float z, const float* __
 // p, with its value hidden from the compiler: the address of a term's
 // entry is then one wide multiply-add on p, where nvcc otherwise folds p's
 // own 64-bit arithmetic into every term's address.
-__device__ __forceinline__ const float* opaque(const float* p) {
+template <typename T>
+__device__ __forceinline__ const T* opaque(const T* p) {
   asm("" : "+l"(p));
   return p;
 }
@@ -215,21 +279,64 @@ __device__ __forceinline__ float dot4(float4 w, float4 v) {
   return w.x * v.x + w.y * v.y + w.z * v.z + w.w * v.w;
 }
 
-// Where a sampler finds tap base k in its trace's row: at float k S, S the
-// floats of a term's entries (F of them with F frames; nearest: one sample
-// each, the others one stencil entry each); E the floats of one entry.
+// ops/interp.py's Catmull-Rom weights of the fraction u, in its order.
+__device__ __forceinline__ float4 cubic_w(float u) {
+  const float u2 = u * u;
+  return make_float4(0.5f * (u * (-1.f + u * (2.f - u))), 0.5f * (2.f + u2 * (-5.f + 3.f * u)),
+                     0.5f * (u * (1.f + u * (4.f - 3.f * u))), 0.5f * (u2 * (u - 1.f)));
+}
+
+// A bfloat16 tap widened to float: the low or the high half of a word.
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// Four bfloat16 taps x[k-1..k+2] of an 8-byte entry; four int8 taps of a
+// 4-byte entry, lowest byte first.
+__device__ __forceinline__ float4 bf_taps(unsigned a, unsigned b) {
+  return make_float4(bf_lo(a), bf_hi(a), bf_lo(b), bf_hi(b));
+}
+__device__ __forceinline__ float4 i8_taps(unsigned w) {
+  return make_float4((float)((int)(w << 24) >> 24), (float)((int)(w << 16) >> 24),
+                     (float)((int)(w << 8) >> 24), (float)((int)w >> 24));
+}
+
+// v rounded to bfloat16, half to even, as torch's conversion rounds (a NaN
+// becomes the canonical one).
+__device__ __forceinline__ float round_bf16(float v) {
+  unsigned u = __float_as_uint(v);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return __uint_as_float(0x7FC00000u);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+__device__ __forceinline__ float2 round_bf16(float2 v) {
+  return make_float2(round_bf16(v.x), round_bf16(v.y));
+}
+
+template <typename A>
+__device__ __forceinline__ A scaled(A v, float w) {
+  if constexpr (sizeof(A) == sizeof(float)) {
+    return v * w;
+  } else {
+    return make_float2(v.x * w, v.y * w);
+  }
+}
+
+// Where a sampler finds tap base k in its trace's row: at unit k S, S the
+// units of a term's entries (F of them with F frames; nearest: one sample
+// each, the others one stencil entry each); E the units of one entry, the
+// same for every entry type (a unit is a float, or a tap of Q's).
 template <int METHOD, typename V>
 struct Entry {
   static constexpr int C = sizeof(V) / sizeof(float);  // 1 real, 2 complex
   static constexpr int E = (METHOD == NEAREST ? 1 : METHOD == LINEAR ? 2 : 4) * C;
 };
 
-// Floats of one entry of one frame, E.
+// Units of one entry of one frame, E.
 int entry_floats(int method, int cplx) {
   return (cplx ? 2 : 1) * (method == NEAREST ? 1 : method == LINEAR ? 2 : 4);
 }
 
-// The offset o that sample() takes for the trace at float `start` of xm:
+// The offset o that sample() takes for the trace at unit `start` of xm:
 // start - (bits of 2^23) S, wrapping.
 template <int METHOD, typename V>
 __device__ __forceinline__ unsigned row_origin(unsigned start,
@@ -239,21 +346,84 @@ __device__ __forceinline__ unsigned row_origin(unsigned start,
 
 // The sample at ti, 0 <= ti <= T-1 (any ti in that range: the caller
 // passes 0 for an invalid term and drops its value), of the trace whose
-// row starts at float o of xm, its tap bases S floats apart. 2^23 + ti,
+// row starts at unit o of xm, its tap bases S units apart. 2^23 + ti,
 // rounded, holds the tap base in
 // its low mantissa bits: rounded to nearest (half to even, as torch.round)
 // for nearest, down (floor) for the others; subtracting 2^23 again is
 // exact, and so is the fraction u. The bits of 2^23 are subtracted from
 // the entry's offset in unsigned (wrapping) arithmetic as part of o (see
-// row_origin), so the offset costs one shift-add.
-template <int METHOD, typename V>
-__device__ __forceinline__ V sample(const float* __restrict__ xm, unsigned o, float ti,
-                                    unsigned S = Entry<METHOD, V>::E) {
+// row_origin), so the offset costs one shift-add. BF16 and I8 entries:
+// see lp_sample.
+template <int METHOD, typename V, int Q = F32>
+__device__ __forceinline__ V sample(const Unit<Q>* __restrict__ xm, unsigned o, float ti,
+                                    unsigned S = Entry<METHOD, V>::E);
+
+template <int METHOD, typename V, int Q>
+__device__ __forceinline__ V lp_sample(const Unit<Q>* __restrict__ e, float ti, float r) {
+  constexpr bool CPLX = Entry<METHOD, V>::C == 2;
+  static_assert(Q == BF16 || (Q == I8 && (METHOD == CUBIC || METHOD == LANCZOS3)),
+                "int8 entries hold four taps");
+  if constexpr (METHOD == NEAREST) {
+    if constexpr (CPLX) {
+      const unsigned w = __ldg(reinterpret_cast<const unsigned*>(e));
+      return make_float2(bf_lo(w), bf_hi(w));
+    } else {
+      return bf_lo(__ldg(reinterpret_cast<const unsigned short*>(e)));
+    }
+  } else {
+    const float u = __fsub_rn(ti, __fsub_rn(r, 0x1p23f));
+    float c0, c1;
+    if constexpr (METHOD == LINEAR) {
+      // (x[k], x[k+1]): x[k] + u (x[k+1] - x[k])
+      if constexpr (CPLX) {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(e));
+        c0 = fmaf(u, bf_hi(q.x) - bf_lo(q.x), bf_lo(q.x));
+        c1 = fmaf(u, bf_hi(q.y) - bf_lo(q.y), bf_lo(q.y));
+      } else {
+        const unsigned q = __ldg(reinterpret_cast<const unsigned*>(e));
+        c0 = fmaf(u, bf_hi(q) - bf_lo(q), bf_lo(q));
+      }
+    } else {
+      // the four taps x[k-1..k+2] and the sampler's weights; complex: real
+      // taps, then imaginary
+      const float4 w = METHOD == CUBIC ? cubic_w(u) : lanczos_w(u);
+      if constexpr (Q == BF16) {
+        if constexpr (CPLX) {
+          const uint4 q = __ldg(reinterpret_cast<const uint4*>(e));
+          c0 = dot4(w, bf_taps(q.x, q.y));
+          c1 = dot4(w, bf_taps(q.z, q.w));
+        } else {
+          const uint2 q = __ldg(reinterpret_cast<const uint2*>(e));
+          c0 = dot4(w, bf_taps(q.x, q.y));
+        }
+      } else {
+        if constexpr (CPLX) {
+          const uint2 q = __ldg(reinterpret_cast<const uint2*>(e));
+          c0 = dot4(w, i8_taps(q.x));
+          c1 = dot4(w, i8_taps(q.y));
+        } else {
+          c0 = dot4(w, i8_taps(__ldg(reinterpret_cast<const unsigned*>(e))));
+        }
+      }
+    }
+    if constexpr (CPLX) {
+      return make_float2(c0, c1);
+    } else {
+      return c0;
+    }
+  }
+}
+
+template <int METHOD, typename V, int Q>
+__device__ __forceinline__ V sample(const Unit<Q>* __restrict__ xm, unsigned o, float ti,
+                                    unsigned S) {
   using L = Entry<METHOD, V>;
   constexpr bool CPLX = L::C == 2;
   const float r = METHOD == NEAREST ? __fadd_rn(ti, 0x1p23f) : __fadd_rd(ti, 0x1p23f);
-  const float* __restrict__ e = xm + (o + (unsigned)__float_as_int(r) * S);
-  if constexpr (METHOD == NEAREST) {
+  const Unit<Q>* __restrict__ e = xm + (o + (unsigned)__float_as_int(r) * S);
+  if constexpr (Q == BF16 || Q == I8) {
+    return lp_sample<METHOD, V, Q>(e, ti, r);
+  } else if constexpr (METHOD == NEAREST) {
     return __ldg(reinterpret_cast<const V*>(e));
   } else {
     const float u = __fsub_rn(ti, __fsub_rn(r, 0x1p23f));
@@ -316,16 +486,37 @@ __device__ __forceinline__ float tx_term(const Args& a, int m, int64_t i, float 
   }
 }
 
+// The dequantization scale of transmit m of the launch: s_m / 127 for I8
+// entries, else 1 (unused).
+template <int Q, class A>
+__device__ __forceinline__ float qscale(const A& a, int m) {
+  if constexpr (Q == I8) {
+    return __ldg(a.lp.qs + m);
+  } else {
+    return 1.f;
+  }
+}
+
+// A transmit's factor w of the keep kernel, I8: times s_m / 127.
+template <int Q, class A>
+__device__ __forceinline__ float tx_factor(const A& a, float w, int m) {
+  if constexpr (Q == I8) {
+    return w * qscale<Q>(a, m);
+  } else {
+    return w;
+  }
+}
+
 // __launch_bounds__(P, 1): with no minimum of blocks per SM given, ptxas
 // held the variants to 48 registers (5 blocks per SM) and spilled, and K2
 // linear took 124 ms at the headline against 67 ms with the registers it
 // needs (PERF.md §5). This kernel: one frame, no remodulation (K1(a),
 // K2(a)).
-template <int SRC, int METHOD, typename V>
-__global__ void __launch_bounds__(P, 1) das_kernel(const Args a) {
+template <int SRC, int METHOD, typename V, int Q = F32>
+__global__ void __launch_bounds__(P, 1) das_kernel(const QArgs<Q, Args> a) {
   __shared__ __align__(16) float R[P * RS];  // R[p][n]
   __shared__ float TX[MC * P];  // TX[j][p], each thread's own column: no barrier
-  const float* __restrict__ x = a.x;
+  const Unit<Q>* __restrict__ x = reinterpret_cast<const Unit<Q>*>(a.x);
   const int p = threadIdx.x;
   const int64_t i0 = (int64_t)blockIdx.x * P;
   const int64_t i = i0 + p;
@@ -371,16 +562,22 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const Args a) {
         if (j < mc) TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
       for (int j = 0; j < mc; ++j) {
         const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m0 + j);
-        const float* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
-        // one term: the receiver whose trace starts at float o of xm (as
+        [[maybe_unused]] const float sc = qscale<Q>(a, m0 + j);  // I8: s_m / 127
+        [[maybe_unused]] V part{};  // I8: this transmit's sum over the chunk's receivers
+        const Unit<Q>* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
+        // one term: the receiver whose trace starts at unit o of xm (as
         // row_origin gives it), r its entry of R
         auto term = [&](float r, unsigned o) {
           const float ti = SRC == LUT
               ? __fmul_rn(__fsub_rn(__fadd_rn(tx, r), t0m), a.fs)
               : __fmul_rn(__fsub_rn(__fmul_rn(a.cinv, __fadd_rn(tx, r)), t0m), a.fs);
           const bool ok = ti >= 0.f && ti <= tmax;  // false for NaN
-          const V v = sample<METHOD, V>(xm, o, ok ? ti : 0.f);
-          if (ok) acc = acc + v;
+          const V v = sample<METHOD, V, Q>(xm, o, ok ? ti : 0.f);
+          if constexpr (Q == I8) {  // a discarded branch: F32's lambda captures no part
+            if (ok) part = part + v;
+          } else {
+            if (ok) acc = acc + v;
+          }
         };
         unsigned o = row_origin<METHOD, V>(0u);
         int n = 0;
@@ -393,6 +590,7 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const Args a) {
           term(r.w, o + 3 * row);
         }
         for (; n < nc; ++n, o += row) term(R[p * RS + n], o);
+        if constexpr (Q == I8) acc = acc + scaled(part, sc);  // s_m / 127 once a chunk
       }
     }
   }
@@ -403,14 +601,14 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const Args a) {
 // fmod and one frame, else FB), each term's samples rotated by exp(2 pi i
 // fmod tau) when ROT. A (float2 with ROT or complex traces, else float) is
 // the sums' type.
-template <int SRC, int METHOD, typename V, bool ROT, int NF>
-__global__ void __launch_bounds__(P, 1) das_frames_kernel(const FrameArgs fa) {
+template <int SRC, int METHOD, typename V, bool ROT, int NF, int Q = F32>
+__global__ void __launch_bounds__(P, 1) das_frames_kernel(const QArgs<Q, FrameArgs> fa) {
   using A = decltype(rotate<ROT, V>(V{}, 1.f, 0.f));
   const Args& a = fa.a;
   constexpr int E = Entry<METHOD, V>::E;
   __shared__ __align__(16) float R[P * RS];  // R[p][n]
   __shared__ float TX[MC * P];  // TX[j][p], each thread's own column: no barrier
-  const float* __restrict__ x = a.x;
+  const Unit<Q>* __restrict__ x = reinterpret_cast<const Unit<Q>*>(a.x);
   const int p = threadIdx.x;
   const int64_t i0 = (int64_t)blockIdx.x * P;
   const int64_t i = i0 + p;
@@ -466,8 +664,10 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const FrameArgs fa) {
         if (j < mc) TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
       for (int j = 0; j < mc; ++j) {
         const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m0 + j);
-        const float* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
-        // one term: the receiver whose trace starts at float o of xm (as
+        [[maybe_unused]] const float sc = qscale<Q>(fa, m0 + j);  // I8: s_m / 127
+        [[maybe_unused]] A part[NF] = {};  // I8: the transmit's sums over the chunk
+        const Unit<Q>* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
+        // one term: the receiver whose trace starts at unit o of xm (as
         // row_origin gives it), r its entry of R
         auto term = [&](float r, unsigned o) {
           const float tau = SRC == LUT
@@ -479,13 +679,17 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const FrameArgs fa) {
           if constexpr (ROT) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &sn, &cs);
 #pragma unroll
           for (int f = 0; f < NF; ++f) {
-            // frame f's entries lie f E floats on. Frame 0 always runs (fb
+            // frame f's entries lie f E units on. Frame 0 always runs (fb
             // >= 1), so the later frames' tap base, fraction, weights and
             // address come from its sample as common subexpressions.
             if (f == 0 || f < fb) {
-              const A v = rotate<ROT>(sample<METHOD, V>(xm + f * E, o, ok ? ti : 0.f, S),
+              const A v = rotate<ROT>(sample<METHOD, V, Q>(xm + f * E, o, ok ? ti : 0.f, S),
                                       cs, sn);
-              if (ok) acc[f] = acc[f] + v;
+              if constexpr (Q == I8) {
+                if (ok) part[f] = part[f] + v;
+              } else {
+                if (ok) acc[f] = acc[f] + v;
+              }
             }
           }
         };
@@ -500,6 +704,10 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const FrameArgs fa) {
           term(r.w, o + 3 * row);
         }
         for (; n < nc; ++n, o += row) term(R[p * RS + n], o);
+        if constexpr (Q == I8) {  // s_m / 127 once a chunk
+#pragma unroll
+          for (int f = 0; f < NF; ++f) acc[f] = acc[f] + scaled(part[f], sc);
+        }
       }
     }
   }
@@ -599,15 +807,6 @@ __device__ __forceinline__ float tx_weight(const KeepArgs& k, int m, float px, f
   return w;
 }
 
-template <typename A>
-__device__ __forceinline__ A scaled(A v, float w) {
-  if constexpr (sizeof(A) == sizeof(float)) {
-    return v * w;
-  } else {
-    return make_float2(v.x * w, v.y * w);
-  }
-}
-
 // Shared memory: R and TX as das_frames_kernel's, WR (P x RS) and WT (MC x
 // P) when the launch has receive or transmit factors, KR (NC x fb x P sums)
 // for KEEP_RX; sized by the launcher (keep_smem). NF frames' sums a thread:
@@ -619,8 +818,51 @@ __device__ __forceinline__ A scaled(A v, float w) {
 // by the keep mode, one uniform branch for the 4. With the keep mode's
 // branch after each term instead, a term's load waited for the last
 // term's sum, and the kernel took 6-8x das_kernel's time (PERF.md §6).
-template <int SRC, int METHOD, typename V, bool ROT, int NF>
-__global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
+//
+// Entry types other than F32 (its reduced-precision units): I8 folds each
+// transmit's s_m / 127 into its transmit factor; with lp.acc16 out holds
+// the kept sums as bfloat16 (a pair for a complex sum), half the bytes of
+// float32, as the TPU kernel's QUPS_DAS_ACC16 keeps its kept-axis
+// accumulator in bfloat16: every store of a kept sum (keep_rx at the end of
+// a receiver chunk, keep_tx at the end of each receiver chunk, both per
+// term) rounds it half to even, and a sum read back (keep_rx after the
+// launch's first chunk of transmits, keep_tx after its first receiver
+// chunk) is widened. acc16 is a launch constant, tested at the loads and
+// stores of out only.
+template <int Q, class K, typename A>
+__device__ __forceinline__ A kept_load(const K& k, const A* out, int64_t e) {
+  if constexpr (Q != F32) {
+    if (k.lp.acc16) {
+      if constexpr (sizeof(A) == sizeof(float)) {
+        return bf_lo(reinterpret_cast<const uint16_t*>(out)[e]);
+      } else {
+        const unsigned w = reinterpret_cast<const unsigned*>(out)[e];
+        return make_float2(bf_lo(w), bf_hi(w));
+      }
+    }
+  }
+  return out[e];
+}
+
+template <int Q, class K, typename A>
+__device__ __forceinline__ void kept_store(const K& k, A* out, int64_t e, A v) {
+  if constexpr (Q != F32) {
+    if (k.lp.acc16) {
+      if constexpr (sizeof(A) == sizeof(float)) {
+        reinterpret_cast<uint16_t*>(out)[e] = (uint16_t)(__float_as_uint(round_bf16(v)) >> 16);
+      } else {
+        const float2 r = round_bf16(v);
+        reinterpret_cast<unsigned*>(out)[e] =
+            __float_as_uint(r.x) >> 16 | (__float_as_uint(r.y) & 0xFFFF0000u);
+      }
+      return;
+    }
+  }
+  out[e] = v;
+}
+
+template <int SRC, int METHOD, typename V, bool ROT, int NF, int Q = F32>
+__global__ void __launch_bounds__(P, 1) das_keep_kernel(const QArgs<Q, KeepArgs> k) {
   using A = decltype(rotate<ROT, V>(V{}, 1.f, 0.f));
   const FrameArgs& fa = k.fa;
   const Args& a = fa.a;
@@ -633,7 +875,7 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
   float* WR = TX + MC * P;                           // WR[p][n]
   float* WT = WR + (has_wr ? P * RS : 0);            // WT[j][p]
   A* KR = reinterpret_cast<A*>(WT + (has_wt ? MC * P : 0));  // KR[f][n][p]
-  const float* __restrict__ x = a.x;
+  const Unit<Q>* __restrict__ x = reinterpret_cast<const Unit<Q>*>(a.x);
   A* __restrict__ out = static_cast<A*>(a.out);
   const int p = threadIdx.x;
   const int64_t i0 = (int64_t)blockIdx.x * P;
@@ -699,8 +941,14 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
     if (!live) continue;
     if (keep == KEEP_RX) {  // this chunk's (pixel, receiver) sums
       for (int f = 0; f < fb; ++f)
-        for (int n = 0; n < nc; ++n)
-          KR[(f * NC + n) * P + p] = a.add ? out[i + (n0 + n) * k.on + f * k.of] : A{};
+        for (int n = 0; n < nc; ++n) {
+          if constexpr (Q == F32) {
+            KR[(f * NC + n) * P + p] = a.add ? out[i + (n0 + n) * k.on + f * k.of] : A{};
+          } else {
+            KR[(f * NC + n) * P + p] =
+                a.add ? kept_load<Q>(k, out, i + (n0 + n) * k.on + f * k.of) : A{};
+          }
+        }
     }
     for (int m0 = 0; m0 < a.M; m0 += MC) {
       const int mc = min(MC, a.M - m0);
@@ -721,8 +969,8 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
       for (int j = 0; j < mc; ++j) {
         const int m = m0 + j;
         const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m);
-        const float wtj = has_wt ? WT[j * P + p] : 1.f;
-        const float* __restrict__ xm = opaque(x + ((int64_t)m * a.N + n0) * a.row);
+        const float wtj = tx_factor<Q>(k, has_wt ? WT[j * P + p] : 1.f, m);
+        const Unit<Q>* __restrict__ xm = opaque(x + ((int64_t)m * a.N + n0) * a.row);
         const float* __restrict__ wdm =
             k.wd.p ? k.wd.p + owd + (int64_t)m * k.wd.sm + (int64_t)n0 * k.wd.sn : nullptr;
         if (keep == KEEP_TX) {
@@ -744,13 +992,13 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
           c = 1.f;
           if constexpr (ROT) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &s, &c);
         };
-        // its samples, frame f's entries f E floats on, at float o of xm
+        // its samples, frame f's entries f E units on, at unit o of xm
         auto fetch = [&](float ti, float w, bool ok, float c, float s, unsigned o, A (&v)[NF]) {
 #pragma unroll
           for (int f = 0; f < NF; ++f)
             if (f == 0 || f < fb)
-              v[f] = scaled(rotate<ROT>(sample<METHOD, V>(xm + f * E, o, ok ? ti : 0.f, S), c, s),
-                            w);
+              v[f] = scaled(
+                  rotate<ROT>(sample<METHOD, V, Q>(xm + f * E, o, ok ? ti : 0.f, S), c, s), w);
         };
         // its sums, receiver n0 + n, by the keep mode
         auto put = [&](const A (&v)[NF], bool ok, int n) {
@@ -758,7 +1006,12 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
           for (int f = 0; f < NF; ++f) {
             if (f == 0 || f < fb) {
               if (keep == KEEP_BOTH) {
-                out[i + (n0 + n) * k.on + m * k.om + f * k.of] = ok ? v[f] : A{};
+                if constexpr (Q == F32) {  // F32 keeps its code (see the keep_rx store)
+                  out[i + (n0 + n) * k.on + m * k.om + f * k.of] = ok ? v[f] : A{};
+                } else {
+                  kept_store<Q>(k, out, i + (n0 + n) * k.on + m * k.om + f * k.of,
+                                ok ? v[f] : A{});
+                }
               } else if (keep == KEEP_RX) {
                 if (ok) KR[(f * NC + n) * P + p] = KR[(f * NC + n) * P + p] + v[f];
               } else if (ok) {
@@ -804,8 +1057,13 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
 #pragma unroll
           for (int f = 0; f < NF; ++f) {  // constant indices: acc stays in registers
             if (f < fb) {
-              A* q = out + i + m * k.om + f * k.of;
-              *q = n0 == 0 ? acc[f] : *q + acc[f];
+              if constexpr (Q == F32) {
+                A* q = out + i + m * k.om + f * k.of;
+                *q = n0 == 0 ? acc[f] : *q + acc[f];
+              } else {
+                const int64_t e = i + m * k.om + f * k.of;
+                kept_store<Q>(k, out, e, n0 == 0 ? acc[f] : kept_load<Q>(k, out, e) + acc[f]);
+              }
             }
           }
         }
@@ -813,8 +1071,16 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const KeepArgs k) {
     }
     if (keep == KEEP_RX) {
       for (int f = 0; f < fb; ++f)
-        for (int n = 0; n < nc; ++n)
-          out[i + (n0 + n) * k.on + f * k.of] = KR[(f * NC + n) * P + p];
+        for (int n = 0; n < nc; ++n) {
+          // F32 stores as it always did (here, at keep_tx's and at
+          // keep_both's store): a helper that stores the same value gave
+          // its variants other SASS
+          if constexpr (Q == F32) {
+            out[i + (n0 + n) * k.on + f * k.of] = KR[(f * NC + n) * P + p];
+          } else {
+            kept_store<Q>(k, out, i + (n0 + n) * k.on + f * k.of, KR[(f * NC + n) * P + p]);
+          }
+        }
     }
   }
   if (keep == SUM && live) {
@@ -831,11 +1097,11 @@ size_t keep_smem(const KeepArgs& k, size_t sum_bytes) {
   return floats * 4 + (k.keep == KEEP_RX ? (size_t)NC * k.fa.fb * P * sum_bytes : 0);
 }
 
-template <int SRC, int METHOD, typename V, bool ROT>
-cudaError_t run_keep(const KeepArgs& k, size_t smem, cudaStream_t s) {
+template <int SRC, int METHOD, typename V, bool ROT, int Q>
+cudaError_t run_keep(const QArgs<Q, KeepArgs>& k, size_t smem, cudaStream_t s) {
   const unsigned blocks = (unsigned)((k.fa.a.I + P - 1) / P);
-  auto kernel = k.fa.fb == 1 ? das_keep_kernel<SRC, METHOD, V, ROT, 1>
-                             : das_keep_kernel<SRC, METHOD, V, ROT, FB>;
+  auto kernel = k.fa.fb == 1 ? das_keep_kernel<SRC, METHOD, V, ROT, 1, Q>
+                             : das_keep_kernel<SRC, METHOD, V, ROT, FB, Q>;
   if (smem > (48 << 10)) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -845,24 +1111,30 @@ cudaError_t run_keep(const KeepArgs& k, size_t smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int SRC, typename V, bool ROT>
-cudaError_t keep_by_method(int method, const KeepArgs& k, size_t smem, cudaStream_t s) {
+template <int SRC, typename V, bool ROT, int Q>
+cudaError_t keep_by_method(int method, const QArgs<Q, KeepArgs>& k, size_t smem,
+                           cudaStream_t s) {
   switch (method) {
-    case NEAREST: return run_keep<SRC, NEAREST, V, ROT>(k, smem, s);
-    case LINEAR: return run_keep<SRC, LINEAR, V, ROT>(k, smem, s);
-    case CUBIC: return run_keep<SRC, CUBIC, V, ROT>(k, smem, s);
-    case LANCZOS3: return run_keep<SRC, LANCZOS3, V, ROT>(k, smem, s);
-    default: return cudaErrorInvalidValue;
+    case NEAREST:
+      if constexpr (Q != I8) return run_keep<SRC, NEAREST, V, ROT, Q>(k, smem, s);
+      break;
+    case LINEAR:
+      if constexpr (Q != I8) return run_keep<SRC, LINEAR, V, ROT, Q>(k, smem, s);
+      break;
+    case CUBIC: return run_keep<SRC, CUBIC, V, ROT, Q>(k, smem, s);
+    case LANCZOS3: return run_keep<SRC, LANCZOS3, V, ROT, Q>(k, smem, s);
   }
+  return cudaErrorInvalidValue;
 }
 
-template <typename V, bool ROT>
-cudaError_t keep_by_src(int src, int method, const KeepArgs& k, size_t smem, cudaStream_t s) {
+template <typename V, bool ROT, int Q>
+cudaError_t keep_by_src(int src, int method, const QArgs<Q, KeepArgs>& k, size_t smem,
+                        cudaStream_t s) {
   switch (src) {
-    case PLANE: return keep_by_method<PLANE, V, ROT>(method, k, smem, s);
-    case DIVERGING: return keep_by_method<DIVERGING, V, ROT>(method, k, smem, s);
-    case VIRTUAL: return keep_by_method<VIRTUAL, V, ROT>(method, k, smem, s);
-    case LUT: return keep_by_method<LUT, V, ROT>(method, k, smem, s);
+    case PLANE: return keep_by_method<PLANE, V, ROT, Q>(method, k, smem, s);
+    case DIVERGING: return keep_by_method<DIVERGING, V, ROT, Q>(method, k, smem, s);
+    case VIRTUAL: return keep_by_method<VIRTUAL, V, ROT, Q>(method, k, smem, s);
+    case LUT: return keep_by_method<LUT, V, ROT, Q>(method, k, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -870,46 +1142,53 @@ cudaError_t keep_by_src(int src, int method, const KeepArgs& k, size_t smem, cud
 
 // One frame in all (ldo 1): das_kernel, or with ROT the frames kernel's
 // one-frame variant; else the frames kernel, FB frames at a time.
-template <int SRC, int METHOD, typename V, bool ROT>
-cudaError_t run(const FrameArgs& fa, cudaStream_t s) {
+template <int SRC, int METHOD, typename V, bool ROT, int Q>
+cudaError_t run(const QArgs<Q, FrameArgs>& fa, cudaStream_t s) {
   const unsigned blocks = (unsigned)((fa.a.I + P - 1) / P);
-  if (fa.ldo != 1)
-    das_frames_kernel<SRC, METHOD, V, ROT, FB><<<blocks, P, 0, s>>>(fa);
-  else if constexpr (ROT)
-    das_frames_kernel<SRC, METHOD, V, ROT, 1><<<blocks, P, 0, s>>>(fa);
-  else
+  if (fa.ldo != 1) {
+    das_frames_kernel<SRC, METHOD, V, ROT, FB, Q><<<blocks, P, 0, s>>>(fa);
+  } else if constexpr (ROT) {
+    das_frames_kernel<SRC, METHOD, V, ROT, 1, Q><<<blocks, P, 0, s>>>(fa);
+  } else if constexpr (Q == F32) {
     das_kernel<SRC, METHOD, V><<<blocks, P, 0, s>>>(fa.a);
+  } else {
+    das_kernel<SRC, METHOD, V, Q><<<blocks, P, 0, s>>>(WithLp<Args>{fa.a, fa.lp});
+  }
   return cudaGetLastError();
 }
 
-template <int SRC, typename V, bool ROT>
-cudaError_t by_method(int method, const FrameArgs& a, cudaStream_t s) {
+template <int SRC, typename V, bool ROT, int Q>
+cudaError_t by_method(int method, const QArgs<Q, FrameArgs>& a, cudaStream_t s) {
   switch (method) {
-    case NEAREST: return run<SRC, NEAREST, V, ROT>(a, s);
-    case LINEAR: return run<SRC, LINEAR, V, ROT>(a, s);
-    case CUBIC: return run<SRC, CUBIC, V, ROT>(a, s);
-    case LANCZOS3: return run<SRC, LANCZOS3, V, ROT>(a, s);
-    default: return cudaErrorInvalidValue;
+    case NEAREST:
+      if constexpr (Q != I8) return run<SRC, NEAREST, V, ROT, Q>(a, s);
+      break;
+    case LINEAR:
+      if constexpr (Q != I8) return run<SRC, LINEAR, V, ROT, Q>(a, s);
+      break;
+    case CUBIC: return run<SRC, CUBIC, V, ROT, Q>(a, s);
+    case LANCZOS3: return run<SRC, LANCZOS3, V, ROT, Q>(a, s);
   }
+  return cudaErrorInvalidValue;
 }
 
-template <typename V, bool ROT>
-cudaError_t by_src(int src, int method, const FrameArgs& a, cudaStream_t s) {
+template <typename V, bool ROT, int Q>
+cudaError_t by_src(int src, int method, const QArgs<Q, FrameArgs>& a, cudaStream_t s) {
   switch (src) {
-    case PLANE: return by_method<PLANE, V, ROT>(method, a, s);
-    case DIVERGING: return by_method<DIVERGING, V, ROT>(method, a, s);
-    case VIRTUAL: return by_method<VIRTUAL, V, ROT>(method, a, s);
-    case LUT: return by_method<LUT, V, ROT>(method, a, s);
+    case PLANE: return by_method<PLANE, V, ROT, Q>(method, a, s);
+    case DIVERGING: return by_method<DIVERGING, V, ROT, Q>(method, a, s);
+    case VIRTUAL: return by_method<VIRTUAL, V, ROT, Q>(method, a, s);
+    case LUT: return by_method<LUT, V, ROT, Q>(method, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Frames f0 .. f0 + fb - 1 of F: x and out move to frame f0; with F = 1 the
 // one-frame variants run. ROT selects the rotating variants, whose sums are
-// complex.
-template <bool ROT>
-int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w, int device,
-           void* stream) {
+// complex; Q the entry type of the layout at x, lp its arguments.
+template <bool ROT, int Q>
+int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w, Lp lp,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a.I <= 0) return (int)cudaSuccess;
@@ -919,37 +1198,60 @@ int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w
   const int E = entry_floats(method, cplx);
   a.row = (int64_t)a.T * F * E;
   if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
-  a.x += (int64_t)f0 * E;
+  a.x = xadv<Q>(a.x, (int64_t)f0 * E);
   a.out = static_cast<char*>(a.out) + (int64_t)f0 * ((cplx || ROT) ? 8 : 4);
-  const FrameArgs fa{a, F, F * E, fb, w};
+  const QArgs<Q, FrameArgs> fa = with_lp<Q>(FrameArgs{a, F, F * E, fb, w}, lp);
   cudaStream_t s = (cudaStream_t)stream;
-  err = cplx ? by_src<float2, ROT>(src, method, fa, s) : by_src<float, ROT>(src, method, fa, s);
+  err = cplx ? by_src<float2, ROT, Q>(src, method, fa, s)
+             : by_src<float, ROT, Q>(src, method, fa, s);
   return (int)err;
 }
 
 // The layout kernel: traces x (T, N, ldm) of C floats (1 real, 2
 // complex64), of which entries 0..M-1 of the last axis are laid out as the
-// sampler METHOD reads them, out (M, N, T, C, E) floats, E the floats of
-// one entry of one component. With frames (FR), an entry q of the last
-// axis is frame f of transmit m, q = m F + f, and out is (M / F, N, T, F,
-// C, E): a term's frames next to each other. A block transposes tiles of
-// LM entries q x LT entries k of one receiver through shared memory:
-// coalesced reads along q, 4- to 16-byte writes along k. The grid's y and
-// z (q tiles, receivers) hold at most 65535 blocks each, so a block walks
-// them with the grid's stride: any number of receivers, transmits and
+// sampler METHOD reads them, out (M, N, T, C, E) units of entry type Q, E
+// the units of one entry of one component. With frames (FR), an entry q of
+// the last axis is frame f of transmit m, q = m F + f, and out is (M / F,
+// N, T, F, C, E): a term's frames next to each other. A block transposes
+// tiles of LM entries q x LT entries k of one receiver through shared
+// memory: coalesced reads along q, 2- to 16-byte writes along k. The grid's
+// y and z (q tiles, receivers) hold at most 65535 blocks each, so a block
+// walks them with the grid's stride: any number of receivers, transmits and
 // frames. It replaces what the TPU path does in XLA before its kernel (the
-// transpose and _pack_quads of qups_tpu/ops/das_pallas.py:2015-2023) and
-// computes exactly what ops/das_cuda.py::trace_layout_plain computes: the
-// stencil entries with the round-to-nearest intrinsics, in stencil_entry's
-// order.
+// transpose and the packers _pack_pairs, _pack_quads of
+// qups_tpu/ops/das_pallas.py:2015-2023 and :2628-2642) and computes exactly
+// what ops/das_cuda.py::trace_layout_plain computes: the float32 stencil
+// entries with the round-to-nearest intrinsics, in stencil_entry's order;
+// the BF16 taps rounded half away from zero ((bits + 0x8000) >> 16,
+// _pack_pairs) or, with rne, half to even; the I8 taps rint(x * (127 / s))
+// clipped to +-127, 127 / s rounded to float32 (_pack_quads), s = qs[m].
 constexpr int LT = 64;       // entries per layout block
 constexpr int LM = 32;       // transmits (frames) per layout block
 constexpr int LS = LT + 3;   // tile rows x[k0-1 .. k0+LT+1]; odd, so conflict-free
 
-template <int METHOD>
-__device__ __forceinline__ void put_entry(const float* q, float* __restrict__ dst) {
+template <int METHOD, int Q>
+__device__ __forceinline__ void put_entry(const float* q, Unit<Q>* __restrict__ dst, float inv,
+                                          int rne) {
   // q[0..3] = x[k-1], x[k], x[k+1], x[k+2] (clamped)
-  if constexpr (METHOD == NEAREST) {
+  if constexpr (Q == BF16) {
+    auto h = [rne](float v) -> unsigned {
+      return rne ? __float_as_uint(round_bf16(v)) >> 16 : (__float_as_uint(v) + 0x8000u) >> 16;
+    };
+    if constexpr (METHOD == NEAREST) {
+      *dst = (uint16_t)h(q[1]);
+    } else if constexpr (METHOD == LINEAR) {
+      *reinterpret_cast<unsigned*>(dst) = h(q[1]) | h(q[2]) << 16;
+    } else {
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(h(q[0]) | h(q[1]) << 16, h(q[2]) | h(q[3]) << 16);
+    }
+  } else if constexpr (Q == I8) {
+    static_assert(METHOD == CUBIC || METHOD == LANCZOS3, "int8 entries hold four taps");
+    auto b = [inv](float v) -> unsigned {
+      return (unsigned)(int)fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f) & 0xFFu;
+    };
+    *reinterpret_cast<unsigned*>(dst) = b(q[0]) | b(q[1]) << 8 | b(q[2]) << 16 | b(q[3]) << 24;
+  } else if constexpr (METHOD == NEAREST) {
     dst[0] = q[1];
   } else if constexpr (METHOD == LINEAR) {
     *reinterpret_cast<float2*>(dst) = make_float2(q[1], __fsub_rn(q[2], q[1]));
@@ -964,10 +1266,13 @@ __device__ __forceinline__ void put_entry(const float* q, float* __restrict__ ds
   }
 }
 
-template <int METHOD, int C, bool FR>
+// qs (I8: each transmit's scale s) and rne (BF16: round half to even) are
+// unused by the F32 variants.
+template <int METHOD, int C, bool FR, int Q>
 __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x,
-                                                     float* __restrict__ out, int T, int N,
-                                                     int M, int64_t ldm, int F) {
+                                                     Unit<Q>* __restrict__ out, int T, int N,
+                                                     int M, int64_t ldm, int F,
+                                                     const float* __restrict__ qs, int rne) {
   constexpr int E = Entry<METHOD, float>::E;
   __shared__ float tile[C][LM][LS];
   const int k0 = blockIdx.x * LT;
@@ -992,16 +1297,20 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
       for (int mm = w; mm < LM && m0 + mm < M; mm += 8) {
         if constexpr (FR) {
           const int m = (m0 + mm) / F, f = m0 + mm - m * F;
+          const float inv = Q == I8 ? __fdiv_rn(127.f, __ldg(qs + m)) : 0.f;
           for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-            float* dst = out + ((((int64_t)m * N + n) * T + k0 + kk) * F + f) * (C * E);
+            Unit<Q>* dst = out + ((((int64_t)m * N + n) * T + k0 + kk) * F + f) * (C * E);
 #pragma unroll
-            for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+            for (int c = 0; c < C; ++c)
+              put_entry<METHOD, Q>(&tile[c][mm][kk], dst + c * E, inv, rne);
           }
         } else {
+          const float inv = Q == I8 ? __fdiv_rn(127.f, __ldg(qs + m0 + mm)) : 0.f;
           for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-            float* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
+            Unit<Q>* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
 #pragma unroll
-            for (int c = 0; c < C; ++c) put_entry<METHOD>(&tile[c][mm][kk], dst + c * E);
+            for (int c = 0; c < C; ++c)
+              put_entry<METHOD, Q>(&tile[c][mm][kk], dst + c * E, inv, rne);
           }
         }
       }
@@ -1010,34 +1319,93 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
 }
 
 // F frames a transmit: the last axis holds M F entries, ldm F a row.
-template <int METHOD, bool FR>
-cudaError_t run_layout(const float* x, float* out, int T, int N, int M, int64_t ldm, int F,
-                       int cplx, cudaStream_t s) {
+template <int METHOD, bool FR, int Q>
+cudaError_t run_layout(const float* x, Unit<Q>* out, int T, int N, int M, int64_t ldm, int F,
+                       int cplx, const float* qs, int rne, cudaStream_t s) {
   const int mt = (M + LM - 1) / LM;
   const dim3 grid((T + LT - 1) / LT, mt < 65535 ? mt : 65535, N < 65535 ? N : 65535);
   if (cplx)
-    layout_kernel<METHOD, 2, FR><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F);
+    layout_kernel<METHOD, 2, FR, Q><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
   else
-    layout_kernel<METHOD, 1, FR><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F);
+    layout_kernel<METHOD, 1, FR, Q><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
   return cudaGetLastError();
 }
 
-template <int METHOD>
-cudaError_t layout_frames(const float* x, float* out, int T, int N, int M, int64_t ldm,
-                          int F, int cplx, cudaStream_t s) {
-  return F == 1 ? run_layout<METHOD, false>(x, out, T, N, M, ldm, 1, cplx, s)
-                : run_layout<METHOD, true>(x, out, T, N, M * F, ldm * F, F, cplx, s);
+template <int METHOD, int Q = F32>
+cudaError_t layout_frames(const float* x, void* out, int T, int N, int M, int64_t ldm, int F,
+                          int cplx, cudaStream_t s, const float* qs = nullptr, int rne = 0) {
+  Unit<Q>* o = static_cast<Unit<Q>*>(out);
+  return F == 1 ? run_layout<METHOD, false, Q>(x, o, T, N, M, ldm, 1, cplx, qs, rne, s)
+                : run_layout<METHOD, true, Q>(x, o, T, N, M * F, ldm * F, F, cplx, qs, rne, s);
 }
+
+int layout_check(int T, int N, int M, long long ldm, int F, int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (T <= 0 || N <= 0 || M <= 0 || F <= 0 || ldm < M || T > TMAX
+      || (int64_t)M * F >= (int64_t)1 << 31)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
+#ifdef DAS_KEEP
+// das_keep's body for entry type Q (see das_keep below).
+template <int Q, bool ROT>
+int keep_launch(const float* x, const float* pix, const float* pr, const float* pv,
+                const float* nv, const float* taur, const float* taut, long long ldt,
+                const float* t0, void* out, long long I, int N, int M, int T, int F, int f0,
+                int fb, float cinv, float fs, float w, int src, int method, int cplx, int rot,
+                int add, int keep, long long on, long long om, long long of, int I2, int I3,
+                const float* wr, const float* wt, const float* wd, const long long* strides,
+                int rx_kinds, int tx_kinds, const float* ori, const float* lat,
+                const float* lat_tx, const float* prm, Lp lp, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (I <= 0) return (int)cudaSuccess;
+  if (N <= 0 || M <= 0 || T <= 0 || T > TMAX || method < NEAREST || method > LANCZOS3
+      || src < PLANE || src > LUT || keep < SUM || keep > KEEP_BOTH || F < 1 || f0 < 0
+      || fb < 1 || fb > FB || f0 + fb > F || I2 < 1 || I3 < 1 || (src == LUT && ldt < M)
+      || (src == LUT && (rx_kinds || tx_kinds)) || (rot != 0) != ROT)
+    return (int)cudaErrorInvalidValue;
+  if (lp.acc16 && keep == SUM) return (int)cudaErrorInvalidValue;  // a kept sum only
+  const int E = entry_floats(method, cplx);
+  const size_t sum_bytes = (cplx || rot) ? 8 : 4;  // a sum in shared memory and registers
+  const int64_t out_bytes = lp.acc16 ? (int64_t)sum_bytes / 2 : (int64_t)sum_bytes;
+  Args a{xadv<Q>(x, (int64_t)f0 * E), pix, pr, pv, nv, taur, taut, t0,
+         static_cast<char*>(out) + (int64_t)f0 * of * out_bytes, (int64_t)I,
+         (int64_t)T * F * E, (int64_t)ldt, N, M, T, cinv, fs, add};
+  if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  KeepArgs k{FrameArgs{a, F, F * E, fb, w}, keep, on, om, of, I2, I3,
+             Dense{wr, s[0], s[1], s[2], s[3], s[4]}, Dense{wt, s[5], s[6], s[7], s[8], s[9]},
+             Dense{wd, s[10], s[11], s[12], s[13], s[14]}, rx_kinds, tx_kinds, ori, lat, lat_tx,
+             prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], prm[6]};
+  const size_t smem = keep_smem(k, sum_bytes);
+  if (keep == KEEP_RX && (size_t)NC * fb * P * sum_bytes > (size_t)KR_BYTES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const QArgs<Q, KeepArgs> kq = with_lp<Q>(k, lp);
+  err = cplx ? keep_by_src<float2, ROT, Q>(src, method, kq, smem, st)
+             : keep_by_src<float, ROT, Q>(src, method, kq, smem, st);
+  return (int)err;
+}
+#endif  // DAS_KEEP
 
 }  // namespace
 
-// The entry points. This file builds four times: as das.cu, K1 and K2
-// without remodulation and the layout kernel; with DAS_IQ defined
-// (das_iq.cu), K1 and K2 with remodulation, das_k1_iq and das_lut_k2_iq,
-// which take the same arguments; with DAS_KEEP defined (das_keep.cu), the
-// keep modes and weights of K1 and K2 without remodulation, das_keep, and
-// with both defined (das_keep_iq.cu) with it, das_keep_iq. ROT_ is the
-// variants' rotation, SUFFIX_ their names'.
+// The entry points. This file builds as several translation units, so
+// that their variants compile in parallel: as das.cu, K1 and K2 without
+// remodulation and the layout kernel; with DAS_IQ defined (das_iq.cu), K1
+// and K2 with remodulation, das_k1_iq and das_lut_k2_iq, which take the
+// same arguments; with DAS_KEEP defined (das_keep.cu), the keep modes and
+// weights of K1 and K2 without remodulation, das_keep, and with both
+// defined (das_keep_iq.cu) with it, das_keep_iq. With DAS_Q defined to an
+// entry type the same four build that type alone: BF16 (das_bf16.cu:
+// das_k1_q, das_lut_k2_q and the layout kernel's das_layout_q;
+// das_bf16_iq.cu; das_keep_bf16.cu: das_keep_q; das_keep_bf16_iq.cu), I8
+// (das_i8*.cu, das_keep_i8*.cu) and F32X (das_keep_acc16.cu,
+// das_keep_acc16_iq.cu). ROT_ is the variants' rotation, SUFFIX_ their
+// names'.
 #ifdef DAS_IQ
 #define ROT_ true
 #define SUFFIX_(name) name##_iq
@@ -1047,6 +1415,30 @@ cudaError_t layout_frames(const float* x, float* out, int T, int N, int M, int64
 #endif
 
 #ifdef DAS_KEEP
+#define KEEP_ARGS                                                                         \
+  const float *x, const float *pix, const float *pr, const float *pv, const float *nv,    \
+      const float *taur, const float *taut, long long ldt, const float *t0, void *out,    \
+      long long I, int N, int M, int T, int F, int f0, int fb, float cinv, float fs,      \
+      float w, int src, int method, int cplx, int rot, int add, int keep, long long on,   \
+      long long om, long long of, int I2, int I3, const float *wr, const float *wt,       \
+      const float *wd, const long long *strides, int rx_kinds, int tx_kinds,              \
+      const float *ori, const float *lat, const float *lat_tx, const float *prm
+#define KEEP_PASS                                                                         \
+  x, pix, pr, pv, nv, taur, taut, ldt, t0, out, I, N, M, T, F, f0, fb, cinv, fs, w, src,  \
+      method, cplx, rot, add, keep, on, om, of, I2, I3, wr, wt, wd, strides, rx_kinds,    \
+      tx_kinds, ori, lat, lat_tx, prm
+#ifdef DAS_Q
+// das_keep on a layout of this unit's entry type DAS_Q: das_keep's
+// arguments, then prec (the entry type: 1 BF16, 2 I8, 3 F32X), qs (I8:
+// s_m / 127 of each of the launch's transmits, else null) and acc16 (1:
+// out holds the kept sums as bfloat16, a pair for a complex sum, its
+// strides in sums; keep_rx, keep_tx or both only).
+extern "C" int SUFFIX_(das_keep_q)(KEEP_ARGS, int prec, const float* qs, int acc16, int device,
+                                   void* stream) {
+  if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
+  return keep_launch<DAS_Q, ROT_>(KEEP_PASS, Lp{qs, acc16}, device, stream);
+}
+#else
 // Launch das_keep_kernel on `stream` of device `device` for M transmits
 // and frames f0 .. f0 + fb - 1 of F: K1 (src 0 plane, 1 diverging, 2
 // virtual; pix, pr, pv, nv, cinv) or K2 (src 3; taur (I, N), taut (I, ldt),
@@ -1063,42 +1455,69 @@ cudaError_t layout_frames(const float* x, float* out, int T, int N, int M, int64
 // (I,), lat_tx (M,) and prm (host, 7 floats: 2 f, Dmax, cos theta, tol,
 // dlat, xlo, xhi) their operands. Returns the cudaError_t of the launch; 0
 // is success.
-extern "C" int SUFFIX_(das_keep)(const float* x, const float* pix, const float* pr, const float* pv,
-                        const float* nv, const float* taur, const float* taut, long long ldt,
-                        const float* t0, void* out, long long I, int N, int M, int T, int F,
-                        int f0, int fb, float cinv, float fs, float w, int src, int method,
-                        int cplx, int rot, int add, int keep, long long on, long long om,
-                        long long of, int I2, int I3, const float* wr, const float* wt,
-                        const float* wd, const long long* strides, int rx_kinds, int tx_kinds,
-                        const float* ori, const float* lat, const float* lat_tx,
-                        const float* prm, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (I <= 0) return (int)cudaSuccess;
-  if (N <= 0 || M <= 0 || T <= 0 || T > TMAX || method < NEAREST || method > LANCZOS3
-      || src < PLANE || src > LUT || keep < SUM || keep > KEEP_BOTH || F < 1 || f0 < 0
-      || fb < 1 || fb > FB || f0 + fb > F || I2 < 1 || I3 < 1 || (src == LUT && ldt < M)
-      || (src == LUT && (rx_kinds || tx_kinds)) || (rot != 0) != ROT_)
-    return (int)cudaErrorInvalidValue;
-  const int E = entry_floats(method, cplx);
-  const size_t sum_bytes = (cplx || rot) ? 8 : 4;
-  Args a{x + (int64_t)f0 * E, pix, pr, pv, nv, taur, taut, t0,
-         static_cast<char*>(out) + (int64_t)f0 * of * (int64_t)sum_bytes, (int64_t)I,
-         (int64_t)T * F * E, (int64_t)ldt, N, M, T, cinv, fs, add};
-  if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
-  const long long* s = strides;
-  KeepArgs k{FrameArgs{a, F, F * E, fb, w}, keep, on, om, of, I2, I3,
-             Dense{wr, s[0], s[1], s[2], s[3], s[4]}, Dense{wt, s[5], s[6], s[7], s[8], s[9]},
-             Dense{wd, s[10], s[11], s[12], s[13], s[14]}, rx_kinds, tx_kinds, ori, lat, lat_tx,
-             prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], prm[6]};
-  const size_t smem = keep_smem(k, sum_bytes);
-  if (keep == KEEP_RX && (size_t)NC * fb * P * sum_bytes > (size_t)KR_BYTES)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  err = cplx ? keep_by_src<float2, ROT_>(src, method, k, smem, st)
-             : keep_by_src<float, ROT_>(src, method, k, smem, st);
-  return (int)err;
+extern "C" int SUFFIX_(das_keep)(KEEP_ARGS, int device, void* stream) {
+  return keep_launch<F32, ROT_>(KEEP_PASS, Lp{}, device, stream);
 }
+#endif
+#elif defined(DAS_Q)
+// K1 and K2 on a layout of this unit's entry type DAS_Q (BF16, I8):
+// das_k1's and das_lut_k2's arguments, then prec (the entry type) and qs
+// (I8: s_m / 127 of each of the launch's transmits, else null).
+extern "C" int SUFFIX_(das_k1_q)(const float* x, const float* pix, const float* pr,
+                                 const float* pv, const float* nv, const float* t0, void* out,
+                                 long long I, int N, int M, int T, int F, int f0, int fb,
+                                 float cinv, float fs, float w, int tx_model, int method,
+                                 int cplx, int add, int prec, const float* qs, int device,
+                                 void* stream) {
+  if (tx_model < PLANE || tx_model > VIRTUAL || prec != DAS_Q || (prec == I8 && !qs))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
+               cinv, fs, add};
+  return launch<ROT_, DAS_Q>(tx_model, method, cplx, a, F, f0, fb, w, Lp{qs, 0}, device,
+                             stream);
+}
+
+extern "C" int SUFFIX_(das_lut_k2_q)(const float* x, const float* taur, const float* taut,
+                                     const float* t0, void* out, long long I, int N, int M,
+                                     long long ldt, int T, int F, int f0, int fb, float fs,
+                                     float w, int method, int cplx, int add, int prec,
+                                     const float* qs, int device, void* stream) {
+  if (ldt < M || prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
+  const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
+               (int64_t)ldt, N, M, T, 0.f, fs, add};
+  return launch<ROT_, DAS_Q>(LUT, method, cplx, a, F, f0, fb, w, Lp{qs, 0}, device, stream);
+}
+
+#ifndef DAS_IQ
+// The layout kernel for this unit's entry type: das_layout's arguments,
+// then prec (the entry type; I8: cubic and lanczos3 only), qs (I8: the
+// scale s of each of transmits 0 .. M-1, (M,) float32) and rne (BF16: 1
+// rounds half to even, 0 half away from zero); out (M, N, T, F, [2,] E)
+// units of 2 (BF16) or 1 (I8) bytes.
+extern "C" int das_layout_q(const float* x, void* out, int T, int N, int M, long long ldm,
+                            int F, int method, int cplx, int prec, const float* qs, int rne,
+                            int device, void* stream) {
+  const int err = layout_check(T, N, M, ldm, F, device);
+  if (err != (int)cudaSuccess) return err;
+  if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (method) {
+    case NEAREST:
+      if constexpr (DAS_Q != I8)
+        return (int)layout_frames<NEAREST, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+      break;
+    case LINEAR:
+      if constexpr (DAS_Q != I8)
+        return (int)layout_frames<LINEAR, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+      break;
+    case CUBIC:
+      return (int)layout_frames<CUBIC, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+    case LANCZOS3:
+      return (int)layout_frames<LANCZOS3, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#endif
 #else
 
 // Launch K1 on `stream` (a cudaStream_t) of device `device` for M
@@ -1118,7 +1537,7 @@ extern "C" int SUFFIX_(das_k1)(const float* x, const float* pix, const float* pr
   if (tx_model < PLANE || tx_model > VIRTUAL) return (int)cudaErrorInvalidValue;
   const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
                cinv, fs, add};
-  return launch<ROT_>(tx_model, method, cplx, a, F, f0, fb, w, device, stream);
+  return launch<ROT_, F32>(tx_model, method, cplx, a, F, f0, fb, w, Lp{}, device, stream);
 }
 
 // Launch K2 on `stream` of device `device` for M transmits and frames f0 ..
@@ -1133,7 +1552,7 @@ extern "C" int SUFFIX_(das_lut_k2)(const float* x, const float* taur, const floa
   if (ldt < M) return (int)cudaErrorInvalidValue;
   const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
                (int64_t)ldt, N, M, T, 0.f, fs, add};
-  return launch<ROT_>(LUT, method, cplx, a, F, f0, fb, w, device, stream);
+  return launch<ROT_, F32>(LUT, method, cplx, a, F, f0, fb, w, Lp{}, device, stream);
 }
 
 #ifndef DAS_IQ
@@ -1144,11 +1563,8 @@ extern "C" int SUFFIX_(das_lut_k2)(const float* x, const float* taur, const floa
 // F, [2,] E) floats. Returns the cudaError_t of the launch; 0 is success.
 extern "C" int das_layout(const float* x, float* out, int T, int N, int M, long long ldm,
                           int F, int method, int cplx, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (T <= 0 || N <= 0 || M <= 0 || F <= 0 || ldm < M || T > TMAX
-      || (int64_t)M * F >= (int64_t)1 << 31)
-    return (int)cudaErrorInvalidValue;
+  const int err = layout_check(T, N, M, ldm, F, device);
+  if (err != (int)cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (method) {
     case NEAREST: return (int)layout_frames<NEAREST>(x, out, T, N, M, ldm, F, cplx, s);

@@ -1,0 +1,4 @@
+// das_i8.cu's variants with IQ remodulation.
+#define DAS_Q I8
+#define DAS_IQ
+#include "das.cu"

@@ -2,20 +2,20 @@
 
 K1 replaces the TPU kernel ``qups_tpu/ops/das_pallas.py::_kernel``
 (geometry mode, launched by ``_das_call``, public entry ``das_tiled``) for
-sub-slices K1(a)-(d): float32 traces, real or complex (complex64), the
-three transmit models, the four samplers, any trailing frame dims, IQ
-remodulation (``fmod``), the keep modes and apodization. K2 replaces the
+sub-slices K1(a)-(e): traces real or complex, the three transmit models,
+the four samplers, any trailing frame dims, IQ remodulation (``fmod``),
+the keep modes, apodization and the trace precisions. K2 replaces the
 same TPU kernel in LUT mode (``lut=True``, launched by ``_das_lut_call``,
-public entry ``das_lut_tiled``) for K2(a)-(c): the same sum with the delays
-read from tables. Both are one kernel body in ``csrc/das.cu``, built twice by
-:mod:`qups_tpu_torch.ops._nvcc`: ``das.cu`` without remodulation (with the
-layout kernel) and ``das_iq.cu`` with it.
+public entry ``das_lut_tiled``) for K2(a)-(c) and (e): the same sum with
+the delays read from tables. Both are one kernel body in ``csrc/das.cu``,
+built by :mod:`qups_tpu_torch.ops._nvcc` as ``das.cu`` without
+remodulation (with the layout kernel) and ``das_iq.cu`` with it.
 
 :func:`das_sum` (K1) and :func:`das_lut_sum` (K2) launch their kernel for a
 CUDA tensor, and raise if it cannot be built or launched; they never fall
 back. For a CPU tensor they run :func:`das_sum_plain` and
 :func:`das_lut_sum_plain`, which are :func:`qups_tpu_torch.ops.das.das` and
-:func:`qups_tpu_torch.ops.das.das_lut` with the same arguments.
+:func:`qups_tpu_torch.ops.das.das_lut` on the rounded taps.
 ``LAUNCHES`` counts K1's launches and ``LUT_LAUNCHES`` K2's.
 
 Before a launch the wrapper writes the traces ``(T, N, M, F)`` into the
@@ -42,6 +42,26 @@ K1 launches with a keep mode, ``APOD_LAUNCHES`` its K1 launches with
 weights (a launch with both counts in both) and ``LUT_KEEP_LAUNCHES`` its
 K2 launches. Calls without keep modes or weights run the kernels above,
 unchanged.
+
+Reduced-precision traces (K1(e), K2(e); ``precision=``, the TPU kernel's
+modes): 'bf16pair' rounds every tap the kernels read to bfloat16 half away
+from zero (the TPU kernel's ``_pack_pairs``), 'bf16' (K1 only) half to even
+(its ``prep_real``), 'i8x4' (cubic and lanczos3 only) quantizes the taps to
+int8 with one scale per transmit (K1) or per call (K2), ``_pack_quads``;
+the weights, the rotation and the sums stay float32. The layout kernel
+writes the rounded taps as narrow entries (:func:`trace_layout`: 2 bytes a
+bf16 tap, 1 an int8 tap) and the same kernel body reads them, built in the
+reduced-precision units, one per entry type (``csrc/das_bf16.cu``,
+``das_i8.cu``, ``das_keep_bf16.cu``, ``das_keep_i8.cu`` and their ``_iq``
+twins). ``QUPS_DAS_ACC16=1`` (read at each call, as the TPU package's
+``das_tiled`` reads it) stores K1's kept sums (``keep_rx``, ``keep_tx``)
+as bfloat16, half the bytes of the kept output, and returns them widened
+to float32 (``das_keep_acc16.cu`` and its twin for float32 traces).
+``PREC_LAUNCHES`` counts K1's launches of those units and
+``LUT_PREC_LAUNCHES`` K2's; such a launch counts in no other counter. The
+plain versions apply the same rounding (:func:`round_taps`) and the scale
+per term, as the keep kernel applies it (the summed kernels apply it once
+per transmit and chunk of receivers: the same up to float32 rounding).
 """
 from __future__ import annotations
 
@@ -49,6 +69,7 @@ import ctypes
 import dataclasses
 import functools
 import operator
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -65,6 +86,8 @@ LAYOUT_LAUNCHES = 0  # launches of the layout kernel, which K1 and K2 read
 KEEP_LAUNCHES = 0  # das_keep_kernel's K1 launches with a keep mode (K1(c))
 APOD_LAUNCHES = 0  # das_keep_kernel's K1 launches with weights (K1(d))
 LUT_KEEP_LAUNCHES = 0  # das_keep_kernel's K2 launches (K2(c), dense weights)
+PREC_LAUNCHES = 0  # K1 launches of the reduced-precision units (K1(e))
+LUT_PREC_LAUNCHES = 0  # K2 launches of the reduced-precision units (K2(e))
 LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
 TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
 FB = 4  # frames per launch (csrc/das.cu)
@@ -76,6 +99,9 @@ TX_KINDS = {"tx_scanline": 1, "tx_multiline": 2, "tx_parallelogram": 4}  # TxKin
 _TX_CODE = {"plane": 0, "diverging": 1, "virtual": 2}
 _METHOD_CODE = {"nearest": 0, "linear": 1, "cubic": 2, "lanczos3": 3}
 DTYPES = (torch.float32, torch.complex64)
+PRECISIONS = ("f32", "bf16pair", "bf16", "i8x4")  # the trace precisions of K1; K2 no bf16
+_ENTRY = {"f32": 0, "bf16pair": 1, "bf16": 1, "i8x4": 2}  # csrc/das.cu Prec
+_UNIT = {0: torch.float32, 1: torch.int16, 2: torch.int8}  # a layout's unit, by entry type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,48 +266,189 @@ def dense_apod(apod, pi, pr, nv, *, im_shape=None, orientations=None, lat=None,
         (wr, (-1, 1)), (wt, (1, -1))) if w is not None)
 
 
-def _entry(name: str, iq: bool):
-    """The entry point ``name`` (``name_iq`` with remodulation) in its
-    library, and nvcc's log of the library's build."""
-    lib = "das_keep" if name == "das_keep" else "das"
-    lib, log = _nvcc.load(lib + ("_iq" if iq else ""))
-    return getattr(lib, name + ("_iq" if iq else "")), log
+# The libraries of the reduced-precision entry types (csrc/das_<name>.cu,
+# csrc/das_keep_<name>.cu and their _iq twins), by entry type; F32X
+# (float32 entries with bfloat16 kept sums) has a keep kernel alone.
+_Q_LIBS = {1: "bf16", 2: "i8", 3: "acc16"}
+F32X = 3  # csrc/das.cu Prec: float32 entries, the kept sums stored as bfloat16
+
+
+def _entry(lib: str, name: str, iq: bool):
+    """The entry point ``name`` (``name_iq`` with remodulation) in the
+    library ``csrc/<lib>.cu`` (``<lib>_iq.cu``), and nvcc's log of its
+    build."""
+    sfx = "_iq" if iq else ""
+    so, log = _nvcc.load(lib + sfx)
+    return getattr(so, name + sfx), log
+
+
+# The arguments a reduced-precision entry takes after its float32
+# counterpart's and before (device, stream): prec, qs (, acc16 for the keep
+# kernel).
+_LP = [ctypes.c_int, ctypes.c_void_p]
+_DEV = [ctypes.c_int, ctypes.c_void_p]
+
+
+def _bind(lib: str, name: str, iq: bool, args: list):
+    fn, log = _entry(lib, name, iq)
+    fn.argtypes = args
+    fn.restype = ctypes.c_int
+    return fn, log
+
+
+_K1_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 3 + [ctypes.c_int] * 4)
+_K2_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+            + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 3)
+_KEEP_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+              + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+              + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 
 
 def build(iq: bool = False):
     """Build (if needed) and load ``csrc/das.cu`` (``das_iq.cu`` with
     ``iq``, the remodulating variants); return ``(K1's entry point, nvcc
     log)``. Raises ``RuntimeError`` with nvcc's output on failure."""
-    fn, log = _entry("das_k1", iq)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn, log
+    return _bind("das", "das_k1", iq, _K1_ARGS + _DEV)
 
 
 def build_lut(iq: bool = False):
     """K2's entry point in the library of :func:`build`."""
-    fn, _ = _entry("das_lut_k2", iq)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind("das", "das_lut_k2", iq, _K2_ARGS + _DEV)[0]
 
 
 def build_keep(iq: bool = False):
     """Build (if needed) and load ``csrc/das_keep.cu`` (das_keep_kernel:
     keep modes and weights of K1 and K2; ``das_keep_iq.cu`` with ``iq``,
     its remodulating variants); return ``(its entry point, nvcc log)``."""
-    fn, log = _entry("das_keep", iq)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
-                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn, log
+    return _bind("das_keep", "das_keep", iq, _KEEP_ARGS + _DEV)
+
+
+def build_q(q: int, iq: bool = False):
+    """Build (if needed) and load the reduced-precision unit of entry type
+    ``q`` (1 bf16: ``csrc/das_bf16.cu``, 2 int8: ``das_i8.cu``; their
+    ``_iq`` twins with ``iq``), K1(e) and K2(e); return ``(K1's entry
+    point, nvcc log)``."""
+    return _bind("das_" + _Q_LIBS[q], "das_k1_q", iq, _K1_ARGS + _LP + _DEV)
+
+
+def build_lut_q(q: int, iq: bool = False):
+    """K2's entry point in the library of :func:`build_q`."""
+    return _bind("das_" + _Q_LIBS[q], "das_lut_k2_q", iq, _K2_ARGS + _LP + _DEV)[0]
+
+
+def build_keep_q(q: int, iq: bool = False):
+    """Build (if needed) and load the keep kernel's unit of entry type ``q``
+    (1 bf16: ``csrc/das_keep_bf16.cu``, 2 int8: ``das_keep_i8.cu``, 3
+    float32 with bfloat16 kept sums: ``das_keep_acc16.cu``; their ``_iq``
+    twins with ``iq``); return ``(its entry point, nvcc log)``."""
+    return _bind("das_keep_" + _Q_LIBS[q], "das_keep_q", iq,
+                 _KEEP_ARGS + _LP + [ctypes.c_int] + _DEV)
+
+
+def check_precision(precision: str, method: str, lut: bool = False) -> None:
+    """Raise ``ValueError`` where the TPU kernels raise: an unknown
+    precision ('bf16' is K1's alone: ``das_lut_plan`` takes 'f32',
+    'bf16pair' and 'i8x4'), and 'i8x4', which holds the four taps of a
+    stencil, with a sampler other than cubic and lanczos3."""
+    if precision not in PRECISIONS or (lut and precision == "bf16"):
+        raise ValueError(f"unknown precision {precision!r}")
+    if precision == "i8x4" and method not in ("cubic", "lanczos3"):
+        raise ValueError("precision='i8x4' packs the 4-tap stencil; use method='cubic' or "
+                         "'lanczos3'")
+
+
+def cast_traces(x: torch.Tensor) -> torch.Tensor:
+    """Traces as K1 and K2 take them: real floating point (float64,
+    float16, bfloat16) as float32, complex128 as complex64, as the TPU
+    package uploads them (``_upload_trace``, ``prep_real``); others as
+    they are (the kernels refuse them)."""
+    if x.is_complex():
+        return x.to(torch.complex64)
+    return x.to(torch.float32) if x.is_floating_point() else x
+
+
+def round_bf16_half_away(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` with each value rounded to bfloat16 half away from
+    zero, as float32: the TPU kernel's ``_pack_pairs``, ``(bits + 0x8000)
+    >> 16`` on the magnitude's bits ('bf16pair')."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x8000) & -65536).view(torch.float32)
+
+
+def round_bf16_even(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32, or each part of complex64) rounded to bfloat16 half
+    to even, in its own type ('bf16': the TPU kernel's
+    ``astype(jnp.bfloat16)``; the kept sums of ``QUPS_DAS_ACC16``)."""
+    if x.is_complex():
+        return torch.view_as_complex(round_bf16_even(torch.view_as_real(x)).contiguous())
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _magnitude(x: torch.Tensor) -> torch.Tensor:
+    """|x|; for complex x as numpy and XLA compute it, ``hi sqrt(fma(r, r,
+    1))`` with ``hi, lo`` the larger and smaller of |re|, |im| and ``r = lo
+    / hi``, so that a scale is bit-equal to the TPU package's."""
+    if not x.is_complex():
+        return x.abs()
+    r = torch.view_as_real(x).abs()
+    hi, lo = torch.maximum(r[..., 0], r[..., 1]), torch.minimum(r[..., 0], r[..., 1])
+    q = (lo / hi).double()
+    m = hi * torch.sqrt((q * q + 1.0).float())
+    return torch.where(hi == 0, torch.zeros_like(m), m)
+
+
+def i8_scale(x: torch.Tensor, per_transmit: bool = True) -> torch.Tensor:
+    """The 'i8x4' quantization scale of traces ``x (T, N, M, *F)``, float32
+    ``(M,)`` on their device: ``s = max(max |x|, 1e-30)`` over the time,
+    receivers and frames of each transmit (K1: das_pallas.py:2461-2479), or
+    over all the traces, one scale per call repeated for every transmit
+    (K2: :2076-2083). A complex trace's magnitude covers both parts."""
+    xF = _frames(x)
+    M = xF.shape[2]
+    out = torch.empty(M, dtype=torch.float32, device=x.device)
+    step = max(1, (16 << 20) // max(1, xF[:, :, :1].numel()))  # transmits a block
+    for m0 in range(0, M, step):
+        out[m0:m0 + step] = _magnitude(xF[:, :, m0:m0 + step]).amax(dim=(0, 1, 3))
+    s = out if per_transmit else out.amax().expand(M)
+    return torch.clamp(s, min=1e-30).contiguous()
+
+
+def round_taps(x: torch.Tensor, precision: str, scale: Optional[torch.Tensor] = None):
+    """The taps the kernels read at ``precision``, as float32 (complex64)
+    on the device of ``x (T, N, M, *F)``: 'f32' ``x``; 'bf16pair' and 'bf16'
+    each part rounded to bfloat16 (:func:`round_bf16_half_away`,
+    :func:`round_bf16_even`); 'i8x4' the int8 values ``clip(round(x (127 /
+    s_m)), -127, 127)`` of transmit m, ``127 / s_m`` rounded to float32 and
+    round half to even (``_pack_quads``), ``scale`` the (M,) scales s."""
+    if precision == "f32":
+        return x
+    r = torch.view_as_real(x) if x.is_complex() else x
+    if precision == "bf16pair":
+        q = round_bf16_half_away(r)
+    elif precision == "bf16":
+        q = round_bf16_even(r)
+    else:
+        scale = scale.to(torch.float32)
+        # a true division: torch's scalar / tensor multiplies by a reciprocal
+        inv = (torch.full_like(scale, 127.0) / scale).reshape((1, 1, -1) + (1,) * (r.ndim - 3))
+        q = torch.clamp(torch.round(r * inv), -127.0, 127.0)
+    return torch.view_as_complex(q.contiguous()) if x.is_complex() else q
+
+
+def dequant(scale: torch.Tensor) -> torch.Tensor:
+    """The 'i8x4' dequantization factors ``s / 127`` of scales ``s``, each a
+    true float32 division (torch divides a CUDA tensor by a scalar as a
+    product with its reciprocal), contiguous."""
+    return (scale / torch.full_like(scale, 127.0)).contiguous()
+
+
+def _acc16(keep_rx: bool, keep_tx: bool) -> bool:
+    """K1 keeps its kept sums in bfloat16: ``QUPS_DAS_ACC16=1`` with a keep
+    mode, read at each call as ``das_tiled`` reads it."""
+    return os.environ.get("QUPS_DAS_ACC16", "0") == "1" and bool(keep_rx or keep_tx)
 
 
 def stencil_entry(taps, method: str):
@@ -302,12 +469,16 @@ def stencil_entry(taps, method: str):
 
 def build_layout():
     """The layout kernel's entry point in the library of :func:`build`."""
-    lib, _ = _nvcc.load("das")
-    fn = lib.das_layout
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind("das", "das_layout", False, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + _DEV)[0]
+
+
+def build_layout_q(q: int):
+    """The layout kernel's entry point for entry type ``q`` (``das_layout_q``)
+    in the library of :func:`build_q`."""
+    return _bind("das_" + _Q_LIBS[q], "das_layout_q", False,
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + _DEV)[0]
 
 
 def _frames(x: torch.Tensor) -> torch.Tensor:
@@ -316,32 +487,41 @@ def _frames(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(tuple(x.shape[:3]) + (-1,))
 
 
-def tx_chunks(x: torch.Tensor, method: str):
+def tx_chunks(x: torch.Tensor, method: str, precision: str = "f32"):
     """The ranges ``(m0, m1)`` of transmits of traces ``x (T, N, M, *F)``
     that K1 and K2 lay out and sum at once: as few chunks as keep each
-    layout (every frame of its transmits) within ``LAYOUT_BYTES``, of sizes
+    layout (every frame of its transmits, in the entry type of
+    ``precision``: 4, 2 or 1 bytes a unit) within ``LAYOUT_BYTES``, of sizes
     within one of each other."""
     T, N, M = x.shape[:3]
     F = int(np.prod(x.shape[3:], dtype=np.int64))
-    floats = (2 if x.is_complex() else 1) * {"nearest": 1, "linear": 2}.get(method, 4)
-    per_tx = 4 * floats * T * N * F
+    units = (2 if x.is_complex() else 1) * {"nearest": 1, "linear": 2}.get(method, 4)
+    per_tx = _UNIT[_ENTRY[precision]].itemsize * units * T * N * F
     k = -(-M // max(1, LAYOUT_BYTES // per_tx))
     return [(M * j // k, M * (j + 1) // k) for j in range(k)]
 
 
-def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None) -> torch.Tensor:
+def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: str = "f32",
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`trace_layout_plain` of transmits ``m0:m1`` of ``x``: for a
-    CUDA tensor by the layout kernel of ``csrc/das.cu`` (bit for bit the
-    same), else by the plain version."""
+    CUDA tensor by the layout kernel of ``csrc/das.cu`` (``das_bf16.cu``,
+    ``das_i8.cu`` at a reduced precision; bit for bit the same), else by
+    the plain version.
+    ``scale``: the (M,) 'i8x4' scales of all of x's transmits."""
     global LAYOUT_LAUNCHES
     m1 = x.shape[2] if m1 is None else m1
+    sc = None if scale is None else scale[m0:m1]
     if not is_cuda(x):
-        return trace_layout_plain(x[:, :, m0:m1], method)
+        return trace_layout_plain(x[:, :, m0:m1], method, precision, sc)
     if x.dtype not in DTYPES or x.ndim not in (3, 4):
         raise ValueError(f"K1 and K2 take float32 or complex64 (T, N, M[, F]) traces, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected {METHODS}")
+    check_precision(precision, method)
+    prec = _ENTRY[precision]
+    if precision == "i8x4" and (sc is None or sc.numel() != m1 - m0):
+        raise ValueError("precision='i8x4' needs one scale per transmit")
     x = x.contiguous()
     T, N, M = x.shape[:3]
     fd = tuple(x.shape[3:])
@@ -351,23 +531,29 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None) -> torch.Te
     if T > TMAX:
         raise ValueError(f"K1 and K2 take traces of at most {TMAX} samples, got {T}")
     cplx = x.is_complex()
-    if method == "nearest":
+    if method == "nearest" and not prec:
         shape, dtype = (m1 - m0, N, T) + fd, x.dtype
     else:
         shape = ((m1 - m0, N, T) + fd + ((2,) if cplx else ())
-                 + (2 if method == "linear" else 4,))
-        dtype = torch.float32
+                 + ({"nearest": (), "linear": (2,)}.get(method, (4,))))
+        dtype = _UNIT[prec]
     out = torch.empty(shape, dtype=dtype, device=x.device)
-    rc = build_layout()(x.data_ptr() + m0 * F * x.element_size(), out.data_ptr(), T, N,
-                        m1 - m0, M, F, _METHOD_CODE[method], int(cplx),
-                        *_nvcc.stream_args(x.device))
+    args = (x.data_ptr() + m0 * F * x.element_size(), out.data_ptr(), T, N, m1 - m0, M, F,
+            _METHOD_CODE[method], int(cplx))
+    if prec:
+        sc = None if sc is None else sc.to(device=x.device, dtype=torch.float32).contiguous()
+        rc = build_layout_q(prec)(*args, prec, None if sc is None else sc.data_ptr(),
+                                  int(precision == "bf16"), *_nvcc.stream_args(x.device))
+    else:
+        rc = build_layout()(*args, *_nvcc.stream_args(x.device))
     if rc != 0:
         raise RuntimeError(f"layout kernel launch failed with cudaError {rc}")
     LAYOUT_LAUNCHES += 1
     return out
 
 
-def trace_layout_plain(x: torch.Tensor, method: str) -> torch.Tensor:
+def trace_layout_plain(x: torch.Tensor, method: str, precision: str = "f32",
+                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Traces ``x (T, N, M[, F])`` (float32 or complex64) as the kernels
     read them with the sampler ``method``, contiguous on the device of
     ``x``, one trace per (m, n), a term's frames next to each other:
@@ -379,19 +565,39 @@ def trace_layout_plain(x: torch.Tensor, method: str) -> torch.Tensor:
       ``(M, N, T[, F], 2, 2 | 4)``, the real part's entry, then the
       imaginary part's.
 
+    At a reduced ``precision`` the entries hold the rounded taps
+    (:func:`round_taps`, ``scale`` the (M,) 'i8x4' scales) as their bits,
+    int16 (bf16) or int8: nearest ``(M, N, T[, F][, 2])`` the sample,
+    linear ``(..., 2)`` ``(x[k], x[k+1])``, cubic and lanczos3 ``(..., 4)``
+    the four taps ``x[k-1..k+2]``.
+
     Every base ``k`` in ``[0, T - 1]`` then reads what the taps that
     ``ops/interp.py`` gathers with its indices clamped to ``[0, T - 1]``
     give, with no clamp in the kernel."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected {METHODS}")
+    check_precision(precision, method)
+    prec = _ENTRY[precision]
+    x = round_taps(x, precision, scale)
     xt = x.permute(2, 1, 0, *range(3, x.ndim))  # (M, N, T[, F])
     if method == "nearest":
-        return xt.contiguous()
-    xp = torch.cat((xt[:, :, :1], xt, xt[:, :, -1:], xt[:, :, -1:]), dim=2)
-    T = x.shape[0]
-    xr = torch.view_as_real(xp) if x.is_complex() else xp[..., None]  # (M, N, T + 3[, F], C)
-    s = torch.stack(stencil_entry([xr[:, :, j:j + T] for j in range(4)], method), -1)
-    return (s if x.is_complex() else s[..., 0, :]).contiguous()
+        if not prec:
+            return xt.contiguous()
+        s = torch.view_as_real(xt) if x.is_complex() else xt
+    else:
+        xp = torch.cat((xt[:, :, :1], xt, xt[:, :, -1:], xt[:, :, -1:]), dim=2)
+        T = x.shape[0]
+        xr = torch.view_as_real(xp) if x.is_complex() else xp[..., None]  # (M, N, T + 3[, F], C)
+        taps = [xr[:, :, j:j + T] for j in range(4)]
+        ent = taps[1:3] if prec and method == "linear" else taps if prec else \
+            stencil_entry(taps, method)
+        s = torch.stack(ent, -1)
+        s = s if x.is_complex() else s[..., 0, :]
+    if prec == 1:
+        s = s.to(torch.bfloat16).view(torch.int16)  # exact: the taps are rounded
+    elif prec == 2:
+        s = s.to(torch.int8)
+    return s.contiguous()
 
 
 def tx_t0(t0, M: int) -> np.ndarray:
@@ -413,16 +619,17 @@ def tx_t0(t0, M: int) -> np.ndarray:
     return np.broadcast_to(a, (M,)).copy()
 
 
-def _launch_frames(x, method, fmod, launch, fb_max=FB):
-    """Lay out the chunks of transmits of ``x (T, N, M, *F)`` and call
+def _launch_frames(x, method, fmod, launch, fb_max=FB, precision="f32", scale=None):
+    """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
+    ``precision`` (``scale``: its (M,) 'i8x4' scales) and call
     ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
     ``fb_max`` frames of each chunk: w = 2 pi fmod in float32, add 1 after
     the first chunk."""
     xF = _frames(x)
     F = xF.shape[3]
     w = float(np.float32(2 * np.pi * fmod))
-    for j, (m0, m1) in enumerate(tx_chunks(xF, method)):
-        xl = trace_layout(xF, method, m0, m1)
+    for j, (m0, m1) in enumerate(tx_chunks(xF, method, precision)):
+        xl = trace_layout(xF, method, m0, m1, precision, scale)
         for f0 in range(0, F, fb_max):
             launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
         del xl  # the next chunk's layout may take its memory
@@ -485,10 +692,14 @@ def _dense_weights(dense, im_shape, N: int, M: int, dev):
 
 def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, apod,
               keep_rx, keep_tx, im_shape, k1=None, k2=None, cinv=0.0, tx_model="plane",
-              orientations=None, lat=None) -> torch.Tensor:
+              orientations=None, lat=None, precision="f32", scale=None,
+              acc16=False) -> torch.Tensor:
     """K1 (``k1 = (pi, pr, pv, nv)`` on the card) or K2 (``k2 = (tau_rx,
-    tau_tx)``) through das_keep_kernel: keep modes and weights. Returns (I,
-    N', M', *F), a view of the kernel's (N', M', F, I) output."""
+    tau_tx)``) through das_keep_kernel: keep modes and weights, at
+    ``precision`` (``scale``: the (M,) 'i8x4' scales), the kept sums
+    stored as bfloat16 with ``acc16`` (half the output's bytes; widened to
+    float32 here). Returns (I, N', M', *F), a view of the kernel's (N', M',
+    F, I) output."""
     dev = x.device
     T, N, M = x.shape[:3]
     fd = tuple(x.shape[3:])
@@ -529,12 +740,21 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
         latg = ltg = None
     cplx, iq = x.is_complex(), fmod != 0
     Np, Mp = (N if keep_rx else 1), (M if keep_tx else 1)
-    out = torch.empty((Np, Mp, F, I), dtype=torch.complex64 if cplx or iq else torch.float32,
-                      device=dev)
+    sum_bytes = 8 if cplx or iq else 4  # a sum in the kernel
+    if acc16:  # the kept sums as bfloat16, a pair for a complex sum: half the bytes
+        out = torch.empty((Np, Mp, F, I) + ((2,) if cplx or iq else ()), dtype=torch.bfloat16,
+                          device=dev)
+    else:
+        out = torch.empty((Np, Mp, F, I), dtype=torch.complex64 if cplx or iq else torch.float32,
+                          device=dev)
+    out_bytes = sum_bytes // 2 if acc16 else sum_bytes  # a kept sum in out
     of, om, on = I, F * I, Mp * F * I
     keep = int(keep_rx) + 2 * int(keep_tx)
-    fb_max = FB if keep != 1 else max(1, min(FB, KR_BYTES // (BLOCK * NC * out.element_size())))
-    fn, _ = build_keep(iq)
+    fb_max = FB if keep != 1 else max(1, min(FB, KR_BYTES // (BLOCK * NC * sum_bytes)))
+    prec = _ENTRY[precision] or (F32X if acc16 else 0)
+    lp = prec != 0  # a reduced-precision unit's launch
+    fn, _ = build_keep_q(prec, iq) if lp else build_keep(iq)
+    dq = None if scale is None else dequant(scale)
     nul = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lut = k2 is not None
     if lut:
@@ -543,7 +763,8 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
         pi, pr, pv, nv = k1
 
     def launch(xl, m0, m1, F, f0, fb, w, add):
-        global KEEP_LAUNCHES, APOD_LAUNCHES, LUT_KEEP_LAUNCHES
+        global KEEP_LAUNCHES, APOD_LAUNCHES, LUT_KEEP_LAUNCHES, PREC_LAUNCHES
+        global LUT_PREC_LAUNCHES
         strides, ptrs = [], []
         for key in ("wr", "wt", "wd"):
             t, st = wts.get(key, (None, (0,) * 5))
@@ -551,7 +772,7 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
             ptrs.append(None if t is None else t.data_ptr() + 4 * m0 * st[4])
         sa = (ctypes.c_longlong * 15)(*strides)
         pa = (ctypes.c_float * 7)(*prm)
-        o = out.data_ptr() + (m0 * om * out.element_size() if keep_tx else 0)
+        o = out.data_ptr() + (m0 * om * out_bytes if keep_tx else 0)
         geo = ((None,) * 4 + (tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(), M) if lut else
                (pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(), nv[m0:].data_ptr(), None,
                 None, 0))
@@ -560,38 +781,98 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
                 int(cplx), int(iq), 0 if keep_tx else add, keep, on, om, of, im_shape[1],
                 im_shape[2], *ptrs, ctypes.addressof(sa), rx_bits, tx_bits, nul(ori),
                 nul(latg), None if ltg is None else ltg[m0:].data_ptr(), ctypes.addressof(pa),
+                *((prec, None if dq is None else dq[m0:].data_ptr(), int(acc16)) if lp else ()),
                 *_nvcc.stream_args(dev))
         if rc != 0:
             raise RuntimeError(f"{'K2' if lut else 'K1'} keep/apodization launch failed "
                                f"with cudaError {rc}")
-        if lut:
+        if lp and lut:
+            LUT_PREC_LAUNCHES += 1
+        elif lp:
+            PREC_LAUNCHES += 1
+        elif lut:
             LUT_KEEP_LAUNCHES += 1
         else:
             KEEP_LAUNCHES += int(keep != 0)
             APOD_LAUNCHES += int(bool(kern or wts))
 
-    _launch_frames(x, method, fmod, launch, fb_max)
+    _launch_frames(x, method, fmod, launch, fb_max, precision, scale)
+    if acc16:  # widened exactly to float32
+        out = torch.view_as_complex(out.float()) if cplx or iq else out.float()
     return out.permute(3, 0, 1, 2).reshape((I, Np, Mp) + fd)
+
+
+def _quantized(x: torch.Tensor, precision: str, apod: tuple, per_transmit: bool):
+    """(the rounded taps of ``x``, ``apod`` with the 'i8x4' dequantization
+    ``s_m / 127`` as a per-transmit weight (I1, I2, I3, N, M) = (1, 1, 1,
+    1, M), applied per term as the keep kernel applies it; K1's and K2's
+    summed kernels scale each transmit's sum over a chunk of NC receivers
+    instead, the same up to float32 rounding)."""
+    if precision != "i8x4":
+        return round_taps(x, precision), apod
+    s = i8_scale(x, per_transmit)
+    return round_taps(x, precision, s), apod + (dequant(s).reshape(1, 1, 1, 1, -1),)
+
+
+def _acc16_plain(x, pi, pr, pv, nv, t0, cinv, apod, *, keep_rx, keep_tx, method, precision,
+                 **kw) -> torch.Tensor:
+    """K1's kept sums stored as bfloat16 where the kernel stores them:
+    keep_rx once a launch, after the transmits of each layout chunk
+    (:func:`tx_chunks`) are added to the stored sums; keep_tx after each
+    chunk of NC receivers is added; both once per term. ``x`` holds the
+    rounded taps, ``apod`` the weights (the 'i8x4' scale among them)."""
+    dev = x.device
+    N = x.shape[1]
+    pr, pv, nv = (as_f32(a, dev).reshape(-1, 3) for a in (pr, pv, nv))
+    apod = tuple(_lift5(torch.as_tensor(a, device=dev)) for a in apod)
+
+    def part(ns, ms):
+        sub = tuple(a[:, :, :, ns if a.shape[3] != 1 else slice(None),
+                      ms if a.shape[4] != 1 else slice(None)] for a in apod)
+        return das(x[:, ns, ms], pi, pr[ns], pv[ms], nv[ms], t0[ms], cinv, apod=sub,
+                   keep_rx=keep_rx, keep_tx=keep_tx, method=method, **kw)
+
+    if keep_rx and keep_tx:
+        return round_bf16_even(part(slice(None), slice(None)))
+    if keep_rx:
+        blocks = [(slice(None), slice(m0, m1)) for m0, m1 in tx_chunks(x, method, precision)]
+    else:
+        blocks = [(slice(n0, n0 + NC), slice(None)) for n0 in range(0, N, NC)]
+    acc = None
+    for ns, ms in blocks:
+        v = part(ns, ms)
+        acc = round_bf16_even(v if acc is None else acc + v)
+    return acc
 
 
 def das_sum_plain(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
                   tx_model: str = "virtual", method: str = "cubic", fmod: float = 0.0,
                   apod=(), keep_rx: bool = False, keep_tx: bool = False, im_shape=None,
-                  orientations=None, lat=None) -> torch.Tensor:
-    """The plain PyTorch version of K1 (K1(c), K1(d)): the image (I, N',
-    M', *F) on the device of ``x``, ``Fused`` descriptors through
-    :func:`fused_weights`."""
+                  orientations=None, lat=None, precision: str = "f32") -> torch.Tensor:
+    """The plain PyTorch version of K1 (K1(c)-(e)): the image (I, N', M',
+    *F) on the device of ``x``, ``Fused`` descriptors through
+    :func:`fused_weights`, the taps rounded to ``precision``
+    (:func:`round_taps`; 'i8x4' one scale per transmit, applied per term),
+    the kept sums rounded to bfloat16 where K1 stores them with
+    ``QUPS_DAS_ACC16=1``."""
+    check_precision(precision, method)
+    x = cast_traces(x)
     apod = dense_apod(_apod_tuple(apod), pi, pr, nv, im_shape=im_shape,
                       orientations=orientations, lat=lat, device=x.device)
-    return das(x, pi, pr, pv, nv, tx_t0(t0, x.shape[2]), cinv, fs=fs,
-               tx_model=tx_model, method=method, fmod=float(fmod), apod=apod,
-               keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape)
+    xq, apod = _quantized(x, precision, apod, per_transmit=True)
+    t0 = tx_t0(t0, x.shape[2])
+    kw = dict(fs=fs, tx_model=tx_model, fmod=float(fmod), im_shape=im_shape)
+    if _acc16(keep_rx, keep_tx):
+        return _acc16_plain(xq, pi, pr, pv, nv, t0, cinv, apod, keep_rx=keep_rx,
+                            keep_tx=keep_tx, method=method, precision=precision, **kw)
+    return das(xq, pi, pr, pv, nv, t0, cinv, method=method, apod=apod, keep_rx=keep_rx,
+               keep_tx=keep_tx, **kw)
 
 
 def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
             tx_model: str = "virtual", method: str = "cubic", fmod: float = 0.0,
             apod=(), keep_rx: bool = False, keep_tx: bool = False, im_shape=None,
-            orientations=None, lat=None) -> torch.Tensor:
+            orientations=None, lat=None, precision: str = "f32") -> torch.Tensor:
     """Geometry DAS image (I, N', M', *F) of traces ``x (T, N, M, *F)``,
     remodulated at ``fmod`` (complex64 when ``fmod != 0`` or the traces are
     complex), summed over the receivers unless ``keep_rx`` (N' = N) and the
@@ -602,16 +883,23 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     arrays broadcastable to ``im_shape + (N, M)`` and :class:`Fused`
     descriptors, with ``orientations`` (2, N) the sine and cosine of each
     receiver's azimuth and ``lat`` (I,) each pixel's lateral coordinate
-    (default its x) for them. On a CUDA tensor this launches K1 (summed and
-    unweighted) or das_keep_kernel (K1(c), K1(d)); on a CPU tensor it runs
+    (default its x) for them. ``precision``: 'f32', 'bf16pair', 'bf16' or
+    'i8x4' (cubic and lanczos3 only): the taps K1 reads (K1(e)); float64,
+    complex128 and bfloat16 traces are cast to float32 or complex64 first.
+    With ``QUPS_DAS_ACC16=1`` and a keep mode the kept sums are stored as
+    bfloat16 (returned as float32). On a CUDA tensor this launches K1
+    (summed and unweighted), das_keep_kernel (K1(c), K1(d)) or their
+    reduced-precision units (K1(e)); on a CPU tensor it runs
     :func:`das_sum_plain`.
     """
     apod = _apod_tuple(apod)
+    check_precision(precision, method)
+    x = cast_traces(x)
     if not is_cuda(x):
         return das_sum_plain(x, pi, pr, pv, nv, t0, cinv, fs=fs, tx_model=tx_model,
                              method=method, fmod=fmod, apod=apod, keep_rx=keep_rx,
                              keep_tx=keep_tx, im_shape=im_shape, orientations=orientations,
-                             lat=lat)
+                             lat=lat, precision=precision)
     if tx_model not in TX_MODELS:
         raise ValueError(f"unknown tx model {tx_model!r}; expected {TX_MODELS}")
     if np.ndim(cinv) != 0:
@@ -625,30 +913,38 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
         raise ValueError(f"geometry does not match traces (T, N, M) = {(T, N, M)}")
     t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
     I = pi.shape[0]
+    scale = i8_scale(x) if precision == "i8x4" else None
     if apod or keep_rx or keep_tx:
         return _das_keep(x, I, t0, fs=fs, method=method, fmod=fmod, apod=apod,
                          keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape,
                          k1=(pi, pr, pv, nv), cinv=cinv, tx_model=tx_model,
-                         orientations=orientations, lat=lat)
+                         orientations=orientations, lat=lat, precision=precision,
+                         scale=scale, acc16=_acc16(keep_rx, keep_tx))
     cplx = x.is_complex()
     iq = fmod != 0
     fd = tuple(x.shape[3:])
     out = torch.empty((I, int(np.prod(fd, dtype=np.int64))),
                       dtype=torch.complex64 if cplx or iq else torch.float32, device=dev)
-    fn, _ = build(iq)
+    prec = _ENTRY[precision]
+    fn, _ = build_q(prec, iq) if prec else build(iq)
+    dq = None if scale is None else dequant(scale)
 
     def launch(xl, m0, m1, F, f0, fb, w, add):
-        global LAUNCHES
+        global LAUNCHES, PREC_LAUNCHES
+        lp = (prec, None if dq is None else dq[m0:].data_ptr()) if prec else ()
         rc = fn(xl.data_ptr(), pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(),
                 nv[m0:].data_ptr(), t0[m0:].data_ptr(), out.data_ptr(), I, N, m1 - m0, T,
                 F, f0, fb, float(np.float32(cinv)), float(np.float32(fs)), w,
-                _TX_CODE[tx_model], _METHOD_CODE[method], int(cplx), add,
+                _TX_CODE[tx_model], _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
         if rc != 0:
             raise RuntimeError(f"K1 launch failed with cudaError {rc}")
-        LAUNCHES += 1
+        if prec:
+            PREC_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
 
-    _launch_frames(x, method, fmod, launch)
+    _launch_frames(x, method, fmod, launch, precision=precision, scale=scale)
     return out.view((I, 1, 1) + fd)
 
 
@@ -661,32 +957,40 @@ def _no_fused(apod):
 def das_lut_sum_plain(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
                       method: str = "cubic", fmod: float = 0.0, apod=(),
                       keep_rx: bool = False, keep_tx: bool = False,
-                      im_shape=None) -> torch.Tensor:
-    """The plain PyTorch version of K2 (K2(c)): the LUT DAS image (I, N',
-    M', *F) on the device of ``x``."""
+                      im_shape=None, precision: str = "f32") -> torch.Tensor:
+    """The plain PyTorch version of K2 (K2(c), K2(e)): the LUT DAS image
+    (I, N', M', *F) on the device of ``x``, the taps rounded to
+    ``precision`` ('i8x4': one scale per call, applied per term)."""
+    check_precision(precision, method, lut=True)
     apod = _apod_tuple(apod)
     _no_fused(apod)
-    return das_lut(x, tau_rx, tau_tx, tx_t0(t0, x.shape[2]), fs=fs, method=method,
+    x = cast_traces(x)
+    xq, apod = _quantized(x, precision, apod, per_transmit=False)
+    return das_lut(xq, tau_rx, tau_tx, tx_t0(t0, x.shape[2]), fs=fs, method=method,
                    fmod=float(fmod), apod=apod, keep_rx=keep_rx, keep_tx=keep_tx,
                    im_shape=im_shape)
 
 
 def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
                 method: str = "cubic", fmod: float = 0.0, apod=(), keep_rx: bool = False,
-                keep_tx: bool = False, im_shape=None) -> torch.Tensor:
+                keep_tx: bool = False, im_shape=None, precision: str = "f32") -> torch.Tensor:
     """LUT DAS image (I, N', M', *F) of traces ``x (T, N, M, *F)`` with the
     delays ``tau = (tau_tx[i, m] + tau_rx[i, n]) - t0[m]``, remodulated at
     ``fmod``: tables ``tau_rx (I, N)``, ``tau_tx (I, M)`` [s], ``t0`` one
     start time per transmit (:func:`tx_t0`); keep modes and dense ``apod``
-    as :func:`das_sum` (no :class:`Fused`). On a CUDA tensor this launches
-    K2 (summed and unweighted) or das_keep_kernel (K2(c)); on a CPU tensor
-    it runs :func:`das_lut_sum_plain`.
+    as :func:`das_sum` (no :class:`Fused`). ``precision``: 'f32',
+    'bf16pair' or 'i8x4' (one scale per call; K2(e)). On a CUDA tensor this
+    launches K2 (summed and unweighted), das_keep_kernel (K2(c)) or their
+    reduced-precision units (K2(e)); on a CPU tensor it runs
+    :func:`das_lut_sum_plain`.
     """
     apod = _apod_tuple(apod)
+    check_precision(precision, method, lut=True)
+    x = cast_traces(x)
     if not is_cuda(x):
         return das_lut_sum_plain(x, tau_rx, tau_tx, t0, fs=fs, method=method, fmod=fmod,
                                  apod=apod, keep_rx=keep_rx, keep_tx=keep_tx,
-                                 im_shape=im_shape)
+                                 im_shape=im_shape, precision=precision)
     _no_fused(apod)
     _check_traces(x, "K2")
     dev = x.device
@@ -697,26 +1001,33 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
         raise ValueError(f"tables {tuple(tau_rx.shape)}, {tuple(tau_tx.shape)} do "
                          f"not match traces (T, N, M) = {(T, N, M)}")
     t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
+    scale = i8_scale(x, per_transmit=False) if precision == "i8x4" else None
     if apod or keep_rx or keep_tx:
         return _das_keep(x, I, t0, fs=fs, method=method, fmod=fmod, apod=apod,
                          keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape,
-                         k2=(tau_rx, tau_tx))
+                         k2=(tau_rx, tau_tx), precision=precision, scale=scale)
     cplx = x.is_complex()
     iq = fmod != 0
     fd = tuple(x.shape[3:])
     out = torch.empty((I, int(np.prod(fd, dtype=np.int64))),
                       dtype=torch.complex64 if cplx or iq else torch.float32, device=dev)
-    fn = build_lut(iq)
+    prec = _ENTRY[precision]
+    fn = build_lut_q(prec, iq) if prec else build_lut(iq)
+    dq = None if scale is None else dequant(scale)
 
     def launch(xl, m0, m1, F, f0, fb, w, add):
-        global LUT_LAUNCHES
+        global LUT_LAUNCHES, LUT_PREC_LAUNCHES
+        lp = (prec, None if dq is None else dq[m0:].data_ptr()) if prec else ()
         rc = fn(xl.data_ptr(), tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(),
                 t0[m0:].data_ptr(), out.data_ptr(), I, N, m1 - m0, M, T, F, f0, fb,
-                float(np.float32(fs)), w, _METHOD_CODE[method], int(cplx), add,
+                float(np.float32(fs)), w, _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
         if rc != 0:
             raise RuntimeError(f"K2 launch failed with cudaError {rc}")
-        LUT_LAUNCHES += 1
+        if prec:
+            LUT_PREC_LAUNCHES += 1
+        else:
+            LUT_LAUNCHES += 1
 
-    _launch_frames(x, method, fmod, launch)
+    _launch_frames(x, method, fmod, launch, precision=precision, scale=scale)
     return out.view((I, 1, 1) + fd)

@@ -29,9 +29,10 @@ Scope (ROADMAP.md, "Scope decisions"):
   ``device=``, and move the traces there. On a CUDA tensor, ``DAS`` runs
   kernel K1 (``ops/das_cuda.py``) and, with a per-pixel sound speed,
   kernel K2 through ``bfDASLUT``; ``bfDAS`` and ``bfDASLUT`` run K2; both
-  take frame dims and IQ remodulation (``fmod``), keep modes and
-  apodization; ``coherence_image`` reduces ``DAS(keep_rx=True)`` over the
-  aperture; ``bfAdjoint`` runs
+  take frame dims and IQ remodulation (``fmod``), keep modes,
+  apodization and the reduced-precision traces of ``precision=`` ('auto'
+  is float32 on every device); ``coherence_image`` reduces
+  ``DAS(keep_rx=True)`` over the aperture; ``bfAdjoint`` runs
   kernel K4 (``ops/fdbf_cuda.py``). An option a kernel does not carry
   raises ``NotImplementedError`` naming its sub-slice. Nothing drops to
   the plain path on its own: ``kernel='plain'`` is an explicit choice.
@@ -56,7 +57,6 @@ from .core.scat import Scatterers
 from .core.seq import Sequence
 from .core.xdc import Transducer, TransducerArray, TransducerConvex
 from .ops.das import das, das_lut, delay_tables, rx_distance, tx_distance
-from .ops import das_cuda
 from .ops.das_cuda import Fused, das_lut_sum, das_sum, dense_apod
 from .ops.coherence import cohfac, slsc
 from .ops.conv import convd
@@ -72,6 +72,12 @@ from .utils.maths import box_rbounds
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
 KERNELS = ("auto", "cuda", "plain")
+
+
+def _kernel_precision(precision: str) -> str:
+    """The trace precision K1 and K2 take for a beamformer's ``precision``:
+    'auto' is 'f32' on every device."""
+    return "f32" if precision == "auto" else precision
 
 
 @dataclass(frozen=True)
@@ -634,10 +640,20 @@ class UltrasoundSystem:
         on the CPU with ``kernel='auto'`` and with a ``c0`` map it takes
         ``Fused.materialize``'s dense array, as the JAX package's XLA path.
 
-        ``precision``: 'auto' and 'f32' run float32; the reduced-precision
-        trace modes ('bf16pair', 'i8x4', 'bf16') are sub-slice K1(e) and
-        raise on CUDA; the plain path ignores them, as the JAX package's
-        XLA path does.
+        ``precision``: the taps the kernel reads (K1(e), K2(e) on the
+        c0-map route): 'f32', 'bf16pair' (each tap rounded to bfloat16 half
+        away from zero, the JAX package's packed pairs), 'bf16' (half to
+        even; K1 only: the c0-map route raises ``ValueError``, as
+        ``das_lut_plan`` does) or 'i8x4' (int8 taps, one scale per transmit,
+        per call on K2; cubic and lanczos3 only, else ``ValueError``);
+        'auto' is 'f32' on every device (the JAX package resolves it to
+        'bf16pair' on the TPU, where that was measured faster; the port
+        changes its default only on a measurement of its own). Weights,
+        rotation and sums stay float32; float64, complex128 and bfloat16
+        traces are cast to float32 or complex64 before the kernel. With
+        ``QUPS_DAS_ACC16=1`` K1 stores its kept sums (``keep_rx``,
+        ``keep_tx``) as bfloat16. The plain path ignores ``precision``, as
+        the JAX package's XLA path does.
 
         ``bsize``: stream the traces ``bsize`` transmits at a time: the
         whole trace set stays on the host and one block at a time moves to
@@ -719,19 +735,6 @@ class UltrasoundSystem:
             out["lat"] = lat.reshape(-1).astype(np.float32)
         return out
 
-    @staticmethod
-    def _ineligible(kern: str, x: torch.Tensor, precision) -> Optional[str]:
-        """Why the DAS kernel ``kern`` ('K1' or 'K2') cannot beamform this
-        call, naming its sub-slice that will carry it; ``None`` when it can
-        (sub-slices (a)-(d): any frame dims, ``fmod``, keep mode and
-        apodization). A per-pixel sound speed never reaches K1:
-        ``_das_block`` sends it to K2."""
-        if precision not in ("auto", "f32") or x.dtype not in das_cuda.DTYPES:
-            return (f"precision={precision!r} with {x.dtype} traces: {kern} runs "
-                    "float32 and complex64; other trace precisions are "
-                    f"sub-slice {kern}(e)")
-        return None
-
     def _das_block(self, chd: ChannelData, pv, nv, model, cinv, apod_t, *,
                    fmod, keep_tx, keep_rx, method, kernel, precision):
         """One DAS dispatch over a (possibly tx-sliced) trace block."""
@@ -762,12 +765,10 @@ class UltrasoundSystem:
                                      keep_tx=keep_tx, keep_rx=keep_rx,
                                      method=method, kernel=kernel,
                                      precision=precision, device=x.device)
-            why = self._ineligible("K1", x, precision)
-            if why is not None:
-                raise NotImplementedError(f"DAS on CUDA (kernel K1): {why}")
             img = das_sum(x, pi, pr, pv, nv, chd.t0, cinv, fs=float(chd.fs),
                           tx_model=model, method=method, fmod=float(fmod), apod=apod_t,
-                          keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape, **fk)
+                          keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape,
+                          precision=_kernel_precision(precision), **fk)
         else:
             img = das(x, pi, pr, pv, nv, chd.t0_host, cinv, fs=float(chd.fs),
                       apod=dense_apod(apod_t, pi, pr, nv, im_shape=im_shape,
@@ -788,10 +789,9 @@ class UltrasoundSystem:
         ``(*scan.shape, *F)``: one image per frame (the JAX package's
         two-step path sums the frames first).
 
-        ``precision``: 'auto' and 'f32' beamform in float32; the trace
-        precisions 'bf16pair' and 'i8x4' are sub-slice K1(e) and raise.
-        ``mesh`` (several cards) is not ported and raises. ``kernel`` and
-        ``device`` as for :meth:`DAS`.
+        ``precision``: as for :meth:`DAS` ('auto' is 'f32'; 'bf16pair',
+        'bf16', 'i8x4' on K1(e)). ``mesh`` (several cards) is not ported and
+        raises. ``kernel`` and ``device`` as for :meth:`DAS`.
 
         Example:
             import numpy as np
@@ -812,9 +812,6 @@ class UltrasoundSystem:
         if mesh is not None:
             raise NotImplementedError("coherence_image on a mesh of cards is not ported "
                                       "(ROADMAP Queue 1 item 11)")
-        if precision in ("bf16pair", "i8x4"):
-            raise NotImplementedError(f"precision={precision!r} is sub-slice K1(e), not "
-                                      "ported yet")
         brx = self.DAS(chd, apod=apod, fmod=fmod, c0=c0, keep_rx=True, method=method,
                        kernel=kernel, precision=precision, device=device)
         nd = len(self.scan.shape)
@@ -882,10 +879,12 @@ class UltrasoundSystem:
         dense ``apod`` arrays (K2(c)) run in K2, a ``t0`` that varies over
         receivers or frames raises ``ValueError``, and options K2 does not
         carry yet raise ``NotImplementedError`` naming the sub-slice. A
-        :class:`Fused` descriptor raises ``TypeError`` (materialize it). ``method``: the four samplers or 'cubic2x' (linear on
-        traces upsampled 2x), 'auto' is cubic. ``precision``: 'auto' and
-        'f32' (float32 or complex64 traces); other trace precisions are
-        sub-slice K2(e).
+        :class:`Fused` descriptor raises ``TypeError`` (materialize it).
+        ``method``: the four samplers or 'cubic2x' (linear on traces
+        upsampled 2x), 'auto' is cubic. ``precision``: the taps K2 reads
+        (K2(e)): 'auto' and 'f32', 'bf16pair', or 'i8x4' with one scale per
+        call (cubic and lanczos3 only); 'bf16' raises ``ValueError``, as the
+        JAX package's ``das_lut_plan``. The plain path ignores it.
 
         Example:
             import numpy as np
@@ -923,13 +922,11 @@ class UltrasoundSystem:
         if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
             if not x.is_cuda:
                 raise ValueError("kernel='cuda' needs the traces on a CUDA device")
-            why = self._ineligible("K2", x, precision)
-            if why is not None:
-                raise NotImplementedError(f"bfDASLUT on CUDA (kernel K2): {why}")
             img = das_lut_sum(x, tau_rx, tau_tx, chd.t0, fs=float(chd.fs),
                               method=method, fmod=float(fmod), apod=apod_t,
                               keep_rx=keep_rx, keep_tx=keep_tx,
-                              im_shape=tuple(self.scan.shape))
+                              im_shape=tuple(self.scan.shape),
+                              precision=_kernel_precision(precision))
         else:
             img = das_lut(x, tau_rx, tau_tx, chd.t0_host, fs=float(chd.fs),
                           apod=apod_t, fmod=float(fmod), keep_rx=keep_rx,

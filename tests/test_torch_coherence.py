@@ -124,13 +124,17 @@ def test_coherence_image_matches_reference_per_frame(pw, post, lags):
 
 
 def test_coherence_image_scope(pw):
-    """What coherence_image does not carry raises: a mesh (several cards)
-    and the K1(e) trace precisions; an unknown post is a ValueError."""
+    """What coherence_image does not carry raises: a mesh (several cards);
+    an unknown post is a ValueError. The trace precisions run (K1(e) on the
+    card); on the CPU the plain path ignores them, as the JAX package's XLA
+    path does."""
     _, ust, chds = pw
     chdt = from_reference(chds[0])
-    for kw in (dict(mesh=object()), dict(precision="bf16pair"), dict(precision="i8x4")):
-        with pytest.raises(NotImplementedError):
-            ust.coherence_image(chdt, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ust.coherence_image(chdt, device="cpu", mesh=object())
+    ref = ust.coherence_image(chdt, device="cpu")
+    for precision in ("bf16pair", "i8x4", "bf16"):
+        assert torch.equal(ust.coherence_image(chdt, device="cpu", precision=precision), ref)
     with pytest.raises(ValueError):
         ust.coherence_image(chdt, post="dmas", device="cpu")
     cf = ust.coherence_image(chdt, device="cpu", kernel="plain", method="linear")

@@ -13,7 +13,10 @@ chunk; two launches of K3(b) and K4 bit-identical; K5 against splat_plain
 for both bases, sub-elements and a complex kernel; the sim→image path
 greens → DAS, the plane-wave path greens → focusTx → DAS / bfDAS /
 per-pixel-c DAS / bfAdjoint and the simulator family (greens pallas and
-bf16, simus, calc_scat_multi, calc_hp) on CUDA tensors; and
+bf16, simus, calc_scat_multi, calc_hp) on CUDA tensors; the reduced
+trace precisions of K1(e) and K2(e) (the layout kernel's narrow entries bit
+for bit, the kernels against their plain versions at each precision, keep
+modes and weights, the bfloat16 kept sums of QUPS_DAS_ACC16); and
 NotImplementedError for every option a kernel does not carry yet. Every
 test here needs the card and skips without one.
 
@@ -144,8 +147,22 @@ def test_das_on_card(card):
         ref = us.DAS(rf, kernel="plain", **kw)
         assert got.shape == ref.shape
         assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), kw
-    with pytest.raises(NotImplementedError, match="K1\\(e\\)"):
-        us.DAS(rf, precision="i8x4")
+    # the trace precisions run on K1(e), against its plain version at the
+    # same precision; i8x4 refuses cubic2x (linear), as the TPU kernel does
+    pvs, nvs, model = us._tx_geometry()
+    geo = (us._pixels(), us.rx.positions().T, pvs, nvs, rf.t0, np.float32(1 / 1540.0))
+    for precision in ("bf16pair", "bf16", "i8x4"):
+        before = das_cuda.PREC_LAUNCHES, das_cuda.LAUNCHES
+        got = us.DAS(rf, precision=precision)
+        torch.cuda.synchronize()
+        assert (das_cuda.PREC_LAUNCHES, das_cuda.LAUNCHES) == (before[0] + 1, before[1])
+        ref = das_cuda.das_sum_plain(rf.data, *geo, fs=float(rf.fs), tx_model=model,
+                                     method="cubic", precision=precision)
+        assert float((got.reshape(ref.shape) - ref).abs().max()) \
+            < 1e-4 * float(ref.abs().max()), precision
+        assert np.linalg.norm(P[:, int(got.abs().reshape(-1).argmax())] - target) < 1.1e-3
+    with pytest.raises(ValueError, match="4-tap"):
+        us.DAS(rf, precision="i8x4", method="cubic2x")
     # a per-pixel sound speed rides K2; a constant map is the scalar-c image
     k2 = das_cuda.LUT_LAUNCHES
     bc = us.DAS(chd, c0=np.full(us.scan.shape, 1540.0))
@@ -519,6 +536,182 @@ def test_layout_kernel_frames_matches_plain(card, T, N, M, F):
             assert torch.equal(got, das_cuda.trace_layout_plain(xg[:, :, m0:m1], method))
 
 
+# K1(e), K2(e): each reduced precision and the samplers it takes
+PREC_METHODS = {"bf16pair": METHODS, "bf16": METHODS, "i8x4": ("cubic", "lanczos3")}
+
+
+def _lp_counts():
+    return (das_cuda.PREC_LAUNCHES, das_cuda.LUT_PREC_LAUNCHES, das_cuda.LAUNCHES,
+            das_cuda.LUT_LAUNCHES, das_cuda.KEEP_LAUNCHES, das_cuda.APOD_LAUNCHES,
+            das_cuda.LUT_KEEP_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,M,F", [(1, 3, 2, 1), (3, 2, 1, 5), (130, 5, 40, 1), (70, 2, 7, 3)])
+def test_layout_kernel_narrow_entries_match_plain(card, T, N, M, F):
+    """The layout kernel's narrow entries against trace_layout_plain, bit
+    for bit: bf16 taps rounded half away from zero ('bf16pair') and half to
+    even ('bf16'), exact ties among them, and int8 taps with one scale per
+    transmit (transmits 60 dB apart), every sampler each takes, real and
+    complex, one frame and several, whole and by a chunk of transmits."""
+    rng = np.random.default_rng(63)
+    x = rng.standard_normal((T, N, M, F)).astype(np.float32)
+    x *= np.logspace(0, -3, M, dtype=np.float32)[None, None, :, None]
+    b = x.reshape(-1).view(np.int32)
+    b[::5] = (b[::5] & ~0xFFFF) | 0x8000  # bf16 ties
+    for xa in (x, (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)):
+        xg = torch.as_tensor(xa, device=card)
+        s = das_cuda.i8_scale(xg)
+        for precision, methods in PREC_METHODS.items():
+            sc = s if precision == "i8x4" else None
+            for method in methods:
+                before = das_cuda.LAYOUT_LAUNCHES
+                got = das_cuda.trace_layout(xg, method, precision=precision, scale=sc)
+                assert das_cuda.LAYOUT_LAUNCHES == before + 1
+                ref = das_cuda.trace_layout_plain(xg, method, precision, sc)
+                assert got.dtype == ref.dtype == (torch.int8 if sc is not None else torch.int16)
+                assert got.shape == ref.shape and torch.equal(got, ref), (precision, method)
+                m0, m1 = M // 3, M - M // 4
+                got = das_cuda.trace_layout(xg, method, m0, m1, precision, sc)
+                assert torch.equal(got, das_cuda.trace_layout_plain(
+                    xg[:, :, m0:m1], method, precision, None if sc is None else sc[m0:m1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["real"] + sorted(IQ))
+@pytest.mark.parametrize("precision", sorted(PREC_METHODS))
+def test_k1e_k2e_match_plain(card, precision, case):
+    """K1(e) and K2(e) ('bf16' K1 only): every sampler the precision takes x
+    the three transmit models and perturbed tables x one frame and 6 (two
+    launches), real traces, real with fmod, complex with and without,
+    against their plain versions: the same rounded taps, so within float32
+    roundings. Each launch counts in PREC_LAUNCHES or LUT_PREC_LAUNCHES
+    and in no float32 counter."""
+    cplx, fmod = IQ.get(case, (False, 0.0))
+    x, tau_rx, tau_tx, t0, fs = lut_problem()
+    for fdims in ((), (6,)):
+        xf = frame_traces(x, fdims, cplx).to(card)
+        calls = [] if precision == "bf16" else [
+            (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain, (xf, tau_rx, tau_tx, t0),
+             dict(fs=fs), 1)]
+        for model in ("plane", "diverging", "virtual"):
+            _, pi, pr, pv, nv, t0m = problem(model)
+            calls.append((das_cuda.das_sum, das_cuda.das_sum_plain,
+                          (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model=model), 0))
+        for kern, plain, args, kw, which in calls:
+            for method in PREC_METHODS[precision]:
+                kw = dict(kw, method=method, fmod=fmod, precision=precision)
+                before = _lp_counts()
+                got = kern(*args, **kw)
+                torch.cuda.synchronize()
+                delta = np.subtract(_lp_counts(), before)
+                assert delta[which] == (2 if fdims else 1) and delta.sum() == delta[which]
+                ref = plain(*args, **kw)
+                assert got.shape == ref.shape and got.dtype == ref.dtype
+                err = float((got - ref).abs().max()) / float(ref.abs().max())
+                assert err < 1e-4, (kern.__name__, precision, method, case, fdims, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep,weights", [("rx", "none"), ("tx", "none"), ("both", "none"),
+                                          ("", "mixed"), ("rx", "dense rx tx"),
+                                          ("tx", "tx_multiline")])
+@pytest.mark.parametrize("precision", ["bf16pair", "i8x4"])
+def test_k1e_keep_and_weights_match_plain(card, precision, keep, weights):
+    """K1(e) in the keep kernel: keep modes and weights (fused and dense) at
+    a reduced precision, real traces with fmod and complex ones with 3
+    frames, two transmit models, against the plain version; K2(e) keep_rx
+    on the perturbed tables."""
+    apod = _weights(weights)
+    methods = ("cubic", "lanczos3") if precision == "i8x4" else ("nearest", "cubic")
+    for model in ("plane", "virtual"):
+        x, pi, pr, pv, nv, t0 = problem(model)
+        for xg, fmod in ((torch.as_tensor(x).to(card), 1e6),
+                         (frame_traces(x, (3,), True).to(card), 0.0)):
+            for method in methods:
+                kw = dict(fs=4e6, tx_model=model, method=method, fmod=fmod, apod=apod,
+                          im_shape=(64, 64, 1), precision=precision, **KEEPS[keep])
+                before = _lp_counts()
+                got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
+                torch.cuda.synchronize()
+                delta = np.subtract(_lp_counts(), before)
+                assert delta[0] > 0 and delta.sum() == delta[0]
+                ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
+                assert got.shape == ref.shape and got.dtype == ref.dtype
+                err = float((got - ref).abs().max()) / float(ref.abs().max())
+                assert err < 1e-4, (model, method, fmod, xg.ndim, err)
+    x, tau_rx, tau_tx, t0, fs = lut_problem()
+    xg = torch.as_tensor(x).to(card)
+    kw = dict(fs=fs, method="cubic", keep_rx=True, precision=precision)
+    before = das_cuda.LUT_PREC_LAUNCHES
+    got = das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw)
+    assert das_cuda.LUT_PREC_LAUNCHES == before + 1
+    ref = das_cuda.das_lut_sum_plain(xg, tau_rx, tau_tx, t0, **kw)
+    assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["rx", "tx", "both"])
+@pytest.mark.parametrize("precision", ["f32", "bf16pair", "i8x4"])
+def test_acc16_matches_plain(card, precision, keep, monkeypatch):
+    """QUPS_DAS_ACC16=1: K1 stores its kept sums as bfloat16 (float32 traces
+    through das_keep_acc16.cu), across 3 chunks of transmits and 3 of
+    receivers (N 70), against the plain version, which rounds at the same
+    stores. Every value is a bfloat16; a sum whose float32 value lies
+    within rounding of a bfloat16 tie may round one step (2^-7 of its size
+    at most) the other way at each of its k stores, so the limit is 1e-4 of
+    the largest plus k 2^-7 of its own size, and such values are rare."""
+    monkeypatch.setenv("QUPS_DAS_ACC16", "1")
+    x, pi, pr, pv, nv, t0 = problem("virtual", N=70, M=9, n=20)
+    pi = pi[:300]
+    xg = torch.as_tensor(x).to(card)
+    monkeypatch.setattr(das_cuda, "LAYOUT_BYTES",
+                        3 * {"f32": 4, "bf16pair": 2, "i8x4": 1}[precision] * 4 * 512 * 70)
+    assert len(das_cuda.tx_chunks(xg, "cubic", precision)) == 3
+    kw = dict(fs=4e6, tx_model="virtual", method="cubic", precision=precision, **KEEPS[keep])
+    before = _lp_counts()
+    got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    torch.cuda.synchronize()
+    delta = np.subtract(_lp_counts(), before)
+    assert delta[0] == 3 and delta.sum() == 3
+    ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got, das_cuda.round_bf16_even(got))
+    k = {"rx": 3, "tx": 3, "both": 1}[keep]
+    off = (got - ref).abs() - 1e-4 * float(ref.abs().max())
+    assert bool((off <= k * 2.0 ** -7 * ref.abs()).all())
+    assert float((off > 0).float().mean()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["rx", "tx", "both"])
+@pytest.mark.parametrize("precision", ["f32", "bf16pair"])
+def test_acc16_frames_complex_match_plain(card, precision, keep, monkeypatch):
+    """QUPS_DAS_ACC16=1 on complex traces remodulated at fmod, 6 frames in
+    launches of at most FB frames: the kept sums stored as pairs of
+    bfloat16 (the output advanced by frames in bfloat16 units), widened to
+    complex64, against the plain version, one store a value."""
+    monkeypatch.setenv("QUPS_DAS_ACC16", "1")
+    x, pi, pr, pv, nv, t0 = problem("virtual", T=256, N=24, M=5, n=16)
+    rng = np.random.default_rng(48)
+    xc = (rng.standard_normal((256, 24, 5, 6))
+          + 1j * rng.standard_normal((256, 24, 5, 6))).astype(np.complex64)
+    xg = torch.as_tensor(xc).to(card)
+    kw = dict(fs=4e6, tx_model="virtual", method="cubic", fmod=1e6, precision=precision,
+              **KEEPS[keep])
+    before = das_cuda.PREC_LAUNCHES
+    got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    torch.cuda.synchronize()
+    assert das_cuda.PREC_LAUNCHES - before >= 2
+    ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
+    assert got.dtype == ref.dtype == torch.complex64 and got.shape == ref.shape
+    parts, rp = torch.view_as_real(got), torch.view_as_real(ref)
+    assert torch.equal(parts, das_cuda.round_bf16_even(parts))
+    off = (parts - rp).abs() - 1e-4 * float(rp.abs().max())
+    assert bool((off <= 2.0 ** -7 * rp.abs()).all())
+    assert float((off > 0).float().mean()) < 1e-2
+
+
 @pytest.mark.cuda
 def test_iq_ensemble_on_card(card):
     """The IQ ensemble path on a small plane-wave system: two frames of the
@@ -683,7 +876,8 @@ def test_k3_bf16_tensor_cores(card, E):
 def test_plane_wave_path_on_card(card):
     """greens → focusTx (freq) → DAS (K1), bfDAS and per-pixel-c DAS (K2),
     bfAdjoint (K4) on a small plane-wave system, each against the same call
-    with kernel='plain', and each image's peak on the target."""
+    with kernel='plain', and each image's peak on the target; bfDAS in
+    bf16pair and i8x4 (K2(e)) against the plain version at that precision."""
     xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
     us = qt.UltrasoundSystem(
         tx=xdc, rx=xdc,
@@ -721,8 +915,21 @@ def test_plane_wave_path_on_card(card):
         assert das_cuda.LUT_KEEP_LAUNCHES == before + 1
         ref = fn(chd, kernel="plain", **kw)
         assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max()), kw
-    with pytest.raises(NotImplementedError, match="K2\\(e\\)"):
-        us.bfDAS(rf, precision="bf16pair")
+    # K2(e): the trace precisions run, against the plain version at the same
+    # precision; 'bf16' is K1's alone (the c0-map route raises, as das_lut_plan)
+    tables = us.das_delay_tables(device=card)
+    for precision in ("bf16pair", "i8x4"):
+        before = das_cuda.LUT_PREC_LAUNCHES, das_cuda.LUT_LAUNCHES
+        got = us.bfDAS(chd, precision=precision)
+        torch.cuda.synchronize()
+        assert (das_cuda.LUT_PREC_LAUNCHES, das_cuda.LUT_LAUNCHES) == (before[0] + 1, before[1])
+        ref = das_cuda.das_lut_sum_plain(chd.data, *tables, chd.t0, fs=float(chd.fs),
+                                         method="cubic", precision=precision)
+        assert float((got.reshape(ref.shape) - ref).abs().max()) \
+            < 1e-4 * float(ref.abs().max()), precision
+        assert np.linalg.norm(P[:, int(got.abs().reshape(-1).argmax())] - target) < 1.1e-3
+    with pytest.raises(ValueError, match="unknown precision 'bf16'"):
+        us.DAS(rf, c0=cmap, precision="bf16")
     with pytest.raises(TypeError):
         us.bfDAS(chd, apod=qt.Fused("aperture_growth"))
 

@@ -243,18 +243,32 @@ def test_das_sum_frames_fmod_cpu_is_plain(case):
 
 
 def test_kernels_leave_c_d_e_to_later_sub_slices():
-    """K1 and K2 now take frames and fmod (sub-slice (b)), keep modes and
-    apodization ((c), (d)): only the trace precisions still name a later
-    sub-slice, (e)."""
-    x = torch.zeros((8, 2, 3, 2, 3))
-    for kern in ("K1", "K2"):
-        for precision in ("auto", "f32"):
-            assert qt.UltrasoundSystem._ineligible(kern, x, precision) is None
-        for precision in ("bf16pair", "i8x4", "bf16"):
-            why = qt.UltrasoundSystem._ineligible(kern, x, precision)
-            assert f"{kern}(e)" in why and "(c)" not in why and "(d)" not in why
-        why = qt.UltrasoundSystem._ineligible(kern, x.to(torch.float64), "auto")
-        assert f"{kern}(e)" in why
+    """K1 and K2 carry every sub-slice now: frames and fmod (b), keep modes
+    and apodization (c), (d), and the trace precisions and dtypes (e). On
+    the CPU their wrappers take each precision to its plain version and
+    cast float64 traces to float32, with no launch; the beamformers'
+    precision 'auto' is float32 on every device."""
+    x, pi, pr, pv, nv, t0 = problem("plane", T=64)
+    x64 = torch.as_tensor(x.astype(np.float64))
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cpu")
+    counts = lambda: (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES,  # noqa: E731
+                      das_cuda.PREC_LAUNCHES, das_cuda.LUT_PREC_LAUNCHES,
+                      das_cuda.LAYOUT_LAUNCHES)
+    before = counts()
+    for precision in das_cuda.PRECISIONS:
+        kw = dict(fs=4e6, method="cubic", precision=precision)
+        got = das_cuda.das_sum(x64, pi, pr, pv, nv, t0, CINV, tx_model="plane", **kw)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, das_cuda.das_sum_plain(torch.as_tensor(x), pi, pr, pv, nv, t0,
+                                                       CINV, tx_model="plane", **kw))
+        if precision != "bf16":
+            got = das_cuda.das_lut_sum(x64, tau_rx, tau_tx, t0, **kw)
+            assert got.dtype == torch.float32
+            assert torch.equal(got, das_cuda.das_lut_sum_plain(torch.as_tensor(x), tau_rx,
+                                                               tau_tx, t0, **kw))
+    assert counts() == before
+    assert qt.system._kernel_precision("auto") == "f32"
+    assert not hasattr(qt.UltrasoundSystem, "_ineligible")
 
 
 def test_trace_layout_cpu_is_plain():

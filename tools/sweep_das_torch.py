@@ -63,7 +63,7 @@ def samplers(torch, prob, say):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         fn = m.group(1) if m else fn
         m = re.search(r"Used (\d+) registers", line)
-        k = fn and re.search(r"das_kernelILi(\d)ELi(\d)E(f|6float2)E", fn)
+        k = fn and re.search(r"das_kernelILi(\d)ELi(\d)E(f|6float2)(?:Li0E)?E", fn)
         if m and k:
             regs[("K2" if k.group(1) == "3" else "K1", METHODS[int(k.group(2))],
                   "real" if k.group(3) == "f" else "complex")] = m.group(1)
