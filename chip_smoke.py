@@ -19,7 +19,9 @@ simulator) and the splat's finish kernel (``csrc/greens_finish.cu``) with
 nvcc, one process per source, all at once (with the reduced-precision
 units of K1 and K2, one per entry type and rotation: ``das_bf16.cu``,
 ``das_i8.cu``, ``das_keep_bf16.cu``, ``das_keep_i8.cu``,
-``das_keep_acc16.cu`` and their ``_iq`` twins, K1(e) and K2(e)), and runs:
+``das_keep_acc16.cu`` and their ``_iq`` twins, K1(e) and K2(e)), and
+the eikonal solver (``csrc/msfm.cpp``, host C++, with the host compiler),
+and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times, ptxas registers, spills, stack frames
@@ -70,8 +72,8 @@ units of K1 and K2, one per entry type and rotation: ``das_bf16.cu``,
    frame dim (K2(b)), ``bfDAS(keep_rx=True)`` and the c0-map DAS with a
    dense weight (K2(c)) against the plain path; ``bfDAS`` in i8x4 (K2(e),
    one scale per call) and the ``coherence_image`` in bf16pair (K1(e)),
-   counted, as phase 3's; complex128 traces cast; and that every option K4
-   does not carry yet raises ``NotImplementedError``;
+   counted, as phase 3's; complex128 traces cast (no option of any kernel
+   raises ``NotImplementedError`` any more: K4(b), phase 19, was the last);
 8. K2 (every sampler) and K4 at the headline size, each beside its plain
    version, K4 also beside its bound and a cuBLAS yardstick of its products;
 9. K5 against its plain version at the main path's shapes (L11-5v, 10^4
@@ -135,7 +137,27 @@ units of K1 and K2, one per entry type and rotation: ``das_bf16.cu``,
    width, the IQ headline in bf16pair cubic (phase 14's traces, 4 frames)
    and keep_rx in i8x4 and, on float32 traces, with the bfloat16 kept sums
    of ``QUPS_DAS_ACC16``, each beside the float32 time, the plain version
-   on every 64th pixel and its bound.
+   on every 64th pixel and its bound;
+19. K4(b): K4 against its plain version at the volumetric path's arrays
+   (N = M = 1024, the volume's tables on every 64th voxel, 16 bins): V =
+   1024 in every keep mode and precision (keep_rx by chunks of
+   conj(Ahat)), keep_rx at V = 300 in one pass and by forced chunks, the
+   chunked launches twice, bit for bit; then the volumetric path
+   unmodified, no ``device=``: a 32 x 32 matrix array (0.3 mm, 3 MHz), FSA
+   over its 1024 elements, 64^3 voxels, 5 targets, ``us.greens`` (K3) and
+   ``us.bfAdjoint(max_bins=64)`` keep '' and keep_rx (K4, V = N = M =
+   1024), launches counted, the PSF in 3-D; each of the path's K4 calls
+   (bf16 keep '' and keep_rx) timed with CUDA events beside its plain
+   version on every 64th voxel and its bound, and the bf16 ``torch.bmm``
+   yardstick of its products;
+20. the eikonal path on the main system (phase 3's), no ``device=``:
+   ``us.bfEikonal`` on the default grid (host fast marching, ``msfm``, then
+   K2 through ``bfDASLUT``) in a homogeneous medium (the PSF, and each
+   target's peak within a pixel of ``bfDAS``'s, correlation > 0.9) and
+   under a 1300 m/s layer over the first 5 mm (the on-axis target at 28 mm
+   within 1.1 mm, closer than ``bfDAS``'s); K2 launches counted; each call
+   against ``kernel='plain'``; the host solve, the tables, their upload and
+   K2 timed apart.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -183,12 +205,14 @@ def _share(what, ms, b):
           f"{100 * b[0] / ms:.1f} % of it")
 
 
-def _ms(fn, reps=3):
-    """Mean milliseconds of ``fn`` over ``reps`` runs after one warm-up,
-    timed with CUDA events."""
+def _ms(fn, reps=3, warm=True):
+    """Mean milliseconds of ``fn`` over ``reps`` runs after one warm-up
+    (none with ``warm=False``, where the caller has just run ``fn``), timed
+    with CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -254,7 +278,8 @@ def phase0(torch, ops):
               ("K1(c)/(d)+K2(c) keep and weights, fmod",
                lambda: ops.das_cuda.build_keep(iq=True)),
               ("K3", ops.greens_freq_cuda.build), ("K4", ops.fdbf_cuda.build),
-              ("K5", ops.greens_cuda.build), ("finish", ops.greens_cuda.build_finish))
+              ("K5", ops.greens_cuda.build), ("finish", ops.greens_cuda.build_finish),
+              ("msfm (host C++)", lambda: ops._nvcc.load_host("msfm")))
     dc = ops.das_cuda
     for q, what in ((1, "bf16"), (2, "int8")):  # K1(e), K2(e): one unit per entry type
         builds += ((f"K1(e)+K2(e) {what}", lambda q=q: dc.build_q(q)),
@@ -326,7 +351,7 @@ def phase0(torch, ops):
     # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
     for name, lib, is_bf16 in (
             ("K3", "greens_freq", lambda f: "ELb1EEEv" in f),
-            ("K4", "fdbf", lambda f: "TcEngine" in f)):
+            ("K4", "fdbf", lambda f: "TcEngine" in f or "TcChunked" in f)):
         path, counts = sass_counts(lib, ("HMMA", "HGMMA"))
         tc = {f: c for f, c in counts.items() if is_bf16(f)}
         other = {f: c for f, c in counts.items() if not is_bf16(f)}
@@ -475,15 +500,6 @@ def phase2(torch, qt, gfc, errs):
                   f"outside the timing): {lib_ms:.3f} ms")
             out = (k_ms, p_ms, b, lib_ms)
     return out
-
-
-def _expect_not_implemented(fn, what, phase):
-    try:
-        fn()
-    except NotImplementedError as e:
-        print(f"{phase} raises as it should: {what}: {e}")
-        return
-    raise AssertionError(f"{what} did not raise NotImplementedError on CUDA")
 
 
 def _sync_s(torch, fn):
@@ -1015,23 +1031,6 @@ def phase7(torch, qt, ops, errs):
     torch.cuda.synchronize()
     assert das_cuda.LUT_LAUNCHES == before + 1 and torch.equal(wide, imgs["bfDAS (K2)"])
     print("phase7 complex128 traces run on K2 after the cast: the complex64 image, bit for bit")
-    checks = {
-        "bfAdjoint 300 pulses (K4(b))": lambda: fdbf_cuda.bf_adjoint_cuda(
-            torch.zeros((64, 4, 300), device="cuda"), np.zeros((8, 4)), np.zeros((8, 2)),
-            np.zeros((2, 300)), np.ones((2, 300)), 0.0, np.zeros(300), np.arange(3),
-            fs=1e6),
-        "bfAdjoint keep_rx 300 receivers (K4(b))": lambda: fdbf_cuda.bf_adjoint_cuda(
-            torch.zeros((64, 300, 4), device="cuda"), np.zeros((8, 300)), np.zeros((8, 2)),
-            np.zeros((2, 4)), np.ones((2, 4)), 0.0, np.zeros(4), np.arange(3),
-            fs=1e6, keep_rx=True),
-    }
-    counts = lambda: (das_cuda.LAUNCHES, das_cuda.LUT_LAUNCHES,  # noqa: E731
-                      das_cuda.LAYOUT_LAUNCHES, fdbf_cuda.LAUNCHES, das_cuda.KEEP_LAUNCHES,
-                      das_cuda.LUT_KEEP_LAUNCHES)
-    before = counts()
-    for what, fn in checks.items():
-        _expect_not_implemented(fn, what, "phase7")
-    assert counts() == before
     return launches
 
 
@@ -1111,14 +1110,14 @@ def phase8(torch, ops, k1_ms, errs):
     return k2, k4, k2_all
 
 
-def _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, fs, nb=4):
-    """The yardstick of K4 at the headline: the per-bin products of the tx and
-    rx phasors with S_k and X_k as one batched PyTorch GEMM per bin, bf16
-    torch.bmm on the materialized real-block operands and complex64
-    torch.bmm (cmatmul's product in one call), on ``nb`` bins with the
-    operands built outside the timing, scaled to all the bins. Only the
-    products: the norm and the sum over v are left out. Returns {precision:
-    ms}."""
+def _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, fs, nb=4, taut=None):
+    """The yardstick of K4: the per-bin products of the tx and rx phasors
+    (of ``taut``, default ``taur``, and ``taur``) with S_k and X_k as one
+    batched PyTorch GEMM per bin, bf16 torch.bmm on the materialized
+    real-block operands and complex64 torch.bmm (cmatmul's product in one
+    call), on ``nb`` bins with the operands built outside the timing, scaled
+    to all the bins. Only the products: the norm and the sum over v are left
+    out. Returns {precision: ms}."""
     from qups_tpu_torch.ops import fdbf_cuda
     from qups_tpu_torch.ops.fdbf import adjoint_spectra, phasor
 
@@ -1126,7 +1125,8 @@ def _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, fs, nb=4):
     out = {"bf16": 0.0, "f32": 0.0}
     I, M = taur.shape
     for k in np.linspace(0, fk.shape[0] - 1, nb).astype(int):
-        W = torch.stack((phasor(fk[k], taur, -1.0), phasor(fk[k], taur, 1.0)))
+        W = torch.stack((phasor(fk[k], taur if taut is None else taut, -1.0),
+                         phasor(fk[k], taur, 1.0)))
         Q = torch.stack((Sk[k], Xk[k]))  # (2, M, V): tables and arrays as phase 8's
         out["f32"] += _ms(lambda: torch.bmm(W, Q), reps=2)
         Wb = torch.view_as_real(W).reshape(2, I, 2 * M).to(torch.bfloat16)
@@ -2187,6 +2187,264 @@ def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
     return out
 
 
+# K4(b): the volumetric path (Part A of slice 10)
+def _volume_system(qt):
+    """The volumetric path's system: a 32 x 32 matrix array (0.3 mm pitch,
+    3 MHz), FSA over its 1024 elements at fs = 4 fc, 64^3 voxels on x, y in
+    +-5 mm, z in 20-40 mm; 5 point targets."""
+    xdc = qt.TransducerMatrix(numd=(32, 32), pitch2=(0.3e-3, 0.3e-3), fc=3e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=xdc.numel),
+        scan=qt.ScanCartesian(x=np.linspace(-5e-3, 5e-3, 64), y=np.linspace(-5e-3, 5e-3, 64),
+                              z=np.linspace(20e-3, 40e-3, 64)), fs=4 * xdc.fc)
+    targets = np.array([[0.0, 0.0, 30e-3], [-3e-3, 2e-3, 24e-3], [3.5e-3, -1.5e-3, 27e-3],
+                        [-2e-3, -3e-3, 34e-3], [2.5e-3, 3e-3, 37e-3]]).T  # (3, 5)
+    return us, targets, qt.Scatterers(pos=targets, c0=1540.0)
+
+
+def _adjoint_args(us, chd, max_bins):
+    """The arguments bfAdjoint hands K4 on ``chd`` (no frame dims), its tables
+    from its cache."""
+    from qups_tpu_torch.ops.fdbf import select_fbins
+
+    V = us.seq.num_pulse
+    tau_rx, tau_tx = us._adjoint_tables(float(us.seq.c0), chd.data.device)
+    t0_off = np.broadcast_to(us.seq.t0_offset(), (V,))
+    del_tx = us.seq.delays(us.tx) + t0_off[None, :]
+    sel = select_fbins(chd.data, chd.fs, -40.0, max_bins)
+    return (chd.data, tau_rx, tau_tx, del_tx, us.seq.apodization(us.tx), chd.t0_host, t0_off,
+            sel)
+
+
+def _k4b_parity(torch, fdbf_cuda, us, err):
+    """K4 against its plain version at the volumetric path's arrays (N = M =
+    1024 elements, the volume's tables on every 64th voxel), 16 bins of a
+    band: V = 1024 in every keep mode and precision (keep_rx by chunks of
+    conj(Ahat)), keep_rx at V = 300 in one pass and by forced chunks of 128
+    columns; the chunked launches twice, bit for bit. Then the cost of the
+    chunks, keep_rx on every 4th voxel with CUDA events: V = 300 in one pass
+    and in three chunks, V = 1024 in the plan's chunks, wider and narrower.
+    Returns {(V, precision, chunk columns or 0): [ms, ms]}."""
+    from qups_tpu_torch.ops.fdbf import bf_adjoint
+
+    fs, T = us.fs, 256
+    taur, taut = us._adjoint_tables(1540.0, torch.device("cuda"))
+    rows = torch.arange(0, us.scan.npix, 64, device="cuda")
+    sel = np.arange(60, 76)  # 2.8-3.6 MHz at fs / T = 46.9 kHz
+    plan = fdbf_cuda.rx_chunk
+
+    def run(args, kw, forced):
+        fdbf_cuda.rx_chunk = plan if forced is None else (lambda *a: forced)
+        try:
+            return fdbf_cuda.bf_adjoint_cuda(*args, **kw)
+        finally:
+            fdbf_cuda.rx_chunk = plan
+
+    traces = {}
+    for V in (1024, 300):
+        x = _band_traces(torch, T, 1024, V, fs, 3e6, 19 + V)
+        del_tx = np.random.default_rng(V).uniform(0, 2e-6, (1024, V))
+        rest = (del_tx, np.ones((1024, V)), 1e-6, np.zeros(V), sel)
+        traces[V] = (x, rest)
+        args = (x, taur[rows], taut[rows], *rest)
+        cases = [(k, p, None) for k in ("", "rx", "tx") for p in ("bf16", "f32")] \
+            if V == 1024 else [("rx", p, c) for p in ("bf16", "f32") for c in (None, 128)]
+        for keep, precision, forced in cases:
+            kw = dict(fs=fs, keep_rx=keep == "rx", keep_tx=keep == "tx", precision=precision)
+            vh = forced or (plan(1024, V, precision) if keep == "rx" else 0)
+            got, again = run(args, kw, forced), run(args, kw, forced)
+            torch.cuda.synchronize()
+            ref = bf_adjoint(*args, **kw)
+            route = f"chunks of {vh} columns" if vh else "one pass"
+            a, r = err.add(got, ref, f"phase19 V={V} keep={keep!r} {precision} {route}")
+            print(f"phase19 K4(b) parity V={V:4d} keep={keep!r:4s} {precision:4s} ({route}): "
+                  f"max_abs_err={a:.3e} rel={r:.3e}; a second launch bit-equal: "
+                  f"{bool(torch.equal(got, again))}  (T,N,M,I,K)="
+                  f"{(T, 1024, 1024, rows.numel(), sel.size)}")
+            assert r < (TOL_BF16 if precision == "bf16" else TOL), (V, keep, precision, r)
+            assert torch.equal(got, again), (V, keep, precision)
+        del got, again, ref
+    # the chunks' cost: keep_rx on every 4th voxel, in turns; V = 300 in one
+    # pass and in three chunks of 128 columns, V = 1024 in the plan's chunks
+    # (two blocks an SM), the widest that fit a block and narrower ones
+    rows4 = torch.arange(0, us.scan.npix, 4, device="cuda")
+    cost = {}
+    for V, precision, widths in ((300, "bf16", (0, 128)), (300, "f32", (0, 128)),
+                                 (1024, "bf16", (256, 704, 128)), (1024, "f32", (128, 384))):
+        x, rest = traces[V]
+        args = (x, taur[rows4], taut[rows4], *rest)
+        kw = dict(fs=fs, keep_rx=True, precision=precision)
+        for vh in widths + widths[::-1]:  # in turns
+            ms = _ms(lambda: run(args, kw, vh or None), reps=1)
+            cost.setdefault((V, precision, vh), []).append(ms)
+        line = ", ".join(f"{f'chunks of {vh}' if vh else 'one pass'} "
+                         f"{min(cost[(V, precision, vh)]):.3f} ms" for vh in widths)
+        print(f"phase19 K4 keep_rx V={V} on every 4th voxel ({rows4.numel()} x 1024 x 1024 x "
+              f"{sel.size} bins) {precision}, the better of two runs in turns: {line}")
+    return cost
+
+
+def phase19(torch, qt, ops, errs):
+    """K4(b): parity on the chunked and one-pass keep_rx routes, then the
+    volumetric path unmodified, no device=: us.greens (K3) and
+    us.bfAdjoint(max_bins=64) keep '' and keep_rx (K4, N = M = V = 1024 on
+    64^3 voxels), PSF in 3-D, launches counted; each K4 call timed beside
+    its plain version on every 64th voxel, its bound and the bf16 torch.bmm
+    yardstick of its products. Returns the kernel row's numbers."""
+    from qups_tpu_torch.ops.fdbf import bf_adjoint
+
+    fdbf_cuda, gfc = ops.fdbf_cuda, ops.greens_freq_cuda
+    us, targets, scat = _volume_system(qt)
+    chunk_cost = _k4b_parity(torch, fdbf_cuda, us, errs["fdbf_adjoint_k4b"])
+
+    gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
+    t = time.perf_counter()
+    chd = us.greens(scat)
+    t_sim = time.perf_counter() - t
+    b = us.bfAdjoint(chd, max_bins=64)
+    brx = us.bfAdjoint(chd, max_bins=64, keep_rx=True)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"greens_freq_k3": gfc.LAUNCHES, "fdbf_adjoint_k4b": fdbf_cuda.LAUNCHES}
+    print(f"phase19 volumetric path, us.greens then us.bfAdjoint(max_bins=64) keep '' and "
+          f"keep_rx, no device=: {t_path:.3f} s (first calls; greens {t_sim:.3f} s) -> traces "
+          f"{tuple(chd.data.shape)} {chd.data.dtype}, images {tuple(b.shape)}, "
+          f"{tuple(brx.shape)}; launches {launches}")
+    assert launches["greens_freq_k3"] > 0 and launches["fdbf_adjoint_k4b"] == 2, launches
+    assert b.is_cuda and b.shape == tuple(us.scan.shape) + (1, 1)
+    assert brx.shape == tuple(us.scan.shape) + (1024, 1)
+    assert bool(torch.isfinite(b).all()) and bool(torch.isfinite(brx).all())
+    _psf(us, b, targets, "bfAdjoint keep '' (K4(b))", "phase19")
+    _psf(us, brx.sum(3), targets, "bfAdjoint keep_rx summed over the receivers (K4(b))",
+         "phase19")
+    del brx
+
+    args = _adjoint_args(us, chd, 64)
+    x, taur, taut, del_tx, apod, t0, t0_off, sel = args
+    I, N, V, M, K, T = taur.shape[0], x.shape[1], x.shape[2], taut.shape[1], sel.size, x.shape[0]
+    rows = torch.arange(0, I, 64, device="cuda")
+    sub = (x, taur[rows], taut[rows], *args[3:])
+    nbytes = 8.0 * T * N * V + 4.0 * I * (N + M)
+    out = {}
+    for keep, precision in (("", "bf16"), ("rx", "bf16")):
+        kw = dict(fs=chd.fs, keep_rx=keep == "rx", precision=precision)
+        got = fdbf_cuda.bf_adjoint_cuda(*args, **kw)[rows]  # and the warm-up
+        k_ms = _ms(lambda: fdbf_cuda.bf_adjoint_cuda(*args, **kw), reps=1, warm=False)
+        ref, t_plain = _sync_s(torch, lambda: bf_adjoint(*sub, **kw))
+        a, r = errs["fdbf_adjoint_k4b"].add(got, ref, f"phase19 path keep={keep!r} {precision}")
+        flops = 8.0 * K * I * (M + N) * V + (8.0 * K * I * V * N if keep == "rx" else 0.0)
+        bnd = bound(flops, BF16_FLOPS if precision == "bf16" else F32_FLOPS,
+                    nbytes + 8.0 * I * (N if keep == "rx" else 1))
+        p_ms = t_plain * 1e3 * I / rows.numel()
+        vh = fdbf_cuda.rx_chunk(N, V, precision) if keep == "rx" else 0
+        print(f"phase19 K4 keep={keep!r:4s} {precision:4s} 64^3 voxels x 1024 x 1024 x 1024 "
+              f"pulses x {K} bins{f', conj(Ahat) in chunks of {vh}' if vh else ''}: "
+              f"{k_ms:.3f} ms ({flops / (k_ms / 1e3) / 1e12:.2f} TFLOP/s); plain on every "
+              f"64th voxel {t_plain * 1e3:.3f} ms, scaled {p_ms:.3f} ms; vs plain: "
+              f"max_abs_err={a:.3e} rel={r:.3e}")
+        _share(f"phase19 K4 keep={keep!r} {precision}", k_ms, bnd)
+        assert r < (TOL_BF16 if precision == "bf16" else TOL), (keep, precision, r)
+        out[(keep, precision)] = (k_ms, p_ms, bnd)
+        del got, ref
+    lib = _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, chd.fs, taut=taut)["bf16"]
+    print(f"phase19 library yardstick, the products alone (bf16 torch.bmm on the real-block "
+          f"operands, 4 bins scaled): {lib:.3f} ms; K4 keep '' bf16 "
+          f"{out[('', 'bf16')][0]:.3f} ms")
+    wall = _sync_s(torch, lambda: us.bfAdjoint(chd, max_bins=64))[1]
+    print(f"phase19 bfAdjoint keep '' wall (host clock, synchronised, warm): {wall:.3f} s")
+    return launches, (*out[("", "bf16")], lib), chunk_cost
+
+
+# the eikonal beamformer (Part B of slice 10)
+def phase20(torch, qt, ops, errs):
+    """The eikonal path on the main system (L11-5v FSA, 256^2 px), no
+    device=: bfEikonal on the default grid, in a homogeneous medium (the
+    PSF, and agreement with bfDAS) and under a 1300 m/s layer over the
+    first 5 mm (the on-axis target at 28 mm simulated at the effective
+    speed: the peak within 1.1 mm, closer than bfDAS's); K2 launches
+    counted; each call against kernel='plain'; the host solve, the tables'
+    upload and K2 timed apart. Returns the path's K2 launches."""
+    from qups_tpu_torch.ops.eikonal import msfm_multi
+    from qups_tpu_torch.system import _cmap_zx
+
+    das_cuda = ops.das_cuda
+    us, targets, scat = _main_system(qt)
+    homog = qt.Medium(c0=1540.0)
+    lens = qt.Medium(c0=1540.0, pertreg=((lambda P: P[2] < 5e-3, {"c": 1300.0}),))
+    c_eff = 28e-3 / (5e-3 / 1300.0 + 23e-3 / 1540.0)
+    on_axis = np.array([[0.0], [0.0], [28e-3]])
+    chd = us.greens(scat)
+    chd_lens = us.greens(qt.Scatterers(pos=on_axis, c0=c_eff))
+    torch.cuda.synchronize()
+
+    das_cuda.LUT_LAUNCHES = 0
+    t = time.perf_counter()
+    b = us.bfEikonal(chd, homog)
+    b_lens = us.bfEikonal(chd_lens, lens)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = das_cuda.LUT_LAUNCHES
+    print(f"phase20 eikonal path, us.bfEikonal on the default grid in two media, no device=: "
+          f"{t_path:.3f} s (first calls) -> images {tuple(b.shape)}; K2 launches {launches}")
+    assert launches == 2, launches
+    assert b.is_cuda and b.shape == tuple(us.scan.shape) + (1, 1)
+    assert bool(torch.isfinite(b).all()) and bool(torch.isfinite(b_lens).all())
+    _psf(us, b, targets, "bfEikonal, homogeneous (K2)", "phase20")
+
+    # homogeneous: bfDAS's peaks within a pixel, correlation > 0.9
+    d = us.bfDAS(chd)
+    P = us.scan.positions().reshape(3, -1)
+    ie, idas = b.abs().reshape(-1).cpu().numpy(), d.abs().reshape(-1).cpu().numpy()
+    for k in range(targets.shape[1]):
+        near = np.flatnonzero(np.linalg.norm(P - targets[:, k:k + 1], axis=0) < 3e-3)
+        j1 = np.unravel_index(near[np.argmax(ie[near])], us.scan.shape[:2])
+        j2 = np.unravel_index(near[np.argmax(idas[near])], us.scan.shape[:2])
+        assert abs(j1[0] - j2[0]) <= 1 and abs(j1[1] - j2[1]) <= 1, (k, j1, j2)
+    bv, dv = b.reshape(-1), d.reshape(-1)
+    corr = float((bv.conj() * dv).sum().abs() / (bv.norm() * dv.norm()))
+    print(f"phase20 homogeneous: each target's peak within one pixel of bfDAS's; "
+          f"correlation with bfDAS {corr:.4f}")
+    assert corr > 0.9, corr
+    # the lens: the on-axis peak within 1.1 mm, closer than bfDAS's
+    dl = us.bfDAS(chd_lens)
+    z_eik = P[2, int(b_lens.abs().reshape(-1).argmax())]
+    z_das = P[2, int(dl.abs().reshape(-1).argmax())]
+    print(f"phase20 lens (1300 m/s over 5 mm, target at 28 mm, simulated at {c_eff:.2f} m/s): "
+          f"eikonal peak at z {z_eik * 1e3:.3f} mm, bfDAS at {z_das * 1e3:.3f} mm")
+    assert abs(z_eik - 28e-3) < abs(z_das - 28e-3) + 1e-9 and abs(z_eik - 28e-3) < 1.1e-3
+    for what, (c, m, img) in {"homogeneous": (chd, homog, b),
+                              "lens": (chd_lens, lens, b_lens)}.items():
+        ref = us.bfEikonal(c, m, kernel="plain")
+        a, r = errs["das_lut_k2"].add(img, ref, f"phase20 bfEikonal {what}")
+        print(f"phase20 bfEikonal {what}: K2 vs plain max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < TOL, (what, r)
+
+    # where the time goes: the host solve, the sampled tables, their upload, K2
+    cgrd = us._eikonal_grid()
+    h = float(cgrd.dz)
+    pe = us.rx.positions()  # the elements lie inside the default grid
+    cells = np.stack([np.round((pe[2] - cgrd.z[0]) / h), np.round((pe[0] - cgrd.x[0]) / h)],
+                     -1).astype(int)
+    t = time.perf_counter()
+    maps = msfm_multi(_cmap_zx(cgrd, lens.props(cgrd, "c")), h, cells)
+    t_solve = time.perf_counter() - t
+    t = time.perf_counter()
+    tabs = us.eikonal_tables(lens, cgrd, device="cpu")
+    t_tables = time.perf_counter() - t
+    t = time.perf_counter()
+    tabs_g = tuple(a.cuda() for a in tabs)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t
+    k2_ms = _ms(lambda: us.bfDASLUT(chd_lens, *tabs_g), reps=3)
+    print(f"phase20 eikonal tables: grid {cgrd.nz} x {cgrd.nx} cells at {h * 1e3:.4f} mm, "
+          f"{maps.shape[0]} maps; msfm_multi alone {t_solve:.3f} s (host, {os.cpu_count()} "
+          f"cores), eikonal_tables on the host (solve + cubic sampling) {t_tables:.3f} s, "
+          f"upload of the (I, N) and (I, M) float32 tables {t_up * 1e3:.3f} ms, bfDASLUT "
+          f"on them (K2, CUDA events, warm) {k2_ms:.3f} ms")
+    assert np.isfinite(maps).all()
+    return launches
+
+
 def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     """K3's bytes read or written once: q and w of both sides (and the
     directivity slopes), and G (F, N, M) complex64."""
@@ -2228,7 +2486,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
              "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish", "das_k1b",
-             "das_lut_k2b", "das_k1c", "das_k1d", "das_lut_k2c", "das_k1e", "das_lut_k2e")
+             "das_lut_k2b", "das_k1c", "das_k1d", "das_lut_k2c", "das_k1e", "das_lut_k2e",
+             "fdbf_adjoint_k4b")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
@@ -2251,6 +2510,10 @@ def main():
     phase17(torch, qt, ops.das_cuda, errs)
     lp = phase18(torch, ops.das_cuda, k1_ms, k2_all, iqh, iq_args, keep, errs)
     del iq_args
+    vol_launches, k4b, _ = phase19(torch, qt, ops, errs)
+    eik_launches = phase20(torch, qt, ops, errs)
+    print(f"K2 launches on the eikonal path (phase 20): {eik_launches}; the kernels line's "
+          f"das_lut_k2 row counts the demo path's (phase 7)")
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -2293,6 +2556,7 @@ def main():
                     das_lut_k2e=pw_launches["das_lut_k2e"],
                     das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
+                    fdbf_adjoint_k4b=vol_launches["fdbf_adjoint_k4b"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
                     greens_finish=sim_launches["greens_finish"],
                     greens_freq_k3b=sim_launches["greens_freq_k3b"],
@@ -2312,6 +2576,12 @@ def main():
          *k4["bf16"], "1024^2 px x 256 rx x 256 tx x 256 pulses, 64 bins, bf16; "
          f"f32 {k4['f32'][0]:.3f} ms vs plain {k4['f32'][1]:.3f} ms; library: the "
          "products alone, bf16 torch.bmm on the real-block operands, 4 bins scaled"),
+        ("fdbf_adjoint_k4b", "qups_tpu_torch/csrc/fdbf.cu", "qups_tpu/ops/fdbf_pallas.py:45",
+         *k4b, "K4(b): the volumetric path's keep '' call, 64^3 voxels x 1024 rx x 1024 tx x "
+         "1024 pulses (32 x 32 matrix, FSA), 64 bins, bf16; keep_rx (conj(Ahat) by chunks) "
+         "in phase 19's lines; plain on every 64th voxel, scaled; library: the "
+         "products alone, bf16 torch.bmm on the real-block operands, 4 bins scaled; "
+         "launches: the volumetric path, keep '' and keep_rx"),
         ("greens_splat_k5", "qups_tpu_torch/csrc/greens_splat.cu",
          "qups_tpu/ops/greens_pallas.py:45", *k5["k5"], k5_b, None,
          "the main path's deposit grid: 10^4 scatterers, 128 x 128 elements, cubic, bands "

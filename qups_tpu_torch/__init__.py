@@ -12,13 +12,15 @@ and ``us.bfDAS`` / ``us.bfDASLUT`` (kernel K2) and ``us.bfAdjoint``
 (kernel K4) beamform it. IQ and frame ensembles: ``ChannelData``'s DSP
 (``join``, ``hilbert``, ``downmix``, ``resample``, ...) makes baseband
 frames, which ``us.DAS(iq, fmod=fc)`` and ``us.bfDAS`` beamform on K1(b)
-and K2(b). The entry points run on the card unless given ``device=``.
+and K2(b). Heterogeneous media: a :class:`Medium`'s sound-speed map
+gives ``us.bfEikonal`` its delay tables (fast marching on the host, then
+K2). The entry points run on the card unless given ``device=``.
 """
 from .core import (
     Waveform, Transducer, TransducerArray, TransducerConvex, TransducerMatrix,
     TransducerGeneric, Sequence, SequenceRadial, SequenceGeneric, Scan,
     ScanCartesian, ScanPolar, ScanSpherical, ScanGeneric, Scatterers,
-    ChannelData,
+    ChannelData, Medium,
 )
 from .system import UltrasoundSystem
 from .ops.das_cuda import Fused

@@ -16,7 +16,7 @@ _CLASSES = (
     "Waveform", "Transducer", "TransducerArray", "TransducerConvex",
     "TransducerMatrix", "TransducerGeneric", "Sequence", "SequenceRadial",
     "SequenceGeneric", "ScanCartesian", "ScanPolar", "ScanSpherical",
-    "ScanGeneric", "Scatterers", "ChannelData", "UltrasoundSystem",
+    "ScanGeneric", "Scatterers", "ChannelData", "UltrasoundSystem", "Medium",
 )
 
 
@@ -39,12 +39,14 @@ def _value(v, memo):
 
 def from_reference(obj, _memo=None):
     """The port's counterpart of ``obj``, a ``qups_tpu`` ``Transducer*``,
-    ``Sequence*``, ``Scan*``, ``Scatterers``, ``Waveform``, ``ChannelData``
-    or ``UltrasoundSystem``. Shared sub-objects stay shared (a system whose
+    ``Sequence*``, ``Scan*``, ``Scatterers``, ``Waveform``, ``ChannelData``,
+    ``Medium`` or ``UltrasoundSystem``. Shared sub-objects stay shared (a system whose
     ``tx is rx`` keeps that). A ``ChannelData``'s traces land on the CPU.
     Any sequence type (the FC sequence of ``calc_hp`` among them) and any
     waveform (its function is carried as it is, a complex pulse too) come
-    across.
+    across, and so does a ``Medium``'s tuple of perturbation regions, its
+    mask and value callables carried as they are (host numpy in both
+    packages).
 
     Example:
         import qups_tpu, qups_tpu_torch

@@ -5,10 +5,11 @@ from .seq import Sequence, SequenceRadial, SequenceGeneric
 from .scan import (Scan, ScanCartesian, ScanPolar, ScanSpherical, ScanGeneric)
 from .scat import Scatterers
 from .channel_data import ChannelData
+from .medium import Medium
 
 __all__ = [
     "Waveform", "Transducer", "TransducerArray", "TransducerConvex",
     "TransducerMatrix", "TransducerGeneric", "Sequence", "SequenceRadial",
     "SequenceGeneric", "Scan", "ScanCartesian", "ScanPolar", "ScanSpherical",
-    "ScanGeneric", "Scatterers", "ChannelData",
+    "ScanGeneric", "Scatterers", "ChannelData", "Medium",
 ]

@@ -3,10 +3,11 @@
 // tensor cores).
 //
 // Replaces the TPU kernel qups_tpu/ops/fdbf_pallas.py::_kernel (launched by
-// _adj_call, public entry bf_adjoint_tiled) for sub-slice K4(a): the three
-// keep modes ('' summed, 'rx', 'tx'), precision 'f32' and 'bf16', up to 256
-// synthesized pulses (and, with keep 'rx', 256 receivers). For every selected
-// bin k (frequency fk) and pixel i it computes what
+// _adj_call, public entry bf_adjoint_tiled): the three keep modes (''
+// summed, 'rx', 'tx'), precision 'f32' and 'bf16', any number of
+// synthesized pulses V, receivers N and elements M (sub-slices K4(a) and,
+// past 256 pulses or keep 'rx' receivers, K4(b)). For every selected bin k
+// (frequency fk) and pixel i it computes what
 // qups_tpu_torch/ops/fdbf.py::bf_adjoint computes:
 //
 //   A(i, v)  = sum_m Wtx(i, m) S_k[m, v],    Wtx = e^{-2 pi i frac(fk taut[i, m])}
@@ -43,6 +44,22 @@
 // operand of z = conj(Ahat) X_k^T (keep 'rx'), whose tiles run over the
 // receivers. Each output belongs to one thread: nothing is atomic and two
 // launches on one input are bit-identical.
+//
+// Keep 'rx' with many pulses (K4(b)): conj(Ahat) of all V columns takes
+// BI x (2 Vp + 8) bf16 (f32: V x BI x 8 bytes) of shared memory, more than a
+// block may hold past V ~ 704 (f32 ~ 414). There the wrapper sets Vh, a
+// multiple of the tile width (fdbf_cuda.py::rx_chunk: the widest with which
+// two blocks share an SM), and the second pass walks the columns in
+// chunks of Vh: a chunk's conj(Ahat) tiles go to shared memory, then
+// z = conj(Ahat) X_k^T over that chunk's rows of X_k^T, and Wrx z is added
+// into the output. Of the two designs (spill conj(Ahat) to a global scratch
+// and stream it through the ring, or chunk V so that it fits), this is the
+// chunked one: it needs no scratch buffer and no second streamed operand,
+// the products and the ring stay as they are, and its cost is the accurate
+// Wrx phasor and the output's read and write once per chunk (four chunks
+// at V = 1024 in bf16, eight in f32) where one would do. Each chunk's sum is
+// added separately, so the float32 order differs from one pass by the
+// rounding of those adds; where H fits (Vh = 0) the code is the one pass.
 //
 // * 'bf16', tensor cores (TcEngine): each complex product of a bin is one
 //   real bf16 GEMM with float32 accumulation, mma.sync m16n8k16, in the
@@ -118,6 +135,7 @@ struct Args {
   int64_t I;
   int N, M, V, K;
   int Mp, Np, Vp, Vz;        // bf16 paddings: multiples of KC2 (Np, Vp of the tile too)
+  int Vh;                    // keep 'rx': columns of conj(Ahat) a chunk holds; 0: all V
 };
 
 // ---------------------------------------------------------------- bf16 path
@@ -227,6 +245,7 @@ struct TcEngine {
   static constexpr int R = 2;        // rows per thread
   static constexpr int C = NT;       // complex columns per thread
   static constexpr int HALVES = 2;   // column halves whose row sums meet in shared memory
+  static constexpr bool CH = false;  // keep 'rx' with conj(Ahat) in chunks (TcChunked)
   struct Acc { float d[NT][4]; };
 
   const Args& a;
@@ -352,6 +371,7 @@ struct F32Engine {
   static constexpr int R = TM;
   static constexpr int C = TN;
   static constexpr int HALVES = 1;
+  static constexpr bool CH = false;  // keep 'rx' with conj(Ahat) in chunks (F32Chunked)
   static_assert(CT * RT == NTHR && CT <= 32, "thread layout");
   struct Acc { float2 v[TM][TN]; };
 
@@ -471,7 +491,84 @@ struct F32Engine {
   __device__ float tau_rx(int64_t i, int n) const { return a.taur[(int64_t)n * a.I + i]; }
 };
 
+// ------------------------------------- keep 'rx' with conj(Ahat) in chunks
+
+// The tensor-core engine with H holding Vh columns of conj(Ahat) (K4(b)):
+// the ring follows the smaller H, and z reads the chunk's rows of X_k^T.
+template <int NT, bool GEN>
+struct TcChunked : TcEngine<KEEP_RX, NT, GEN> {
+  using Base = TcEngine<KEEP_RX, NT, GEN>;
+  using typename Base::Acc;
+  static constexpr bool CH = true;
+
+  __device__ explicit TcChunked(const Args& args) : Base(args) {
+    this->ldh = 2 * args.Vh + 8;
+    this->ring = this->H + BI * this->ldh;
+  }
+
+  static size_t smem_bytes(const Args& a) {
+    const size_t e = (GEN ? 2 * BI * GLD : BI * (2 * a.Mp + 8)) + BI * (2 * a.Vh + 8)
+                     + (size_t)STAGES * KC * (16 * NT + 8);
+    return e * sizeof(__nv_bfloat16);
+  }
+
+  // z = conj(Ahat) X_k^T over the receivers of tile nt, from the chunk's
+  // rows v0 .. v0 + min(Vh, Vz - v0) of X_k^T
+  __device__ void prodZc(Acc& x, int nt, int v0) {
+    const int vz = min(this->a.Vh, this->a.Vz - v0);
+    tc_product<NT, false>(x.d, this->H, this->ldh,
+                          this->Xk + (int64_t)(2 * v0) * (2 * this->a.Np), 2 * this->a.Np,
+                          2 * vz, nt * 2 * Base::VT, this->ring, this->a.taur, this->a.N, 1.f,
+                          this->fk, this->i0, this->a.I);
+  }
+  __device__ void setHc(int row, int vl, int, float2 val) { this->setH(row, vl, val); }
+  // zero the chunk's columns [vw, min(Vh, Vz - v0)) that no tile wrote
+  __device__ void zeroHc(int v0, int vw) {
+    const int w = min(this->a.Vh, this->a.Vz - v0) - vw;
+    for (int e = threadIdx.x; e < BI * w; e += NTHR)
+      reinterpret_cast<uint32_t*>(this->H)[(e / w) * (this->ldh / 2) + vw + e % w] = 0u;
+  }
+};
+
+// The f32 engine with H (Vh, BI): z reads the chunk's rows of X_k^T.
+template <int TM, int TN>
+struct F32Chunked : F32Engine<KEEP_RX, TM, TN> {
+  using Base = F32Engine<KEEP_RX, TM, TN>;
+  using typename Base::Acc;
+  static constexpr bool CH = true;
+
+  __device__ explicit F32Chunked(const Args& args) : Base(args) {}
+
+  static size_t smem_bytes(const Args& a) {
+    return ((size_t)LC * BI + (size_t)LC * Base::VT + (size_t)a.Vh * BI) * sizeof(float2);
+  }
+
+  __device__ void prodZc(Acc& x, int nt, int v0) {
+    this->gemm(x, [&](int v, int ii) { return this->H[v * BI + ii]; },
+               this->Xk + (int64_t)v0 * this->a.N, min(this->a.Vh, this->a.V - v0), this->a.N,
+               nt * Base::VT);
+  }
+  __device__ void setHc(int row, int vl, int v, float2 val) {
+    if (v < this->a.V) this->H[vl * BI + row] = val;
+  }
+  __device__ void zeroHc(int, int) {}
+};
+
 // ------------------------------------------------------------ the keep modes
+
+// out(i, n) += Wrx(i, n) z(i, n) over the receivers of tile nt
+template <class E>
+__device__ __forceinline__ void rx_epilogue(const E& e, const typename E::Acc& Z, int nt,
+                                            const Args& a, int64_t i0) {
+  e.each(Z, Z, [&](int, int row, int c, float2 z, float2) {
+    const int n = nt * E::VT + c;
+    const int64_t i = i0 + row;
+    if (n >= a.N || i >= a.I) return;
+    const float2 p = phasor<false>(e.fk, e.tau_rx(i, n), 1.f);
+    float2* o = a.out + i * a.N + n;
+    *o = make_float2(o->x + (p.x * z.x - p.y * z.y), o->y + (p.x * z.y + p.y * z.x));
+  });
+}
 
 template <int HALVES>
 __device__ __forceinline__ float row_total(float (*red)[3][BI], int q, int row) {
@@ -538,6 +635,31 @@ __global__ void __launch_bounds__(NTHR) adjoint_k4_kernel(const __grid_constant_
           *o = make_float2(o->x + (yv.x * ar + yv.y * ai), o->y + (yv.y * ar - yv.x * ai));
         });
       }
+    } else if constexpr (E::CH) {
+      // K4(b): conj(Ahat) by chunks of Vh columns, each chunk's Wrx z
+      // added into the output
+      const int tpc = a.Vh / E::VT, nnt = (a.N + E::VT - 1) / E::VT;
+      for (int c0 = 0; c0 < nvt; c0 += tpc) {
+        const int c1 = min(nvt, c0 + tpc);
+        for (int vt = c0; vt < c1; ++vt) {
+          typename E::Acc A;
+          E::zero(A);
+          e.prodA(A, vt);
+          e.each(A, A, [&](int, int row, int c, float2 av, float2) {
+            const float inv = inv_norm<E::HALVES>(red, row);
+            e.setHc(row, (vt - c0) * E::VT + c, vt * E::VT + c,
+                    make_float2(av.x * inv, -(av.y * inv)));
+          });
+        }
+        e.zeroHc(c0 * E::VT, (c1 - c0) * E::VT);
+        __syncthreads();  // the chunk of conj(Ahat) is complete
+        for (int nt = 0; nt < nnt; ++nt) {
+          typename E::Acc Z;
+          E::zero(Z);
+          e.prodZc(Z, nt, c0 * E::VT);
+          rx_epilogue(e, Z, nt, a, i0);
+        }
+      }
     } else {
       for (int vt = 0; vt < nvt; ++vt) {
         typename E::Acc A;
@@ -555,14 +677,7 @@ __global__ void __launch_bounds__(NTHR) adjoint_k4_kernel(const __grid_constant_
         typename E::Acc Z;
         E::zero(Z);
         e.prodZ(Z, nt);
-        e.each(Z, Z, [&](int, int row, int c, float2 z, float2) {
-          const int n = nt * E::VT + c;
-          const int64_t i = i0 + row;
-          if (n >= a.N || i >= a.I) return;
-          const float2 p = phasor<false>(e.fk, e.tau_rx(i, n), 1.f);
-          float2* o = a.out + i * a.N + n;
-          *o = make_float2(o->x + (p.x * z.x - p.y * z.y), o->y + (p.x * z.y + p.y * z.x));
-        });
+        rx_epilogue(e, Z, nt, a, i0);
       }
     }
   }
@@ -590,6 +705,13 @@ constexpr size_t SMEM_LIMIT = 232448 - 4096;
 // are built as the product reaches it (GEN).
 template <int KEEP, int NT>
 cudaError_t launch_nt(const Args& a, cudaStream_t s) {
+  if constexpr (KEEP == KEEP_RX && NT == 8) {
+    if (a.Vh > 0) {  // K4(b): conj(Ahat) by chunks
+      if (TcChunked<NT, false>::smem_bytes(a) <= SMEM_LIMIT)
+        return launch<KEEP, TcChunked<NT, false>>(a, s);
+      return launch<KEEP, TcChunked<NT, true>>(a, s);
+    }
+  }
   if (TcEngine<KEEP, NT, false>::smem_bytes(a) <= SMEM_LIMIT)
     return launch<KEEP, TcEngine<KEEP, NT, false>>(a, s);
   return launch<KEEP, TcEngine<KEEP, NT, true>>(a, s);
@@ -609,6 +731,9 @@ cudaError_t launch_tc(int nt, const Args& a, cudaStream_t s) {
 // f32 tiles by VT: 8 (2 x 1 per thread), 16 (2 x 2), 32 (4 x 2), 64 (4 x 4)
 template <int KEEP>
 cudaError_t launch_f32(int vt, const Args& a, cudaStream_t s) {
+  if constexpr (KEEP == KEEP_RX) {
+    if (a.Vh > 0) return launch<KEEP, F32Chunked<4, 4>>(a, s);  // K4(b), vt 64
+  }
   switch (vt) {
     case 8: return launch<KEEP, F32Engine<KEEP, 2, 1>>(a, s);
     case 16: return launch<KEEP, F32Engine<KEEP, 2, 2>>(a, s);
@@ -653,11 +778,13 @@ extern "C" int turns_sincos_probe(const float* u, void* out, int n, int device, 
 // ('tx'), zeroed by the caller for 'rx' and 'tx'. vt is the complex columns
 // of a tile, 8, 16, 32 or 64. Mp, Np, Vp and Vz (bf16 only) are M, N, V
 // padded: Mp and Vz to multiples of 16 (the complex rows of a ring stage),
-// Np and Vp to multiples of 16 and of vt. Returns the cudaError_t of the launch; 0 is success.
+// Np and Vp to multiples of 16 and of vt. Vh (keep 'rx', vt 64 only): 0, or
+// the columns of conj(Ahat) per chunk, a multiple of 64 (K4(b)). Returns the
+// cudaError_t of the launch; 0 is success.
 extern "C" int adjoint_k4(const float* fvals, const float* taur, const float* taut,
                           const void* S, const void* X, void* out, long long I, int N, int M,
                           int V, int K, int Mp, int Np, int Vp, int Vz, int keep, int bf16,
-                          int vt, int device, void* stream) {
+                          int vt, int Vh, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (I <= 0) return (int)cudaSuccess;
@@ -666,7 +793,11 @@ extern "C" int adjoint_k4(const float* fvals, const float* taur, const float* ta
   if (bf16 && (Mp < M || Mp % KC2 || Np < N || Np % KC2 || Np % vt || Vp < V || Vp % KC2
                || Vp % vt || Vz < V || Vz % KC2 || Vz > Vp))
     return (int)cudaErrorInvalidValue;
-  const Args a{fvals, taur, taut, S, X, (float2*)out, (int64_t)I, N, M, V, K, Mp, Np, Vp, Vz};
+  // chunks of conj(Ahat): keep 'rx' with 64-column tiles, a whole number of tiles
+  if (Vh < 0 || (Vh > 0 && (keep != KEEP_RX || vt != 64 || Vh % vt)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{fvals, taur, taut, S, X, (float2*)out, (int64_t)I, N, M, V, K, Mp, Np, Vp, Vz,
+               Vh};
   cudaStream_t s = (cudaStream_t)stream;
   switch (keep) {
     case SUM: err = launch_p<SUM>(bf16, vt, a, s); break;

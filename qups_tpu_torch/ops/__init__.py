@@ -5,6 +5,7 @@ from .das import das, das_lut, delay_tables, tx_distance
 from .das_cuda import (Fused, das_lut_sum, das_lut_sum_plain, das_sum, das_sum_plain,
                        fused_weights)
 from .fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
+from .eikonal import msfm, msfm_multi
 from .fdbf_cuda import bf_adjoint_cuda
 from .greens import greens_dense, greens_splat
 from .greens_cuda import greens_tiled, splat, splat_plain
@@ -20,5 +21,5 @@ __all__ = [
     "bf_adjoint", "focus_tx_freq", "geom_delays", "select_fbins",
     "bf_adjoint_cuda", "greens_dense", "greens_splat", "greens_freq",
     "freq_gemm", "freq_gemm_plain", "greens_tiled", "splat", "splat_plain",
-    "simus_fsa",
+    "simus_fsa", "msfm", "msfm_multi",
 ]

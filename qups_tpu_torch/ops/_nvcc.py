@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA C++ kernels.
+"""Build and load the port's CUDA C++ kernels and its host C++ code.
 
-Each kernel source under ``qups_tpu_torch/csrc/`` has a plain ``extern "C"``
-entry point. :func:`load` compiles a source with ``nvcc`` for ``sm_90a`` on
-first use, into ``qups_tpu_torch/_build/`` (keyed by a hash of the source, the
-shared headers ``csrc/*.cuh``, the sources it includes (``INCLUDES``) and
-its :func:`flags`, so an edited source or header is rebuilt), and loads it
-with ``ctypes``.
-A failed build raises with nvcc's output; nothing falls back.
+Each source under ``qups_tpu_torch/csrc/`` has a plain ``extern "C"`` entry
+point. :func:`load` compiles a kernel source (``.cu``) with ``nvcc`` for
+``sm_90a`` on first use, into ``qups_tpu_torch/_build/`` (keyed by a hash of
+the source, the shared headers ``csrc/*.cuh``, the sources it includes
+(``INCLUDES``) and its :func:`flags`, so an edited source or header is
+rebuilt), and loads it with ``ctypes``. :func:`load_host` does the same
+for a host source (``.cpp``: the eikonal solver) with the host C++
+compiler. A failed build raises with the compiler's output; nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -42,6 +44,10 @@ def flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
 
 
+# The host sources' flags: the JAX package's native Makefile's
+# (qups_tpu/native/Makefile), so that both packages build one solver alike.
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+
 _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
 
 
@@ -61,21 +67,52 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     headers += b"".join((CSRC / f).read_bytes() for f in INCLUDES.get(name, ()))
-    key = hashlib.sha256(src.read_bytes() + headers
-                         + " ".join(flags(name)).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}_{key}.so"
+    _loaded[name] = _build(src, headers, [nvcc(), *flags(name)])
+    return _loaded[name]
+
+
+def host_cxx() -> Optional[str]:
+    """The host C++ compiler: ``$CXX``, else ``c++`` or ``g++`` on the
+    PATH; None where there is none."""
+    for cxx in (os.environ.get("CXX"), "c++", "g++"):
+        if cxx and shutil.which(cxx):
+            return shutil.which(cxx)
+    return None
+
+
+def load_host(name: str) -> Tuple[ctypes.CDLL, str]:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler and
+    ``CXX_FLAGS`` unless it is built already, load it once per process, and
+    return ``(library, compiler log)``. Raises ``RuntimeError`` where there
+    is no host compiler or the build fails."""
+    if name in _loaded:
+        return _loaded[name]
+    cxx = host_cxx()
+    if cxx is None:
+        raise RuntimeError(f"building {name}.cpp needs a host C++ compiler ($CXX, c++ "
+                           "or g++) and none is on the PATH")
+    _loaded[name] = _build(CSRC / f"{name}.cpp", cxx.encode(), [cxx, *CXX_FLAGS])
+    return _loaded[name]
+
+
+def _build(src: Path, extra: bytes, cmd: list) -> Tuple[ctypes.CDLL, str]:
+    """Build ``src`` with ``cmd + ["-o", out, src]`` into ``BUILD_DIR``,
+    keyed by the source, ``extra`` bytes and the command's flags, unless
+    it is there already; load it."""
+    key = hashlib.sha256(src.read_bytes() + extra
+                         + " ".join(cmd[1:]).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{src.stem}_{key}.so"
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(src)]
+        cmd = [*cmd, "-o", str(tmp), str(src)]
         r = subprocess.run(cmd, capture_output=True, text=True)
         log = r.stdout + r.stderr
         if r.returncode != 0:
             raise RuntimeError(f"building {src.name} failed ({' '.join(cmd)}):\n{log}")
         os.replace(tmp, so)
-    _loaded[name] = (ctypes.CDLL(str(so)), log)
-    return _loaded[name]
+    return ctypes.CDLL(str(so)), log
 
 
 def stream_args(dev) -> Tuple[int, int]:

@@ -1,10 +1,11 @@
 """K4: the frequency-domain adjoint beamformer, hand-written CUDA for Hopper.
 
 Replaces the TPU kernel ``qups_tpu/ops/fdbf_pallas.py::_kernel`` (launched
-by ``_adj_call``, public entry ``bf_adjoint_tiled``) for sub-slice K4(a):
-keep modes '' (summed), 'rx' and 'tx', dot precisions 'f32' (CUDA cores)
-and 'bf16' (tensor cores), up to 256 synthesized pulses (and, with keep_rx,
-256 receivers). The source is ``csrc/fdbf.cu``, built and loaded by
+by ``_adj_call``, public entry ``bf_adjoint_tiled``): keep modes ''
+(summed), 'rx' and 'tx', dot precisions 'f32' (CUDA cores) and 'bf16'
+(tensor cores), any number of synthesized pulses and receivers (K4(a) and
+K4(b); :func:`rx_chunk` plans keep_rx's conj(Ahat) in chunks where it does
+not fit in shared memory). The source is ``csrc/fdbf.cu``, built and loaded by
 :mod:`qups_tpu_torch.ops._nvcc`. The host/XLA glue of the TPU engine
 (``_prep_spectra``, ``_pack``, the empty-bin case) is plain torch in
 :func:`qups_tpu_torch.ops.fdbf.adjoint_spectra`, shared with the plain
@@ -30,7 +31,6 @@ from ..utils.backend import as_f32, is_cuda
 
 LAUNCHES = 0  # K4 launches in this process
 
-MAX_COLS = 256  # pulses (and, with keep_rx, receivers) of sub-slice K4(a)
 _KEEP_CODE = {"": 0, "rx": 1, "tx": 2}
 
 
@@ -40,7 +40,7 @@ def build():
     lib, log = _nvcc.load("fdbf")
     fn = lib.adjoint_k4
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, log
 
@@ -85,6 +85,47 @@ def tc_layout(M: int, N: int, V: int, keep: str):
     return vt, _ceil(M, KROWS), _ceil(N, q), _ceil(V, q), _ceil(V, KROWS)
 
 
+# fdbf.cu's shared memory: what a block may opt into less room for its
+# static arrays, and the sizes of its tiles (BI pixels a block, GLD the row
+# stride of a generated phasor chunk, a STAGES-deep ring of KC rows, LC rows
+# of an f32 chunk)
+SMEM_LIMIT = 232448 - 4096
+BI, GLD, STAGES, KC, LC = 64, 40, 3, 32, 16
+# A Hopper SM's shared memory, and what each resident block takes from it
+# beside its dynamic shared memory: the 1 KB the hardware reserves and the
+# kernel's static row sums (2 x 3 x BI floats)
+SM_SMEM, BLOCK_EXTRA = 233472, 1024 + 4 * 6 * BI
+
+
+def rx_smem(N: int, V: int, precision: str, cols: int) -> int:
+    """Bytes of dynamic shared memory K4's keep 'rx' block takes with
+    ``cols`` columns of conj(Ahat) (H) resident: the bf16 variant's
+    generated phasor chunks, H and the ring; the f32 variant's chunks and
+    H. As fdbf.cu's ``smem_bytes`` (GEN for bf16)."""
+    vt = tile_cols(V, N, "rx")
+    if precision == "bf16":
+        return 2 * (2 * BI * GLD + BI * (2 * cols + 8) + STAGES * KC * (2 * vt + 8))
+    return 8 * (LC * BI + LC * vt + cols * BI)
+
+
+def rx_chunk(N: int, V: int, precision: str) -> int:
+    """Columns of conj(Ahat) per chunk of K4's keep 'rx' (K4(b)): 0 where
+    H of all V columns fits in a block's shared memory (one pass, the bf16
+    variant with generated phasors at the most); else the widest whole
+    number of 64-column tiles with which two blocks share an SM: bf16 256,
+    f32 128 (on an H100 80GB HBM3 at 700 W, keep_rx at V = 1024 ran 1.62x
+    faster in bf16 chunks of 256 than in one-block chunks of 704, and 1.35x
+    in f32 chunks of 128 than of 384; chip_smoke.py phase 19)."""
+    vt = tile_cols(V, N, "rx")
+    full = _ceil(V, max(vt, KROWS)) if precision == "bf16" else V  # tc_layout's Vp
+    if rx_smem(N, V, precision, full) <= SMEM_LIMIT:
+        return 0
+    per_col = 4 * BI if precision == "bf16" else 8 * BI
+    cols = (SM_SMEM // 2 - BLOCK_EXTRA - rx_smem(N, V, precision, 0)) // per_col // vt * vt
+    assert vt == 64 and cols >= vt, (N, V, precision, cols)
+    return cols
+
+
 def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
                     t0_off, fbins, *, fs: float, fmod: float = 0.0,
                     keep_rx: bool = False, keep_tx: bool = False,
@@ -105,11 +146,6 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
         raise ValueError(f"K4 takes (T, N, V) traces, got {tuple(x.shape)}")
     dev = x.device
     N, V = x.shape[1], x.shape[2]
-    if V > MAX_COLS or (keep == "rx" and N > MAX_COLS):
-        raise NotImplementedError(
-            f"bfAdjoint on CUDA (kernel K4): more than {MAX_COLS} synthesized "
-            f"pulses (V = {V}) or, with keep_rx, receivers (N = {N}) is "
-            "sub-slice K4(b)")
     tau_rx, tau_tx = as_f32(tau_rx, dev), as_f32(tau_tx, dev)
     I, M = tau_rx.shape[0], tau_tx.shape[1]
     if tau_rx.shape != (I, N) or tau_tx.shape[0] != I or np.shape(del_tx) != (M, V):
@@ -124,6 +160,7 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
     fn, _ = build()
     K = int(fk.shape[0])
     code = _KEEP_CODE[keep]
+    vh = rx_chunk(N, V, precision) if keep == "rx" else 0
     if precision == "bf16":
         vt, Mp, Np, Vp, Vz = tc_layout(M, N, V, keep)
         Sb = block_operand(Sk, Mp, Vp)
@@ -133,7 +170,7 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
         taur, taut = tau_rx.contiguous(), tau_tx.contiguous()
         rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sb.data_ptr(),
                 Xb.data_ptr(), out.data_ptr(), I, N, M, V, K, Mp, Np, Vp, Vz,
-                code, 1, vt, *_nvcc.stream_args(dev))
+                code, 1, vt, vh, *_nvcc.stream_args(dev))
     else:
         vt = tile_cols(V, N, keep)
         if keep == "rx":
@@ -142,7 +179,7 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
         taur, taut = tau_rx.t().contiguous(), tau_tx.t().contiguous()
         rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sk.data_ptr(),
                 Xk.data_ptr(), out.data_ptr(), I, N, M, V, K, 0, 0, 0, 0,
-                code, 0, vt, *_nvcc.stream_args(dev))
+                code, 0, vt, vh, *_nvcc.stream_args(dev))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed with cudaError {rc}")
     LAUNCHES += 1

@@ -9,7 +9,8 @@ simulate channel data with :meth:`UltrasoundSystem.greens`,
 transmits with :meth:`UltrasoundSystem.focusTx`; map the transmit pressure
 with :meth:`UltrasoundSystem.calc_hp`; beamform with
 :meth:`UltrasoundSystem.DAS`, :meth:`UltrasoundSystem.bfDAS`,
-:meth:`UltrasoundSystem.bfDASLUT` and :meth:`UltrasoundSystem.bfAdjoint`.
+:meth:`UltrasoundSystem.bfDASLUT`, :meth:`UltrasoundSystem.bfAdjoint` and,
+through a heterogeneous :class:`Medium`, :meth:`UltrasoundSystem.bfEikonal`.
 Host geometry stays float64 numpy and moves to the data's device as
 float32.
 
@@ -33,10 +34,13 @@ Scope (ROADMAP.md, "Scope decisions"):
   apodization and the reduced-precision traces of ``precision=`` ('auto'
   is float32 on every device); ``coherence_image`` reduces
   ``DAS(keep_rx=True)`` over the aperture; ``bfAdjoint`` runs
-  kernel K4 (``ops/fdbf_cuda.py``). An option a kernel does not carry
-  raises ``NotImplementedError`` naming its sub-slice. Nothing drops to
-  the plain path on its own: ``kernel='plain'`` is an explicit choice.
-  With ``device="cpu"`` each runs its plain PyTorch version.
+  kernel K4 (``ops/fdbf_cuda.py``) at any number of pulses and receivers;
+  ``bfEikonal`` builds its tables by fast marching on the host
+  (``ops/eikonal.py``, through a :class:`Medium`'s sound-speed map) and
+  runs K2 through ``bfDASLUT``. Every option of these kernels runs on the
+  card. Nothing drops to the plain path on its own: ``kernel='plain'`` is
+  an explicit choice. With ``device="cpu"`` each runs its plain PyTorch
+  version.
 """
 from __future__ import annotations
 
@@ -52,12 +56,14 @@ import numpy as np
 import torch
 
 from .core.channel_data import ChannelData
+from .core.medium import Medium
 from .core.scan import Scan, ScanCartesian, ScanPolar
 from .core.scat import Scatterers
 from .core.seq import Sequence
 from .core.xdc import Transducer, TransducerArray, TransducerConvex
 from .ops.das import das, das_lut, delay_tables, rx_distance, tx_distance
 from .ops.das_cuda import Fused, das_lut_sum, das_sum, dense_apod
+from .ops.eikonal import msfm, msfm_multi
 from .ops.coherence import cohfac, slsc
 from .ops.conv import convd
 from .ops.fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
@@ -68,7 +74,7 @@ from .ops.greens_freq import greens_freq
 from .ops.interp import METHODS, fft_upsample
 from .ops.simus import simus_fsa
 from .utils.backend import as_f32, default_device
-from .utils.maths import box_rbounds
+from .utils.maths import box_rbounds, gridded_interp
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
 KERNELS = ("auto", "cuda", "plain")
@@ -627,8 +633,7 @@ class UltrasoundSystem:
         device. On a CUDA tensor, 'auto' and 'cuda' run frames and ``fmod``
         (K1(b)), the keep modes (K1(c)) and apodization (K1(d): dense arrays
         and :class:`Fused` descriptors, evaluated in the kernel) in the
-        kernel, and raise ``NotImplementedError`` for what K1 does not carry
-        yet; a per-pixel ``c0`` map (on the scan grid) runs the LUT kernel
+        kernel; a per-pixel ``c0`` map (on the scan grid) runs the LUT kernel
         K2 on delay tables built on the card. The kernel takes one ``t0``
         per transmit: one that varies over receivers or frames raises
         ``ValueError``.
@@ -876,10 +881,9 @@ class UltrasoundSystem:
         ``kernel``: 'auto' runs K2 on a CUDA tensor and the plain ``das_lut``
         on a CPU tensor; 'cuda' requires K2; 'plain' forces the plain path.
         On a CUDA tensor, frames and ``fmod`` (K2(b)), the keep modes and
-        dense ``apod`` arrays (K2(c)) run in K2, a ``t0`` that varies over
-        receivers or frames raises ``ValueError``, and options K2 does not
-        carry yet raise ``NotImplementedError`` naming the sub-slice. A
-        :class:`Fused` descriptor raises ``TypeError`` (materialize it).
+        dense ``apod`` arrays (K2(c)) run in K2, and a ``t0`` that varies
+        over receivers or frames raises ``ValueError``. A :class:`Fused`
+        descriptor raises ``TypeError`` (materialize it).
         ``method``: the four samplers or 'cubic2x' (linear on traces
         upsampled 2x), 'auto' is cubic. ``precision``: the taps K2 reads
         (K2(e)): 'auto' and 'f32', 'bf16pair', or 'i8x4' with one scale per
@@ -1028,6 +1032,208 @@ class UltrasoundSystem:
                 _ADJ_TAU_CACHE.pop(next(iter(_ADJ_TAU_CACHE)))
             _ADJ_TAU_CACHE[key] = tabs
         return tabs
+
+    # ------------------------------------------------- eikonal beamformer
+    def eikonal_tables(self, medium: Medium, cgrd: ScanCartesian, workers=None,
+                       device=None):
+        """One-way travel-time tables through a heterogeneous ``medium``
+        (``UltrasoundSystem.bfEikonal``, ``src/UltrasoundSystem.m:4052-4332``):
+        fast-marching maps per element on the isotropic 2-D or 3-D grid
+        ``cgrd`` (``ops/eikonal.py``, host float64, ``workers`` threads),
+        sampled at the scan pixels by cubic gridded interpolation. Returns
+        ``(tau_rx (I, N), tau_tx (I, M))`` [s], float32 on ``device``
+        (default: the CUDA device).
+
+        Per sequence type, as the JAX package: FSA takes the per-element
+        maps; FC, DV and VS one wavefront map per transmit from its focus
+        (sign-flipped before the focus but for DV; a focus outside the grid
+        seeds the grid's boundary with straight-ray times through the
+        ambient ``c0``); PW and the others the Fermat first arrival
+        ``min_n (tau_n - del(n, m))`` over each transmit's active elements.
+        In a homogeneous medium these are the straight-ray tables of
+        :meth:`das_delay_tables`.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=np.linspace(-1e-3, 1e-3, 5),
+                                     z=np.linspace(8e-3, 10e-3, 5)))
+            h = 0.1e-3
+            cgrd = q.ScanCartesian(x=np.arange(-2e-3, 2e-3 + h, h), y=[0.0],
+                                   z=np.arange(0.0, 11e-3, h))
+            tau_rx, tau_tx = us.eikonal_tables(q.Medium(c0=1540.0), cgrd, device="cpu")
+            g_rx, _ = us.das_delay_tables(device="cpu")
+            assert float((tau_rx - g_rx).abs().max()) * 1540.0 < 3 * h
+        """
+        device = default_device(device)
+        assert isinstance(cgrd, ScanCartesian), "cgrd must be a ScanCartesian"
+        vol = cgrd.ny > 1
+        h = float(cgrd.dz)
+        assert np.isclose(cgrd.dx, cgrd.dz, rtol=1e-3), \
+            "eikonal requires isotropic grid spacing (UltrasoundSystem.m:4269)"
+        if vol:
+            assert np.isclose(cgrd.dy, cgrd.dz, rtol=1e-3), \
+                "eikonal requires isotropic grid spacing"
+            perm = [cgrd.order.index(c) for c in "ZXY"]
+            cgrid = np.transpose(medium.props(cgrd, "c"), perm)  # (Nz, Nx, Ny)
+        else:
+            cgrid = _cmap_zx(cgrd, medium.props(cgrd, "c"))  # (Nz, Nx)
+
+        def cells(p):  # element positions (3, E) -> nearest grid cells
+            iz = np.clip(np.round((p[2] - cgrd.z[0]) / h).astype(int), 0, cgrd.nz - 1)
+            ix = np.clip(np.round((p[0] - cgrd.x[0]) / h).astype(int), 0, cgrd.nx - 1)
+            if vol:
+                iy = np.clip(np.round((p[1] - cgrd.y[0]) / h).astype(int), 0,
+                             cgrd.ny - 1)
+                return np.stack([iz, ix, iy], -1)
+            return np.stack([iz, ix], -1)
+
+        maps_rx = msfm_multi(cgrid, h, cells(self.rx.positions()), workers=workers)
+
+        # sample the maps at the scan pixels
+        P = self.scan.positions().reshape(3, -1)
+        zi = (P[2] - cgrd.z[0]) / h
+        xi = (P[0] - cgrd.x[0]) / h
+        if vol:
+            yi = (P[1] - cgrd.y[0]) / h
+            interp = lambda m: _grid_interp3(m, zi, xi, yi)  # noqa: E731
+        else:
+            interp = lambda m: _grid_interp2(m, zi, xi)  # noqa: E731
+        tau_rx = np.stack([interp(m) for m in maps_rx], -1)  # (I, N)
+
+        def tx_element_tables():  # (I, E): only the FSA and PW paths need these
+            if self.tx is self.rx:
+                maps_tx = maps_rx
+            else:
+                maps_tx = msfm_multi(cgrid, h, cells(self.tx.positions()),
+                                     workers=workers)
+            return np.stack([interp(m) for m in maps_tx], -1)
+
+        st = self.seq.type
+        if st == "FSA":
+            tau_tx = tx_element_tables()
+        elif st in ("FC", "DV", "VS"):
+            pf = self.seq.focus_array  # (3, M)
+            nvs = pf - self.tx.origin[:, None]
+            nvs = nvs / np.maximum(np.linalg.norm(nvs, axis=0, keepdims=True), 1e-30)
+            c0a = float(getattr(medium, "c0", self.seq.c0))
+            bounds = [(cgrd.z[0], cgrd.z[-1]), (cgrd.x[0], cgrd.x[-1])] \
+                + ([(cgrd.y[0], cgrd.y[-1])] if vol else [])
+            cols = []
+            for m in range(pf.shape[1]):
+                p = pf[:, m]
+                coord = (p[2], p[0], p[1]) if vol else (p[2], p[0])
+                if all(lo + h <= v <= hi - h for v, (lo, hi) in zip(coord, bounds)):
+                    srcs, t0s = cells(p.reshape(3, 1)), np.zeros(1)
+                else:
+                    srcs, t0s = _boundary_seeds(cgrd, cgrid.shape, h, p, c0a, vol)
+                tm = interp(msfm(cgrid, h, srcs, src_t0=t0s))
+                if st != "DV":
+                    # two-sided: pixels behind the focal wavefront are negative
+                    sgn = np.sign(((P - p[:, None]) * nvs[:, m:m + 1]).sum(0))
+                    tm = tm * np.where(sgn == 0, 1.0, sgn)
+                cols.append(tm)
+            tau_tx = np.stack(cols, axis=-1)
+        else:
+            # PW (and custom): the Fermat first arrival over the active
+            # aperture; element n fires at -seq.delays(n, m)
+            tau_el = tx_element_tables()
+            dels = self.seq.delays(self.tx)        # (E, M)
+            apd = self.seq.apodization(self.tx)    # (E, M)
+            tau_tx = np.empty((tau_el.shape[0], self.seq.num_pulse), tau_el.dtype)
+            for m in range(self.seq.num_pulse):
+                act = np.abs(apd[:, m]) > 0
+                if not act.any():
+                    act = np.ones(dels.shape[0], bool)
+                tau_tx[:, m] = (tau_el[:, act] - dels[act, m][None, :]).min(1)
+        return as_f32(tau_rx, device), as_f32(tau_tx, device)
+
+    def bfEikonal(self, chd: ChannelData, medium: Medium,
+                  cgrd: Optional[ScanCartesian] = None, apod=(), fmod: float = 0.0,
+                  keep_tx: bool = False, keep_rx: bool = False, method: str = "auto",
+                  workers=None, kernel: str = "auto", device=None) -> torch.Tensor:
+        """Delay-and-sum with eikonal travel times through a heterogeneous
+        ``medium`` (``UltrasoundSystem.bfEikonal``,
+        ``src/UltrasoundSystem.m:4052-4332``) on 2-D or 3-D grids, any
+        sequence type: :meth:`eikonal_tables` on ``cgrd`` (default: the scan
+        widened to the array, at lambda / 4), then :meth:`bfDASLUT` on
+        ``device`` (default: the CUDA device; kernel K2 on a CUDA tensor,
+        its plain version with ``kernel='plain'`` or ``device="cpu"``).
+        ``precision`` stays 'auto', as the JAX package passes none.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                                     z=np.linspace(18e-3, 22e-3, 8)),
+                fs=12e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            chd = us.greens(scat, device="cpu")
+            cgrd = q.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 33),
+                                   z=np.linspace(0.0, 26e-3, 105))
+            b = us.bfEikonal(chd, q.Medium(c0=1540.0), cgrd, device="cpu")
+            assert b.shape[:3] == us.scan.shape and bool(b.isfinite().all())
+        """
+        if cgrd is None:
+            cgrd = self._eikonal_grid()
+        tau_rx, tau_tx = self.eikonal_tables(medium, cgrd, workers=workers, device=device)
+        return self.bfDASLUT(chd, tau_rx, tau_tx, apod=apod, fmod=fmod, keep_tx=keep_tx,
+                             keep_rx=keep_rx, method=method, kernel=kernel, device=device)
+
+    def _eikonal_grid(self) -> ScanCartesian:
+        """bfEikonal's default medium grid: the scan extended to take in the
+        transducer, at lambda / 4 with two cells of margin."""
+        b = self.xdc.bounds()
+        h = self.lmbda / 4
+        P = self.scan.positions()
+        x0 = min(b[0, 0], P[0].min()) - 2 * h
+        x1 = max(b[0, 1], P[0].max()) + 2 * h
+        z0 = min(b[2, 0], P[2].min()) - 2 * h
+        z1 = max(b[2, 1], P[2].max()) + 2 * h
+        return ScanCartesian(x=np.arange(x0, x1 + h, h), y=[0.0],
+                             z=np.arange(z0, z1 + h, h))
+
+
+def _grid_interp2(vals, zi, xi, method: str = "cubic"):
+    """Gridded interpolation of ``vals (Nz, Nx)`` at fractional indices,
+    cubic by default, as the reference's ``griddedInterpolant(grd, tau,
+    'cubic')`` (``UltrasoundSystem.m:4318``)."""
+    return gridded_interp(vals, [zi, xi], method=method)
+
+
+def _cmap_zx(cgrd: ScanCartesian, cmap: np.ndarray) -> np.ndarray:
+    """A property map on ``cgrd`` in (Z, X) layout."""
+    m2 = np.squeeze(cmap, axis=cgrd.order.index("Y"))
+    rem = [c for c in cgrd.order if c != "Y"]
+    return m2 if rem == ["Z", "X"] else m2.T
+
+
+def _grid_interp3(vals, zi, xi, yi, method: str = "cubic"):
+    """Gridded interpolation of ``vals (Nz, Nx, Ny)`` at fractional
+    indices, cubic by default (see :func:`_grid_interp2`)."""
+    return gridded_interp(vals, [zi, xi, yi], method=method)
+
+
+def _boundary_seeds(cgrd: ScanCartesian, shape, h: float, p, c0: float, vol: bool):
+    """The wavefront sources of a virtual apex ``p`` outside the grid:
+    every boundary cell of the (Z, X[, Y]) grid ``shape``, each at its
+    straight-ray time from ``p`` through the ambient ``c0``. Returns
+    ``(cells (S, ndim), times (S,))``."""
+    idx = np.stack(np.meshgrid(*[np.arange(s) for s in shape], indexing="ij"),
+                   -1).reshape(-1, len(shape))
+    on_edge = np.zeros(len(idx), bool)
+    for d, s in enumerate(shape):
+        on_edge |= (idx[:, d] == 0) | (idx[:, d] == s - 1)
+    srcs = idx[on_edge]
+    org = np.array([cgrd.z[0], cgrd.x[0]] + ([cgrd.y[0]] if vol else []))
+    apx = np.array([p[2], p[0]] + ([p[1]] if vol else []))
+    return srcs, np.linalg.norm(org[None, :] + srcs * h - apx[None], axis=1) / c0
 
 
 # bfAdjoint's (I, N) / (I, M) device delay tables, ~2 GB at 1024^2 x 256 x 256

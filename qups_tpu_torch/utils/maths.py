@@ -1,8 +1,10 @@
-"""Numeric helpers, the port of :mod:`qups_tpu.utils.maths` (all but
-``gridded_interp``, the host interpolation of the eikonal tables, which
-comes with the eikonal beamformer). The tensor helpers compute on the
-device of their input; arrays and numbers become tensors on the CPU."""
+"""Numeric helpers, the port of :mod:`qups_tpu.utils.maths`. The tensor
+helpers compute on the device of their input; arrays and numbers become
+tensors on the CPU. :func:`gridded_interp`, the interpolation of the
+eikonal tables and ``Medium.Sampled``, is float64 host numpy."""
 from __future__ import annotations
+
+from itertools import product
 
 import numpy as np
 import torch
@@ -93,3 +95,60 @@ def box_rbounds(pa, pb):
     gap = np.maximum(0.0, np.maximum(blo - ahi, alo - bhi))
     span = np.maximum(bhi - alo, ahi - blo)
     return float(np.linalg.norm(gap)), float(np.linalg.norm(span))
+
+
+def gridded_interp(vals, fis, method: str = "cubic"):
+    """Separable gridded interpolation of an N-D host array at fractional
+    indices: the ``griddedInterpolant(..., 'cubic')`` analog that samples
+    the eikonal maps (``UltrasoundSystem.m:4318-4321``) and
+    ``Medium.Sampled`` (``Medium.m:465``).
+
+    ``vals``: (N1, ..., Nd) numpy array; ``fis``: list of d fractional
+    index arrays (common broadcast shape Q). ``method``: 'nearest' |
+    'linear' | 'cubic' (Catmull-Rom; clamp-replicated edge taps).
+    Size-1 axes are constant. Returns shape Q (host numpy, float64).
+
+    Example:
+        import numpy as np
+        from qups_tpu_torch.utils.maths import gridded_interp
+        v = np.arange(30.0).reshape(5, 6)  # linear in both indices
+        assert np.isclose(gridded_interp(v, [np.array(2.5), np.array(2.25)]), 17.25)
+    """
+    vals = np.asarray(vals)
+    d = vals.ndim
+    assert len(fis) == d, (len(fis), d)
+    if method == "nearest":
+        idx = tuple(
+            np.clip(np.round(np.asarray(f)).astype(int), 0, n - 1)
+            for f, n in zip(fis, vals.shape))
+        return vals[idx]
+
+    def taps(f, n):
+        """[(index array, weight array), ...] along one axis."""
+        f = np.asarray(f, np.float64)
+        if n == 1:
+            return [(np.zeros(f.shape, int), np.ones(f.shape))]
+        i0 = np.floor(f)
+        u = f - i0
+        i0 = i0.astype(int)
+        if method == "linear":
+            pairs = [(i0, 1.0 - u), (i0 + 1, u)]
+        elif method == "cubic":
+            w = (0.5 * (u * (-1.0 + u * (2.0 - u))),
+                 0.5 * (2.0 + u * u * (-5.0 + 3.0 * u)),
+                 0.5 * (u * (1.0 + u * (4.0 - 3.0 * u))),
+                 0.5 * (u * u * (u - 1.0)))
+            pairs = [(i0 - 1 + k, w[k]) for k in range(4)]
+        else:
+            raise ValueError(f"unknown method {method!r}")
+        return [(np.clip(i, 0, n - 1), wt) for i, wt in pairs]
+
+    axes = [taps(f, n) for f, n in zip(fis, vals.shape)]
+    out = 0.0
+    for combo in product(*axes):
+        idx = tuple(c[0] for c in combo)
+        w = 1.0
+        for c in combo:
+            w = w * c[1]
+        out = out + w * vals[idx]
+    return out

@@ -16,9 +16,10 @@ per-pixel-c DAS / bfAdjoint and the simulator family (greens pallas and
 bf16, simus, calc_scat_multi, calc_hp) on CUDA tensors; the reduced
 trace precisions of K1(e) and K2(e) (the layout kernel's narrow entries bit
 for bit, the kernels against their plain versions at each precision, keep
-modes and weights, the bfloat16 kept sums of QUPS_DAS_ACC16); and
-NotImplementedError for every option a kernel does not carry yet. Every
-test here needs the card and skips without one.
+modes and weights, the bfloat16 kept sums of QUPS_DAS_ACC16); K4(b), K4
+past 256 pulses and keep_rx receivers, with conj(Ahat) in one pass and by
+chunks; and bfEikonal's tables and K2 on the card. Every test here needs
+the card and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -804,10 +805,66 @@ def test_k4_matches_plain(card, keep, V):
         assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), precision
     empty = fdbf_cuda.bf_adjoint_cuda(xg, *rest, np.zeros(0, np.int32), **kw)
     assert empty.shape == got.shape and not bool(empty.abs().any())
-    wide = torch.zeros((64, 12, 300), device=card)  # 300 pulses: K4(b)
-    with pytest.raises(NotImplementedError, match="K4\\(b\\)"):
-        fdbf_cuda.bf_adjoint_cuda(wide, rest[0], rest[1], np.zeros((10, 300)),
-                                  np.ones((10, 300)), 0.0, np.zeros(300), bins, fs=40e6)
+    # 300 pulses (K4(b)) on the same tables: no cap, the plain version's image
+    x, *rest = adjoint_problem(V=300)
+    xg = torch.as_tensor(x, device=card)
+    for precision, tol in (("f32", 1e-4), ("bf16", 2e-3)):
+        got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
+        ref = bf_adjoint(xg, *rest, bins, precision=precision, **kw)
+        assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), precision
+
+
+K4B = [("", 12, 300), ("", 64, 1024), ("tx", 12, 300), ("tx", 64, 1024),
+       ("rx", 1024, 300), ("rx", 64, 1024), ("rx", 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep,N,V", K4B)
+def test_k4b_matches_plain(card, keep, N, V):
+    """K4(b): 300 and 1024 synthesized pulses and, with keep_rx, 1024
+    receivers, against the plain version in f32 (< 1e-4) and bf16
+    (< 2e-3); two launches bit-identical. keep_rx holds conj(Ahat) in one
+    pass at V = 300 and by chunks at V = 1024 (rx_chunk: 256 columns in
+    bf16, 128 in f32)."""
+    x, *rest = adjoint_problem(T=128, N=N, M=32, V=V, I=300, seed=50)
+    xg = torch.as_tensor(x, device=card)
+    bins = np.array([20, 23, 24, 31, 40, 41], np.int32)
+    kw = dict(fs=40e6, keep_rx=keep == "rx", keep_tx=keep == "tx")
+    for precision, tol in (("f32", 1e-4), ("bf16", 2e-3)):
+        chunked = keep == "rx" and fdbf_cuda.rx_chunk(N, V, precision) > 0
+        assert chunked == (keep == "rx" and V == 1024), precision
+        before = fdbf_cuda.LAUNCHES
+        got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
+        again = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
+        torch.cuda.synchronize()
+        assert fdbf_cuda.LAUNCHES == before + 2
+        ref = bf_adjoint(xg, *rest, bins, precision=precision, **kw)
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), precision
+        assert torch.equal(got, again), precision
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vh", [64, 128])
+def test_k4b_rx_chunks_forced(card, vh, monkeypatch):
+    """keep_rx by chunks where one pass would fit (V = 300, chunks of 64 or
+    128 columns, the last one ragged): against the plain version and the
+    one-pass launch, in both precisions; two launches bit-identical."""
+    x, *rest = adjoint_problem(T=128, N=200, M=48, V=300, I=260, seed=51)
+    xg = torch.as_tensor(x, device=card)
+    bins = np.array([20, 24, 31, 40], np.int32)
+    for precision, tol in (("f32", 1e-4), ("bf16", 2e-3)):
+        kw = dict(fs=40e6, keep_rx=True, precision=precision)
+        one = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(fdbf_cuda, "rx_chunk", lambda *a: vh)
+            got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+            again = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+        ref = bf_adjoint(xg, *rest, bins, **kw)
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) < tol * scale, precision
+        assert float((got - one).abs().max()) < 1e-5 * scale, precision
+        assert torch.equal(got, again), precision
 
 
 @pytest.mark.cuda
@@ -932,6 +989,40 @@ def test_plane_wave_path_on_card(card):
         us.DAS(rf, c0=cmap, precision="bf16")
     with pytest.raises(TypeError):
         us.bfDAS(chd, apod=qt.Fused("aperture_growth"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("medium", ["homogeneous", "lens"])
+def test_bf_eikonal_on_card(card, medium):
+    """bfEikonal with no device=: the host fast-marching tables, then K2 on
+    the card, against kernel='plain' (< 1e-4); the tables on the card equal
+    the CPU's; the peak within 1.1 mm of the target, which is simulated
+    at the lens's effective straight-ray speed through a 1300 m/s layer
+    over the first 5 mm."""
+    xdc = qt.TransducerArray(numel=16, pitch=0.5e-3, fc=3e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=16, c0=1540.0),
+        scan=qt.ScanCartesian(x=np.linspace(-4e-3, 4e-3, 33),
+                              z=np.linspace(20e-3, 36e-3, 33)), fs=24e6)
+    if medium == "lens":
+        med = qt.Medium(c0=1540.0, pertreg=((lambda P: P[2] < 5e-3, {"c": 1300.0}),))
+        c = 28e-3 / (5e-3 / 1300.0 + 23e-3 / 1540.0)
+    else:
+        med, c = qt.Medium(c0=1540.0), 1540.0
+    chd = us.greens(qt.Scatterers(pos=[[0.0], [0.0], [28e-3]], c0=c))
+    before = das_cuda.LUT_LAUNCHES
+    b = us.bfEikonal(chd, med)
+    torch.cuda.synchronize()
+    assert das_cuda.LUT_LAUNCHES == before + 1 and b.is_cuda
+    ref = us.bfEikonal(chd, med, kernel="plain")
+    assert float((b - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+    cgrd = us._eikonal_grid()
+    host = us.eikonal_tables(med, cgrd, device="cpu")
+    for got, ref in zip(us.eikonal_tables(med, cgrd), host):
+        assert got.is_cuda and torch.equal(got.cpu(), ref)
+    P = us.scan.positions().reshape(3, -1)
+    k = int(b.abs().reshape(-1).argmax())
+    assert np.linalg.norm(P[:, k] - np.array([0.0, 0.0, 28e-3])) < 1.1e-3
 
 
 @pytest.mark.cuda

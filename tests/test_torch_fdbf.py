@@ -210,3 +210,122 @@ def test_block_operands_match_cmatmul(M, V, keep):
                                   .reshape(I, Np, 2).contiguous())[:, :N]
         zref = fdbf.cmatmul(H.conj(), X.T, "bf16")
         assert float((z - zref).abs().max()) < 1e-6 * float(zref.abs().max())
+
+
+# K4(b): past 256 synthesized pulses, and keep_rx past 256 receivers
+WIDE = {"sum V300": ("sum", dict(V=300, N=12)), "tx V300": ("tx", dict(V=300, N=12)),
+        "rx N300": ("rx", dict(V=20, N=300)), "rx V300 N300": ("rx", dict(V=300, N=300))}
+WIDE_BINS = np.array([5, 9, 10, 11, 17, 20])
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_bf_adjoint_wide_matches_xla(case):
+    """300 pulses (and 300 receivers with keep_rx), 256 pixels, 6 bins: the
+    plain version, and the K4 wrapper on a CPU tensor, against the XLA
+    engine (2e-3, its direct cexp phases)."""
+    keep, shape = WIDE[case]
+    x, args = adjoint_problem(I=256, M=16, **shape)
+    kw = dict(fs=FS, fmod=1e6, **KEEP[keep])
+    ref = jfdbf.bf_adjoint(x, *args, WIDE_BINS.astype(np.int32), **kw)
+    got = fdbf.bf_adjoint(torch.as_tensor(x), *args, WIDE_BINS, precision="f32", **kw)
+    close(got, ref, 2e-3)
+    wrapped = fdbf_cuda.bf_adjoint_cuda(torch.as_tensor(x), *args, WIDE_BINS,
+                                        precision="f32", **kw)
+    assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize("precision,tol", [("f32", 1e-4), ("bf16", 2e-3)])
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_bf_adjoint_wide_matches_pallas_interpret(case, precision, tol, monkeypatch):
+    """The same problems against the TPU kernel in interpret mode (one
+    block of 256 pixels), whose pulse and receiver axes are not capped:
+    1e-4 in f32, the bf16 band in bf16."""
+    monkeypatch.setenv("QUPS_ADJ_RECUR", "0")
+    keep, shape = WIDE[case]
+    x, args = adjoint_problem(I=256, M=16, **shape)
+    kw = dict(fs=FS, fmod=1e6, **KEEP[keep])
+    ref = bf_adjoint_tiled(x, *args, WIDE_BINS.astype(np.int32), precision=precision,
+                           BI=256, interpret=True, **kw)
+    close(fdbf.bf_adjoint(torch.as_tensor(x), *args, WIDE_BINS, precision=precision, **kw),
+          ref, tol)
+
+
+def _cu_source():
+    from pathlib import Path
+
+    return (Path(fdbf_cuda.__file__).parents[1] / "csrc" / "fdbf.cu").read_text()
+
+
+def _cu_constants():
+    """The constexpr ints of csrc/fdbf.cu's anonymous namespace."""
+    import re
+
+    src = _cu_source()
+    consts = {}
+    for name, expr in re.findall(r"^constexpr (?:int|size_t) (\w+) = ([\w +/-]+);", src,
+                                 re.M):
+        consts[name] = eval(expr, {}, dict(consts))  # BI = 64, GLD = KC + 8, ...
+    return consts
+
+
+def test_rx_chunk_plan_mirrors_the_kernel():
+    """K4(b)'s chunk plan: the wrapper's copies of fdbf.cu's tile sizes,
+    shared-memory limit and static row sums equal the source's; the plan
+    keeps one pass while H of all V columns fits a block (V = 300 in both
+    precisions) and otherwise takes the widest whole number of 64-column
+    tiles with which two blocks share an SM (V = 1024: 256 columns in bf16,
+    128 in f32), never above a block's limit."""
+    c = _cu_constants()
+    assert (c["BI"], c["GLD"], c["STAGES"], c["KC"], c["LC"], c["SMEM_LIMIT"]) == (
+        fdbf_cuda.BI, fdbf_cuda.GLD, fdbf_cuda.STAGES, fdbf_cuda.KC, fdbf_cuda.LC,
+        fdbf_cuda.SMEM_LIMIT)
+    assert fdbf_cuda.KROWS == c["KC"] // 2
+    assert "__shared__ float red[2][3][BI];" in _cu_source()
+    lim, per_sm = fdbf_cuda.SMEM_LIMIT, fdbf_cuda.SM_SMEM
+
+    def two_fit(*a):
+        return 2 * (fdbf_cuda.rx_smem(*a) + fdbf_cuda.BLOCK_EXTRA) <= per_sm
+
+    for precision in ("bf16", "f32"):
+        assert fdbf_cuda.rx_chunk(1024, 300, precision) == 0
+        for M, N, V in ((1024, 1024, 1024), (128, 300, 705), (16, 2000, 5000),
+                        (1024, 1024, 300), (128, 128, 64), (900, 200, 24)):
+            vh = fdbf_cuda.rx_chunk(N, V, precision)
+            vp = fdbf_cuda.tc_layout(M, N, V, "rx")[3] if precision == "bf16" else V
+            if vh == 0:
+                assert fdbf_cuda.rx_smem(N, V, precision, vp) <= lim, (M, N, V, precision)
+                continue
+            assert fdbf_cuda.rx_smem(N, V, precision, vp) > lim
+            assert vh % 64 == 0 and 64 <= vh < vp
+            assert two_fit(N, V, precision, vh)
+            assert not two_fit(N, V, precision, vh + 64)
+    assert fdbf_cuda.rx_chunk(1024, 1024, "bf16") == 256
+    assert fdbf_cuda.rx_chunk(1024, 1024, "f32") == 128
+    # the bf16 engine's bytes as fdbf.cu's TcChunked counts them (NT = 8, GEN)
+    assert fdbf_cuda.rx_smem(1024, 1024, "bf16", 256) == 2 * (
+        2 * 64 * 40 + 64 * (2 * 256 + 8) + 3 * 32 * (16 * 8 + 8))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_rx_chunks_sum_to_the_one_pass(precision):
+    """The algebra of K4(b)'s keep 'rx' chunks: conj(Ahat) by chunks of Vh
+    columns, each chunk's Wrx z added into the output, gives the one-pass
+    result to float32 rounding (Vh = 128 of V = 300: two full chunks and a
+    ragged one)."""
+    x, args = adjoint_problem(I=96, M=16, V=300, N=40)
+    tau_rx, tau_tx, del_tx, apod, t0, t0o = args
+    _, fk, Xk, Sk = fdbf.adjoint_spectra(torch.as_tensor(x), del_tx, apod, t0, t0o,
+                                         WIDE_BINS, fs=FS)
+    taur, taut = torch.as_tensor(tau_rx), torch.as_tensor(tau_tx)
+    out = torch.zeros((96, 40), dtype=torch.complex64)
+    for k in range(fk.shape[0]):
+        A = fdbf.cmatmul(fdbf.phasor(fk[k], taut, -1.0), Sk[k], precision)
+        nrm = torch.sqrt((A.real * A.real + A.imag * A.imag).sum(1, keepdim=True))
+        Ah = A / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+        Wrx = fdbf.phasor(fk[k], taur, 1.0)
+        for v0 in range(0, 300, 128):
+            out += Wrx * fdbf.cmatmul(Ah[:, v0:v0 + 128].conj(), Xk[k][:, v0:v0 + 128].T,
+                                      precision)
+    ref = fdbf.bf_adjoint(torch.as_tensor(x), *args, WIDE_BINS, keep_rx=True, fs=FS,
+                          precision=precision)
+    close(out, ref, 1e-5)
