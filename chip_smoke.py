@@ -157,7 +157,33 @@ and runs:
    under a 1300 m/s layer over the first 5 mm (the on-axis target at 28 mm
    within 1.1 mm, closer than ``bfDAS``'s); K2 launches counted; each call
    against ``kernel='plain'``; the host solve, the tables, their upload and
-   K2 timed apart.
+   K2 timed apart;
+21. REFoCUS and Stolt migration, no ``device=``: the ``bench_refocus`` cell
+   (T 4096, N = M = 256, a 256 x 256 Hadamard encoding, fs 31.25 MHz):
+   ``us.refocus`` cold (operator built, then applied), cached, and with the
+   default gamma (the spectral norm on the path), the re-encoded decode
+   against the traces; the operator's steps with CUDA events (the norm from
+   the Gram matrix by ``eigvalsh``, the solve, the apply) and the norm's
+   alternatives (cuSOLVER's batched ``gesvda``, ``matrix_norm(ord=2)``)
+   against the exact norm, and ``gesvda`` on a rank-1 bin; the decode as
+   imaging on the main system: ``greens`` (K3) ->
+   ``focusTx`` onto a 128 x 128 Hadamard encoding -> ``refocus(gamma=0)``
+   -> ``DAS`` (K1, launches counted), the decoded FSA within 0.05 of the
+   original's peak, the PSF; the ``bench_migration`` cell (4096 x 256 x
+   16, s per frame); ``bfMigration`` on the demo system with the PSF; the
+   card's ``bfMigration`` and ``refocus`` against the port's
+   ``device="cpu"`` runs on the demo's shapes;
+22. the full-wave simulator and the ray path integrals, no ``device=``: the
+   ``bench_fdtd`` cell (225^2, 400 steps: ms a step, kernels a step and
+   device busy time from torch.profiler, the record against the
+   ``device="cpu"`` run); ``kspaceFirstOrder`` on the demo system's default
+   grid (lambda / 4) through 20 density blobs, 'nearest', then ``DAS`` (K1,
+   launches counted) with the PSF, the wall, ms a step and node-steps/s;
+   ``kspace_sim_3d`` on 48^3 and ``kspace_sim_1d`` against their CPU runs
+   with the free-field and reflection times; ``ray_paths_device`` on 256^2
+   x 16384 rays between two facing 128-element lines against the host's
+   float64 weights on every 64th ray and each ray's length; and
+   ``global_average_c`` through phase 20's layered medium.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -2445,6 +2471,403 @@ def phase20(torch, qt, ops, errs):
     return launches
 
 
+# refocus and Stolt migration (Part A of slice 11)
+def _hadamard(n):
+    H = np.array([[1.0]])
+    while H.shape[0] < n:
+        H = np.block([[H, H], [H, -H]])
+    return H
+
+
+def _events_ms(torch, fn):
+    """(result, ms) of one call of ``fn``, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _near_cpu(torch, got, ref, what, phase, tol=TOL):
+    """The card's result against the port's own device='cpu' run:
+    max|got - ref| < tol * max|ref|."""
+    r = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    print(f"{phase} {what}: card vs device='cpu' rel={r:.3e} (limit {tol:.0e})")
+    assert r < tol, (what, r)
+    return r
+
+
+def phase21(torch, qt, ops):
+    """REFoCUS and Stolt migration on the card, no device=: the
+    bench_refocus cell (T 4096, N = M = 256, Hadamard 256, gamma 0, fs
+    31.25 MHz): the cold decode, the cached one and one with the default
+    gamma, the norm, the solve and the apply timed apart, the norm's
+    alternatives beside it; the decode as imaging on the main system
+    (greens -> focusTx onto a 128 x 128 Hadamard -> refocus -> DAS); the
+    bench_migration cell (4096 x 256 x 16); bfMigration on the demo
+    system; the card against the port's device='cpu' runs on the demo's
+    shapes. Returns {name: value} for the record and the imaging path's K1
+    launches."""
+    from qups_tpu_torch import system as tsystem
+    from qups_tpu_torch.ops import fdbf
+
+    das_cuda = ops.das_cuda
+    out = {}
+    # the bench_refocus cell, as benches.py builds it
+    T, N, M, fs = 4096, 256, 256, 31.25e6
+    xdc = qt.TransducerArray(numel=M, pitch=0.2e-3, fc=5e6)
+    us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=M, c0=1540.0),
+                             scan=qt.ScanCartesian(x=[0.0], z=[20e-3]), fs=fs)
+    H = _hadamard(M)
+    seq_enc = qt.Sequence(type="FSA", numpulse=M, c0=1540.0, apd=H, del_=np.zeros((M, M)))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((T, N, M), generator=g, device="cuda")
+    chd = qt.ChannelData(data=x, fs=fs, t0=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tsystem._REFOCUS_OP_CACHE.clear()
+    dec, t_cold = _sync_s(torch, lambda: us.refocus(chd, seq_enc, gamma=0.0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert dec.data.is_cuda and dec.data.shape == (T, N, M) and len(tsystem._REFOCUS_OP_CACHE) == 1
+    # re-encoding the decode gives the traces back
+    back = torch.matmul(dec.data.real.reshape(-1, M),
+                        torch.as_tensor(H, dtype=torch.float32, device="cuda")).reshape(T, N, M)
+    r_back = float((back - x).abs().max() / x.abs().max())
+    del back, dec
+    dec2, t_cached = _sync_s(torch, lambda: us.refocus(chd.replace(data=0.5 * x), seq_enc,
+                                                       gamma=0.0))
+    del dec2
+    dec3, t_gamma = _sync_s(torch, lambda: us.refocus(chd, seq_enc))
+    assert bool(torch.isfinite(dec3.data).all())
+    del dec3
+    tsystem._REFOCUS_OP_CACHE.clear()
+    # the decode's steps apart, CUDA events, warm (each called once before)
+    tau = np.zeros((M, M), np.float32)
+    apd = H.astype(np.float32)
+    op = lambda: fdbf.refocus_op(tau, apd, T=T, fs=fs, gamma=0.0)  # noqa: E731
+    op()
+    Hi, ms_op0 = _events_ms(torch, op)
+    _, ms_apply = _events_ms(torch, lambda: fdbf.refocus_apply(x, Hi, 0.0, fs=fs))
+    del Hi
+    f = torch.as_tensor(fdbf.fftfreq32(T, fs), device="cuda")
+    Hm = torch.as_tensor(apd.T, device="cuda")[None] * fdbf._cexp(
+        (2 * np.pi) * f[:, None, None] * torch.as_tensor(tau.T, device="cuda")[None])
+    A = torch.matmul(Hm.conj().transpose(1, 2), Hm)
+    # the norm loops one eigensolver call a bin: timed on 1024 bins, scaled
+    s, ms_norm = _events_ms(torch, lambda: fdbf.spectral_norm(Hm[:1024], A[:1024]))
+    ms_norm *= T / 1024
+    _, ms_solve = _events_ms(torch, lambda: torch.linalg.solve_ex(A, Hm.conj().transpose(1, 2))[0])
+    # the norm's alternatives: cuSOLVER's batched gesvda (all bins, by
+    # batches of 2^25 elements: its workspace size is a 32-bit count) and
+    # torch's default ord-2 norm (64 bins, scaled); the exact norm of a
+    # Hadamard encoding is sqrt(M) = 16 at every bin
+    def gesvda():
+        return torch.cat([torch.linalg.svdvals(Hm[k:k + 512], driver="gesvda")[:, 0]
+                          for k in range(0, T, 512)])
+
+    gesvda()
+    sv, ms_sv = _events_ms(torch, gesvda)
+    mn, ms_mn = _events_ms(torch, lambda: torch.linalg.matrix_norm(Hm[:64], ord=2))
+    ex = np.sqrt(M)
+    errs_n = {k: float((v - ex).abs().max() / ex) for k, v in
+              (("eigvalsh (kept)", s), ("gesvda", sv), ("matrix_norm", mn))}
+    del Hm, A
+    out["refocus"] = dict(cold_s=t_cold, cached_s=t_cached, gamma_s=t_gamma, op0_ms=ms_op0,
+                          apply_ms=ms_apply, norm_ms=ms_norm, solve_ms=ms_solve,
+                          gesvda_ms=ms_sv, mn_ms=ms_mn * 64, peak_gib=peak)
+    print(f"phase21 bench_refocus cell (T {T}, N = M = {M}, Hadamard, fs 31.25 MHz), "
+          f"us.refocus on the card (host clock, synchronised): cold decode gamma 0 "
+          f"{t_cold:.4f} s (operator built and applied; peak memory {peak:.2f} GiB), cached "
+          f"{t_cached:.4f} s, default gamma {t_gamma:.4f} s (norm on the path); re-encoding "
+          f"the decode gives the traces back within rel {r_back:.3e}")
+    print(f"phase21 decode steps (CUDA events, warm): refocus_op gamma 0 {ms_op0:.3f} ms, "
+          f"refocus_apply {ms_apply:.3f} ms; the default gamma's norm (eigvalsh of H^H H, "
+          f"1024 bins, scaled to 4096) {ms_norm:.3f} ms and its solve {ms_solve:.3f} ms")
+    print(f"phase21 norm alternatives: batched gesvda {ms_sv:.3f} ms (4096 bins), "
+          f"torch.linalg.matrix_norm(ord=2) {ms_mn * 64:.3f} ms (64 bins, scaled); relative "
+          f"error against the exact 16: " + ", ".join(f"{k} {v:.3e}" for k, v in errs_n.items()))
+    assert r_back < TOL, r_back
+    assert errs_n["eigvalsh (kept)"] < 1e-5, errs_n
+    del x, chd
+    torch.cuda.empty_cache()
+
+    # the decode as imaging: the main system's FSA through a Hadamard encoding
+    us, targets, scat = _main_system(qt)
+    fsa = us.greens(scat)
+    n = us.tx.numel
+    enc_seq = qt.Sequence(type="FSA", numpulse=n, apd=_hadamard(n), del_=np.zeros((n, n)))
+    enc = us.focusTx(fsa, enc_seq)
+    def path():
+        d = us.refocus(enc, enc_seq, gamma=0.0)
+        return d, us.DAS(d)
+
+    das_cuda.LAUNCHES = 0
+    (dec, b), t_path = _sync_s(torch, path)
+    k1 = das_cuda.LAUNCHES
+    r_fsa = float((dec.data - fsa.data).abs().max() / fsa.data.abs().max())
+    print(f"phase21 refocus imaging path (main system, 128 x 128 Hadamard, no device=): "
+          f"refocus + DAS {t_path:.3f} s (first call); decoded FSA vs the original: "
+          f"{r_fsa:.3e} of its peak (limit 0.05); K1 launches {k1}")
+    assert r_fsa < 0.05 and k1 >= 1 and b.is_cuda
+    _psf(us, b, targets, "refocus -> DAS (K1)", "phase21")
+
+    # the bench_migration cell
+    T, N, M = 4096, 256, 16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((T, N, M), generator=g, device="cuda")
+    th = np.linspace(-9.0, 9.0, M)
+    mig = lambda: fdbf.stolt_migration(x, 0.0, np.zeros((N, M), np.float32), tuple(th),  # noqa
+                                       fs=31.25e6, c0=1540.0, pitch=0.15e-3)
+    img = mig()
+    assert img.shape == (T, N, 1) and bool(torch.isfinite(img).all())
+    ms_mig = _ms(mig, reps=3)
+    out["migration_s"] = ms_mig / 1e3
+    print(f"phase21 bench_migration cell ({T} x {N} x {M}), stolt_migration on the card: "
+          f"{ms_mig / 1e3:.5f} s per frame (CUDA events, 3 runs after a warm-up)")
+    del x, img
+
+    # migration as imaging on the demo system; card against CPU on its shapes
+    us, targets, scat = _demo_system(qt)
+    chd = us.greens(scat)
+    (b, bscan), t_mig = _sync_s(torch, lambda: us.bfMigration(chd))
+    print(f"phase21 bfMigration on the demo system (5 PW, no device=): {t_mig:.3f} s (first "
+          f"call), image {tuple(b.shape)}, native grid {len(bscan.z)} x {len(bscan.x)}")
+    assert b.is_cuda and b.shape == tuple(us.scan.shape) + (1, 1)
+    _psf(us, b, targets, "bfMigration", "phase21")
+    chd_cpu = chd.replace(data=chd.data.cpu())
+    ref, _ = us.bfMigration(chd_cpu, device="cpu")
+    out["mig_cpu_rel"] = _near_cpu(torch, b, ref, "bfMigration, demo", "phase21")
+    # the rank-1 bin f = 0 of a plane-wave encoding stops gesvda
+    Hpw = torch.as_tensor(us.seq.apodization(us.tx).T, dtype=torch.complex64,
+                          device="cuda")[None]  # (1, V, M) at f = 0
+    try:
+        torch.linalg.svdvals(Hpw.transpose(1, 2), driver="gesvda")
+        print("phase21 gesvda on the demo's plane-wave encoding at f = 0 (rank 1): ran")
+    except RuntimeError as e:
+        print(f"phase21 gesvda on the demo's plane-wave encoding at f = 0 (rank 1): "
+              f"{str(e).splitlines()[0][:120]}")
+    s1 = float(fdbf.spectral_norm(Hpw)[0])
+    print(f"phase21 the kept norm there: {s1:.6f} (exact sqrt(V M) = "
+          f"{np.sqrt(Hpw.shape[1] * Hpw.shape[2]):.6f})")
+    assert abs(s1 - np.sqrt(Hpw.shape[1] * Hpw.shape[2])) < 1e-5 * s1
+    dec = us.refocus(chd)
+    ref = us.refocus(chd_cpu, device="cpu")
+    out["ref_cpu_rel"] = _near_cpu(torch, dec.data, ref.data, "refocus (default gamma), demo",
+                                   "phase21")
+    tsystem._REFOCUS_OP_CACHE.clear()
+    return out, k1
+
+
+# the full-wave simulator and the ray path integrals (Part B of slice 11)
+def _kernel_steps(torch, fn, steps):
+    """(kernels a step, device busy ms a step) of ``fn`` (``steps`` steps)
+    from torch.profiler: the CUDA kernels and copies it ran, their device
+    time. (None, None) when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not dev:
+        return None, None
+    busy = sum(e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+               for e in dev) / 1e3
+    return len(dev) / steps, busy / steps
+
+
+def _blob_medium(qt, targets, lam):
+    """Medium(c0 1540, rho0 1000) with a density-2000 blob of radius
+    lambda / 2 at each target."""
+    def blobs(P):
+        m = np.zeros(P.shape[1:], bool)
+        for k in range(targets.shape[1]):
+            m |= np.hypot(P[0] - targets[0, k], P[2] - targets[2, k]) < lam / 2
+        return m
+    return qt.Medium(c0=1540.0, rho0=1000.0, pertreg=((blobs, {"rho": 2000.0}),))
+
+
+def phase22(torch, qt, ops):
+    """The full-wave simulator and the ray path integrals on the card, no
+    device=: the bench_fdtd cell (225^2, 400 steps: ms a step, kernels a
+    step, against the device='cpu' run); kspaceFirstOrder on the demo
+    system's default grid through 20 density blobs, then DAS (K1), the PSF;
+    kspace_sim_3d on 48^3 and kspace_sim_1d against their device='cpu'
+    runs with the free-field and reflection times; ray_paths_device on
+    256^2 x 16384 rays against the host weights on every 64th ray; and
+    global_average_c through phase 20's layered medium. Returns {name:
+    value} for the record and the full-wave path's K1 launches."""
+    from qups_tpu_torch.ops.rays import global_average_c, ray_paths, ray_paths_device
+    from qups_tpu_torch.sim.fdtd import kspace_sim_1d, kspace_sim_2d, kspace_sim_3d
+    from qups_tpu_torch.system import _cmap_zx
+
+    das_cuda = ops.das_cuda
+    out = {}
+    # the bench_fdtd cell, as benches.py builds it
+    n, c0, h = 225, 1500.0, 0.2e-3
+    dt = 0.3 * h / c0
+    steps = 400
+    t = np.arange(steps) * dt
+    sig = (np.sin(2 * np.pi * 2e6 * t)
+           * np.exp(-((t - 1e-6) / 0.5e-6) ** 2))[:, None].astype(np.float32)
+    cmap = np.full((n, n), c0, np.float32)
+    rmap = np.full((n, n), 1000.0, np.float32)
+    kw = dict(steps=steps, dt=dt, dx=h, c_ref=c0, record_rows=(n - 20,))
+    run = lambda **k: kspace_sim_2d(cmap, rmap, [20], [n // 2], sig, **kw, **k)  # noqa: E731
+    rec = run()
+    assert rec.is_cuda and rec.shape == (steps, 1, n)
+    ms = _ms(run, reps=2, warm=False)
+    ref, s_cpu = _sync_s(torch, lambda: run(device="cpu"))
+    # float32 rounding gathers over the 400 steps (the steppers lie ~1e-4 of
+    # the peak from a float64 run of the scheme on 64^2 grids and 48 steps,
+    # tests/test_torch_fdtd.py), and the record's largest values lie in the
+    # PML columns at the window's end; the first card runs read 5.4e-4 from
+    # the CPU's (5.7e-4 outside the PML)
+    r = _near_cpu(torch, rec, ref, "bench_fdtd cell record", "phase22", tol=1e-3)
+    inner = slice(10, n - 10)
+    r_in = _near_cpu(torch, rec[..., inner], ref[..., inner],
+                     "bench_fdtd cell record, columns outside the PML", "phase22", tol=1e-3)
+    k_step, busy = _kernel_steps(torch, lambda: kspace_sim_2d(
+        cmap, rmap, [20], [n // 2], sig[:50], **dict(kw, steps=50)), 50)
+    out["fdtd"] = dict(ms_step=ms / steps, kernels_step=k_step, busy_ms_step=busy, cpu_rel=r,
+                       cpu_rel_inner=r_in)
+    print(f"phase22 bench_fdtd cell ({n}^2, {steps} steps), kspace_sim_2d on the card: "
+          f"{ms / steps:.4f} ms a step (CUDA events over the call, 2 runs); torch.profiler over "
+          f"50 steps: {k_step} kernels and copies a step, device busy "
+          + (f"{busy:.4f} ms a step ({100 * busy / (ms / steps):.1f} % of the step)"
+             if busy is not None else "not measured")
+          + f"; the CPU run of the call {s_cpu:.3f} s")
+
+    # full wave on the demo system, default grid, nearest projection
+    us, targets, _ = _demo_system(qt)
+    med = _blob_medium(qt, targets, us.lmbda)
+    cgrd = us._eikonal_grid()
+    das_cuda.LAUNCHES = 0
+    chd, t_fw = _sync_s(torch, lambda: us.kspaceFirstOrder(med))
+    b, t_das = _sync_s(torch, lambda: us.DAS(chd))
+    k1 = das_cuda.LAUNCHES
+    npml = 10
+    nodes = (cgrd.nz + 2 * npml) * (cgrd.nx + 2 * npml)
+    fs = float(us.fs)
+    k = max(1, int(np.ceil(1.0 / (fs * 0.3 * float(cgrd.dz) / 1540.0))))
+    dtf = 1.0 / (fs * k)
+    diag = np.hypot(cgrd.x[-1] - cgrd.x[0], cgrd.z[-1] - cgrd.z[0])
+    wv = us.tx.impulse.conv(us.seq.pulse, 1.0 / dtf)
+    fsteps = int(np.ceil((2.2 * diag / 1540.0 + wv.duration) / dtf))
+    M = us.seq.num_pulse
+    out["fullwave"] = dict(wall_s=t_fw, grid=(cgrd.nz + 2 * npml, cgrd.nx + 2 * npml),
+                           dt_ns=dtf * 1e9, steps=fsteps, ms_step=t_fw * 1e3 / fsteps,
+                           node_steps_per_s=nodes * fsteps * M / t_fw, das_s=t_das)
+    print(f"phase22 full wave, demo system (5 PW, 20 density blobs of radius lambda/2), "
+          f"us.kspaceFirstOrder(med), no device=: grid {cgrd.nz + 2 * npml} x "
+          f"{cgrd.nx + 2 * npml} nodes (PML included) at {float(cgrd.dz) * 1e3:.4f} mm, dt "
+          f"{dtf * 1e9:.3f} ns, {fsteps} steps, {M} transmits in one batch: wall {t_fw:.3f} s "
+          f"(host clock, first call), {t_fw * 1e3 / fsteps:.4f} ms a step of the batch, "
+          f"{nodes * fsteps * M / t_fw:.4e} node-steps/s; traces {tuple(chd.data.shape)} on "
+          f"{chd.data.device}; DAS {t_das:.3f} s; K1 launches {k1}")
+    assert chd.data.is_cuda and bool(torch.isfinite(chd.data).all()) and k1 >= 1
+    _psf(us, b, targets, "kspaceFirstOrder -> DAS (K1)", "phase22")
+    # the transmits in one batch against one stepper a transmit, on the
+    # demo's grid and time step with 128 sources, 200 steps
+    nz, nx = out["fullwave"]["grid"]
+    gmap = np.full((nz, nx), 1540.0, np.float32)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    sg = torch.randn((200, M, 128), generator=g, device="cuda")
+    rows, cols = [npml] * 128, np.linspace(npml, nx - npml - 1, 128).astype(int)
+    kwb = dict(steps=200, dt=dtf, dx=float(cgrd.dz), c_ref=1540.0, record_rows=(npml,))
+    batch = lambda: kspace_sim_2d(gmap, gmap * 0 + 1000.0, rows, cols, sg, **kwb)  # noqa: E731
+    recb = batch()
+    ms_b = _ms(batch, reps=1, warm=False)
+    singles = [kspace_sim_2d(gmap, gmap * 0 + 1000.0, rows, cols, sg[:, v], **kwb)
+               for v in range(M)]
+    ms_s = _ms(lambda: [kspace_sim_2d(gmap, gmap * 0 + 1000.0, rows, cols, sg[:, v], **kwb)
+                        for v in range(M)], reps=1, warm=False)
+    r_b = max(float((recb[:, v] - singles[v]).abs().max() / singles[v].abs().max())
+              for v in range(M))
+    kb_step, busy_b = _kernel_steps(torch, lambda: kspace_sim_2d(
+        gmap, gmap * 0 + 1000.0, rows, cols, sg[:20], **dict(kwb, steps=20)), 20)
+    out["fullwave"].update(batch_ms_step=ms_b / 200, single_ms_step=ms_s / 200,
+                           batch_rel=r_b, kernels_step=kb_step, busy_ms_step=busy_b)
+    print(f"phase22 the demo grid's {M} transmits as one batch {ms_b / 200:.4f} ms a step, "
+          f"as {M} steppers {ms_s / 200:.4f} ms a step of all {M} (CUDA events, 200 steps); "
+          f"batch vs single runs {r_b:.3e} of the peak (limit 1e-4); the batch: {kb_step} "
+          "kernels and copies a step, device busy "
+          + (f"{busy_b:.4f} ms a step" if busy_b is not None else "not measured"))
+    assert r_b < 1e-4, r_b
+
+    # small parity runs: 3-D and 1-D against their CPU runs, with physics
+    N3, h3, fc3 = 48, 0.4e-3, 1.5e6
+    dt3 = 0.3 * h3 / c0
+    t3 = np.arange(140) * dt3
+    s3 = (np.exp(-((t3 - 1.2e-6) * fc3 * 2) ** 2)
+          * np.sin(2 * np.pi * fc3 * t3))[:, None].astype(np.float32)
+    kw3 = dict(steps=140, dt=dt3, dx=h3, c_ref=c0, record_rows=(28, 40))
+    cube = np.full((N3,) * 3, c0)
+    src3 = np.array([[10], [24], [24]])
+    rec3, s_gpu = _sync_s(torch, lambda: kspace_sim_3d(cube, cube * 0 + 1000.0, src3, s3, **kw3))
+    ref3 = kspace_sim_3d(cube, cube * 0 + 1000.0, src3, s3, device="cpu", **kw3)
+    # the first card runs: 3-D 1.1e-5, 1-D 3.4e-5 of the peak from the CPU's
+    out["sim3d_rel"] = _near_cpu(torch, rec3, ref3, "kspace_sim_3d 48^3, 140 steps", "phase22",
+                                 tol=1e-4)
+    tr = rec3[:, :, 24, 24].abs().cpu().numpy()
+    d3 = t3[tr[:, 1].argmax()] - t3[tr[:, 0].argmax()]
+    assert abs(d3 - 12 * h3 / c0) < 4 * dt3, d3
+    rho1 = np.full(512, 1000.0)
+    rho1[300:] = 3000.0
+    t1 = np.arange(1900) * (0.3 * h / c0)
+    s1 = (np.exp(-((t1 - 1e-6) * 2e6 * 2) ** 2)
+          * np.sin(2 * np.pi * 2e6 * t1))[:, None].astype(np.float32)
+    kw1 = dict(steps=1900, dt=0.3 * h / c0, dx=h, c_ref=c0, record_rows=(60, 240))
+    rec1, s1_gpu = _sync_s(torch, lambda: kspace_sim_1d(np.full(512, c0), rho1, [40], s1, **kw1))
+    ref1 = kspace_sim_1d(np.full(512, c0), rho1, [40], s1, device="cpu", **kw1)
+    out["sim1d_rel"] = _near_cpu(torch, rec1, ref1, "kspace_sim_1d 512, 1900 steps", "phase22",
+                                 tol=1e-4)
+    e1 = rec1[:, 0].abs().cpu().numpy()
+    sel = t1 > 0.7 * ((260 + 240) * h / c0 + 1e-6)
+    t_echo = t1[sel][e1[sel].argmax()]
+    assert abs(t_echo - ((260 + 240) * h / c0 + 1e-6)) < 6 * 0.3 * h / c0, t_echo
+    print(f"phase22 kspace_sim_3d 48^3 x 140 steps {s_gpu:.3f} s, differential arrival "
+          f"{d3 * 1e6:.4f} us (12 cells: {12 * h3 / c0 * 1e6:.4f}); kspace_sim_1d 512 x 1900 "
+          f"steps {s1_gpu:.3f} s, echo off the impedance step at {t_echo * 1e6:.4f} us")
+
+    # rays: two facing 128-element lines across a 256^2 grid
+    xg = np.linspace(-20e-3, 20e-3, 256)
+    zg = np.linspace(0.0, 40e-3, 256)
+    line = np.linspace(-19e-3, 19e-3, 128)
+    pa = np.stack([np.repeat(line, 128), np.full(128 * 128, 0.5e-3)])
+    pb = np.stack([np.tile(line, 128), np.full(128 * 128, 39.5e-3)])
+    W = ray_paths_device(xg, zg, pa, pb)
+    ms_rays = _ms(lambda: ray_paths_device(xg, zg, pa, pb), reps=2)
+    sub = np.arange(0, pa.shape[1], 64)
+    Wh = ray_paths(xg, zg, pa[:, sub], pb[:, sub])
+    r_rays = float(np.abs(W[:, :, sub].cpu().numpy() - Wh).max() / np.abs(Wh).max())
+    L = np.hypot(*(pb - pa))
+    r_len = float(np.abs(W.sum((0, 1)).double().cpu().numpy() - L).max() / L.max())
+    out["rays"] = dict(ms=ms_rays, rel=r_rays, len_rel=r_len, gb=W.numel() * 4 / 1e9)
+    print(f"phase22 ray_paths_device 256^2 x {pa.shape[1]} rays ({W.numel() * 4 / 1e9:.2f} GB "
+          f"float32) on the card: {ms_rays:.3f} ms (CUDA events, 2 runs); every 64th ray vs the "
+          f"host's float64 weights: {r_rays:.3e} of the largest weight (limit 1e-5); each ray's "
+          f"total vs its length: {r_len:.3e} relative")
+    assert W.is_cuda and r_rays < 1e-5 and r_len < 1e-5, (r_rays, r_len)
+    del W
+
+    # global_average_c through phase 20's layered medium
+    us20, _, _ = _main_system(qt)
+    lens = qt.Medium(c0=1540.0, pertreg=((lambda P: P[2] < 5e-3, {"c": 1300.0}),))
+    g20 = us20._eikonal_grid()
+    cz = _cmap_zx(g20, lens.props(g20, "c"))
+    ends = np.array([[0.0, 5e-3, -10e-3], [28e-3, 28e-3, 40e-3]])  # (x, z) of three targets
+    cavg = global_average_c(cz, g20.x, g20.z, np.array([0.0, 0.0]), ends)
+    f_lay = 5e-3 / ends[1]
+    want = 1.0 / (f_lay / 1300.0 + (1 - f_lay) / 1540.0)
+    print(f"phase22 global_average_c through phase 20's layer: {np.round(cavg, 3)} m/s, "
+          f"straight-ray values {np.round(want, 3)} m/s")
+    assert np.all(np.abs(cavg - want) < 0.01 * want), (cavg, want)
+    return out, k1
+
+
 def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     """K3's bytes read or written once: q and w of both sides (and the
     directivity slopes), and G (F, N, M) complex64."""
@@ -2514,6 +2937,13 @@ def main():
     eik_launches = phase20(torch, qt, ops, errs)
     print(f"K2 launches on the eikonal path (phase 20): {eik_launches}; the kernels line's "
           f"das_lut_k2 row counts the demo path's (phase 7)")
+    t = time.perf_counter()
+    rf, rf_k1 = phase21(torch, qt, ops)
+    fw, fw_k1 = phase22(torch, qt, ops)
+    print(f"phases 21-22: {time.perf_counter() - t:.3f} s; K1 launches on the refocus imaging "
+          f"path (phase 21): {rf_k1}, on the full-wave path (phase 22): {fw_k1}; the kernels "
+          f"line's das_k1 row counts the FSA path's (phase 3)")
+    print("slice 11 record: " + json.dumps({"refocus_migration": rf, "fullwave_rays": fw}))
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -2564,7 +2994,9 @@ def main():
     rows = [
         ("das_k1", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:174",
          k1_ms["cubic"], k1_plain_ms, k1_b, None,
-         "1024^2 px x 256 tx x 256 rx, T 4096, cubic"),
+         "1024^2 px x 256 tx x 256 rx, T 4096, cubic; launches: the FSA path (phase 3), "
+         f"and also {rf_k1} on the refocus imaging path (phase 21) and {fw_k1} on the "
+         "full-wave path (phase 22)"),
         ("das_lut_k2", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:1607",
          k2_ms, k2_plain_ms, k2_b, None, "1024^2 px x 256 tx x 256 rx, T 4096, cubic, "
          "plane-wave geometric tables"),

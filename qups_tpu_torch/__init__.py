@@ -14,7 +14,12 @@ and ``us.bfDAS`` / ``us.bfDASLUT`` (kernel K2) and ``us.bfAdjoint``
 frames, which ``us.DAS(iq, fmod=fc)`` and ``us.bfDAS`` beamform on K1(b)
 and K2(b). Heterogeneous media: a :class:`Medium`'s sound-speed map
 gives ``us.bfEikonal`` its delay tables (fast marching on the host, then
-K2). The entry points run on the card unless given ``device=``.
+K2). REFoCUS and Stolt migration: ``us.refocus`` decodes synthesized
+transmits back to FSA, ``us.bfMigration`` images plane waves by f-k
+migration. Ray path integrals: ``ops.rays``. Full-wave simulation:
+``us.kspaceFirstOrder`` through a :class:`Medium` by the k-space PSTD
+steppers of ``sim.fdtd``. The entry points run on the card unless given
+``device=``.
 """
 from .core import (
     Waveform, Transducer, TransducerArray, TransducerConvex, TransducerMatrix,
@@ -26,6 +31,7 @@ from .system import UltrasoundSystem
 from .ops.das_cuda import Fused
 from .convert import from_reference
 from . import ops
+from . import sim
 from . import utils
 
 __version__ = "0.1.0"

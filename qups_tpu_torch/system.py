@@ -9,8 +9,12 @@ simulate channel data with :meth:`UltrasoundSystem.greens`,
 transmits with :meth:`UltrasoundSystem.focusTx`; map the transmit pressure
 with :meth:`UltrasoundSystem.calc_hp`; beamform with
 :meth:`UltrasoundSystem.DAS`, :meth:`UltrasoundSystem.bfDAS`,
-:meth:`UltrasoundSystem.bfDASLUT`, :meth:`UltrasoundSystem.bfAdjoint` and,
-through a heterogeneous :class:`Medium`, :meth:`UltrasoundSystem.bfEikonal`.
+:meth:`UltrasoundSystem.bfDASLUT`, :meth:`UltrasoundSystem.bfAdjoint`,
+:meth:`UltrasoundSystem.bfMigration` (Stolt f-k migration) and, through a
+heterogeneous :class:`Medium`, :meth:`UltrasoundSystem.bfEikonal`; decode
+synthesized transmits back to FSA with :meth:`UltrasoundSystem.refocus`;
+simulate the full wave through a :class:`Medium` with
+:meth:`UltrasoundSystem.kspaceFirstOrder`.
 Host geometry stays float64 numpy and moves to the data's device as
 float32.
 
@@ -38,8 +42,10 @@ Scope (ROADMAP.md, "Scope decisions"):
   ``bfEikonal`` builds its tables by fast marching on the host
   (``ops/eikonal.py``, through a :class:`Medium`'s sound-speed map) and
   runs K2 through ``bfDASLUT``. Every option of these kernels runs on the
-  card. Nothing drops to the plain path on its own: ``kernel='plain'`` is
-  an explicit choice. With ``device="cpu"`` each runs its plain PyTorch
+  card. ``refocus``, ``bfMigration`` and ``kspaceFirstOrder`` reach no TPU
+  kernel in the JAX package; they are ``torch.fft``, ``torch.linalg`` and
+  elementwise code on the card. Nothing drops to the plain path on its
+  own: ``kernel='plain'`` is an explicit choice. With ``device="cpu"`` each runs its plain PyTorch
   version.
 """
 from __future__ import annotations
@@ -66,15 +72,17 @@ from .ops.das_cuda import Fused, das_lut_sum, das_sum, dense_apod
 from .ops.eikonal import msfm, msfm_multi
 from .ops.coherence import cohfac, slsc
 from .ops.conv import convd
-from .ops.fdbf import bf_adjoint, focus_tx_freq, geom_delays, select_fbins
+from .ops.fdbf import (bf_adjoint, focus_tx_freq, geom_delays, refocus_apply, refocus_op,
+                       select_fbins, stolt_migration)
 from .ops.fdbf_cuda import bf_adjoint_cuda
 from .ops.greens import greens_dense, greens_splat
 from .ops.greens_cuda import greens_tiled
 from .ops.greens_freq import greens_freq
 from .ops.interp import METHODS, fft_upsample
 from .ops.simus import simus_fsa
+from .sim.fdtd import kspace_sim_2d, kspace_sim_3d
 from .utils.backend import as_f32, default_device
-from .utils.maths import box_rbounds, gridded_interp
+from .utils.maths import box_rbounds, gridded_interp, next_pow2
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
 KERNELS = ("auto", "cuda", "plain")
@@ -1033,6 +1041,137 @@ class UltrasoundSystem:
             _ADJ_TAU_CACHE[key] = tabs
         return tabs
 
+    # ------------------------------------------- REFoCUS and Stolt migration
+    def refocus(self, chd: ChannelData, seq: Optional[Sequence] = None,
+                gamma: Optional[float] = None, method: str = "tikhonov",
+                device=None) -> ChannelData:
+        """Decode synthesized transmits back to FSA (REFoCUS,
+        ``UltrasoundSystem.refocus``, ``src/UltrasoundSystem.m:3505-3768``):
+        per frequency the whitened inverse of the encoding of ``seq``
+        (default: this system's) by 'tikhonov' (``gamma``, default
+        ``10 (M / 10)^2``), 'adjoint' or 'pinv'
+        (:func:`~qups_tpu_torch.ops.fdbf.refocus_op`), then the per-bin
+        transmit GEMM and the inverse FFT
+        (:func:`~qups_tpu_torch.ops.fdbf.refocus_apply`), on ``device``
+        (default: the CUDA device; the traces move there). Trailing frame
+        dims pass through. Returns (T, N, M, *F) complex traces with ``t0``
+        the least pulse start.
+
+        The decode operator depends on the sequence, T, fs, gamma, method
+        and device, not on the data: repeated decodes take it from a FIFO
+        cache bounded by bytes (``QUPS_REFOCUS_CACHE_BYTES``, 3 GiB).
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=4, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="FSA", numpulse=4),
+                scan=q.ScanCartesian(x=[0.0], z=[20e-3]), fs=12e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            fsa = us.greens(scat, device="cpu")
+            pw = q.SequenceRadial(type="PW", angles=np.linspace(-10, 10, 4), c0=1540.0)
+            enc = us.focusTx(fsa, pw, device="cpu")
+            dec = us.replace(seq=pw).refocus(enc, device="cpu")
+            assert dec.data.shape[2] == 4 and bool(dec.data.isfinite().all())
+        """
+        seq = seq or self.seq
+        dev = default_device(device)
+        tau = np.asarray(seq.delays(self.tx), np.float32)       # (M, V)
+        apd = np.asarray(seq.apodization(self.tx), np.float32)  # (M, V)
+        t0 = chd.t0_host
+        t0v = np.broadcast_to(t0, (chd.M,)) if t0.size == 1 else t0
+        key = (hashlib.sha1(tau.tobytes() + apd.tobytes()).hexdigest(), int(chd.T),
+               float(chd.fs), None if gamma is None else float(gamma), method, str(dev))
+        Hi = _REFOCUS_OP_CACHE.get(key)
+        if Hi is None:
+            Hi = refocus_op(tau, apd, T=int(chd.T), fs=float(chd.fs), gamma=gamma,
+                            method=method, device=dev)
+            nb = Hi.numel() * Hi.element_size()
+            while _REFOCUS_OP_CACHE and nb + sum(
+                    v.numel() * v.element_size()
+                    for v in _REFOCUS_OP_CACHE.values()) > _REFOCUS_OP_CACHE_MAX_BYTES:
+                _REFOCUS_OP_CACHE.pop(next(iter(_REFOCUS_OP_CACHE)))
+            _REFOCUS_OP_CACHE[key] = Hi
+        y, _ = refocus_apply(chd.data, Hi, t0v, fs=float(chd.fs), device=dev)
+        return chd.replace(data=y, t0=float(t0v.min()))
+
+    def bfMigration(self, chd: ChannelData, c0: Optional[float] = None, fmod: float = 0.0,
+                    keep_tx: bool = False, method: str = "cubic", jacobian: bool = True,
+                    resample: bool = True, nfft: Optional[Tuple[int, int]] = None,
+                    device=None):
+        """Stolt f-k plane-wave migration (``UltrasoundSystem.bfMigration``,
+        ``src/UltrasoundSystem.m:4675-4887``) on ``device`` (default: the
+        CUDA device; the traces move there). Needs a PW sequence on a
+        :class:`TransducerArray`. A t0 that varies by transmit is rectified
+        first (``ChannelData.rectifyt0``), and the start time is realized as
+        leading zeros; the FFT sizes default to the next powers of two of
+        2T and 2N. Returns ``(b, bscan)``: ``bscan`` is the image's native
+        cartesian scan (z from the two-way time axis, x at the elements);
+        with ``resample=True``, ``b`` is bilinearly resampled onto
+        ``us.scan`` on the device, ``(*scan.shape, 1, M', *F)`` (``M' = M``
+        with ``keep_tx``, else 1), else ``b`` is the native
+        ``(T, N, M', *F)`` image.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            xdc = q.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.SequenceRadial(type="PW", angles=[0.0], c0=1540.0),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 9),
+                                     z=np.linspace(18e-3, 22e-3, 9)), fs=24e6)
+            scat = q.Scatterers(pos=[[0.0], [0.0], [20e-3]], c0=1540.0)
+            b, bscan = us.bfMigration(us.greens(scat, device="cpu"), device="cpu")
+            assert b.shape == us.scan.shape + (1, 1) and bool(b.isfinite().all())
+        """
+        if self.seq.type != "PW":
+            raise ValueError("bfMigration requires a plane-wave sequence")
+        if not isinstance(self.xdc, TransducerArray):
+            raise TypeError("bfMigration requires a TransducerArray")
+        dev = default_device(device)
+        chd = chd.replace(data=chd.data.to(dev))
+        c0v = float(c0 if c0 is not None else self.seq.c0)
+        t0 = chd.t0_host
+        if t0.size > 1 and not np.allclose(t0, t0[0]):
+            chd = chd.rectifyt0()
+            t0 = chd.t0_host
+        # a large t0 as a pure phase ramp oscillates faster than the DFT bin
+        # spacing and would be destroyed by the frequency-axis resampling
+        pre = int(round(float(t0[0]) * chd.fs))
+        if pre > 0:
+            chd = chd.zeropad(pre, 0)
+            t0 = chd.t0_host
+        f = self.seq.focus_array
+        angles = np.degrees(np.arctan2(f[0], f[2]))
+        del_tx = self.seq.delays(self.xdc)  # (N, M)
+        if nfft is None:
+            nfft = (next_pow2(2 * chd.T), next_pow2(2 * chd.N))
+        b = stolt_migration(chd.data, t0, del_tx, tuple(angles), fs=float(chd.fs), c0=c0v,
+                            pitch=float(self.xdc.pitch), fmod=float(fmod), keep_tx=keep_tx,
+                            method=method, jacobian=jacobian, nfft=tuple(nfft), device=dev)
+        pn = self.xdc.positions()
+        zax = self.xdc.offset[2] + c0v / 2 * (float(t0[0]) + np.arange(chd.T) / chd.fs)
+        bscan = ScanCartesian(x=pn[0], y=[self.xdc.offset[1]], z=zax)
+        if not resample:
+            return b, bscan
+        # bilinear resample onto the scan, on the device
+        P = self.scan.positions()
+        zi = as_f32(((P[2] - zax[0]) / (zax[1] - zax[0])).reshape(-1), dev)
+        xi = as_f32(((P[0] - pn[0, 0]) / self.xdc.pitch).reshape(-1), dev)
+        Tn, Nn = b.shape[:2]
+        z0 = torch.clamp(torch.floor(zi).long(), 0, Tn - 1)
+        x0 = torch.clamp(torch.floor(xi).long(), 0, Nn - 1)
+        z1, x1 = torch.clamp(z0 + 1, 0, Tn - 1), torch.clamp(x0 + 1, 0, Nn - 1)
+        nb = b.ndim - 2
+        wz = torch.clamp(zi - z0, 0, 1).reshape((-1,) + (1,) * nb)
+        wx = torch.clamp(xi - x0, 0, 1).reshape((-1,) + (1,) * nb)
+        v = ((1 - wz) * (1 - wx) * b[z0, x0] + (1 - wz) * wx * b[z0, x1]
+             + wz * (1 - wx) * b[z1, x0] + wz * wx * b[z1, x1])
+        oob = ((zi < 0) | (zi > Tn - 1) | (xi < 0) | (xi > Nn - 1)).reshape(wz.shape)
+        v = torch.where(oob, torch.zeros((), dtype=v.dtype, device=dev), v)
+        return v.reshape(tuple(self.scan.shape) + (1,) + tuple(v.shape[1:])), bscan
+
     # ------------------------------------------------- eikonal beamformer
     def eikonal_tables(self, medium: Medium, cgrd: ScanCartesian, workers=None,
                        device=None):
@@ -1187,8 +1326,9 @@ class UltrasoundSystem:
                              keep_rx=keep_rx, method=method, kernel=kernel, device=device)
 
     def _eikonal_grid(self) -> ScanCartesian:
-        """bfEikonal's default medium grid: the scan extended to take in the
-        transducer, at lambda / 4 with two cells of margin."""
+        """The default medium grid of bfEikonal and kspaceFirstOrder: the scan
+        extended to take in the transducer, at lambda / 4 with two cells of
+        margin."""
         b = self.xdc.bounds()
         h = self.lmbda / 4
         P = self.scan.positions()
@@ -1198,6 +1338,234 @@ class UltrasoundSystem:
         z1 = max(b[2, 1], P[2].max()) + 2 * h
         return ScanCartesian(x=np.arange(x0, x1 + h, h), y=[0.0],
                              z=np.arange(z0, z1 + h, h))
+
+    # ------------------------------------------------- full-wave simulation
+    def kspaceFirstOrder(self, medium: Medium, cgrd: Optional[ScanCartesian] = None,
+                         cfl: float = 0.3, npml: int = 10, tmax: Optional[float] = None,
+                         el_proj: str = "nearest", el_sub: int = 0, record: str = "elements",
+                         field_stride: int = 8, bg_subtract: bool = False, mesh=None,
+                         device=None):
+        """Full-wave simulation through a heterogeneous ``medium`` by the
+        k-space PSTD stepper (``UltrasoundSystem.kspaceFirstOrder``,
+        ``src/UltrasoundSystem.m:2458-3170``;
+        :mod:`qups_tpu_torch.sim.fdtd`) on ``device`` (default: the CUDA
+        device). Builds the grid (default: the scan and the array at lambda
+        / 4) with a PML of ``npml`` cells (the maps padded by their edge), a
+        CFL-limited time step that divides ``1 / us.fs``, the projection of
+        the elements onto grid nodes for the sources and the sensors, and
+        simulates every transmit; the received traces come back at ``us.fs``
+        as ChannelData (T, N, M) on ``device``, ``t0`` per transmit.
+
+        The medium's absorption (``alpha0``, ``alpha_power``) and B/A
+        (``bona0``) are simulated where set. ``el_proj``: 'nearest' snaps
+        each element to its closest node; 'linear' spreads ``el_sub``
+        sub-element points (default ceil(width / h) + 1) over their
+        surrounding nodes; 'karray' deposits and senses patch sub-points
+        through truncated band-limited sinc stencils ('karray-direct' and
+        'karray-depend' are aliases of it, as in the JAX package).
+
+        ``record='field'`` also snapshots the full pressure every
+        ``field_stride`` steps and returns ``(chd, fields)``, ``fields`` a
+        float32 tensor (M, nsnap, *grid) on ``device``, the PML cropped.
+        ``bg_subtract=True`` subtracts a second simulation through the
+        ambient medium (``c0``, ``rho0`` and the ambient absorption and B/A
+        everywhere), leaving the scattered field. The transmits run
+        together, a leading batch of one stepper (in chunks of about 4 GiB
+        of state and records), which gives each transmit the numbers of its
+        own simulation. ``mesh`` (several cards) is not ported and raises.
+        The stepper's spectral derivatives are k-Wave's (the whole grid's
+        FFT with kappa(|k|); :mod:`qups_tpu_torch.sim.fdtd`), not the JAX
+        package's, whose column-indexed kappa slows the wave in the grid's
+        middle columns; the rest of the simulation is the JAX package's.
+
+        Example:
+            import numpy as np
+            import qups_tpu_torch as q
+            c0, fc = 1500.0, 2e6
+            lam = c0 / fc
+            xdc = q.TransducerArray(numel=8, pitch=lam / 2, fc=fc)
+            us = q.UltrasoundSystem(
+                tx=xdc, rx=xdc, seq=q.Sequence(type="PW", focus=[[0.0], [0.0], [1.0]], c0=c0),
+                scan=q.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8),
+                                     z=np.linspace(1e-3, 4e-3, 8)), fs=4 * fc)
+            cgrd = q.ScanCartesian(x=np.arange(-3e-3, 3e-3, lam / 4), y=[0.0],
+                                   z=np.arange(-0.5e-3, 4.5e-3, lam / 4))
+            chd = us.kspaceFirstOrder(q.Medium(c0=c0), cgrd, tmax=2e-6, device="cpu")
+            assert (chd.N, chd.M) == (8, 1) and bool(chd.data.isfinite().all())
+        """
+        if mesh is not None:
+            raise NotImplementedError("kspaceFirstOrder on a mesh of cards is not ported "
+                                      "(ROADMAP Queue 1 item 11)")
+        dev = default_device(device)
+        if el_proj in ("karray-direct", "karray-depend"):
+            el_proj = "karray"
+        cgrd = cgrd if cgrd is not None else self._eikonal_grid()
+        if not isinstance(cgrd, ScanCartesian):
+            raise TypeError("cgrd must be a ScanCartesian")
+        vol = cgrd.ny > 1
+        if not (np.isclose(cgrd.dx, cgrd.dz, rtol=1e-3)
+                and (not vol or np.isclose(cgrd.dy, cgrd.dz, rtol=1e-3))):
+            raise ValueError("grid must be isotropic")
+        if record not in ("elements", "field"):
+            raise ValueError(f"unknown record mode {record!r}")
+        h = float(cgrd.dz)
+
+        # property maps (Z, X[, Y]) + PML padding (edge replicate)
+        if vol:
+            perm = [cgrd.order.index(c) for c in "ZXY"]
+            to_grid = lambda m: np.transpose(m, perm)  # noqa: E731
+        else:
+            to_grid = lambda m: _cmap_zx(cgrd, m)  # noqa: E731
+        props = medium.props(cgrd, ("c", "rho", "alpha", "bona"))
+        cmap, rmap, amap, bmap = (np.pad(to_grid(props[k]), npml, mode="edge")
+                                  for k in ("c", "rho", "alpha", "bona"))
+        # NaN ambient values mean the physics is off (Medium defaults)
+        amap = None if np.isnan(amap).all() else np.nan_to_num(amap)
+        bmap = None if np.isnan(bmap).all() else np.nan_to_num(bmap)
+        cmax = float(cmap.max())
+        want_field = record == "field"
+        fstride = int(field_stride) if want_field else 0
+
+        # CFL-limited dt aligned to us.fs (integer divisor)
+        fs = float(self.fs)
+        k = max(1, int(np.ceil(1.0 / (fs * cfl * h / cmax))))
+        dt = 1.0 / (fs * k)
+
+        shp = cmap.shape
+        tx_proj = _element_nodes(self.tx, el_proj, el_sub, cgrd, h, npml, shp)
+        rx_proj = _element_nodes(self.rx, el_proj, el_sub, cgrd, h, npml, shp)
+        rec_rows = tuple(sorted({int(r) for nodes_, _ in rx_proj for r in nodes_[:, 0]}))
+
+        # transmit waveform at the simulation's rate; simulation length
+        wv = self.tx.impulse.conv(self.seq.pulse, 1.0 / dt)
+        delays = self.seq.delays(self.tx)       # (N_el, M)
+        apod = self.seq.apodization(self.tx)    # (N_el, M)
+        M = self.seq.num_pulse
+        if tmax is None:
+            diag = np.hypot(cgrd.x[-1] - cgrd.x[0], cgrd.z[-1] - cgrd.z[0])
+            tmax = 2.2 * diag / float(cmap.min()) + wv.duration
+        steps = int(np.ceil(tmax / dt))
+
+        def tx_sources(v):
+            """One transmit's source nodes and signals, before merging."""
+            act = np.where(np.abs(apod[:, v]) > 0)[0]
+            maxdel = float(delays[act, v].max()) if act.size else 0.0
+            t0_sim = -maxdel + wv.t0
+            s = np.arange(steps) * dt
+            nodes, sigs = [], []
+            for n in act:
+                sn = apod[n, v] * np.real(np.asarray(wv.sample(s + t0_sim + delays[n, v])))
+                nodes_, w_ = tx_proj[n]
+                nodes.append(nodes_)
+                sigs.append(sn[:, None] * w_[None, :])
+            return (np.concatenate(nodes, 0), np.concatenate(sigs, 1).astype(np.float32),
+                    t0_sim)
+
+        # one node set for all transmits: each transmit's signal summed per
+        # node in the order of its own list (a node it does not drive gets 0)
+        per = [tx_sources(v) for v in range(M)]
+        uniq, inv = np.unique(np.concatenate([p_[0] for p_ in per], 0), axis=0,
+                              return_inverse=True)
+        inv = inv.reshape(-1)
+        sig = np.zeros((M, steps, uniq.shape[0]), np.float32)
+        o = 0
+        for v, (nodes_v, sig_v, _) in enumerate(per):
+            np.add.at(sig[v].T, inv[o:o + len(nodes_v)], sig_v.T)
+            o += len(nodes_v)
+        t0 = np.array([p_[2] for p_ in per])
+        del per
+
+        # the sensors: one (recorded nodes, N) weight matrix
+        rest = int(np.prod(shp[1:]))
+        row_of = {r: i for i, r in enumerate(rec_rows)}
+        S = np.zeros((len(rec_rows) * rest, len(rx_proj)))
+        for n, (nodes_, w_) in enumerate(rx_proj):
+            off = np.array([row_of[int(r)] for r in nodes_[:, 0]]) * rest
+            pos = off + (nodes_[:, 1] * shp[2] + nodes_[:, 2] if vol else nodes_[:, 1])
+            np.add.at(S[:, n], pos, w_)
+        S = as_f32(S, dev)
+
+        sim = kspace_sim_3d if vol else kspace_sim_2d
+        src = (uniq.T,) if vol else (uniq[:, 0], uniq[:, 1])
+        kw = dict(steps=steps, dt=dt, dx=h, c_ref=cmax, record_rows=rec_rows,
+                  alpha_power=float(medium.alpha_power), field_stride=fstride, device=dev)
+        bg = None
+        if bg_subtract:
+            # iso-impedance ambient background: same sources, dt and steps
+            bg = (np.full_like(cmap, float(medium.c0)), np.full_like(rmap, float(medium.rho0)),
+                  None if amap is None else np.full_like(cmap, float(np.nan_to_num(medium.alpha0))),
+                  None if bmap is None else np.full_like(cmap, float(np.nan_to_num(medium.bona0))))
+        nsnap = -(-steps // fstride) if fstride else 0
+        per_tx = 4 * (steps * (S.shape[0] + uniq.shape[0]) + (nsnap + 12) * int(np.prod(shp)))
+        chunk = max(1, int(_FDTD_BATCH_BYTES // per_tx))
+        traces, fields = [], []
+        crop = (slice(None), slice(None)) + tuple(slice(npml, n - npml) for n in shp)
+        for v0 in range(0, M, chunk):
+            sg = torch.as_tensor(np.ascontiguousarray(
+                sig[v0:v0 + chunk].transpose(1, 0, 2)), device=dev)  # (steps, B, Q)
+            out = sim(cmap, rmap, *src, sg, alpha0=amap, bona=bmap, **kw)
+            rec, fld = out if want_field else (out, None)
+            if bg is not None:
+                out = sim(bg[0], bg[1], *src, sg, alpha0=bg[2], bona=bg[3], **kw)
+                rec = rec - (out[0] if want_field else out)
+                fld = fld - out[1] if want_field else None
+            tr = rec.reshape(steps, rec.shape[1], -1) @ S  # (steps, B, N)
+            traces.append(tr[::k])
+            if want_field:
+                fields.append(fld[crop].transpose(0, 1))
+        chd = ChannelData(data=torch.cat(traces, 1).permute(0, 2, 1), fs=fs, t0=t0)  # (T, N, M)
+        return (chd, torch.cat(fields)) if want_field else chd
+
+
+def _element_nodes(xdc: Transducer, el_proj: str, el_sub: int, cgrd: ScanCartesian,
+                   h: float, npml: int, shp) -> list:
+    """Per element of ``xdc``, the grid nodes ``(K, nd)`` and weights
+    ``(K,)`` of its projection (``Transducer.elem2grid``,
+    ``src/Transducer.m:578``) onto the PML-padded (Z, X[, Y]) grid of
+    shape ``shp``: 'nearest' the closest node; 'linear' the multilinear
+    deposit of ``el_sub`` sub-element points (default ceil(width / h) + 1);
+    'karray' the kWaveArray-class off-grid projection
+    (``src/Transducer.m:734``): ceil(width / h) + 2 sub-points, each through
+    a separable sinc stencil of half-width 3 (the band-limited interpolant
+    of a PSTD grid, truncated; > 97 % of its mass)."""
+    vol = len(shp) == 3
+    nd = len(shp)
+    org = np.array([cgrd.z[0], cgrd.x[0]] + ([cgrd.y[0]] if vol else []))
+    hi = np.array(shp) - 1
+    p_el = xdc.positions()
+    out = []
+    for n in range(p_el.shape[1]):
+        if el_proj == "nearest":
+            pts = p_el[:, n:n + 1]
+        elif el_proj in ("linear", "karray"):
+            K = el_sub or (int(np.ceil(xdc.width / h)) + (2 if el_proj == "karray" else 1))
+            pts = xdc.bary_centers((K, 1))[:, n, :]
+        else:
+            raise ValueError(f"unknown el_proj {el_proj!r} (one of 'nearest', 'linear', "
+                             "'karray')")
+        q = np.stack([pts[2], pts[0]] + ([pts[1]] if vol else []))
+        fc = (q - org[:, None]).T / h + npml  # (K, nd) fractional node coordinates
+        K = fc.shape[0]
+        if el_proj == "nearest":
+            out.append((np.clip(np.round(fc).astype(int), 0, hi), np.ones(1)))
+            continue
+        nodes_l, w_l = [], []
+        if el_proj == "karray":
+            HW = 3
+            f0 = np.round(fc).astype(int)
+            for corner in np.ndindex(*([2 * HW + 1] * nd)):
+                cs = np.asarray(corner) - HW
+                nodes_l.append(np.clip(f0 + cs, 0, hi))
+                w_l.append(np.prod(np.sinc(fc - (f0 + cs)), axis=1) / K)
+        else:
+            f0 = np.floor(fc).astype(int)
+            fr = fc - f0
+            for corner in np.ndindex(*([2] * nd)):
+                cs = np.asarray(corner)
+                nodes_l.append(np.clip(f0 + cs, 0, hi))
+                w_l.append(np.prod(np.where(cs == 1, fr, 1 - fr), axis=1) / K)
+        out.append((np.concatenate(nodes_l, 0), np.concatenate(w_l, 0)))
+    return out
 
 
 def _grid_interp2(vals, zi, xi, method: str = "cubic"):
@@ -1236,6 +1604,14 @@ def _boundary_seeds(cgrd: ScanCartesian, shape, h: float, p, c0: float, vol: boo
     return srcs, np.linalg.norm(org[None, :] + srcs * h - apx[None], axis=1) / c0
 
 
+# kspaceFirstOrder runs its transmits in batches of about this many bytes
+# of state, sources and records
+_FDTD_BATCH_BYTES = 4 * 1024**3
+
+# refocus's decode operators, ~2 GiB each at T 4096, M = V = 256
+_REFOCUS_OP_CACHE: dict = {}
+_REFOCUS_OP_CACHE_MAX_BYTES = int(os.environ.get("QUPS_REFOCUS_CACHE_BYTES",
+                                                 str(3 * 1024**3)))
 # bfAdjoint's (I, N) / (I, M) device delay tables, ~2 GB at 1024^2 x 256 x 256
 _ADJ_TAU_CACHE: dict = {}
 _ADJ_TAU_CACHE_MAX_BYTES = int(os.environ.get("QUPS_ADJ_TAU_CACHE_BYTES",

@@ -6,7 +6,10 @@ without a card they raise rather than run on the CPU: the simulators
 (``UltrasoundSystem.greens``, ``simus``, ``calc_scat_all``,
 ``calc_scat_multi``, ``calc_hp``, ``das_delay_tables`` and the ``ops``
 functions behind them) and the beamformers (``DAS``, ``bfDAS``,
-``bfDASLUT``, ``bfAdjoint``, ``focusTx``), which move their traces there.
+``bfDASLUT``, ``bfAdjoint``, ``focusTx``, ``refocus``, ``bfMigration``),
+which move their traces there, and ``kspaceFirstOrder`` with the
+functions of ``ops/fdbf.py``, ``ops/rays.py`` (its device path) and
+``sim/fdtd.py`` behind them.
 Every other function, ``ChannelData``'s methods among them, computes on
 the device of its input tensor.
 """

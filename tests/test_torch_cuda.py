@@ -18,8 +18,12 @@ trace precisions of K1(e) and K2(e) (the layout kernel's narrow entries bit
 for bit, the kernels against their plain versions at each precision, keep
 modes and weights, the bfloat16 kept sums of QUPS_DAS_ACC16); K4(b), K4
 past 256 pulses and keep_rx receivers, with conj(Ahat) in one pass and by
-chunks; and bfEikonal's tables and K2 on the card. Every test here needs
-the card and skips without one.
+chunks; bfEikonal's tables and K2 on the card; and the modules without a
+TPU kernel that run on the card by default: refocus (every method) and its
+spectral norm, Stolt migration and bfMigration, the ray path integrals'
+device path, the k-space steppers and kspaceFirstOrder, each against its
+own device="cpu" run. Every test here needs the card and skips without
+one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -1267,3 +1271,170 @@ def test_simulators_on_card(card):
     hp = fc.calc_hp(device=card)
     hpc = fc.calc_hp(device="cpu")
     assert hp.is_cuda and float((hp.cpu() - hpc).abs().max()) < 1e-4 * float(hpc.max())
+
+
+# ------------------------------------------ modules without a TPU kernel
+def _close(got, ref, tol):
+    """max|got - ref| / max|ref| for a card result and a CPU one, printed
+    (``-s``) and held under ``tol``."""
+    assert got.is_cuda and not ref.is_cuda and got.shape == ref.shape
+    r = float((got.cpu() - ref).abs().max() / ref.abs().max())
+    print(f"card vs cpu {r:.3e} (limit {tol:.0e})")
+    assert r < tol
+    return r
+
+
+def _hadamard(n):
+    H = np.array([[1.0]])
+    while H.shape[0] < n:
+        H = np.block([[H, H], [H, -H]])
+    return H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(gamma=0.0), dict(), dict(method="adjoint"),
+                                dict(method="pinv")], ids=["tik0", "tik", "adjoint", "pinv"])
+def test_refocus_on_card(card, kw):
+    """us.refocus with no device= decodes on the card, equal to the CPU
+    decode within 1e-4 x max, with 2 frames; the operator cache keys by
+    device."""
+    from qups_tpu_torch import system as tsystem
+
+    xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+    us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=16),
+                             scan=qt.ScanCartesian(x=[0.0], z=[30e-3]), fs=24e6)
+    fsa = us.greens(qt.Scatterers(pos=[[0.0], [0.0], [30e-3]], c0=1540.0), device="cpu")
+    enc_seq = qt.Sequence(type="FSA", numpulse=16, apd=_hadamard(16), del_=np.zeros((16, 16)))
+    enc = us.focusTx(fsa, enc_seq, device="cpu")
+    enc = enc.replace(data=torch.stack([enc.data, 0.5 * enc.data], -1))
+    tsystem._REFOCUS_OP_CACHE.clear()
+    dec = us.refocus(enc, enc_seq, **kw)
+    ref = us.refocus(enc, enc_seq, device="cpu", **kw)
+    assert {k[-1] for k in tsystem._REFOCUS_OP_CACHE} == {"cuda", "cpu"}
+    _close(dec.data, ref.data, 1e-4)
+    if kw == dict(gamma=0.0):  # the decode recovers the FSA echoes
+        x0 = float(fsa.data.abs().max())
+        assert float((dec.data[..., 0].cpu() - fsa.data).abs().max()) < 0.05 * x0
+    tsystem._REFOCUS_OP_CACHE.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 24, 16), (64, 16, 24)])
+def test_spectral_norm_on_card(card, shape):
+    """The spectral norm on the card equals the CPU's within 1e-5 relative,
+    a rank-1 bin too, and a Hadamard encoding's norm, sqrt(M), to float32
+    rounding."""
+    from qups_tpu_torch.ops.fdbf import spectral_norm
+
+    rng = np.random.default_rng(60)
+    H = torch.complex(torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32),
+                      torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32))
+    H[0] = torch.ones(shape[1:], dtype=torch.complex64)  # rank 1
+    got, ref = spectral_norm(H.to(card)), spectral_norm(H)
+    assert float(((got.cpu() - ref) / ref).abs().max()) < 1e-5
+    had = torch.as_tensor(_hadamard(32), dtype=torch.complex64)[None].repeat(8, 1, 1)
+    assert float((spectral_norm(had.to(card)) - 32 ** 0.5).abs().max()) < 1e-5 * 32 ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep_tx", [False, True])
+def test_bf_migration_on_card(card, keep_tx):
+    """bfMigration with no device= on the card, 2 frames: equal to the CPU
+    within 1e-4 x max, each target's peak within 1.1 mm."""
+    xdc = qt.TransducerArray(numel=32, pitch=0.3e-3, fc=3e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.SequenceRadial(type="PW", angles=[-5.0, 0.0, 5.0], c0=1540.0),
+        scan=qt.ScanCartesian(x=np.linspace(-5e-3, 5e-3, 41),
+                              z=np.linspace(25e-3, 35e-3, 41)), fs=24e6)
+    target = np.array([1e-3, 0.0, 30e-3])
+    chd = us.greens(qt.Scatterers(pos=target[:, None], c0=1540.0), device="cpu")
+    chd = chd.replace(data=torch.stack([chd.data, -chd.data], -1))
+    b, bscan = us.bfMigration(chd, keep_tx=keep_tx)
+    ref, _ = us.bfMigration(chd, keep_tx=keep_tx, device="cpu")
+    _close(b, ref, 1e-4)
+    P = us.scan.positions().reshape(3, -1)
+    k = int(b[..., 0].abs().sum(-1).reshape(-1).argmax())
+    assert np.linalg.norm(P[:, k] - target) < 1.1e-3
+
+
+@pytest.mark.cuda
+def test_ray_paths_on_card(card):
+    """ray_paths_device with no device= on the card: the CPU's weights
+    within 1e-5 x the largest (the deposits are atomic on the card), each
+    ray's total its length."""
+    from qups_tpu_torch.ops.rays import ray_paths_device, wbilerp_dense
+
+    xg, zg = np.linspace(-10e-3, 10e-3, 64), np.linspace(0.0, 20e-3, 80)
+    rng = np.random.default_rng(61)
+    pa = np.stack([rng.uniform(-10e-3, 10e-3, 500), rng.uniform(0, 20e-3, 500)])
+    pb = np.stack([rng.uniform(-10e-3, 10e-3, 500), rng.uniform(0, 20e-3, 500)])
+    W = ray_paths_device(xg, zg, pa, pb)
+    _close(W, ray_paths_device(xg, zg, pa, pb, device="cpu"), 1e-5)
+    assert torch.allclose(W.sum((0, 1)).double().cpu(),
+                          torch.as_tensor(np.hypot(*(pb - pa))), atol=1e-6)
+    one = wbilerp_dense(xg, zg, pa[:, 0], pb[:, 0])
+    assert one.is_cuda and torch.allclose(one, W[:, :, 0], atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_kspace_sims_on_card(card, nd):
+    """The k-space steppers with no device= on the card, absorbing and
+    nonlinear, with field snapshots and a batch of two sources: equal to
+    the CPU run within 2e-4 x max (cuFFT and the CPU's FFTs round
+    differently; the scheme gathers float32 rounding over the steps)."""
+    from qups_tpu_torch.sim import fdtd
+
+    n = {1: 256, 2: 64, 3: 24}[nd]
+    shape = (n,) * nd
+    rng = np.random.default_rng(62)
+    c = 1500.0 + rng.uniform(0, 60, shape)
+    rho = 1000.0 + rng.uniform(0, 200, shape)
+    h = 0.2e-3
+    dt = 0.3 * h / c.max()
+    steps = 60
+    t = np.arange(steps) * dt
+    s = (np.exp(-((t - 0.8e-6) * 4e6) ** 2) * np.sin(2 * np.pi * 2e6 * t)).astype(np.float32)
+    sig = np.stack([s, -0.5 * s], 1)[:, :, None]  # (steps, B, Q)
+    kw = dict(steps=steps, dt=dt, dx=h, c_ref=float(c.max()), record_rows=(n // 2, n - 6),
+              alpha0=np.full(shape, 0.75), alpha_power=1.3, bona=np.full(shape, 8.0),
+              field_stride=10)
+    src = {1: [np.array([6])], 2: [[6], [n // 2]], 3: [np.array([[6], [n // 2], [n // 2]])]}[nd]
+    sim = {1: fdtd.kspace_sim_1d, 2: fdtd.kspace_sim_2d, 3: fdtd.kspace_sim_3d}[nd]
+    rec, fld = sim(c, rho, *src, sig, **kw)
+    rref, fref = sim(c, rho, *src, sig, device="cpu", **kw)
+    _close(rec, rref, 2e-4)
+    _close(fld, fref, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(el_proj="karray", record="field", field_stride=10),
+                                dict(bg_subtract=True)], ids=["nearest", "karray-field", "bg"])
+def test_kspace_first_order_on_card(card, kw):
+    """kspaceFirstOrder with no device= on the card (3 transmits in one
+    batch): traces (and fields) on the card, equal to the CPU run within
+    1e-4 x max (1e-3 of the full traces' peak with background
+    subtraction)."""
+    c0, fc = 1500.0, 2e6
+    lam = c0 / fc
+    xdc = qt.TransducerArray(numel=8, pitch=lam / 2, fc=fc)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.SequenceRadial(type="PW", angles=[-5.0, 0.0, 5.0], c0=c0),
+        scan=qt.ScanCartesian(x=np.linspace(-2e-3, 2e-3, 8), z=np.linspace(1e-3, 6e-3, 8)),
+        fs=4 * fc)
+    blob = lambda P: np.hypot(P[0], P[2] - 4e-3) < lam / 4  # noqa: E731
+    med = qt.Medium(c0=c0, rho0=1000.0, pertreg=((blob, {"rho": 2200.0}),))
+    cgrd = qt.ScanCartesian(x=np.arange(-3e-3, 3e-3, lam / 6), y=[0.0],
+                            z=np.arange(-0.5e-3, 6.5e-3, lam / 6))
+    got = us.kspaceFirstOrder(med, cgrd, tmax=8e-6, **kw)
+    ref = us.kspaceFirstOrder(med, cgrd, tmax=8e-6, device="cpu", **kw)
+    if "record" in kw:
+        (got, fgot), (ref, fref) = got, ref
+        _close(fgot, fref, 1e-4)
+    if kw.get("bg_subtract"):
+        full = us.kspaceFirstOrder(med, cgrd, tmax=8e-6, device="cpu")
+        r = float((got.data.cpu() - ref.data).abs().max() / full.data.abs().max())
+        assert got.data.is_cuda and r < 1e-3, r
+    else:
+        _close(got.data, ref.data, 1e-4)
+    np.testing.assert_array_equal(got.t0_host, ref.t0_host)
