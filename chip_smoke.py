@@ -183,7 +183,23 @@ and runs:
    with the free-field and reflection times; ``ray_paths_device`` on 256^2
    x 16384 rays between two facing 128-element lines against the host's
    float64 weights on every 64th ray and each ray's length; and
-   ``global_average_c`` through phase 20's layered medium.
+   ``global_average_c`` through phase 20's layered medium;
+23. the Vantage import path, under the port's profiler: PICMUS's
+   plane-wave acquisition (an L11-4v, 128 elements, 75 plane waves over
+   +-16 degrees, fs = 4 fc = 20.832 MHz) of 5 point targets, 4 frames,
+   simulated with ``us.greens`` (K3), written as a Vantage workspace
+   (``RcvData`` int16 through a permuted ``ConnectorES``, ``Receive``,
+   ``TX``, ``Trans``; ~128 MB) with scipy's ``savemat``, read back with
+   ``interop.load_verasonics`` (the traces equal the samples written, bit
+   for bit), then ``us.DAS`` on K1(b) (RF frames) and, after ``hilbert``
+   and ``downmix`` on the card, with ``fmod`` (IQ), 512^2 px; launches
+   counted; each frame's PSF; each image against the plain version on
+   every 64th pixel; ``io.save_chd``/``load_chd``, ``save_checkpoint``/
+   ``load_checkpoint(like=)`` and ``interop.save_mat``/``load_mat`` round
+   trips bit for bit; a DAS under ``utils.trace`` and ``annotate('das')``
+   whose Chrome trace holds ``das_frames_kernel`` under the annotation;
+   host seconds by ``utils.Timer``, DAS ms by CUDA events. The phase
+   imports neither h5py nor matplotlib.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -2868,6 +2884,255 @@ def phase22(torch, qt, ops):
     return out, k1
 
 
+def _records(rows):
+    """A list of dicts as a Verasonics struct array (a numpy record array of
+    object fields, as savemat writes a struct array)."""
+    names = list(rows[0])
+    a = np.zeros((len(rows),), dtype=[(n, "O") for n in names])
+    for i, r in enumerate(rows):
+        a[i] = tuple(r[n] for n in names)
+    return a
+
+
+def _picmus_trans(rng):
+    """PICMUS's probe as a Vantage 'Trans' struct: an L11-4v, 128 elements at
+    0.3 mm pitch, 0.27 mm wide, 5 mm tall, 5.208 MHz; ConnectorES a fixed
+    permutation from the seed, so the channel map is exercised."""
+    return dict(name="L11-4v", units="mm", frequency=5.208, numelements=128,
+                elementWidth=0.27, elementLength=5.0, spacingMm=0.3,
+                Bandwidth=np.array([3.5, 7.0]), type=0, ElementPos=np.zeros((128, 5)),
+                elevationFocusMm=20.0, ConnectorES=rng.permutation(128) + 1)
+
+
+def kernels_under(trace_file, annotation, kernel):
+    """The CUDA kernel events of a Chrome trace (``utils.trace``) whose name
+    holds ``kernel`` and that ran under the CPU annotation ``annotation``:
+    the kernel's launch call (runtime or driver API, matched by correlation
+    id) lies inside the annotation's span, or the kernel lies inside the
+    annotation's span on the device (``gpu_user_annotation``). Returns
+    (those events, every kernel event, the categories seen)."""
+    ev = json.load(open(trace_file))["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+             if e.get("name") == annotation and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    gspans = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+              if e.get("name") == annotation and e.get("cat") == "gpu_user_annotation"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in ev
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kerns = [e for e in ev if e.get("cat") == "kernel"]
+
+    def inside(t, sp):
+        return any(a <= t <= b for a, b in sp)
+
+    hits = [e for e in kerns if kernel in e["name"] and (
+        inside(launch_ts.get(e.get("args", {}).get("correlation"), -1.0), spans)
+        or inside(e["ts"], gspans))]
+    return hits, kerns, sorted({str(e.get("cat")) for e in ev})
+
+
+def _same_fields(a, b, where):
+    """Two obj2dict dicts equal, field by field (None entries, the dropped
+    waveform functions, aside)."""
+    if isinstance(a, dict):
+        a = {k: v for k, v in a.items() if v is not None}
+        b = {k: v for k, v in b.items() if v is not None}
+        assert a.keys() == b.keys(), (where, a.keys(), b.keys())
+        for k in a:
+            _same_fields(a[k], b[k], f"{where}.{k}")
+    else:
+        assert np.array_equal(np.asarray(a), np.asarray(b)), where
+
+
+def phase23(torch, qt, ops, errs):
+    """The Vantage import path at PICMUS's widths, on the card, under the
+    port's profiler: PICMUS's plane-wave acquisition (an L11-4v, 128
+    elements, 75 plane waves over +-16 degrees, RF at fs = 4 fc = 20.832
+    MHz) of 5 point targets at 12-44 mm, 4 frames (0.3 mm deeper each),
+    simulated with us.greens (K3), quantized to int16 and written with
+    scipy's savemat in the Vantage layout (RcvData rows of 75 acquisitions
+    back to back, each rounded to 128-sample blocks, x 128 channels through
+    a permuted ConnectorES x 4 frames; Receive, TX with the Vantage delays,
+    Trans); read back with interop.load_verasonics; the traces' t0 from the
+    acquisition's start plus out['t0'] (held to the known offset); uploaded;
+    us.DAS on K1(b) (4 real frames, cubic) and, after hilbert and downmix on
+    the card, us.DAS(iq, fmod=fc), 512^2 px over x +-18 mm, z 10-50 mm;
+    launch counts zeroed just before the path and read just after. Checks:
+    the imported traces equal the int16 samples written, after the map, bit
+    for bit; each frame's PSF (RF and IQ) within 1.1 mm; each image within
+    1e-4 x max of the plain version on every 64th pixel; save_chd/load_chd
+    of the IQ, then DAS again, bit for bit; save_checkpoint/
+    load_checkpoint(like=) of the card images, back on the card bit for bit;
+    save_mat/load_mat of xdc, seq and scan, equal fields; a DAS inside
+    utils.trace with annotate('das') records das_frames_kernel under the
+    annotation. Host seconds (utils.Timer) for savemat, load_verasonics and
+    the channel map; the upload; DAS ms (CUDA events, mean of 3 after a
+    warm-up). Returns the launches and the phase's record."""
+    import tempfile
+
+    from scipy.io import savemat
+
+    from qups_tpu_torch import interop, io as qio
+    from qups_tpu_torch.utils import Timer, annotate, trace
+
+    das_cuda = ops.das_cuda
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(23)
+    c0, fc, F = 1540.0, 5.208e6, 4
+    Trans = _picmus_trans(rng)
+    xdc = interop.transducer_from_verasonics(Trans, c0)
+    angs = np.linspace(-16.0, 16.0, 75)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.SequenceRadial(type="PW", angles=angs, c0=c0),
+        scan=qt.ScanCartesian(x=np.linspace(-18e-3, 18e-3, 512),
+                              z=np.linspace(10e-3, 50e-3, 512)), fs=4 * fc)
+    base = np.array([[-8e-3, 0.0, 12e-3], [6e-3, 0.0, 20e-3], [0.0, 0.0, 28e-3],
+                     [-5e-3, 0.0, 36e-3], [9e-3, 0.0, 44e-3]]).T
+    silent = np.array([[0.0, 0.0], [0.0, 0.0], [6e-3, 47e-3]])
+    targets = [base + np.array([[0.0], [0.0], [0.3e-3 * f]]) for f in range(F)]
+    chds = [us.greens(qt.Scatterers(pos=np.concatenate([t, silent], 1),
+                                    amp=np.r_[np.ones(5), 0.0, 0.0], c0=c0)) for t in targets]
+    assert len({(c.T, float(c.t0_host[0])) for c in chds}) == 1
+    rf = torch.stack([c.data.real for c in chds], -1)  # (T, N, M, F) on the card
+    q16 = torch.round(rf / rf.abs().max() * 16000).to(torch.int16).cpu().numpy()
+    del rf
+    N, M = xdc.numel, len(angs)
+    Tv = -(-q16.shape[0] // 128) * 128  # whole 128-sample blocks, as the Vantage
+    q16 = np.concatenate([q16, np.zeros((Tv - q16.shape[0],) + q16.shape[1:], np.int16)])
+    k = Trans["ConnectorES"] - 1
+    rcv = np.zeros((Tv * M, N, F), np.int16)
+    for a in range(M):
+        rcv[a * Tv:(a + 1) * Tv, k] = q16[:, :, a]
+    tau = us.seq.delays(xdc)  # (N, M), the sequence's delays
+    off = -tau.max(axis=0)    # the sequence's time of the Vantage delays' zero
+    start = float(chds[0].t0_host[0]) - off  # each acquisition's start, Vantage clock
+    rx_rows = [dict(bufnum=1, framenum=f + 1, acqNum=a + 1, startSample=a * Tv + 1,
+                    endSample=(a + 1) * Tv, decimSampleRate=4 * 5.208, demodFrequency=5.208,
+                    sampleMode="NS200BW", startDepth=start[a] * fc / 2, Apod=np.ones(N))
+               for f in range(F) for a in range(M)]
+    TX = _records([dict(Apod=np.ones(N), Steer=np.array([np.radians(a), 0.0]), focus=0.0,
+                        Origin=np.zeros(3), Delay=(tau[:, m].max() - tau[:, m]) * fc)
+                   for m, a in enumerate(angs)])
+    ws = dict(Trans=Trans, Receive=_records(rx_rows), TX=TX, RcvData=np.empty((1,), object),
+              Resource=dict(Parameters=dict(speedOfSound=c0)))
+    ws["RcvData"][0] = rcv
+    tm = Timer()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vantage_pw75.mat")
+        with tm("savemat"):
+            savemat(path, ws, long_field_names=True)
+        with tm("load_verasonics"):
+            out = interop.load_verasonics(path)
+        with tm("channel map"):  # the same import on the structs in memory
+            interop.channel_data_from_verasonics([rcv], rx_rows, Trans)
+        mat_bytes = os.path.getsize(path)
+    chd = out["chd"][0]
+    assert chd.data.device.type == "cpu" and chd.data.shape == (Tv, N, M, F), chd.data.shape
+    assert torch.equal(chd.data, torch.from_numpy(q16.astype(np.float32))), \
+        "imported traces differ from the int16 samples written"
+    assert out["seq"].type == "PW" and np.isclose(out["fmod"][0], fc) \
+        and out["smode"] == ["NS200BW"]
+    assert np.allclose(out["t0"], off, rtol=0, atol=1e-12), np.abs(out["t0"] - off).max()
+    chd = chd.replace(t0=(start + out["t0"]).reshape(1, 1, M))
+    assert np.allclose(chd.t0_host, chds[0].t0_host[0], rtol=0, atol=1e-12)
+    del chds, rcv, ws
+    # the loaded geometry is the simulated one
+    np.testing.assert_array_equal(out["xdc"].positions(), xdc.positions())
+    assert np.allclose(out["seq"].focus_array, us.seq.focus_array, rtol=0, atol=1e-12)
+    with tm("upload"):
+        g = chd.replace(data=chd.data.to("cuda"))
+        torch.cuda.synchronize()
+
+    das_cuda.LAUNCHES = das_cuda.LAYOUT_LAUNCHES = 0
+    t = time.perf_counter()
+    b_rf = us.DAS(g)
+    iq = g.hilbert().downmix(fc)
+    b_iq = us.DAS(iq, fmod=fc)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t
+    launches = {"das_k1b": das_cuda.LAUNCHES, "das_layout": das_cuda.LAYOUT_LAUNCHES}
+    print(f"phase23 Vantage import path (PICMUS PW75: 128 el, 75 PW +-16 deg, fs "
+          f"{us.fs / 1e6:.3f} MHz, {F} frames): .mat {mat_bytes / 1e6:.3f} MB, traces "
+          f"{q16.nbytes / 1e6:.3f} MB int16 ({Tv} samples an acquisition) -> "
+          f"{g.data.numel() * 4 / 1e6:.3f} MB float32; savemat {tm.times['savemat']:.3f} s, "
+          f"load_verasonics {tm.times['load_verasonics']:.3f} s, channel map "
+          f"{tm.times['channel map']:.3f} s (host clock); upload "
+          f"{tm.times['upload'] * 1e3:.3f} ms; DAS RF, hilbert, downmix, DAS IQ on "
+          f"{torch.cuda.get_device_name(0)}: {t_path:.3f} s (first call); launches {launches}")
+    assert launches == {"das_k1b": 2, "das_layout": 2}, launches
+    assert g.data.is_cuda and iq.data.is_cuda and iq.data.is_complex()
+    for name, b, dt in (("RF", b_rf, torch.float32), ("IQ", b_iq, torch.complex64)):
+        assert b.is_cuda and b.dtype == dt and b.shape == tuple(us.scan.shape) + (1, 1, F), \
+            (name, b.shape, b.dtype)
+        assert bool(torch.isfinite(b).all()), name
+        for f in range(F):
+            _psf(us, b[..., f], targets[f], f"{name} frame {f}", "phase23")
+    # the plain version on every 64th pixel
+    pv, nv, model = us._tx_geometry()
+    sub = np.arange(0, us.scan.npix, 64)
+    ms = {}
+    for name, b, x, fm in (("RF", b_rf, g, 0.0), ("IQ", b_iq, iq, fc)):
+        ref = das_cuda.das_sum_plain(x.data, us._pixels()[sub], us.rx.positions().T, pv, nv,
+                                     x.t0, np.reciprocal(np.float32(c0)), fs=float(x.fs),
+                                     tx_model=model, method="cubic", fmod=fm)
+        got = b.reshape(us.scan.npix, F)[torch.as_tensor(sub, device="cuda")]
+        a, r = errs["das_k1b"].add(got, ref.reshape(got.shape), f"phase23 {name} DAS")
+        assert r < TOL, (name, r)
+        ms[name] = _ms(lambda: us.DAS(x, fmod=fm))
+        print(f"phase23 DAS {name} on K1(b) vs plain on every 64th pixel: max_abs_err={a:.3e} "
+              f"rel={r:.3e}; {ms[name]:.3f} ms (CUDA events, mean of 3 after a warm-up), "
+              f"{us.scan.npix * N * M * F / (ms[name] / 1e3):.4e} sums/s")
+    # round trips on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        p = os.path.join(tmp, "iq.npz")
+        with tm("save_chd"):
+            qio.save_chd(p, iq)
+        with tm("load_chd"):
+            back = qio.load_chd(p, device="cuda")
+            torch.cuda.synchronize()
+        npz_bytes = os.path.getsize(p)
+        assert back.data.is_cuda and torch.equal(back.data, iq.data)
+        np.testing.assert_array_equal(back.t0_host, iq.t0_host)
+        assert torch.equal(us.DAS(back, fmod=fc), b_iq), "DAS of the reloaded IQ differs"
+        p = os.path.join(tmp, "images.pt")
+        qio.save_checkpoint(p, {"rf": b_rf, "iq": b_iq, "fs": np.float64(us.fs)})
+        ck = qio.load_checkpoint(p, like={"rf": b_rf, "iq": b_iq})
+        assert ck["rf"].is_cuda and ck["iq"].is_cuda and isinstance(ck["fs"], np.float64)
+        assert torch.equal(ck["rf"], b_rf) and torch.equal(ck["iq"], b_iq)
+        p = os.path.join(tmp, "geometry.mat")
+        interop.save_mat(p, xdc=us.rx, seq=us.seq, scan=us.scan)
+        mat = interop.load_mat(p)
+        for k, v in (("xdc", us.rx), ("seq", us.seq), ("scan", us.scan)):
+            assert type(mat[k]) is type(v), k
+            _same_fields(qio.obj2dict(mat[k]), qio.obj2dict(v), k)
+        # the profiler's trace: K1(b) under the annotation
+        logdir = os.path.join(tmp, "trace")
+        with trace(logdir):
+            with annotate("das"):
+                us.DAS(g)
+        tfile = os.path.join(logdir, "trace.json")
+        hits, kerns, cats = kernels_under(tfile, "das", "das_frames_kernel")
+        trace_bytes = os.path.getsize(tfile)
+    print(f"phase23 round trips on the card, bit for bit: save_chd {tm.times['save_chd']:.3f} s "
+          f"/ load_chd {tm.times['load_chd']:.3f} s of the IQ ({npz_bytes / 1e6:.3f} MB .npz), "
+          f"then DAS again: the same image; save_checkpoint / load_checkpoint(like=) of the "
+          f"two images: on the card; save_mat / load_mat of xdc, seq, scan: equal fields")
+    print(f"phase23 trace (utils.trace + annotate('das')): {trace_bytes / 1e6:.3f} MB Chrome "
+          f"trace, {len(kerns)} kernel events, {len(hits)} das_frames_kernel under 'das'; "
+          f"categories {cats}")
+    assert hits, ("no das_frames_kernel event under the annotation", cats,
+                  sorted({e["name"][:60] for e in kerns}))
+    rec = dict(mat_MB=mat_bytes / 1e6, traces_int16_MB=q16.nbytes / 1e6,
+               traces_f32_MB=g.data.numel() * 4 / 1e6, samples=Tv,
+               savemat_s=tm.times["savemat"], load_verasonics_s=tm.times["load_verasonics"],
+               channel_map_s=tm.times["channel map"], upload_ms=tm.times["upload"] * 1e3,
+               das_rf_ms=ms["RF"], das_iq_ms=ms["IQ"], trace_MB=trace_bytes / 1e6,
+               save_chd_s=tm.times["save_chd"], load_chd_s=tm.times["load_chd"],
+               npz_MB=npz_bytes / 1e6, phase_s=time.perf_counter() - t_phase)
+    print("phase23 record: " + json.dumps(rec))
+    return launches, rec
+
+
 def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     """K3's bytes read or written once: q and w of both sides (and the
     directivity slopes), and G (F, N, M) complex64."""
@@ -2944,6 +3209,8 @@ def main():
           f"path (phase 21): {rf_k1}, on the full-wave path (phase 22): {fw_k1}; the kernels "
           f"line's das_k1 row counts the FSA path's (phase 3)")
     print("slice 11 record: " + json.dumps({"refocus_migration": rf, "fullwave_rays": fw}))
+    io_launches, io_rec = phase23(torch, qt, ops, errs)
+    print("slice 12 record: " + json.dumps({"vantage_import": io_rec}))
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -2981,7 +3248,11 @@ def main():
     # and c0-map DAS with a dense weight (phase 7)
     # K1(e): the FSA path's DAS bf16pair, i8x4 and coherence_image bf16pair
     # (phase 3, in launches already); K2(e): the demo path's bfDAS i8x4
-    launches.update(das_k1b=iq_launches["das_k1b"], das_lut_k2b=iq_launches["das_lut_k2b"],
+    # K1(b) and the layout kernel: the IQ ensemble path (phase 13) and the
+    # Vantage import path (phase 23) added
+    launches["das_layout"] += io_launches["das_layout"]
+    launches.update(das_k1b=iq_launches["das_k1b"] + io_launches["das_k1b"],
+                    das_lut_k2b=iq_launches["das_lut_k2b"],
                     das_lut_k2c=pw_launches["das_lut_k2c"],
                     das_lut_k2e=pw_launches["das_lut_k2e"],
                     das_lut_k2=pw_launches["das_lut_k2"],
@@ -3035,14 +3306,16 @@ def main():
         ("das_layout", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:2017",
          *lay, None, "the traces K1 and K2 read: 4096 x 256 x 256 float32 into the cubic "
          "stencil (the TPU path builds its layout in XLA, das_pallas.py:2015-2023, with "
-         "no pallas_call); plain: trace_layout_plain"),
+         "no pallas_call); plain: trace_layout_plain; launches: the FSA path (phase 3) and "
+         "the Vantage import path (phase 23)"),
         ("das_k1b", "qups_tpu_torch/csrc/das.cu (das_iq.cu)",
          "qups_tpu/ops/das_pallas.py:174 (fmod :898-910, frames :1386-1393)",
          *iqh["das_k1b"], None, "K1(b): the headline in IQ, 1024^2 px x 256 tx x 256 rx x "
          "4 frames, T' 1024 complex64, fmod 5 MHz, cubic, the 4 frames in one call (layout "
          "kernel included, two chunks); bound: "
          f"{_iq_term_flops('cubic', False, 4)} flop per term; plain timed on every 64th "
-         "pixel and scaled; launches: the IQ ensemble path (phase 13)"),
+         "pixel and scaled; launches: the IQ ensemble path (phase 13) and the Vantage "
+         "import path (phase 23: DAS RF and IQ, 4 frames each)"),
         ("das_lut_k2b", "qups_tpu_torch/csrc/das.cu (das_iq.cu)",
          "qups_tpu/ops/das_pallas.py:1607 (fmod :898-910, frames :1386-1393)",
          *iqh["das_lut_k2b"], None, "K2(b): as K1(b) on plane-wave geometric tables; bound: "

@@ -18,8 +18,12 @@ K2). REFoCUS and Stolt migration: ``us.refocus`` decodes synthesized
 transmits back to FSA, ``us.bfMigration`` images plane waves by f-k
 migration. Ray path integrals: ``ops.rays``. Full-wave simulation:
 ``us.kspaceFirstOrder`` through a :class:`Medium` by the k-space PSTD
-steppers of ``sim.fdtd``. The entry points run on the card unless given
-``device=``.
+steppers of ``sim.fdtd``. Files: ``interop`` imports saved Verasonics
+Vantage workspaces and UFF files and round-trips objects through ``.mat``,
+``io`` saves traces (``.npz``) and checkpoints, ``display`` binds
+``imagesc``/``plot``/``gif`` on the objects, and ``utils.profiling`` times
+and traces a run (``Timer``, ``trace``, ``annotate``). The entry points run
+on the card unless given ``device=``.
 """
 from .core import (
     Waveform, Transducer, TransducerArray, TransducerConvex, TransducerMatrix,
@@ -33,5 +37,8 @@ from .convert import from_reference
 from . import ops
 from . import sim
 from . import utils
+from . import io
+from . import interop
+from . import display  # binds the imagesc/plot/gif methods
 
 __version__ = "0.1.0"

@@ -1438,3 +1438,147 @@ def test_kspace_first_order_on_card(card, kw):
     else:
         _close(got.data, ref.data, 1e-4)
     np.testing.assert_array_equal(got.t0_host, ref.t0_host)
+
+
+def _vantage_file(path, F=2, seed=12):
+    """A small Vantage plane-wave workspace (.mat) of a point target: 32
+    elements through a permuted ConnectorES, 3 plane waves, F frames (0.3 mm
+    deeper each), int16 rows in 128-sample blocks, the Vantage delays.
+    Returns the acquisition's start on the Vantage clock and the targets."""
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(seed)
+    c0, fc, numel = 1540.0, 5.208e6, 32
+    Trans = dict(name="L-test", units="mm", frequency=5.208, numelements=numel,
+                 elementWidth=0.27, elementLength=5.0, spacingMm=0.3,
+                 Bandwidth=np.array([3.5, 7.0]), type=0, ElementPos=np.zeros((numel, 5)),
+                 ConnectorES=rng.permutation(numel) + 1)
+    xdc = qt.interop.transducer_from_verasonics(Trans, c0)
+    angs = np.array([-8.0, 0.0, 8.0])
+    seq = qt.SequenceRadial(type="PW", angles=angs, c0=c0)
+    us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=seq, scan=qt.ScanCartesian(
+        x=np.linspace(-4e-3, 4e-3, 48), z=np.linspace(12e-3, 20e-3, 48)), fs=4 * fc)
+    targets = [np.array([0.5e-3, 0.0, 15e-3 + 0.3e-3 * f]) for f in range(F)]
+    silent = np.array([[0.0, 0.0], [0.0, 0.0], [8e-3, 22e-3]])
+    chds = [us.greens(qt.Scatterers(pos=np.concatenate([t.reshape(3, 1), silent], 1),
+                                    amp=np.array([1.0, 0.0, 0.0]), c0=c0), device="cpu")
+            for t in targets]
+    x = np.stack([c.data.real.numpy() for c in chds], -1)
+    T = -(-x.shape[0] // 128) * 128
+    q16 = np.zeros((T,) + x.shape[1:], np.int16)
+    q16[:x.shape[0]] = np.round(x / np.abs(x).max() * 8000).astype(np.int16)
+    M = len(angs)
+    rcv = np.zeros((T * M, numel, F), np.int16)
+    for a in range(M):
+        rcv[a * T:(a + 1) * T, Trans["ConnectorES"] - 1] = q16[:, :, a]
+    tau = seq.delays(xdc)
+    start = chds[0].t0_host[0] + tau.max(axis=0)
+
+    def records(rows):
+        a = np.zeros((len(rows),), dtype=[(n, "O") for n in rows[0]])
+        for i, r in enumerate(rows):
+            a[i] = tuple(r.values())
+        return a
+
+    Receive = records([dict(bufnum=1, framenum=f + 1, acqNum=a + 1, startSample=a * T + 1,
+                            endSample=(a + 1) * T, decimSampleRate=4 * 5.208,
+                            demodFrequency=5.208, sampleMode="NS200BW", Apod=np.ones(numel))
+                       for f in range(F) for a in range(M)])
+    TX = records([dict(Apod=np.ones(numel), Steer=np.array([np.radians(a), 0.0]), focus=0.0,
+                       Origin=np.zeros(3), Delay=(tau[:, m].max() - tau[:, m]) * fc)
+                  for m, a in enumerate(angs)])
+    ws = dict(Trans=Trans, Receive=Receive, TX=TX, RcvData=np.empty((1,), object),
+              Resource=dict(Parameters=dict(speedOfSound=c0)))
+    ws["RcvData"][0] = rcv
+    savemat(path, ws, long_field_names=True)
+    return us.scan, start, targets
+
+
+@pytest.mark.cuda
+def test_vantage_workspace_on_card(card, tmp_path):
+    """A Vantage workspace read by interop.load_verasonics (traces on the
+    host), beamformed with no device= on the card: RF frames on K1(b), and
+    IQ after hilbert and downmix on the card with fmod; each against the
+    same call on device="cpu" within 1e-4 x max, each frame's peak on its
+    target."""
+    p = tmp_path / "ws.mat"
+    scan, start, targets = _vantage_file(p)
+    out = qt.interop.load_verasonics(p)
+    chd = out["chd"][0]
+    assert chd.data.device.type == "cpu"
+    chd = chd.replace(t0=(start + out["t0"]).reshape(1, 1, -1))
+    us = qt.UltrasoundSystem(tx=out["xdc"], rx=out["xdc"], seq=out["seq"], scan=scan,
+                             fs=chd.fs)
+    fc = out["fmod"][0]
+    before = das_cuda.LAUNCHES
+    b = us.DAS(chd)
+    g = chd.replace(data=chd.data.to(card))
+    iq = g.hilbert().downmix(fc)
+    bi = us.DAS(iq, fmod=fc)
+    torch.cuda.synchronize()
+    assert das_cuda.LAUNCHES == before + 2 and b.is_cuda and bi.is_cuda
+    ref = us.DAS(chd, device="cpu")
+    refi = us.DAS(chd.hilbert().downmix(fc), fmod=fc, device="cpu")
+    P = scan.positions().reshape(3, -1)
+    for got, r in ((b, ref), (bi, refi)):
+        assert float((got.cpu() - r).abs().max()) < 1e-4 * float(r.abs().max())
+        for f, tg in enumerate(targets):
+            k = int(got[..., f].abs().reshape(-1).argmax())
+            assert np.linalg.norm(P[:, k] - tg) < 1.1e-3
+
+
+@pytest.mark.cuda
+def test_io_round_trips_on_card(card, tmp_path):
+    """save_chd / load_chd(device=) and save_checkpoint /
+    load_checkpoint(like=) with tensors on the card: back on the card, bit
+    for bit; without a template, on the host."""
+    x = torch.randn(64, 8, 3, 2, dtype=torch.complex64, device=card)
+    chd = qt.ChannelData(data=x, fs=20e6, t0=np.array([1e-6, 2e-6, 3e-6]))
+    qt.io.save_chd(str(tmp_path / "c.npz"), chd)
+    back = qt.io.load_chd(str(tmp_path / "c.npz"), device=card)
+    assert back.data.is_cuda and torch.equal(back.data, x)
+    assert qt.io.load_chd(str(tmp_path / "c.npz")).data.device.type == "cpu"
+    tree = {"img": torch.randn(16, 16, device=card), "iq": x, "fs": np.float64(20e6)}
+    p = str(tmp_path / "ck.pt")
+    qt.io.save_checkpoint(p, tree)
+    got = qt.io.load_checkpoint(p, like={"img": tree["img"], "iq": x})
+    assert got["img"].is_cuda and got["iq"].is_cuda
+    assert torch.equal(got["img"], tree["img"]) and torch.equal(got["iq"], x)
+    host = qt.io.load_checkpoint(p)
+    assert host["img"].device.type == "cpu" and isinstance(host["fs"], np.float64)
+
+
+@pytest.mark.cuda
+def test_trace_records_the_kernel(card, tmp_path):
+    """utils.trace on the card: the Chrome trace holds K1(b)'s
+    das_frames_kernel launched under annotate('das'); Timer with a CUDA
+    tensor as sync waits for it."""
+    import json
+
+    xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
+    us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=16),
+                             scan=qt.ScanCartesian(x=np.linspace(-3e-3, 3e-3, 32),
+                                                   z=np.linspace(10e-3, 20e-3, 32)))
+    x = torch.randn(512, 16, 16, 2, device=card)
+    chd = qt.ChannelData(data=x, fs=12e6, t0=0.0)
+    us.DAS(chd)  # built and warm
+    with qt.utils.trace(str(tmp_path)):
+        with qt.utils.annotate("das"):
+            us.DAS(chd)
+    ev = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    span = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+            if e.get("name") == "das" and e.get("cat") == "user_annotation"]
+    gspan = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+             if e.get("name") == "das" and e.get("cat") == "gpu_user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in ev
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    kern = [e for e in ev if e.get("cat") == "kernel" and "das_frames_kernel" in e["name"]]
+    assert span and kern
+    inside = lambda t, sp: any(a <= t <= b for a, b in sp)  # noqa: E731
+    assert any(inside(launch.get(e["args"].get("correlation"), -1.0), span)
+               or inside(e["ts"], gspan) for e in kern)
+    tm = qt.utils.Timer()
+    with tm("das", sync=x):
+        x.mul_(1.0)
+    assert tm.times["das"] > 0
