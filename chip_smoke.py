@@ -199,7 +199,23 @@ and runs:
    trips bit for bit; a DAS under ``utils.trace`` and ``annotate('das')``
    whose Chrome trace holds ``das_frames_kernel`` under the annotation;
    host seconds by ``utils.Timer``, DAS ms by CUDA events. The phase
-   imports neither h5py nor matplotlib.
+   imports neither h5py nor matplotlib;
+24. several devices from one process (``qups_tpu_torch/parallel``): four
+   shards of the card, ``make_mesh([cuda:0] * 4, axes=('rx', 'tx'),
+   shape=(2, 2))``, and ``make_mesh()`` (every card; one here, whose result
+   equals the single-device call bit for bit). The headline (1024^2 x 256
+   x 256, T 4096, cubic) through ``das_sharded_pallas`` summed (K1),
+   bf16pair (K1(e)), ``post='cohfac'`` and ``'slsc'`` (K1(c)) and
+   ``us.coherence_image(mesh=)``; ``das_lut_sharded_pallas`` on its tables
+   (K2); ``us.greens(mesh=, impl='freq')`` on 10^4 speckle scatterers (K3);
+   ``bf_adjoint_sharded`` at phase 8's adjoint headline (K4, bit for bit or
+   within its limit); ``kspaceFirstOrder(mesh=)`` on a 225^2 grid against
+   the loop; ``refocus_sharded``, ``focus_tx_freq_sharded`` and
+   ``migration_sharded`` on phase 21's cells; each against the
+   single-device call, its launches counted (K1, K2, K3, K4 once per shard,
+   the layout kernel with K1 and K2), each timed beside the single-device
+   call (the sharding tax); then the cheat sheet as ``python -m
+   qups_tpu_torch.examples.cheat_sheet``.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -3139,6 +3155,317 @@ def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
     return 4.0 * S * (N + M) * (3 if directivity else 2) + 8.0 * F * N * M
 
 
+# several devices from one process (slice 13): the port's mesh on one card
+def _mesh_counts(ops):
+    """The launch counts the mesh path moves, by the kernels line's names."""
+    dc = ops.das_cuda
+    return {"das_k1": dc.LAUNCHES, "das_k1e": dc.PREC_LAUNCHES, "das_k1c": dc.KEEP_LAUNCHES,
+            "das_layout": dc.LAYOUT_LAUNCHES, "das_lut_k2": dc.LUT_LAUNCHES,
+            "greens_freq_k3": ops.greens_freq_cuda.LAUNCHES,
+            "fdbf_adjoint_k4": ops.fdbf_cuda.LAUNCHES}
+
+
+def _counted(torch, ops, fn):
+    """Run ``fn`` once with every launch count set to 0 just before and read
+    just after: (result, the counts that moved, host seconds, synchronised)."""
+    dc = ops.das_cuda
+    dc.LAUNCHES = dc.PREC_LAUNCHES = dc.KEEP_LAUNCHES = dc.APOD_LAUNCHES = 0
+    dc.LAYOUT_LAUNCHES = dc.LUT_LAUNCHES = dc.LUT_KEEP_LAUNCHES = dc.LUT_PREC_LAUNCHES = 0
+    ops.greens_freq_cuda.LAUNCHES = ops.fdbf_cuda.LAUNCHES = 0
+    out, s = _sync_s(torch, fn)
+    return out, {k: v for k, v in _mesh_counts(ops).items() if v}, s
+
+
+def _vs(got, ref, where):
+    """(max abs error, relative error) of a sharded result against the
+    single-device one."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype, (where, got.shape, ref.shape)
+    a = float((got - ref).abs().max())
+    return a, a / float(ref.abs().max())
+
+
+def _slsc_check(torch, got, ref, kr, brx, tol, slsc):
+    """slsc scales each kept sample to unit magnitude, so a sample within
+    rounding of 0 takes its sign from the rounding: the shards sum their
+    transmits in halves, the single call in one pass. Hold the in-mesh
+    reduction to ops/coherence.py's slsc of the same kept samples (the
+    sharded keep_rx image) within ``tol``, and to the single-device two
+    steps within ``tol`` at every pixel none of whose samples lies within 4x
+    the kept images' largest difference of 0 (those pixels < 1 %)."""
+    same = slsc(kr, axis=1)
+    r_same = float((got - same).abs().max() / same.abs().max())
+    eps = 4 * float((kr - brx).abs().max())
+    excused = (brx.abs() < eps).any(1)
+    off = (got - ref).abs() >= tol * float(ref.abs().max())
+    share = float(excused.float().mean())
+    r_live = float((got - ref)[~excused].abs().max() / ref.abs().max())
+    print(f"phase24 post slsc vs slsc of the sharded keep_rx samples: rel={r_same:.3e} (limit "
+          f"{tol:.0e}); vs the single call where no sample lies within {eps:.3e} of 0 "
+          f"({100 * (1 - share):.3f} % of pixels): rel={r_live:.3e}; pixels off "
+          f"{int(off.sum())}, all excused: {not bool((off & ~excused).any())}")
+    assert r_same < tol and r_live < tol and not bool((off & ~excused).any()) and share < 0.01
+
+
+def _tax(what, ms, ms_one, counts, rec):
+    """Print and record one sharded call beside its single-device call."""
+    rec[what] = dict(ms=ms, single_ms=ms_one, tax=ms / ms_one, launches=counts)
+    print(f"phase24 {what}: sharded {ms:.3f} ms, one device {ms_one:.3f} ms, sharding tax "
+          f"{ms / ms_one:.3f}x; launches {counts}")
+
+
+def phase24(torch, qt, ops):
+    """Several devices from one process: the port's mesh (parallel/mesh.py)
+    on four shards of the one card, mesh4 = make_mesh([cuda:0] * 4, axes=
+    ('rx', 'tx'), shape=(2, 2)), and make_mesh() (every card, one here). The
+    main path at the headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic:
+    das_sharded_pallas summed (K1), bf16pair (K1(e)), post='cohfac' and
+    'slsc' (K1(c), 64 lags) and us.coherence_image(mesh=mesh4), each
+    against the single-device call on the card; das_lut_sharded_pallas on
+    the headline tables (K2); us.greens(mesh=mesh4, impl='freq') at phase
+    10's speckle size (K3); bf_adjoint_sharded at phase 8's adjoint headline
+    (K4); kspaceFirstOrder(mesh=) on a bench_fdtd-size grid against the
+    loop; refocus_sharded, focus_tx_freq_sharded and migration_sharded on
+    phase 21's shapes; and the cheat sheet as `python -m
+    qups_tpu_torch.examples.cheat_sheet`. Each sharded call's launches
+    counted (zeroed just before, read just after); each timed beside its
+    single-device call (CUDA events, 2 runs after the counted one).
+    The comparisons are sharded against single-device calls, not kernels
+    against their plain versions, so they stay out of the kernels line's
+    errors. Returns (launches by kernel, the record)."""
+    import bench  # on the path since phase 4
+    from qups_tpu_torch.ops import fdbf
+    from qups_tpu_torch.ops.coherence import cohfac, slsc
+    from qups_tpu_torch.ops.das import delay_tables
+    from qups_tpu_torch.parallel import (bf_adjoint_sharded, das_lut_sharded_pallas,
+                                         das_sharded_pallas, focus_tx_freq_sharded,
+                                         make_mesh, migration_sharded, refocus_sharded)
+
+    das_cuda, fdbf_cuda = ops.das_cuda, ops.fdbf_cuda
+    t_phase = time.perf_counter()
+    rec, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    dev0 = torch.device("cuda", 0)
+    mesh4 = make_mesh([dev0] * 4, axes=("rx", "tx"), shape=(2, 2))
+    mesh1 = make_mesh(axes=("rx", "tx"))
+    assert mesh1.size == torch.cuda.device_count()
+    n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
+    x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.as_tensor(x).cuda()
+    del x
+    pig = torch.as_tensor(pi).cuda()
+    cinv = np.float32(1 / 1540.0)
+    kw = dict(fs=fs, tx_model="plane", method="cubic")
+
+    def one(**k):
+        return das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw, **k)
+
+    def sharded(mesh, **k):
+        return das_sharded_pallas(mesh, xg, pig, pr, pv, nv, t0, cinv, im_shape=(n, n, 1),
+                                  **kw, **k)
+
+    def two_step(post):
+        brx = one(keep_rx=True)[:, :, 0]
+        return cohfac(brx, axis=1).abs() if post == "cohfac" else slsc(brx, axis=1)
+
+    torch.cuda.reset_peak_memory_stats()
+    ref = one()
+    got1 = sharded(mesh1)
+    print(f"phase24 make_mesh() on this machine: {mesh1.shape}, devices "
+          f"{[str(d) for d in mesh1.devices.flat]}; summed headline equal to the "
+          f"single-device call bit for bit: {bool(torch.equal(got1, ref))}")
+    assert mesh1.size > 1 or torch.equal(got1, ref)
+    del got1
+    cases = {  # what: (sharded call, single-device call, kernel, limit)
+        "summed f32 (K1)": (lambda: sharded(mesh4), one, "das_k1", TOL),
+        "bf16pair (K1(e))": (lambda: sharded(mesh4, precision="bf16pair"),
+                             lambda: one(precision="bf16pair"), "das_k1e", TOL),
+        "post cohfac (K1(c))": (lambda: sharded(mesh4, post="cohfac"),
+                                lambda: two_step("cohfac"), "das_k1c", TOL),
+        "post slsc, 64 lags (K1(c))": (lambda: sharded(mesh4, post="slsc"),
+                                       lambda: two_step("slsc"), "das_k1c", 1e-3),
+    }
+    for what, (fn, fn1, kern, tol) in cases.items():
+        got, counts, _ = _counted(torch, ops, fn)
+        assert counts.get(kern) == 4 and counts.get("das_layout") == 4, (what, counts)
+        add(counts)
+        ref = fn1()
+        a, r = _vs(got, ref, f"phase24 {what} on mesh4 vs one device")
+        print(f"phase24 {what} on mesh4 vs the single-device call: max_abs_err={a:.3e} "
+              f"rel={r:.3e} (limit {tol:.0e})")
+        if "slsc" in what:
+            _slsc_check(torch, got, ref, sharded(mesh4, keep_rx=True)[:, :, 0],
+                        one(keep_rx=True)[:, :, 0], tol, slsc)
+        else:
+            assert r < tol, (what, r)
+        if kern == "das_k1e":  # the bf16pair band against float32
+            f32 = one()
+            r32 = float((got - f32).abs().max() / f32.abs().max())
+            del f32
+            print(f"phase24 bf16pair on mesh4 vs float32: rel={r32:.3e} (limit {BAND:.0e})")
+            assert r32 < BAND
+        del got, ref
+        _tax(what, _ms(fn, reps=2, warm=False), _ms(fn1, reps=2), counts, rec)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase24 main path peak device memory: {rec['peak_gib']:.2f} GiB")
+
+    # coherence_image(mesh=) on the headline as a system
+    xdc = qt.TransducerArray(numel=N, pitch=24e-3 / (N - 1), fc=5e6)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.SequenceRadial(type="PW", angles=np.linspace(-9, 9, M),
+                                              c0=1540.0),
+        scan=qt.ScanCartesian(x=np.linspace(-12e-3, 12e-3, n), z=np.linspace(5e-3, 45e-3, n)),
+        fs=fs)
+    chd = qt.ChannelData(data=xg, fs=fs, t0=float(t0[0]))
+    fn = lambda: us.coherence_image(chd, mesh=mesh4)  # noqa: E731
+    fn1 = lambda: us.coherence_image(chd)  # noqa: E731
+    got, counts, _ = _counted(torch, ops, fn)
+    assert counts.get("das_k1c") == 4, counts
+    add(counts)
+    ref = fn1()
+    a, r = _vs(got, ref, "phase24 coherence_image(mesh=mesh4) vs no mesh")
+    print(f"phase24 us.coherence_image(chd, mesh=mesh4) vs us.coherence_image(chd): "
+          f"max_abs_err={a:.3e} rel={r:.3e}")
+    assert got.shape == tuple(us.scan.shape) and r < TOL
+    del got, ref
+    _tax("coherence_image cohfac (K1(c))", _ms(fn, reps=2, warm=False), _ms(fn1, reps=2),
+         counts, rec)
+
+    # K2: the headline's plane-wave tables
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    kl = dict(fs=fs, method="cubic")
+    fn = lambda: das_lut_sharded_pallas(mesh4, xg, tau_rx, tau_tx, t0, **kl)  # noqa: E731
+    fn1 = lambda: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kl)  # noqa: E731
+    got, counts, _ = _counted(torch, ops, fn)
+    assert counts.get("das_lut_k2") == 4, counts
+    add(counts)
+    a, r = _vs(got, fn1(), "phase24 das_lut_sharded_pallas vs one device")
+    print(f"phase24 das_lut_sharded_pallas headline cubic vs das_lut_sum: max_abs_err={a:.3e} "
+          f"rel={r:.3e}")
+    assert r < TOL
+    del got
+    _tax("das_lut_sharded_pallas cubic (K2)", _ms(fn, reps=2, warm=False), _ms(fn1, reps=2),
+         counts, rec)
+    del tau_rx, tau_tx, xg, chd
+    torch.cuda.empty_cache()
+
+    # K3: us.greens(mesh=) at phase 10's speckle size
+    us, _, _ = _main_system(qt)
+    speck = _speckle(qt, 10_000, 10)
+    fn = lambda: us.greens(speck, impl="freq", mesh=mesh4).data  # noqa: E731
+    fn1 = lambda: us.greens(speck, impl="freq").data  # noqa: E731
+    got, counts, _ = _counted(torch, ops, fn)
+    assert counts.get("greens_freq_k3") == 4, counts
+    add(counts)
+    a, r = _vs(got, fn1(), "phase24 greens(mesh=mesh4) vs no mesh")
+    print(f"phase24 us.greens(speckle 10^4, impl='freq', mesh=mesh4) vs without a mesh: "
+          f"max_abs_err={a:.3e} rel={r:.3e}")
+    assert r < TOL
+    del got
+    _tax("greens freq, 10^4 scatterers, 128 x 128 (K3)", _ms(fn, reps=2, warm=False),
+         _ms(fn1, reps=2), counts, rec)
+
+    # K4: phase 8's adjoint headline, pixels sharded, the spectra copied
+    V = 256
+    th = np.radians(np.linspace(-20, 20, V))
+    del_tx = -(pr[:, 0:1] * np.sin(th)[None, :]) / 1540.0
+    g = torch.Generator(device="cuda").manual_seed(8)
+    xa = torch.randn((T, N, V), generator=g, device="cuda")
+    taur = fdbf.geom_delays(pi, pr, np.float32(1 / 1540.0), "cuda")
+    args = (xa, taur, taur, del_tx, np.ones((M, V)), t0[0], np.zeros(V),
+            np.arange(1024 - 32, 1024 + 32))
+    fn = lambda: bf_adjoint_sharded(mesh4, *args, fs=fs, precision="bf16")  # noqa: E731
+    fn1 = lambda: fdbf_cuda.bf_adjoint_cuda(*args, fs=fs, precision="bf16")  # noqa: E731
+    got, counts, _ = _counted(torch, ops, fn)
+    assert counts.get("fdbf_adjoint_k4") == 4, counts
+    add(counts)
+    ref = fn1()
+    bit = bool(torch.equal(got, ref))
+    a, r = _vs(got, ref, "phase24 bf_adjoint_sharded vs one device")
+    print(f"phase24 bf_adjoint_sharded bf16 headline vs bf_adjoint_cuda: bit for bit {bit}; "
+          f"max_abs_err={a:.3e} rel={r:.3e} (limit {TOL_BF16:.0e})")
+    assert r < TOL_BF16
+    rec["k4_bit_equal"] = bit
+    del got, ref
+    _tax("bf_adjoint_sharded bf16, 64 bins (K4)", _ms(fn, reps=2, warm=False),
+         _ms(fn1, reps=2), counts, rec)
+    del xa, taur, args
+    torch.cuda.empty_cache()
+
+    # kspaceFirstOrder(mesh=) on a bench_fdtd-size grid (225^2 with the PML)
+    us, targets, _ = _demo_system(qt)
+    h = 0.2e-3
+    cgrd = qt.ScanCartesian(x=(np.arange(205) - 102) * h, y=[0.0], z=np.arange(205) * h)
+    med = _blob_medium(qt, targets, us.lmbda)
+    mesh_tx = make_mesh([dev0] * 4, axes=("tx",))
+    chd1, s_mesh = _sync_s(torch, lambda: us.kspaceFirstOrder(med, cgrd, tmax=30e-6,
+                                                              mesh=mesh_tx))
+    chd0, s_loop = _sync_s(torch, lambda: us.kspaceFirstOrder(med, cgrd, tmax=30e-6))
+    r = float((chd1.data - chd0.data).abs().max() / chd0.data.abs().max())
+    same_t0 = bool(np.array_equal(chd1.t0_host, chd0.t0_host))
+    print(f"phase24 kspaceFirstOrder(mesh=[cuda:0] x 4 on 'tx') on a 225^2 grid, 5 PW, "
+          f"30 us: {s_mesh:.3f} s (host clock, first call) vs the loop (one batch) "
+          f"{s_loop:.3f} s; rel={r:.3e} (limit 1e-5), t0 equal {same_t0}")
+    assert r < 1e-5 and same_t0
+    rec["kspaceFirstOrder"] = dict(s=s_mesh, single_s=s_loop, rel=r)
+
+    # phase 21's shapes: the bench_refocus cell (gamma 0) and bench_migration
+    T, N, M = 4096, 256, 256
+    H = _hadamard(M).astype(np.float32)
+    tau = np.zeros((M, M), np.float32)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((T, N, M), generator=g, device="cuda")
+
+    def ref_decode():
+        Hi = fdbf.refocus_op(tau, H, T=T, fs=fs, gamma=0.0)
+        return fdbf.refocus_apply(x, Hi, 0.0, fs=fs)[0]
+
+    fn = lambda: refocus_sharded(mesh4, x, tau, H, 0.0, fs=fs, gamma=0.0)[0]  # noqa: E731
+    for what, f, f1 in (("refocus_sharded, Hadamard 256, gamma 0", fn, ref_decode),
+                        ("focus_tx_freq_sharded, 256 -> 256",
+                         lambda: focus_tx_freq_sharded(mesh4, x, tau, H, fs=fs),
+                         lambda: fdbf.focus_tx_freq(x, tau, H, fs=fs))):
+        got, s = _sync_s(torch, f)
+        ref = f1()
+        r = float((got - ref).abs().max() / ref.abs().max())
+        print(f"phase24 {what} (T 4096, N = 256) on mesh4 vs one device: rel={r:.3e}")
+        assert r < TOL, (what, r)
+        del got, ref
+        _tax(what, _ms(f, reps=2), _ms(f1, reps=2), {}, rec)
+        torch.cuda.empty_cache()
+    del x
+    Mm = 16
+    xm = torch.randn((T, N, Mm), generator=g, device="cuda")
+    thm = tuple(np.linspace(-9.0, 9.0, Mm))
+    km = dict(fs=31.25e6, c0=1540.0, pitch=0.15e-3)
+    fn = lambda: migration_sharded(mesh4, xm, 0.0, np.zeros((N, Mm), np.float32), thm, **km)  # noqa
+    fn1 = lambda: fdbf.stolt_migration(xm, 0.0, np.zeros((N, Mm), np.float32), thm, **km)  # noqa
+    got, ref = fn(), fn1()
+    r = float((got - ref).abs().max() / ref.abs().max())
+    print(f"phase24 migration_sharded (bench_migration cell, 4096 x 256 x 16) on mesh4 vs one "
+          f"device: rel={r:.3e}")
+    assert r < TOL
+    _tax("migration_sharded, 16 angles", _ms(fn, reps=2), _ms(fn1, reps=2), {}, rec)
+    del xm, got, ref
+    torch.cuda.empty_cache()
+
+    # the cheat sheet, as a user runs it, on the card
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    cs = subprocess.run([sys.executable, "-m", "qups_tpu_torch.examples.cheat_sheet"], cwd=root,
+                        capture_output=True, text=True, timeout=600)
+    rec["cheat_sheet_s"] = time.perf_counter() - t
+    print(f"phase24 python -m qups_tpu_torch.examples.cheat_sheet: exit {cs.returncode}, "
+          f"{rec['cheat_sheet_s']:.3f} s; last line {cs.stdout.strip().splitlines()[-1:]}")
+    assert cs.returncode == 0 and "cheat sheet OK" in cs.stdout, cs.stderr[-4000:]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase24 launches on the mesh path: {launches}; the phase {rec['phase_s']:.3f} s")
+    return launches, rec
+
+
 def _k3_library(torch, gfc, ops, g, bf16):
     """The yardstick of K3 on the bins of ``g``: one batched PyTorch GEMM of
     the plain version's operands (built outside the timing), in bf16 on the
@@ -3211,6 +3538,8 @@ def main():
     print("slice 11 record: " + json.dumps({"refocus_migration": rf, "fullwave_rays": fw}))
     io_launches, io_rec = phase23(torch, qt, ops, errs)
     print("slice 12 record: " + json.dumps({"vantage_import": io_rec}))
+    mesh_launches, mesh_rec = phase24(torch, qt, ops)
+    print("slice 13 record: " + json.dumps({"mesh": mesh_rec}))
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -3262,6 +3591,9 @@ def main():
                     greens_finish=sim_launches["greens_finish"],
                     greens_freq_k3b=sim_launches["greens_freq_k3b"],
                     greens_freq_k3c=sim_launches["greens_freq_k3c"])
+    # the mesh path (phase 24): each kernel's launches on [cuda:0] x 4, added
+    for name, v in mesh_launches.items():
+        launches[name] = launches.get(name, 0) + v
     rows = [
         ("das_k1", "qups_tpu_torch/csrc/das.cu", "qups_tpu/ops/das_pallas.py:174",
          k1_ms["cubic"], k1_plain_ms, k1_b, None,
@@ -3366,7 +3698,9 @@ def main():
         "launches": launches[name], "max_abs_err": errs[name].abs,
         "max_rel_err": errs[name].rel, "worst_check": errs[name].where,
         "ms": ms, "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1],
-        "library_ms": lib, "ms_at": at}
+        "library_ms": lib, "ms_at": at + (
+            f"; launches also {mesh_launches[name]} on the mesh path (phase 24, four shards "
+            "of the card)" if name in mesh_launches else "")}
         for name, src, rep, ms, pms, b, lib, at in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -619,6 +619,16 @@ def tx_t0(t0, M: int) -> np.ndarray:
     return np.broadcast_to(a, (M,)).copy()
 
 
+def _t0_on(t0, M: int, dev) -> torch.Tensor:
+    """:func:`tx_t0` as a float32 (M,) tensor on ``dev``. A float32 (M,)
+    tensor already on ``dev`` is taken as it is: no read on the host, so a
+    caller that uploads its t0 once launches without waiting on the card."""
+    if isinstance(t0, torch.Tensor) and t0.device == dev and t0.dtype == torch.float32 \
+            and tuple(t0.shape) == (M,):
+        return t0
+    return torch.as_tensor(tx_t0(t0, M), device=dev)
+
+
 def _launch_frames(x, method, fmod, launch, fb_max=FB, precision="f32", scale=None):
     """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
     ``precision`` (``scale``: its (M,) 'i8x4' scales) and call
@@ -911,7 +921,7 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
                       for a in (pi, pr, pv, nv))
     if pr.shape[0] != N or pv.shape[0] != M or nv.shape[0] != M:
         raise ValueError(f"geometry does not match traces (T, N, M) = {(T, N, M)}")
-    t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
+    t0 = _t0_on(t0, M, dev)
     I = pi.shape[0]
     scale = i8_scale(x) if precision == "i8x4" else None
     if apod or keep_rx or keep_tx:
@@ -1000,7 +1010,7 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
     if tau_rx.shape != (I, N) or tau_tx.shape != (I, M):
         raise ValueError(f"tables {tuple(tau_rx.shape)}, {tuple(tau_tx.shape)} do "
                          f"not match traces (T, N, M) = {(T, N, M)}")
-    t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
+    t0 = _t0_on(t0, M, dev)
     scale = i8_scale(x, per_transmit=False) if precision == "i8x4" else None
     if apod or keep_rx or keep_tx:
         return _das_keep(x, I, t0, fs=fs, method=method, fmod=fmod, apod=apod,

@@ -205,17 +205,29 @@ def bf_adjoint(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0, t0_off,
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     keep = keep_mode(keep_rx, keep_tx)
-    dev = x.device
-    N, V = x.shape[1], x.shape[2]
+    spec = adjoint_spectra(x, del_tx, apod_tx, t0, t0_off, fbins, fs=fs,
+                           fmod=fmod)
+    if spec is None:
+        I = np.shape(tau_rx)[0]
+        N, V = x.shape[1], x.shape[2]
+        shape = (I, N) if keep == "rx" else ((I, V) if keep == "tx" else (I,))
+        return torch.zeros(shape, dtype=torch.complex64, device=x.device)
+    _, fk, Xk, Sk = spec
+    return adjoint_sum(fk, Xk, Sk, tau_rx, tau_tx, keep=keep, precision=precision)
+
+
+def adjoint_sum(fk: torch.Tensor, Xk: torch.Tensor, Sk: torch.Tensor, tau_rx, tau_tx, *,
+                keep: str, precision: str) -> torch.Tensor:
+    """The bin loop of :func:`bf_adjoint` from its spectra (``fk``, ``X_k``,
+    ``S_k`` of :func:`adjoint_spectra`) for the pixels of ``tau_rx (I, N)``,
+    ``tau_tx (I, M)``, on the device of ``Xk``. Each pixel's sum depends on
+    its own table rows only."""
+    dev = Xk.device
+    N, V = Xk.shape[1], Xk.shape[2]
     tau_rx, tau_tx = as_f32(tau_rx, dev), as_f32(tau_tx, dev)
     I = tau_rx.shape[0]
     shape = (I, N) if keep == "rx" else ((I, V) if keep == "tx" else (I,))
     out = torch.zeros(shape, dtype=torch.complex64, device=dev)
-    spec = adjoint_spectra(x, del_tx, apod_tx, t0, t0_off, fbins, fs=fs,
-                           fmod=fmod)
-    if spec is None:
-        return out
-    _, fk, Xk, Sk = spec
     for k in range(fk.shape[0]):
         A = cmatmul(phasor(fk[k], tau_tx, -1.0), Sk[k], precision)  # (I, V)
         nrm = torch.sqrt((A.real * A.real + A.imag * A.imag).sum(1, keepdim=True))

@@ -150,36 +150,70 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
     I, M = tau_rx.shape[0], tau_tx.shape[1]
     if tau_rx.shape != (I, N) or tau_tx.shape[0] != I or np.shape(del_tx) != (M, V):
         raise ValueError("tables and sequence do not match the traces")
-    shape = (I, N) if keep == "rx" else ((I, V) if keep == "tx" else (I,))
-    out = torch.zeros(shape, dtype=torch.complex64, device=dev)
     spec = adjoint_spectra(x, del_tx, apod_tx, t0, t0_off, fbins, fs=fs,
                            fmod=fmod)
     if spec is None:  # no bins selected: a zero image, as the plain version
-        return out
+        shape = (I, N) if keep == "rx" else ((I, V) if keep == "tx" else (I,))
+        return torch.zeros(shape, dtype=torch.complex64, device=dev)
     _, fk, Xk, Sk = spec
-    fn, _ = build()
-    K = int(fk.shape[0])
-    code = _KEEP_CODE[keep]
-    vh = rx_chunk(N, V, precision) if keep == "rx" else 0
+    return adjoint_launch(adjoint_operands(fk, Xk, Sk, keep=keep, precision=precision),
+                          tau_rx, tau_tx)
+
+
+def adjoint_operands(fk: torch.Tensor, Xk: torch.Tensor, Sk: torch.Tensor, *, keep: str,
+                     precision: str) -> dict:
+    """The spectra of :func:`~qups_tpu_torch.ops.fdbf.adjoint_spectra` as K4
+    reads them: for 'bf16' the real-block operands of the tensor-core GEMMs
+    (:func:`block_operand`), for 'f32' the spectra contiguous (``X_k``
+    transposed for keep 'rx'). Independent of the pixels, so a caller that
+    splits the pixels builds them once (and copies them to each device with
+    :func:`operands_to`)."""
+    N, V, M = Xk.shape[1], Xk.shape[2], Sk.shape[1]
+    ops = dict(fk=fk, N=N, M=M, V=V, keep=keep, precision=precision)
     if precision == "bf16":
         vt, Mp, Np, Vp, Vz = tc_layout(M, N, V, keep)
-        Sb = block_operand(Sk, Mp, Vp)
         # keep 'rx' contracts conj(Ahat) (BI, V) x X_k^T (V, N)
-        Xb = block_operand(Xk.transpose(1, 2), Vp, Np) if keep == "rx" \
+        X = block_operand(Xk.transpose(1, 2), Vp, Np) if keep == "rx" \
             else block_operand(Xk, Np, Vp)
-        taur, taut = tau_rx.contiguous(), tau_tx.contiguous()
-        rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sb.data_ptr(),
-                Xb.data_ptr(), out.data_ptr(), I, N, M, V, K, Mp, Np, Vp, Vz,
-                code, 1, vt, vh, *_nvcc.stream_args(dev))
+        ops.update(S=block_operand(Sk, Mp, Vp), X=X, layout=(Mp, Np, Vp, Vz), vt=vt)
     else:
-        vt = tile_cols(V, N, keep)
-        if keep == "rx":
-            Xk = Xk.transpose(1, 2)
-        Sk, Xk = Sk.contiguous(), Xk.contiguous()
+        X = Xk.transpose(1, 2) if keep == "rx" else Xk
+        ops.update(S=Sk.contiguous(), X=X.contiguous(), layout=(0, 0, 0, 0),
+                   vt=tile_cols(V, N, keep))
+    return ops
+
+
+def operands_to(ops: dict, device) -> dict:
+    """:func:`adjoint_operands` with its tensors on ``device``."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in ops.items()}
+
+
+def adjoint_launch(ops: dict, tau_rx, tau_tx) -> torch.Tensor:
+    """K4 over the pixels of ``tau_rx (I, N)``, ``tau_tx (I, M)`` from the
+    operands of :func:`adjoint_operands` (on the tables' CUDA device):
+    complex64 (I,), (I, N) or (I, V). A pixel's sum depends on its own rows
+    only."""
+    global LAUNCHES
+    dev = ops["fk"].device
+    N, M, V, keep = ops["N"], ops["M"], ops["V"], ops["keep"]
+    tau_rx, tau_tx = as_f32(tau_rx, dev), as_f32(tau_tx, dev)
+    I = tau_rx.shape[0]
+    if tau_rx.shape != (I, N) or tau_tx.shape != (I, M):
+        raise ValueError("tables do not match the operands")
+    shape = (I, N) if keep == "rx" else ((I, V) if keep == "tx" else (I,))
+    out = torch.zeros(shape, dtype=torch.complex64, device=dev)
+    fn, _ = build()
+    K = int(ops["fk"].shape[0])
+    code = _KEEP_CODE[keep]
+    vh = rx_chunk(N, V, ops["precision"]) if keep == "rx" else 0
+    bf16 = ops["precision"] == "bf16"
+    if bf16:
+        taur, taut = tau_rx.contiguous(), tau_tx.contiguous()
+    else:
         taur, taut = tau_rx.t().contiguous(), tau_tx.t().contiguous()
-        rc = fn(fk.data_ptr(), taur.data_ptr(), taut.data_ptr(), Sk.data_ptr(),
-                Xk.data_ptr(), out.data_ptr(), I, N, M, V, K, 0, 0, 0, 0,
-                code, 0, vt, vh, *_nvcc.stream_args(dev))
+    rc = fn(ops["fk"].data_ptr(), taur.data_ptr(), taut.data_ptr(), ops["S"].data_ptr(),
+            ops["X"].data_ptr(), out.data_ptr(), I, N, M, V, K, *ops["layout"],
+            code, int(bf16), ops["vt"], vh, *_nvcc.stream_args(dev))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed with cudaError {rc}")
     LAUNCHES += 1

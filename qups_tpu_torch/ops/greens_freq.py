@@ -159,23 +159,53 @@ def greens_freq(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
     device = default_device(device)
     if kernel == "cuda" and device.type != "cuda":
         raise ValueError("kernel='cuda' needs a CUDA device")
-    gemm = greens_freq_cuda.freq_gemm_plain if kernel == "plain" \
-        else greens_freq_cuda.freq_gemm
+    gemm = gemm_engine(kernel)
     plan = host_plan(kern, ps, pn, pv, T=T, s0=s0, t0k=t0k, fs=fs, cinv=cinv,
                      fsr=fsr, rtol=rtol)
-    L, k0, k1 = plan["L"], plan["k0"], plan["k1"]
-    att = alpha_np_per_bin(alpha0, fs, L) * _TWO_PI / float(plan["phc"]) \
-        if alpha0 else 0.0
+    att = attenuation(alpha0, fs, plan)
 
     def gpass(a_real):
-        q1, w1, q2, w2 = prologue(plan["phc"], plan["ps"], a_real, plan["pn"],
-                                  plan["pv"], R0=R0, fsr=fsr, device=device)
-        return gemm(q1, w1, q2, w2, k0=k0, F=k1 - k0, att=att,
-                    bf16=precision == "bf16")
+        return gemm_pass(plan, plan["ps"], a_real, plan["pn"], R0=R0, fsr=fsr,
+                         att=att, bf16=precision == "bf16", gemm=gemm, device=device)
 
+    return synthesize(gpass, plan, amp, T=T)
+
+
+def gemm_engine(kernel: str):
+    """The GEMM of ``kernel``: 'plain' the plain version on any device,
+    else K3 (:func:`~qups_tpu_torch.ops.greens_freq_cuda.freq_gemm`, which
+    runs the plain version on a CPU tensor)."""
+    return greens_freq_cuda.freq_gemm_plain if kernel == "plain" \
+        else greens_freq_cuda.freq_gemm
+
+
+def attenuation(alpha0: float, fs: float, plan: dict) -> float:
+    """``alpha0`` [dB/cm/MHz] as the GEMM's ``att``: nepers per unit of the
+    phase slope ``q`` per bin."""
+    if not alpha0:
+        return 0.0
+    return alpha_np_per_bin(alpha0, fs, plan["L"]) * _TWO_PI / float(plan["phc"])
+
+
+def gemm_pass(plan: dict, ps, amp, pn, *, R0: float, fsr: float, att: float,
+              bf16: bool, gemm, device) -> torch.Tensor:
+    """One GEMM pass of a real amplitude: the spectra ``G (F, N, M)``
+    complex64 on ``device`` of the scatterers ``ps (S, 3)`` with amplitudes
+    ``amp (S,)`` against the receivers ``pn (N, En, 3)`` and the plan's
+    transmitters, over the plan's band."""
+    q1, w1, q2, w2 = prologue(plan["phc"], ps, amp, pn, plan["pv"], R0=R0, fsr=fsr,
+                              device=device)
+    return gemm(q1, w1, q2, w2, k0=plan["k0"], F=plan["k1"] - plan["k0"], att=att,
+                bf16=bf16)
+
+
+def synthesize(gpass, plan: dict, amp, *, T: int) -> torch.Tensor:
+    """The traces (T, N, M) from the GEMM passes ``gpass(real amplitudes) ->
+    G`` (one, or two for complex amplitudes) and the plan's kernel
+    spectrum: float32, or complex64 for a complex kernel or amplitudes."""
     amp = np.asarray(amp)
     Kr, Ki = plan["Kr"], plan["Ki"]
-    kw = dict(L=L, k0=k0, T=T)
+    kw = dict(L=plan["L"], k0=plan["k0"], T=T)
     if Ki is None and not np.iscomplexobj(amp):
         return synth(gpass(amp), Kr, **kw)
     # bilinear decomposition: x = S(kr, ar) - S(ki, ai)

@@ -83,6 +83,18 @@ def _absorb_terms(alpha0: torch.Tensor, alpha_power: float, c: torch.Tensor,
     return tau, eta, as_f32(nab1, c.device), as_f32(nab2, c.device)
 
 
+BATCH_BYTES = 4 * 1024**3  # about what one batched stepper call holds
+
+
+def batch_chunk(steps: int, n_rec: int, Q: int, shape, nsnap: int = 0) -> int:
+    """How many simulations one batched stepper call takes within
+    ``BATCH_BYTES``: each holds its records (``steps`` x ``n_rec`` nodes),
+    its source signals (``steps`` x ``Q``), ``nsnap`` snapshots and about
+    12 grids of state (``shape``)."""
+    per = 4 * (steps * (n_rec + Q) + (nsnap + 12) * int(np.prod(shape)))
+    return max(1, int(BATCH_BYTES // per))
+
+
 def _half(a: torch.Tensor, dim: int) -> torch.Tensor:
     """The rfft half of a full-spectrum operator along ``dim`` (the bins
     0 .. n // 2 of fftfreq's order: an even axis keeps its -Nyquist bin)."""

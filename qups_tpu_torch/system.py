@@ -80,12 +80,23 @@ from .ops.greens_cuda import greens_tiled
 from .ops.greens_freq import greens_freq
 from .ops.interp import METHODS, fft_upsample
 from .ops.simus import simus_fsa
-from .sim.fdtd import kspace_sim_2d, kspace_sim_3d
+from .parallel.mesh import (Mesh, das_sharded_pallas, fdtd_sharded, greens_freq_sharded,
+                            greens_sharded)
+from .sim.fdtd import batch_chunk, kspace_sim_2d, kspace_sim_3d
 from .utils.backend import as_f32, default_device
 from .utils.maths import box_rbounds, gridded_interp, next_pow2
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
 KERNELS = ("auto", "cuda", "plain")
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The first device of a :class:`~qups_tpu_torch.parallel.Mesh`, where a
+    sharded call's result lives; ``TypeError`` for anything else."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a qups_tpu_torch.parallel.Mesh, got "
+                        f"{type(mesh).__name__}")
+    return mesh.devices.flat[0]
 
 
 def _kernel_precision(precision: str) -> str:
@@ -181,7 +192,7 @@ class UltrasoundSystem:
                R0: Optional[float] = None, method: str = "auto",
                impl: str = "auto", fsk: Optional[float] = None,
                block: int = 32, rtol: float = 1e-6, precision: str = "highest",
-               kernel: str = "auto", device=None) -> ChannelData:
+               kernel: str = "auto", device=None, mesh=None) -> ChannelData:
         """Simulate echoes from point scatterers with a shifted Green's
         function, then apply the transmit sequence with :meth:`focusTx`.
 
@@ -205,6 +216,14 @@ class UltrasoundSystem:
         ``device``: where the simulated traces live (default: the CUDA
         device; ``device="cpu"`` runs the plain versions on the CPU).
 
+        ``mesh``: a :class:`~qups_tpu_torch.parallel.Mesh` with 'rx'/'tx'
+        axes: the simulation shards scatterers over 'tx' and receive
+        elements over 'rx' (:func:`~qups_tpu_torch.parallel.greens_freq_sharded`
+        for 'freq', ``kernel`` its ``engine``;
+        :func:`~qups_tpu_torch.parallel.greens_sharded` for 'splat'; any
+        other ``impl`` raises ``ValueError``), and the traces live on the
+        mesh's first device, in place of ``device``.
+
         Example:
             import numpy as np
             import qups_tpu_torch as q
@@ -221,12 +240,15 @@ class UltrasoundSystem:
             t_pk = t[int(chd.data[:, 0, 0].abs().argmax())]
             assert abs(t_pk - 2 * 20e-3 / 1540.0) < 1e-6
         """
-        device = default_device(device)
+        device = _mesh_device(mesh) if mesh is not None else default_device(device)
         on_cpu = device.type == "cpu"
         if impl == "auto":
             impl = "splat" if on_cpu else "freq"
         if impl not in ("freq", "pallas", "splat", "dense"):
             raise ValueError(f"unknown impl {impl!r}")
+        if mesh is not None and impl not in ("freq", "splat"):
+            raise ValueError(f"greens(mesh=...) shards impl='freq'|'splat' only; "
+                             f"impl={impl!r} would silently run single-device")
         # the deposit basis stays cubic (the reference default); 'freq'
         # names the transmit synthesis of focusTx, as in the JAX package
         if method == "auto":
@@ -239,9 +261,12 @@ class UltrasoundSystem:
             scat, element_subdivisions, R0, fsk)
         fs, s0 = kw["fs"], kw["s0"]
         if impl == "freq":
-            x = greens_freq(kern, ps, scat.amp, pn, pv, rtol=rtol,
-                            precision=precision, alpha0=float(scat.alpha0),
-                            kernel=kernel, device=device, **kw)
+            fkw = dict(rtol=rtol, precision=precision, alpha0=float(scat.alpha0), **kw)
+            if mesh is not None:
+                x = greens_freq_sharded(mesh, kern, ps, scat.amp, pn, pv, engine=kernel, **fkw)
+            else:
+                x = greens_freq(kern, ps, scat.amp, pn, pv, kernel=kernel, device=device,
+                                **fkw)
             return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq,
                                 method=fmethod, device=device)
         if float(scat.alpha0):
@@ -271,11 +296,13 @@ class UltrasoundSystem:
             t2, w, dt0, pad = plan
             chd = ChannelData(data=x, fs=fs, t0=s0 + dt0).zeropad(0, pad)
             return self._focus_apply(chd, t2, w, fmethod)
-        kw.update(method=method, device=device)
-        if impl == "splat":
-            x = greens_splat(kern, ps, scat.amp, pn, pv, block=block, **kw)
+        kw.update(method=method)
+        if impl == "splat" and mesh is not None:
+            x = greens_sharded(mesh, kern, ps, scat.amp, pn, pv, block=block, **kw)
+        elif impl == "splat":
+            x = greens_splat(kern, ps, scat.amp, pn, pv, block=block, device=device, **kw)
         else:
-            x = greens_dense(kern, ps, scat.amp, pn, pv, **kw)
+            x = greens_dense(kern, ps, scat.amp, pn, pv, device=device, **kw)
         chd = ChannelData(data=x, fs=fs, t0=s0)
         return self.focusTx(chd, self.seq, method=fmethod, device=device)
 
@@ -484,9 +511,10 @@ class UltrasoundSystem:
         """FieldII ``calc_scat_multi`` analog: the per-transmit simulation
         with the sequence's delays and apodization. In a linear medium the
         per-transmit response is the FSA response synthesized per transmit,
-        so this runs one FSA :meth:`greens` (keyword arguments pass through)
-        and folds the sequence ``bsize`` transmits at a time, or all at once
-        when ``None``. ``method`` goes to :meth:`greens` as given; for the
+        so this runs one FSA :meth:`greens` (keyword arguments pass through,
+        ``mesh`` among them) and folds the sequence ``bsize`` transmits at a
+        time, or all at once when ``None``. ``method`` goes to :meth:`greens`
+        as given; for the
         synthesis 'auto' is 'freq' on a CUDA ``device`` (the default) and
         'cubic' on the CPU, as :meth:`greens` resolves it. All blocks share one focus plan
         (t0 shift and zero-pad), so blocked and unblocked results agree.
@@ -508,8 +536,9 @@ class UltrasoundSystem:
         """
         kw["method"] = method
         if method == "auto":
-            on_cpu = default_device(kw.get("device")).type == "cpu"
-            method = "cubic" if on_cpu else "freq"
+            mesh = kw.get("mesh")
+            dev = _mesh_device(mesh) if mesh is not None else default_device(kw.get("device"))
+            method = "cubic" if dev.type == "cpu" else "freq"
         if self.seq.type == "FSA":
             return self.greens(scat, element_subdivisions, **kw)
         fsa = Sequence(type="FSA", c0=self.seq.c0, pulse=self.seq.pulse,
@@ -803,8 +832,17 @@ class UltrasoundSystem:
         two-step path sums the frames first).
 
         ``precision``: as for :meth:`DAS` ('auto' is 'f32'; 'bf16pair',
-        'bf16', 'i8x4' on K1(e)). ``mesh`` (several cards) is not ported and
-        raises. ``kernel`` and ``device`` as for :meth:`DAS`.
+        'bf16', 'i8x4' on K1(e)). ``kernel`` and ``device`` as for
+        :meth:`DAS`.
+
+        ``mesh``: a :class:`~qups_tpu_torch.parallel.Mesh` with 'rx'/'tx'
+        axes. When the call is eligible (no apodization or only ``Fused``
+        descriptors, a scalar sound speed, (T, N, M) traces, one of the four
+        samplers) the reduction runs in the mesh:
+        :func:`~qups_tpu_torch.parallel.das_sharded_pallas` with ``post``
+        (K1(c) per shard; ``precision`` 'f32' or 'bf16pair'), the image on the
+        mesh's first device. Otherwise the two steps above run on the traces'
+        device, as the JAX package falls back.
 
         Example:
             import numpy as np
@@ -823,8 +861,21 @@ class UltrasoundSystem:
         if post not in ("cohfac", "slsc"):
             raise ValueError(f"unknown post {post!r}")
         if mesh is not None:
-            raise NotImplementedError("coherence_image on a mesh of cards is not ported "
-                                      "(ROADMAP Queue 1 item 11)")
+            _mesh_device(mesh)
+            apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
+            m = "cubic" if method == "auto" else method
+            c0v = self.seq.c0 if c0 is None else c0
+            if (all(isinstance(a, Fused) for a in apod_t) and np.ndim(c0v) == 0
+                    and chd.data.ndim == 3 and m in METHODS):
+                pv, nv, model = self._tx_geometry()
+                img = das_sharded_pallas(
+                    mesh, chd.data, self._pixels(), self.rx.positions().T, pv, nv,
+                    chd.t0_host, np.reciprocal(np.float32(c0v)), fs=float(chd.fs),
+                    tx_model=model, im_shape=tuple(self.scan.shape), method=m,
+                    apod=apod_t, fmod=float(fmod), precision=_kernel_precision(precision),
+                    post=post, lags=lags, **self._fused_operands(apod_t))
+                return img.reshape(self.scan.shape)
+            device = chd.data.device
         brx = self.DAS(chd, apod=apod, fmod=fmod, c0=c0, keep_rx=True, method=method,
                        kernel=kernel, precision=precision, device=device)
         nd = len(self.scan.shape)
@@ -1372,7 +1423,12 @@ class UltrasoundSystem:
         everywhere), leaving the scattered field. The transmits run
         together, a leading batch of one stepper (in chunks of about 4 GiB
         of state and records), which gives each transmit the numbers of its
-        own simulation. ``mesh`` (several cards) is not ported and raises.
+        own simulation. ``mesh``: a :class:`~qups_tpu_torch.parallel.Mesh`
+        with a 'tx' axis: the transmits shard over it
+        (:func:`~qups_tpu_torch.parallel.fdtd_sharded`, each shard's
+        transmits one batch on its device), the traces on the mesh's first
+        device; with ``record='field'`` the transmits run on that device as
+        without a mesh.
         The stepper's spectral derivatives are k-Wave's (the whole grid's
         FFT with kappa(|k|); :mod:`qups_tpu_torch.sim.fdtd`), not the JAX
         package's, whose column-indexed kappa slows the wave in the grid's
@@ -1393,10 +1449,7 @@ class UltrasoundSystem:
             chd = us.kspaceFirstOrder(q.Medium(c0=c0), cgrd, tmax=2e-6, device="cpu")
             assert (chd.N, chd.M) == (8, 1) and bool(chd.data.isfinite().all())
         """
-        if mesh is not None:
-            raise NotImplementedError("kspaceFirstOrder on a mesh of cards is not ported "
-                                      "(ROADMAP Queue 1 item 11)")
-        dev = default_device(device)
+        dev = _mesh_device(mesh) if mesh is not None else default_device(device)
         if el_proj in ("karray-direct", "karray-depend"):
             el_proj = "karray"
         cgrd = cgrd if cgrd is not None else self._eikonal_grid()
@@ -1495,9 +1548,18 @@ class UltrasoundSystem:
             bg = (np.full_like(cmap, float(medium.c0)), np.full_like(rmap, float(medium.rho0)),
                   None if amap is None else np.full_like(cmap, float(np.nan_to_num(medium.alpha0))),
                   None if bmap is None else np.full_like(cmap, float(np.nan_to_num(medium.bona0))))
+        if mesh is not None and not want_field:
+            # the transmits shard over the mesh's 'tx' axis, one batch a shard
+            kwm = dict(steps=steps, dt=dt, dx=h, c_ref=cmax, record_rows=rec_rows,
+                       alpha_power=float(medium.alpha_power), axis="tx")
+            rec = fdtd_sharded(mesh, cmap, rmap, uniq.T, sig, alpha0=amap, bona=bmap, **kwm)
+            if bg is not None:
+                rec = rec - fdtd_sharded(mesh, bg[0], bg[1], uniq.T, sig, alpha0=bg[2],
+                                         bona=bg[3], **kwm)
+            tr = (rec.reshape(M, steps, -1) @ S)[:, ::k]  # (M, T, N)
+            return ChannelData(data=tr.permute(1, 2, 0), fs=fs, t0=t0)
         nsnap = -(-steps // fstride) if fstride else 0
-        per_tx = 4 * (steps * (S.shape[0] + uniq.shape[0]) + (nsnap + 12) * int(np.prod(shp)))
-        chunk = max(1, int(_FDTD_BATCH_BYTES // per_tx))
+        chunk = batch_chunk(steps, S.shape[0], uniq.shape[0], shp, nsnap)
         traces, fields = [], []
         crop = (slice(None), slice(None)) + tuple(slice(npml, n - npml) for n in shp)
         for v0 in range(0, M, chunk):
@@ -1606,8 +1668,6 @@ def _boundary_seeds(cgrd: ScanCartesian, shape, h: float, p, c0: float, vol: boo
 
 # kspaceFirstOrder runs its transmits in batches of about this many bytes
 # of state, sources and records
-_FDTD_BATCH_BYTES = 4 * 1024**3
-
 # refocus's decode operators, ~2 GiB each at T 4096, M = V = 256
 _REFOCUS_OP_CACHE: dict = {}
 _REFOCUS_OP_CACHE_MAX_BYTES = int(os.environ.get("QUPS_REFOCUS_CACHE_BYTES",

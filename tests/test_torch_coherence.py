@@ -124,13 +124,14 @@ def test_coherence_image_matches_reference_per_frame(pw, post, lags):
 
 
 def test_coherence_image_scope(pw):
-    """What coherence_image does not carry raises: a mesh (several cards);
-    an unknown post is a ValueError. The trace precisions run (K1(e) on the
-    card); on the CPU the plain path ignores them, as the JAX package's XLA
-    path does."""
+    """What coherence_image does not carry raises: a mesh that is not a
+    ``parallel.Mesh`` is a TypeError (a mesh's own path is in
+    tests/test_torch_parallel_das.py); an unknown post is a ValueError. The
+    trace precisions run (K1(e) on the card); on the CPU the plain path
+    ignores them, as the JAX package's XLA path does."""
     _, ust, chds = pw
     chdt = from_reference(chds[0])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ust.coherence_image(chdt, device="cpu", mesh=object())
     ref = ust.coherence_image(chdt, device="cpu")
     for precision in ("bf16pair", "i8x4", "bf16"):

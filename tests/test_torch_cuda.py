@@ -22,8 +22,11 @@ chunks; bfEikonal's tables and K2 on the card; and the modules without a
 TPU kernel that run on the card by default: refocus (every method) and its
 spectral norm, Stolt migration and bfMigration, the ray path integrals'
 device path, the k-space steppers and kspaceFirstOrder, each against its
-own device="cpu" run. Every test here needs the card and skips without
-one.
+own device="cpu" run; and the sharded functions on four shards of the
+card ([cuda:0] * 4: das_sharded_pallas summed, bf16pair, keep_rx and the
+in-mesh coherence, greens_freq_sharded, bf_adjoint_sharded) against their
+single-device calls, each kernel launched once per shard. Every test here
+needs the card and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -1582,3 +1585,72 @@ def test_trace_records_the_kernel(card, tmp_path):
     with tm("das", sync=x):
         x.mul_(1.0)
     assert tm.times["das"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(precision="bf16pair"), dict(keep_rx=True),
+                                dict(post="cohfac"), dict(post="slsc")])
+def test_das_sharded_pallas_on_card(card, kw):
+    """das_sharded_pallas on four shards of one card ([cuda:0] * 4, a (2, 2)
+    (rx, tx) mesh): K1 once per shard (K1(e), K1(c) with kw), then the
+    reductions on the card, against das_sum without a mesh (the
+    coherence reductions against ops/coherence.py on its keep_rx image)."""
+    from qups_tpu_torch.ops.coherence import cohfac, slsc
+    from qups_tpu_torch.parallel import das_sharded_pallas, make_mesh
+
+    kw = dict(kw)
+    x, pi, pr, pv, nv, t0 = problem("plane", N=30)  # 30 rx: a padded rx shard
+    xg = torch.as_tensor(x, device=card)
+    mesh = make_mesh([torch.device("cuda", 0)] * 4, axes=("rx", "tx"), shape=(2, 2))
+    counts = {k: getattr(das_cuda, k) for k in ("LAUNCHES", "PREC_LAUNCHES", "KEEP_LAUNCHES")}
+    got = das_sharded_pallas(mesh, xg, pi, pr, pv, nv, t0, CINV, fs=4e6, tx_model="plane",
+                             method="cubic", im_shape=(64, 64, 1), **kw)
+    launched = {k: getattr(das_cuda, k) - v for k, v in counts.items()}
+    assert sum(launched.values()) == 4, launched
+    post = kw.pop("post", None)
+    keep = dict(keep_rx=True) if post else {}
+    ref = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, fs=4e6, tx_model="plane",
+                           method="cubic", **keep, **kw)
+    if post:
+        brx = ref[:, :, 0]
+        ref = cohfac(brx, axis=1).abs() if post == "cohfac" else slsc(brx, axis=1)
+    assert got.is_cuda and got.shape == ref.shape
+    tol = 1e-3 if post == "slsc" else 1e-4
+    assert float((got - ref).abs().max()) < tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_sharded_k3_k4_on_card(card):
+    """greens_freq_sharded (K3 per (scatterer, rx) block) and
+    bf_adjoint_sharded (K4 per pixel block, the spectra copied) on [cuda:0]
+    * 4 against their unsharded calls; K4's pixel blocks bit for bit."""
+    from qups_tpu_torch.ops.greens_freq import greens_freq
+    from qups_tpu_torch.parallel import bf_adjoint_sharded, greens_freq_sharded, make_mesh
+
+    mesh = make_mesh([torch.device("cuda", 0)] * 4, axes=("rx", "tx"), shape=(2, 2))
+    rng = np.random.default_rng(12)
+    S, N, M = 301, 33, 17
+    ps = np.stack([rng.uniform(-5e-3, 5e-3, S), np.zeros(S), rng.uniform(15e-3, 35e-3, S)],
+                  -1).astype(np.float32)
+    amp = rng.standard_normal(S).astype(np.float32)
+    pn = np.stack([np.linspace(-6e-3, 6e-3, N), np.zeros(N), np.zeros(N)], -1)[:, None]
+    pv = pn[::2].copy()
+    kern = (np.hanning(31) * np.sin(2 * np.pi * np.arange(31) / 6)).astype(np.float32)
+    kw = dict(T=1200, s0=1.5e-5, t0k=-1e-6, fs=25e6, cinv=1 / 1540.0, R0=1e-3)
+    k3 = greens_freq_cuda.LAUNCHES
+    got = greens_freq_sharded(mesh, kern, ps, amp, pn, pv, **kw)
+    assert greens_freq_cuda.LAUNCHES - k3 == 4
+    ref = greens_freq(kern, ps, amp, pn, pv, device=card, **kw)
+    assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+    T, N, V, I = 512, 32, 16, 1000
+    x = torch.as_tensor(rng.standard_normal((T, N, V)).astype(np.float32), device=card)
+    tau_rx = rng.uniform(0, 4e-6, (I, N)).astype(np.float32)
+    tau_tx = rng.uniform(0, 4e-6, (I, 8)).astype(np.float32)
+    args = (x, tau_rx, tau_tx, rng.uniform(0, 3e-7, (8, V)).astype(np.float32),
+            rng.standard_normal((8, V)).astype(np.float32), np.zeros(V, np.float32),
+            np.zeros(V, np.float32), np.arange(20, 60))
+    for precision in ("bf16", "f32"):
+        k4 = fdbf_cuda.LAUNCHES
+        got = bf_adjoint_sharded(mesh, *args, fs=20e6, precision=precision)
+        assert fdbf_cuda.LAUNCHES - k4 == 4
+        assert torch.equal(got, fdbf_cuda.bf_adjoint_cuda(*args, fs=20e6, precision=precision))
