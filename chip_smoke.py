@@ -215,7 +215,16 @@ and runs:
    single-device call, its launches counted (K1, K2, K3, K4 once per shard,
    the layout kernel with K1 and K2), each timed beside the single-device
    call (the sharding tax); then the cheat sheet as ``python -m
-   qups_tpu_torch.examples.cheat_sheet``.
+   qups_tpu_torch.examples.cheat_sheet``;
+25. the port's benchmark entry points, in this process with their launches
+   counted: ``qups_tpu_torch.bench.main()`` at full size (cubic float32
+   with linear beside it, then bf16pair) and every sweep of
+   ``qups_tpu_torch.benches`` (``QUPS_BENCH_BUDGET`` cut to
+   ``BENCH_BUDGET``), each line printed; the headline's check equal to
+   phase 4's sum|img| and its rate within ``BENCH_RATE`` of phase 4's; K1,
+   K1(c), K1(e), K2, K3, K4 and K5 each launched on the bench path; then
+   ``python -m qups_tpu_torch.bench`` at ``QUPS_BENCH_SIZE=small`` as a
+   user runs it.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
@@ -796,11 +805,10 @@ def _reps(method):
     return 1 if method == "lanczos3" else 3
 
 
-def phase4(torch, das_cuda, root, errs):
+def phase4(torch, das_cuda, errs):
     """The headline size: 1024^2 pixels x 256 tx x 256 rx, T = 4096, every
     sampler."""
-    sys.path.insert(0, root)
-    import bench  # numpy-only at import: the problem builder and baseline
+    from qups_tpu_torch import bench  # das_problem and the baseline
 
     n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
     x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
@@ -843,9 +851,10 @@ def phase4(torch, das_cuda, root, errs):
     plain_ms = start.elapsed_time(end)
     a, r = errs.add(full, ref, "phase4 cubic full image")
     assert r < TOL, r
+    check = float(torch.sum(torch.abs(full)))
     print(f"phase4 plain cubic, full size, one run: {plain_ms:.3f} ms; "
-          f"K1 vs plain full image: max_abs_err={a:.3e} rel={r:.3e}")
-    return out, plain_ms, lay["cubic"]
+          f"K1 vs plain full image: max_abs_err={a:.3e} rel={r:.3e}; sum|img| {check!r}")
+    return out, plain_ms, lay["cubic"], check
 
 
 def phase5(torch, das_cuda, errs, lerrs):
@@ -1094,7 +1103,7 @@ def phase7(torch, qt, ops, errs):
 
 def phase8(torch, ops, k1_ms, errs):
     """K2 and K4 at the headline size, 1024^2 pixels x 256 x 256."""
-    import bench  # on the path since phase 4
+    from qups_tpu_torch import bench
     from qups_tpu_torch.ops.das import delay_tables
     from qups_tpu_torch.ops.fdbf import bf_adjoint, geom_delays
 
@@ -1695,7 +1704,7 @@ def phase14(torch, qt, das_cuda, errs):
     after a warm-up, lanczos3 1), each against the plain version on every
     64th pixel. Returns {kernel: (ms, plain ms scaled, bound)} at cubic, and
     the IQ traces with the geometry and pixel subset, for phase 18."""
-    import bench  # on the path since phase 4
+    from qups_tpu_torch import bench
     from qups_tpu_torch.ops.das import delay_tables
 
     n, T, N, M, fs, F = 1024, 4096, 256, 256, 31.25e6, 4
@@ -1868,7 +1877,7 @@ def phase16(torch, qt, das_cuda, k1_cubic_ms, errs):
     (64 lags) on its output; CUDA events, each against the plain version on
     every 64th pixel, beside its bound. Returns {kernel: (ms, plain ms
     scaled, bound)} and the coherence times."""
-    import bench  # on the path since phase 4
+    from qups_tpu_torch import bench
     from qups_tpu_torch.ops.coherence import cohfac, slsc
     from qups_tpu_torch.ops.das import delay_tables
 
@@ -2128,7 +2137,7 @@ def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
     the float32 time (phases 4, 8, 14, 16), the plain version on every 64th
     pixel and its bound. Returns {kernel: (ms, plain ms scaled, bound)} for
     the JSON rows (bf16pair cubic)."""
-    import bench  # on the path since phase 4
+    from qups_tpu_torch import bench
     from qups_tpu_torch.ops.das import delay_tables
 
     n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
@@ -2260,16 +2269,17 @@ def _volume_system(qt):
     return us, targets, qt.Scatterers(pos=targets, c0=1540.0)
 
 
-def _adjoint_args(us, chd, max_bins):
+def _adjoint_args(us, chd, max_bins, bins=None):
     """The arguments bfAdjoint hands K4 on ``chd`` (no frame dims), its tables
-    from its cache."""
+    from its cache; the bins ``bins``, else its choice of ``max_bins``."""
     from qups_tpu_torch.ops.fdbf import select_fbins
 
     V = us.seq.num_pulse
     tau_rx, tau_tx = us._adjoint_tables(float(us.seq.c0), chd.data.device)
     t0_off = np.broadcast_to(us.seq.t0_offset(), (V,))
     del_tx = us.seq.delays(us.tx) + t0_off[None, :]
-    sel = select_fbins(chd.data, chd.fs, -40.0, max_bins)
+    sel = select_fbins(chd.data, chd.fs, -40.0, max_bins) if bins is None \
+        else np.asarray(bins, np.int32)
     return (chd.data, tau_rx, tau_tx, del_tx, us.seq.apodization(us.tx), chd.t0_host, t0_off,
             sel)
 
@@ -3156,24 +3166,28 @@ def _k3_bytes(F, directivity, S=100_000, N=128, M=128):
 
 
 # several devices from one process (slice 13): the port's mesh on one card
-def _mesh_counts(ops):
-    """The launch counts the mesh path moves, by the kernels line's names."""
-    dc = ops.das_cuda
+def _path_counts(ops):
+    """The launch counts the mesh and bench paths move, by the kernels
+    line's names (K3: its float32 variant, the K3 row)."""
+    dc, gc = ops.das_cuda, ops.greens_cuda
     return {"das_k1": dc.LAUNCHES, "das_k1e": dc.PREC_LAUNCHES, "das_k1c": dc.KEEP_LAUNCHES,
             "das_layout": dc.LAYOUT_LAUNCHES, "das_lut_k2": dc.LUT_LAUNCHES,
-            "greens_freq_k3": ops.greens_freq_cuda.LAUNCHES,
-            "fdbf_adjoint_k4": ops.fdbf_cuda.LAUNCHES}
+            "greens_freq_k3": ops.greens_freq_cuda.VARIANT_LAUNCHES["a"],
+            "fdbf_adjoint_k4": ops.fdbf_cuda.LAUNCHES, "greens_splat_k5": gc.LAUNCHES,
+            "greens_finish": gc.FINISH_LAUNCHES}
 
 
 def _counted(torch, ops, fn):
     """Run ``fn`` once with every launch count set to 0 just before and read
     just after: (result, the counts that moved, host seconds, synchronised)."""
-    dc = ops.das_cuda
+    dc, gc, gfc = ops.das_cuda, ops.greens_cuda, ops.greens_freq_cuda
     dc.LAUNCHES = dc.PREC_LAUNCHES = dc.KEEP_LAUNCHES = dc.APOD_LAUNCHES = 0
     dc.LAYOUT_LAUNCHES = dc.LUT_LAUNCHES = dc.LUT_KEEP_LAUNCHES = dc.LUT_PREC_LAUNCHES = 0
-    ops.greens_freq_cuda.LAUNCHES = ops.fdbf_cuda.LAUNCHES = 0
+    gfc.LAUNCHES = ops.fdbf_cuda.LAUNCHES = gc.LAUNCHES = gc.FINISH_LAUNCHES = 0
+    for v in gfc.VARIANT_LAUNCHES:
+        gfc.VARIANT_LAUNCHES[v] = 0
     out, s = _sync_s(torch, fn)
-    return out, {k: v for k, v in _mesh_counts(ops).items() if v}, s
+    return out, {k: v for k, v in _path_counts(ops).items() if v}, s
 
 
 def _vs(got, ref, where):
@@ -3232,7 +3246,7 @@ def phase24(torch, qt, ops):
     The comparisons are sharded against single-device calls, not kernels
     against their plain versions, so they stay out of the kernels line's
     errors. Returns (launches by kernel, the record)."""
-    import bench  # on the path since phase 4
+    from qups_tpu_torch import bench
     from qups_tpu_torch.ops import fdbf
     from qups_tpu_torch.ops.coherence import cohfac, slsc
     from qups_tpu_torch.ops.das import delay_tables
@@ -3466,6 +3480,241 @@ def phase24(torch, qt, ops):
     return launches, rec
 
 
+# the port's benchmark entry points (slice 14)
+BENCH_BUDGET = "10"  # seconds a sweep may start new sizes in, as QUPS_BENCH_BUDGET
+BENCH_RATE = 0.15  # the headline's host-clock sums/s against phase 4's CUDA-event rate
+
+
+def _positive(v, where):
+    """Every number of a bench record finite and positive."""
+    if isinstance(v, dict):
+        for k, u in v.items():
+            _positive(u, f"{where}.{k}")
+    elif isinstance(v, (list, tuple)):
+        for u in v:
+            _positive(u, where)
+    elif isinstance(v, (int, float)) and not isinstance(v, bool):
+        assert np.isfinite(v) and v > 0, (where, v)
+
+
+def _entry(fn, argv, env):
+    """``fn(argv)`` with the QUPS_BENCH_* knobs set to ``env`` alone and its
+    standard output captured: (its return value, the JSON lines it printed)."""
+    import contextlib
+    import io
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("QUPS_BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+    finally:
+        for k in env:
+            del os.environ[k]
+        os.environ.update(saved)
+    lines = [json.loads(s) for s in buf.getvalue().splitlines() if s.strip()]
+    for rec in lines:
+        assert "error" not in rec, rec
+        _positive(rec, rec.get("bench", "bench"))
+    return rc, lines
+
+
+# the shapes the bench path ran, at which phase 25 holds each of its kernels
+# to the plain version: the headline (bench.CONFIGS['full'], T N M n, whose
+# traces the lut and adjoint sweeps draw too), the das sweep's largest image
+# and the coherence sweep's default (T N M n), the greens sweep's largest
+# cloud (elements a side, 2^p scatterers) and the adjoint sweep's bins
+BENCH_SHAPES = dict(headline=(4096, 256, 256, 1024), das=(1024, 128, 128, 4096),
+                    coherence=(2048, 128, 64, 512), greens=(128, 20), adjoint_bins=64)
+
+
+def _bench_shapes_ran(sweeps, shapes):
+    """The sweeps' records reached the shapes of ``shapes``."""
+    by = {}
+    for rec in sweeps:
+        by.setdefault(rec["bench"], []).append(rec)
+    das = max(by["das"], key=lambda r: r["n_px_side"])
+    assert (das["T"], das["N"], das["M"], das["n_px_side"]) == shapes["das"], das
+    for r in by["coherence"] + by["lut"] + by["adjoint"]:
+        key = "coherence" if r["bench"] == "coherence" else "headline"
+        assert (r["T"], r["N"], r["M"], r["n_px_side"]) == shapes[key], r
+    N, p = shapes["greens"]
+    assert {(r["impl"], r["S"], r["N"]) for r in by["greens"]} >= {
+        ("freq", 2 ** p, N), ("pallas", 2 ** p, N)}, by["greens"]
+    assert by["adjoint"][0]["bins"] == shapes["adjoint_bins"]
+
+
+def _bench_parity(torch, ops, errs):
+    """Each kernel the bench path launches, held to its plain version on the
+    bench's own inputs at the bench's own shapes, built by
+    ``qups_tpu_torch.bench`` and ``.benches``: the kernel on the whole
+    problem, the plain version on every 64th pixel (greens: 16 x 16 of the
+    elements, the array's ends among them, 1 in 64 traces at 128 a side).
+    The headline in f32 and bf16pair, cubic and linear (K1, K1(e)); the lut
+    sweep's tables, t0 = 0, on the headline's traces (K2 linear and cubic);
+    the adjoint sweep's FSA system on the same traces (K4, bf16); the das
+    sweep's largest image (K1 linear); the coherence sweep's keep_rx samples
+    (K1(c)); the greens sweep's largest cloud through K3 and through K5 with
+    the finish kernel; the layout kernel, bit for bit, on the headline's
+    and the das sweep's traces. Within TOL (K4: TOL_BF16), each error into
+    the kernels line. These launches compare, and are not counted."""
+    from qups_tpu_torch import bench, benches
+    from qups_tpu_torch.ops.fdbf import bf_adjoint
+
+    dc, dev, shapes = ops.das_cuda, "cuda", BENCH_SHAPES
+
+    def hold(name, got, ref, where, tol=TOL):
+        a, r = errs[name].add(got, ref, f"phase25 {where}")
+        print(f"phase25 {name} vs plain, {where}: max_abs_err={a:.3e} rel={r:.3e}")
+        assert r < tol, (where, r)
+
+    def every64(n):
+        return torch.arange(0, n * n, 64, device=dev)
+
+    T, N, M, n = shapes["headline"]
+    x, pi, pr, pv, nv, t0 = bench.das_problem(T, N, M, n)
+    xg = torch.as_tensor(x).to(dev)
+    del x
+    sub = every64(n)
+    geo = tuple(torch.as_tensor(a).to(dev) for a in (pi, pr, pv, nv)) + (t0,)  # as headline()
+    for precision in ("f32", "bf16pair"):
+        for method in ("cubic", "linear"):
+            kw = dict(fs=bench.FS, tx_model="plane", method=method, precision=precision)
+            got = dc.das_sum(xg, *geo, bench.CINV, im_shape=(n, n, 1), **kw)[sub]
+            ref = dc.das_sum_plain(xg, geo[0][sub], *geo[1:], bench.CINV, **kw)
+            hold("das_k1" if precision == "f32" else "das_k1e", got, ref,
+                 f"bench headline {precision} {method}, every 64th pixel")
+    for method in ("cubic", "linear"):
+        _layout_parity(torch, dc, errs["das_layout"], method, xg,
+                       f"phase25 layout {method}, the headline's traces")
+    tau_rx, tau_tx, t0z = benches.lut_tables(N, M, n, dev)
+    for method in ("linear", "cubic"):
+        kw = dict(fs=benches.FS, method=method)
+        got = dc.das_lut_sum(xg, tau_rx, tau_tx, t0z, im_shape=(n, n, 1), precision="f32",
+                             **kw)[sub]
+        ref = dc.das_lut_sum_plain(xg, tau_rx[sub], tau_tx[sub], t0z, **kw)
+        hold("das_lut_k2", got, ref, f"lut sweep {method}, every 64th pixel")
+    del tau_rx, tau_tx
+    us, chd, bins = benches.adjoint_problem(xg, n, shapes["adjoint_bins"])
+    got = us.bfAdjoint(chd, bins=bins, kernel="auto", device=dev).reshape(-1)[sub]
+    args = _adjoint_args(us, chd, None, bins)
+    ref = bf_adjoint(xg, args[1][sub], args[2][sub], *args[3:], fs=float(chd.fs),
+                     precision="bf16")
+    hold("fdbf_adjoint_k4", got, ref.reshape(-1), "adjoint sweep bf16, every 64th pixel",
+         TOL_BF16)
+    del xg, us, chd, args, geo
+
+    for what in ("das", "coherence"):
+        T, N, M, n = shapes[what]
+        x, pi, sub = benches.traces((T, N, M), dev), bench.pixels(n), every64(n)
+        keep = what == "coherence"
+        got = benches.das_image(x, pi, n, keep_rx=keep)[sub]
+        ref = dc.das_sum_plain(x, pi[sub.cpu().numpy()], *benches.sweep_geometry(N, M),
+                               1 / benches.C0, fs=benches.FS, tx_model="plane",
+                               method="linear", keep_rx=keep)
+        hold("das_k1c" if keep else "das_k1", got, ref,
+             f"{what} sweep linear{' keep_rx' if keep else ''} {n}^2 x {N} x {M} T {T}, "
+             "every 64th pixel")
+        if not keep:
+            _layout_parity(torch, dc, errs["das_layout"], "linear", x,
+                           "phase25 layout linear, the das sweep's traces")
+    del x
+
+    N, p = shapes["greens"]
+    *_, (S, (kern, ps, amp, pn, pv, kw)) = benches.greens_clouds(N, p)
+    els = np.unique(np.linspace(0, N - 1, 16).round().astype(int))
+    for impl, names in (("freq", ("greens_freq_k3",)),
+                        ("pallas", ("greens_splat_k5", "greens_finish"))):
+        got = benches.greens_traces(impl, kern, ps, amp, pn, pv, dev, **kw)[:, els][:, :, els]
+        ref = benches.greens_traces(impl, kern, ps, amp, pn[els], pv[els], dev,
+                                    kernel="plain", **kw)
+        for name in names:
+            hold(name, got, ref, f"greens sweep {impl} S={S} {N} x {N}, "
+                 f"{els.size} x {els.size} traces")
+
+
+def phase25(torch, ops, root, k1_cubic_ms, k1_check, errs):
+    """The port's benchmark entry points on the card, in this process so
+    that their launches are counted (zeroed just before, read just after):
+    ``qups_tpu_torch.bench.main()`` at full size (1024^2 px x 256 x 256, T
+    4096: cubic in float32 with linear beside it, then in bf16pair), every
+    sweep of ``qups_tpu_torch.benches`` (QUPS_BENCH_BUDGET=BENCH_BUDGET);
+    then ``python -m qups_tpu_torch.bench`` at QUPS_BENCH_SIZE=small as a
+    user runs it. Every line parses, holds no error, and every number in it
+    is finite and positive; the float32 headline's check equals phase 4's
+    sum|img| (the same traces and kernel) to 1e-6, and its sums/s lies
+    within BENCH_RATE of phase 4's CUDA-event rate; K1, K1(c), K1(e), K2,
+    K3, K4 and K5 each launched; the sweeps reached BENCH_SHAPES, where
+    :func:`_bench_parity` then holds each of those kernels to its plain
+    version. Returns (launches by kernel, the record)."""
+    from qups_tpu_torch import bench, benches
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def path():
+        head = {}
+        for prec in ("f32", "bf16pair"):
+            _, (rec,) = _entry(bench.main, [], {"QUPS_BENCH_PRECISION": prec})
+            head[prec] = rec
+            print("phase25 bench " + json.dumps(rec))
+            torch.cuda.empty_cache()
+        rc, sweeps = _entry(benches.main, ["all"], {"QUPS_BENCH_BUDGET": BENCH_BUDGET})
+        for rec in sweeps:
+            print("phase25 benches " + json.dumps(rec))
+        assert rc == 0, rc
+        return head, sweeps
+
+    (head, sweeps), launches, _ = _counted(torch, ops, path)
+    assert {r["bench"] for r in sweeps} == set(benches.BENCHES), sweeps
+    f32, bf = head["f32"]["detail"], head["bf16pair"]["detail"]
+    assert f32["precision"] == "f32" and bf["precision"] == "bf16pair"
+    assert f32["method"] == "cubic" and "linear" in f32 and "linear" in bf
+    chk = abs(f32["check"] - k1_check) / k1_check
+    rate4 = 1024.0 ** 2 * 256 * 256 / (k1_cubic_ms / 1e3)
+    off = head["f32"]["value"] / rate4 - 1
+    print(f"phase25 headline check {f32['check']!r} vs phase 4's sum|img| {k1_check!r}: rel "
+          f"{chk:.3e}; {head['f32']['value']:.4e} sums/s (host clock, min of 2) vs phase 4's "
+          f"{rate4:.4e} (CUDA events, mean of 3): {100 * off:+.2f} %; bf16pair check rel "
+          f"{abs(bf['check'] - k1_check) / k1_check:.3e}; on {f32['device']}")
+    assert chk <= 1e-6, chk
+    assert abs(off) <= BENCH_RATE, off
+    assert abs(bf["check"] - k1_check) / k1_check < BAND
+    for name in ("das_k1", "das_k1c", "das_k1e", "das_lut_k2", "greens_freq_k3",
+                 "fdbf_adjoint_k4", "greens_splat_k5"):
+        assert launches.get(name, 0) >= 1, (name, launches)
+    _bench_shapes_ran(sweeps, BENCH_SHAPES)
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    _bench_parity(torch, ops, errs)
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t
+    print(f"phase25 the bench path's kernels vs their plain versions at the bench's shapes: "
+          f"{parity_s:.3f} s")
+    t = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("QUPS_BENCH_")}
+    sub = subprocess.run([sys.executable, "-m", "qups_tpu_torch.bench"], cwd=root,
+                         env={**env, "QUPS_BENCH_SIZE": "small"}, capture_output=True,
+                         text=True, timeout=600)
+    sub_s = time.perf_counter() - t
+    out = sub.stdout.strip().splitlines()
+    print(f"phase25 python -m qups_tpu_torch.bench (small): exit {sub.returncode}, "
+          f"{sub_s:.3f} s; {out[-1:]}")
+    assert sub.returncode == 0 and len(out) == 1, sub.stderr[-4000:]
+    small = json.loads(out[0])
+    assert small["detail"]["size"] == "small" and "error" not in small
+    _positive(small, "bench small")
+    rec = {"bench": head, "benches": sweeps, "bench_small": small, "subprocess_s": sub_s,
+           "parity_s": parity_s,
+           "launches": launches, "check_rel": chk, "rate_vs_phase4": off,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"phase25 launches on the bench path: {launches}; the phase {rec['phase_s']:.3f} s")
+    return launches, rec
+
+
 def _k3_library(torch, gfc, ops, g, bf16):
     """The yardstick of K3 on the bins of ``g``: one batched PyTorch GEMM of
     the plain version's operands (built outside the timing), in bf16 on the
@@ -3509,7 +3758,7 @@ def main():
     k3_ms, k3_plain_ms, k3_b, k3_lib = phase2(torch, qt, ops.greens_freq_cuda,
                                               errs["greens_freq_k3"])
     launches = phase3(torch, qt, ops, errs)
-    k1_ms, k1_plain_ms, lay = phase4(torch, ops.das_cuda, root, errs["das_k1"])
+    k1_ms, k1_plain_ms, lay, k1_check = phase4(torch, ops.das_cuda, errs["das_k1"])
     phase5(torch, ops.das_cuda, errs["das_lut_k2"], errs["das_layout"])
     phase6(torch, qt, ops.fdbf_cuda, errs["fdbf_adjoint_k4"])
     pw_launches = phase7(torch, qt, ops, errs)
@@ -3540,6 +3789,8 @@ def main():
     print("slice 12 record: " + json.dumps({"vantage_import": io_rec}))
     mesh_launches, mesh_rec = phase24(torch, qt, ops)
     print("slice 13 record: " + json.dumps({"mesh": mesh_rec}))
+    bench_launches, bench_rec = phase25(torch, ops, root, k1_ms["cubic"], k1_check, errs)
+    print("slice 14 record: " + json.dumps({"bench": bench_rec}))
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -3700,7 +3951,10 @@ def main():
         "ms": ms, "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1],
         "library_ms": lib, "ms_at": at + (
             f"; launches also {mesh_launches[name]} on the mesh path (phase 24, four shards "
-            "of the card)" if name in mesh_launches else "")}
+            "of the card)" if name in mesh_launches else "") + (
+            f"; launches also {bench_launches[name]} on the bench path (phase 25, "
+            "qups_tpu_torch.bench and .benches; held to the plain version there at the "
+            "bench's shapes)" if bench_launches.get(name) else "")}
         for name, src, rep, ms, pms, b, lib, at in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

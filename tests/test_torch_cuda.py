@@ -25,8 +25,9 @@ device path, the k-space steppers and kspaceFirstOrder, each against its
 own device="cpu" run; and the sharded functions on four shards of the
 card ([cuda:0] * 4: das_sharded_pallas summed, bf16pair, keep_rx and the
 in-mesh coherence, greens_freq_sharded, bf_adjoint_sharded) against their
-single-device calls, each kernel launched once per shard. Every test here
-needs the card and skips without one.
+single-device calls, each kernel launched once per shard; and the
+benchmark entry points (qups_tpu_torch.bench, .benches) at their small
+sizes. Every test here needs the card and skips without one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -1654,3 +1655,36 @@ def test_sharded_k3_k4_on_card(card):
         got = bf_adjoint_sharded(mesh, *args, fs=20e6, precision=precision)
         assert fdbf_cuda.LAUNCHES - k4 == 4
         assert torch.equal(got, fdbf_cuda.bf_adjoint_cuda(*args, fs=20e6, precision=precision))
+
+
+@pytest.mark.cuda
+def test_bench_entries_on_card(card, monkeypatch, capsys):
+    """The benchmark entry points on the card at their small sizes: the
+    headline (QUPS_BENCH_SIZE=small) through K1, its check the image's
+    sum(|.|); every sweep at QUPS_BENCH_TINY=1 without an error line, with
+    K1, K1(c), K2, K3, K4 and K5 each launched."""
+    import json
+
+    from qups_tpu_torch import bench, benches
+
+    for k in ("QUPS_BENCH_MESH", "QUPS_BENCH_PRECISION", "QUPS_BENCH_METHOD"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("QUPS_BENCH_SIZE", "small")
+    monkeypatch.setenv("QUPS_BENCH_TINY", "1")
+    before = das_cuda.LAUNCHES
+    bench.main([])
+    (rec,) = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert das_cuda.LAUNCHES - before == 6  # cubic and linear, 3 calls each
+    assert rec["detail"]["device"] == torch.cuda.get_device_name(0)
+    x, pi, pr, pv, nv, t0 = bench.das_problem(**bench.CONFIGS["small"])
+    img = das_cuda.das_sum(torch.as_tensor(x, device=card), pi, pr, pv, nv, t0, bench.CINV,
+                           fs=bench.FS, tx_model="plane", method="cubic")
+    assert rec["detail"]["check"] == float(torch.sum(torch.abs(img)))
+    counts = (lambda: (das_cuda.LAUNCHES, das_cuda.KEEP_LAUNCHES, das_cuda.LUT_LAUNCHES,
+                       greens_freq_cuda.LAUNCHES, fdbf_cuda.LAUNCHES, greens_cuda.LAUNCHES))
+    before = counts()
+    assert benches.main(["all"]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert {r["bench"] for r in lines} == set(benches.BENCHES)
+    assert not any("error" in r for r in lines)
+    assert all(a > b for a, b in zip(counts(), before)), (counts(), before)

@@ -6,7 +6,7 @@
 Traces, with ``torch.profiler`` (CUDA activity):
 
 1. the headline DAS, 1024^2 pixels x 256 tx x 256 rx, T = 4096, plane
-   waves, cubic (``bench.das_problem``): 3 calls of ``das_cuda.das_sum``
+   waves, cubic (``qups_tpu_torch.bench.das_problem``): 3 calls of ``das_cuda.das_sum``
    after a warm-up; device time per op, device busy time and host wall time
    per call;
 2. K1's and K2's device time alone per sampler at that size (2 calls
@@ -105,7 +105,7 @@ def main():
         print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, ROOT)
-    import bench  # numpy-only at import
+    from qups_tpu_torch import bench  # the headline's das_problem
     import qups_tpu_torch as qt
     from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_cuda, greens_freq_cuda
 

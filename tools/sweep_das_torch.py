@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sweeps of the DAS kernels K1 and K2 of the PyTorch + CUDA port at the
 headline size (1024^2 pixels x 256 tx x 256 rx, T = 4096, plane waves,
-``bench.das_problem``), on one CUDA card, timed with CUDA events.
+``qups_tpu_torch.bench.das_problem``), on one CUDA card, timed with CUDA events.
 
     python3 tools/sweep_das_torch.py samplers  # every sampler and trace type
     python3 tools/sweep_das_torch.py tiles     # ... by the pixels' order
@@ -179,7 +179,7 @@ def main():
         print("sweep_das_torch: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, ROOT)
-    import bench  # numpy-only at import
+    from qups_tpu_torch import bench  # the headline's das_problem
 
     out = args.out or os.path.join(ROOT, "chiprun_out", f"sweep_das_torch_{args.what}.txt")
     os.makedirs(os.path.dirname(out), exist_ok=True)
