@@ -224,12 +224,25 @@ and runs:
    phase 4's sum|img| and its rate within ``BENCH_RATE`` of phase 4's; K1,
    K1(c), K1(e), K2, K3, K4 and K5 each launched on the bench path; then
    ``python -m qups_tpu_torch.bench`` at ``QUPS_BENCH_SIZE=small`` as a
-   user runs it.
+   user runs it;
+26. the counterparts of the JAX package's kernel-level entry points, once
+   with their launches counted, then each beside the method call that
+   launches the same kernel, timed in turns: ``das_tiled`` (K1),
+   ``das_lut_plan`` and ``das_lut_tiled`` (K2) at the headline (1024^2 x
+   256 x 256, T 4096, cubic) against ``das_sum`` / ``das_lut_sum``, bit for
+   bit; ``prep_sharded`` / ``prep_lut_sharded`` on a 2 x 2 grid, their four
+   shards launched and summed, against the single call and the mesh call
+   on [cuda:0] x 4; ``bf_adjoint_tiled`` (K4) at phase 8's adjoint
+   headline; ``freq_gemm_cuda`` (K3, K3(b)) and ``simus_spectrum_cuda``
+   (K3(c)) at phase 11's 10^5 scatterers, bit for bit against the greens
+   and simus GEMM passes; each against its plain version on every 64th
+   pixel (K3: 32 bins); ``self_c0``.
 
 Every check is an assert. The line before the last is the kernels' JSON
 record (launches on the main path, errors, ms beside the plain version's,
-the bound with what bounds it, and the PyTorch yardstick where one call
-computes the products); the last line is ``{"ok": true, "device": {...}}``.
+the bound with what bounds it, the PyTorch yardstick where one call
+computes the products, and phase 26's entry points that launch the kernel,
+each with its time beside its method's); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 1 and prints no result.
 """
 import json
@@ -3173,6 +3186,8 @@ def _path_counts(ops):
     return {"das_k1": dc.LAUNCHES, "das_k1e": dc.PREC_LAUNCHES, "das_k1c": dc.KEEP_LAUNCHES,
             "das_layout": dc.LAYOUT_LAUNCHES, "das_lut_k2": dc.LUT_LAUNCHES,
             "greens_freq_k3": ops.greens_freq_cuda.VARIANT_LAUNCHES["a"],
+            "greens_freq_k3b": ops.greens_freq_cuda.VARIANT_LAUNCHES["b"],
+            "greens_freq_k3c": ops.greens_freq_cuda.VARIANT_LAUNCHES["c"],
             "fdbf_adjoint_k4": ops.fdbf_cuda.LAUNCHES, "greens_splat_k5": gc.LAUNCHES,
             "greens_finish": gc.FINISH_LAUNCHES}
 
@@ -3715,6 +3730,224 @@ def phase25(torch, ops, root, k1_cubic_ms, k1_check, errs):
     return launches, rec
 
 
+# the JAX-named kernel-level entry points (slice 15)
+def _abba_ms(fn_a, fn_b, reps):
+    """(ms of ``fn_a``, ms of ``fn_b``), each the mean of two :func:`_ms`
+    readings taken in the order a, b, b, a after one warm-up of each."""
+    fn_a()
+    fn_b()
+    a1 = _ms(fn_a, reps, warm=False)
+    b1 = _ms(fn_b, reps, warm=False)
+    b2 = _ms(fn_b, reps, warm=False)
+    a2 = _ms(fn_a, reps, warm=False)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+ENTRY_KERNELS = {"das_tiled": "das_k1", "prep_sharded": "das_k1", "das_lut_tiled": "das_lut_k2",
+                 "das_lut_plan": "das_lut_k2", "prep_lut_sharded": "das_lut_k2",
+                 "bf_adjoint_tiled": "fdbf_adjoint_k4", "freq_gemm_cuda": "greens_freq_k3",
+                 "freq_gemm_cuda bf16": "greens_freq_k3b",
+                 "simus_spectrum_cuda": "greens_freq_k3c"}
+
+
+def phase26(torch, qt, ops, errs):
+    """The counterparts of the JAX package's kernel-level entry points at the
+    headline shapes, each beside the method call that launches the same
+    kernel: ``das_tiled`` (K1) and ``das_lut_plan`` / ``das_lut_tiled`` (K2)
+    at 1024^2 x 256 x 256, T 4096, cubic, against ``das_sum`` /
+    ``das_lut_sum``; ``prep_sharded`` / ``prep_lut_sharded`` on a 2 x 2
+    grid, their shards launched with ``das_sum`` / ``das_lut_sum`` and
+    summed, against the unsharded image and ``das_sharded_pallas(_plan)`` on
+    [cuda:0] x 4; ``bf_adjoint_tiled`` (K4) at phase 8's adjoint headline
+    against ``bf_adjoint_cuda``; ``freq_gemm_cuda`` (K3, K3(b)) and
+    ``simus_spectrum_cuda`` (K3(c)) at phase 11's 10^5 scatterers x 128 x 128
+    against the greens and simus GEMM passes; ``self_c0``. The entry points
+    run once with the launch counts zeroed just before and read just after;
+    each result equals its method's bit for bit where the launch is the same
+    (the shards' sums within TOL) and its plain version on every 64th pixel
+    (K3: 32 bins) within the kernel's limit; entry and method are timed in
+    turns (CUDA events). Returns (launches by kernel, the record)."""
+    from qups_tpu_torch import bench, parallel
+    from qups_tpu_torch.ops.das import delay_tables
+    from qups_tpu_torch.ops.fdbf import bf_adjoint, geom_delays
+    from qups_tpu_torch.ops.greens_freq import gemm_pass, host_plan, prologue
+    from qups_tpu_torch.ops.simus import simus_prologue
+    from qups_tpu_torch.system import self_c0
+
+    dc, fc, gfc = ops.das_cuda, ops.fdbf_cuda, ops.greens_freq_cuda
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
+    x, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.as_tensor(x).cuda()
+    del x
+    cinv = np.float32(1 / 1540.0)
+    im = (n, n, 1)
+    geo = dict(fs=fs, tx_model="plane", method="cubic")
+    lut = dict(fs=fs, method="cubic")
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    mesh = parallel.make_mesh([torch.device("cuda", 0)] * 4, axes=("rx", "tx"), shape=(2, 2))
+    kg = dict(T=T, tx_model="plane", im_shape=im, nrx=2, ntx=2, method="cubic")
+    kl = dict(fs=fs, T=T, im_shape=im, nrx=2, ntx=2, method="cubic")
+
+    def shards_k1(a, st):
+        return sum(dc.das_sum(xg[:, r * 128:(r + 1) * 128, t * 128:(t + 1) * 128], a["pi"],
+                              a["pr"][r], a["pv"][t], a["nv"][t], a["t0"][t], st["cinv"],
+                              im_shape=st["im_shape"], **geo) for r in range(2) for t in range(2))
+
+    def shards_k2(a, st):
+        return sum(dc.das_lut_sum(xg[:, r * 128:(r + 1) * 128, t * 128:(t + 1) * 128],
+                                  a["taur"][r], a["taut"][t], a["t0"][t], im_shape=im, **lut)
+                   for r in range(2) for t in range(2))
+
+    # K4 at phase 8's adjoint headline
+    V = 256
+    th = np.radians(np.linspace(-20, 20, V))
+    del_tx = -(pr[:, 0:1] * np.sin(th)[None, :]) / 1540.0
+    g = torch.Generator(device="cuda").manual_seed(8)
+    xa = torch.randn((T, N, V), generator=g, device="cuda")
+    taur = geom_delays(pi, pr, cinv, "cuda")
+    sel = np.arange(1024 - 32, 1024 + 32)
+    adj = (xa, taur, taur, del_tx, np.ones((M, V)), t0[0], np.zeros(V), sel)
+    # K3 at phase 11's cloud
+    us, _, _ = _main_system(qt)
+    speck = _speckle(qt, 100_000, 11)
+    ps, kern, pn, pvs, kw = us._greens_problem(speck)
+    plan = host_plan(kern, ps, pn, pvs, T=kw["T"], s0=kw["s0"], t0k=kw["t0k"], fs=kw["fs"],
+                     cinv=kw["cinv"], fsr=kw["fsr"], rtol=0.0)
+    Fg = plan["k1"] - plan["k0"]
+    gf = dict(L=plan["L"], k0=plan["k0"], F=Fg, R0=kw["R0"], fsr=kw["fsr"])
+    k0s, Fs = _simus_band(us, kw["T"])
+    sim_args = (ps, speck.amp, pn[:, 0], np.zeros(128), pvs[:, 0], np.zeros(128),
+                [us.tx.width, us.rx.width])
+    sk = dict(k0=k0s, F=Fs, T=kw["T"], fs=kw["fs"], c0=1540.0)
+    sl = np.float32(kw["fs"] / (kw["T"] * 1540.0))
+
+    def simus_method():
+        q1, w1, s1, q2, w2, s2 = simus_prologue(*sim_args, sl, baffle="soft", device="cuda")
+        return gfc.freq_gemm(q1, w1, q2, w2, k0=k0s, F=Fs, s1=s1, s2=s2)
+
+    def gemm_method(bf16):
+        return gemm_pass(plan, ps, speck.amp, pn, R0=kw["R0"], fsr=kw["fsr"], att=0.0,
+                         bf16=bf16, gemm=gfc.freq_gemm, device="cuda")
+
+    entries = {
+        "das_tiled": (lambda: ops.das_tiled(xg, pi, pr, pv, nv, t0, cinv, im_shape=im, **geo),
+                      lambda: dc.das_sum(xg, pi, pr, pv, nv, t0, cinv, im_shape=im, **geo),
+                      "das_sum"),
+        "das_lut_tiled": (lambda: ops.das_lut_tiled(xg, tau_rx, tau_tx, t0, im_shape=im, **lut),
+                          lambda: dc.das_lut_sum(xg, tau_rx, tau_tx, t0, im_shape=im, **lut),
+                          "das_lut_sum"),
+        "bf_adjoint_tiled": (lambda: ops.bf_adjoint_tiled(*adj, fs=fs),
+                             lambda: fc.bf_adjoint_cuda(*adj, fs=fs), "bf_adjoint_cuda"),
+        "freq_gemm_cuda": (lambda: ops.freq_gemm_cuda(plan["phc"], ps, speck.amp, pn, pvs,
+                                                      **gf),
+                           lambda: gemm_method(False), "greens_freq.gemm_pass"),
+        "freq_gemm_cuda bf16": (lambda: ops.freq_gemm_cuda(plan["phc"], ps, speck.amp, pn, pvs,
+                                                           precision="bf16", **gf),
+                                lambda: gemm_method(True), "greens_freq.gemm_pass bf16"),
+        "simus_spectrum_cuda": (lambda: ops.simus_spectrum_cuda(*sim_args, **sk), simus_method,
+                                "simus_prologue + freq_gemm"),
+    }
+
+    def path():
+        out = {name: e[0]() for name, e in entries.items()}
+        out["das_lut_plan"] = ops.das_lut_plan(tau_rx, tau_tx, t0, T=T, N=N, M=M, im_shape=im,
+                                               **lut)(xg)
+        a, st = ops.prep_sharded(pi, pr, pv, nv, t0, cinv, fs=fs, **kg)
+        out["prep_sharded"] = shards_k1(a, st)
+        a, st = ops.prep_lut_sharded(tau_rx, tau_tx, t0, **kl)
+        out["prep_lut_sharded"] = shards_k2(a, st)
+        return out
+
+    got, launches, path_s = _counted(torch, ops, path)
+    want = {"das_k1": 5, "das_lut_k2": 6, "das_layout": 11, "fdbf_adjoint_k4": 1,
+            "greens_freq_k3": 1, "greens_freq_k3b": 1, "greens_freq_k3c": 1}
+    assert {k: launches.get(k, 0) for k in want} == want, launches
+    print(f"phase26 the entry points once, counted: {path_s:.3f} s; launches {launches}")
+    rec = {}
+    sub = np.arange(0, n * n, 64)  # every 64th pixel
+    subg = torch.as_tensor(sub, device="cuda")
+    for name, (entry, method, mname) in entries.items():
+        ref = method()
+        same = torch.equal(got[name], ref)
+        e_ms, m_ms = _abba_ms(entry, method, 1 if name.startswith(("bf_", "freq", "simus"))
+                              else 3)
+        kname = ENTRY_KERNELS[name]
+        if name in ("das_tiled", "das_lut_tiled"):
+            pl = (dc.das_sum_plain(xg, pi[sub], pr, pv, nv, t0, cinv, **geo) if name ==
+                  "das_tiled" else dc.das_lut_sum_plain(xg, tau_rx[subg], tau_tx[subg], t0,
+                                                        **lut))
+            a, r = errs[kname].add(got[name][subg], pl, f"phase26 {name}, every 64th pixel")
+            lim = TOL
+        elif name == "bf_adjoint_tiled":
+            pl = bf_adjoint(xa, taur[subg], taur[subg], *adj[3:], fs=fs, precision="bf16")
+            a, r = errs[kname].add(got[name][subg], pl, f"phase26 {name}, every 64th pixel")
+            lim = TOL_BF16
+        else:  # K3: the plain version on 32 bins mid-band
+            bf16 = name.endswith("bf16")
+            if name == "simus_spectrum_cuda":
+                q1, w1, s1, q2, w2, s2 = simus_prologue(*sim_args, sl, baffle="soft",
+                                                        device="cuda")
+                k0, F, dirs = k0s, Fs, dict(s1=s1, s2=s2)
+            else:
+                q1, w1, q2, w2 = prologue(plan["phc"], ps, speck.amp, pn, pvs, R0=kw["R0"],
+                                          fsr=kw["fsr"], device="cuda")
+                k0, F, dirs = plan["k0"], Fg, {}
+            f0 = F // 2
+            pl = gfc.freq_gemm_plain(q1, w1, q2, w2, k0=k0 + f0, F=32, bf16=bf16, **dirs)
+            a, r = errs[kname].add(got[name][f0:f0 + 32], pl, f"phase26 {name}, 32 bins")
+            lim = TOL_K3B if bf16 else TOL
+            del q1, w1, q2, w2
+        rec[name] = dict(method=mname, ms=e_ms, method_ms=m_ms, equal_to_method=same,
+                         max_abs_err=a, rel=r, kernel=kname)
+        print(f"phase26 {name}: {e_ms:.3f} ms vs {mname} {m_ms:.3f} ms "
+              f"({100 * (e_ms / m_ms - 1):+.2f} %); equal to it bit for bit: {same}; vs plain "
+              f"max_abs_err={a:.3e} rel={r:.3e} (limit {lim:.0e})")
+        assert same, name
+        assert r < lim, (name, r)
+        del ref, pl
+    # the LUT plan: built once, applied; the shard preps beside the mesh plans
+    pm = ops.das_lut_plan(tau_rx, tau_tx, t0, T=T, N=N, M=M, im_shape=im, **lut)
+    assert torch.equal(got["das_lut_plan"], got["das_lut_tiled"])
+    e_ms, m_ms = _abba_ms(lambda: pm(xg), lambda: dc.das_lut_sum(xg, tau_rx, tau_tx, t0,
+                                                                  im_shape=im, **lut), 3)
+    b_ms = _ms(lambda: ops.das_lut_plan(tau_rx, tau_tx, t0, T=T, N=N, M=M, im_shape=im,
+                                        **lut), 3)
+    rec["das_lut_plan"] = dict(method="das_lut_sum", ms=e_ms, method_ms=m_ms, build_ms=b_ms,
+                               equal_to_method=True, kernel="das_lut_k2")
+    print(f"phase26 das_lut_plan: apply {e_ms:.3f} ms vs das_lut_sum {m_ms:.3f} ms "
+          f"({100 * (e_ms / m_ms - 1):+.2f} %); build {b_ms:.3f} ms; equal to das_lut_tiled")
+    for name, prep, shards, ref, sharded in (
+            ("prep_sharded", lambda: ops.prep_sharded(pi, pr, pv, nv, t0, cinv, fs=fs, **kg),
+             shards_k1, got["das_tiled"],
+             lambda: parallel.das_sharded_pallas(mesh, xg, pi, pr, pv, nv, t0, cinv,
+                                                 im_shape=im, **geo)),
+            ("prep_lut_sharded", lambda: ops.prep_lut_sharded(tau_rx, tau_tx, t0, **kl),
+             shards_k2, got["das_lut_tiled"],
+             lambda: parallel.das_lut_sharded_pallas(mesh, xg, tau_rx, tau_tx, t0,
+                                                     im_shape=im, **lut))):
+        a, r = _vs(got[name], ref, f"phase26 {name}")
+        mesh_img = sharded()
+        am, rm = _vs(got[name], mesh_img, f"phase26 {name} vs the mesh")
+        _, p_s = _sync_s(torch, prep)
+        e_ms, m_ms = _abba_ms(lambda: shards(*prep()), sharded, 1)
+        rec[name] = dict(method="the mesh call on [cuda:0] x 4", ms=e_ms, method_ms=m_ms,
+                         prep_ms=p_s * 1e3, vs_single_rel=r, vs_mesh_rel=rm,
+                         kernel=ENTRY_KERNELS[name])
+        print(f"phase26 {name} (2 x 2) + its shards' launches, summed: {e_ms:.3f} ms vs the "
+              f"mesh call {m_ms:.3f} ms ({100 * (e_ms / m_ms - 1):+.2f} %); the prep alone "
+              f"{p_s * 1e3:.3f} ms; vs the single call rel {r:.3e}, vs the mesh rel {rm:.3e}")
+        assert r < TOL and rm < TOL, (name, r, rm)
+        del mesh_img
+    assert self_c0(us) == float(us.seq.c0) == 1540.0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase26 self_c0 {self_c0(us)!r}; the phase {rec['phase_s']:.3f} s")
+    del got, xg, xa, taur, tau_rx, tau_tx
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def _k3_library(torch, gfc, ops, g, bf16):
     """The yardstick of K3 on the bins of ``g``: one batched PyTorch GEMM of
     the plain version's operands (built outside the timing), in bf16 on the
@@ -3791,6 +4024,8 @@ def main():
     print("slice 13 record: " + json.dumps({"mesh": mesh_rec}))
     bench_launches, bench_rec = phase25(torch, ops, root, k1_ms["cubic"], k1_check, errs)
     print("slice 14 record: " + json.dumps({"bench": bench_rec}))
+    entry_launches, entry_rec = phase26(torch, qt, ops, errs)
+    print("slice 15 record: " + json.dumps({"entry_points": entry_rec}))
     assert "jax" not in sys.modules
     # the launches in the run of the main path each kernel is on: the FSA
     # sim->image path (phase 3) for K1 and K3, the plane-wave demo path
@@ -3954,7 +4189,12 @@ def main():
             "of the card)" if name in mesh_launches else "") + (
             f"; launches also {bench_launches[name]} on the bench path (phase 25, "
             "qups_tpu_torch.bench and .benches; held to the plain version there at the "
-            "bench's shapes)" if bench_launches.get(name) else "")}
+            "bench's shapes)" if bench_launches.get(name) else "") + (
+            f"; launches also {entry_launches[name]} on the JAX-named entry points (phase 26)"
+            if entry_launches.get(name) else ""),
+        "entry_points": [dict(name=e, ms=v["ms"], method=v["method"],
+                              method_ms=v["method_ms"]) for e, v in entry_rec.items()
+                         if isinstance(v, dict) and v["kernel"] == name]}
         for name, src, rep, ms, pms, b, lib, at in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 
 _CLASSES = (
-    "Waveform", "Transducer", "TransducerArray", "TransducerConvex",
+    "Fused", "Waveform", "Transducer", "TransducerArray", "TransducerConvex",
     "TransducerMatrix", "TransducerGeneric", "Sequence", "SequenceRadial",
     "SequenceGeneric", "ScanCartesian", "ScanPolar", "ScanSpherical",
     "ScanGeneric", "Scatterers", "ChannelData", "UltrasoundSystem", "Medium",
@@ -40,13 +40,14 @@ def _value(v, memo):
 def from_reference(obj, _memo=None):
     """The port's counterpart of ``obj``, a ``qups_tpu`` ``Transducer*``,
     ``Sequence*``, ``Scan*``, ``Scatterers``, ``Waveform``, ``ChannelData``,
-    ``Medium`` or ``UltrasoundSystem``. Shared sub-objects stay shared (a system whose
-    ``tx is rx`` keeps that). A ``ChannelData``'s traces land on the CPU.
-    Any sequence type (the FC sequence of ``calc_hp`` among them) and any
-    waveform (its function is carried as it is, a complex pulse too) come
-    across, and so does a ``Medium``'s tuple of perturbation regions, its
-    mask and value callables carried as they are (host numpy in both
-    packages).
+    ``Medium``, ``UltrasoundSystem`` or ``Fused`` apodization descriptor (its
+    kind and parameters, an array parameter such as ``lat_tx`` as numpy).
+    Shared sub-objects stay shared (a system whose ``tx is rx`` keeps that).
+    A ``ChannelData``'s traces land on the CPU. Any sequence type (the FC
+    sequence of ``calc_hp`` among them) and any waveform (its function is
+    carried as it is, a complex pulse too) come across, and so does a
+    ``Medium``'s tuple of perturbation regions, its mask and value
+    callables carried as they are (host numpy in both packages).
 
     Example:
         import qups_tpu, qups_tpu_torch
@@ -58,6 +59,9 @@ def from_reference(obj, _memo=None):
     if id(obj) in memo:
         return memo[id(obj)]
     cls = _counterpart(obj)
+    if cls.__name__ == "Fused":  # its fields are (kind, params); it takes (kind, **params)
+        out = memo[id(obj)] = cls(obj.kind, **{k: _value(v, memo) for k, v in obj.params})
+        return out
     kw = {f.name: _value(getattr(obj, f.name), memo)
           for f in dataclasses.fields(obj) if f.init}
     out = cls(**kw)

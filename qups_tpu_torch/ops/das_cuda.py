@@ -62,6 +62,16 @@ to float32 (``das_keep_acc16.cu`` and its twin for float32 traces).
 plain versions apply the same rounding (:func:`round_taps`) and the scale
 per term, as the keep kernel applies it (the summed kernels apply it once
 per transmit and chunk of receivers: the same up to float32 rounding).
+
+The TPU package's kernel-level entry points have counterparts here under
+their own names and arguments, on top of :func:`das_sum` and
+:func:`das_lut_sum`: :func:`das_tiled` (K1), :func:`das_lut_plan` and
+:func:`das_lut_tiled` (K2), and :func:`prep_sharded` /
+:func:`prep_lut_sharded`, the operands of each shard of an (rx, tx) grid,
+which :mod:`qups_tpu_torch.parallel.mesh` launches. They run on the CUDA
+device unless given ``device="cpu"`` (the plain versions), and raise
+``ValueError`` for the TPU package's transfer contracts: ``out='ri'``,
+``interpret=True`` and uint16 wire-format traces.
 """
 from __future__ import annotations
 
@@ -77,8 +87,8 @@ import torch
 
 from . import _nvcc
 from .das import TX_MODELS, _lift5, das, das_lut, rx_distance
-from .interp import METHODS
-from ..utils.backend import as_f32, is_cuda
+from .interp import METHODS, fft_upsample
+from ..utils.backend import as_f32, default_device, is_cuda, refuse_tpu_contracts, tensor_on
 
 LAUNCHES = 0  # K1 launches in this process
 LUT_LAUNCHES = 0  # K2 launches in this process
@@ -1041,3 +1051,240 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
 
     _launch_frames(x, method, fmod, launch, precision=precision, scale=scale)
     return out.view((I, 1, 1) + fd)
+
+
+# ------------------------------------------- the TPU package's entry points
+def _cubic2x(x: torch.Tensor, fs: float, method: str):
+    """'cubic2x': the linear sampler on the traces upsampled 2x, band-limited
+    (``fft_upsample``), at 2 fs, as the TPU package's ``_upsample2x_any``."""
+    if method != "cubic2x":
+        return x, fs, method
+    return fft_upsample(x, 2, axis=0), float(fs) * 2.0, "linear"
+
+
+def das_tiled(x, pi, pr, pv, nv, t0, cinv, *, fs: float, tx_model: str = "virtual",
+              method: str = "linear", fmod: float = 0.0, im_shape=None, out: str = "complex",
+              apod=(), keep_rx: bool = False, keep_tx: bool = False, lat=None,
+              interpret: bool = False, orientations=None, precision: str = "f32",
+              device=None) -> torch.Tensor:
+    """The counterpart of ``qups_tpu.ops.das_pallas.das_tiled``: the DAS
+    image of traces ``x (T, N, M, *F)`` on K1 (summed; K1(b) with frames or
+    ``fmod``; K1(c) and (d) with keep modes or ``apod``; K1(e) at a reduced
+    ``precision``), through :func:`das_sum`, on ``device`` (default the
+    CUDA device, raising without one; ``device="cpu"`` runs the plain
+    version). ``x`` may be numpy, a JAX array or a tensor on any device.
+
+    Arguments as the JAX function's: ``method`` 'nearest' | 'linear'
+    (default) | 'cubic' | 'lanczos3' | 'cubic2x'; ``precision`` 'f32' |
+    'bf16pair' | 'bf16' | 'i8x4'; ``apod`` :class:`Fused` descriptors (a
+    JAX one through :func:`qups_tpu_torch.convert.from_reference`) and, as
+    :func:`das_sum` takes them, dense arrays; ``lat``, ``orientations`` for
+    them. Returns (I, 1|N, 1|M, *F), complex64 for complex traces or
+    ``fmod``. ``out='ri'``, ``interpret=True`` and uint16 traces raise
+    ``ValueError``.
+
+    Where the JAX function is at fault, this one follows the reference
+    (ROADMAP Queue 3): a ``Fused`` transmit kind with ``lat_tx`` works
+    (JAX raises ``NameError``, ``das_pallas.py:2557``); the 'i8x4' scale is
+    taken from the traces' values (JAX takes it before the uint16 decode,
+    ``:2471-2479``); ``tol`` and ``dlat`` are in the scan's lateral units
+    (JAX compares them with lateral positions in seconds on a cartesian
+    scan, ``:124-131``, ``:2189-2192``).
+
+    Example:
+        import numpy as np
+        import torch
+        from qups_tpu_torch.ops.das import das
+        from qups_tpu_torch.ops.das_cuda import das_tiled
+        rng = np.random.default_rng(0)
+        T, N, M = 256, 16, 4
+        x = rng.standard_normal((T, N, M)).astype(np.float32)
+        Z, X = np.meshgrid(np.linspace(5e-3, 45e-3, 16),
+                           np.linspace(-12e-3, 12e-3, 128), indexing="ij")
+        pi = np.stack([X.ravel(), 0 * X.ravel(), Z.ravel()], -1)
+        pr = np.stack([np.linspace(-12e-3, 12e-3, N), np.zeros(N),
+                       np.zeros(N)], -1).astype(np.float32)
+        pv = np.zeros((M, 3), np.float32)
+        nv = np.tile([0.0, 0.0, 1.0], (M, 1)).astype(np.float32)
+        t0 = np.zeros(M, np.float32)
+        img = das_tiled(x, pi.astype(np.float32), pr, pv, nv, t0, 1 / 1540.0,
+                        fs=4e6, tx_model="plane", method="cubic",
+                        im_shape=(16, 128, 1), device="cpu")
+        ref = das(torch.as_tensor(x), pi, pr, pv, nv, t0, 1 / 1540.0,
+                  fs=4e6, tx_model="plane", method="cubic")
+        assert float((img - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+    """
+    refuse_tpu_contracts(out, interpret)
+    x, fs, method = _cubic2x(tensor_on(x, device), fs, method)
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected {METHODS} or 'cubic2x'")
+    return das_sum(x, pi, pr, pv, nv, t0, cinv, fs=fs, tx_model=tx_model, method=method,
+                   fmod=fmod, apod=apod, keep_rx=keep_rx, keep_tx=keep_tx,
+                   im_shape=im_shape, orientations=orientations, lat=lat,
+                   precision=precision)
+
+
+def das_lut_plan(tau_rx, tau_tx, t0, *, fs: float, T: int, N: int, M: int,
+                 Fn: Optional[int] = None, cplx: bool = False, im_shape=None,
+                 out: str = "complex", keep_rx: bool = False, keep_tx: bool = False,
+                 fmod: float = 0.0, method: str = "linear", interpret: bool = False,
+                 precision: str = "f32", device=None):
+    """The counterpart of ``qups_tpu.ops.das_pallas.das_lut_plan``: a
+    reusable LUT DAS on K2. The delay tables ``tau_rx (I, N)``, ``tau_tx (I,
+    M)`` [s] (numpy, JAX arrays or tensors) and ``t0`` are uploaded to
+    ``device`` (default the CUDA device; ``device="cpu"`` for the plain
+    version) once, as float32, and the sampler, keep modes, ``fmod`` and
+    ``precision`` ('f32', 'bf16pair', 'i8x4': one scale per call) are
+    checked once; the returned ``apply(x)`` beamforms traces ``(T, N, M)``
+    (``Fn`` None) or ``(T, N, M, *F)`` with ``prod(F) == Fn`` through
+    :func:`das_lut_sum` against them, any number of times. Complex traces
+    need ``cplx=True``; real ones with ``cplx=True`` are taken as complex.
+    Returns (I, 1|N, 1|M, *F). ``out='ri'`` and ``interpret=True`` raise
+    ``ValueError``. The traces' layout depends on the traces, so each call
+    writes its own (the layout kernel)."""
+    refuse_tpu_contracts(out, interpret)
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected {METHODS}")
+    check_precision(precision, method, lut=True)
+    dev = default_device(device)
+    taur, taut = (as_f32(a, dev).contiguous() for a in (tau_rx, tau_tx))
+    I = taur.shape[0]
+    if tuple(taur.shape) != (I, N) or tuple(taut.shape) != (I, M):
+        raise ValueError(f"tables {tuple(taur.shape)}, {tuple(taut.shape)} do not match "
+                         f"N = {N}, M = {M}")
+    t0d = torch.as_tensor(tx_t0(t0, M), device=dev)
+    im_shape = _im_shape(im_shape, I)
+
+    def apply(x) -> torch.Tensor:
+        """The plan's image of traces ``x``."""
+        x = tensor_on(x, dev)
+        fd = tuple(x.shape[3:])
+        if tuple(x.shape[:3]) != (T, N, M) or (int(np.prod(fd)) if fd else None) != Fn:
+            raise ValueError(f"traces {tuple(x.shape)} for a plan of (T, N, M) = {(T, N, M)}"
+                             f", Fn = {Fn}")
+        if x.is_complex() and not cplx:
+            raise ValueError("complex traces for a plan of real ones (cplx=False)")
+        x = x.to(torch.complex64) if cplx else x
+        return das_lut_sum(x, taur, taut, t0d, fs=fs, method=method, fmod=fmod,
+                           keep_rx=keep_rx, keep_tx=keep_tx, im_shape=im_shape,
+                           precision=precision)
+
+    return apply
+
+
+def das_lut_tiled(x, tau_rx, tau_tx, t0, *, fs: float, im_shape=None, out: str = "complex",
+                  keep_rx: bool = False, keep_tx: bool = False, fmod: float = 0.0,
+                  method: str = "linear", interpret: bool = False, precision: str = "f32",
+                  device=None) -> torch.Tensor:
+    """The counterpart of ``qups_tpu.ops.das_pallas.das_lut_tiled``: the
+    LUT DAS image of traces ``x (T, N, M, *F)`` on K2, :func:`das_lut_plan`
+    applied once (``method='cubic2x'`` too: linear on the traces upsampled
+    2x). Returns (I, 1|N, 1|M, *F) on ``device`` (default the CUDA
+    device)."""
+    refuse_tpu_contracts(out, interpret)
+    x, fs, method = _cubic2x(tensor_on(x, device), fs, method)
+    if x.ndim < 3:
+        raise ValueError(f"traces (T, N, M, *F), got {tuple(x.shape)}")
+    T, N, M = x.shape[:3]
+    fd = tuple(x.shape[3:])
+    plan = das_lut_plan(tau_rx, tau_tx, t0, fs=fs, T=T, N=N, M=M,
+                        Fn=int(np.prod(fd)) if fd else None, cplx=x.is_complex(),
+                        im_shape=im_shape, keep_rx=keep_rx, keep_tx=keep_tx, fmod=fmod,
+                        method=method, precision=precision, device=x.device)
+    return plan(x)
+
+
+def _shard_widths(N: int, M: int, nrx: int, ntx: int) -> Tuple[int, int]:
+    """The TPU package's kernel shard widths: ``ceil(N / (nrx 8)) 8``
+    receivers, ``ceil(M / ntx)`` transmits."""
+    return -(-N // (nrx * 8)) * 8, -(-M // ntx)
+
+
+def prep_sharded(pi, pr, pv, nv, t0, cinv, *, fs: float, T: int, tx_model: str, im_shape,
+                 nrx: int = 1, ntx: int = 1, method: str = "linear", pair: bool = False,
+                 apod=(), orientations=None, lat=None, nch: int = 1, device=None):
+    """The counterpart of ``qups_tpu.ops.das_pallas.prep_sharded``: K1's
+    operands for each shard of an (``nrx``, ``ntx``) grid of receivers and
+    transmits, stacked along a leading shard axis on ``device`` (default the
+    CUDA device). Shard r takes receivers ``[r Nsh, (r + 1) Nsh)`` and shard
+    t transmits ``[t Msh, (t + 1) Msh)``, with the JAX widths ``Nsh =
+    ceil(N / (nrx 8)) 8`` and ``Msh = ceil(M / ntx)``; past the last element
+    the geometry, ``t0``, orientations and ``lat_tx`` repeat the edge, and
+    the caller pads the traces to (T, nrx Nsh, ntx Msh) with zeros. Shard
+    (r, t)'s image is :func:`das_sum` of its block of traces with ``pi``,
+    ``pr[r]``, ``pv[t]``, ``nv[t]``, ``t0[t]``, ``cinv``, ``orientations =
+    ori[r]``, ``lat`` and ``apod[r, t]``; the sum over the shards is the
+    image (:func:`qups_tpu_torch.parallel.das_sharded_pallas_plan`).
+
+    Returns ``(arrays, statics)``: arrays ``pi`` (I, 3), ``pr`` (nrx, Nsh,
+    3), ``ori`` (nrx, 2, Nsh) or None, ``pv``, ``nv`` (ntx, Msh, 3), ``t0``
+    (ntx, Msh), ``lat`` (I,) or None, all float32, and ``apod`` {(r, t):
+    the shard's apodization: :class:`Fused` with a per-transmit ``lat_tx``
+    sliced to the shard, dense arrays on ``device`` sliced on their N and M
+    axes}; statics ``Nsh``, ``Msh``, ``nrx``, ``ntx``, ``N``, ``M``, ``T``,
+    ``I``, ``im_shape``, ``fs``, ``cinv``, ``tx_model``, ``method``. The
+    positions stay unscaled and ``t0`` unshifted (the TPU package folds
+    ``cinv`` into them, and 1/fs into t0 for the 4-tap samplers); its
+    window plans and tiling (``boxes``, ``MC``, ``NC``, ``Tp``, ...) have no
+    counterpart, and ``pair`` and ``nch``, which tune them, are accepted
+    and ignored."""
+    from ..parallel.mesh import _rows, _shard_apod, _take
+
+    dev = default_device(device)
+    pi, pr, pv, nv = (as_f32(a, dev).reshape(-1, 3) for a in (pi, pr, pv, nv))
+    N, M, I = pr.shape[0], pv.shape[0], pi.shape[0]
+    if nv.shape[0] != M:
+        raise ValueError(f"{nv.shape[0]} transmit directions for {M} transmits")
+    Nsh, Msh = _shard_widths(N, M, nrx, ntx)
+    t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
+    ori = None if orientations is None else as_f32(orientations, dev).reshape(2, N)
+    rows = [_rows(r, Nsh, N) for r in range(nrx)]
+    cols = [_rows(t, Msh, M) for t in range(ntx)]
+    apod = _apod_tuple(apod)
+    arrays = dict(
+        pi=pi, pr=torch.stack([_take(pr, ir, 0) for ir in rows]),
+        ori=None if ori is None else torch.stack([_take(ori, ir, 1) for ir in rows]),
+        pv=torch.stack([_take(pv, it, 0) for it in cols]),
+        nv=torch.stack([_take(nv, it, 0) for it in cols]),
+        t0=torch.stack([_take(t0, it, 0) for it in cols]),
+        lat=None if lat is None else as_f32(lat, dev).reshape(-1),
+        apod={(r, t): tuple(a if isinstance(a, Fused) else as_f32(a, dev)
+                            for a in (_shard_apod(a, ir, it, N, M) for a in apod))
+              for r, ir in enumerate(rows) for t, it in enumerate(cols)})
+    statics = dict(Nsh=Nsh, Msh=Msh, nrx=nrx, ntx=ntx, N=N, M=M, T=T, I=I,
+                   im_shape=_im_shape(im_shape, I), fs=fs,
+                   cinv=float(np.asarray(cinv, np.float32).reshape(())), tx_model=tx_model,
+                   method=method)
+    return arrays, statics
+
+
+def prep_lut_sharded(tau_rx, tau_tx, t0, *, fs: float, T: int, im_shape, nrx: int = 1,
+                     ntx: int = 1, method: str = "linear", pair: bool = False, nch: int = 1,
+                     device=None):
+    """The counterpart of ``qups_tpu.ops.das_pallas.prep_lut_sharded``:
+    K2's operands for each shard of an (``nrx``, ``ntx``) grid, stacked on
+    ``device`` (default the CUDA device), with :func:`prep_sharded`'s
+    widths and edge padding: arrays ``taur`` (nrx, I, Nsh), ``taut`` (ntx,
+    I, Msh), ``t0`` (ntx, Msh), float32; statics ``Nsh``, ``Msh``, ``nrx``,
+    ``ntx``, ``N``, ``M``, ``T``, ``I``, ``im_shape``, ``fs``, ``method``.
+    Shard (r, t)'s image is :func:`das_lut_sum` of its block of traces with
+    ``taur[r]``, ``taut[t]``, ``t0[t]``. The tables keep the port's (I, E)
+    order (the TPU package's are (E, I1p, I2p) tiles) and ``t0`` is
+    unshifted; ``pair`` and ``nch`` are accepted and ignored."""
+    from ..parallel.mesh import _rows, _take
+
+    dev = default_device(device)
+    taur, taut = (as_f32(a, dev) for a in (tau_rx, tau_tx))
+    I, N, M = taur.shape[0], taur.shape[1], taut.shape[1]
+    if taur.ndim != 2 or tuple(taut.shape) != (I, M):
+        raise ValueError(f"tables {tuple(taur.shape)}, {tuple(taut.shape)}: expected (I, N), "
+                         "(I, M)")
+    Nsh, Msh = _shard_widths(N, M, nrx, ntx)
+    t0 = torch.as_tensor(tx_t0(t0, M), device=dev)
+    cols = [_rows(t, Msh, M) for t in range(ntx)]
+    arrays = dict(taur=torch.stack([_take(taur, _rows(r, Nsh, N), 1) for r in range(nrx)]),
+                  taut=torch.stack([_take(taut, it, 1) for it in cols]),
+                  t0=torch.stack([_take(t0, it, 0) for it in cols]))
+    statics = dict(Nsh=Nsh, Msh=Msh, nrx=nrx, ntx=ntx, N=N, M=M, T=T, I=I,
+                   im_shape=_im_shape(im_shape, I), fs=fs, method=method)
+    return arrays, statics

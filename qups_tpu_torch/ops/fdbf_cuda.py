@@ -16,7 +16,9 @@ the per-bin spectra into the real-block operands of the tensor-core GEMMs
 :func:`bf_adjoint_cuda` launches the kernel for a CUDA tensor, and raises
 if it cannot be built or launched; it never falls back. For a CPU tensor it
 runs :func:`qups_tpu_torch.ops.fdbf.bf_adjoint`, the plain version.
-``LAUNCHES`` counts the kernel launches.
+``LAUNCHES`` counts the kernel launches. :func:`bf_adjoint_tiled` is the
+counterpart of the TPU package's entry of the same name, on the CUDA
+device unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 
 from . import _nvcc
 from .fdbf import PRECISIONS, adjoint_spectra, bf_adjoint, keep_mode
-from ..utils.backend import as_f32, is_cuda
+from ..utils.backend import as_f32, is_cuda, refuse_tpu_contracts, tensor_on
 
 LAUNCHES = 0  # K4 launches in this process
 
@@ -158,6 +160,27 @@ def bf_adjoint_cuda(x: torch.Tensor, tau_rx, tau_tx, del_tx, apod_tx, t0,
     _, fk, Xk, Sk = spec
     return adjoint_launch(adjoint_operands(fk, Xk, Sk, keep=keep, precision=precision),
                           tau_rx, tau_tx)
+
+
+def bf_adjoint_tiled(x, tau_rx, tau_tx, del_tx, apod_tx, t0, t0_off, fbins, *, fs: float,
+                     fmod: float = 0.0, keep_rx: bool = False, keep_tx: bool = False,
+                     precision: str = "bf16", BI: int = 1024, interpret: bool = False,
+                     device=None) -> torch.Tensor:
+    """The counterpart of ``qups_tpu.ops.fdbf_pallas.bf_adjoint_tiled``: the
+    frequency-domain adjoint image of traces ``x (T, N, V)`` (numpy, a JAX
+    array or a tensor) on K4 through :func:`bf_adjoint_cuda`, on ``device``
+    (default the CUDA device, raising without one; ``device="cpu"`` runs the
+    plain version). Arguments as :func:`qups_tpu_torch.ops.fdbf.bf_adjoint`:
+    ``fbins`` the bins, negative entries padding; keep modes '' (I,),
+    keep_rx (I, N), keep_tx (I, V) complex64; ``precision`` 'bf16' (the
+    default, tensor cores) or 'f32'; any V (keep_rx past a block's shared
+    memory by chunks of conj(Ahat), :func:`rx_chunk`). ``BI``, the TPU
+    kernel's pixel rows a block, is accepted and ignored: K4 picks its own
+    tiles. ``interpret=True`` raises ``ValueError``."""
+    refuse_tpu_contracts(interpret=interpret)
+    return bf_adjoint_cuda(tensor_on(x, device), tau_rx, tau_tx, del_tx, apod_tx, t0, t0_off,
+                           fbins, fs=fs, fmod=fmod, keep_rx=keep_rx, keep_tx=keep_tx,
+                           precision=precision)
 
 
 def adjoint_operands(fk: torch.Tensor, Xk: torch.Tensor, Sk: torch.Tensor, *, keep: str,

@@ -21,6 +21,13 @@ K3(c) the element directivity ``D = sinc(s k)`` from slopes ``s1 (S, N)``,
 :func:`freq_gemm` launches the kernel for CUDA tensors, and raises if the
 kernel cannot be built or launched; it never falls back. For CPU tensors it
 runs :func:`freq_gemm_plain`. ``LAUNCHES`` counts the kernel launches.
+
+The TPU package's entries of this kernel have counterparts here, named as
+the port names its modules (``_pallas`` -> ``_cuda``), with their
+arguments: :func:`freq_gemm_cuda` is ``freq_gemm_pallas``
+(``greens_freq_pallas.py:205``) and :func:`simus_spectrum_cuda` is
+``simus_spectrum_pallas`` (``:282``). They run on the CUDA device unless
+given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from . import _nvcc
-from ..utils.backend import is_cuda
+from ..utils.backend import as_f32, default_device, is_cuda
 
 LAUNCHES = 0  # K3 launches in this process
 # the same launches by sub-slice: 'a' float32, 'b' bf16 operands, 'c' the
@@ -158,3 +165,75 @@ def freq_gemm(q1: torch.Tensor, w1: torch.Tensor, q2: torch.Tensor,
     LAUNCHES += 1
     VARIANT_LAUNCHES[("b" if bf16 else "") + ("c" if dirs else "") or "a"] += 1
     return out
+
+
+def _gemm_precision(precision: str) -> bool:
+    """``bf16`` of :func:`freq_gemm` for a JAX ``precision``."""
+    from .greens_freq import PRECISIONS
+
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected {PRECISIONS}")
+    return precision == "bf16"
+
+
+def freq_gemm_cuda(phc, ps, amp, pn, pv, *, L: int, k0: int, F: int, R0: float, fsr: float,
+                   precision: str = "highest", B: int = 8, SC: int = 512,
+                   interpret: bool = False, att: float = 0.0, device=None) -> torch.Tensor:
+    """The counterpart of ``qups_tpu.ops.greens_freq_pallas.freq_gemm_pallas``:
+    the geometry spectrum ``G (F, N, M)`` for bins ``k0 .. k0+F-1``, with
+    ``G[k, n, m] = sum_s w1 w2 e^{-i k phc (r1 + r2)}``, ``w1 = 1 / max(r1,
+    R0)`` (1 for R0 = 0) and ``w2 = amp / fsr`` times the same of r2, the
+    distances of the scatterers ``ps (S, 3)`` to the receivers ``pn`` and
+    the transmitters ``pv``, (E, 3) or (E, Esub, 3) with their sub-elements
+    summed (the JAX function takes one sub-element). ``phc = 2 pi cinv fs /
+    L``; ``att``: frequency-linear attenuation in nepers per metre per bin.
+    ``precision`` 'highest' | 'default' (float32) or 'bf16' (K3(b): the
+    operands rounded to bfloat16, float32 sums).
+
+    Its prologue (:func:`qups_tpu_torch.ops.greens_freq.prologue`) and K3
+    run on ``device`` (default the CUDA device, raising without one;
+    ``device="cpu"`` runs the plain version). Returns complex64 (F, N, M);
+    the JAX function returns its (F, N, M, 2) real/imaginary pair
+    (``torch.view_as_real`` gives that). ``L`` (in ``phc`` already), ``B``,
+    ``SC`` (the TPU kernel's bin and scatterer tiles) and ``interpret`` are
+    accepted and ignored."""
+    from .greens_freq import prologue
+
+    bf16 = _gemm_precision(precision)
+    dev = default_device(device)
+    pn, pv = (as_f32(a, dev) for a in (pn, pv))
+    pn, pv = (a.reshape(a.shape[0], -1, 3) for a in (pn, pv))
+    q1, w1, q2, w2 = prologue(phc, ps, amp, pn, pv, R0=float(R0), fsr=float(fsr), device=dev)
+    # q = (phc / 2 pi) r, so the decay exp(-att k r) is exp(-(att 2 pi / phc) k q)
+    att_q = float(att) * _TWO_PI / float(phc) if att else 0.0
+    return freq_gemm(q1, w1, q2, w2, k0=int(k0), F=int(F), att=att_q, bf16=bf16)
+
+
+def simus_spectrum_cuda(ps, amp, pn, nn_az, pv, nv_az, widths, *, k0: int, F: int, T: int,
+                        fs: float, c0: float, baffle: str = "soft", precision: str = "highest",
+                        SC: int = 512, interpret: bool = False, att: float = 0.0,
+                        device=None) -> torch.Tensor:
+    """The counterpart of
+    ``qups_tpu.ops.greens_freq_pallas.simus_spectrum_pallas``: the
+    frequency-domain point-scatterer spectrum with rectangular-element sinc
+    directivity (the SIMUS analog of :mod:`qups_tpu_torch.ops.simus`),
+    ``X (F, N, E)`` complex64 for bins ``k0 .. k0+F-1`` of a ``T``-sample
+    rfft at ``fs``, through its prologue
+    (:func:`qups_tpu_torch.ops.simus.simus_prologue`) and K3(c). ``ps (S,
+    3)``, ``amp (S,)`` the scatterers; ``pn (N, 3)``, ``nn_az (N,)`` the
+    receivers and their azimuths [rad]; ``pv (E, 3)``, ``nv_az (E,)`` the
+    transmitters; ``widths`` (tx, rx) element widths; ``baffle`` 'soft'
+    (the obliquity) or 'hard'; ``att`` nepers per metre per bin;
+    ``precision`` as :func:`freq_gemm_cuda`. On ``device`` (default the CUDA
+    device, raising without one; ``device="cpu"`` runs the plain version).
+    ``SC`` and ``interpret`` are accepted and ignored."""
+    from .simus import simus_prologue
+
+    bf16 = _gemm_precision(precision)
+    dev = default_device(device)
+    sl = np.float32(fs / (T * c0))  # phase slope (/ 2 pi) and sinc slope per bin
+    q1, w1, s1, q2, w2, s2 = simus_prologue(ps, amp, pn, nn_az, pv, nv_az, widths, sl,
+                                            baffle=baffle, device=dev)
+    # q = sl r, so the per-bin decay exp(-att r) is exp(-(att / sl) q)
+    att_q = float(att) / float(sl) if att else 0.0
+    return freq_gemm(q1, w1, q2, w2, k0=int(k0), F=int(F), att=att_q, s1=s1, s2=s2, bf16=bf16)

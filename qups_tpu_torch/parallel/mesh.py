@@ -40,7 +40,7 @@ import torch
 
 from ..ops import fdbf_cuda
 from ..ops.das import das
-from ..ops.das_cuda import Fused, das_lut_sum, das_sum, tx_t0
+from ..ops.das_cuda import Fused, das_lut_sum, das_sum, prep_lut_sharded, prep_sharded
 from ..ops.fdbf import (PRECISIONS as ADJ_PRECISIONS, adjoint_spectra, adjoint_sum,
                         fftfreq32, focus_tx_freq, keep_mode, refocus_apply, refocus_op,
                         stolt_migration)
@@ -448,8 +448,8 @@ def _shard_apod(a, ir: np.ndarray, it: np.ndarray, N: int, M: int):
 def _plan(mesh: Mesh, name: str, *, T, N, M, Fn, I, im_shape, keep_rx, keep_tx, post, lags,
           precision, per_shard, launch):
     """The common part of the sharded kernel plans: the checks, the shard
-    grid (rx shards of 8-channel multiples), each shard's operands made and
-    uploaded once by ``per_shard(r, ir, t, it, dev)``, and ``apply(x)``,
+    grid (rx shards of 8-channel multiples), each shard's operands on its
+    device once by ``per_shard(r, t, dev)``, and ``apply(x)``,
     which launches ``launch(xs, ops)`` on every shard and then reduces."""
     _check(mesh)
     keep_rx, lag_list = _plan_checks(name, precision, keep_rx, keep_tx, post, lags, N)
@@ -462,7 +462,7 @@ def _plan(mesh: Mesh, name: str, *, T, N, M, Fn, I, im_shape, keep_rx, keep_tx, 
     for f, r, t in g.shards():
         dev = g.device(f, r, t)
         if (r, t, dev) not in ops:  # frame shards on one device share them
-            ops[r, t, dev] = per_shard(r, _rows(r, g.Nsh, N), t, _rows(t, g.Msh, M), dev)
+            ops[r, t, dev] = per_shard(r, t, dev)
 
     def apply(x) -> torch.Tensor:
         """Beamform traces ``(T, N, M[, *F])``, real or complex, numpy or a
@@ -493,8 +493,9 @@ def das_sharded_pallas_plan(mesh: Mesh, pi, pr, pv, nv, t0, cinv, *,
                             apod=(), orientations=None, lat=None,
                             keep_rx: bool = False, keep_tx: bool = False,
                             fmod: float = 0.0, post: Optional[str] = None, lags=None):
-    """A reusable sharded DAS on kernel K1: each shard's geometry is sliced
-    and uploaded to its device once, and ``apply(x)`` beamforms traces
+    """A reusable sharded DAS on kernel K1: each shard's operands, from
+    :func:`qups_tpu_torch.ops.das_cuda.prep_sharded` on the mesh's first
+    device, are copied to its device once, and ``apply(x)`` beamforms traces
     ``(T, N, M[, *F])`` (``Fn`` the product of the frame dims, or None)
     through :func:`qups_tpu_torch.ops.das_cuda.das_sum` on every shard
     (K1, K1(b) for IQ data and frames, K1(c) for the keep modes, K1(d) for
@@ -520,27 +521,30 @@ def das_sharded_pallas_plan(mesh: Mesh, pi, pr, pv, nv, t0, cinv, *,
 
     Returns (I, 1|N, 1|M[, *F]), complex64 for complex traces or ``fmod``.
     """
-    cinv = float(np.asarray(cinv, np.float32).reshape(()))
-    t0 = tx_t0(t0, M)
-    I = np.shape(pi)[0]
-    apod = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
-    ori = None if orientations is None else np.asarray(orientations, np.float32).reshape(2, N)
+    _check(mesh)
+    arrays, st = prep_sharded(pi, pr, pv, nv, t0, cinv, fs=fs, T=T, tx_model=tx_model,
+                              im_shape=im_shape, nrx=_size(mesh, "rx"), ntx=_size(mesh, "tx"),
+                              method=method, apod=apod, orientations=orientations, lat=lat,
+                              device=_first(mesh))
+    if (st["N"], st["M"]) != (N, M):
+        raise ValueError(f"geometry of N = {st['N']}, M = {st['M']} for a plan of {(N, M)}")
+    cinv = st["cinv"]
 
-    def per_shard(r, ir, t, it, dev):
-        return dict(
-            pi=as_f32(pi, dev), pr=as_f32(_take(pr, ir, 0), dev),
-            pv=as_f32(_take(pv, it, 0), dev), nv=as_f32(_take(nv, it, 0), dev),
-            t0=as_f32(t0[it], dev), lat=None if lat is None else as_f32(lat, dev),
-            ori=None if ori is None else as_f32(ori[:, ir], dev),
-            apod=tuple(a if isinstance(a, Fused) else as_f32(a, dev)
-                       for a in (_shard_apod(a, ir, it, N, M) for a in apod)))
+    def per_shard(r, t, dev):
+        a = arrays
+        return dict(pi=a["pi"].to(dev), pr=a["pr"][r].to(dev), pv=a["pv"][t].to(dev),
+                    nv=a["nv"][t].to(dev), t0=a["t0"][t].to(dev),
+                    lat=None if a["lat"] is None else a["lat"].to(dev),
+                    ori=None if a["ori"] is None else a["ori"][r].to(dev),
+                    apod=tuple(w if isinstance(w, Fused) else w.to(dev)
+                               for w in a["apod"][r, t]))
 
     def launch(xs, o, **kw):
         return das_sum(xs, o["pi"], o["pr"], o["pv"], o["nv"], o["t0"], cinv, fs=fs,
                        tx_model=tx_model, method=method, fmod=fmod, apod=o["apod"],
                        orientations=o["ori"], lat=o["lat"], **kw)
 
-    return _plan(mesh, "das_sharded_pallas", T=T, N=N, M=M, Fn=Fn, I=I, im_shape=im_shape,
+    return _plan(mesh, "das_sharded_pallas", T=T, N=N, M=M, Fn=Fn, I=st["I"], im_shape=im_shape,
                  keep_rx=keep_rx, keep_tx=keep_tx, post=post, lags=lags,
                  precision=precision, per_shard=per_shard, launch=launch)
 
@@ -593,22 +597,27 @@ def das_lut_sharded_pallas_plan(mesh: Mesh, tau_rx, tau_tx, t0, *,
                                 post: Optional[str] = None, lags=None):
     """A reusable sharded LUT DAS on kernel K2: the delay tables shard with
     their axes, ``tau_rx (I, N)`` over 'rx' and ``tau_tx (I, M)`` over 'tx',
-    each shard's columns sliced and uploaded to its device once; ``apply(x)``
+    each shard's columns (:func:`qups_tpu_torch.ops.das_cuda.prep_lut_sharded`
+    on the mesh's first device) copied to its device once; ``apply(x)``
     runs :func:`qups_tpu_torch.ops.das_cuda.das_lut_sum` (K2, K2(b), K2(c),
     K2(e)) on every shard and reduces as :func:`das_sharded_pallas_plan`
     (``post`` too). :func:`das_lut_sharded_pallas` is the one-shot form."""
-    t0 = tx_t0(t0, M)
-    I = np.shape(tau_rx)[0]
+    _check(mesh)
+    arrays, st = prep_lut_sharded(tau_rx, tau_tx, t0, fs=fs, T=T, im_shape=im_shape,
+                                  nrx=_size(mesh, "rx"), ntx=_size(mesh, "tx"), method=method,
+                                  device=_first(mesh))
+    if (st["N"], st["M"]) != (N, M):
+        raise ValueError(f"tables of N = {st['N']}, M = {st['M']} for a plan of {(N, M)}")
 
-    def per_shard(r, ir, t, it, dev):
-        return dict(taur=as_f32(_take(tau_rx, ir, 1), dev),
-                    taut=as_f32(_take(tau_tx, it, 1), dev), t0=as_f32(t0[it], dev))
+    def per_shard(r, t, dev):
+        return dict(taur=arrays["taur"][r].to(dev), taut=arrays["taut"][t].to(dev),
+                    t0=arrays["t0"][t].to(dev))
 
     def launch(xs, o, **kw):
         return das_lut_sum(xs, o["taur"], o["taut"], o["t0"], fs=fs, method=method, fmod=fmod,
                            **kw)
 
-    return _plan(mesh, "das_lut_sharded_pallas", T=T, N=N, M=M, Fn=Fn, I=I,
+    return _plan(mesh, "das_lut_sharded_pallas", T=T, N=N, M=M, Fn=Fn, I=st["I"],
                  im_shape=im_shape, keep_rx=keep_rx, keep_tx=keep_tx, post=post, lags=lags,
                  precision=precision, per_shard=per_shard, launch=launch)
 

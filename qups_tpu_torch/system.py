@@ -1045,7 +1045,7 @@ class UltrasoundSystem:
         if use_cuda and not data.is_cuda:
             raise ValueError("kernel='cuda' needs the traces on a CUDA device")
         tau_rx, tau_tx = self._adjoint_tables(
-            float(c0 if c0 is not None else self.seq.c0), dev)
+            float(c0 if c0 is not None else self_c0(self)), dev)
         t0_off = np.broadcast_to(self.seq.t0_offset(), (self.seq.num_pulse,))
         del_tx = self.seq.delays(self.tx) + t0_off[None, :]  # (M, V)
         apod_tx = self.seq.apodization(self.tx)             # (M, V)
@@ -1577,6 +1577,13 @@ class UltrasoundSystem:
                 fields.append(fld[crop].transpose(0, 1))
         chd = ChannelData(data=torch.cat(traces, 1).permute(0, 2, 1), fs=fs, t0=t0)  # (T, N, M)
         return (chd, torch.cat(fields)) if want_field else chd
+
+
+def self_c0(us: UltrasoundSystem) -> float:
+    """The sound speed of ``us``'s sequence as a float, the default c0 of
+    ``bfAdjoint``: ``qups_tpu.system.self_c0``. Host arithmetic; nothing on
+    a device."""
+    return float(us.seq.c0)
 
 
 def _element_nodes(xdc: Transducer, el_proj: str, el_sub: int, cgrd: ScanCartesian,

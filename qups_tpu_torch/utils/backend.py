@@ -59,3 +59,32 @@ def to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def tensor_on(x, device=None) -> torch.Tensor:
+    """``x`` (a tensor, numpy, or any array numpy reads, a JAX array among
+    them) as a tensor on ``device`` (None: the CUDA device, raising without
+    one; :func:`default_device`). uint16 arrays, the TPU package's
+    bf16-bits trace wire format, raise ``ValueError``."""
+    dev = default_device(device)
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = torch.as_tensor(a if a.flags.writeable else a.copy())
+    if x.dtype == torch.uint16:
+        raise ValueError("uint16 traces are the TPU package's bf16-bits wire format "
+                         "(_upload_trace; ROADMAP 'Not to port'); pass float32 or complex64")
+    return x.to(dev)
+
+
+def refuse_tpu_contracts(out: str = "complex", interpret: bool = False) -> None:
+    """Raise ``ValueError`` for the TPU package's transfer contracts that the
+    kernel-level entry points take and the port does not (ROADMAP "Not to
+    port"): ``out='ri'`` and ``interpret=True``."""
+    if out == "ri":
+        raise ValueError("out='ri' is the TPU package's real/imaginary transfer contract "
+                         "(ROADMAP 'Not to port'); the port returns complex64")
+    if out != "complex":
+        raise ValueError(f"unknown out {out!r}; expected 'complex'")
+    if interpret:
+        raise ValueError("interpret=True is a Pallas kernel's CPU emulation (ROADMAP 'Not to "
+                         "port'); pass device='cpu' for the plain versions")

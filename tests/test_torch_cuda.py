@@ -27,7 +27,11 @@ card ([cuda:0] * 4: das_sharded_pallas summed, bf16pair, keep_rx and the
 in-mesh coherence, greens_freq_sharded, bf_adjoint_sharded) against their
 single-device calls, each kernel launched once per shard; and the
 benchmark entry points (qups_tpu_torch.bench, .benches) at their small
-sizes. Every test here needs the card and skips without one.
+sizes; and the JAX-named kernel-level entry points (das_tiled,
+das_lut_tiled, das_lut_plan, prep_sharded, prep_lut_sharded,
+bf_adjoint_tiled, freq_gemm_cuda, simus_spectrum_cuda) against the methods
+that make the same launches. Every test here needs the card and skips
+without one.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -1688,3 +1692,70 @@ def test_bench_entries_on_card(card, monkeypatch, capsys):
     assert {r["bench"] for r in lines} == set(benches.BENCHES)
     assert not any("error" in r for r in lines)
     assert all(a > b for a, b in zip(counts(), before)), (counts(), before)
+
+
+@pytest.mark.cuda
+def test_kernel_entry_points_on_card(card):
+    """The JAX-named kernel-level entry points with no device=: numpy
+    inputs go to the card, each launches its kernel once and equals the
+    method that makes the same launch bit for bit (das_tiled / das_sum,
+    das_lut_tiled and das_lut_plan / das_lut_sum, bf_adjoint_tiled /
+    bf_adjoint_cuda, freq_gemm_cuda / freq_gemm on the prologue); the shards
+    of prep_sharded and prep_lut_sharded (2 x 2, 30 receivers: a padded
+    shard) summed within 1e-4 of the single call."""
+    from qups_tpu_torch import ops
+    from qups_tpu_torch.ops.das import delay_tables
+
+    x, pi, pr, pv, nv, t0 = problem("plane", N=30)
+    xg = torch.as_tensor(x, device=card)
+    kw = dict(fs=4e6, method="cubic")
+    before = das_cuda.LAUNCHES
+    got = ops.das_tiled(x, pi, pr, pv, nv, t0, CINV, tx_model="plane", **kw)
+    assert got.is_cuda and das_cuda.LAUNCHES - before == 1
+    ref = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, tx_model="plane", **kw)
+    assert torch.equal(got, ref)
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device=card)
+    before = das_cuda.LUT_LAUNCHES
+    lut = ops.das_lut_tiled(x, tau_rx, tau_tx, t0, **kw)
+    plan = ops.das_lut_plan(tau_rx.cpu().numpy(), tau_tx.cpu().numpy(), t0, T=x.shape[0],
+                            N=30, M=x.shape[2], **kw)
+    assert torch.equal(plan(xg), lut) and das_cuda.LUT_LAUNCHES - before == 2
+    assert torch.equal(lut, das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw))
+    a, st = ops.prep_sharded(pi, pr, pv, nv, t0, CINV, fs=4e6, T=x.shape[0], tx_model="plane",
+                             im_shape=(64, 64, 1), nrx=2, ntx=2, method="cubic")
+    Nsh, Msh = st["Nsh"], st["Msh"]
+    assert (Nsh, Msh) == (16, 4) and a["pr"].is_cuda
+    xp = torch.zeros((x.shape[0], 2 * Nsh, 2 * Msh), device=card)
+    xp[:, :30] = xg
+    img = sum(das_cuda.das_sum(xp[:, r * Nsh:(r + 1) * Nsh, t * Msh:(t + 1) * Msh], a["pi"],
+                               a["pr"][r], a["pv"][t], a["nv"][t], a["t0"][t], st["cinv"],
+                               tx_model="plane", **kw) for r in range(2) for t in range(2))
+    assert float((img - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+    a, st = ops.prep_lut_sharded(tau_rx, tau_tx, t0, fs=4e6, T=x.shape[0],
+                                 im_shape=(64, 64, 1), nrx=2, ntx=2, method="cubic")
+    img = sum(das_cuda.das_lut_sum(xp[:, r * Nsh:(r + 1) * Nsh, t * Msh:(t + 1) * Msh],
+                                   a["taur"][r], a["taut"][t], a["t0"][t], **kw)
+              for r in range(2) for t in range(2))
+    assert float((img - lut).abs().max()) < 1e-4 * float(lut.abs().max())
+    rng = np.random.default_rng(13)
+    args = (rng.standard_normal((256, 30, 8)).astype(np.float32), tau_rx, tau_tx,
+            rng.uniform(0, 1e-7, (8, 8)).astype(np.float32), np.ones((8, 8), np.float32),
+            np.zeros(8, np.float32), np.zeros(8, np.float32), np.arange(20, 60))
+    before = fdbf_cuda.LAUNCHES
+    b = ops.bf_adjoint_tiled(*args, fs=20e6, BI=16)
+    assert b.is_cuda and fdbf_cuda.LAUNCHES - before == 1
+    assert torch.equal(b, fdbf_cuda.bf_adjoint_cuda(torch.as_tensor(args[0], device=card),
+                                                    *args[1:], fs=20e6))
+    ps = np.stack([rng.uniform(-5e-3, 5e-3, 301), np.zeros(301),
+                   rng.uniform(15e-3, 35e-3, 301)], -1).astype(np.float32)
+    amp = rng.standard_normal(301).astype(np.float32)
+    for precision in ("highest", "bf16"):
+        G = ops.freq_gemm_cuda(0.05, ps, amp, pr, pv, L=512, k0=10, F=40, R0=1e-3, fsr=1.0,
+                               precision=precision)
+        q1, w1, q2, w2 = prologue(0.05, ps, amp, pr[:, None], pv[:, None], R0=1e-3, fsr=1.0,
+                                  device=card)
+        assert torch.equal(G, greens_freq_cuda.freq_gemm(q1, w1, q2, w2, k0=10, F=40,
+                                                         bf16=precision == "bf16"))
+    S = ops.simus_spectrum_cuda(ps, amp, pr, np.zeros(30), pr[:8], np.zeros(8),
+                                [2e-4, 2e-4], k0=10, F=40, T=512, fs=20e6, c0=1540.0)
+    assert S.is_cuda and S.shape == (40, 30, 8) and bool(torch.isfinite(S).all())
