@@ -138,18 +138,22 @@ and runs:
    and keep_rx in i8x4 and, on float32 traces, with the bfloat16 kept sums
    of ``QUPS_DAS_ACC16``, each beside the float32 time, the plain version
    on every 64th pixel and its bound;
-19. K4(b): K4 against its plain version at the volumetric path's arrays
-   (N = M = 1024, the volume's tables on every 64th voxel, 16 bins): V =
-   1024 in every keep mode and precision (keep_rx by chunks of
-   conj(Ahat)), keep_rx at V = 300 in one pass and by forced chunks, the
-   chunked launches twice, bit for bit; then the volumetric path
-   unmodified, no ``device=``: a 32 x 32 matrix array (0.3 mm, 3 MHz), FSA
-   over its 1024 elements, 64^3 voxels, 5 targets, ``us.greens`` (K3) and
-   ``us.bfAdjoint(max_bins=64)`` keep '' and keep_rx (K4, V = N = M =
-   1024), launches counted, the PSF in 3-D; each of the path's K4 calls
-   (bf16 keep '' and keep_rx) timed with CUDA events beside its plain
-   version on every 64th voxel and its bound, and the bf16 ``torch.bmm``
-   yardstick of its products;
+19. K4(b): the phasor table kernel against its plain version, and K4
+   against its plain version at the volumetric path's arrays (N = M = 1024,
+   the volume's tables on every 64th voxel, 16 bins): V = 1024 in every
+   keep mode and precision (bf16 on the wide route: phasor tables in device
+   memory, 128-pixel blocks; f32 keep_rx by chunks of conj(Ahat)), keep_rx
+   at V = 300 in f32 in one pass and by forced chunks, in bf16 with the
+   wide route's budget cut to groups of bins and chunks of voxels (bit for
+   bit against one chunk), every call twice, bit for bit; then the
+   volumetric path unmodified, no ``device=``: a 32 x 32 matrix array
+   (0.3 mm, 3 MHz), FSA over its 1024 elements, 64^3 voxels, 5 targets,
+   ``us.greens`` (K3) and ``us.bfAdjoint(max_bins=64)`` keep '' and keep_rx
+   (K4, V = N = M = 1024), launches counted (K4 and the phasor table
+   kernel), the PSF in 3-D; K4 bf16 keep '', keep_rx and keep_tx at the
+   volume timed with CUDA events beside the plain version on every 64th
+   voxel, the bound and its share, and the bf16 ``torch.bmm`` yardstick of
+   the products; the phasor tables' own time;
 20. the eikonal path on the main system (phase 3's), no ``device=``:
    ``us.bfEikonal`` on the default grid (host fast marching, ``msfm``, then
    K2 through ``bfDASLUT``) in a homogeneous medium (the PSF, and each
@@ -431,7 +435,8 @@ def phase0(torch, ops):
     # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
     for name, lib, is_bf16 in (
             ("K3", "greens_freq", lambda f: "ELb1EEEv" in f),
-            ("K4", "fdbf", lambda f: "TcEngine" in f or "TcChunked" in f)):
+            ("K4", "fdbf", lambda f: any(e in f for e in ("TcEngine", "TcChunked",
+                                                          "wide_kernel", "wide_rx_kernel")))):
         path, counts = sass_counts(lib, ("HMMA", "HGMMA"))
         tc = {f: c for f, c in counts.items() if is_bf16(f)}
         other = {f: c for f, c in counts.items() if not is_bf16(f)}
@@ -2297,29 +2302,68 @@ def _adjoint_args(us, chd, max_bins, bins=None):
             sel)
 
 
-def _k4b_parity(torch, fdbf_cuda, us, err):
+def _table_parity(torch, fdbf_cuda, fk, tau, sign, Lp, err, where):
+    """The wide route's phasor table kernel against its plain version on
+    ``tau``: every entry the bf16 rounding of a value within 2^-20 of the
+    plain float32 phasor (``phasor_table_plain`` rounds the accurate one;
+    the kernel's sin and cos come from the special function unit, about
+    2^-21.4 from it), a second launch bit for bit. Returns the share of
+    entries equal to the plain table's."""
+    from qups_tpu_torch.ops.fdbf import phasor
+
+    got = fdbf_cuda.phasor_table(fk, tau, sign, Lp)
+    again = fdbf_cuda.phasor_table(fk, tau, sign, Lp)
+    ref = fdbf_cuda.phasor_table_plain(fk, tau, sign, Lp)
+    torch.cuda.synchronize()
+    err.add(got.float(), ref.float(), where)
+    L = tau.shape[1]
+    g4 = got.reshape(fk.shape[0], -1, Lp, 2)
+    p = torch.stack([torch.view_as_real(phasor(fk[g], tau, sign)) for g in range(fk.shape[0])])
+    eps = 2.0 ** -20
+    lo, hi = (p - eps).to(torch.bfloat16).float(), (p + eps).to(torch.bfloat16).float()
+    k = g4[:, :, :L].float()
+    assert bool(((k >= lo) & (k <= hi)).all()), where
+    assert not bool(g4[:, :, L:].float().abs().any()) and torch.equal(got, again), where
+    return float((got == ref).float().mean())
+
+
+def _k4b_parity(torch, fdbf_cuda, us, err, terr):
     """K4 against its plain version at the volumetric path's arrays (N = M =
     1024 elements, the volume's tables on every 64th voxel), 16 bins of a
-    band: V = 1024 in every keep mode and precision (keep_rx by chunks of
-    conj(Ahat)), keep_rx at V = 300 in one pass and by forced chunks of 128
-    columns; the chunked launches twice, bit for bit. Then the cost of the
-    chunks, keep_rx on every 4th voxel with CUDA events: V = 300 in one pass
-    and in three chunks, V = 1024 in the plan's chunks, wider and narrower.
-    Returns {(V, precision, chunk columns or 0): [ms, ms]}."""
+    band: V = 1024 in every keep mode and precision (bf16 on the wide route:
+    the phasor tables in device memory, 128-pixel blocks; f32 keep_rx by
+    chunks of conj(Ahat)); keep_rx at V = 300 in f32 in one pass and by
+    forced chunks of 128 columns, in bf16 in one chunk of the wide route
+    and with its budget cut to groups of 3 bins, then to one bin and two
+    chunks of voxels (bit for bit against one chunk); every call launched
+    twice, bit for bit. The
+    phasor table kernel against its plain version on these tables. Then the
+    f32 chunks' cost, keep_rx on every 4th voxel with CUDA events: V = 300
+    in one pass and in three chunks, V = 1024 in the plan's chunks and
+    wider. Returns {(V, precision, chunk columns or 0): [ms, ms]}."""
     from qups_tpu_torch.ops.fdbf import bf_adjoint
 
     fs, T = us.fs, 256
     taur, taut = us._adjoint_tables(1540.0, torch.device("cuda"))
     rows = torch.arange(0, us.scan.npix, 64, device="cuda")
     sel = np.arange(60, 76)  # 2.8-3.6 MHz at fs / T = 46.9 kHz
-    plan = fdbf_cuda.rx_chunk
+    fk = torch.as_tensor(sel * np.float32(fs / T), dtype=torch.float32, device="cuda")
+    for sign, tau in ((-1.0, taut), (1.0, taur)):
+        same = _table_parity(torch, fdbf_cuda, fk[:4], tau[rows], sign, 1024, terr,
+                             f"phase19 table sign={sign:+.0f}")
+        print(f"phase19 phasor table kernel vs plain, sign {sign:+.0f}, 4 bins x "
+              f"{rows.numel()} voxels x 1024 elements: within 2^-20 before the bf16 "
+              f"rounding; {100 * same:.4f} % of entries equal the plain table's; "
+              f"max_abs_err={terr.abs:.3e}")
+    plan, budget = fdbf_cuda.rx_chunk, fdbf_cuda.WIDE_BYTES
 
-    def run(args, kw, forced):
+    def run(args, kw, forced, cut=None):
         fdbf_cuda.rx_chunk = plan if forced is None else (lambda *a: forced)
+        fdbf_cuda.WIDE_BYTES = budget if cut is None else cut
         try:
             return fdbf_cuda.bf_adjoint_cuda(*args, **kw)
         finally:
-            fdbf_cuda.rx_chunk = plan
+            fdbf_cuda.rx_chunk, fdbf_cuda.WIDE_BYTES = plan, budget
 
     traces = {}
     for V in (1024, 300):
@@ -2328,15 +2372,27 @@ def _k4b_parity(torch, fdbf_cuda, us, err):
         rest = (del_tx, np.ones((1024, V)), 1e-6, np.zeros(V), sel)
         traces[V] = (x, rest)
         args = (x, taur[rows], taut[rows], *rest)
-        cases = [(k, p, None) for k in ("", "rx", "tx") for p in ("bf16", "f32")] \
-            if V == 1024 else [("rx", p, c) for p in ("bf16", "f32") for c in (None, 128)]
-        for keep, precision, forced in cases:
+        n = rows.numel()
+        per = n * fdbf_cuda.wide_bytes(1024, 1024, V, "rx")  # one bin of all voxels
+        cases = [(k, p, None, None) for k in ("", "rx", "tx") for p in ("bf16", "f32")] \
+            if V == 1024 else [("rx", "f32", None, None), ("rx", "f32", 128, None),
+                               ("rx", "bf16", None, None), ("rx", "bf16", None, 3 * per),
+                               ("rx", "bf16", None, per // 2)]
+        whole = None
+        for keep, precision, forced, cut in cases:
             kw = dict(fs=fs, keep_rx=keep == "rx", keep_tx=keep == "tx", precision=precision)
-            vh = forced or (plan(1024, V, precision) if keep == "rx" else 0)
-            got, again = run(args, kw, forced), run(args, kw, forced)
+            if fdbf_cuda.wide_route(1024, 1024, V, keep, precision):
+                fdbf_cuda.WIDE_BYTES = budget if cut is None else cut
+                plan_w = fdbf_cuda.wide_plan(n, 1024, 1024, V, sel.size, keep)
+                fdbf_cuda.WIDE_BYTES = budget
+                route = (f"wide route, groups of {plan_w['bins']} bins, chunks of "
+                         f"{plan_w['rows']} voxels")
+            else:
+                vh = forced or (plan(1024, 1024, V, precision) if keep == "rx" else 0)
+                route = f"chunks of {vh} columns" if vh else "one pass"
+            got, again = run(args, kw, forced, cut), run(args, kw, forced, cut)
             torch.cuda.synchronize()
             ref = bf_adjoint(*args, **kw)
-            route = f"chunks of {vh} columns" if vh else "one pass"
             a, r = err.add(got, ref, f"phase19 V={V} keep={keep!r} {precision} {route}")
             print(f"phase19 K4(b) parity V={V:4d} keep={keep!r:4s} {precision:4s} ({route}): "
                   f"max_abs_err={a:.3e} rel={r:.3e}; a second launch bit-equal: "
@@ -2344,14 +2400,16 @@ def _k4b_parity(torch, fdbf_cuda, us, err):
                   f"{(T, 1024, 1024, rows.numel(), sel.size)}")
             assert r < (TOL_BF16 if precision == "bf16" else TOL), (V, keep, precision, r)
             assert torch.equal(got, again), (V, keep, precision)
+            if V == 300 and precision == "bf16":  # the cut budget: bit for bit
+                whole = got if cut is None else whole
+                assert cut is None or torch.equal(got, whole), "wide route by chunks"
         del got, again, ref
-    # the chunks' cost: keep_rx on every 4th voxel, in turns; V = 300 in one
-    # pass and in three chunks of 128 columns, V = 1024 in the plan's chunks
-    # (two blocks an SM), the widest that fit a block and narrower ones
+    # the f32 chunks' cost: keep_rx on every 4th voxel, in turns; V = 300 in
+    # one pass and in three chunks of 128 columns, V = 1024 in the plan's
+    # chunks (two blocks an SM) and the widest that fit a block
     rows4 = torch.arange(0, us.scan.npix, 4, device="cuda")
     cost = {}
-    for V, precision, widths in ((300, "bf16", (0, 128)), (300, "f32", (0, 128)),
-                                 (1024, "bf16", (256, 704, 128)), (1024, "f32", (128, 384))):
+    for V, precision, widths in ((300, "f32", (0, 128)), (1024, "f32", (128, 384))):
         x, rest = traces[V]
         args = (x, taur[rows4], taut[rows4], *rest)
         kw = dict(fs=fs, keep_rx=True, precision=precision)
@@ -2366,19 +2424,23 @@ def _k4b_parity(torch, fdbf_cuda, us, err):
 
 
 def phase19(torch, qt, ops, errs):
-    """K4(b): parity on the chunked and one-pass keep_rx routes, then the
-    volumetric path unmodified, no device=: us.greens (K3) and
-    us.bfAdjoint(max_bins=64) keep '' and keep_rx (K4, N = M = V = 1024 on
-    64^3 voxels), PSF in 3-D, launches counted; each K4 call timed beside
-    its plain version on every 64th voxel, its bound and the bf16 torch.bmm
-    yardstick of its products. Returns the kernel row's numbers."""
-    from qups_tpu_torch.ops.fdbf import bf_adjoint
+    """K4(b): parity on the wide route and the f32 chunked and one-pass
+    keep_rx routes, then the volumetric path unmodified, no device=:
+    us.greens (K3) and us.bfAdjoint(max_bins=64) keep '' and keep_rx (K4 on
+    its wide route, N = M = V = 1024 on 64^3 voxels), PSF in 3-D, launches
+    counted (K4 and the phasor table kernel); each K4 call (keep '',
+    keep_rx, keep_tx) timed beside its plain version on every 64th voxel,
+    its bound, its share of it and the bf16 torch.bmm yardstick of its
+    products; the phasor tables' own ms. Returns the launches, the K4(b)
+    row's numbers, the table kernel row's numbers and the chunk costs."""
+    from qups_tpu_torch.ops.fdbf import adjoint_spectra, bf_adjoint
 
     fdbf_cuda, gfc = ops.fdbf_cuda, ops.greens_freq_cuda
     us, targets, scat = _volume_system(qt)
-    chunk_cost = _k4b_parity(torch, fdbf_cuda, us, errs["fdbf_adjoint_k4b"])
+    chunk_cost = _k4b_parity(torch, fdbf_cuda, us, errs["fdbf_adjoint_k4b"],
+                             errs["fdbf_phasor_table"])
 
-    gfc.LAUNCHES = fdbf_cuda.LAUNCHES = 0
+    gfc.LAUNCHES = fdbf_cuda.LAUNCHES = fdbf_cuda.TABLE_LAUNCHES = 0
     t = time.perf_counter()
     chd = us.greens(scat)
     t_sim = time.perf_counter() - t
@@ -2386,12 +2448,21 @@ def phase19(torch, qt, ops, errs):
     brx = us.bfAdjoint(chd, max_bins=64, keep_rx=True)
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t
-    launches = {"greens_freq_k3": gfc.LAUNCHES, "fdbf_adjoint_k4b": fdbf_cuda.LAUNCHES}
+    launches = {"greens_freq_k3": gfc.LAUNCHES, "fdbf_adjoint_k4b": fdbf_cuda.LAUNCHES,
+                "fdbf_phasor_table": fdbf_cuda.TABLE_LAUNCHES}
     print(f"phase19 volumetric path, us.greens then us.bfAdjoint(max_bins=64) keep '' and "
           f"keep_rx, no device=: {t_path:.3f} s (first calls; greens {t_sim:.3f} s) -> traces "
           f"{tuple(chd.data.shape)} {chd.data.dtype}, images {tuple(b.shape)}, "
           f"{tuple(brx.shape)}; launches {launches}")
+    # the tables of each group of bins and chunk of voxels of wide_plan:
+    # keep '' Wtx and Wrx, keep_rx Wtx (at 64 bins: 2 x 64, and 64 x 2 chunks)
+    I, K = us.scan.npix, _adjoint_args(us, chd, 64)[-1].size
+    want = 0
+    for keep in ("", "rx"):
+        pl = fdbf_cuda.wide_plan(I, 1024, 1024, 1024, K, keep)
+        want += -(-I // pl["rows"]) * -(-K // pl["bins"]) * (1 if keep == "rx" else 2)
     assert launches["greens_freq_k3"] > 0 and launches["fdbf_adjoint_k4b"] == 2, launches
+    assert launches["fdbf_phasor_table"] == want, (launches, want)
     assert b.is_cuda and b.shape == tuple(us.scan.shape) + (1, 1)
     assert brx.shape == tuple(us.scan.shape) + (1024, 1)
     assert bool(torch.isfinite(b).all()) and bool(torch.isfinite(brx).all())
@@ -2407,33 +2478,54 @@ def phase19(torch, qt, ops, errs):
     sub = (x, taur[rows], taut[rows], *args[3:])
     nbytes = 8.0 * T * N * V + 4.0 * I * (N + M)
     out = {}
-    for keep, precision in (("", "bf16"), ("rx", "bf16")):
-        kw = dict(fs=chd.fs, keep_rx=keep == "rx", precision=precision)
+    for keep in ("", "rx", "tx"):
+        kw = dict(fs=chd.fs, keep_rx=keep == "rx", keep_tx=keep == "tx", precision="bf16")
         got = fdbf_cuda.bf_adjoint_cuda(*args, **kw)[rows]  # and the warm-up
         k_ms = _ms(lambda: fdbf_cuda.bf_adjoint_cuda(*args, **kw), reps=1, warm=False)
         ref, t_plain = _sync_s(torch, lambda: bf_adjoint(*sub, **kw))
-        a, r = errs["fdbf_adjoint_k4b"].add(got, ref, f"phase19 path keep={keep!r} {precision}")
+        a, r = errs["fdbf_adjoint_k4b"].add(got, ref, f"phase19 path keep={keep!r} bf16")
         flops = 8.0 * K * I * (M + N) * V + (8.0 * K * I * V * N if keep == "rx" else 0.0)
-        bnd = bound(flops, BF16_FLOPS if precision == "bf16" else F32_FLOPS,
-                    nbytes + 8.0 * I * (N if keep == "rx" else 1))
+        cols = N if keep == "rx" else (V if keep == "tx" else 1)
+        bnd = bound(flops, BF16_FLOPS, nbytes + 8.0 * I * cols)
         p_ms = t_plain * 1e3 * I / rows.numel()
-        vh = fdbf_cuda.rx_chunk(N, V, precision) if keep == "rx" else 0
-        print(f"phase19 K4 keep={keep!r:4s} {precision:4s} 64^3 voxels x 1024 x 1024 x 1024 "
-              f"pulses x {K} bins{f', conj(Ahat) in chunks of {vh}' if vh else ''}: "
-              f"{k_ms:.3f} ms ({flops / (k_ms / 1e3) / 1e12:.2f} TFLOP/s); plain on every "
-              f"64th voxel {t_plain * 1e3:.3f} ms, scaled {p_ms:.3f} ms; vs plain: "
-              f"max_abs_err={a:.3e} rel={r:.3e}")
-        _share(f"phase19 K4 keep={keep!r} {precision}", k_ms, bnd)
-        assert r < (TOL_BF16 if precision == "bf16" else TOL), (keep, precision, r)
-        out[(keep, precision)] = (k_ms, p_ms, bnd)
+        plan = fdbf_cuda.wide_plan(I, M, N, V, K, keep)
+        print(f"phase19 K4 keep={keep!r:4s} bf16 64^3 voxels x 1024 x 1024 x 1024 pulses x "
+              f"{K} bins, wide route (groups of {plan['bins']} bins, chunks of {plan['rows']} "
+              f"voxels, {plan['scratch'] / 2**30:.3f} GiB of scratch): {k_ms:.3f} ms "
+              f"({flops / (k_ms / 1e3) / 1e12:.2f} TFLOP/s); plain on every 64th voxel "
+              f"{t_plain * 1e3:.3f} ms, scaled {p_ms:.3f} ms; vs plain: max_abs_err={a:.3e} "
+              f"rel={r:.3e}")
+        _share(f"phase19 K4 keep={keep!r} bf16", k_ms, bnd)
+        assert r < TOL_BF16, (keep, r)
+        out[keep] = (k_ms, p_ms, bnd)
         del got, ref
     lib = _k4_library(torch, x, taur, del_tx, apod, t0, V, sel, chd.fs, taut=taut)["bf16"]
     print(f"phase19 library yardstick, the products alone (bf16 torch.bmm on the real-block "
-          f"operands, 4 bins scaled): {lib:.3f} ms; K4 keep '' bf16 "
-          f"{out[('', 'bf16')][0]:.3f} ms")
+          f"operands, 4 bins scaled): {lib:.3f} ms; K4 bf16 keep '' {out[''][0]:.3f} ms "
+          f"({out[''][0] / lib:.2f}x), keep_rx {out['rx'][0]:.3f} ms, keep_tx "
+          f"{out['tx'][0]:.3f} ms")
+    # the phasor build alone: Wtx and Wrx of every bin, as keep '' builds them
+    fk = adjoint_spectra(x, del_tx, apod, t0, t0_off, sel, fs=chd.fs)[1]
+    Mp, Np = fdbf_cuda.wide_layout(M, N, V, "")[:2]
+    buf = torch.empty(I * 2 * max(Mp, Np), dtype=torch.bfloat16, device="cuda")
+
+    def tables():
+        for k in range(K):
+            fdbf_cuda.phasor_table(fk[k:k + 1], taut, -1.0, Mp, buf)
+            fdbf_cuda.phasor_table(fk[k:k + 1], taur, 1.0, Np, buf)
+
+    t_ms = _ms(tables, reps=2)
+    t_plain = _ms(lambda: (fdbf_cuda.phasor_table_plain(fk[:1], taut, -1.0, Mp),
+                           fdbf_cuda.phasor_table_plain(fk[:1], taur, 1.0, Np)), reps=1) * K
+    t_bnd = bound(0.0, BF16_FLOPS, 4.0 * I * (M + N) + 4.0 * K * I * (Mp + Np))
+    print(f"phase19 phasor tables, Wtx and Wrx of {K} bins at {I} voxels x {M} + {N} "
+          f"elements ({K * I * (M + N):.4e} phasors, each built once a call): {t_ms:.3f} ms, "
+          f"{100 * t_ms / out[''][0]:.1f} % of K4 keep ''; plain (one bin, scaled) "
+          f"{t_plain:.3f} ms")
+    _share("phase19 phasor tables", t_ms, t_bnd)
     wall = _sync_s(torch, lambda: us.bfAdjoint(chd, max_bins=64))[1]
     print(f"phase19 bfAdjoint keep '' wall (host clock, synchronised, warm): {wall:.3f} s")
-    return launches, (*out[("", "bf16")], lib), chunk_cost
+    return launches, (*out[""], lib), (t_ms, t_plain, t_bnd, None), chunk_cost
 
 
 # the eikonal beamformer (Part B of slice 10)
@@ -3984,7 +4076,7 @@ def main():
     names = ("das_k1", "das_lut_k2", "greens_freq_k3", "fdbf_adjoint_k4", "greens_splat_k5",
              "greens_freq_k3b", "greens_freq_k3c", "das_layout", "greens_finish", "das_k1b",
              "das_lut_k2b", "das_k1c", "das_k1d", "das_lut_k2c", "das_k1e", "das_lut_k2e",
-             "fdbf_adjoint_k4b")
+             "fdbf_adjoint_k4b", "fdbf_phasor_table")
     errs = {name: Errors() for name in names}
     card = phase0(torch, ops)
     phase1(torch, ops.das_cuda, errs["das_k1"], errs["das_layout"])
@@ -4007,7 +4099,7 @@ def main():
     phase17(torch, qt, ops.das_cuda, errs)
     lp = phase18(torch, ops.das_cuda, k1_ms, k2_all, iqh, iq_args, keep, errs)
     del iq_args
-    vol_launches, k4b, _ = phase19(torch, qt, ops, errs)
+    vol_launches, k4b, table, _ = phase19(torch, qt, ops, errs)
     eik_launches = phase20(torch, qt, ops, errs)
     print(f"K2 launches on the eikonal path (phase 20): {eik_launches}; the kernels line's "
           f"das_lut_k2 row counts the demo path's (phase 7)")
@@ -4073,6 +4165,7 @@ def main():
                     das_lut_k2=pw_launches["das_lut_k2"],
                     fdbf_adjoint_k4=pw_launches["fdbf_adjoint_k4"],
                     fdbf_adjoint_k4b=vol_launches["fdbf_adjoint_k4b"],
+                    fdbf_phasor_table=vol_launches["fdbf_phasor_table"],
                     greens_splat_k5=sim_launches["greens_splat_k5"],
                     greens_finish=sim_launches["greens_finish"],
                     greens_freq_k3b=sim_launches["greens_freq_k3b"],
@@ -4099,10 +4192,20 @@ def main():
          "products alone, bf16 torch.bmm on the real-block operands, 4 bins scaled"),
         ("fdbf_adjoint_k4b", "qups_tpu_torch/csrc/fdbf.cu", "qups_tpu/ops/fdbf_pallas.py:45",
          *k4b, "K4(b): the volumetric path's keep '' call, 64^3 voxels x 1024 rx x 1024 tx x "
-         "1024 pulses (32 x 32 matrix, FSA), 64 bins, bf16; keep_rx (conj(Ahat) by chunks) "
-         "in phase 19's lines; plain on every 64th voxel, scaled; library: the "
-         "products alone, bf16 torch.bmm on the real-block operands, 4 bins scaled; "
-         "launches: the volumetric path, keep '' and keep_rx"),
+         "1024 pulses (32 x 32 matrix, FSA), 64 bins, bf16, on the wide route (phasor "
+         "tables in device memory, 128-pixel blocks); keep_rx and keep_tx in phase 19's "
+         "lines; plain on every 64th voxel, scaled; library: the products alone, bf16 "
+         "torch.bmm on the real-block operands, 4 bins scaled; launches: the volumetric "
+         "path, keep '' and keep_rx"),
+        ("fdbf_phasor_table", "qups_tpu_torch/csrc/fdbf.cu",
+         "qups_tpu/ops/fdbf_pallas.py:68 (phasor inside _kernel, used :105, :122)",
+         *table, "K4(b)'s phasor tables: Wtx and Wrx of the volume's 64 bins, 64^3 voxels x "
+         "1024 + 1024 elements, bf16 (Re, Im) pairs, each phasor built once a call; "
+         "max_abs_err: bf16 entries within 2^-20 of the plain float32 phasor before their "
+         "rounding, so a rounding the other way differs by one bf16 step; plain: "
+         "phasor_table_plain on one bin, scaled; bound: the delays read once and the tables "
+         "written once; no single PyTorch call computes it; launches: the volumetric path, "
+         "keep '' (2 tables x 64 bins) and keep_rx (Wtx x 64 bins x 2 chunks of voxels)"),
         ("greens_splat_k5", "qups_tpu_torch/csrc/greens_splat.cu",
          "qups_tpu/ops/greens_pallas.py:45", *k5["k5"], k5_b, None,
          "the main path's deposit grid: 10^4 scatterers, 128 x 128 elements, cubic, bands "

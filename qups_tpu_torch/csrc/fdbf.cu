@@ -45,7 +45,7 @@
 // receivers. Each output belongs to one thread: nothing is atomic and two
 // launches on one input are bit-identical.
 //
-// Keep 'rx' with many pulses (K4(b)): conj(Ahat) of all V columns takes
+// Keep 'rx' with many pulses: conj(Ahat) of all V columns takes
 // BI x (2 Vp + 8) bf16 (f32: V x BI x 8 bytes) of shared memory, more than a
 // block may hold past V ~ 704 (f32 ~ 414). There the wrapper sets Vh, a
 // multiple of the tile width (fdbf_cuda.py::rx_chunk: the widest with which
@@ -70,12 +70,15 @@
 //   'rx') per bin, rounded to bf16; rounding and negation commute, so these
 //   are the plain version's four real products on the same operands. Per
 //   bin the block writes its phasor tiles Wtx and Wrx as bf16 (Re, Im) pairs
-//   into shared memory once, where they serve every column tile; when they
-//   do not fit (M + N above ~780) it builds the phasors of each 16-row chunk
-//   as it goes instead (GEN). The chunks of the block operands arrive by
-//   cp.async through a 3-stage ring, so the copies overlap the MMAs. Warp w
-//   owns the 16 rows 16 (w % 4) .. and half w / 4 of the tile's columns;
-//   at the demo's V = 5 the 10 columns pad to 16 and both halves hold data.
+//   into shared memory once, where they serve every column tile (the
+//   resident route). The chunks of the block operands arrive by cp.async
+//   through a 3-stage ring, so the copies overlap the MMAs. Warp w owns the
+//   16 rows 16 (w % 4) .. and half w / 4 of the tile's columns; at the
+//   demo's V = 5 the 10 columns pad to 16 and both halves hold data.
+// * 'bf16' where the phasor tiles do not fit in shared memory (M + N above
+//   ~780; K4(b), the wide route, below): a phasor table in device memory,
+//   built once per (bin, pixel, element), and 128-pixel blocks that stream
+//   it with the block operands on wgmma.
 // * 'f32', CUDA cores (F32Engine): the same loops with register tiling. A
 //   thread holds TM x TN complex outputs of each product (4 x 4 at the
 //   headline), so each 8-byte shared load feeds 2 TN (or 2 TM) explicit
@@ -90,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "hopper_mma.cuh"
 
 namespace {
@@ -99,7 +104,6 @@ constexpr int NTHR = 256;   // threads per block (8 warps)
 constexpr int KC = 32;      // block-operand rows per ring stage (16 complex rows)
 constexpr int KC2 = KC / 2;  // complex rows per ring stage
 constexpr int STAGES = 3;   // cp.async ring depth
-constexpr int GLD = KC + 8; // row stride of a generated phasor chunk (bf16)
 constexpr int LC = 16;      // f32: complex rows per shared chunk
 
 enum Keep { SUM = 0, KEEP_RX = 1, KEEP_TX = 2 };
@@ -143,14 +147,11 @@ struct Args {
 // acc (this warp's 16 rows x NT n8 tiles of the block's BI x 2 VT tile) +=
 // W (BI x KR) . B[:, col0 .. col0 + 2 VT), B (KR x ldb) bf16 in global
 // memory, streamed through the ring by cp.async. W is resident in shared
-// memory (row stride ldw), or with GEN built per chunk into `gen_buf` from
-// tau (I, L): the phasors e^{sign ...} of complex rows c KC2 .. c KC2 + KC2 - 1.
-template <int NT, bool GEN>
+// memory (row stride ldw).
+template <int NT>
 __device__ __forceinline__ void tc_product(float (&acc)[NT][4], const __nv_bfloat16* W, int ldw,
                                            const __nv_bfloat16* __restrict__ B, int ldb, int KR,
-                                           int col0, __nv_bfloat16* ring,
-                                           const float* __restrict__ tau, int L, float sign,
-                                           float fk, int64_t i0, int64_t I) {
+                                           int col0, __nv_bfloat16* ring) {
   constexpr int VT2 = 16 * NT;  // real columns of the tile
   constexpr int LDR = VT2 + 8;  // ring row stride: 16 bytes of padding against conflicts
   constexpr int SEG = VT2 / 8;  // 16-byte segments per ring row
@@ -173,32 +174,14 @@ __device__ __forceinline__ void tc_product(float (&acc)[NT][4], const __nv_bfloa
   for (int c = 0; c < nc; ++c) {
     hmma::cp_async_wait<STAGES - 2>();
     const __nv_bfloat16* Ab = W + c * KC;
-    int lda = ldw;
-    if constexpr (GEN) {
-      uint32_t* g32 = reinterpret_cast<uint32_t*>(const_cast<__nv_bfloat16*>(W))
-                      + (c & 1) * BI * (GLD / 2);
-      const int mm = tid % KC2, m = c * KC2 + mm;
-#pragma unroll
-      for (int r = 0; r < BI * KC2 / NTHR; ++r) {
-        const int ii = tid / KC2 + (NTHR / KC2) * r;
-        uint32_t v = 0u;
-        if (m < L && i0 + ii < I) {
-          const float2 p = phasor<true>(fk, tau[(i0 + ii) * L + m], sign);
-          v = hmma::pack_bf16(p.x, p.y);
-        }
-        g32[ii * (GLD / 2) + mm] = v;
-      }
-      Ab = W + (c & 1) * BI * GLD;
-      lda = GLD;
-    }
-    __syncthreads();  // chunk c (and its phasors) visible; slot (c - 1) % STAGES free
+    __syncthreads();  // chunk c visible; slot (c - 1) % STAGES free
     if (c + STAGES - 1 < nc) load(c + STAGES - 1);
     hmma::cp_async_commit();
     const __nv_bfloat16* Bs = ring + (c % STAGES) * KC * LDR;
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
       uint32_t a[4];
-      hmma::ldsm_x4(a, Ab + (16 * mt + (lane & 15)) * lda + 16 * ks + (lane >> 4) * 8);
+      hmma::ldsm_x4(a, Ab + (16 * mt + (lane & 15)) * ldw + 16 * ks + (lane >> 4) * 8);
       const __nv_bfloat16* bp = Bs + (16 * ks + (lane & 15)) * LDR + ch * (8 * NT);
       if constexpr (NT == 1) {
         uint32_t b[2];
@@ -216,7 +199,7 @@ __device__ __forceinline__ void tc_product(float (&acc)[NT][4], const __nv_bfloa
     }
   }
   hmma::cp_async_wait<0>();
-  __syncthreads();  // the ring (and the generated chunks) are free again
+  __syncthreads();  // the ring is free again
 }
 
 // W[ii][2m, 2m + 1] = bf16 (Re, Im) of e^{sign 2 pi i frac(fk tau[i0 + ii, m])},
@@ -239,7 +222,7 @@ __device__ __forceinline__ void fill_phasors(__nv_bfloat16* W, int ldw,
   }
 }
 
-template <int KEEP, int NT, bool GEN>
+template <int KEEP, int NT>
 struct TcEngine {
   static constexpr int VT = 8 * NT;  // complex columns of a tile
   static constexpr int R = 2;        // rows per thread
@@ -261,15 +244,10 @@ struct TcEngine {
     ldr = 2 * a.Np + 8;
     ldh = 2 * a.Vp + 8;
     __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(k4_smem);
-    if (GEN) {
-      Wt = Wr = p;  // the generated chunks, 2 x BI x GLD
-      p += 2 * BI * GLD;
-    } else {
-      Wt = p;
-      p += BI * ldt;
-      Wr = p;
-      if (KEEP != KEEP_RX) p += BI * ldr;
-    }
+    Wt = p;
+    p += BI * ldt;
+    Wr = p;
+    if (KEEP != KEEP_RX) p += BI * ldr;
     H = p;
     if (KEEP == KEEP_RX) p += BI * ldh;
     ring = p;
@@ -284,7 +262,7 @@ struct TcEngine {
   }
 
   static size_t smem_bytes(const Args& a) {
-    size_t e = GEN ? 2 * BI * GLD : BI * (2 * a.Mp + 8) + (KEEP != KEEP_RX ? BI * (2 * a.Np + 8) : 0);
+    size_t e = BI * (2 * a.Mp + 8) + (KEEP != KEEP_RX ? BI * (2 * a.Np + 8) : 0);
     if (KEEP == KEEP_RX) e += BI * (2 * a.Vp + 8);
     e += (size_t)STAGES * KC * (16 * NT + 8);
     return e * sizeof(__nv_bfloat16);
@@ -294,12 +272,10 @@ struct TcEngine {
     fk = a.fvals[k];
     Sk = S + (int64_t)k * (2 * a.Mp) * (2 * a.Vp);
     Xk = X + (int64_t)k * (2 * a.Np) * (2 * a.Vp);
-    if (!GEN) {
-      __syncthreads();  // the previous bin is done with the tiles
-      fill_phasors(Wt, ldt, a.taut, a.M, a.Mp, i0, a.I, fk, -1.f);
-      if (KEEP != KEEP_RX) fill_phasors(Wr, ldr, a.taur, a.N, a.Np, i0, a.I, fk, 1.f);
-      __syncthreads();
-    }
+    __syncthreads();  // the previous bin is done with the tiles
+    fill_phasors(Wt, ldt, a.taut, a.M, a.Mp, i0, a.I, fk, -1.f);
+    if (KEEP != KEEP_RX) fill_phasors(Wr, ldr, a.taur, a.N, a.Np, i0, a.I, fk, 1.f);
+    __syncthreads();
   }
 
   __device__ static void zero(Acc& x) {
@@ -310,17 +286,14 @@ struct TcEngine {
   }
 
   __device__ void prodA(Acc& x, int vt) {
-    tc_product<NT, GEN>(x.d, Wt, ldt, Sk, 2 * a.Vp, 2 * a.Mp, vt * 2 * VT, ring, a.taut, a.M,
-                        -1.f, fk, i0, a.I);
+    tc_product<NT>(x.d, Wt, ldt, Sk, 2 * a.Vp, 2 * a.Mp, vt * 2 * VT, ring);
   }
   __device__ void prodY(Acc& x, int vt) {
-    tc_product<NT, GEN>(x.d, Wr, ldr, Xk, 2 * a.Vp, 2 * a.Np, vt * 2 * VT, ring, a.taur, a.N,
-                        1.f, fk, i0, a.I);
+    tc_product<NT>(x.d, Wr, ldr, Xk, 2 * a.Vp, 2 * a.Np, vt * 2 * VT, ring);
   }
   // z = conj(Ahat) X_k^T over the receivers of tile nt; H is resident
   __device__ void prodZ(Acc& x, int nt) {
-    tc_product<NT, false>(x.d, H, ldh, Xk, 2 * a.Np, 2 * a.Vz, nt * 2 * VT, ring, a.taur, a.N,
-                          1.f, fk, i0, a.I);
+    tc_product<NT>(x.d, H, ldh, Xk, 2 * a.Np, 2 * a.Vz, nt * 2 * VT, ring);
   }
 
   // f(r, row, complex column in the tile, x value, y value)
@@ -495,9 +468,9 @@ struct F32Engine {
 
 // The tensor-core engine with H holding Vh columns of conj(Ahat) (K4(b)):
 // the ring follows the smaller H, and z reads the chunk's rows of X_k^T.
-template <int NT, bool GEN>
-struct TcChunked : TcEngine<KEEP_RX, NT, GEN> {
-  using Base = TcEngine<KEEP_RX, NT, GEN>;
+template <int NT>
+struct TcChunked : TcEngine<KEEP_RX, NT> {
+  using Base = TcEngine<KEEP_RX, NT>;
   using typename Base::Acc;
   static constexpr bool CH = true;
 
@@ -507,7 +480,7 @@ struct TcChunked : TcEngine<KEEP_RX, NT, GEN> {
   }
 
   static size_t smem_bytes(const Args& a) {
-    const size_t e = (GEN ? 2 * BI * GLD : BI * (2 * a.Mp + 8)) + BI * (2 * a.Vh + 8)
+    const size_t e = BI * (2 * a.Mp + 8) + BI * (2 * a.Vh + 8)
                      + (size_t)STAGES * KC * (16 * NT + 8);
     return e * sizeof(__nv_bfloat16);
   }
@@ -516,10 +489,9 @@ struct TcChunked : TcEngine<KEEP_RX, NT, GEN> {
   // rows v0 .. v0 + min(Vh, Vz - v0) of X_k^T
   __device__ void prodZc(Acc& x, int nt, int v0) {
     const int vz = min(this->a.Vh, this->a.Vz - v0);
-    tc_product<NT, false>(x.d, this->H, this->ldh,
-                          this->Xk + (int64_t)(2 * v0) * (2 * this->a.Np), 2 * this->a.Np,
-                          2 * vz, nt * 2 * Base::VT, this->ring, this->a.taur, this->a.N, 1.f,
-                          this->fk, this->i0, this->a.I);
+    tc_product<NT>(x.d, this->H, this->ldh,
+                   this->Xk + (int64_t)(2 * v0) * (2 * this->a.Np), 2 * this->a.Np, 2 * vz,
+                   nt * 2 * Base::VT, this->ring);
   }
   __device__ void setHc(int row, int vl, int, float2 val) { this->setH(row, vl, val); }
   // zero the chunk's columns [vw, min(Vh, Vz - v0)) that no tile wrote
@@ -700,21 +672,19 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 // for the kernel's static arrays
 constexpr size_t SMEM_LIMIT = 232448 - 4096;
 
-// bf16 tiles of VT = 8 NT complex columns. The phasor tiles of a bin stay
-// resident in shared memory where they fit; otherwise each chunk's phasors
-// are built as the product reaches it (GEN).
+// bf16 tiles of VT = 8 NT complex columns, the phasor tiles of a bin
+// resident in shared memory. Where they do not fit, the wrapper takes the
+// wide route (adjoint_k4_wide) instead, and this refuses the launch.
 template <int KEEP, int NT>
 cudaError_t launch_nt(const Args& a, cudaStream_t s) {
   if constexpr (KEEP == KEEP_RX && NT == 8) {
-    if (a.Vh > 0) {  // K4(b): conj(Ahat) by chunks
-      if (TcChunked<NT, false>::smem_bytes(a) <= SMEM_LIMIT)
-        return launch<KEEP, TcChunked<NT, false>>(a, s);
-      return launch<KEEP, TcChunked<NT, true>>(a, s);
+    if (a.Vh > 0) {  // conj(Ahat) by chunks
+      if (TcChunked<NT>::smem_bytes(a) > SMEM_LIMIT) return cudaErrorInvalidValue;
+      return launch<KEEP, TcChunked<NT>>(a, s);
     }
   }
-  if (TcEngine<KEEP, NT, false>::smem_bytes(a) <= SMEM_LIMIT)
-    return launch<KEEP, TcEngine<KEEP, NT, false>>(a, s);
-  return launch<KEEP, TcEngine<KEEP, NT, true>>(a, s);
+  if (TcEngine<KEEP, NT>::smem_bytes(a) > SMEM_LIMIT) return cudaErrorInvalidValue;
+  return launch<KEEP, TcEngine<KEEP, NT>>(a, s);
 }
 
 template <int KEEP>
@@ -746,6 +716,370 @@ cudaError_t launch_f32(int vt, const Args& a, cudaStream_t s) {
 template <int KEEP>
 cudaError_t launch_p(int bf16, int vt, const Args& a, cudaStream_t s) {
   return bf16 ? launch_tc<KEEP>(vt / 8, a, s) : launch_f32<KEEP>(vt, a, s);
+}
+
+// ------------------------------------------------- bf16, the wide route
+//
+// Where a 64-pixel block's phasor tiles do not fit in shared memory (M + N
+// past ~780, the 32 x 32 matrix array's 1024 elements), the bin's phasors
+// are built once into a table in device memory (phasor_table_kernel:
+// Wtx (G, I, 2 Mp), Wrx (G, I, 2 Np), bf16 (Re, Im) pairs, for a group of
+// G bins), and the products stream the table as their left operand, as
+// they stream S_k and X_k as their right one. A block owns WM = 128 pixels
+// and one tile of WVT = 64 complex columns (blockIdx.x: the column tile
+// fastest, so the tiles of one pixel block run together and share its table
+// rows in L2): two warpgroups of 64 rows x 128 real columns, wgmma
+// m64n128k16 from shared memory in the 128-byte swizzle, fed by a cp.async
+// ring of both operands in stages of WKC = 64 rows. Each streamed byte
+// feeds 128 flop. On an H100 80GB HBM3 at 700 W (tools/k4b_torch.py, the
+// volume's keep ''): mma.sync with ldmatrix on the same tiles took 1.21 s
+// against wgmma's 0.84-0.85 s, and wgmma from unswizzled tiles 1.85-2.06 s.
+//
+// The norm factors out of every pixel's row, so A is computed once a bin:
+//   keep '':  per tile, the row sums |A|^2 and y conj(A) -> part; the finish
+//             adds (sum y conj(A)) / ||A_i|| into b(i) bin by bin;
+//   keep tx:  part gets |A|^2, the scratch Q = y conj(A) (G, I, V); the finish
+//             adds Q / ||A_i|| into b(i, v);
+//   keep rx:  part gets |A|^2, the scratch A (G, I, Vp) complex64; then
+//             H = conj(A) / ||A_i|| rounded to bf16 (wide_round: the plain
+//             version's operand, bit for bit; scaling z after the product
+//             instead rounds conj(A) and differed from the plain version
+//             by 2.2-2.4e-3 of the image's peak on random data), z = H X_k^T
+//             (wide_rx_kernel) and b(i, n) += Wrx(i, n) z, Wrx accurate,
+//             built once per (bin, pixel, receiver).
+// Each output belongs to one thread, and every sum runs in a fixed order.
+
+constexpr int WM = 128;            // pixels per block
+constexpr int WN = 128;            // real columns of a tile
+constexpr int WVT = WN / 2;        // complex columns of a tile
+constexpr int WKC = 64;            // real rows of both operands a ring stage
+constexpr int WSTAGE = WM * WKC + WKC * WN;  // bf16 elements of a ring stage
+static_assert(WKC == 64 && WN == 128, "the 128-byte swizzle takes rows of 64 bf16");
+// ring depths: 4 stages for the two-product kernels (one block an SM: 2 x 64
+// accumulators a thread), 3 for the one-product kernels (W_AH,
+// wide_rx_kernel), so that two of their blocks share an SM
+constexpr int WST2 = 4, WST1 = 3;
+// dynamic shared memory of a ring of ST stages, with room to align it to 1 KB
+constexpr int wide_smem(int ST) { return ST * WSTAGE * 2 + 1024; }
+static_assert(2 * (wide_smem(WST1) + 1024) <= 233472, "two one-product blocks an SM");
+
+enum WideMode { W_SUM = 0, W_TX = 1, W_AH = 2 };
+
+struct WideArgs {
+  const float* fvals;            // (G,) the group's bin frequencies [Hz]
+  const float* taur;             // (I, N) [s], keep 'rx'
+  const __nv_bfloat16 *Wt, *Wr;  // phasor tables (G, I, 2 Mp), (G, I, 2 Np)
+  const __nv_bfloat16 *S, *X;    // block operands of the group's bins (G, 2Mp, 2Vp),
+                                 // (G, 2Np, 2Vp), or (G, 2Vp, 2Np) for 'rx'
+  float4* part;                  // (G, Vp / WVT, I) per-tile row sums
+  float* inv;                    // (G, I) 1 / ||A_i|| (1 where the norm is 0)
+  void* scr;                     // 'tx': Q (G, I, V) float2; 'rx': A (G, I, Vp) float2
+  uint32_t* H;                   // 'rx': conj(A) / ||A_i|| (G, I, Vp) bf16 pairs
+  float2* out;                   // (I,) | (I, N) | (I, V)
+  int64_t I;
+  int N, M, V, G, Mp, Np, Vp, Vz;
+};
+
+// W[g][i][2m, 2m + 1] = bf16 (Re, Im) of e^{sign 2 pi i frac(fk[g] tau[i, m])},
+// zero for L <= m < Lp: the phasors of G bins from one read of tau. A
+// thread takes 4 neighbouring m (Lp is a multiple of 4): 16-byte stores,
+// and with VEC (L a multiple of 4) 16-byte loads, so that enough bytes are
+// in flight for the memory rate
+template <bool VEC>
+__global__ void phasor_table_kernel(const float* __restrict__ fvals,
+                                    const float* __restrict__ tau, uint4* __restrict__ W,
+                                    int64_t I, int L, int Lp, int G, float sign) {
+  const int64_t n4 = I * Lp / 4;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n4;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = 4 * e / Lp;
+    const int m = (int)(4 * e - i * Lp);
+    float t[4];
+    if (VEC && m < L) {
+      const float4 v = *reinterpret_cast<const float4*>(tau + i * L + m);
+      t[0] = v.x, t[1] = v.y, t[2] = v.z, t[3] = v.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t[q] = m + q < L ? tau[i * L + m + q] : 0.f;
+    }
+    for (int g = 0; g < G; ++g) {
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = 0u;
+        if (m + q < L) {
+          const float2 p = phasor<true>(fvals[g], t[q], sign);
+          v[q] = hmma::pack_bf16(p.x, p.y);
+        }
+      }
+      W[g * n4 + e] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// acc (this warpgroup's 64 rows of the block's WM x WN tile) += L[0 .. WM)
+// . B[:, col0 .. col0 + WN) over KR rows: L (rows x KR, row stride ldl;
+// rows past `rows` read as zero) and B (KR x ldb) bf16 in device memory,
+// both streamed through the ring by cp.async in the 128-byte swizzle of
+// wgmma (a row of 128 bytes holds 8 chunks of 16; in each 1 KB atom of 8
+// rows, chunk j of row q lies at j ^ q): A (K-major, WKC = 64 bf16 a row)
+// in atoms of 8 pixel rows, B (N-major) in atoms of 8 rows of K by 64
+// columns, two along N, then wgmma
+template <int WST>
+__device__ __forceinline__ void wide_product(float (&acc)[64],
+                                             const __nv_bfloat16* __restrict__ L, int64_t ldl,
+                                             int64_t rows, const __nv_bfloat16* __restrict__ B,
+                                             int64_t ldb, int KR, int col0,
+                                             __nv_bfloat16* ring) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nc = KR / WKC;
+  auto load = [&](int c) {
+    __nv_bfloat16* As = ring + (c % WST) * WSTAGE;
+    __nv_bfloat16* Bs = As + WM * WKC;
+    for (int e = tid; e < WM * 8; e += NTHR) {  // row r, chunk j
+      const int r = e >> 3, j = e & 7;
+      const bool ok = r < rows;
+      hmma::cp_async16(As + r * 64 + ((j ^ (r & 7)) << 3),
+                       L + (ok ? r : 0) * ldl + c * WKC + j * 8, ok ? 16 : 0);
+    }
+    for (int e = tid; e < WKC * (WN / 8); e += NTHR) {  // row k, chunk n8 of 16
+      const int k = e / (WN / 8), n8 = e % (WN / 8), q = k & 7;
+      hmma::cp_async16(Bs + ((k >> 3) * 2 + (n8 >> 3)) * 512 + q * 64 + (((n8 & 7) ^ q) << 3),
+                       B + (int64_t)(c * WKC + k) * ldb + col0 + n8 * 8, 16);
+    }
+  };
+  // stages in flight: WST - 2 loading ahead, one being multiplied, and the
+  // one before it, whose products may still be running
+#pragma unroll
+  for (int s = 0; s < WST - 2; ++s) {
+    if (s < nc) load(s);
+    hmma::cp_async_commit();
+  }
+  hmma::wgmma_hold(acc);
+  for (int c = 0; c < nc; ++c) {
+    hmma::cp_async_wait<WST - 3>();
+    hmma::fence_proxy_async();
+    __syncthreads();  // stage c visible to wgmma; the products of c - 2 done
+    if (c + WST - 2 < nc) load(c + WST - 2);  // into slot (c - 2) % WST
+    hmma::cp_async_commit();
+    const __nv_bfloat16* As = ring + (c % WST) * WSTAGE;
+    const __nv_bfloat16* Bs = As + WM * WKC;
+    hmma::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < WKC / 16; ++ks)
+      hmma::wgmma_m64n128k16(acc, hmma::wgmma_desc_sw128(As + wg * 64 * 64 + ks * 16, 16, 1024),
+                             hmma::wgmma_desc_sw128(Bs + ks * 2 * 1024, 1024, 2048));
+    hmma::wgmma_commit();
+    hmma::wgmma_wait<1>();  // the products of stage c - 1 done
+  }
+  hmma::wgmma_wait<0>();
+  hmma::wgmma_hold(acc);
+  hmma::cp_async_wait<0>();
+  __syncthreads();  // the ring is free again
+}
+
+// the ring, at the first 1 KB boundary of the dynamic shared memory (the
+// swizzle's atoms are 1 KB aligned)
+__device__ __forceinline__ __nv_bfloat16* wide_ring() {
+  const uint32_t off = (1024u - (hmma::smem_addr(k4_smem) & 1023u)) & 1023u;
+  return reinterpret_cast<__nv_bfloat16*>(k4_smem + off);
+}
+
+__device__ __forceinline__ void wide_zero(float (&x)[64]) {
+#pragma unroll
+  for (int q = 0; q < 64; ++q) x[q] = 0.f;
+}
+
+// f(h, row in the block, complex column in the tile, A value, Y value) for
+// each of this thread's accumulator pairs: row 64 (warpgroup) + 16 (warp in
+// it) + lane / 4 + 8 h, column 4 j + lane % 4
+template <class F>
+__device__ __forceinline__ void wide_each(const float (&A)[64], const float (&Y)[64], F f) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      f(h, row0 + 8 * h, 4 * j + t, make_float2(A[4 * j + 2 * h], A[4 * j + 2 * h + 1]),
+        make_float2(Y[4 * j + 2 * h], Y[4 * j + 2 * h + 1]));
+}
+
+// A = Wtx S_k (and, but for W_AH, Y = Wrx X_k) on the tile (blockIdx.x %
+// nct, pixel block blockIdx.x / nct) of bin g = blockIdx.y; the row sums of
+// the tile into part, and Q or A into the scratch
+template <int MODE>
+__global__ void __launch_bounds__(NTHR, MODE == W_AH ? 2 : 1)
+    wide_kernel(const __grid_constant__ WideArgs a) {
+  constexpr int ST = MODE == W_AH ? WST1 : WST2;
+  __nv_bfloat16* ring = wide_ring();
+  const int nct = a.Vp / WVT, ct = blockIdx.x % nct, g = blockIdx.y;
+  const int64_t i0 = (int64_t)(blockIdx.x / nct) * WM, rows = a.I - i0;
+  float A[64], Y[64];
+  wide_zero(A);
+  wide_zero(Y);
+  wide_product<ST>(A, a.Wt + ((int64_t)g * a.I + i0) * (2 * a.Mp), 2 * a.Mp, rows,
+                   a.S + (int64_t)g * (2 * a.Mp) * (2 * a.Vp), 2 * a.Vp, 2 * a.Mp, ct * WN,
+                   ring);
+  if (MODE != W_AH)
+    wide_product<ST>(Y, a.Wr + ((int64_t)g * a.I + i0) * (2 * a.Np), 2 * a.Np, rows,
+                 a.X + (int64_t)g * (2 * a.Np) * (2 * a.Vp), 2 * a.Vp, 2 * a.Np, ct * WN, ring);
+  float part[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) part[h][0] = part[h][1] = part[h][2] = 0.f;
+  wide_each(A, Y, [&](int h, int row, int c, float2 av, float2 yv) {
+    part[h][0] = part[h][0] + (av.x * av.x + av.y * av.y);
+    const int v = ct * WVT + c;
+    if (MODE == W_AH) {
+      if (row < rows) static_cast<float2*>(a.scr)[((int64_t)g * a.I + i0 + row) * a.Vp + v] = av;
+    } else {
+      const float qr = yv.x * av.x + yv.y * av.y, qi = yv.y * av.x - yv.x * av.y;
+      if (MODE == W_SUM) {
+        part[h][1] = part[h][1] + qr;
+        part[h][2] = part[h][2] + qi;
+      } else if (row < rows && v < a.V) {
+        static_cast<float2*>(a.scr)[((int64_t)g * a.I + i0 + row) * a.V + v] =
+            make_float2(qr, qi);
+      }
+    }
+  });
+  // the four threads of a quad hold a row's 64 columns between them
+  const int lane = threadIdx.x & 31;
+  const int row0 = 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      part[h][q] = part[h][q] + __shfl_xor_sync(0xffffffffu, part[h][q], 1);
+      part[h][q] = part[h][q] + __shfl_xor_sync(0xffffffffu, part[h][q], 2);
+    }
+    if ((lane & 3) == 0 && row0 + 8 * h < rows)
+      a.part[((int64_t)g * nct + ct) * a.I + i0 + row0 + 8 * h] =
+          make_float4(part[h][0], part[h][1], part[h][2], 0.f);
+  }
+}
+
+// the sum over the column tiles of bin g's row sums of pixel i
+__device__ __forceinline__ float4 wide_rowsum(const WideArgs& a, int g, int64_t i) {
+  const int nct = a.Vp / WVT;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int ct = 0; ct < nct; ++ct) {
+    const float4 p = a.part[((int64_t)g * nct + ct) * a.I + i];
+    s.x = s.x + p.x;
+    s.y = s.y + p.y;
+    s.z = s.z + p.z;
+  }
+  return s;
+}
+
+__device__ __forceinline__ float wide_inv(float s) {
+  const float nrm = sqrtf(s);
+  return 1.f / (nrm == 0.f ? 1.f : nrm);
+}
+
+// keep '': b(i) += sum_v y conj(A) / ||A_i||, bin by bin
+__global__ void wide_sum_finish(const __grid_constant__ WideArgs a) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.I) return;
+  float2 o = a.out[i];
+  for (int g = 0; g < a.G; ++g) {
+    const float4 s = wide_rowsum(a, g, i);
+    const float inv = wide_inv(s.x);
+    o.x = o.x + s.y * inv;
+    o.y = o.y + s.z * inv;
+  }
+  a.out[i] = o;
+}
+
+__global__ void wide_norm(const __grid_constant__ WideArgs a) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.G * a.I) return;
+  a.inv[e] = wide_inv(wide_rowsum(a, (int)(e / a.I), e % a.I).x);
+}
+
+// keep 'tx': b(i, v) += Q(g, i, v) / ||A_i||, bin by bin
+__global__ void wide_tx_finish(const __grid_constant__ WideArgs a) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x, n = a.I * a.V;
+  if (e >= n) return;
+  const int64_t i = e / a.V;
+  const float2* Q = static_cast<const float2*>(a.scr);
+  float2 o = a.out[e];
+  for (int g = 0; g < a.G; ++g) {
+    const float2 q = Q[g * n + e];
+    const float inv = a.inv[g * a.I + i];
+    o.x = o.x + q.x * inv;
+    o.y = o.y + q.y * inv;
+  }
+  a.out[e] = o;
+}
+
+// keep 'rx': H = conj(A / ||A_i||) rounded to bf16, as the plain version's
+// operand
+__global__ void wide_round(const __grid_constant__ WideArgs a) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.G * a.I * a.Vp) return;
+  const float2 v = static_cast<const float2*>(a.scr)[e];
+  const float inv = a.inv[e / a.Vp];
+  a.H[e] = hmma::pack_bf16(v.x * inv, -(v.y * inv));
+}
+
+// keep 'rx': z = H X_k^T over the receivers of tile blockIdx.x % nnt, bin
+// by bin; b(i, n) += Wrx(i, n) z(i, n)
+__global__ void __launch_bounds__(NTHR, 2) wide_rx_kernel(const __grid_constant__ WideArgs a) {
+  __nv_bfloat16* ring = wide_ring();
+  const int nnt = a.Np / WVT, nt = blockIdx.x % nnt;
+  const int64_t i0 = (int64_t)(blockIdx.x / nnt) * WM, rows = a.I - i0;
+  const __nv_bfloat16* H = reinterpret_cast<const __nv_bfloat16*>(a.H);
+  float Z[64];
+  for (int g = 0; g < a.G; ++g) {
+    wide_zero(Z);
+    wide_product<WST1>(Z, H + ((int64_t)g * a.I + i0) * (2 * a.Vp), 2 * a.Vp, rows,
+                 a.X + (int64_t)g * (2 * a.Vp) * (2 * a.Np), 2 * a.Np, 2 * a.Vz, nt * WN, ring);
+    const float fk = a.fvals[g];
+    wide_each(Z, Z, [&](int, int row, int c, float2 z, float2) {
+      const int n = nt * WVT + c;
+      if (row >= rows || n >= a.N) return;
+      const int64_t i = i0 + row;
+      const float2 p = phasor<false>(fk, a.taur[i * a.N + n], 1.f);
+      float2* o = a.out + i * a.N + n;
+      *o = make_float2(o->x + (p.x * z.x - p.y * z.y), o->y + (p.x * z.y + p.y * z.x));
+    });
+  }
+}
+
+template <class Kern>
+cudaError_t wide_launch(Kern kern, int smem, dim3 grid, const WideArgs& a, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, NTHR, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+unsigned blocks_of(int64_t n, int per) { return (unsigned)((n + per - 1) / per); }
+
+cudaError_t wide_run(const WideArgs& a, int keep, cudaStream_t s) {
+  const unsigned pb = blocks_of(a.I, WM);
+  const dim3 grid(pb * (a.Vp / WVT), a.G);
+  cudaError_t err;
+  if (keep == SUM) {
+    if ((err = wide_launch(wide_kernel<W_SUM>, wide_smem(WST2), grid, a, s)) != cudaSuccess)
+      return err;
+    wide_sum_finish<<<blocks_of(a.I, 256), 256, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  const int mode = keep == KEEP_TX ? W_TX : W_AH;
+  err = mode == W_TX ? wide_launch(wide_kernel<W_TX>, wide_smem(WST2), grid, a, s)
+                     : wide_launch(wide_kernel<W_AH>, wide_smem(WST1), grid, a, s);
+  if (err != cudaSuccess) return err;
+  wide_norm<<<blocks_of(a.G * a.I, 256), 256, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (keep == KEEP_TX) {
+    wide_tx_finish<<<blocks_of(a.I * a.V, 256), 256, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  wide_round<<<blocks_of(a.G * a.I * a.Vp, 256), 256, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return wide_launch(wide_rx_kernel, wide_smem(WST1), dim3(pb * (a.Np / WVT)), a, s);
 }
 
 }  // namespace
@@ -806,4 +1140,55 @@ extern "C" int adjoint_k4(const float* fvals, const float* taur, const float* ta
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The bf16 phasor table of the wide route: W (G, I, 2 Lp) bf16, row (g, i)
+// the (Re, Im) pairs of e^{sign 2 pi i frac(fvals[g] tau[i, m])} for m < L,
+// zero up to Lp (a multiple of 4); tau (I, L) [s]; W and tau 16-byte
+// aligned. Returns the cudaError_t of the launch.
+extern "C" int phasor_table(const float* fvals, const float* tau, void* W, long long I, int L,
+                            int Lp, int G, float sign, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (I <= 0 || G <= 0) return (int)cudaSuccess;
+  if (L <= 0 || Lp < L || Lp % 4) return (int)cudaErrorInvalidValue;
+  const int64_t n4 = (int64_t)I * Lp / 4;
+  const unsigned blocks = (unsigned)std::min<int64_t>((n4 + 255) / 256, 132 * 8);
+  if (L % 4 == 0)
+    phasor_table_kernel<true><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        fvals, tau, (uint4*)W, (int64_t)I, L, Lp, G, sign);
+  else
+    phasor_table_kernel<false><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        fvals, tau, (uint4*)W, (int64_t)I, L, Lp, G, sign);
+  return (int)cudaGetLastError();
+}
+
+// The wide route of K4 in bf16 for one group of G bins and I pixels, on
+// `stream` of device `device`: fvals (G,) the group's frequencies; taur
+// (I, N) [s] (keep 1); Wt (G, I, 2 Mp), Wr (G, I, 2 Np) the phasor tables
+// of phasor_table (Wr unused for keep 1); S (G, 2Mp, 2Vp) and X (G, 2Np,
+// 2Vp), or (G, 2Vp, 2Np) for keep 1 ('rx'), the block operands of the
+// group's bins; scratch part (G, Vp / 64, I) float4, inv (G, I) float, scr
+// (keep 2: (G, I, V) complex64; keep 1: (G, I, Vp) complex64) and H (keep 1:
+// (G, I, 2 Vp) bf16); out as adjoint_k4's, added into. Mp, Vz multiples of
+// WKC / 2, Vp of 64, Np of WKC / 2 (keep 1: of 64), V <= Vz <= Vp. Returns
+// the cudaError_t of the launches.
+extern "C" int adjoint_k4_wide(const float* fvals, const float* taur, const void* Wt,
+                               const void* Wr, const void* S, const void* X, void* part,
+                               void* inv, void* scr, void* H, void* out, long long I, int N,
+                               int M, int V,
+                               int G, int Mp, int Np, int Vp, int Vz, int keep, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (I <= 0 || G <= 0) return (int)cudaSuccess;
+  if (N <= 0 || M <= 0 || V <= 0 || keep < 0 || keep > 2 || Mp < M || Mp % (WKC / 2)
+      || Np < N || Np % (keep == KEEP_RX ? WVT : WKC / 2) || Vp % WVT || Vz % (WKC / 2)
+      || Vz < V || Vz > Vp)
+    return (int)cudaErrorInvalidValue;
+  const WideArgs a{fvals, taur, (const __nv_bfloat16*)Wt, (const __nv_bfloat16*)Wr,
+                   (const __nv_bfloat16*)S, (const __nv_bfloat16*)X, (float4*)part,
+                   (float*)inv, scr, (uint32_t*)H, (float2*)out, (int64_t)I, N, M, V, G, Mp,
+                   Np, Vp, Vz};
+  return (int)wide_run(a, keep, (cudaStream_t)stream);
 }

@@ -8,8 +8,9 @@ K1 and K2 by chunks of transmits, and K1's layout footprint at its limit;
 the layout kernel against its plain version; K3 against its plain
 version, with its bf16 operands on the tensor cores (K3(b)) and its sinc
 directivity (K3(c)); K4 against bf_adjoint for every keep mode and
-precision, at the main arrays' shapes and with the phasors built per
-chunk; two launches of K3(b) and K4 bit-identical; K5 against splat_plain
+precision, at the main arrays' shapes and on the wide route (the phasor
+table kernel against its plain version, bins in groups and pixels in
+chunks, its launches counted); two launches of K3(b) and K4 bit-identical; K5 against splat_plain
 for both bases, sub-elements and a complex kernel; the sim→image path
 greens → DAS, the plane-wave path greens → focusTx → DAS / bfDAS /
 per-pixel-c DAS / bfAdjoint and the simulator family (greens pallas and
@@ -44,6 +45,7 @@ torch = pytest.importorskip("torch")
 
 import qups_tpu_torch as qt  # noqa: E402
 from qups_tpu_torch.ops import das_cuda, fdbf_cuda, greens_cuda, greens_freq_cuda  # noqa: E402
+from qups_tpu_torch.ops import fdbf  # noqa: E402
 from qups_tpu_torch.ops.fdbf import bf_adjoint  # noqa: E402
 from qups_tpu_torch.ops.greens_freq import prologue  # noqa: E402
 from qups_tpu_torch.ops.interp import METHODS  # noqa: E402
@@ -830,30 +832,44 @@ K4B = [("", 12, 300), ("", 64, 1024), ("tx", 12, 300), ("tx", 64, 1024),
        ("rx", 1024, 300), ("rx", 64, 1024), ("rx", 1024, 1024)]
 
 
+def force_wide(mp):
+    """Route every bf16 call of K4 through the wide route (the phasor table
+    and 128-pixel blocks), whatever its shapes."""
+    mp.setattr(fdbf_cuda, "wide_route", lambda M, N, V, keep, precision="bf16":
+               precision == "bf16")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("keep,N,V", K4B)
-def test_k4b_matches_plain(card, keep, N, V):
+def test_k4b_matches_plain(card, keep, N, V, monkeypatch):
     """K4(b): 300 and 1024 synthesized pulses and, with keep_rx, 1024
     receivers, against the plain version in f32 (< 1e-4) and bf16
     (< 2e-3); two launches bit-identical. keep_rx holds conj(Ahat) in one
     pass at V = 300 and by chunks at V = 1024 (rx_chunk: 256 columns in
-    bf16, 128 in f32)."""
+    bf16, 128 in f32) on the resident route; then the same bf16 calls on
+    the wide route (a phasor table in device memory, 128-pixel blocks),
+    to the same limit, bit-identical on repeat."""
     x, *rest = adjoint_problem(T=128, N=N, M=32, V=V, I=300, seed=50)
     xg = torch.as_tensor(x, device=card)
     bins = np.array([20, 23, 24, 31, 40, 41], np.int32)
     kw = dict(fs=40e6, keep_rx=keep == "rx", keep_tx=keep == "tx")
-    for precision, tol in (("f32", 1e-4), ("bf16", 2e-3)):
-        chunked = keep == "rx" and fdbf_cuda.rx_chunk(N, V, precision) > 0
+    for precision, tol, wide in (("f32", 1e-4, False), ("bf16", 2e-3, False),
+                                 ("bf16", 2e-3, True)):
+        if wide:
+            force_wide(monkeypatch)
+        chunked = keep == "rx" and fdbf_cuda.rx_chunk(32, N, V, precision) > 0
         assert chunked == (keep == "rx" and V == 1024), precision
-        before = fdbf_cuda.LAUNCHES
+        assert fdbf_cuda.wide_route(32, N, V, keep, precision) == wide
+        before, tables = fdbf_cuda.LAUNCHES, fdbf_cuda.TABLE_LAUNCHES
         got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
         again = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, precision=precision, **kw)
         torch.cuda.synchronize()
         assert fdbf_cuda.LAUNCHES == before + 2
+        assert fdbf_cuda.TABLE_LAUNCHES == tables + (2 * (1 if keep == "rx" else 2) if wide else 0)
         ref = bf_adjoint(xg, *rest, bins, precision=precision, **kw)
         assert got.shape == ref.shape
-        assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), precision
-        assert torch.equal(got, again), precision
+        assert float((got - ref).abs().max()) < tol * float(ref.abs().max()), (precision, wide)
+        assert torch.equal(got, again), (precision, wide)
 
 
 @pytest.mark.cuda
@@ -861,7 +877,11 @@ def test_k4b_matches_plain(card, keep, N, V):
 def test_k4b_rx_chunks_forced(card, vh, monkeypatch):
     """keep_rx by chunks where one pass would fit (V = 300, chunks of 64 or
     128 columns, the last one ragged): against the plain version and the
-    one-pass launch, in both precisions; two launches bit-identical."""
+    one-pass launch, in both precisions; two launches bit-identical. Then
+    the wide route's chunks forced by its budget (vh 64: two bins a group,
+    all pixels; vh 128: one bin a group, pixels in chunks of 256 and 4):
+    against the plain version, bit for bit against the wide route in one
+    chunk and on repeat."""
     x, *rest = adjoint_problem(T=128, N=200, M=48, V=300, I=260, seed=51)
     xg = torch.as_tensor(x, device=card)
     bins = np.array([20, 24, 31, 40], np.int32)
@@ -877,6 +897,21 @@ def test_k4b_rx_chunks_forced(card, vh, monkeypatch):
         assert float((got - ref).abs().max()) < tol * scale, precision
         assert float((got - one).abs().max()) < 1e-5 * scale, precision
         assert torch.equal(got, again), precision
+    kw = dict(fs=40e6, keep_rx=True, precision="bf16")
+    per = fdbf_cuda.wide_bytes(48, 200, 300, "rx")
+    with monkeypatch.context() as mp:
+        force_wide(mp)
+        whole = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+        mp.setattr(fdbf_cuda, "WIDE_BYTES", 2 * 260 * per if vh == 64 else 200 * per)
+        plan = fdbf_cuda.wide_plan(260, 48, 200, 300, 4, "rx")
+        assert (plan["bins"], plan["rows"]) == ((2, 260) if vh == 64 else (1, 256))
+        tables = fdbf_cuda.TABLE_LAUNCHES
+        got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+        again = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+        torch.cuda.synchronize()
+        assert fdbf_cuda.TABLE_LAUNCHES == tables + 2 * (2 if vh == 64 else 8)
+    assert float((got - ref).abs().max()) < 2e-3 * scale
+    assert torch.equal(got, whole) and torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -903,17 +938,80 @@ def test_k4_tensor_cores_at_main_shapes(card, keep, V):
 @pytest.mark.parametrize("keep", ["", "rx", "tx"])
 def test_k4_per_chunk_phasors(card, keep):
     """Arrays whose phasor tiles do not fit in shared memory (M = 900):
-    the bf16 variant builds each chunk's phasors as it goes. The transmit
+    the bf16 variant takes the wide route, its phasors built once per
+    (bin, pixel, element) into a table in device memory (one launch of the
+    table kernel per table: Wtx, and Wrx but for keep_rx). The transmit
     tile alone, 64 px x (2 * 912 + 8) bf16, is 234,496 bytes, above the
     232,448 a Hopper block may opt into."""
     x, *rest = adjoint_problem(T=128, N=200, M=900, V=24, I=130, seed=48)
     assert 64 * (2 * fdbf_cuda.tc_layout(900, 200, 24, keep)[1] + 8) * 2 > 232448
+    assert fdbf_cuda.wide_route(900, 200, 24, keep)
     xg = torch.as_tensor(x, device=card)
     bins = np.array([7, 9, 12], np.int32)
     kw = dict(fs=40e6, keep_rx=keep == "rx", keep_tx=keep == "tx", precision="bf16")
+    before, tables = fdbf_cuda.LAUNCHES, fdbf_cuda.TABLE_LAUNCHES
     got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+    torch.cuda.synchronize()
+    assert fdbf_cuda.LAUNCHES == before + 1
+    assert fdbf_cuda.TABLE_LAUNCHES == tables + (1 if keep == "rx" else 2)
     ref = bf_adjoint(xg, *rest, bins, **kw)
     assert float((got - ref).abs().max()) < 2e-3 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,Lp", [(900, 912), (1024, 1024), (37, 48)])
+def test_phasor_table_matches_plain(card, L, Lp):
+    """The wide route's phasor table kernel against its plain version
+    (phasor_table_plain: fdbf.phasor rounded to bfloat16): every entry is
+    the bf16 rounding of a value within 2^-20 of the plain version's
+    float32 phasor (the special function unit's sin and cos, ~2^-21.4 from
+    the accurate ones), 99 % of them equal to the plain table's; zero
+    past L; two launches bit-identical; one launch counted each."""
+    rng = np.random.default_rng(52)
+    tau = torch.as_tensor(rng.uniform(0, 4e-5, (777, L)).astype(np.float32), device=card)
+    fk = torch.tensor([2.5e6, 3.0e6, 3.3e6], device=card)
+    for sign in (-1.0, 1.0):
+        before = fdbf_cuda.TABLE_LAUNCHES
+        got = fdbf_cuda.phasor_table(fk, tau, sign, Lp)
+        again = fdbf_cuda.phasor_table(fk, tau, sign, Lp)
+        torch.cuda.synchronize()
+        assert fdbf_cuda.TABLE_LAUNCHES == before + 2
+        assert got.shape == (3, 777, 2 * Lp) and got.dtype == torch.bfloat16
+        assert torch.equal(got, again)
+        ref = fdbf_cuda.phasor_table_plain(fk, tau, sign, Lp)
+        g4 = got.reshape(3, 777, Lp, 2)
+        assert not bool(g4[:, :, L:].float().abs().any())
+        p = torch.stack([torch.view_as_real(fdbf.phasor(fk[g], tau, sign)) for g in range(3)])
+        eps = 2.0 ** -20
+        lo, hi = (p - eps).to(torch.bfloat16).float(), (p + eps).to(torch.bfloat16).float()
+        k = g4[:, :, :L].float()
+        assert bool(((k >= lo) & (k <= hi)).all()), sign
+        assert float((got == ref).float().mean()) > 0.99, sign
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["", "rx", "tx"])
+def test_k4_wide_route_launches(card, keep, monkeypatch):
+    """The wide route counts as K4 did: one LAUNCHES a call, whatever its
+    groups and chunks; the table kernel one a table (Wtx, and Wrx but for
+    keep_rx) of each group of bins and chunk of pixels, as wide_plan plans
+    them (all 7 bins in one group; with a budget of 3 bins of all pixels,
+    groups of 3, 3, 1)."""
+    x, *rest = adjoint_problem(T=128, N=64, M=900, V=40, I=200, seed=53)
+    xg = torch.as_tensor(x, device=card)
+    bins = np.arange(10, 17, dtype=np.int32)
+    kw = dict(fs=40e6, keep_rx=keep == "rx", keep_tx=keep == "tx", precision="bf16")
+    per_table = 1 if keep == "rx" else 2
+    ref = bf_adjoint(xg, *rest, bins, **kw)
+    for budget, groups in ((None, 1), (3 * 200 * fdbf_cuda.wide_bytes(900, 64, 40, keep), 3)):
+        if budget:
+            monkeypatch.setattr(fdbf_cuda, "WIDE_BYTES", budget)
+        before, tables = fdbf_cuda.LAUNCHES, fdbf_cuda.TABLE_LAUNCHES
+        got = fdbf_cuda.bf_adjoint_cuda(xg, *rest, bins, **kw)
+        torch.cuda.synchronize()
+        assert fdbf_cuda.LAUNCHES == before + 1
+        assert fdbf_cuda.TABLE_LAUNCHES == tables + groups * per_table
+        assert float((got - ref).abs().max()) < 2e-3 * float(ref.abs().max())
 
 
 @pytest.mark.cuda

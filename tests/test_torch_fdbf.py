@@ -269,16 +269,18 @@ def _cu_constants():
 
 
 def test_rx_chunk_plan_mirrors_the_kernel():
-    """K4(b)'s chunk plan: the wrapper's copies of fdbf.cu's tile sizes,
-    shared-memory limit and static row sums equal the source's; the plan
-    keeps one pass while H of all V columns fits a block (V = 300 in both
-    precisions) and otherwise takes the widest whole number of 64-column
-    tiles with which two blocks share an SM (V = 1024: 256 columns in bf16,
-    128 in f32), never above a block's limit."""
+    """K4(b)'s chunk plan on the resident route: the wrapper's copies of
+    fdbf.cu's tile sizes, shared-memory limit and static row sums equal the
+    source's; the plan keeps one pass while H of all V columns fits a block
+    beside the phasor tile (V = 300 in both precisions) and otherwise takes
+    the widest whole number of 64-column tiles with which two blocks share
+    an SM (V = 1024 at 32 elements: 256 columns in bf16, 128 in f32), or
+    one block where two cannot hold 64 columns, never above a block's
+    limit. bf16 shapes of the wide route (a phasor table in device memory,
+    no chunks of conj(Ahat)) have no chunk plan."""
     c = _cu_constants()
-    assert (c["BI"], c["GLD"], c["STAGES"], c["KC"], c["LC"], c["SMEM_LIMIT"]) == (
-        fdbf_cuda.BI, fdbf_cuda.GLD, fdbf_cuda.STAGES, fdbf_cuda.KC, fdbf_cuda.LC,
-        fdbf_cuda.SMEM_LIMIT)
+    assert (c["BI"], c["STAGES"], c["KC"], c["LC"], c["SMEM_LIMIT"]) == (
+        fdbf_cuda.BI, fdbf_cuda.STAGES, fdbf_cuda.KC, fdbf_cuda.LC, fdbf_cuda.SMEM_LIMIT)
     assert fdbf_cuda.KROWS == c["KC"] // 2
     assert "__shared__ float red[2][3][BI];" in _cu_source()
     lim, per_sm = fdbf_cuda.SMEM_LIMIT, fdbf_cuda.SM_SMEM
@@ -287,23 +289,28 @@ def test_rx_chunk_plan_mirrors_the_kernel():
         return 2 * (fdbf_cuda.rx_smem(*a) + fdbf_cuda.BLOCK_EXTRA) <= per_sm
 
     for precision in ("bf16", "f32"):
-        assert fdbf_cuda.rx_chunk(1024, 300, precision) == 0
+        assert fdbf_cuda.rx_chunk(32, 1024, 300, precision) == 0
         for M, N, V in ((1024, 1024, 1024), (128, 300, 705), (16, 2000, 5000),
-                        (1024, 1024, 300), (128, 128, 64), (900, 200, 24)):
-            vh = fdbf_cuda.rx_chunk(N, V, precision)
+                        (1024, 1024, 300), (128, 128, 64), (900, 200, 24), (600, 64, 1024)):
+            if fdbf_cuda.wide_route(M, N, V, "rx", precision):
+                assert precision == "bf16" and M >= 900, (M, N, V)
+                continue
+            vh = fdbf_cuda.rx_chunk(M, N, V, precision)
             vp = fdbf_cuda.tc_layout(M, N, V, "rx")[3] if precision == "bf16" else V
             if vh == 0:
-                assert fdbf_cuda.rx_smem(N, V, precision, vp) <= lim, (M, N, V, precision)
+                assert fdbf_cuda.rx_smem(M, N, V, precision, vp) <= lim, (M, N, V, precision)
                 continue
-            assert fdbf_cuda.rx_smem(N, V, precision, vp) > lim
+            assert fdbf_cuda.rx_smem(M, N, V, precision, vp) > lim
             assert vh % 64 == 0 and 64 <= vh < vp
-            assert two_fit(N, V, precision, vh)
-            assert not two_fit(N, V, precision, vh + 64)
-    assert fdbf_cuda.rx_chunk(1024, 1024, "bf16") == 256
-    assert fdbf_cuda.rx_chunk(1024, 1024, "f32") == 128
-    # the bf16 engine's bytes as fdbf.cu's TcChunked counts them (NT = 8, GEN)
-    assert fdbf_cuda.rx_smem(1024, 1024, "bf16", 256) == 2 * (
-        2 * 64 * 40 + 64 * (2 * 256 + 8) + 3 * 32 * (16 * 8 + 8))
+            assert fdbf_cuda.rx_smem(M, N, V, precision, vh) <= lim
+            assert two_fit(M, N, V, precision, vh) or not two_fit(M, N, V, precision, 64)
+            assert not two_fit(M, N, V, precision, vh + 64)
+    assert fdbf_cuda.rx_chunk(32, 1024, 1024, "bf16") == 256
+    assert fdbf_cuda.rx_chunk(32, 1024, 1024, "f32") == 128
+    assert fdbf_cuda.rx_chunk(600, 64, 1024, "bf16") == 128  # one block an SM
+    # the bf16 engine's bytes as fdbf.cu's TcChunked counts them (NT = 8)
+    assert fdbf_cuda.rx_smem(32, 1024, 1024, "bf16", 256) == 2 * (
+        64 * (2 * 32 + 8) + 64 * (2 * 256 + 8) + 3 * 32 * (16 * 8 + 8))
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
