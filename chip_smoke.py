@@ -25,7 +25,9 @@ and runs:
 
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times, ptxas registers, spills, stack frames
-   and shared memory, the FFMA count in the SASS (``cuobjdump -sass``) of
+   and shared memory (K1(b)/K2(b)'s rotating variants by rotation: the
+   short rotation's with no stack frame and, in the SASS, no local memory),
+   the FFMA count in the SASS (``cuobjdump -sass``) of
    the nearest variants of K1 and K2 (0 without remodulation: their delays
    are never contracted), and the
    tensor-core instructions (HMMA / HGMMA) in the bf16 variants of K3 and
@@ -102,8 +104,11 @@ and runs:
 12. K1(b) and K2(b) against their plain versions: every sampler x (the
    three transmit models | perturbed tables) x (real traces with fmod,
    complex with and without) x frames 1, 3, 6 (a ragged block of the 4 a
-   launch takes) and dims (2, 3), delays off both ends; the layout kernel
-   with frames bit for bit;
+   launch takes) and dims (2, 3), delays off both ends, one launch per block
+   of the plan's frames; the layout kernel with frames bit for bit; the
+   short rotation (``das_sincos_probe``) within 2^-21 of float64 over
+   |phase| <= PHASE_MAX; fmod 4 GHz (phases past PHASE_MAX) through the
+   sincosf variants against the plain version;
 13. the IQ ensemble path on the demo's system, unmodified, no ``device=``:
    4 frames of a 5-target phantom (0.3 mm deeper each frame) through
    ``greens`` (K3), ``join``, ``hilbert``, ``downmix``, ``resample``, then
@@ -116,7 +121,8 @@ and runs:
    ``downmix(5 MHz)``, ``resample(fs / 4)`` (timed), then K1(b) and K2(b)
    for every sampler: 4 frames in one call and 4 one-frame calls, each with
    and without fmod, with CUDA events, each against the plain version on
-   every 64th pixel, beside its bound;
+   every 64th pixel, beside its bound; the rotation's cost (fmod - none)
+   per sampler and the frames a launch and layout of the plan;
 15. K1(c), K1(d) and K2(c) against their plain versions at phase 12's
    shapes: every keep mode x each fused kind, two mixed and two dense
    weights x (the three transmit models | perturbed tables) x real / complex
@@ -346,6 +352,40 @@ def _line_geometry(n, N, M, model):
     return pi, pr.astype(np.float32), pv.astype(np.float32), nv.astype(np.float32)
 
 
+# das_frames_kernel's template arguments in a mangled name: source, sampler,
+# sample type, rotation (0 none, 1 sincos_reduced, 2 sincosf), frames a
+# launch, entry type
+FRAMES_VARIANT = re.compile(
+    r"das_frames_kernelILi(\d)ELi(\d)E(?:f|6float2)Li(\d)ELi(\d)ELi(\d)E")
+
+
+def ptxas_functions(log):
+    """{mangled kernel name: (registers, stack frame bytes, spill store
+    bytes)} from nvcc's -Xptxas=-v log."""
+    out, fn, stack, spill = {}, None, 0, 0
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+        elif fn and "bytes stack frame" in line:
+            stack = int(line.split("bytes stack frame")[0].split()[-1])
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif fn and "Used " in line and " registers" in line:
+            out[fn] = (int(line.split("Used ")[1].split()[0]), stack, spill)
+            fn = None
+    return out
+
+
+def frames_variants(log):
+    """das_frames_kernel's variants in a build log: [(source, sampler,
+    rotation, frames a launch, entry type, registers, stack, spills)]."""
+    rows = []
+    for fn, (regs, stack, spill) in ptxas_functions(log).items():
+        m = FRAMES_VARIANT.search(fn)
+        if m:
+            rows.append(tuple(int(v) for v in m.groups()) + (regs, stack, spill))
+    return sorted(rows)
+
+
 def phase0(torch, ops):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -395,6 +435,18 @@ def phase0(torch, ops):
                   f"registers, {spills} bytes of spill stores, stack frames "
                   f"{min(stack)}-{max(stack)} bytes"
                   + (f", {min(smem)}-{max(smem)} bytes of shared memory" if smem else ""))
+        if "fmod" in name and name.startswith("K1(") and "keep" not in name:
+            # K1(b)/K2(b)'s rotating variants: the short rotation's hold no
+            # stack frame (no sincosf, no spills)
+            fv = frames_variants(log)
+            for rot, what in ((1, "sincos_reduced"), (2, "sincosf, phases past PHASE_MAX")):
+                v = [r for r in fv if r[2] == rot]
+                assert v, (name, rot)
+                print(f"  das_frames_kernel, {what}: {len(v)} variants, "
+                      f"{min(r[5] for r in v)}-{max(r[5] for r in v)} registers, stack frames "
+                      f"{min(r[6] for r in v)}-{max(r[6] for r in v)} bytes, frames a launch "
+                      f"{sorted({r[3] for r in v})}")
+                assert rot != 1 or all(r[6] == 0 for r in v), (name, v)
     cuobjdump = os.path.join(os.path.dirname(ops._nvcc.nvcc()), "cuobjdump")
 
     def sass_counts(lib, ops_):
@@ -417,9 +469,12 @@ def phase0(torch, ops):
     # FFMA at all (the template arguments of das_kernel and
     # das_frames_kernel begin <source, sampler, ...>: 4 sources x 2 value
     # types, one frame (das_kernel) and 4 frames); the remodulating
-    # variants (das_iq.cu, one frame and 4) contract their rotation and
-    # sincosf
-    for lib, n_near, zero in (("das", 16, True), ("das_iq", 16, False)):
+    # variants (das_iq.cu: the short rotation's, one frame and the plan's
+    # frames a launch, and the sincosf variants, the plan's alone) contract
+    # their rotation
+    n_iq = 4 * sum(2 if ops.das_cuda.frames_per_launch("nearest", cplx=c) == 1 else 3
+                   for c in (False, True))
+    for lib, n_near, zero in (("das", 16, True), ("das_iq", n_iq, False)):
         so, ffma = sass_counts(lib, ("FFMA",))
         das = {f: c for f, c in ffma.items() if re.search(r"das_(frames_)?kernelI", f)}
         nearest = {f: c for f, c in das.items()
@@ -431,6 +486,16 @@ def phase0(torch, ops):
               f"{len(ffma) - len(nearest) - len(other)} layout kernel variants")
         assert len(nearest) == n_near, nearest
         assert not zero or sum(nearest.values()) == 0, nearest
+    # the short rotation's variants touch no local memory (sincosf's slow
+    # path keeps its reduction there)
+    for lib in ("das_iq", "das_bf16_iq", "das_i8_iq"):
+        so, local = sass_counts(lib, ("STL", "LDL"))
+        short = {f: c for f, c in local.items()
+                 if (m := FRAMES_VARIANT.search(f)) and m.group(3) == "1"}
+        print(f"  {lib} SASS ({so}): {len(short)} variants of the short rotation with "
+              f"{sum(short.values())} local loads and stores; the sincosf variants "
+              f"{sum(c for f, c in local.items() if f not in short)}")
+        assert short and sum(short.values()) == 0, short
     # the tensor-core instructions in the SASS of K3's and K4's variants: the
     # bf16 ones must have them (HMMA from mma.sync, HGMMA from wgmma)
     for name, lib, is_bf16 in (
@@ -1583,7 +1648,6 @@ def phase12(torch, das_cuda, errs, lerrs):
     tau_rx, tau_tx, t0, fs, _ = _lut_problem(torch, T, N, M, n, 12)
     seed = 120
     for fdims in FRAME_SHAPES:
-        blocks = -(-int(np.prod(fdims)) // das_cuda.FB)
         for case, (cplx, rot) in IQ_CASES.items():
             seed += 1
             xg = _frame_traces(torch, T, N, M, fdims, cplx, seed)
@@ -1602,6 +1666,8 @@ def phase12(torch, das_cuda, errs, lerrs):
                         p = srcs[src]
                         args, kw = (xg,) + p[:5] + (np.float32(1 / c0),), dict(
                             kw, fs=p[5], tx_model=src)
+                    blocks = -(-int(np.prod(fdims))
+                               // das_cuda.frames_per_launch(method, cplx=cplx))
                     before = getattr(das_cuda, counter)
                     got = kern(*args, **kw)
                     torch.cuda.synchronize()
@@ -1613,13 +1679,58 @@ def phase12(torch, das_cuda, errs, lerrs):
                     worst[src] = max(worst.get(src, 0.0), r)
             print(f"phase12 F={str(fdims):7s} {case:13s} worst rel over the 4 samplers: "
                   + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-                  + f"  ({blocks} launch(es) per call; (T,N,M,I)={(T, N, M, n * n)})")
+                  + f"  ((T,N,M,I)={(T, N, M, n * n)})")
             if fdims in ((3,), (6,)) and case != "complex+fmod":
                 for method in METHODS:
                     _layout_parity(torch, das_cuda, lerrs, method, xg,
                                    f"phase12 layout F={fdims} {case} {method}")
     print("phase12 layout kernel with frames: bit-identical to trace_layout_plain for F = 3 "
           "and 6, real and complex, every sampler")
+    # the short rotation alone against float64 over |phase| <= PHASE_MAX
+    g = torch.Generator(device="cuda").manual_seed(12)
+    pm = das_cuda.PHASE_MAX
+    ph = torch.cat((torch.rand(1 << 22, generator=g, device="cuda") * (2 * pm) - pm,
+                    torch.linspace(0.0, 5000.0, 1 << 20, device="cuda"),
+                    (torch.arange(-4096, 4097, device="cuda", dtype=torch.float64)
+                     * (np.pi / 2)).float(), torch.tensor([pm, -pm, 0.0], device="cuda")))
+    sc = das_cuda.sincos_probe(ph).double()
+    phd = ph.double()
+    err = float(torch.maximum((sc[:, 0] - torch.sin(phd)).abs(),
+                              (sc[:, 1] - torch.cos(phd)).abs()).max())
+    print(f"phase12 the short rotation (sincos_reduced) of {ph.numel()} phases in "
+          f"|phase| <= {pm:.0f} rad against float64: max abs error {err:.3e} "
+          f"(2^{np.log2(err):.2f}), limit 2^-21")
+    assert err <= 2.0 ** -21, err
+    # a phase range past PHASE_MAX: the sincosf variants (das_k1_iq_wide)
+    fmod = 4e9
+    w = float(np.float32(2 * np.pi * fmod))
+    xg = _frame_traces(torch, T, N, M, (3,), True, 199)
+    for src in ("plane", "tables"):
+        for method in METHODS:
+            if src == "tables":
+                kern, plain, e = (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                                  errs["das_lut_k2b"])
+                args, kw = (xg, tau_rx, tau_tx, t0), dict(fs=fs, method=method, fmod=fmod)
+            else:
+                p = srcs[src]
+                kern, plain, e = das_cuda.das_sum, das_cuda.das_sum_plain, errs["das_k1b"]
+                args, kw = (xg,) + p[:5] + (np.float32(1 / c0),), dict(
+                    fs=p[5], tx_model=src, method=method, fmod=fmod)
+            assert not das_cuda.reduced_rotation(w, T, kw["fs"])
+            a, r = e.add(kern(*args, **kw), plain(*args, **kw),
+                         f"phase12 fmod {fmod:.0e} (sincosf variants) {src} {method}")
+            assert r < TOL, (src, method, r)
+    print(f"phase12 fmod {fmod:.0e}, phases to {w * (T - 1) / fs:.3e} rad past PHASE_MAX: the "
+          "sincosf variants of K1(b) and K2(b) within TOL of the plain version, every sampler")
+
+
+def _frames_launches(das_cuda, F, method, cplx):
+    """K1(b)'s or K2(b)'s launches, and layouts, for one call of F frames
+    whose transmits fit one chunk: one a block of the plan's frames a
+    launch (one layout for them all), one a frame where the plan runs the
+    frames one at a time (a layout each)."""
+    fb = das_cuda.frames_per_launch(method, cplx=cplx)
+    return -(-F // fb), 1 if fb > 1 else F
 
 
 def _demo_frames(qt, us, F, step=0.3e-3):
@@ -1677,8 +1788,10 @@ def phase13(torch, qt, ops, errs):
           f"(first call) -> IQ {tuple(iq.data.shape)} {iq.data.dtype} at {iq.fs / 1e6} MHz on "
           f"{iq.data.device}; launches {launches}")
     assert iq.data.is_cuda and iq.data.is_complex() and iq.data.shape[2:] == (5, F)
-    assert launches["das_k1b"] == 2 and launches["das_lut_k2b"] == 2, launches
-    assert launches["das_layout"] == 4 and all(v > 0 for v in launches.values()), launches
+    (nc, lc), (nl, ll) = (_frames_launches(das_cuda, F, m, True) for m in ("cubic", "linear"))
+    assert launches["das_k1b"] == nc + nl and launches["das_lut_k2b"] == 2 * nc, launches
+    assert launches["das_layout"] == 3 * lc + ll and all(v > 0 for v in launches.values()), \
+        launches
     _, t_chain = _sync_s(torch, chain)
     print(f"phase13 the 4 frames' simulation and DSP chain, warm (host clock, synchronised): "
           f"{t_chain * 1e3:.3f} ms")
@@ -1700,8 +1813,9 @@ def phase13(torch, qt, ops, errs):
 
 # flops of a K1(b) / K2(b) term, as phase 14's bound counts them. Once per
 # term: the delay (K1 4: add, product, difference, scale; K2 3), the tap
-# base and fraction 3, the phase 1 and its sincosf 20 (a 3-FMA reduction
-# and two short polynomials); per frame: the sampler on complex traces
+# base and fraction 3, the phase 1 and its sin and cos 20 (counted for a
+# 3-FMA reduction and two short polynomials, PR 7's count, kept); per
+# frame: the sampler on complex traces
 # (cubic 2 x 3 FMA, 12; linear 2 FMA, 4; nearest 0; lanczos3 2 x 4 taps, 16,
 # with its weights 30 once per term), the complex product 6 and the sum 2.
 TERM_FLOPS = {"nearest": 0, "linear": 4, "cubic": 12, "lanczos3": 16}
@@ -1712,11 +1826,36 @@ def _iq_term_flops(method, lut, F, rot=True):
     return once + F * (TERM_FLOPS[method] + (6 if rot else 0) + 2)
 
 
+def iq_headline(torch, qt, T=4096, F=4, fs=31.25e6):
+    """Phase 14's IQ traces: bench.das_problem's traces (1024^2 pixels, 256
+    x 256) as frame 0 and seeded draws as the others, (T, N, M, F) at fs,
+    through hilbert, downmix(FMOD) and resample(fs / 4) on the card (T'
+    1024 complex64, 2 GiB). Returns (the IQ ChannelData, (pi, pr, pv, nv),
+    the chain's ms: CUDA events, one run after a warm-up)."""
+    from qups_tpu_torch import bench
+
+    x0, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=256, M=256, n=1024)
+    xg = torch.empty(x0.shape + (F,), device="cuda")
+    xg[..., 0] = torch.as_tensor(x0)
+    del x0
+    for f in range(1, F):
+        xg[..., f] = torch.as_tensor(np.random.default_rng(f).standard_normal(
+            xg.shape[:3], dtype=np.float32))
+    rf = qt.ChannelData(data=xg, fs=fs, t0=t0)
+    dsp = lambda: rf.hilbert().downmix(FMOD).resample(fs / 4)  # noqa: E731
+    dsp_ms = _ms(dsp, reps=1)
+    iq = dsp()
+    del rf, xg
+    torch.cuda.synchronize()
+    return iq, (pi, pr, pv, nv), dsp_ms
+
+
 def phase14(torch, qt, das_cuda, errs):
     """The headline in IQ: bench.das_problem's traces as frame 0 and three
     seeded draws, 4096 x 256 x 256 x 4 at 31.25 MHz, through hilbert,
     downmix(5 MHz) and resample(fs / 4) on the card (T' 1024, complex, 2 GiB;
-    the cubic layout 8 GiB, two chunks); then K1(b) and K2(b) for every
+    complex cubic runs as one-frame calls, each frame's layout 2 GiB in one
+    chunk); then K1(b) and K2(b) for every
     sampler: the 4 frames in one call, the same frames as 4 one-frame calls,
     and both without fmod, timed with CUDA events (mean of 3
     after a warm-up, lanczos3 1), each against the plain version on every
@@ -1725,31 +1864,26 @@ def phase14(torch, qt, das_cuda, errs):
     from qups_tpu_torch import bench
     from qups_tpu_torch.ops.das import delay_tables
 
-    n, T, N, M, fs, F = 1024, 4096, 256, 256, 31.25e6, 4
-    x0, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
-    xg = torch.empty((T, N, M, F), device="cuda")
-    xg[..., 0] = torch.as_tensor(x0)
-    del x0
-    for f in range(1, F):
-        xg[..., f] = torch.as_tensor(np.random.default_rng(f).standard_normal(
-            (T, N, M), dtype=np.float32))
-    rf = qt.ChannelData(data=xg, fs=fs, t0=t0)
-    dsp = lambda: rf.hilbert().downmix(FMOD).resample(fs / 4)  # noqa: E731
-    dsp_ms = _ms(dsp, reps=1)
-    iq = dsp()
-    del rf, xg
-    torch.cuda.synchronize()
+    n, N, M, F = 1024, 256, 256, 4
+    iq, (pi, pr, pv, nv), dsp_ms = iq_headline(torch, qt)
     x = iq.data
     Tq = x.shape[0]
     print(f"phase14 DSP chain hilbert -> downmix(5 MHz) -> resample(fs / 4) on "
-          f"{(T, N, M, F)} float32: {dsp_ms:.3f} ms (CUDA events, one run after a warm-up) "
+          f"{(4096, N, M, F)} float32: {dsp_ms:.3f} ms (CUDA events, one run after a warm-up) "
           f"-> IQ {tuple(x.shape)} {x.dtype} ({x.numel() * 8 / 2**30:.2f} GiB), "
-          f"t0 {tuple(np.shape(iq.t0))}; the cubic layout in "
-          f"{len(das_cuda.tx_chunks(x, 'cubic'))} chunks")
+          f"t0 {tuple(np.shape(iq.t0))}; one frame's cubic layout in "
+          f"{len(das_cuda.tx_chunks(x[..., :1], 'cubic'))} chunk(s)")
     assert Tq == 1024 and x.is_complex()
     ones = [x[..., f].contiguous() for f in range(F)]
     tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
     cinv, fsq = np.float32(1 / 1540.0), iq.fs
+    w = float(np.float32(2 * np.pi * FMOD))
+    phase = abs(w) * (Tq - 1) / float(np.float32(fsq))
+    assert das_cuda.reduced_rotation(w, Tq, fsq), phase
+    plan = {m: das_cuda.frames_per_launch(m) for m in METHODS}
+    print(f"phase14 K1(b)/K2(b) plan on complex float32 traces: frames a launch {plan}, "
+          f"the frames innermost in the layout (one-frame calls where 1); the phases within "
+          f"{phase:.1f} rad, the short rotation (PHASE_MAX {das_cuda.PHASE_MAX:.0f} rad)")
     sub = torch.arange(0, n * n, 64, device="cuda")  # every 64th pixel
     pig = torch.as_tensor(pi).cuda()
     k1 = (das_cuda.das_sum, das_cuda.das_sum_plain,
@@ -1785,7 +1919,9 @@ def phase14(torch, qt, das_cuda, errs):
                   f"4 frames in one call {t4:.3f} ms ({rate:.4e} sums/s, "
                   f"{rate / bench.BASELINE_SUMS_PER_S:.3f}x the RTX-3070 figure); 4 one-frame "
                   f"calls {t1:.3f} ms; without fmod {t0f:.3f} ms, as 4 one-frame calls "
-                  f"{t10:.3f} ms; bounds (ops) "
+                  f"{t10:.3f} ms; the rotation's cost (fmod - none, 4 frames) "
+                  f"{t4 - t0f:.3f} ms; {das_cuda.frames_per_launch(method)} frames a launch, "
+                  f"one call / 4 calls {t4 / t1:.3f} (fmod), {t0f / t10:.3f} (none); bounds (ops) "
                   f"{b[0]:.3f} / {4 * b1[0]:.3f} / {b0[0]:.3f} ms "
                   f"({_iq_term_flops(method, lut, F)} / {4 * _iq_term_flops(method, lut, 1)} / "
                   f"{_iq_term_flops(method, lut, F, rot=False)} flop per term); plain on every "
@@ -3190,7 +3326,8 @@ def phase23(torch, qt, ops, errs):
           f"{tm.times['channel map']:.3f} s (host clock); upload "
           f"{tm.times['upload'] * 1e3:.3f} ms; DAS RF, hilbert, downmix, DAS IQ on "
           f"{torch.cuda.get_device_name(0)}: {t_path:.3f} s (first call); launches {launches}")
-    assert launches == {"das_k1b": 2, "das_layout": 2}, launches
+    n, nl = _frames_launches(das_cuda, F, "cubic", True)  # IQ; RF: one launch
+    assert launches == {"das_k1b": 1 + n, "das_layout": 1 + nl}, launches
     assert g.data.is_cuda and iq.data.is_cuda and iq.data.is_complex()
     for name, b, dt in (("RF", b_rf, torch.float32), ("IQ", b_iq, torch.complex64)):
         assert b.is_cuda and b.dtype == dt and b.shape == tuple(us.scan.shape) + (1, 1, F), \
@@ -4232,8 +4369,9 @@ def main():
         ("das_k1b", "qups_tpu_torch/csrc/das.cu (das_iq.cu)",
          "qups_tpu/ops/das_pallas.py:174 (fmod :898-910, frames :1386-1393)",
          *iqh["das_k1b"], None, "K1(b): the headline in IQ, 1024^2 px x 256 tx x 256 rx x "
-         "4 frames, T' 1024 complex64, fmod 5 MHz, cubic, the 4 frames in one call (layout "
-         "kernel included, two chunks); bound: "
+         "4 frames, T' 1024 complex64, fmod 5 MHz, cubic, the 4 frames in one call (run as "
+         "4 one-frame calls on each frame's own layout, one chunk each; layout kernel "
+         "included); bound: "
          f"{_iq_term_flops('cubic', False, 4)} flop per term; plain timed on every 64th "
          "pixel and scaled; launches: the IQ ensemble path (phase 13) and the Vantage "
          "import path (phase 23: DAS RF and IQ, 4 frames each)"),

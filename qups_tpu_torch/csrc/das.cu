@@ -72,19 +72,43 @@
 //   (ops/das_cuda.py::LAYOUT_BYTES); a launch after the first adds its sum
 //   to what out holds. One chunk covers the main paths' sizes.
 // - Frames and remodulation (K1(b), K2(b)) run in das_frames_kernel, the
-//   same loops with FB frames' sums per thread in registers (one launch per
-//   block of FB frames; one frame with fmod a variant of its own): a term's
-//   delay, validity, tap base, fraction and rotation are formed once for
-//   all its frames. The layout keeps a term's frames innermost, (M, N, T,
-//   F, entry), so a term's FB entries share cache lines at constant
-//   offsets. One frame without fmod runs das_kernel, unchanged, with the
-//   arguments it always took: with the frames' fields among them, its
-//   variants gained registers (K2's real linear sampler 62 -> 72, 3 blocks
-//   per SM) and ran up to 1.24x slower (PERF.md §6).
-// - Remodulation is one sincosf per term, then a complex product per frame.
-//   Its instantiations live in a second translation unit, das_iq.cu (this
-//   file built with DAS_IQ defined), so the two build in parallel; without
-//   fmod the kernels hold no rotation at all.
+//   same loops with a block of frames' sums per thread in registers (one
+//   launch per block of frames_a_launch frames; one frame with fmod a
+//   variant of its own): a term's delay, validity, tap base, fraction,
+//   weights and rotation are formed once for all its frames. The layout
+//   keeps a term's frames innermost, (M, N, T, F, entry), so a term's
+//   entries share cache lines at constant offsets. A block is 4 frames, but
+//   1 for complex cubic float32 traces (32-byte entries, a 128-byte line a
+//   tap base for 4 frames), which lost to one-frame calls in a block of 4 or
+//   2 at the IQ headline without fmod (473 and 437 against 385 ms) and, with
+//   fmod, at PICMUS's pixel pitch (2 a launch 45 ms against 27), where a
+//   warp's pixels span more tap bases; the wrapper runs those as one-frame
+//   calls on each frame's own layout (one frame a launch on the 4 frames'
+//   layout, at frame offsets, ran 1.04x slower with fmod and 1.25x without).
+//   A layout with the frames outside the time axis ran 1.4-5x slower with 2
+//   or 4 frames a launch. The rotating variants keep FRAMES_MIN_BLOCKS
+//   blocks an SM (64 registers, no spills; at 72-73 registers, 3 blocks, the
+//   rotating complex cubic block ran 1.27x slower) and unroll FRAMES_UNROLL
+//   groups (1: 2 ran up to 1.22x slower with fmod); the unrotated ones keep
+//   das_kernel's unroll, UNROLL, and ptxas's registers (capped, PICMUS's
+//   real cubic frames ran 1.45x slower; unrolled 1, K2's nearest frames
+//   1.12x). The sweeps are in PERF.md §6, PR 17. One frame without fmod runs
+//   das_kernel, unchanged, with the arguments it always took: with the
+//   frames' fields among them, its variants gained registers (K2's real
+//   linear sampler 62 -> 72, 3 blocks per SM) and ran up to 1.24x slower
+//   (PERF.md §6).
+// - Remodulation is one short rotation per term (sincos_reduced: the phase
+//   reduced to [-pi/4, pi/4] in two FMAs, the special function unit's sin
+//   and cos of the reduced angle, the quadrant's swap and signs), then a
+//   complex product per frame; sincosf took twice the time and, unrolled, a
+//   stack frame. A phase past PHASE_MAX, which no acquisition reaches (2^20
+//   rad: 166886 cycles of fmod within a trace), takes variants with the
+//   accurate sincosf instead, chosen by the wrapper from w (T - 1) / fs; a
+//   reduction in one double-precision FMA, within 2^-21 to 2^30 rad, ran
+//   1.6-20 % slower with fmod (PERF.md §6, PR 17). The rotating
+//   instantiations live in a second translation unit, das_iq.cu (this file
+//   built with DAS_IQ defined), so the two build in parallel; without fmod
+//   the kernels hold no rotation at all.
 // - Few instructions per term: the tap base and fraction come from one add
 //   of 2^23 rounded down (nearest: to nearest), with no conversion, and the
 //   entry's address from one shift-add on a 32-bit offset in the chunk and
@@ -105,9 +129,10 @@
 // variants contain no FFMA at all (chip_smoke.py checks the SASS). The
 // phase of the rotation rounds as the plain version's does too: w =
 // float32(2 pi fmod) from the host, __fmul_rn(w, tau) with the kernel's own
-// float32 tau, then sincosf (the accurate one: at IQ sizes the phase
-// reaches thousands of radians, where __sincosf's error grows, and another
-// rounding of the phase moves a term by ~1e-4 rad). Each thread sums in
+// float32 tau (another rounding of the phase moves a term by ~1e-4 rad at
+// IQ sizes, where the phase reaches thousands of radians), then
+// sincos_reduced, within 2^-21 of the float64 sin and cos of that phase
+// (__sincosf alone: its error grows with the phase). Each thread sums in
 // registers and writes its pixel once: no atomics, so two launches give
 // the same bits.
 //
@@ -158,8 +183,26 @@ constexpr int MC = 8;         // transmits per chunk of transmit terms
 constexpr int UNROLL = 2;     // groups of 4 receivers per unrolled step
 constexpr int RS = NC + 4;    // row stride of R: 16-byte rows, conflict-free 16-byte reads
 constexpr int TMAX = 1 << 22;  // longest trace: the index arithmetic of sample()
-constexpr int FB = 4;         // frames per launch, their sums in registers
+constexpr int FB = 4;         // frames per launch of das_keep_kernel, their sums in registers
 static_assert(NC % 4 == 0, "R is read four receivers at a time");
+
+// das_frames_kernel's plan, chosen by the sweeps of PERF.md §6, PR 17:
+// the frames a launch (FRAMES_A_LAUNCH, but one for complex cubic float32
+// traces; ops/das_cuda.py::frames_per_launch mirrors it) and, for the
+// rotating variants, the unroll of the receiver loop (groups of 4
+// receivers) and the least blocks an SM (__launch_bounds__).
+constexpr int FRAMES_A_LAUNCH = 4;
+constexpr int FRAMES_UNROLL = 1;
+constexpr int FRAMES_MIN_BLOCKS = 4;
+// The largest |phase| the short rotation takes, in radians.
+constexpr float PHASE_MAX = 0x1p20f;
+// The rotations: none; sincos_reduced; the accurate sincosf (phases past
+// PHASE_MAX).
+enum Rot { NO_ROT = 0, ROT_REDUCED = 1, ROT_SINCOSF = 2 };
+
+constexpr int frames_a_launch(int method, int q, int cplx) {
+  return method == CUBIC && q == F32 && cplx ? 1 : FRAMES_A_LAUNCH;
+}
 static_assert((int64_t)NC * 8 * TMAX < (int64_t)1 << 31, "a chunk's offsets fit an int");
 
 struct Args {
@@ -456,6 +499,29 @@ __device__ __forceinline__ V sample(const Unit<Q>* __restrict__ xm, unsigned o, 
   }
 }
 
+// sin and cos of a phase x, |x| <= PHASE_MAX, with no branch and no stack
+// frame: k = rint(x 2 / pi) by the add of 1.5 2^23, whose low bits give
+// the quadrant k mod 4 (|k| < 2^22); r = x - k pi / 2 in two FMAs, a
+// Cody-Waite split of pi / 2 (the first product and difference exact, the
+// second's rounding 2^-25 at most); then sin and cos of r in [-pi/4, pi/4]
+// and the quadrant's swap and signs: the special function unit's
+// (__sincosf: 2^-21.41 at most on [-pi, pi]); the card measured 3.68e-7
+// (2^-21.37) against float64 over 2^22 phases in |x| <= 2^20
+// (tools/k1b_torch.py). das_sincos_probe runs it for
+// tests/test_torch_cuda.py and chip_smoke.py, which hold it within 2^-21.
+__device__ __forceinline__ void sincos_reduced(float x, float* sn, float* cs) {
+  const float t = fmaf(x, 0.636619772367581343f, 12582912.f);
+  const float k = __fsub_rn(t, 12582912.f);
+  const unsigned q = __float_as_uint(t);
+  float r = fmaf(-k, 1.57079637050628662109375f, x);
+  r = fmaf(-k, -4.37113882867379300296306610107421875e-8f, r);
+  float s, c;
+  __sincosf(r, &s, &c);
+  const float a = (q & 1u) ? c : s, b = (q & 1u) ? s : c;
+  *sn = __uint_as_float(__float_as_uint(a) ^ ((q & 2u) << 30));
+  *cs = __uint_as_float(__float_as_uint(b) ^ (((q + 1u) & 2u) << 30));
+}
+
 // A sample rotated by (c, s) = (cos, sin) of its phase, as the plain
 // version's complex product (v + 0i or v) * (c + is); unrotated without ROT.
 template <bool ROT, typename V>
@@ -598,12 +664,14 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const QArgs<Q, Args> a) {
 }
 
 // K1(b), K2(b): das_kernel's loops with NF frames' sums per thread (1 with
-// fmod and one frame, else FB), each term's samples rotated by exp(2 pi i
-// fmod tau) when ROT. A (float2 with ROT or complex traces, else float) is
-// the sums' type.
-template <int SRC, int METHOD, typename V, bool ROT, int NF, int Q = F32>
-__global__ void __launch_bounds__(P, 1) das_frames_kernel(const QArgs<Q, FrameArgs> fa) {
-  using A = decltype(rotate<ROT, V>(V{}, 1.f, 0.f));
+// fmod and one frame, else the launch's block, FRAMES_A_LAUNCH), each
+// term's samples rotated by exp(2 pi i fmod tau) when ROT (Rot: by
+// sincos_reduced or sincosf). A (float2 with ROT or complex traces, else
+// float) is the sums' type.
+template <int SRC, int METHOD, typename V, int ROT, int NF, int Q = F32>
+__global__ void __launch_bounds__(P, ROT == NO_ROT ? 1 : FRAMES_MIN_BLOCKS)
+    das_frames_kernel(const QArgs<Q, FrameArgs> fa) {
+  using A = decltype(rotate<ROT != NO_ROT, V>(V{}, 1.f, 0.f));
   const Args& a = fa.a;
   constexpr int E = Entry<METHOD, V>::E;
   __shared__ __align__(16) float R[P * RS];  // R[p][n]
@@ -622,8 +690,8 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const QArgs<Q, FrameAr
   }
   const float tmax = (float)(a.T - 1);
   const unsigned row = (unsigned)a.row;  // a chunk's NC traces span < 2^31 floats
-  // floats between tap bases: one entry, or a term's F entries
-  const unsigned S = NF == 1 ? (unsigned)E : (unsigned)fa.S;
+  // units between tap bases: a term's F entries (E with one frame)
+  const unsigned S = (unsigned)fa.S;
   const int fb = NF == 1 ? 1 : fa.fb;
   const float4* __restrict__ r4 = reinterpret_cast<const float4*>(R + p * RS);
   const int64_t io = i * fa.ldo;  // pixel i's first sum in out
@@ -676,15 +744,17 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const QArgs<Q, FrameAr
           const float ti = __fmul_rn(tau, a.fs);
           const bool ok = ti >= 0.f && ti <= tmax;  // false for NaN
           float sn = 0.f, cs = 1.f;
-          if constexpr (ROT) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &sn, &cs);
+          if constexpr (ROT == ROT_REDUCED)
+            sincos_reduced(ok ? __fmul_rn(fa.w, tau) : 0.f, &sn, &cs);
+          if constexpr (ROT == ROT_SINCOSF) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &sn, &cs);
 #pragma unroll
           for (int f = 0; f < NF; ++f) {
             // frame f's entries lie f E units on. Frame 0 always runs (fb
             // >= 1), so the later frames' tap base, fraction, weights and
             // address come from its sample as common subexpressions.
             if (f == 0 || f < fb) {
-              const A v = rotate<ROT>(sample<METHOD, V, Q>(xm + f * E, o, ok ? ti : 0.f, S),
-                                      cs, sn);
+              const A v = rotate<ROT != NO_ROT>(
+                  sample<METHOD, V, Q>(xm + f * E, o, ok ? ti : 0.f, S), cs, sn);
               if constexpr (Q == I8) {
                 if (ok) part[f] = part[f] + v;
               } else {
@@ -695,7 +765,8 @@ __global__ void __launch_bounds__(P, 1) das_frames_kernel(const QArgs<Q, FrameAr
         };
         unsigned o = row_origin<METHOD, V>(0u, S);
         int n = 0;
-#pragma unroll UNROLL
+        constexpr int U = ROT == NO_ROT ? UNROLL : FRAMES_UNROLL;
+#pragma unroll U
         for (; n + 4 <= nc; n += 4, o += 4 * row) {
           const float4 r = r4[n >> 2];
           term(r.x, o);
@@ -1140,24 +1211,34 @@ cudaError_t keep_by_src(int src, int method, const QArgs<Q, KeepArgs>& k, size_t
 }
 #endif  // DAS_KEEP
 
-// One frame in all (ldo 1): das_kernel, or with ROT the frames kernel's
-// one-frame variant; else the frames kernel, FB frames at a time.
-template <int SRC, int METHOD, typename V, bool ROT, int Q>
+// One frame in all (ldo 1) without a rotation: das_kernel; with the short
+// rotation the frames kernel's one-frame variant. Else the frames kernel's
+// variant of NB frames a launch (ROT_SINCOSF, for phases past PHASE_MAX,
+// has that variant alone, for every call).
+template <int SRC, int METHOD, typename V, int ROT, int Q>
 cudaError_t run(const QArgs<Q, FrameArgs>& fa, cudaStream_t s) {
+  constexpr int NB = frames_a_launch(METHOD, Q, sizeof(V) != sizeof(float));
   const unsigned blocks = (unsigned)((fa.a.I + P - 1) / P);
-  if (fa.ldo != 1) {
-    das_frames_kernel<SRC, METHOD, V, ROT, FB, Q><<<blocks, P, 0, s>>>(fa);
-  } else if constexpr (ROT) {
-    das_frames_kernel<SRC, METHOD, V, ROT, 1, Q><<<blocks, P, 0, s>>>(fa);
-  } else if constexpr (Q == F32) {
-    das_kernel<SRC, METHOD, V><<<blocks, P, 0, s>>>(fa.a);
-  } else {
-    das_kernel<SRC, METHOD, V, Q><<<blocks, P, 0, s>>>(WithLp<Args>{fa.a, fa.lp});
+  if constexpr (ROT == NO_ROT) {
+    if (fa.ldo == 1) {
+      if constexpr (Q == F32) {
+        das_kernel<SRC, METHOD, V><<<blocks, P, 0, s>>>(fa.a);
+      } else {
+        das_kernel<SRC, METHOD, V, Q><<<blocks, P, 0, s>>>(WithLp<Args>{fa.a, fa.lp});
+      }
+      return cudaGetLastError();
+    }
+  } else if constexpr (ROT == ROT_REDUCED) {
+    if (fa.ldo == 1) {
+      das_frames_kernel<SRC, METHOD, V, ROT, 1, Q><<<blocks, P, 0, s>>>(fa);
+      return cudaGetLastError();
+    }
   }
+  das_frames_kernel<SRC, METHOD, V, ROT, NB, Q><<<blocks, P, 0, s>>>(fa);
   return cudaGetLastError();
 }
 
-template <int SRC, typename V, bool ROT, int Q>
+template <int SRC, typename V, int ROT, int Q>
 cudaError_t by_method(int method, const QArgs<Q, FrameArgs>& a, cudaStream_t s) {
   switch (method) {
     case NEAREST:
@@ -1172,7 +1253,7 @@ cudaError_t by_method(int method, const QArgs<Q, FrameArgs>& a, cudaStream_t s) 
   return cudaErrorInvalidValue;
 }
 
-template <typename V, bool ROT, int Q>
+template <typename V, int ROT, int Q>
 cudaError_t by_src(int src, int method, const QArgs<Q, FrameArgs>& a, cudaStream_t s) {
   switch (src) {
     case PLANE: return by_method<PLANE, V, ROT, Q>(method, a, s);
@@ -1183,17 +1264,28 @@ cudaError_t by_src(int src, int method, const QArgs<Q, FrameArgs>& a, cudaStream
   }
 }
 
-// Frames f0 .. f0 + fb - 1 of F: x and out move to frame f0; with F = 1 the
-// one-frame variants run. ROT selects the rotating variants, whose sums are
-// complex; Q the entry type of the layout at x, lp its arguments.
-template <bool ROT, int Q>
+// True when every phase of a launch, |w tau| for 0 <= tau fs <= T - 1,
+// lies within PHASE_MAX, with a margin for the roundings of tau and the
+// phase; ops/das_cuda.py::reduced_rotation computes the same in float64.
+bool reduced_range(float w, float fs, int T) {
+  return fabs((double)w) * (double)(T - 1) / fabs((double)fs) * (1.0 + 0x1p-20)
+         <= (double)PHASE_MAX;
+}
+
+// Frames f0 .. f0 + fb - 1 of F (fb at most the sampler's
+// frames_a_launch): x and out move to frame f0; with F = 1 the one-frame
+// variants run. ROT selects the rotation (Rot): the rotating variants' sums
+// are complex, and ROT_REDUCED refuses a launch whose phases may pass
+// PHASE_MAX. Q is the entry type of the layout at x, lp its arguments.
+template <int ROT, int Q>
 int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w, Lp lp,
            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a.I <= 0) return (int)cudaSuccess;
   if (a.N <= 0 || a.M <= 0 || a.T <= 0 || a.T > TMAX || method < NEAREST || method > LANCZOS3
-      || F < 1 || f0 < 0 || fb < 1 || fb > FB || f0 + fb > F)
+      || F < 1 || f0 < 0 || fb < 1 || fb > frames_a_launch(method, Q, cplx) || f0 + fb > F
+      || (ROT == ROT_REDUCED && !reduced_range(w, a.fs, a.T)))
     return (int)cudaErrorInvalidValue;
   const int E = entry_floats(method, cplx);
   a.row = (int64_t)a.T * F * E;
@@ -1396,15 +1488,16 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
 // The entry points. This file builds as several translation units, so
 // that their variants compile in parallel: as das.cu, K1 and K2 without
 // remodulation and the layout kernel; with DAS_IQ defined (das_iq.cu), K1
-// and K2 with remodulation, das_k1_iq and das_lut_k2_iq, which take the
-// same arguments; with DAS_KEEP defined (das_keep.cu), the keep modes and
+// and K2 with remodulation, das_k1_iq and das_lut_k2_iq (sincos_reduced) and
+// das_k1_iq_wide and das_lut_k2_iq_wide (sincosf), which take the same
+// arguments, and das_sincos_probe; with DAS_KEEP defined (das_keep.cu), the keep modes and
 // weights of K1 and K2 without remodulation, das_keep, and with both
 // defined (das_keep_iq.cu) with it, das_keep_iq. With DAS_Q defined to an
 // entry type the same four build that type alone: BF16 (das_bf16.cu:
 // das_k1_q, das_lut_k2_q and the layout kernel's das_layout_q;
 // das_bf16_iq.cu; das_keep_bf16.cu: das_keep_q; das_keep_bf16_iq.cu), I8
 // (das_i8*.cu, das_keep_i8*.cu) and F32X (das_keep_acc16.cu,
-// das_keep_acc16_iq.cu). ROT_ is the variants' rotation, SUFFIX_ their
+// das_keep_acc16_iq.cu). ROT_ is the keep variants' rotation, SUFFIX_ their
 // names'.
 #ifdef DAS_IQ
 #define ROT_ true
@@ -1459,34 +1552,63 @@ extern "C" int SUFFIX_(das_keep)(KEEP_ARGS, int device, void* stream) {
   return keep_launch<F32, ROT_>(KEEP_PASS, Lp{}, device, stream);
 }
 #endif
-#elif defined(DAS_Q)
+#else
+// K1's and K2's arguments (das_k1 / das_lut_k2 below), and for the
+// reduced-precision units those and prec, qs (das_k1_q / das_lut_k2_q).
+#define K1_ARGS                                                                           \
+  const float *x, const float *pix, const float *pr, const float *pv, const float *nv,    \
+      const float *t0, void *out, long long I, int N, int M, int T, int F, int f0, int fb, \
+      float cinv, float fs, float w, int tx_model, int method, int cplx, int add
+#define K1_PASS x, pix, pr, pv, nv, t0, out, I, N, M, T, F, f0, fb, cinv, fs, w, tx_model, \
+      method, cplx, add
+#define K2_ARGS                                                                           \
+  const float *x, const float *taur, const float *taut, const float *t0, void *out,       \
+      long long I, int N, int M, long long ldt, int T, int F, int f0, int fb, float fs,   \
+      float w, int method, int cplx, int add
+#define K2_PASS x, taur, taut, t0, out, I, N, M, ldt, T, F, f0, fb, fs, w, method, cplx, add
+
+template <int ROT, int Q>
+int k1_entry(K1_ARGS, Lp lp, int device, void* stream) {
+  if (tx_model < PLANE || tx_model > VIRTUAL) return (int)cudaErrorInvalidValue;
+  const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
+               cinv, fs, add};
+  return launch<ROT, Q>(tx_model, method, cplx, a, F, f0, fb, w, lp, device, stream);
+}
+
+template <int ROT, int Q>
+int k2_entry(K2_ARGS, Lp lp, int device, void* stream) {
+  if (ldt < M) return (int)cudaErrorInvalidValue;
+  const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
+               (int64_t)ldt, N, M, T, 0.f, fs, add};
+  return launch<ROT, Q>(LUT, method, cplx, a, F, f0, fb, w, lp, device, stream);
+}
+
+// Each unit defines its entries once per rotation: without DAS_IQ
+// unrotated (das_k1, ...); with it the rotation by sincos_reduced (das_k1_iq,
+// ...), whose phases must lie within PHASE_MAX, and by sincosf (das_k1_iq_wide,
+// ...), for any phase.
+#ifdef DAS_IQ
+#define ROTATIONS_(X) X(ROT_REDUCED, _iq) X(ROT_SINCOSF, _iq_wide)
+#else
+#define ROTATIONS_(X) X(NO_ROT, )
+#endif
+
+#ifdef DAS_Q
 // K1 and K2 on a layout of this unit's entry type DAS_Q (BF16, I8):
 // das_k1's and das_lut_k2's arguments, then prec (the entry type) and qs
 // (I8: s_m / 127 of each of the launch's transmits, else null).
-extern "C" int SUFFIX_(das_k1_q)(const float* x, const float* pix, const float* pr,
-                                 const float* pv, const float* nv, const float* t0, void* out,
-                                 long long I, int N, int M, int T, int F, int f0, int fb,
-                                 float cinv, float fs, float w, int tx_model, int method,
-                                 int cplx, int add, int prec, const float* qs, int device,
-                                 void* stream) {
-  if (tx_model < PLANE || tx_model > VIRTUAL || prec != DAS_Q || (prec == I8 && !qs))
-    return (int)cudaErrorInvalidValue;
-  const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
-               cinv, fs, add};
-  return launch<ROT_, DAS_Q>(tx_model, method, cplx, a, F, f0, fb, w, Lp{qs, 0}, device,
-                             stream);
-}
-
-extern "C" int SUFFIX_(das_lut_k2_q)(const float* x, const float* taur, const float* taut,
-                                     const float* t0, void* out, long long I, int N, int M,
-                                     long long ldt, int T, int F, int f0, int fb, float fs,
-                                     float w, int method, int cplx, int add, int prec,
-                                     const float* qs, int device, void* stream) {
-  if (ldt < M || prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
-  const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
-               (int64_t)ldt, N, M, T, 0.f, fs, add};
-  return launch<ROT_, DAS_Q>(LUT, method, cplx, a, F, f0, fb, w, Lp{qs, 0}, device, stream);
-}
+#define Q_ENTRIES_(R, sfx)                                                                \
+  extern "C" int das_k1_q##sfx(K1_ARGS, int prec, const float* qs, int device,            \
+                               void* stream) {                                            \
+    if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;          \
+    return k1_entry<R, DAS_Q>(K1_PASS, Lp{qs, 0}, device, stream);                        \
+  }                                                                                       \
+  extern "C" int das_lut_k2_q##sfx(K2_ARGS, int prec, const float* qs, int device,        \
+                                   void* stream) {                                        \
+    if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;          \
+    return k2_entry<R, DAS_Q>(K2_PASS, Lp{qs, 0}, device, stream);                        \
+  }
+ROTATIONS_(Q_ENTRIES_)
 
 #ifndef DAS_IQ
 // The layout kernel for this unit's entry type: das_layout's arguments,
@@ -1521,41 +1643,52 @@ extern "C" int das_layout_q(const float* x, void* out, int T, int N, int M, long
 #else
 
 // Launch K1 on `stream` (a cudaStream_t) of device `device` for M
-// transmits and frames f0 .. f0 + fb - 1 (fb <= 4) of F. x holds their
-// traces in the layout of `method` (das_layout's output: (M, N, T, F,
-// entry)), float32, or complex64 when `cplx` is 1; pv, nv (M, 3) and t0
-// (M,) theirs; out (I, F) of the sums' type (complex64 when `cplx` is 1 or
-// for the remodulating entry, else float32), to which the sums are added
-// when `add` is 1; w = 2 pi fmod (the remodulating entry; the other ignores
-// it). Returns the cudaError_t of the launch (cudaGetLastError right after
-// it); 0 is success.
-extern "C" int SUFFIX_(das_k1)(const float* x, const float* pix, const float* pr,
-                               const float* pv, const float* nv, const float* t0, void* out,
-                               long long I, int N, int M, int T, int F, int f0, int fb,
-                               float cinv, float fs, float w, int tx_model, int method,
-                               int cplx, int add, int device, void* stream) {
-  if (tx_model < PLANE || tx_model > VIRTUAL) return (int)cudaErrorInvalidValue;
-  const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
-               cinv, fs, add};
-  return launch<ROT_, F32>(tx_model, method, cplx, a, F, f0, fb, w, Lp{}, device, stream);
-}
+// transmits and frames f0 .. f0 + fb - 1 (fb at most the sampler's frames a
+// launch, das_frames_kernel's plan) of F. x holds their traces in the
+// layout of `method` (das_layout's output, the frames where das_frames_kernel's
+// plan keeps them), float32, or complex64 when `cplx` is 1; pv, nv (M, 3) and t0 (M,)
+// theirs; out (I, F) of the sums' type (complex64 when `cplx` is 1 or for
+// the remodulating entries, else float32), to which the sums are added
+// when `add` is 1; w = 2 pi fmod (the remodulating entries; the other
+// ignores it; das_k1_iq refuses w (T - 1) / fs past PHASE_MAX, which
+// das_k1_iq_wide takes). Returns the cudaError_t of the launch
+// (cudaGetLastError right after it); 0 is success.
+#define ENTRIES_(R, sfx)                                                                  \
+  extern "C" int das_k1##sfx(K1_ARGS, int device, void* stream) {                         \
+    return k1_entry<R, F32>(K1_PASS, Lp{}, device, stream);                               \
+  }                                                                                       \
+  extern "C" int das_lut_k2##sfx(K2_ARGS, int device, void* stream) {                     \
+    return k2_entry<R, F32>(K2_PASS, Lp{}, device, stream);                               \
+  }
+// And K2 (das_lut_k2): x, out, w and add as for das_k1; taur (I, N) and
+// taut (I, ldt), of which the first M columns are these transmits', the
+// delay tables [s]; t0 (M,).
+ROTATIONS_(ENTRIES_)
 
-// Launch K2 on `stream` of device `device` for M transmits and frames f0 ..
-// f0 + fb - 1 of F. x, out, w and add as for das_k1; taur (I, N) and taut
-// (I, ldt), of which the first M columns are these transmits', the delay
-// tables [s]; t0 (M,). Returns the cudaError_t of the launch; 0 is success.
-extern "C" int SUFFIX_(das_lut_k2)(const float* x, const float* taur, const float* taut,
-                                   const float* t0, void* out, long long I, int N, int M,
-                                   long long ldt, int T, int F, int f0, int fb, float fs,
-                                   float w, int method, int cplx, int add, int device,
-                                   void* stream) {
-  if (ldt < M) return (int)cudaErrorInvalidValue;
-  const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
-               (int64_t)ldt, N, M, T, 0.f, fs, add};
-  return launch<ROT_, F32>(LUT, method, cplx, a, F, f0, fb, w, Lp{}, device, stream);
+#ifdef DAS_IQ
+namespace {
+__global__ void sincos_probe_kernel(const float* __restrict__ x, float2* __restrict__ out,
+                                    int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    float s, c;
+    sincos_reduced(x[i], &s, &c);
+    out[i] = make_float2(s, c);
+  }
 }
+}  // namespace
 
-#ifndef DAS_IQ
+// The rotation of das_k1_iq and das_lut_k2_iq (sincos_reduced) of n phases
+// x (float32) into out (n, 2): (sin, cos) pairs, for the tests to hold
+// against float64.
+extern "C" int das_sincos_probe(const float* x, void* out, int n, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaSuccess;
+  sincos_probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(x, (float2*)out, n);
+  return (int)cudaGetLastError();
+}
+#else
 // Launch the layout kernel on `stream` of device `device`: x (T, N, ldm, F)
 // float32, or complex64 when `cplx` is 1, contiguous, of which transmits
 // 0 .. M-1 of the third axis are laid out; out the layout of `method` (0
@@ -1575,4 +1708,5 @@ extern "C" int das_layout(const float* x, float* out, int T, int N, int M, long 
   }
 }
 #endif
+#endif  // DAS_Q
 #endif  // DAS_KEEP

@@ -9,7 +9,13 @@ same TPU kernel in LUT mode (``lut=True``, launched by ``_das_lut_call``,
 public entry ``das_lut_tiled``) for K2(a)-(c) and (e): the same sum with
 the delays read from tables. Both are one kernel body in ``csrc/das.cu``,
 built by :mod:`qups_tpu_torch.ops._nvcc` as ``das.cu`` without
-remodulation (with the layout kernel) and ``das_iq.cu`` with it.
+remodulation (with the layout kernel) and ``das_iq.cu`` with it. The
+remodulating variants rotate each term by a short reduction of its phase
+and the special function unit's sin and cos (``sincos_reduced``), for
+phases within ``PHASE_MAX``
+(:func:`reduced_rotation`; every acquisition), and by the accurate
+``sincosf`` past it (the ``_iq_wide`` entries); :func:`sincos_probe` runs
+the short rotation alone.
 
 :func:`das_sum` (K1) and :func:`das_lut_sum` (K2) launch their kernel for a
 CUDA tensor, and raise if it cannot be built or launched; they never fall
@@ -21,16 +27,20 @@ back. For a CPU tensor they run :func:`das_sum_plain` and
 Before a launch the wrapper writes the traces ``(T, N, M, F)`` into the
 kernels' edge-replicated layout for the sampler, a term's frames innermost
 (the traces transposed to ``(M, N, T, F)`` for nearest, stencil entries for
-the others): :func:`trace_layout`, which on the card launches the layout
+the others):
+:func:`trace_layout`, which on the card launches the layout
 kernel of the same source (counted by ``LAYOUT_LAUNCHES``) and on the CPU
 runs its plain version :func:`trace_layout_plain`. A stencil holds 2 to 4
 times the traces' bytes, so the wrapper lays out and sums the transmits by
 chunks whose layout holds at most ``LAYOUT_BYTES`` (:func:`tx_chunks`; one
 transmit's layout where that alone is larger): a call's peak device memory
 is then the traces, the tables or geometry, the output and at most
-``LAYOUT_BYTES`` more. Each chunk is one launch of the layout kernel and,
-per block of ``FB`` frames, one of K1 or K2, which adds its sums to the
-chunks' before it.
+``LAYOUT_BYTES`` more (and one frame's traces, where the frames run one
+at a time). Each chunk is one launch of the layout kernel and, per block
+of frames (:func:`frames_per_launch`: by sampler, entry type and trace
+type), one of K1 or K2, which adds its sums to the chunks' before it;
+where the plan takes one frame a launch (complex cubic float32 traces),
+each frame runs as a one-frame call on its own layout.
 
 Keep modes and apodization (K1(c), K1(d), K2(c)) run in a third kernel of
 the same body, ``das_keep_kernel`` (``csrc/das_keep.cu``, its remodulating
@@ -100,7 +110,9 @@ PREC_LAUNCHES = 0  # K1 launches of the reduced-precision units (K1(e))
 LUT_PREC_LAUNCHES = 0  # K2 launches of the reduced-precision units (K2(e))
 LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
 TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
-FB = 4  # frames per launch (csrc/das.cu)
+FB = 4  # frames per launch of the keep kernel (csrc/das.cu)
+FRAMES_A_LAUNCH = 4  # K1(b)/K2(b)'s frames a launch but complex cubic float32's (csrc/das.cu)
+PHASE_MAX = 2.0 ** 20  # the largest |phase| [rad] of the short rotation (csrc/das.cu)
 BLOCK, NC = 256, 32  # pixels per block, receivers per chunk (csrc/das.cu)
 KR_BYTES = 64 << 10  # keep_rx's sums in shared memory, at most (csrc/das.cu)
 RX_KINDS = {"aperture_growth": 1, "acceptance_angle": 4}  # csrc/das.cu RxKind
@@ -283,13 +295,13 @@ _Q_LIBS = {1: "bf16", 2: "i8", 3: "acc16"}
 F32X = 3  # csrc/das.cu Prec: float32 entries, the kept sums stored as bfloat16
 
 
-def _entry(lib: str, name: str, iq: bool):
-    """The entry point ``name`` (``name_iq`` with remodulation) in the
-    library ``csrc/<lib>.cu`` (``<lib>_iq.cu``), and nvcc's log of its
-    build."""
+def _entry(lib: str, name: str, iq: bool, wide: bool = False):
+    """The entry point ``name`` (``name_iq`` with remodulation,
+    ``name_iq_wide`` with remodulation by sincosf) in the library
+    ``csrc/<lib>.cu`` (``<lib>_iq.cu``), and nvcc's log of its build."""
     sfx = "_iq" if iq else ""
     so, log = _nvcc.load(lib + sfx)
-    return getattr(so, name + sfx), log
+    return getattr(so, name + sfx + ("_wide" if wide else "")), log
 
 
 # The arguments a reduced-precision entry takes after its float32
@@ -299,8 +311,8 @@ _LP = [ctypes.c_int, ctypes.c_void_p]
 _DEV = [ctypes.c_int, ctypes.c_void_p]
 
 
-def _bind(lib: str, name: str, iq: bool, args: list):
-    fn, log = _entry(lib, name, iq)
+def _bind(lib: str, name: str, iq: bool, args: list, wide: bool = False):
+    fn, log = _entry(lib, name, iq, wide)
     fn.argtypes = args
     fn.restype = ctypes.c_int
     return fn, log
@@ -317,16 +329,31 @@ _KEEP_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 
               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 
 
-def build(iq: bool = False):
+def build(iq: bool = False, wide: bool = False):
     """Build (if needed) and load ``csrc/das.cu`` (``das_iq.cu`` with
-    ``iq``, the remodulating variants); return ``(K1's entry point, nvcc
-    log)``. Raises ``RuntimeError`` with nvcc's output on failure."""
-    return _bind("das", "das_k1", iq, _K1_ARGS + _DEV)
+    ``iq``, the remodulating variants: by the short rotation, or with
+    ``wide`` by sincosf); return ``(K1's entry point, nvcc log)``. Raises
+    ``RuntimeError`` with nvcc's output on failure."""
+    return _bind("das", "das_k1", iq, _K1_ARGS + _DEV, wide)
 
 
-def build_lut(iq: bool = False):
+def build_lut(iq: bool = False, wide: bool = False):
     """K2's entry point in the library of :func:`build`."""
-    return _bind("das", "das_lut_k2", iq, _K2_ARGS + _DEV)[0]
+    return _bind("das", "das_lut_k2", iq, _K2_ARGS + _DEV, wide)[0]
+
+
+def sincos_probe(phase: torch.Tensor) -> torch.Tensor:
+    """The short rotation of K1(b)/K2(b) (``sincos_reduced`` in
+    ``csrc/das.cu``) of float32 phases on the card: (n, 2) float32, sin and
+    cos of each, for the tests to hold against float64."""
+    fn = _nvcc.load("das_iq")[0].das_sincos_probe
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 2 + [ctypes.c_int] + _DEV, ctypes.c_int
+    phase = phase.to(torch.float32).contiguous().reshape(-1)
+    out = torch.empty((phase.numel(), 2), dtype=torch.float32, device=phase.device)
+    rc = fn(phase.data_ptr(), out.data_ptr(), phase.numel(), *_nvcc.stream_args(phase.device))
+    if rc != 0:
+        raise RuntimeError(f"rotation probe launch failed with cudaError {rc}")
+    return out
 
 
 def build_keep(iq: bool = False):
@@ -336,17 +363,17 @@ def build_keep(iq: bool = False):
     return _bind("das_keep", "das_keep", iq, _KEEP_ARGS + _DEV)
 
 
-def build_q(q: int, iq: bool = False):
+def build_q(q: int, iq: bool = False, wide: bool = False):
     """Build (if needed) and load the reduced-precision unit of entry type
     ``q`` (1 bf16: ``csrc/das_bf16.cu``, 2 int8: ``das_i8.cu``; their
-    ``_iq`` twins with ``iq``), K1(e) and K2(e); return ``(K1's entry
-    point, nvcc log)``."""
-    return _bind("das_" + _Q_LIBS[q], "das_k1_q", iq, _K1_ARGS + _LP + _DEV)
+    ``_iq`` twins with ``iq``, ``wide`` as for :func:`build`), K1(e) and
+    K2(e); return ``(K1's entry point, nvcc log)``."""
+    return _bind("das_" + _Q_LIBS[q], "das_k1_q", iq, _K1_ARGS + _LP + _DEV, wide)
 
 
-def build_lut_q(q: int, iq: bool = False):
+def build_lut_q(q: int, iq: bool = False, wide: bool = False):
     """K2's entry point in the library of :func:`build_q`."""
-    return _bind("das_" + _Q_LIBS[q], "das_lut_k2_q", iq, _K2_ARGS + _LP + _DEV)[0]
+    return _bind("das_" + _Q_LIBS[q], "das_lut_k2_q", iq, _K2_ARGS + _LP + _DEV, wide)[0]
 
 
 def build_keep_q(q: int, iq: bool = False):
@@ -489,6 +516,39 @@ def build_layout_q(q: int):
     return _bind("das_" + _Q_LIBS[q], "das_layout_q", False,
                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + _DEV)[0]
+
+
+def frames_per_launch(method: str, precision: str = "f32", cplx: bool = True) -> int:
+    """The frames a launch of K1(b)/K2(b) (das_frames_kernel) takes for
+    ``method`` at ``precision`` on complex (``cplx``) or real traces:
+    csrc/das.cu's ``frames_a_launch``, ``FRAMES_A_LAUNCH`` but one for
+    complex cubic float32 traces."""
+    return 1 if method == "cubic" and _ENTRY[precision] == 0 and cplx else FRAMES_A_LAUNCH
+
+
+def reduced_rotation(w: float, T: int, fs: float) -> bool:
+    """Whether a remodulating launch takes the short rotation
+    (``sincos_reduced``, the ``_iq`` entries) rather than sincosf (the
+    ``_iq_wide`` entries): True when every phase it can form, ``|w tau|``
+    with ``0 <= tau fs <= T - 1``, lies within ``PHASE_MAX``, with a margin
+    for the roundings of tau and the phase; ``w`` = float32(2 pi fmod), as
+    the kernels' ``reduced_range`` computes it in double precision. At the
+    IQ headline (T' 1024, fs' 7.8125 MHz, fmod 5 MHz) the phases reach
+    4114 rad, 0.4 % of ``PHASE_MAX``."""
+    w, fs = float(np.float32(w)), float(np.float32(fs))
+    if fs == 0.0:
+        return False
+    return abs(w) * float(T - 1) / abs(fs) * (1.0 + 2.0 ** -20) <= PHASE_MAX
+
+
+def rotation(fmod: float, T: int, fs: float) -> str:
+    """The rotation K1 and K2 launch for ``fmod`` on traces of ``T``
+    samples at ``fs``: 'none' (fmod 0), 'reduced' (the short rotation, the
+    ``_iq`` entries) or 'sincosf' (the ``_iq_wide`` entries, phases past
+    ``PHASE_MAX``; :func:`reduced_rotation`)."""
+    if fmod == 0:
+        return "none"
+    return "reduced" if reduced_rotation(_w(fmod), T, fs) else "sincosf"
 
 
 def _frames(x: torch.Tensor) -> torch.Tensor:
@@ -639,20 +699,36 @@ def _t0_on(t0, M: int, dev) -> torch.Tensor:
     return torch.as_tensor(tx_t0(t0, M), device=dev)
 
 
-def _launch_frames(x, method, fmod, launch, fb_max=FB, precision="f32", scale=None):
+def _launch_frames(x, method, fmod, launch, fb_max=FB, precision="f32", scale=None, out=None):
     """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
     ``precision`` (``scale``: its (M,) 'i8x4' scales) and call
     ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
     ``fb_max`` frames of each chunk: w = 2 pi fmod in float32, add 1 after
-    the first chunk."""
+    the first chunk. With ``out``
+    (K1's and K2's (I, F) sums) and one frame a launch, each frame runs as a
+    one-frame call: its traces copied whole, laid out by chunks and summed
+    by ``launch(..., o=row)`` into its row of an (F, I) buffer, which then
+    fills ``out``."""
     xF = _frames(x)
     F = xF.shape[3]
-    w = float(np.float32(2 * np.pi * fmod))
+    if out is not None and fb_max == 1 and F > 1:
+        rows = torch.empty((F, out.shape[0]), dtype=out.dtype, device=out.device)
+        for f in range(F):
+            _launch_frames(xF[..., f].contiguous(), method, fmod,
+                           lambda *a, r=rows[f]: launch(*a, o=r), 1, precision, scale)
+        out.copy_(rows.T)
+        return
+    w = _w(fmod)
     for j, (m0, m1) in enumerate(tx_chunks(xF, method, precision)):
         xl = trace_layout(xF, method, m0, m1, precision, scale)
         for f0 in range(0, F, fb_max):
             launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
         del xl  # the next chunk's layout may take its memory
+
+
+def _w(fmod) -> float:
+    """w = 2 pi fmod rounded to float32, the kernels' phase factor."""
+    return float(np.float32(2 * np.pi * fmod))
 
 
 def _check_traces(x: torch.Tensor, kern: str):
@@ -908,7 +984,10 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     complex128 and bfloat16 traces are cast to float32 or complex64 first.
     With ``QUPS_DAS_ACC16=1`` and a keep mode the kept sums are stored as
     bfloat16 (returned as float32). On a CUDA tensor this launches K1
-    (summed and unweighted), das_keep_kernel (K1(c), K1(d)) or their
+    (summed and unweighted; with frames or ``fmod`` das_frames_kernel,
+    K1(b), :func:`frames_per_launch` frames a launch, rotating by the short
+    rotation, or by sincosf where :func:`reduced_rotation` says its phases
+    may pass ``PHASE_MAX``), das_keep_kernel (K1(c), K1(d)) or their
     reduced-precision units (K1(e)); on a CPU tensor it runs
     :func:`das_sum_plain`.
     """
@@ -946,14 +1025,15 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     out = torch.empty((I, int(np.prod(fd, dtype=np.int64))),
                       dtype=torch.complex64 if cplx or iq else torch.float32, device=dev)
     prec = _ENTRY[precision]
-    fn, _ = build_q(prec, iq) if prec else build(iq)
+    wide = rotation(fmod, T, fs) == "sincosf"
+    fn, _ = build_q(prec, iq, wide) if prec else build(iq, wide)
     dq = None if scale is None else dequant(scale)
 
-    def launch(xl, m0, m1, F, f0, fb, w, add):
+    def launch(xl, m0, m1, F, f0, fb, w, add, o=out):
         global LAUNCHES, PREC_LAUNCHES
         lp = (prec, None if dq is None else dq[m0:].data_ptr()) if prec else ()
         rc = fn(xl.data_ptr(), pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(),
-                nv[m0:].data_ptr(), t0[m0:].data_ptr(), out.data_ptr(), I, N, m1 - m0, T,
+                nv[m0:].data_ptr(), t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, T,
                 F, f0, fb, float(np.float32(cinv)), float(np.float32(fs)), w,
                 _TX_CODE[tx_model], _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
@@ -964,7 +1044,8 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
         else:
             LAUNCHES += 1
 
-    _launch_frames(x, method, fmod, launch, precision=precision, scale=scale)
+    _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx),
+                   precision, scale, out)
     return out.view((I, 1, 1) + fd)
 
 
@@ -1000,7 +1081,8 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
     start time per transmit (:func:`tx_t0`); keep modes and dense ``apod``
     as :func:`das_sum` (no :class:`Fused`). ``precision``: 'f32',
     'bf16pair' or 'i8x4' (one scale per call; K2(e)). On a CUDA tensor this
-    launches K2 (summed and unweighted), das_keep_kernel (K2(c)) or their
+    launches K2 (summed and unweighted; frames and ``fmod`` as
+    :func:`das_sum`'s), das_keep_kernel (K2(c)) or their
     reduced-precision units (K2(e)); on a CPU tensor it runs
     :func:`das_lut_sum_plain`.
     """
@@ -1032,14 +1114,15 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
     out = torch.empty((I, int(np.prod(fd, dtype=np.int64))),
                       dtype=torch.complex64 if cplx or iq else torch.float32, device=dev)
     prec = _ENTRY[precision]
-    fn = build_lut_q(prec, iq) if prec else build_lut(iq)
+    wide = rotation(fmod, T, fs) == "sincosf"
+    fn = build_lut_q(prec, iq, wide) if prec else build_lut(iq, wide)
     dq = None if scale is None else dequant(scale)
 
-    def launch(xl, m0, m1, F, f0, fb, w, add):
+    def launch(xl, m0, m1, F, f0, fb, w, add, o=out):
         global LUT_LAUNCHES, LUT_PREC_LAUNCHES
         lp = (prec, None if dq is None else dq[m0:].data_ptr()) if prec else ()
         rc = fn(xl.data_ptr(), tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(),
-                t0[m0:].data_ptr(), out.data_ptr(), I, N, m1 - m0, M, T, F, f0, fb,
+                t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, M, T, F, f0, fb,
                 float(np.float32(fs)), w, _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
         if rc != 0:
@@ -1049,7 +1132,8 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
         else:
             LUT_LAUNCHES += 1
 
-    _launch_frames(x, method, fmod, launch, precision=precision, scale=scale)
+    _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx),
+                   precision, scale, out)
     return out.view((I, 1, 1) + fd)
 
 

@@ -395,10 +395,10 @@ def test_k1b_k2b_match_plain(card, iq, frames):
     (2, 3)) and remodulation, real traces with fmod (complex sums), complex
     with and without, for every sampler and (K1) transmit model, delays off
     both ends of the traces, against their plain versions: one launch per
-    block of 4 frames, and the image (I, 1, 1, *F)."""
+    block of frames (the sampler's frames_per_launch), and the image (I, 1,
+    1, *F)."""
     cplx, fmod = IQ[iq]
     fdims = FRAMES[frames]
-    blocks = -(-int(np.prod(fdims)) // das_cuda.FB)
     x, tau_rx, tau_tx, t0, fs = lut_problem()
     xf = frame_traces(x, fdims, cplx).to(card)
     calls = [(das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain, (xf, tau_rx, tau_tx, t0),
@@ -411,6 +411,7 @@ def test_k1b_k2b_match_plain(card, iq, frames):
     for kern, plain, args, kw, counter in calls:
         for method in METHODS:
             kw = dict(kw, method=method, fmod=fmod)
+            blocks = -(-int(np.prod(fdims)) // das_cuda.frames_per_launch(method, cplx=cplx))
             before = getattr(das_cuda, counter)
             got = kern(*args, **kw)
             torch.cuda.synchronize()
@@ -549,6 +550,93 @@ def test_layout_kernel_frames_matches_plain(card, T, N, M, F):
             m0, m1 = M // 3, M - M // 4
             got = das_cuda.trace_layout(xg, method, m0, m1)
             assert torch.equal(got, das_cuda.trace_layout_plain(xg[:, :, m0:m1], method))
+
+
+@pytest.mark.cuda
+def test_k1b_rotation_probe_within_2e21(card):
+    """K1(b)'s and K2(b)'s short rotation (sincos_reduced, through
+    das_sincos_probe) against float64 sin and cos of the same float32
+    phases: within 2^-21 over [-PHASE_MAX, PHASE_MAX], at random, densely
+    over the IQ headline's [0, 4114] rad, at the multiples of pi/2 (the
+    quadrants' edges) and at the ends."""
+    g = torch.Generator(device=card).manual_seed(70)
+    pm = das_cuda.PHASE_MAX
+    ph = torch.cat((torch.rand(1 << 22, generator=g, device=card) * (2 * pm) - pm,
+                    torch.linspace(0.0, 4114.0, 1 << 22, device=card),
+                    (torch.arange(-8192, 8193, device=card, dtype=torch.float64)
+                     * (np.pi / 2)).float(),
+                    torch.tensor([pm, -pm, 0.0, -0.0, 1e-30], device=card)))
+    sc = das_cuda.sincos_probe(ph).double()
+    phd = ph.double()
+    err_s = float((sc[:, 0] - torch.sin(phd)).abs().max())
+    err_c = float((sc[:, 1] - torch.cos(phd)).abs().max())
+    assert max(err_s, err_c) <= 2.0 ** -21, (err_s, err_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_k1b_k2b_past_phase_max_take_sincosf(card, cplx, monkeypatch):
+    """fmod 4 GHz at fs 4 MHz: phases to ~1.3e7 rad, past PHASE_MAX, where
+    the wrapper launches the sincosf variants (the _iq_wide entries) of K1
+    and K2, which match their plain versions for every sampler and 3 frames
+    (F 1 too for K1); at fmod 1 MHz the short rotation's."""
+    wides = []
+    for name in ("build", "build_lut"):
+        real = getattr(das_cuda, name)
+        monkeypatch.setattr(das_cuda, name, lambda iq=False, wide=False, _r=real: (
+            wides.append(wide), _r(iq, wide))[1])
+    x, tau_rx, tau_tx, t0, fs = lut_problem()
+    xf = frame_traces(x, (3,), cplx).to(card)
+    _, pi, pr, pv, nv, t0m = problem("virtual")
+    for fmod, wide in ((4e9, True), (1e6, False)):
+        assert das_cuda.rotation(fmod, x.shape[0], fs) == ("sincosf" if wide else "reduced")
+        for method in METHODS:
+            calls = [(das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                      (xf, tau_rx, tau_tx, t0), dict(fs=fs))]
+            for xx in (xf, xf[..., 0]):
+                calls.append((das_cuda.das_sum, das_cuda.das_sum_plain,
+                              (xx, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model="virtual")))
+            for kern, plain, args, kw in calls:
+                del wides[:]
+                kw = dict(kw, method=method, fmod=fmod)
+                got = kern(*args, **kw)
+                torch.cuda.synchronize()
+                assert wides == [wide], (wides, method)
+                ref = plain(*args, **kw)
+                err = float((got - ref).abs().max()) / float(ref.abs().max())
+                assert err < 1e-4, (kern.__name__, method, fmod, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16pair", "i8x4"])
+def test_k1b_k2b_launch_as_the_plan_says(card, precision):
+    """K1(b) and K2(b) launch once per block of frames_per_launch(method,
+    precision) frames (LAUNCHES and LUT_LAUNCHES, or the reduced-precision
+    units' PREC_LAUNCHES and LUT_PREC_LAUNCHES), with and without fmod, for
+    F = 1 to 9, and the image matches the plain version."""
+    x, tau_rx, tau_tx, t0, fs = lut_problem(T=256, N=16, M=4, n=32)
+    _, pi, pr, pv, nv, t0m = problem("plane", T=256, N=16, M=4, n=32)
+    methods = ("cubic", "lanczos3") if precision == "i8x4" else METHODS
+    k1c, k2c = ("PREC_LAUNCHES", "LUT_PREC_LAUNCHES") if precision != "f32" else (
+        "LAUNCHES", "LUT_LAUNCHES")
+    for F in (1, 2, 4, 5, 9):
+        xf = frame_traces(x, (F,), True, seed=F).to(card)
+        for method in methods:
+            blocks = -(-F // das_cuda.frames_per_launch(method, precision))
+            for fmod in (0.0, 1e6):
+                for kern, plain, args, kw, counter in (
+                        (das_cuda.das_sum, das_cuda.das_sum_plain,
+                         (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model="plane"), k1c),
+                        (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                         (xf, tau_rx, tau_tx, t0), dict(fs=fs), k2c)):
+                    kw = dict(kw, method=method, fmod=fmod, precision=precision)
+                    before = getattr(das_cuda, counter)
+                    got = kern(*args, **kw)
+                    torch.cuda.synchronize()
+                    assert getattr(das_cuda, counter) == before + blocks, (F, method, fmod)
+                    ref = plain(*args, **kw)
+                    err = float((got - ref).abs().max()) / float(ref.abs().max())
+                    assert err < 1e-4, (F, method, fmod, precision, err)
 
 
 # K1(e), K2(e): each reduced precision and the samplers it takes
@@ -760,10 +848,13 @@ def test_iq_ensemble_on_card(card):
                  "DAS cubic2x": (lambda **k: us.DAS(chd, fmod=us.fc, method="cubic2x", **k),
                                  "LAUNCHES")}
         for name, (fn, counter) in calls.items():
+            # one launch a block of the plan's frames (cubic2x: linear)
+            method = "linear" if "cubic2x" in name else "cubic"
+            n = -(-2 // das_cuda.frames_per_launch(method, cplx=data.is_complex()))
             before = getattr(das_cuda, counter)
             b = fn()
             torch.cuda.synchronize()
-            assert getattr(das_cuda, counter) == before + 1, name
+            assert getattr(das_cuda, counter) == before + n, name
             ref = fn(kernel="plain")
             assert b.is_cuda and b.dtype == torch.complex64
             assert b.shape == ref.shape == tuple(us.scan.shape) + (1, 1, 2)
@@ -1622,7 +1713,9 @@ def test_vantage_workspace_on_card(card, tmp_path):
     iq = g.hilbert().downmix(fc)
     bi = us.DAS(iq, fmod=fc)
     torch.cuda.synchronize()
-    assert das_cuda.LAUNCHES == before + 2 and b.is_cuda and bi.is_cuda
+    F = int(np.prod(iq.data.shape[3:]))  # RF: one launch; IQ: one a block of the plan's frames
+    n = 1 + -(-F // das_cuda.frames_per_launch("cubic", cplx=True))
+    assert das_cuda.LAUNCHES == before + n and b.is_cuda and bi.is_cuda
     ref = us.DAS(chd, device="cpu")
     refi = us.DAS(chd.hilbert().downmix(fc), fmod=fc, device="cpu")
     P = scan.positions().reshape(3, -1)
