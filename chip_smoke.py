@@ -9,8 +9,9 @@ It builds kernels K1 and K2 (``qups_tpu_torch/csrc/das.cu``, delay-and-sum
 from geometry and from delay tables, with the layout kernel that writes the
 traces into the layout they read; ``das_iq.cu``, the same body, their
 remodulating variants K1(b) and K2(b); ``das_keep.cu`` and
-``das_keep_iq.cu``, the same body's keep modes and apodization weights,
-K1(c), K1(d) and K2(c)), K3
+``das_keep_iq.cu``, the same body's keep kernel: keep modes and
+apodization weights, K1(c), K1(d) and K2(c), with a variant per keep mode
+and weighting, keep_rx's sums in registers, and the short rotation), K3
 (``qups_tpu_torch/csrc/greens_freq.cu``, the frequency-domain simulator's
 per-bin GEMM, with its bf16 and directivity variants), K4
 (``qups_tpu_torch/csrc/fdbf.cu``, the frequency-domain adjoint beamformer),
@@ -26,7 +27,10 @@ and runs:
 0. the environment: card name and power limit, torch and CUDA versions,
    nvcc version, kernel build times, ptxas registers, spills, stack frames
    and shared memory (K1(b)/K2(b)'s rotating variants by rotation: the
-   short rotation's with no stack frame and, in the SASS, no local memory),
+   short rotation's with no stack frame and, in the SASS, no local memory;
+   das_keep_kernel's variants by keep mode, weights, rotation and frames:
+   their registers, no spills, and the short rotation's with no stack
+   frame and no local memory),
    the FFMA count in the SASS (``cuobjdump -sass``) of
    the nearest variants of K1 and K2 (0 without remodulation: their delays
    are never contracted), and the
@@ -127,10 +131,14 @@ and runs:
    shapes: every keep mode x each fused kind, two mixed and two dense
    weights x (the three transmit models | perturbed tables) x real / complex
    +- fmod x frames 1 and 3 in turn, nearest and cubic (keep_rx: every
-   sampler);
+   sampler); then the keep kernel's edges at N 100 (a sub-chunk of
+   KEEP_NCK or KEEP_NCK_WIDE receivers past each chunk's end): each keep mode unweighted and
+   weighted x frames 1, 3 x no rotation, the short rotation and sincosf
+   (phases past PHASE_MAX), two launches bit for bit, the launches counted;
 16. the headline, 1024^2 x 256 x 256, T 4096, cubic: keep_rx, keep_tx, the
    apodized summed call (K1(c), K1(d)), K2 keep_rx (K2(c)), and
-   coherence_image's keep_rx call and its reduction (cohfac, slsc), each
+   coherence_image's keep_rx call and its reduction (cohfac, slsc); keep_rx
+   and keep_tx on one frame of phase 14's IQ headline with fmod; each
    against the plain version on every 64th pixel, beside its bound;
 17. K1(e) and K2(e) against their plain versions at phase 12's shapes: the
    layout kernel's bf16 and int8 entries bit for bit; every precision
@@ -375,6 +383,27 @@ def ptxas_functions(log):
     return out
 
 
+# das_keep_kernel's: source, sampler, sample type ('f' real, '6float2'
+# complex), rotation, keep mode (4: the launch's), weights, entry type
+KEEP_VARIANT = re.compile(
+    r"das_keep_kernelILi(\d)ELi(\d)E(f|6float2)Li(\d)ELi(\d)ELb([01])ELi(\d)E")
+KEEP_NAMES = {0: "summed", 1: "keep_rx", 2: "keep_tx", 3: "keep_both", 4: "any mode"}
+
+
+def keep_variants(log):
+    """das_keep_kernel's variants in a build log: [(source, sampler,
+    complex, rotation, keep mode, weights, entry type, registers, stack,
+    spills)]."""
+    rows = []
+    for fn, (regs, stack, spill) in ptxas_functions(log).items():
+        m = KEEP_VARIANT.search(fn)
+        if m:
+            g = m.groups()
+            rows.append((int(g[0]), int(g[1]), int(g[2] != "f")) + tuple(int(v) for v in g[3:])
+                        + (regs, stack, spill))
+    return sorted(rows)
+
+
 def frames_variants(log):
     """das_frames_kernel's variants in a build log: [(source, sampler,
     rotation, frames a launch, entry type, registers, stack, spills)]."""
@@ -401,6 +430,8 @@ def phase0(torch, ops):
               ("K1(c)/(d)+K2(c) keep and weights", ops.das_cuda.build_keep),
               ("K1(c)/(d)+K2(c) keep and weights, fmod",
                lambda: ops.das_cuda.build_keep(iq=True)),
+              ("K1(c)/(d)+K2(c) keep and weights, fmod past PHASE_MAX",
+               lambda: ops.das_cuda.build_keep(iq=True, wide=True)),
               ("K3", ops.greens_freq_cuda.build), ("K4", ops.fdbf_cuda.build),
               ("K5", ops.greens_cuda.build), ("finish", ops.greens_cuda.build_finish),
               ("msfm (host C++)", lambda: ops._nvcc.load_host("msfm")))
@@ -410,7 +441,9 @@ def phase0(torch, ops):
                    (f"K1(e)+K2(e) {what}, fmod", lambda q=q: dc.build_q(q, True)))
     for q, what in ((1, "bf16"), (2, "int8"), (dc.F32X, "float32, bf16 kept sums")):
         builds += ((f"K1(e)+K2(e) keep, {what}", lambda q=q: dc.build_keep_q(q)),
-                   (f"K1(e)+K2(e) keep, {what}, fmod", lambda q=q: dc.build_keep_q(q, True)))
+                   (f"K1(e)+K2(e) keep, {what}, fmod", lambda q=q: dc.build_keep_q(q, True)),
+                   (f"K1(e)+K2(e) keep, {what}, fmod past PHASE_MAX",
+                    lambda q=q: dc.build_keep_q(q, True, True)))
 
     def timed(build):
         t = time.perf_counter()
@@ -421,6 +454,8 @@ def phase0(torch, ops):
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, at once
         done = list(ex.map(lambda b: timed(b[1]), builds))
     print(f"kernel builds, in parallel: {time.perf_counter() - t:.3f} s")
+    print("builds, each: " + ", ".join(f"{name} {dt:.3f} s"
+                                        for (name, _), (dt, _) in zip(builds, done)))
     for (name, _), (dt, log) in zip(builds, done):
         print(f"{name} build: {dt:.3f} s")
         regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
@@ -447,6 +482,22 @@ def phase0(torch, ops):
                       f"{min(r[6] for r in v)}-{max(r[6] for r in v)} bytes, frames a launch "
                       f"{sorted({r[3] for r in v})}")
                 assert rot != 1 or all(r[6] == 0 for r in v), (name, v)
+        if "keep" in name:
+            # das_keep_kernel: registers by (keep mode, weights, rotation,
+            # sample type); no spills, and the short rotation's variants no
+            # stack frame
+            kv = keep_variants(log)
+            assert kv, name
+            for key in sorted({(r[4], r[5], r[3], r[2]) for r in kv}):
+                v = [r for r in kv if (r[4], r[5], r[3], r[2]) == key]
+                print(f"  das_keep_kernel {KEEP_NAMES[key[0]]}{' weighted' if key[1] else ''} "
+                      f"rotation {key[2]} {'complex' if key[3] else 'real'}: {len(v)} variants, "
+                      f"{min(r[7] for r in v)}-{max(r[7] for r in v)} registers, stack frames "
+                      f"{min(r[8] for r in v)}-{max(r[8] for r in v)} bytes, spill stores "
+                      f"{max(r[9] for r in v)} bytes at most")
+            assert all(r[9] == 0 for r in kv), (name, [r for r in kv if r[9]])
+            assert all(r[8] == 0 for r in kv if r[3] == 1), (name, [r for r in kv if r[3] == 1
+                                                                    and r[8]])
     cuobjdump = os.path.join(os.path.dirname(ops._nvcc.nvcc()), "cuobjdump")
 
     def sass_counts(lib, ops_):
@@ -488,10 +539,12 @@ def phase0(torch, ops):
         assert not zero or sum(nearest.values()) == 0, nearest
     # the short rotation's variants touch no local memory (sincosf's slow
     # path keeps its reduction there)
-    for lib in ("das_iq", "das_bf16_iq", "das_i8_iq"):
+    for lib in ("das_iq", "das_bf16_iq", "das_i8_iq", "das_keep_iq", "das_keep_bf16_iq",
+                "das_keep_i8_iq", "das_keep_acc16_iq"):
         so, local = sass_counts(lib, ("STL", "LDL"))
         short = {f: c for f, c in local.items()
-                 if (m := FRAMES_VARIANT.search(f)) and m.group(3) == "1"}
+                 if ((m := FRAMES_VARIANT.search(f)) and m.group(3) == "1")
+                 or ((m := KEEP_VARIANT.search(f)) and m.group(4) == "1")}
         print(f"  {lib} SASS ({so}): {len(short)} variants of the short rotation with "
               f"{sum(short.values())} local loads and stores; the sincosf variants "
               f"{sum(c for f, c in local.items() if f not in short)}")
@@ -2020,17 +2073,92 @@ def phase15(torch, qt, das_cuda, errs):
           "worst rel per keep mode: " + ", ".join(f"{k or 'summed'} {v:.3e}"
                                                  for k, v in worst.items())
           + f"  ((T,N,M,I)={(T, N, M, n * n)})")
+    _phase15_edges(torch, qt, das_cuda, errs)
 
 
-def phase16(torch, qt, das_cuda, k1_cubic_ms, errs):
+def _phase15_edges(torch, qt, das_cuda, errs):
+    """The keep kernel's variants at their edges, at phase 15's shapes with
+    N 100 (receiver chunks 32 + 32 + 32 + 4: a sub-chunk of KEEP_NCK or
+    KEEP_NCK_WIDE receivers past each chunk's end): each keep mode
+    unweighted and weighted
+    (masks: aperture growth and a parallelogram; real-valued: acceptance
+    angle and a dense (1, N, M) weight; on the tables the dense weight) x F
+    1, 3 x no rotation, the short rotation (fmod 5 MHz) and
+    sincosf (fmod 20 GHz, phases past PHASE_MAX: the _iq_wide entries),
+    cubic, real traces, plane waves and tables, against the plain version;
+    two launches bit for bit; the launches counted, one a frame
+    (KEEP_FRAMES)."""
+    T, N, M, n = 2048, 100, 32, 128
+    assert N % das_cuda.KEEP_NCK and N % das_cuda.KEEP_NCK_WIDE
+    pi, pr, pv, nv, t0, fs, _ = _crossing_problem(torch, "plane", T, N, M, n)
+    tau_rx, tau_tx, t0l, fsl, _ = _lut_problem(torch, T, N, M, n, 16)
+    rng = np.random.default_rng(16)
+    dense = (rng.uniform(0, 1, (1, 1, 1, N, M)).astype(np.float32),)
+    weights = {"none": (), "masks": (qt.Fused("aperture_growth", f=1.5),
+                                     qt.Fused("tx_parallelogram", xlo=-12e-3, xhi=14e-3)),
+               "real": (qt.Fused("acceptance_angle", theta=40.0),) + dense}
+    t, count, worst = time.perf_counter(), 0, {}
+    for fd in ((), (3,)):
+        xg = _frame_traces(torch, T, N, M, fd, False, 170 + len(fd))
+        F = int(np.prod(fd, dtype=np.int64))
+        for keep, kk in KEEP_MODES.items():
+            for wkind, apod in weights.items():
+                if keep == "" and wkind == "none":
+                    continue
+                weighted = wkind != "none"
+                for fmod, rot in ((0.0, "none"), (FMOD, "reduced"), (2e10, "sincosf")):
+                    for src in ("plane", "tables"):
+                        if src == "tables" and wkind == "masks":
+                            continue  # K2 takes dense weights
+                        kw = dict(method="cubic", fmod=fmod, im_shape=(n, n, 1),
+                                  apod=dense if src == "tables" and weighted else apod, **kk)
+                        if src == "tables":
+                            kern, plain, name = (das_cuda.das_lut_sum,
+                                                 das_cuda.das_lut_sum_plain, "das_lut_k2c")
+                            args, kw = (xg, tau_rx, tau_tx, t0l), dict(kw, fs=fsl)
+                            counters = ("LUT_KEEP_LAUNCHES",)
+                        else:
+                            kern, plain = das_cuda.das_sum, das_cuda.das_sum_plain
+                            name = "das_k1c" if keep else "das_k1d"
+                            args = (xg, pi, pr, pv, nv, t0, np.float32(1 / 1540.0))
+                            kw = dict(kw, fs=fs, tx_model="plane")
+                            counters = (("KEEP_LAUNCHES",) if keep else ()) + (
+                                ("APOD_LAUNCHES",) if weighted else ())
+                        assert das_cuda.rotation(fmod, T, kw["fs"]) == rot, (fmod, rot)
+                        blocks = -(-F // das_cuda.KEEP_FRAMES)
+                        before = [getattr(das_cuda, c) for c in counters]
+                        got = kern(*args, **kw)
+                        again = kern(*args, **kw)
+                        torch.cuda.synchronize()
+                        where = f"phase15 edges keep={keep!r} {wkind} {src} F={fd} {rot}"
+                        assert torch.equal(got, again), where
+                        assert [getattr(das_cuda, c) - b for c, b in zip(counters, before)] \
+                            == [2 * blocks] * len(counters), where
+                        ref = plain(*args, **kw)
+                        a, r = errs[name].add(got, ref, where)
+                        assert r < TOL, (where, r)
+                        worst[rot] = max(worst.get(rot, 0.0), r)
+                        count += 1
+                        del got, again, ref
+    print(f"phase15 keep kernel edges (N {N}: a sub-chunk of {das_cuda.KEEP_NCK} or "
+          f"{das_cuda.KEEP_NCK_WIDE} past each chunk's end; F 1, 3; no weights, masks or "
+          f"real-valued weights) vs plain, "
+          f"two launches bit for bit: {count} "
+          f"calls in {time.perf_counter() - t:.1f} s; worst rel per rotation: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def phase16(torch, qt, das_cuda, k1_cubic_ms, errs, iq_args):
     """The headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic, real
     traces (bench.das_problem's): the summed call (phase 4's time),
-    keep_rx (1 GiB out), keep_tx, the summed call with aperture_growth +
-    acceptance_angle + tx_parallelogram, K2 keep_rx on the plane-wave
-    tables, and coherence_image's two steps, keep_rx then cohfac or slsc
-    (64 lags) on its output; CUDA events, each against the plain version on
-    every 64th pixel, beside its bound. Returns {kernel: (ms, plain ms
-    scaled, bound)} and the coherence times."""
+    keep_rx (1 GiB out; two launches bit for bit), keep_tx, the summed call
+    with aperture_growth + acceptance_angle + tx_parallelogram, K2 keep_rx
+    on the plane-wave tables, and coherence_image's two steps, keep_rx then
+    cohfac or slsc (64 lags) on its output; then keep_rx and keep_tx on one
+    frame of phase 14's IQ headline (T' 1024, complex) with fmod 5 MHz (2
+    GiB out each); CUDA events, each against the plain version on every
+    64th pixel, beside its bound. Returns {kernel: (ms, plain ms scaled,
+    bound)} and the coherence times."""
     from qups_tpu_torch import bench
     from qups_tpu_torch.ops.coherence import cohfac, slsc
     from qups_tpu_torch.ops.das import delay_tables
@@ -2080,6 +2208,8 @@ def phase16(torch, qt, das_cuda, k1_cubic_ms, errs):
         if "keep_rx" in extra:
             t_rx = ms
             brx = got[:, :, 0]  # (I, N)
+            assert torch.equal(got, das_cuda.das_sum(xg, pig, pr, pv, nv, t0,
+                                                     np.float32(1 / 1540.0), **kw))
         del got, ref
     # coherence_image's two steps on the keep_rx output: the reduction alone
     coh = {}
@@ -2110,6 +2240,32 @@ def phase16(torch, qt, das_cuda, k1_cubic_ms, errs):
           f"64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
     _share("phase16 K2 keep_rx (K2(c))", ms, b)
     out["das_lut_k2c"] = (ms, 64 * t_plain * 1e3, b)
+    del tau_rx, tau_tx, got, ref, xg
+    # keep_rx and keep_tx on one frame of the IQ headline, fmod 5 MHz: the
+    # short rotation (phase 14's phases within PHASE_MAX)
+    iq, pig, pr, pv, nv, rows = iq_args
+    x1 = iq.data[..., 0].contiguous()
+    Tq = x1.shape[0]
+    assert das_cuda.rotation(FMOD, Tq, iq.fs) == "reduced"
+    for keep, extra, kept in (("keep_rx", dict(keep_rx=True), N), ("keep_tx",
+                                                                   dict(keep_tx=True), M)):
+        kw = dict(fs=iq.fs, tx_model="plane", method="cubic", fmod=FMOD, **extra)
+        args = lambda p: (x1, p, pr, pv, nv, iq.t0, np.float32(1 / 1540.0))  # noqa: E731
+        ms = _ms(lambda: das_cuda.das_sum(*args(pig), **kw), reps=2)
+        got = das_cuda.das_sum(*args(pig), **kw)[rows]
+        ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(*args(pig[rows]), **kw))
+        a, r = errs["das_k1c"].add(got, ref, f"phase16 IQ {keep} fmod every 64th pixel")
+        assert r < TOL, (keep, r)
+        b = bound(_iq_term_flops("cubic", False, 1) * terms, F32_FLOPS,
+                  x1.numel() * 8.0 + 8.0 * I * kept + 12.0 * I)
+        print(f"phase16 IQ headline, one frame, {keep} fmod 5 MHz (K1(c), short rotation): "
+              f"1024^2 x 256 x 256 T' {Tq} complex, cubic, {ms:.3f} ms (layout kernel "
+              f"included) -> ({I}, {kept if keep == 'keep_rx' else 1}, "
+              f"{kept if keep == 'keep_tx' else 1}) complex64; plain on every 64th pixel "
+              f"{t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
+        _share(f"phase16 IQ {keep} fmod", ms, b)
+        del got, ref
+    del x1
     return out, coh
 
 
@@ -4232,7 +4388,7 @@ def main():
     iq_launches = phase13(torch, qt, ops, errs)
     iqh, iq_args = phase14(torch, qt, ops.das_cuda, errs)
     phase15(torch, qt, ops.das_cuda, errs)
-    keep, coh = phase16(torch, qt, ops.das_cuda, k1_ms["cubic"], errs)
+    keep, coh = phase16(torch, qt, ops.das_cuda, k1_ms["cubic"], errs, iq_args)
     phase17(torch, qt, ops.das_cuda, errs)
     lp = phase18(torch, ops.das_cuda, k1_ms, k2_all, iqh, iq_args, keep, errs)
     del iq_args
@@ -4382,7 +4538,9 @@ def main():
         ("das_k1c", "qups_tpu_torch/csrc/das.cu (das_keep.cu, das_keep_iq.cu)",
          "qups_tpu/ops/das_pallas.py:174 (keep modes :940-1060)", *keep["das_k1c"], None,
          "K1(c): keep_rx at the headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic, real "
-         "(1 GiB out); keep_tx and the coherence reductions in phase 16's lines "
+         "(1 GiB out; das_keep_kernel's keep_rx variant, its sums in registers); keep_tx, "
+         "keep_rx and keep_tx on one IQ frame with fmod and the coherence reductions in "
+         "phase 16's lines "
          f"(cohfac {coh['cohfac'][1]:.3f} ms, slsc {coh['slsc'][1]:.3f} ms after the "
          "keep_rx call); plain on every 64th pixel, scaled; launches: phase 3's keep_rx, "
          "keep_tx and two coherence_image calls"),

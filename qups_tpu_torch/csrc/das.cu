@@ -183,7 +183,6 @@ constexpr int MC = 8;         // transmits per chunk of transmit terms
 constexpr int UNROLL = 2;     // groups of 4 receivers per unrolled step
 constexpr int RS = NC + 4;    // row stride of R: 16-byte rows, conflict-free 16-byte reads
 constexpr int TMAX = 1 << 22;  // longest trace: the index arithmetic of sample()
-constexpr int FB = 4;         // frames per launch of das_keep_kernel, their sums in registers
 static_assert(NC % 4 == 0, "R is read four receivers at a time");
 
 // das_frames_kernel's plan, chosen by the sweeps of PERF.md §6, PR 17:
@@ -791,34 +790,91 @@ __global__ void __launch_bounds__(P, ROT == NO_ROT ? 1 : FRAMES_MIN_BLOCKS)
 
 #ifdef DAS_KEEP
 // K1(c), K1(d), K2(c): das_frames_kernel's loops with a keep mode and
-// apodization weights, both runtime flags uniform across a launch, so that
-// they add no variants (this file built with DAS_KEEP defined: das_keep.cu
-// and, with rotation, das_keep_iq.cu, 64 variants each, source x sampler x
-// trace type x 1 or FB frames' sums).
+// apodization weights (this file built with DAS_KEEP defined: das_keep.cu,
+// with the short rotation das_keep_iq.cu and with sincosf
+// das_keep_iq_wide.cu, and the reduced-precision units).
 //
 // Keep modes (the TPU kernel's, das_pallas.py:940-1060): summed (I, 1, 1,
-// F); KEEP_RX (I, N, 1, F): a (pixel, receiver) sum is complete once a
-// receiver chunk's transmits are done, so it lives in shared memory beside
-// R (NC sums a pixel and frame, one column per thread: no barrier, no
-// conflicts) and is written once per (pixel, receiver, frame) and launch;
-// KEEP_TX (I, 1, M, F): a (pixel, transmit) sum is complete at the end of
-// each receiver chunk, added to out once per chunk by the one thread that
-// owns it (no atomics: two launches give the same bits); KEEP_BOTH (I, N,
-// M, F): one store per term. out is (N', M', F, I), pixels innermost, so a
-// warp's stores are coalesced; the wrapper permutes the view.
+// F); KEEP_RX (I, N, 1, F): a (pixel, receiver) sum is complete once its
+// transmits are done; KEEP_TX (I, 1, M, F): a (pixel, transmit) sum is
+// complete at the end of each receiver chunk, added to out once per chunk
+// by the one thread that owns it (no atomics: two launches give the same
+// bits); KEEP_BOTH (I, N, M, F): one store per term. out is (N', M', F,
+// I), pixels innermost, so a warp's stores are coalesced; the wrapper
+// permutes the view. A launch takes one frame (KEEP_FRAMES).
 //
 // Weights (das_pallas.py:102-155, on unscaled geometry; the TPU kernel
 // folds cinv into its positions and scales Dmax, xlo, xhi and lat_tx with
-// it): a receive factor, evaluated once per (pixel, receiver) beside R into
-// WR, and a transmit factor, once per (pixel, transmit) beside TX into WT,
-// each the product of the fused kinds the launch names and a dense weight
-// that varies over (pixel, receiver) or (pixel, transmit) only; a dense
-// weight that varies over both is read per term with its strides (0 on a
-// broadcast axis). A term whose weight is 0 reads no sample.
-enum Keep { SUM = 0, KEEP_RX = 1, KEEP_TX = 2, KEEP_BOTH = 3 };
+// it). The fused kinds but tx_multiline are masks, 0 or 1: a receiver
+// whose receive mask is 0 gets NaN for its entry of R, a transmit whose
+// transmit mask is 0 NaN for its entry of TX, so that its terms fail the
+// validity test as a term off the trace does (the plain version's product
+// with 0). Real-valued factors, dense weights and tx_multiline, take a
+// receive factor evaluated once per (pixel, receiver) beside R into WR
+// and a transmit factor once per (pixel, transmit) beside TX into WT; a
+// dense weight that varies over both is read per term with its strides (0
+// on a broadcast axis). A term whose weight is 0 reads no sample.
+//
+// What bounds it, and what the design does (PERF.md §6): an earlier
+// design took the keep mode and the weights as runtime flags, so every
+// term formed a weight, tested it, scaled its sample and branched on the
+// mode, and kept keep_rx's sums in shared memory (a load, an add and a
+// store a term, 64 KiB a block); with one group of 4 terms in flight a
+// thread, latency set its time, 1.7-2.7x the summed kernel's. Here the keep
+// mode (KEEP) and whether the launch has real-valued weights (W) are
+// template parameters: an unweighted term (masks only) is das_kernel's
+// term, a weighted one adds only its product with w. keep_rx runs its
+// receivers in sub-chunks of keep_nck, fully unrolled, so their sums stay
+// in registers under constant indices; each is read (add) and stored once
+// per sub-chunk and launch, and keeps the order of its additions over the
+// transmits (an unrotated float32 keep_rx gives the earlier design's
+// bits).
+// keep_tx issues its read of out before the transmit's terms, so the load
+// is in flight with them (20 % at the headline). Remodulation takes
+// das_frames_kernel's short rotation (sincos_reduced), and sincosf past
+// PHASE_MAX. The variants: KEEP_ANY reads the mode from the launch
+// (summed, keep_tx, keep_both), weights as runtime flags, for the modes
+// without a variant of their own; keep_rx with and without weights in
+// every unit (sincosf: with); and, in the float32 units without sincosf,
+// the unweighted summed and keep_tx calls.
+enum Keep { SUM = 0, KEEP_RX = 1, KEEP_TX = 2, KEEP_BOTH = 3, KEEP_ANY = 4 };
 enum RxKind { AP_GROWTH = 1, AP_DMAX = 2, ACCEPT = 4 };
 enum TxKind { TX_SCANLINE = 1, TX_MULTILINE = 2, TX_PARALLELOGRAM = 4 };
-constexpr int KR_BYTES = 64 << 10;  // the keep_rx sums' shared memory, at most
+// The plan, from the sweeps of PERF.md §6: the frames a launch (4
+// in one launch ran 1.15x slower than 4 one-frame launches for keep_tx, 2
+// a launch 1.5x); unweighted keep_rx's sub-chunk and least blocks an SM
+// (__launch_bounds__), KEEP_NCK and KEEP_RX_MIN_BLOCKS for real sums (in
+// registers), KEEP_NCK_WIDE and KEEP_RX_MIN_BLOCKS_WIDE for complex ones
+// (complex traces or a rotation; in shared memory: 176 against 223 ms in
+// registers at one IQ frame, both at 2 blocks an SM, and 137 against 108
+// for real sums); KEEP_MIN_BLOCKS and KEEP_MIN_BLOCKS_WIDE for the unweighted
+// summed and keep_tx variants of real and complex sums; ptxas's registers
+// for the weighted ones (capped, they spilled), whose keep_rx takes
+// KEEP_NCK_WIDE receivers in registers, and for lanczos3 on complex sums
+// (its weights spilled at 3 blocks); and the unroll of the receiver
+// loop outside keep_rx (groups of 4 receivers), KEEP_UNROLL for real sums
+// and KEEP_UNROLL_WIDE for complex ones.
+constexpr int KEEP_FRAMES = 1;
+constexpr int KEEP_NCK = 16;
+constexpr int KEEP_RX_MIN_BLOCKS = 1;
+constexpr int KEEP_NCK_WIDE = 8;
+constexpr int KEEP_RX_MIN_BLOCKS_WIDE = 3;
+constexpr int KEEP_MIN_BLOCKS = 4;
+constexpr int KEEP_MIN_BLOCKS_WIDE = 3;
+constexpr int KEEP_UNROLL = 2;
+constexpr int KEEP_UNROLL_WIDE = 1;
+static_assert(NC % KEEP_NCK == 0 && NC % KEEP_NCK_WIDE == 0 && KEEP_NCK % 4 == 0
+              && KEEP_NCK_WIDE % 4 == 0, "a chunk holds whole sub-chunks of whole groups of 4");
+
+__host__ __device__ constexpr int keep_nck(bool wide, bool w) {
+  return wide || w ? KEEP_NCK_WIDE : KEEP_NCK;
+}
+__host__ __device__ constexpr int keep_min_blocks(int keep, bool wide, bool w, bool lanczos) {
+  return w || keep == KEEP_ANY || (wide && lanczos) ? 1
+         : keep != KEEP_RX     ? (wide ? KEEP_MIN_BLOCKS_WIDE : KEEP_MIN_BLOCKS)
+         : wide                ? KEEP_RX_MIN_BLOCKS_WIDE
+                               : KEEP_RX_MIN_BLOCKS;
+}
 
 // A dense weight broadcastable to (I1, I2, I3, N, M): its element strides,
 // 0 on a broadcast axis; p null when the launch has none.
@@ -828,7 +884,7 @@ struct Dense {
 };
 
 struct KeepArgs {
-  FrameArgs fa;        // a.out at the launch's first frame and transmit
+  FrameArgs fa;        // a.out at the launch's frame and first transmit
   int keep;            // Keep
   int64_t on, om, of;  // out's strides of n, m and f (i's is 1), in sums
   int I2, I3;          // the image's trailing dims: a pixel's (i1, i2, i3)
@@ -840,9 +896,15 @@ struct KeepArgs {
   float f2, dmax, cth, tol, dlat, xlo, xhi;  // 2 f, Dmax, cos(theta), ...
 };
 
+// The launch has real-valued weights: a factor per term beyond the masks.
+bool has_weights(const KeepArgs& k) {
+  return k.wr.p || k.wt.p || k.wd.p || (k.tx_kinds & TX_MULTILINE);
+}
+
 // The fused receive factor of receiver n for a pixel at (dx, dz) from it,
 // dr = |pixel - receiver|, in the order and roundings of
-// ops/das_cuda.py::fused_weights.
+// ops/das_cuda.py::fused_weights: 0 or 1 (aperture growth, Dmax, the
+// acceptance angle are masks).
 __device__ __forceinline__ float rx_weight(const KeepArgs& k, int n, float dx, float dz,
                                            float dr) {
   const float sa = __ldg(k.ori + 2 * n), ca = __ldg(k.ori + 2 * n + 1);
@@ -859,44 +921,34 @@ __device__ __forceinline__ float rx_weight(const KeepArgs& k, int n, float dx, f
   return w;
 }
 
-// The fused transmit factor of transmit m (of the launch) for a pixel at
-// (px, pz) with lateral coordinate lat.
-__device__ __forceinline__ float tx_weight(const KeepArgs& k, int m, float px, float pz,
-                                           float lat) {
-  float w = 1.f;
-  if (k.tx_kinds & (TX_SCANLINE | TX_MULTILINE)) {
-    const float dl = fabsf(__fsub_rn(lat, __ldg(k.lat_tx + m)));
-    if ((k.tx_kinds & TX_SCANLINE) && !(dl < k.tol)) w = 0.f;
-    if (k.tx_kinds & TX_MULTILINE)
-      w = __fmul_rn(w, fmaxf(0.f, __fsub_rn(1.f, __fdiv_rn(dl, k.dlat))));
-  }
+// The fused transmit mask of transmit m (of the launch) for a pixel at
+// (px, pz) with lateral coordinate lat: tx_scanline and tx_parallelogram,
+// 0 or 1.
+__device__ __forceinline__ bool tx_mask(const KeepArgs& k, int m, float px, float pz,
+                                        float lat) {
+  if ((k.tx_kinds & TX_SCANLINE) && !(fabsf(__fsub_rn(lat, __ldg(k.lat_tx + m))) < k.tol))
+    return false;
   if (k.tx_kinds & TX_PARALLELOGRAM) {
     const float* nvm = k.fa.a.nv + 3 * m;
     const float x0 = __fsub_rn(px, __fmul_rn(__ldg(nvm), __fdiv_rn(pz, __ldg(nvm + 2))));
-    if (!(x0 > k.xlo && x0 <= k.xhi)) w = 0.f;
+    if (!(x0 > k.xlo && x0 <= k.xhi)) return false;
   }
-  return w;
+  return true;
 }
 
-// Shared memory: R and TX as das_frames_kernel's, WR (P x RS) and WT (MC x
-// P) when the launch has receive or transmit factors, KR (NC x fb x P sums)
-// for KEEP_RX; sized by the launcher (keep_smem). NF frames' sums a thread:
-// 1 (a launch of one frame) or FB.
-//
-// The receivers of a chunk run 4 at a time, in three steps: the 4 terms'
-// delays, weights and phases; their samples, whose loads are then in
-// flight together (no branch between them when NF is 1); then their sums
-// by the keep mode, one uniform branch for the 4. With the keep mode's
-// branch after each term instead, a term's load waited for the last
-// term's sum, and the kernel took 6-8x das_kernel's time (PERF.md §6).
-//
+// The tx_multiline factor of transmit m, max(0, 1 - |lat - lat_tx| / dlat).
+__device__ __forceinline__ float tx_multiline(const KeepArgs& k, int m, float lat) {
+  const float dl = fabsf(__fsub_rn(lat, __ldg(k.lat_tx + m)));
+  return fmaxf(0.f, __fsub_rn(1.f, __fdiv_rn(dl, k.dlat)));
+}
+
 // Entry types other than F32 (its reduced-precision units): I8 folds each
 // transmit's s_m / 127 into its transmit factor; with lp.acc16 out holds
 // the kept sums as bfloat16 (a pair for a complex sum), half the bytes of
 // float32, as the TPU kernel's QUPS_DAS_ACC16 keeps its kept-axis
 // accumulator in bfloat16: every store of a kept sum (keep_rx at the end of
-// a receiver chunk, keep_tx at the end of each receiver chunk, both per
-// term) rounds it half to even, and a sum read back (keep_rx after the
+// a sub-chunk's transmits, keep_tx at the end of each receiver chunk, both
+// per term) rounds it half to even, and a sum read back (keep_rx after the
 // launch's first chunk of transmits, keep_tx after its first receiver
 // chunk) is widened. acc16 is a launch constant, tested at the loads and
 // stores of out only.
@@ -932,20 +984,30 @@ __device__ __forceinline__ void kept_store(const K& k, A* out, int64_t e, A v) {
   out[e] = v;
 }
 
-template <int SRC, int METHOD, typename V, bool ROT, int NF, int Q = F32>
-__global__ void __launch_bounds__(P, 1) das_keep_kernel(const QArgs<Q, KeepArgs> k) {
-  using A = decltype(rotate<ROT, V>(V{}, 1.f, 0.f));
-  const FrameArgs& fa = k.fa;
-  const Args& a = fa.a;
-  constexpr int E = Entry<METHOD, V>::E;
+// Shared memory: R and TX as das_frames_kernel's, WR (P x RS) and WT (MC x
+// P) when the launch has real-valued receive or transmit factors; sized by
+// the launcher (keep_smem). KEEP: the mode, or KEEP_ANY (the launch's:
+// summed, keep_tx, keep_both); W: the launch may have real-valued weights
+// (runtime flags), else it has masks at most.
+//
+// Outside keep_rx the receivers of a chunk run 4 at a time, in three
+// steps: the 4 terms' delays, weights and phases; their samples, whose
+// loads are then in flight together; then their sums by the keep mode.
+// With the mode's branch after each term instead, a term's load waited for
+// the last term's sum (PERF.md §6).
+template <int SRC, int METHOD, typename V, int ROT, int KEEP, bool W, int Q = F32>
+__global__ void __launch_bounds__(
+    P, keep_min_blocks(KEEP, sizeof(V) != sizeof(float) || ROT != NO_ROT, W, METHOD == LANCZOS3))
+    das_keep_kernel(const QArgs<Q, KeepArgs> k) {
+  using A = decltype(rotate<ROT != NO_ROT, V>(V{}, 1.f, 0.f));
+  constexpr bool SCALED = W || Q == I8;  // a term's sample times its factor w
+  const Args& a = k.fa.a;
   extern __shared__ __align__(16) float smem[];
-  const bool has_wr = k.rx_kinds || k.wr.p, has_wt = k.tx_kinds || k.wt.p;
-  const bool weighted = has_wr || has_wt || k.wd.p;
+  const bool has_wr = W && k.wr.p, has_wt = W && (k.wt.p || (k.tx_kinds & TX_MULTILINE));
   float* R = smem;                                   // R[p][n]
   float* TX = R + P * RS;                            // TX[j][p]
   float* WR = TX + MC * P;                           // WR[p][n]
   float* WT = WR + (has_wr ? P * RS : 0);            // WT[j][p]
-  A* KR = reinterpret_cast<A*>(WT + (has_wt ? MC * P : 0));  // KR[f][n][p]
   const Unit<Q>* __restrict__ x = reinterpret_cast<const Unit<Q>*>(a.x);
   A* __restrict__ out = static_cast<A*>(a.out);
   const int p = threadIdx.x;
@@ -959,7 +1021,7 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const QArgs<Q, KeepArgs>
     py = a.pix[3 * ic + 1];
     pz = a.pix[3 * ic + 2];
   }
-  // the pixel's (i1, i2, i3) and its offset in each dense weight
+  // the pixel's (i1, i2, i3), its offset in each dense weight, its lateral
   const int64_t i3 = ic % k.I3, i2 = (ic / k.I3) % k.I2, i1 = ic / ((int64_t)k.I3 * k.I2);
   const int64_t owr = i1 * k.wr.s1 + i2 * k.wr.s2 + i3 * k.wr.s3;
   const int64_t owt = i1 * k.wt.s1 + i2 * k.wt.s2 + i3 * k.wt.s3;
@@ -967,18 +1029,12 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const QArgs<Q, KeepArgs>
   const float lat = (k.tx_kinds & (TX_SCANLINE | TX_MULTILINE)) ? __ldg(k.lat + ic) : 0.f;
   const float tmax = (float)(a.T - 1);
   const unsigned row = (unsigned)a.row;
-  const unsigned S = (unsigned)fa.S;
-  const int fb = NF == 1 ? 1 : fa.fb, keep = k.keep;
+  const unsigned S = (unsigned)k.fa.S;
+  const int keep = KEEP == KEEP_ANY ? k.keep : KEEP;
   const float4* __restrict__ r4 = reinterpret_cast<const float4*>(R + p * RS);
   const float4* __restrict__ w4 = reinterpret_cast<const float4*>(WR + p * RS);
-  A acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) acc[j] = A{};
-  if (keep == SUM && a.add && live) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      if (j < fb) acc[j] = out[i + j * k.of];
-  }
+  A acc{};  // summed: the pixel's sum; keep_tx: a transmit's over a receiver chunk
+  if (keep == SUM && a.add && live) acc = out[i];
   for (int n0 = 0; n0 < a.N; n0 += NC) {
     const int nc = min(NC, a.N - n0);
     __syncthreads();  // the previous chunk's reads of R are done
@@ -988,128 +1044,178 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const QArgs<Q, KeepArgs>
         for (int n = lane; n < nc; n += 32)
           R[q * RS + n] = __ldg(a.taur + (i0 + q) * a.N + n0 + n);
     } else {
+      // dr, or NaN where the receive mask (the fused kinds) is 0
       for (int n = 0; n < nc; ++n) {
         const float* prn = a.pr + 3 * (n0 + n);
-        R[p * RS + n] = norm3(__fsub_rn(px, __ldg(prn)), __fsub_rn(py, __ldg(prn + 1)),
-                              __fsub_rn(pz, __ldg(prn + 2)));
+        const float dx = __fsub_rn(px, __ldg(prn)), dz = __fsub_rn(pz, __ldg(prn + 2));
+        const float dr = norm3(dx, __fsub_rn(py, __ldg(prn + 1)), dz);
+        R[p * RS + n] = k.rx_kinds && rx_weight(k, n0 + n, dx, dz, dr) == 0.f ? __int_as_float(
+            0x7FC00000) : dr;
       }
     }
-    if (has_wr) {  // the receive factors of this thread's pixel: its own row
-      for (int n = 0; n < nc; ++n) {
-        float w = 1.f;
-        if constexpr (SRC != LUT) {
-          if (k.rx_kinds) {
-            const float* prn = a.pr + 3 * (n0 + n);
-            w = rx_weight(k, n0 + n, __fsub_rn(px, __ldg(prn)), __fsub_rn(pz, __ldg(prn + 2)),
-                          R[p * RS + n]);
-          }
-        }
-        if (k.wr.p) w *= __ldg(k.wr.p + owr + (int64_t)(n0 + n) * k.wr.sn);
-        WR[p * RS + n] = w;
-      }
+    if (has_wr) {  // the dense receive factors of this thread's pixel: its own row
+      for (int n = 0; n < nc; ++n)
+        WR[p * RS + n] = __ldg(k.wr.p + owr + (int64_t)(n0 + n) * k.wr.sn);
     }
     __syncthreads();
     if (!live) continue;
-    if (keep == KEEP_RX) {  // this chunk's (pixel, receiver) sums
-      for (int f = 0; f < fb; ++f)
-        for (int n = 0; n < nc; ++n) {
-          if constexpr (Q == F32) {
-            KR[(f * NC + n) * P + p] = a.add ? out[i + (n0 + n) * k.on + f * k.of] : A{};
-          } else {
-            KR[(f * NC + n) * P + p] =
-                a.add ? kept_load<Q>(k, out, i + (n0 + n) * k.on + f * k.of) : A{};
+    // Each transmit m of the launch, in chunks of MC whose terms are formed
+    // at once (K2's loads in flight together): body(m, tx, t0m, wtj, xm,
+    // wdm), with tx its transmit term (NaN where its mask is 0), wtj its
+    // factor (the weight, I8 times s_m / 127), xm its traces at receiver n0
+    // and wdm the dense (i, n, m) weight at (i, n0, m), or null.
+    auto transmits = [&](auto&& body) {
+      for (int m0 = 0; m0 < a.M; m0 += MC) {
+        const int mc = min(MC, a.M - m0);
+#pragma unroll
+        for (int j = 0; j < MC; ++j) {
+          if (j < mc) {
+            float tx = tx_term<SRC>(a, m0 + j, i, px, py, pz);
+            if constexpr (SRC != LUT) {
+              if ((k.tx_kinds & (TX_SCANLINE | TX_PARALLELOGRAM))
+                  && !tx_mask(k, m0 + j, px, pz, lat))
+                tx = __int_as_float(0x7FC00000);
+            }
+            TX[j * P + p] = tx;
+            if (has_wt) {
+              float w = (k.tx_kinds & TX_MULTILINE) ? tx_multiline(k, m0 + j, lat) : 1.f;
+              if (k.wt.p) w *= __ldg(k.wt.p + owt + (int64_t)(m0 + j) * k.wt.sm);
+              WT[j * P + p] = w;
+            }
           }
         }
-    }
-    for (int m0 = 0; m0 < a.M; m0 += MC) {
-      const int mc = min(MC, a.M - m0);
-#pragma unroll
-      for (int j = 0; j < MC; ++j) {
-        if (j < mc) {
-          TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
-          if (has_wt) {
-            float w = 1.f;
-            if constexpr (SRC != LUT) {
-              if (k.tx_kinds) w = tx_weight(k, m0 + j, px, pz, lat);
-            }
-            if (k.wt.p) w *= __ldg(k.wt.p + owt + (int64_t)(m0 + j) * k.wt.sm);
-            WT[j * P + p] = w;
-          }
+        for (int j = 0; j < mc; ++j) {
+          const int m = m0 + j;
+          const float wtj = tx_factor<Q>(k, has_wt ? WT[j * P + p] : 1.f, m);
+          const float* wdm = W && k.wd.p
+              ? k.wd.p + owd + (int64_t)m * k.wd.sm + (int64_t)n0 * k.wd.sn : nullptr;
+          body(m, TX[j * P + p], __ldg(a.t0 + m), wtj,
+               opaque(x + ((int64_t)m * a.N + n0) * a.row), wdm);
         }
       }
-      for (int j = 0; j < mc; ++j) {
-        const int m = m0 + j;
-        const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m);
-        const float wtj = tx_factor<Q>(k, has_wt ? WT[j * P + p] : 1.f, m);
-        const Unit<Q>* __restrict__ xm = opaque(x + ((int64_t)m * a.N + n0) * a.row);
-        const float* __restrict__ wdm =
-            k.wd.p ? k.wd.p + owd + (int64_t)m * k.wd.sm + (int64_t)n0 * k.wd.sn : nullptr;
-        if (keep == KEEP_TX) {
-#pragma unroll
-          for (int f = 0; f < NF; ++f) acc[f] = A{};
+    };
+    // a term's delay ti, factor w (wtj times its receive and dense factors;
+    // wtj alone without weights), validity and phase (c, s), from r its
+    // entry of R
+    auto prep = [&](float tx, float t0m, float wtj, float r, float wrn, float wdn, float& ti,
+                    float& w, bool& ok, float& c, float& s) {
+      const float tau = SRC == LUT
+          ? __fsub_rn(__fadd_rn(tx, r), t0m)
+          : __fsub_rn(__fmul_rn(a.cinv, __fadd_rn(tx, r)), t0m);
+      ti = __fmul_rn(tau, a.fs);
+      ok = ti >= 0.f && ti <= tmax;  // false for NaN
+      w = wtj;
+      if constexpr (W) {
+        w = wrn * wtj * wdn;
+        ok = ok && w != 0.f;
+      }
+      s = 0.f;
+      c = 1.f;
+      if constexpr (ROT == ROT_REDUCED)
+        sincos_reduced(ok ? __fmul_rn(k.fa.w, tau) : 0.f, &s, &c);
+      if constexpr (ROT == ROT_SINCOSF) sincosf(ok ? __fmul_rn(k.fa.w, tau) : 0.f, &s, &c);
+    };
+    // its sample at unit o of xm, rotated and weighted
+    auto fetch = [&](const Unit<Q>* xm, float ti, float w, bool ok, float c, float s,
+                     unsigned o) {
+      const A v = rotate<ROT != NO_ROT>(sample<METHOD, V, Q>(xm, o, ok ? ti : 0.f, S), c, s);
+      if constexpr (SCALED) {
+        return scaled(v, w);
+      } else {
+        return v;
+      }
+    };
+    if constexpr (KEEP == KEEP_RX) {
+      // keep_rx: sub-chunks of NCK receivers, each over every transmit with
+      // its sums kr(q) in registers (kreg) or, unweighted complex ones, in
+      // shared memory after the tables, a column a thread (ksh); a receiver
+      // past the chunk (q >= rem) reads receiver nb's traces at base 0 and
+      // drops the value
+      constexpr bool WIDE = sizeof(A) != sizeof(float), SHARED = WIDE && !W;
+      constexpr int NCK = keep_nck(WIDE, W);
+      A kreg[SHARED ? 1 : NCK];
+      A* const ksh = reinterpret_cast<A*>(WT + (has_wt ? MC * P : 0)) + p;
+      auto kr = [&](int q) -> A& {
+        if constexpr (SHARED) {
+          return ksh[q * P];
+        } else {
+          return kreg[q];
         }
-        // a term's delay ti, weight w (1 without weights, exact), validity
-        // and phase (c, s), from r its entry of R and its receive and dense
-        // factors wrn, wdn
-        auto prep = [&](float r, float wrn, float wdn, float& ti, float& w, bool& ok,
-                        float& c, float& s) {
-          const float tau = SRC == LUT
-              ? __fsub_rn(__fadd_rn(tx, r), t0m)
-              : __fsub_rn(__fmul_rn(a.cinv, __fadd_rn(tx, r)), t0m);
-          ti = __fmul_rn(tau, a.fs);
-          w = wrn * wtj * wdn;
-          ok = ti >= 0.f && ti <= tmax && w != 0.f;  // false for NaN
-          s = 0.f;
-          c = 1.f;
-          if constexpr (ROT) sincosf(ok ? __fmul_rn(fa.w, tau) : 0.f, &s, &c);
-        };
-        // its samples, frame f's entries f E units on, at unit o of xm
-        auto fetch = [&](float ti, float w, bool ok, float c, float s, unsigned o, A (&v)[NF]) {
+      };
+      for (int nb = 0; nb < nc; nb += NCK) {
+        const int rem = nc - nb;
+        const int64_t on0 = i + (int64_t)(n0 + nb) * k.on;  // receiver n0 + nb's sum in out
 #pragma unroll
-          for (int f = 0; f < NF; ++f)
-            if (f == 0 || f < fb)
-              v[f] = scaled(
-                  rotate<ROT>(sample<METHOD, V, Q>(xm + f * E, o, ok ? ti : 0.f, S), c, s), w);
-        };
-        // its sums, receiver n0 + n, by the keep mode
-        auto put = [&](const A (&v)[NF], bool ok, int n) {
+        for (int q = 0; q < NCK; ++q)
+          kr(q) = a.add && q < rem ? kept_load<Q>(k, out, on0 + q * k.on) : A{};
+        transmits([&](int, float tx, float t0m, float wtj, const Unit<Q>* xm, const float* wdm) {
+          const unsigned ob = row_origin<METHOD, V>(0u, S) + (unsigned)nb * row;
 #pragma unroll
-          for (int f = 0; f < NF; ++f) {
-            if (f == 0 || f < fb) {
-              if (keep == KEEP_BOTH) {
-                if constexpr (Q == F32) {  // F32 keeps its code (see the keep_rx store)
-                  out[i + (n0 + n) * k.on + m * k.om + f * k.of] = ok ? v[f] : A{};
-                } else {
-                  kept_store<Q>(k, out, i + (n0 + n) * k.on + m * k.om + f * k.of,
-                                ok ? v[f] : A{});
-                }
-              } else if (keep == KEEP_RX) {
-                if (ok) KR[(f * NC + n) * P + p] = KR[(f * NC + n) * P + p] + v[f];
-              } else if (ok) {
-                acc[f] = acc[f] + v[f];
-              }
+          for (int g = 0; g < NCK / 4; ++g) {
+            const float4 r = r4[(nb >> 2) + g];
+            float4 wr = make_float4(1.f, 1.f, 1.f, 1.f);
+            if constexpr (W) {
+              if (has_wr) wr = w4[(nb >> 2) + g];
             }
+            const float rq[4] = {r.x, r.y, r.z, r.w}, wrq[4] = {wr.x, wr.y, wr.z, wr.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = 4 * g + e;
+              const float wdn = wdm ? __ldg(wdm + (int64_t)(nb + (q < rem ? q : 0)) * k.wd.sn)
+                                    : 1.f;
+              float ti, w, c, s;
+              bool ok;
+              prep(tx, t0m, wtj, rq[e], wrq[e], wdn, ti, w, ok, c, s);
+              ok = ok && q < rem;
+              const A v = fetch(xm, ti, w, ok, c, s, q < rem ? ob + (unsigned)q * row : ob);
+              if (ok) kr(q) = kr(q) + v;
+            }
+          }
+        });
+#pragma unroll
+        for (int q = 0; q < NCK; ++q)
+          if (q < rem) kept_store<Q>(k, out, on0 + q * k.on, kr(q));
+      }
+    } else {
+      transmits([&](int m, float tx, float t0m, float wtj, const Unit<Q>* xm, const float* wdm) {
+        // keep_tx: the stored part of the (pixel, transmit) sum, read
+        // before the terms so that the load is in flight with them
+        A prev{};
+        if (keep == KEEP_TX) {
+          acc = A{};
+          if (n0 > 0) prev = kept_load<Q>(k, out, i + m * k.om);
+        }
+        // its sum, receiver n0 + n, by the keep mode
+        auto put = [&](A v, bool ok, int n) {
+          if (keep == KEEP_BOTH) {
+            kept_store<Q>(k, out, i + (n0 + n) * k.on + m * k.om, ok ? v : A{});
+          } else if (ok) {
+            acc = acc + v;
           }
         };
         unsigned o = row_origin<METHOD, V>(0u, S);
         int n = 0;
+        constexpr int U = sizeof(A) != sizeof(float) ? KEEP_UNROLL_WIDE : KEEP_UNROLL;
+#pragma unroll U
         for (; n + 4 <= nc; n += 4, o += 4 * row) {
           const float4 r = r4[n >> 2];
           float4 wr = make_float4(1.f, 1.f, 1.f, 1.f), wd = wr;
-          if (has_wr) wr = w4[n >> 2];
-          if (wdm) wd = make_float4(__ldg(wdm + n * k.wd.sn), __ldg(wdm + (n + 1) * k.wd.sn),
-                                    __ldg(wdm + (n + 2) * k.wd.sn), __ldg(wdm + (n + 3) * k.wd.sn));
+          if constexpr (W) {
+            if (has_wr) wr = w4[n >> 2];
+            if (wdm)
+              wd = make_float4(__ldg(wdm + n * k.wd.sn), __ldg(wdm + (n + 1) * k.wd.sn),
+                               __ldg(wdm + (n + 2) * k.wd.sn), __ldg(wdm + (n + 3) * k.wd.sn));
+          }
           float ti0, ti1, ti2, ti3, w0, w1, w2, w3, c0, c1, c2, c3, s0, s1, s2, s3;
           bool k0, k1, k2, k3;
-          prep(r.x, wr.x, wd.x, ti0, w0, k0, c0, s0);
-          prep(r.y, wr.y, wd.y, ti1, w1, k1, c1, s1);
-          prep(r.z, wr.z, wd.z, ti2, w2, k2, c2, s2);
-          prep(r.w, wr.w, wd.w, ti3, w3, k3, c3, s3);
-          A v0[NF], v1[NF], v2[NF], v3[NF];
-          fetch(ti0, w0, k0, c0, s0, o, v0);
-          fetch(ti1, w1, k1, c1, s1, o + row, v1);
-          fetch(ti2, w2, k2, c2, s2, o + 2 * row, v2);
-          fetch(ti3, w3, k3, c3, s3, o + 3 * row, v3);
+          prep(tx, t0m, wtj, r.x, wr.x, wd.x, ti0, w0, k0, c0, s0);
+          prep(tx, t0m, wtj, r.y, wr.y, wd.y, ti1, w1, k1, c1, s1);
+          prep(tx, t0m, wtj, r.z, wr.z, wd.z, ti2, w2, k2, c2, s2);
+          prep(tx, t0m, wtj, r.w, wr.w, wd.w, ti3, w3, k3, c3, s3);
+          const A v0 = fetch(xm, ti0, w0, k0, c0, s0, o);
+          const A v1 = fetch(xm, ti1, w1, k1, c1, s1, o + row);
+          const A v2 = fetch(xm, ti2, w2, k2, c2, s2, o + 2 * row);
+          const A v3 = fetch(xm, ti3, w3, k3, c3, s3, o + 3 * row);
           put(v0, k0, n);
           put(v1, k1, n + 1);
           put(v2, k2, n + 2);
@@ -1118,61 +1224,48 @@ __global__ void __launch_bounds__(P, 1) das_keep_kernel(const QArgs<Q, KeepArgs>
         for (; n < nc; ++n, o += row) {
           float ti, w, c, s;
           bool ok;
-          prep(R[p * RS + n], has_wr ? WR[p * RS + n] : 1.f,
+          prep(tx, t0m, wtj, R[p * RS + n], has_wr ? WR[p * RS + n] : 1.f,
                wdm ? __ldg(wdm + n * k.wd.sn) : 1.f, ti, w, ok, c, s);
-          A v[NF];
-          fetch(ti, w, ok, c, s, o, v);
-          put(v, ok, n);
+          put(fetch(xm, ti, w, ok, c, s, o), ok, n);
         }
-        if (keep == KEEP_TX) {  // this chunk's part of the (pixel, transmit) sums
-#pragma unroll
-          for (int f = 0; f < NF; ++f) {  // constant indices: acc stays in registers
-            if (f < fb) {
-              if constexpr (Q == F32) {
-                A* q = out + i + m * k.om + f * k.of;
-                *q = n0 == 0 ? acc[f] : *q + acc[f];
-              } else {
-                const int64_t e = i + m * k.om + f * k.of;
-                kept_store<Q>(k, out, e, n0 == 0 ? acc[f] : kept_load<Q>(k, out, e) + acc[f]);
-              }
-            }
-          }
-        }
-      }
-    }
-    if (keep == KEEP_RX) {
-      for (int f = 0; f < fb; ++f)
-        for (int n = 0; n < nc; ++n) {
-          // F32 stores as it always did (here, at keep_tx's and at
-          // keep_both's store): a helper that stores the same value gave
-          // its variants other SASS
-          if constexpr (Q == F32) {
-            out[i + (n0 + n) * k.on + f * k.of] = KR[(f * NC + n) * P + p];
-          } else {
-            kept_store<Q>(k, out, i + (n0 + n) * k.on + f * k.of, KR[(f * NC + n) * P + p]);
-          }
-        }
+        if (keep == KEEP_TX)  // this chunk's part of the (pixel, transmit) sum
+          kept_store<Q>(k, out, i + m * k.om, n0 == 0 ? acc : prev + acc);
+      });
     }
   }
-  if (keep == SUM && live) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      if (j < fb) out[i + j * k.of] = acc[j];
-  }
+  if (keep == SUM && live) out[i] = acc;
 }
 
-// Bytes of das_keep_kernel's shared memory for a launch.
-size_t keep_smem(const KeepArgs& k, size_t sum_bytes) {
-  const bool has_wr = k.rx_kinds || k.wr.p, has_wt = k.tx_kinds || k.wt.p;
-  size_t floats = (size_t)P * RS + MC * P + (has_wr ? P * RS : 0) + (has_wt ? MC * P : 0);
-  return floats * 4 + (k.keep == KEEP_RX ? (size_t)NC * k.fa.fb * P * sum_bytes : 0);
+// Bytes of das_keep_kernel's shared memory for a launch, its sums complex
+// (wide) or real.
+size_t keep_smem(const KeepArgs& k, bool wide) {
+  const bool has_wr = k.wr.p, has_wt = k.wt.p || (k.tx_kinds & TX_MULTILINE);
+  const bool sums = k.keep == KEEP_RX && wide && !has_weights(k);  // keep_rx's, shared
+  return ((size_t)P * RS + MC * P + (has_wr ? P * RS : 0) + (has_wt ? MC * P : 0)) * 4
+         + (sums ? (size_t)keep_nck(wide, false) * P * (wide ? 8 : 4) : 0);
 }
 
-template <int SRC, int METHOD, typename V, bool ROT, int Q>
+// The launch's variant (see the head of this block): keep_rx its own, with
+// or without weights (sincosf: with); the unweighted summed and keep_tx
+// calls their own in the float32 units without sincosf; KEEP_ANY, the
+// mode from the arguments, for the rest.
+template <int SRC, int METHOD, typename V, int ROT, int Q>
 cudaError_t run_keep(const QArgs<Q, KeepArgs>& k, size_t smem, cudaStream_t s) {
+  using Kernel = void (*)(const QArgs<Q, KeepArgs>);
+  const bool weighted = has_weights(k);
+  Kernel kernel = das_keep_kernel<SRC, METHOD, V, ROT, KEEP_ANY, true, Q>;
+  if (k.keep == KEEP_RX) {
+    kernel = das_keep_kernel<SRC, METHOD, V, ROT, KEEP_RX, true, Q>;
+    if constexpr (ROT != ROT_SINCOSF) {
+      if (!weighted) kernel = das_keep_kernel<SRC, METHOD, V, ROT, KEEP_RX, false, Q>;
+    }
+  } else if constexpr (Q == F32 && ROT != ROT_SINCOSF) {
+    if (!weighted && k.keep == KEEP_TX)
+      kernel = das_keep_kernel<SRC, METHOD, V, ROT, KEEP_TX, false, Q>;
+    else if (!weighted && k.keep == SUM)
+      kernel = das_keep_kernel<SRC, METHOD, V, ROT, SUM, false, Q>;
+  }
   const unsigned blocks = (unsigned)((k.fa.a.I + P - 1) / P);
-  auto kernel = k.fa.fb == 1 ? das_keep_kernel<SRC, METHOD, V, ROT, 1, Q>
-                             : das_keep_kernel<SRC, METHOD, V, ROT, FB, Q>;
   if (smem > (48 << 10)) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1182,7 +1275,7 @@ cudaError_t run_keep(const QArgs<Q, KeepArgs>& k, size_t smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int SRC, typename V, bool ROT, int Q>
+template <int SRC, typename V, int ROT, int Q>
 cudaError_t keep_by_method(int method, const QArgs<Q, KeepArgs>& k, size_t smem,
                            cudaStream_t s) {
   switch (method) {
@@ -1198,7 +1291,7 @@ cudaError_t keep_by_method(int method, const QArgs<Q, KeepArgs>& k, size_t smem,
   return cudaErrorInvalidValue;
 }
 
-template <typename V, bool ROT, int Q>
+template <typename V, int ROT, int Q>
 cudaError_t keep_by_src(int src, int method, const QArgs<Q, KeepArgs>& k, size_t smem,
                         cudaStream_t s) {
   switch (src) {
@@ -1441,8 +1534,8 @@ int layout_check(int T, int N, int M, long long ldm, int F, int device) {
 }
 
 #ifdef DAS_KEEP
-// das_keep's body for entry type Q (see das_keep below).
-template <int Q, bool ROT>
+// das_keep's body for entry type Q and rotation ROT (see das_keep below).
+template <int Q, int ROT>
 int keep_launch(const float* x, const float* pix, const float* pr, const float* pv,
                 const float* nv, const float* taur, const float* taut, long long ldt,
                 const float* t0, void* out, long long I, int N, int M, int T, int F, int f0,
@@ -1456,13 +1549,14 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
   if (I <= 0) return (int)cudaSuccess;
   if (N <= 0 || M <= 0 || T <= 0 || T > TMAX || method < NEAREST || method > LANCZOS3
       || src < PLANE || src > LUT || keep < SUM || keep > KEEP_BOTH || F < 1 || f0 < 0
-      || fb < 1 || fb > FB || f0 + fb > F || I2 < 1 || I3 < 1 || (src == LUT && ldt < M)
-      || (src == LUT && (rx_kinds || tx_kinds)) || (rot != 0) != ROT)
+      || fb != KEEP_FRAMES || f0 + fb > F || I2 < 1 || I3 < 1
+      || (src == LUT && ldt < M) || (src == LUT && (rx_kinds || tx_kinds))
+      || (rot != 0) != (ROT != NO_ROT) || (ROT == ROT_REDUCED && !reduced_range(w, fs, T)))
     return (int)cudaErrorInvalidValue;
   if (lp.acc16 && keep == SUM) return (int)cudaErrorInvalidValue;  // a kept sum only
   const int E = entry_floats(method, cplx);
-  const size_t sum_bytes = (cplx || rot) ? 8 : 4;  // a sum in shared memory and registers
-  const int64_t out_bytes = lp.acc16 ? (int64_t)sum_bytes / 2 : (int64_t)sum_bytes;
+  // a kept sum's bytes in out: float32 or complex64, half that as bfloat16
+  const int64_t out_bytes = ((cplx || rot) ? 8 : 4) / (lp.acc16 ? 2 : 1);
   Args a{xadv<Q>(x, (int64_t)f0 * E), pix, pr, pv, nv, taur, taut, t0,
          static_cast<char*>(out) + (int64_t)f0 * of * out_bytes, (int64_t)I,
          (int64_t)T * F * E, (int64_t)ldt, N, M, T, cinv, fs, add};
@@ -1472,11 +1566,9 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
              Dense{wr, s[0], s[1], s[2], s[3], s[4]}, Dense{wt, s[5], s[6], s[7], s[8], s[9]},
              Dense{wd, s[10], s[11], s[12], s[13], s[14]}, rx_kinds, tx_kinds, ori, lat, lat_tx,
              prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], prm[6]};
-  const size_t smem = keep_smem(k, sum_bytes);
-  if (keep == KEEP_RX && (size_t)NC * fb * P * sum_bytes > (size_t)KR_BYTES)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const QArgs<Q, KeepArgs> kq = with_lp<Q>(k, lp);
+  const size_t smem = keep_smem(k, cplx || rot);
   err = cplx ? keep_by_src<float2, ROT, Q>(src, method, kq, smem, st)
              : keep_by_src<float, ROT, Q>(src, method, kq, smem, st);
   return (int)err;
@@ -1490,21 +1582,32 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
 // remodulation and the layout kernel; with DAS_IQ defined (das_iq.cu), K1
 // and K2 with remodulation, das_k1_iq and das_lut_k2_iq (sincos_reduced) and
 // das_k1_iq_wide and das_lut_k2_iq_wide (sincosf), which take the same
-// arguments, and das_sincos_probe; with DAS_KEEP defined (das_keep.cu), the keep modes and
-// weights of K1 and K2 without remodulation, das_keep, and with both
-// defined (das_keep_iq.cu) with it, das_keep_iq. With DAS_Q defined to an
-// entry type the same four build that type alone: BF16 (das_bf16.cu:
+// arguments, and das_sincos_probe; with DAS_KEEP defined (das_keep.cu), the
+// keep modes and weights of K1 and K2 without remodulation, das_keep, and
+// with both defined with it, das_keep_iq (das_keep_iq.cu) or, with
+// DAS_WIDE, das_keep_iq_wide (das_keep_iq_wide.cu). With DAS_Q defined to
+// an entry type the same build that type alone: BF16 (das_bf16.cu:
 // das_k1_q, das_lut_k2_q and the layout kernel's das_layout_q;
-// das_bf16_iq.cu; das_keep_bf16.cu: das_keep_q; das_keep_bf16_iq.cu), I8
-// (das_i8*.cu, das_keep_i8*.cu) and F32X (das_keep_acc16.cu,
-// das_keep_acc16_iq.cu). ROT_ is the keep variants' rotation, SUFFIX_ their
-// names'.
-#ifdef DAS_IQ
-#define ROT_ true
-#define SUFFIX_(name) name##_iq
+// das_bf16_iq.cu; das_keep_bf16.cu: das_keep_q; das_keep_bf16_iq.cu;
+// das_keep_bf16_iq_wide.cu), I8 (das_i8*.cu, das_keep_i8*.cu) and F32X
+// (das_keep_acc16*.cu).
+//
+// Each unit defines its entries once per rotation: without DAS_IQ
+// unrotated (das_k1, ...); with it the rotation by sincos_reduced (das_k1_iq,
+// ...), whose phases must lie within PHASE_MAX, and by sincosf (das_k1_iq_wide,
+// ...), for any phase. The keep units build the two rotations apart:
+// DAS_WIDE defined (das_keep_iq_wide.cu, ...) the sincosf entries, else the
+// short rotation's.
+#if defined(DAS_IQ) && defined(DAS_KEEP)
+#ifdef DAS_WIDE
+#define ROTATIONS_(X) X(ROT_SINCOSF, _iq_wide)
 #else
-#define ROT_ false
-#define SUFFIX_(name) name
+#define ROTATIONS_(X) X(ROT_REDUCED, _iq)
+#endif
+#elif defined(DAS_IQ)
+#define ROTATIONS_(X) X(ROT_REDUCED, _iq) X(ROT_SINCOSF, _iq_wide)
+#else
+#define ROTATIONS_(X) X(NO_ROT, )
 #endif
 
 #ifdef DAS_KEEP
@@ -1526,18 +1629,21 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
 // s_m / 127 of each of the launch's transmits, else null) and acc16 (1:
 // out holds the kept sums as bfloat16, a pair for a complex sum, its
 // strides in sums; keep_rx, keep_tx or both only).
-extern "C" int SUFFIX_(das_keep_q)(KEEP_ARGS, int prec, const float* qs, int acc16, int device,
-                                   void* stream) {
-  if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
-  return keep_launch<DAS_Q, ROT_>(KEEP_PASS, Lp{qs, acc16}, device, stream);
-}
+#define KEEP_ENTRIES_(R, sfx)                                                             \
+  extern "C" int das_keep_q##sfx(KEEP_ARGS, int prec, const float* qs, int acc16,         \
+                                 int device, void* stream) {                              \
+    if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;          \
+    return keep_launch<DAS_Q, R>(KEEP_PASS, Lp{qs, acc16}, device, stream);               \
+  }
 #else
 // Launch das_keep_kernel on `stream` of device `device` for M transmits
-// and frames f0 .. f0 + fb - 1 of F: K1 (src 0 plane, 1 diverging, 2
+// and frame f0 of F (fb, the frames a launch, KEEP_FRAMES): K1 (src 0
+// plane, 1 diverging, 2
 // virtual; pix, pr, pv, nv, cinv) or K2 (src 3; taur (I, N), taut (I, ldt),
 // whose first M columns are these transmits'). x, t0, fs, w, method, cplx
-// as for das_k1; rot 1 for the remodulating variants (das_keep_iq, which
-// refuses rot 0, as das_keep refuses 1); out at frame 0 and
+// as for das_k1; rot 1 for the remodulating entries (das_keep_iq, whose
+// phases must lie within PHASE_MAX, and das_keep_iq_wide, which refuse rot
+// 0, as das_keep refuses 1); out at frame 0 and
 // the launch's first transmit, (N', M', F, I) with the strides on, om, of
 // (in sums: complex64 when cplx or rot, else float32), to which the sums
 // are added when add is 1 (summed and keep_rx only); keep 0 summed, 1 rx,
@@ -1548,10 +1654,12 @@ extern "C" int SUFFIX_(das_keep_q)(KEEP_ARGS, int prec, const float* qs, int acc
 // (I,), lat_tx (M,) and prm (host, 7 floats: 2 f, Dmax, cos theta, tol,
 // dlat, xlo, xhi) their operands. Returns the cudaError_t of the launch; 0
 // is success.
-extern "C" int SUFFIX_(das_keep)(KEEP_ARGS, int device, void* stream) {
-  return keep_launch<F32, ROT_>(KEEP_PASS, Lp{}, device, stream);
-}
+#define KEEP_ENTRIES_(R, sfx)                                                             \
+  extern "C" int das_keep##sfx(KEEP_ARGS, int device, void* stream) {                     \
+    return keep_launch<F32, R>(KEEP_PASS, Lp{}, device, stream);                          \
+  }
 #endif
+ROTATIONS_(KEEP_ENTRIES_)
 #else
 // K1's and K2's arguments (das_k1 / das_lut_k2 below), and for the
 // reduced-precision units those and prec, qs (das_k1_q / das_lut_k2_q).
@@ -1582,16 +1690,6 @@ int k2_entry(K2_ARGS, Lp lp, int device, void* stream) {
                (int64_t)ldt, N, M, T, 0.f, fs, add};
   return launch<ROT, Q>(LUT, method, cplx, a, F, f0, fb, w, lp, device, stream);
 }
-
-// Each unit defines its entries once per rotation: without DAS_IQ
-// unrotated (das_k1, ...); with it the rotation by sincos_reduced (das_k1_iq,
-// ...), whose phases must lie within PHASE_MAX, and by sincosf (das_k1_iq_wide,
-// ...), for any phase.
-#ifdef DAS_IQ
-#define ROTATIONS_(X) X(ROT_REDUCED, _iq) X(ROT_SINCOSF, _iq_wide)
-#else
-#define ROTATIONS_(X) X(NO_ROT, )
-#endif
 
 #ifdef DAS_Q
 // K1 and K2 on a layout of this unit's entry type DAS_Q (BF16, I8):

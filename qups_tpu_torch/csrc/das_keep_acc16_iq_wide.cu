@@ -1,0 +1,6 @@
+// das_keep_acc16_iq.cu's variants rotating by sincosf, das_keep_q_iq_wide.
+#define DAS_KEEP
+#define DAS_Q F32X
+#define DAS_IQ
+#define DAS_WIDE
+#include "das.cu"

@@ -36,6 +36,8 @@ NO_FMAD = ("fdbf", "greens_freq", "greens_splat", "greens_finish")
 # Sources that include another source of csrc/ (its bytes join the build key).
 INCLUDES = {name + iq: ("das.cu",) for iq in ("", "_iq") for name in (
     "das_keep", "das_bf16", "das_i8", "das_keep_bf16", "das_keep_i8", "das_keep_acc16")}
+INCLUDES.update({name + "_iq_wide": ("das.cu",) for name in (
+    "das_keep", "das_keep_bf16", "das_keep_i8", "das_keep_acc16")})
 INCLUDES["das_iq"] = ("das.cu",)
 
 

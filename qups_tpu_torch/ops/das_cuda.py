@@ -47,7 +47,11 @@ the same body, ``das_keep_kernel`` (``csrc/das_keep.cu``, its remodulating
 variants ``csrc/das_keep_iq.cu``): ``keep_rx``,
 ``keep_tx`` or both, any mix of :class:`Fused` descriptors (K1: evaluated
 in the kernel, the plain version :func:`fused_weights`) and dense weight
-arrays (K1 and K2), with frames and ``fmod``. ``KEEP_LAUNCHES`` counts its
+arrays (K1 and K2), with frames and ``fmod``: the keep mode and whether
+the call has real-valued weights choose the kernel's variant, a launch
+takes one frame (``KEEP_FRAMES``), and a remodulating call rotates
+by the short rotation or, past ``PHASE_MAX``, by sincosf, as K1(b) does
+(:func:`rotation`). ``KEEP_LAUNCHES`` counts its
 K1 launches with a keep mode, ``APOD_LAUNCHES`` its K1 launches with
 weights (a launch with both counts in both) and ``LUT_KEEP_LAUNCHES`` its
 K2 launches. Calls without keep modes or weights run the kernels above,
@@ -110,11 +114,13 @@ PREC_LAUNCHES = 0  # K1 launches of the reduced-precision units (K1(e))
 LUT_PREC_LAUNCHES = 0  # K2 launches of the reduced-precision units (K2(e))
 LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
 TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
-FB = 4  # frames per launch of the keep kernel (csrc/das.cu)
+KEEP_FRAMES = 1  # the keep kernel's frames a launch (csrc/das.cu)
 FRAMES_A_LAUNCH = 4  # K1(b)/K2(b)'s frames a launch but complex cubic float32's (csrc/das.cu)
 PHASE_MAX = 2.0 ** 20  # the largest |phase| [rad] of the short rotation (csrc/das.cu)
-BLOCK, NC = 256, 32  # pixels per block, receivers per chunk (csrc/das.cu)
-KR_BYTES = 64 << 10  # keep_rx's sums in shared memory, at most (csrc/das.cu)
+NC = 32  # receivers per chunk of the receive table (csrc/das.cu)
+# keep_rx's receivers a sub-chunk, their sums in registers: real unweighted
+# sums, complex or weighted ones (csrc/das.cu)
+KEEP_NCK, KEEP_NCK_WIDE = 16, 8
 RX_KINDS = {"aperture_growth": 1, "acceptance_angle": 4}  # csrc/das.cu RxKind
 TX_KINDS = {"tx_scanline": 1, "tx_multiline": 2, "tx_parallelogram": 4}  # TxKind
 
@@ -298,10 +304,11 @@ F32X = 3  # csrc/das.cu Prec: float32 entries, the kept sums stored as bfloat16
 def _entry(lib: str, name: str, iq: bool, wide: bool = False):
     """The entry point ``name`` (``name_iq`` with remodulation,
     ``name_iq_wide`` with remodulation by sincosf) in the library
-    ``csrc/<lib>.cu`` (``<lib>_iq.cu``), and nvcc's log of its build."""
-    sfx = "_iq" if iq else ""
-    so, log = _nvcc.load(lib + sfx)
-    return getattr(so, name + sfx + ("_wide" if wide else "")), log
+    ``csrc/<lib>.cu`` (``<lib>_iq.cu``; the keep units' sincosf entries
+    ``<lib>_iq_wide.cu``), and nvcc's log of its build."""
+    sfx, wsfx = ("_iq" if iq else ""), ("_wide" if wide else "")
+    so, log = _nvcc.load(lib + sfx + (wsfx if lib.startswith("das_keep") else ""))
+    return getattr(so, name + sfx + wsfx), log
 
 
 # The arguments a reduced-precision entry takes after its float32
@@ -356,11 +363,12 @@ def sincos_probe(phase: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def build_keep(iq: bool = False):
+def build_keep(iq: bool = False, wide: bool = False):
     """Build (if needed) and load ``csrc/das_keep.cu`` (das_keep_kernel:
     keep modes and weights of K1 and K2; ``das_keep_iq.cu`` with ``iq``,
-    its remodulating variants); return ``(its entry point, nvcc log)``."""
-    return _bind("das_keep", "das_keep", iq, _KEEP_ARGS + _DEV)
+    its remodulating variants: by the short rotation, or with ``wide`` by
+    sincosf); return ``(its entry point, nvcc log)``."""
+    return _bind("das_keep", "das_keep", iq, _KEEP_ARGS + _DEV, wide)
 
 
 def build_q(q: int, iq: bool = False, wide: bool = False):
@@ -376,13 +384,14 @@ def build_lut_q(q: int, iq: bool = False, wide: bool = False):
     return _bind("das_" + _Q_LIBS[q], "das_lut_k2_q", iq, _K2_ARGS + _LP + _DEV, wide)[0]
 
 
-def build_keep_q(q: int, iq: bool = False):
+def build_keep_q(q: int, iq: bool = False, wide: bool = False):
     """Build (if needed) and load the keep kernel's unit of entry type ``q``
     (1 bf16: ``csrc/das_keep_bf16.cu``, 2 int8: ``das_keep_i8.cu``, 3
     float32 with bfloat16 kept sums: ``das_keep_acc16.cu``; their ``_iq``
-    twins with ``iq``); return ``(its entry point, nvcc log)``."""
+    twins with ``iq``, ``wide`` as for :func:`build_keep`); return ``(its
+    entry point, nvcc log)``."""
     return _bind("das_keep_" + _Q_LIBS[q], "das_keep_q", iq,
-                 _KEEP_ARGS + _LP + [ctypes.c_int] + _DEV)
+                 _KEEP_ARGS + _LP + [ctypes.c_int] + _DEV, wide)
 
 
 def check_precision(precision: str, method: str, lut: bool = False) -> None:
@@ -699,7 +708,7 @@ def _t0_on(t0, M: int, dev) -> torch.Tensor:
     return torch.as_tensor(tx_t0(t0, M), device=dev)
 
 
-def _launch_frames(x, method, fmod, launch, fb_max=FB, precision="f32", scale=None, out=None):
+def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None, out=None):
     """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
     ``precision`` (``scale``: its (M,) 'i8x4' scales) and call
     ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
@@ -836,20 +845,19 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
         latg = ltg = None
     cplx, iq = x.is_complex(), fmod != 0
     Np, Mp = (N if keep_rx else 1), (M if keep_tx else 1)
-    sum_bytes = 8 if cplx or iq else 4  # a sum in the kernel
     if acc16:  # the kept sums as bfloat16, a pair for a complex sum: half the bytes
         out = torch.empty((Np, Mp, F, I) + ((2,) if cplx or iq else ()), dtype=torch.bfloat16,
                           device=dev)
     else:
         out = torch.empty((Np, Mp, F, I), dtype=torch.complex64 if cplx or iq else torch.float32,
                           device=dev)
-    out_bytes = sum_bytes // 2 if acc16 else sum_bytes  # a kept sum in out
+    out_bytes = (8 if cplx or iq else 4) // (2 if acc16 else 1)  # a kept sum in out
     of, om, on = I, F * I, Mp * F * I
     keep = int(keep_rx) + 2 * int(keep_tx)
-    fb_max = FB if keep != 1 else max(1, min(FB, KR_BYTES // (BLOCK * NC * sum_bytes)))
     prec = _ENTRY[precision] or (F32X if acc16 else 0)
     lp = prec != 0  # a reduced-precision unit's launch
-    fn, _ = build_keep_q(prec, iq) if lp else build_keep(iq)
+    wide = rotation(fmod, T, fs) == "sincosf"
+    fn, _ = build_keep_q(prec, iq, wide) if lp else build_keep(iq, wide)
     dq = None if scale is None else dequant(scale)
     nul = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lut = k2 is not None
@@ -892,7 +900,7 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
             KEEP_LAUNCHES += int(keep != 0)
             APOD_LAUNCHES += int(bool(kern or wts))
 
-    _launch_frames(x, method, fmod, launch, fb_max, precision, scale)
+    _launch_frames(x, method, fmod, launch, KEEP_FRAMES, precision, scale)
     if acc16:  # widened exactly to float32
         out = torch.view_as_complex(out.float()) if cplx or iq else out.float()
     return out.permute(3, 0, 1, 2).reshape((I, Np, Mp) + fd)

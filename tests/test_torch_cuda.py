@@ -460,8 +460,8 @@ def test_k1c_k1d_match_plain(card, keep, weights):
     and dense weights, on real traces with fmod and on complex ones with 3
     frames, for the three transmit models and every sampler, against the
     plain version (fused_weights + das): one launch per block of frames
-    (keep_rx: 2 real or 1 complex frames a launch, its sums in shared
-    memory), the image (I, N', M', *F)."""
+    (keep_rx: one frame a launch, its sums in registers), the image (I, N',
+    M', *F)."""
     apod = _weights(weights)
     az = np.radians(np.linspace(-8.0, 8.0, 32))
     ori = np.stack([np.sin(az), np.cos(az)])
@@ -476,7 +476,7 @@ def test_k1c_k1d_match_plain(card, keep, weights):
                 got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)
                 torch.cuda.synchronize()
                 assert das_cuda.KEEP_LAUNCHES - counts[0] == (
-                    0 if keep == "" else (3 if keep == "rx" and xg.ndim == 4 else 1))
+                    0 if keep == "" else (3 if xg.ndim == 4 else 1))
                 assert (das_cuda.APOD_LAUNCHES > counts[1]) == bool(apod)
                 ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
                 assert got.shape == ref.shape and got.dtype == ref.dtype
@@ -531,6 +531,65 @@ def test_keep_kernel_by_transmit_chunks_and_repeats(card, keep, monkeypatch):
     ref = das_cuda.das_sum_plain(xg, pi, pr, pv, nv, t0, CINV, **kw)
     assert float((got - one).abs().max()) <= 1e-5 * float(one.abs().max())
     assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rot", ["none", "reduced", "sincosf"])
+@pytest.mark.parametrize("keep", sorted(KEEPS))
+def test_keep_variants_match_plain(card, keep, rot, monkeypatch):
+    """das_keep_kernel's variants: each keep mode unweighted (keep_rx and
+    keep_tx their own), with masks (acceptance angle) and with real-valued
+    weights (tx_multiline; dense (1, X, 1, N, M) on K2's tables) x F 1 and
+    3 x real and complex traces x every
+    sampler, with no rotation, the short rotation (fmod 1 MHz) or sincosf
+    (fmod 4 GHz, the _iq_wide entries), at N 44 (chunks of 32 + 12: a
+    sub-chunk of KEEP_NCK or KEEP_NCK_WIDE receivers past the chunk's
+    end), against the plain version; two launches bit for bit; one launch a
+    frame (KEEP_FRAMES; KEEP_LAUNCHES, APOD_LAUNCHES, LUT_KEEP_LAUNCHES)."""
+    wides = []
+    real = das_cuda.build_keep
+    monkeypatch.setattr(das_cuda, "build_keep", lambda iq=False, wide=False: (
+        wides.append(wide), real(iq, wide))[1])
+    N = 44
+    assert N % das_cuda.KEEP_NCK and N % das_cuda.KEEP_NCK_WIDE
+    x, pi, pr, pv, nv, t0m = problem("virtual", N=N, M=6, n=32)
+    xl, tau_rx, tau_tx, t0, fs = lut_problem(N=N, M=6, n=32)
+    fmod = {"none": 0.0, "reduced": 1e6, "sincosf": 4e9}[rot]
+    assert das_cuda.rotation(fmod, x.shape[0], fs) == rot
+    for weights in ("none", "acceptance_angle", "tx_multiline"):
+        if keep == "" and weights == "none":
+            continue
+        weighted = weights != "none"
+        for fd, cplx in (((), False), ((3,), True)):
+            calls = [
+                (das_cuda.das_sum, das_cuda.das_sum_plain,
+                 (frame_traces(x, fd, cplx).to(card), pi, pr, pv, nv, t0m, CINV),
+                 dict(fs=fs, tx_model="virtual", apod=_weights(weights, n=32, N=N, M=6)),
+                 ("KEEP_LAUNCHES",) * bool(keep) + ("APOD_LAUNCHES",) * weighted)]
+            if weights != "acceptance_angle":
+                calls.append((das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
+                               (frame_traces(xl, fd, cplx).to(card), tau_rx, tau_tx, t0),
+                               dict(fs=fs, apod=_weights("dense rx tx", n=32, N=N, M=6)
+                                    if weighted else ()), ("LUT_KEEP_LAUNCHES",)))
+            F = int(np.prod(fd, dtype=np.int64))
+            blocks = -(-F // das_cuda.KEEP_FRAMES)
+            for kern, plain, args, kw, counters in calls:
+                for method in METHODS:
+                    kw = dict(kw, method=method, fmod=fmod, im_shape=(32, 32, 1), **KEEPS[keep])
+                    before = [getattr(das_cuda, c) for c in counters]
+                    del wides[:]
+                    got = kern(*args, **kw)
+                    again = kern(*args, **kw)
+                    torch.cuda.synchronize()
+                    where = (kern.__name__, weights, fd, method)
+                    assert torch.equal(got, again), where
+                    assert [getattr(das_cuda, c) - b for c, b in zip(counters, before)] == \
+                        [2 * blocks] * len(counters), where
+                    assert kern is das_cuda.das_lut_sum or wides == [rot == "sincosf"] * 2
+                    ref = plain(*args, **kw)
+                    assert got.shape == ref.shape and got.dtype == ref.dtype, where
+                    err = float((got - ref).abs().max()) / float(ref.abs().max())
+                    assert err < 1e-4, (where, err)
 
 
 @pytest.mark.cuda
@@ -791,7 +850,7 @@ def test_acc16_matches_plain(card, precision, keep, monkeypatch):
 @pytest.mark.parametrize("precision", ["f32", "bf16pair"])
 def test_acc16_frames_complex_match_plain(card, precision, keep, monkeypatch):
     """QUPS_DAS_ACC16=1 on complex traces remodulated at fmod, 6 frames in
-    launches of at most FB frames: the kept sums stored as pairs of
+    one-frame launches: the kept sums stored as pairs of
     bfloat16 (the output advanced by frames in bfloat16 units), widened to
     complex64, against the plain version, one store a value."""
     monkeypatch.setenv("QUPS_DAS_ACC16", "1")
@@ -866,10 +925,10 @@ def test_iq_ensemble_on_card(card):
     bad = iq.replace(t0=np.zeros((1, 1, 3, 2), np.float32))
     with pytest.raises(ValueError, match="frames"):
         us.DAS(bad, fmod=us.fc)
-    # keep_rx holds one complex frame's sums a launch (2 launches), keep_tx 4
+    # the keep kernel: one frame a launch (2 launches)
     for fn, counter, launches in (
             (lambda **k: us.DAS(iq, fmod=us.fc, keep_rx=True, **k), "KEEP_LAUNCHES", 2),
-            (lambda **k: us.bfDAS(iq, fmod=us.fc, keep_tx=True, **k), "LUT_KEEP_LAUNCHES", 1),
+            (lambda **k: us.bfDAS(iq, fmod=us.fc, keep_tx=True, **k), "LUT_KEEP_LAUNCHES", 2),
             (lambda **k: us.coherence_image(iq, fmod=us.fc, **k), "KEEP_LAUNCHES", 2)):
         before = getattr(das_cuda, counter)
         b = fn()

@@ -53,10 +53,10 @@ def _cu_frames_a_launch(src, method, q, cplx):
 
 def test_frame_constants_mirror_the_kernel():
     """The wrapper's copies of das.cu's constants: K1(b)/K2(b)'s frames a
-    launch, the keep kernel's FB and PHASE_MAX."""
+    launch, the keep kernel's (KEEP_FRAMES) and PHASE_MAX."""
     src = DAS_CU.read_text()
     assert _cu_int(src, "FRAMES_A_LAUNCH") == das_cuda.FRAMES_A_LAUNCH
-    assert _cu_int(src, "FB") == das_cuda.FB
+    assert _cu_int(src, "KEEP_FRAMES") == das_cuda.KEEP_FRAMES
     pmax = float.fromhex(re.search(r"constexpr float PHASE_MAX = (0x[0-9a-fp]+)f;",
                                    src).group(1))
     assert pmax == das_cuda.PHASE_MAX

@@ -9,9 +9,26 @@ timed with CUDA events, for the ``qups_tpu_torch`` package under ROOT
   in one call and 4 one-frame calls, each with fmod = 5 MHz and without;
 * ``summed``: the summed headline (phase 4 / 8), 1024^2 x 256 x 256, T
   4096, real, cubic, K1 and K2 (das_kernel);
-* ``keep``: phase 16's keep kernel at the same headline: keep_rx, keep_tx,
-  the fused apodization (aperture growth, acceptance angle,
-  parallelogram), K2 keep_rx;
+* ``keep``: the keep kernel (das_keep_kernel: K1(c), K1(d), K2(c)) at the
+  same headline, nearest and cubic (``--methods``): keep_rx, keep_tx, the
+  fused apodization (aperture growth, acceptance angle, parallelogram), K2
+  keep_rx; keep_rx in i8x4 and with ``QUPS_DAS_ACC16`` (the reduced-
+  precision keep units, cubic); keep_rx and keep_tx on one frame of the IQ
+  headline with fmod 5 MHz (cubic); and a sha256 of each unrotated
+  float32 keep_rx image, so that two packages' bits compare;
+* ``keepsweep``: das_keep_kernel as shipped against alternatives
+  (``--keep-configs``, a JSON list of objects: ``nck``, ``rxminb``,
+  ``nckw``, ``rxminbw``, ``minb``, ``minbw``, ``unroll``, ``unrollw`` the
+  constants KEEP_NCK, KEEP_RX_MIN_BLOCKS, KEEP_NCK_WIDE,
+  KEEP_RX_MIN_BLOCKS_WIDE, KEEP_MIN_BLOCKS, KEEP_MIN_BLOCKS_WIDE,
+  KEEP_UNROLL and KEEP_UNROLL_WIDE of a copy of
+  ``csrc/das.cu``; ``rxsums: "registers"`` or ``"shared"`` keep_rx's sums
+  there for every sum type; ``prefetch: false`` keep_tx's read of out
+  after the transmit's terms; ``cases`` substrings, joined by ``|``, that
+  name the cases to time: the keep cases at cubic and, with 4 frames of
+  the IQ headline and fmod, keep_tx and the fused call), each copy's keep
+  kernel for plane waves and tables and the cubic sampler alone, built
+  under ``_build/k1b_sweep/``;
 * ``sweep``: das_frames_kernel as shipped against alternatives, K1 at the
   IQ headline for every sampler x {real (the IQ traces' real part),
   complex} x {fmod, none}, 4 frames in one call (``--configs``, a JSON
@@ -32,15 +49,18 @@ variant the package builds and the card's name and power limit. Each time
 is the mean of ``--reps`` calls after one warm-up call (lanczos3 one).
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/k1b_torch.py [--root DIR] [--what iq summed keep sweep]
+    python3 tools/k1b_torch.py [--root DIR] [--what iq summed keep sweep keepsweep]
 
 To compare with another commit, unpack it (``git archive``) under a
 directory .gitignore lists and run this script with ``--root`` there and
 here in turns (parent, change, change, parent); ``sweep`` needs this
-checkout's kernel plan. The last line is one JSON object: {"root",
-"card", "ms": {case: ms}, "sweep": {config: {case: ms}}, "variants"}.
+checkout's kernel plan, ``keepsweep`` its keep kernel. The last line is
+one JSON object: {"root", "card", "ms": {case: ms}, "bits": {case:
+sha256}, "sweep": {config: {case: ms}}, "keep_sweep": {config: {case:
+ms}}, "variants"}.
 """
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -60,6 +80,38 @@ SWEEP = [{"reduce": "double", "cases": "fmod"},
          {"copies": False, "cases": "cubic complex"}]
 # a configuration's keys that edit a copy of csrc/das.cu: the constant each sets
 CONSTANTS = {"fb": "FRAMES_A_LAUNCH", "unroll": "FRAMES_UNROLL", "minb": "FRAMES_MIN_BLOCKS"}
+# the keep sweep's default configurations
+KEEP_SWEEP = [{"rxsums": "registers", "cases": "keep_rx"}, {"rxminbw": 2, "cases": "keep_rx"},
+              {"nckw": 16, "cases": "IQ one frame keep_rx"},
+              {"minb": 3, "minbw": 4, "cases": "keep_tx|fused"},
+              {"minbw": 2, "cases": "IQ"}, {"unroll": 1, "unrollw": 2, "cases": "keep_tx|fused"},
+              {"prefetch": False, "cases": "keep_tx"}]
+KEEP_CONSTANTS = {"nck": "KEEP_NCK", "rxminb": "KEEP_RX_MIN_BLOCKS", "nckw": "KEEP_NCK_WIDE",
+                  "rxminbw": "KEEP_RX_MIN_BLOCKS_WIDE", "minb": "KEEP_MIN_BLOCKS",
+                  "minbw": "KEEP_MIN_BLOCKS_WIDE", "unroll": "KEEP_UNROLL",
+                  "unrollw": "KEEP_UNROLL_WIDE"}
+# a sweep copy's keep kernel for plane waves and tables, cubic, alone: a
+# few variants a unit, so that the copies build in a minute
+SWEEP_ONLY = [
+    (r"      if constexpr \(Q != I8\) return run_keep<SRC, (NEAREST|LINEAR), V, ROT, Q>"
+     r"\(k, smem, s\);\n", ""),
+    (r"    case LANCZOS3: return run_keep<SRC, LANCZOS3, V, ROT, Q>\(k, smem, s\);\n", ""),
+    (r"    case (DIVERGING|VIRTUAL): return keep_by_method<\w+, V, ROT, Q>\(method, k, smem, "
+     r"s\);\n", ""),
+]
+# where keep_rx keeps its sums: "registers" for every type, "shared" (a
+# column a thread of shared memory) for every type
+RX_SUMS = {
+    "registers": [(r"SHARED = WIDE && !W;", "SHARED = false;")],
+    "shared": [(r"SHARED = WIDE && !W;", "SHARED = !W;"),
+               (r"k\.keep == KEEP_RX && wide && !has_weights\(k\)",
+                "k.keep == KEEP_RX && !has_weights(k)")],
+}
+# keep_tx's read of out where it adds, after the transmit's terms
+NO_PREFETCH = [
+    (r"          if \(n0 > 0\) prev = kept_load<Q>\(k, out, i \+ m \* k\.om\);\n", ""),
+    (r"n0 == 0 \? acc : prev \+ acc", "n0 == 0 ? acc : kept_load<Q>(k, out, i + m * k.om) + acc"),
+]
 # the short rotation's reduction in one double-precision FMA
 DOUBLE_REDUCTION = """  const double xd = x;
   const double t = fma(xd, 0.63661977236758134308, 0x1.8p52);
@@ -111,6 +163,40 @@ def _plan_source(src: str, cfg: dict) -> str:
     return src
 
 
+def _keep_source(src: str, cfg: dict) -> str:
+    """das.cu with the keep kernel's edits ``cfg`` names (KEEP_CONSTANTS,
+    ``shared``, ``prefetch``)."""
+    subs = [(r"constexpr int %s = \d+;" % name, "constexpr int %s = %d;" % (name, cfg[key]))
+            for key, name in KEEP_CONSTANTS.items() if key in cfg]
+    subs += SWEEP_ONLY + RX_SUMS.get(cfg.get("rxsums"), [])
+    subs += NO_PREFETCH if cfg.get("prefetch") is False else []
+    for pat, rep in subs:
+        src, n = re.subn(pat, rep, src)
+        assert n >= 1, pat
+    return src
+
+
+def _keep_variants(cs, log, what):
+    """Print das_keep_kernel's variants (registers, stack, spills) in an
+    nvcc log, grouped by keep mode, weights, rotation and frames."""
+    fns = {f: v for f, v in cs.ptxas_functions(log).items() if "das_keep_kernel" in f}
+    rows = cs.keep_variants(log)
+    groups = {}
+    for r in rows:
+        groups.setdefault((r[4], r[5], r[3], r[2]), []).append(r)
+    for (keep, w, rot, cplx), v in sorted(groups.items()):
+        print(f"{what}: das_keep_kernel {cs.KEEP_NAMES[keep]}{' weighted' if w else ''} "
+              f"rotation {rot} {'complex' if cplx else 'real'}: {len(v)} variants, "
+              f"{min(r[7] for r in v)}-{max(r[7] for r in v)} registers, stack "
+              f"{max(r[8] for r in v)} bytes, spill stores {max(r[9] for r in v)} bytes")
+    if fns and not rows:  # another package's kernel: its own template arguments
+        regs = [v[0] for v in fns.values()]
+        print(f"{what}: {len(fns)} das_keep_kernel variants, {min(regs)}-{max(regs)} "
+              f"registers, stack {max(v[1] for v in fns.values())} bytes, spill stores "
+              f"{max(v[2] for v in fns.values())} bytes")
+    return rows
+
+
 def _name(cfg: dict) -> str:
     return ", ".join(f"{k} {int(v) if isinstance(v, bool) else v}" for k, v in cfg.items())
 
@@ -123,6 +209,11 @@ def main():
     ap.add_argument("--configs", type=json.loads, default=SWEEP,
                     help="the sweep's configurations, a JSON list of objects with any of "
                          + ", ".join(CONSTANTS) + ", reduce, copies, cases")
+    ap.add_argument("--keep-configs", type=json.loads, default=KEEP_SWEEP,
+                    help="the keep sweep's configurations, a JSON list of objects with any of "
+                         + ", ".join(KEEP_CONSTANTS) + ", rxsums, prefetch, cases")
+    ap.add_argument("--methods", nargs="+", default=None,
+                    help="the samplers of iq (default all) and keep (default nearest cubic)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)  # the package under test
@@ -142,14 +233,22 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; package: {root}", flush=True)
-    res = {"root": root, "card": card, "ms": {}, "sweep": {}, "variants": {}}
+    res = {"root": root, "card": card, "ms": {}, "bits": {}, "sweep": {}, "keep_sweep": {},
+           "variants": {}}
     builds = [("das", das_cuda.build), ("das_iq", lambda: das_cuda.build(iq=True))]
-    if "keep" in args.what:
-        builds.append(("das_keep", das_cuda.build_keep))
+    keeping = "keep" in args.what or "keepsweep" in args.what
+    if keeping:
+        builds += [("das_keep", das_cuda.build_keep),
+                   ("das_keep_iq", lambda: das_cuda.build_keep(iq=True)),
+                   ("das_keep_i8", lambda: das_cuda.build_keep_q(2)),
+                   ("das_keep_acc16", lambda: das_cuda.build_keep_q(3))]
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, at once
         logs = dict(zip([b[0] for b in builds], ex.map(lambda b: b[1]()[1], builds)))
     for lib in ("das", "das_iq"):
         res["variants"][lib] = _variants(cs, logs[lib], lib)
+    if keeping:
+        for lib in ("das_keep", "das_keep_iq", "das_keep_i8", "das_keep_acc16"):
+            res["variants"][lib] = _keep_variants(cs, logs[lib], lib)
 
     def timed(name, fn, reps):
         ms = cs._ms(fn, reps=reps)
@@ -159,6 +258,8 @@ def main():
 
     def reps(method):
         return 1 if method == "lanczos3" else args.reps
+
+    methods = tuple(args.methods or METHODS)
 
     cinv = np.float32(1 / 1540.0)
     if "iq" in args.what or "sweep" in args.what:
@@ -174,7 +275,7 @@ def main():
         k2 = lambda xx, **k: das_cuda.das_lut_sum(  # noqa: E731
             xx, tau_rx, tau_tx, iq.t0, fs=fsq, **k)
         for kn, kern in (("K1(b)", k1), ("K2(b)", k2)):
-            for method in METHODS:
+            for method in methods:
                 for fmod in (FMOD, 0.0):
                     tag = f"{kn} {method} {'fmod' if fmod else 'none'}"
                     timed(f"{tag} 4 frames", lambda: kern(x, method=method, fmod=fmod),
@@ -207,8 +308,8 @@ def main():
         unit = torch.rand(1 << 22, generator=g, device="cuda") * 2 - 1
         shipped = (das_cuda.frames_per_launch, das_cuda._launch_frames, dict(_nvcc._loaded))
 
-        def launch_frames_on_one_layout(x, method, fmod, launch, fb_max=das_cuda.FB,
-                                        precision="f32", scale=None, out=None):
+        def launch_frames_on_one_layout(x, method, fmod, launch, fb_max, precision="f32",
+                                        scale=None, out=None):
             return shipped[1](x, method, fmod, launch, fb_max, precision, scale)
 
         def sweep(key, cfg):
@@ -244,7 +345,7 @@ def main():
         del xr
     if "iq" in args.what or "sweep" in args.what:
         del x, ones, iq
-    if "summed" in args.what or "keep" in args.what:
+    if "summed" in args.what or keeping:
         from qups_tpu_torch import bench
 
         n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
@@ -253,22 +354,97 @@ def main():
         del x0
         pig = torch.as_tensor(pi).cuda()
         tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
-        kw = dict(fs=fs, method="cubic")
-        k1 = lambda **k: das_cuda.das_sum(  # noqa: E731
-            xg, pig, pr, pv, nv, t0, cinv, tx_model="plane", **kw, **k)
-        k2 = lambda **k: das_cuda.das_lut_sum(xg, tau_rx, tau_tx, t0, **kw, **k)  # noqa: E731
+        k1 = lambda method="cubic", **k: das_cuda.das_sum(  # noqa: E731
+            xg, pig, pr, pv, nv, t0, cinv, tx_model="plane", fs=fs, method=method, **k)
+        k2 = lambda method="cubic", **k: das_cuda.das_lut_sum(  # noqa: E731
+            xg, tau_rx, tau_tx, t0, fs=fs, method=method, **k)
         if "summed" in args.what:
             timed("summed K1 cubic", k1, args.reps)
             timed("summed K2 cubic", k2, args.reps)
-        if "keep" in args.what:
-            b = pr[:, 0].min() - 1e-4, pr[:, 0].max() + 1e-4
-            fused = (qt.Fused("aperture_growth", f=1.5),
-                     qt.Fused("acceptance_angle", theta=45.0),
-                     qt.Fused("tx_parallelogram", xlo=float(b[0]), xhi=float(b[1])))
-            timed("keep_rx K1(c)", lambda: k1(keep_rx=True), args.reps)
-            timed("keep_tx K1(c)", lambda: k1(keep_tx=True), args.reps)
-            timed("fused apodization K1(d)", lambda: k1(apod=fused), args.reps)
-            timed("keep_rx K2(c)", lambda: k2(keep_rx=True), args.reps)
+    if keeping:
+        b = pr[:, 0].min() - 1e-4, pr[:, 0].max() + 1e-4
+        fused = (qt.Fused("aperture_growth", f=1.5),
+                 qt.Fused("acceptance_angle", theta=45.0),
+                 qt.Fused("tx_parallelogram", xlo=float(b[0]), xhi=float(b[1])))
+
+        def acc16(fn):
+            os.environ["QUPS_DAS_ACC16"] = "1"
+            try:
+                return fn()
+            finally:
+                del os.environ["QUPS_DAS_ACC16"]
+
+        iq, (qpi, qpr, qpv, qnv), _ = cs.iq_headline(torch, qt)
+        x4 = iq.data
+        x1 = x4[..., 0].contiguous()
+        qpig = torch.as_tensor(qpi).cuda()
+        kq = lambda xx, **k: das_cuda.das_sum(  # noqa: E731
+            xx, qpig, qpr, qpv, qnv, iq.t0, cinv, tx_model="plane", fs=iq.fs,
+            method="cubic", fmod=FMOD, **k)
+        cases = {}
+        for method in tuple(args.methods or ("nearest", "cubic")):
+            cases.update({
+                f"keep_rx K1(c) {method}": lambda m=method: k1(m, keep_rx=True),
+                f"keep_tx K1(c) {method}": lambda m=method: k1(m, keep_tx=True),
+                f"fused apodization K1(d) {method}": lambda m=method: k1(m, apod=fused),
+                f"keep_rx K2(c) {method}": lambda m=method: k2(m, keep_rx=True)})
+        cases.update({
+            "keep_rx i8x4 K1(e) cubic": lambda: k1(keep_rx=True, precision="i8x4"),
+            "keep_rx f32 QUPS_DAS_ACC16 K1(e) cubic": lambda: acc16(lambda: k1(keep_rx=True)),
+            "IQ one frame keep_rx fmod cubic": lambda: kq(x1, keep_rx=True),
+            "IQ one frame keep_tx fmod cubic": lambda: kq(x1, keep_tx=True)})
+        four = {"IQ 4 frames keep_tx fmod cubic": lambda: kq(x4, keep_tx=True),
+                "IQ 4 frames fused fmod cubic": lambda: kq(x4, apod=fused)}
+    if "keep" in args.what:
+        for name, fn in cases.items():
+            timed(name, fn, args.reps)
+        for name in cases:  # the unrotated float32 keep_rx images' bits
+            if name.startswith("keep_rx K") and "i8x4" not in name:
+                out = cases[name]().contiguous()
+                res["bits"][name] = hashlib.sha256(
+                    out.view(torch.int32).cpu().numpy().tobytes()).hexdigest()
+                print(f"{name}: sha256 {res['bits'][name]}", flush=True)
+                del out
+    if "keepsweep" in args.what:
+        base = os.path.join(root, "qups_tpu_torch", "_build", "k1b_sweep")
+        csrc = os.path.join(root, "qups_tpu_torch", "csrc")
+        das_src = open(os.path.join(csrc, "das.cu")).read()
+        sweep_cases = {k: v for k, v in {**cases, **four}.items()
+                       if "nearest" not in k and "i8x4" not in k and "ACC16" not in k}
+        edits = [c for c in args.keep_configs
+                 if set(c) & (set(KEEP_CONSTANTS) | {"rxsums", "prefetch"})]
+        jobs = []
+        for cfg in edits:  # a copy of csrc/ a configuration, das.cu edited
+            d = Path(base) / ("keep_" + re.sub(r"[^a-z0-9]+", "_", _name(cfg)))
+            shutil.rmtree(d, ignore_errors=True)
+            shutil.copytree(csrc, d)
+            src = _keep_source(das_src, cfg)
+            (d / "das.cu").write_text(src)
+            jobs += [(d / "das_keep.cu", src.encode()), (d / "das_keep_iq.cu", src.encode())]
+        with ThreadPoolExecutor(max(1, len(jobs))) as ex:  # one nvcc per source, at once
+            done = list(ex.map(lambda j: _nvcc._build(
+                j[0], j[1], [_nvcc.nvcc(), *_nvcc.flags(j[0].stem)]), jobs))
+        shipped = dict(_nvcc._loaded)
+
+        def keep_sweep(key, cfg):
+            names = [c for c in sweep_cases
+                     if any(p in c for p in cfg.get("cases", "").split("|"))]
+            res["keep_sweep"][key] = {c: cs._ms(sweep_cases[c], args.reps) for c in names}
+            print(f"keep sweep [{key}]: {res['keep_sweep'][key]}", flush=True)
+
+        keep_sweep("shipped", {})
+        for cfg in args.keep_configs:
+            key = _name(cfg)
+            if cfg in edits:
+                i = edits.index(cfg)
+                libs = {"das_keep": done[2 * i], "das_keep_iq": done[2 * i + 1]}
+                for lib in libs:
+                    _keep_variants(cs, libs[lib][1], f"keep sweep [{key}] {lib}")
+                _nvcc._loaded.update(libs)
+            keep_sweep(key, cfg)
+            _nvcc._loaded.clear()
+            _nvcc._loaded.update(shipped)
+        keep_sweep("shipped, again", {})
     print(json.dumps(res))
 
 

@@ -96,18 +96,20 @@ def keep(torch, prob, say):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         fn = m.group(1) if m else fn
-        k = fn and re.search(r"das_keep_kernelILi(\d)ELi(\d)E(f|6float2)Lb0ELi(\d)E", fn)
-        key = k and (k.group(1), METHODS[int(k.group(2))], k.group(3), k.group(4))
+        k = fn and re.search(r"das_keep_kernelILi(\d)ELi(\d)E(f|6float2)Li0ELi(\d)ELb([01])ELi0E",
+                             fn)
+        key = k and (k.group(1), METHODS[int(k.group(2))], k.group(3), k.group(4), k.group(5))
         m = re.search(r"Used (\d+) registers", line)
         if m and k:
             got.setdefault(key, [0, 0])[0] = int(m.group(1))
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and k:
             got.setdefault(key, [0, 0])[1] = int(m.group(1))
-    say("registers / stack bytes (ptxas) of das_keep_kernel, no rotation, by frames a "
-        "launch: " + ", ".join(
+    say("registers / stack bytes (ptxas) of das_keep_kernel, no rotation, by keep mode (0 "
+        "summed, 1 rx, 2 tx, 4 the launch's) and weights: " + ", ".join(
             f"{'K2' if s == '3' else 'K1 src ' + s} {mth} {'real' if t == 'f' else 'complex'}"
-            f" F{nf}: {r} / {st}" for (s, mth, t, nf), (r, st) in sorted(got.items())))
+            f" keep {kp}{' weighted' if w == '1' else ''}: {r} / {st}"
+            for (s, mth, t, kp, w), (r, st) in sorted(got.items())))
     tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
     n2 = pi.shape[0]
     lo, hi = float(pr[:, 0].min()) - 1e-4, float(pr[:, 0].max()) + 1e-4
