@@ -404,6 +404,26 @@ def keep_variants(log):
     return sorted(rows)
 
 
+# the entry type (csrc/das.cu Prec) in a mangled name of das_kernel,
+# das_frames_kernel or das_keep_kernel: the last template argument
+ENTRY_VARIANT = re.compile(
+    r"das_kernelILi\dELi\dE(?:f|6float2)Li(\d)E|"
+    r"das_frames_kernelILi\dELi\dE(?:f|6float2)Li\dELi\dELi(\d)E|"
+    r"das_keep_kernelILi\dELi\dE(?:f|6float2)Li\dELi\dELb[01]ELi(\d)E")
+ENTRY_NAMES = {0: "F32", 1: "BF16", 2: "I8", 3: "F32X", 4: "H16"}
+
+
+def entry_variants(log):
+    """{entry type: [(registers, stack, spills)]} of the DAS kernels'
+    variants in a build log."""
+    out = {}
+    for fn, v in ptxas_functions(log).items():
+        m = ENTRY_VARIANT.search(fn)
+        if m:
+            out.setdefault(int(next(g for g in m.groups() if g is not None)), []).append(v)
+    return out
+
+
 def frames_variants(log):
     """das_frames_kernel's variants in a build log: [(source, sampler,
     rotation, frames a launch, entry type, registers, stack, spills)]."""
@@ -482,6 +502,19 @@ def phase0(torch, ops):
                       f"{min(r[6] for r in v)}-{max(r[6] for r in v)} bytes, frames a launch "
                       f"{sorted({r[3] for r in v})}")
                 assert rot != 1 or all(r[6] == 0 for r in v), (name, v)
+        if name.startswith("K1(e)"):
+            # the narrow units' variants by entry type: real cubic traces
+            # read float32 coefficients (the float32 units), so these hold
+            # no real cubic variant; H16 (complex cubic int8 taps) spills
+            # nothing
+            ev = entry_variants(log)
+            print("  entry types: " + "; ".join(
+                f"{ENTRY_NAMES[q]} {len(v)} variants, {min(r[0] for r in v)}-"
+                f"{max(r[0] for r in v)} registers, spill stores {max(r[2] for r in v)} bytes"
+                for q, v in sorted(ev.items())))
+            assert all(r[2] == 0 for r in ev.get(4, [])), (name, ev.get(4))
+            if "int8" in name:
+                assert ev.get(4), name
         if "keep" in name:
             # das_keep_kernel: registers by (keep mode, weights, rotation,
             # sample type); no spills, and the short rotation's variants no
@@ -2271,28 +2304,30 @@ def phase16(torch, qt, das_cuda, k1_cubic_ms, errs, iq_args):
 
 # K1(e) and K2(e): each reduced precision and the samplers it takes
 PREC_METHODS = {"bf16pair": METHODS, "bf16": METHODS, "i8x4": ("cubic", "lanczos3")}
-# The flops of a K1(e) / K2(e) term, as phase 18's bounds count them: the
-# least arithmetic the function needs, an FMA 2 flops (the float32 peak's
-# count), nothing for the storage format's decode. Once per term: the delay
-# (K1 4, K2 3) and the tap base (nearest 1) and fraction (3 in all); the
-# sampler on the rounded taps of each of the term's s tap sets (s = F
-# frames, 2 F for complex traces) in its cheapest form: linear 3 a set (a
-# difference and an FMA); cubic min(1 + 15 s, 11 + 7 s), either Horner on
-# tap differences (2a = (p3 - p0) + 3 (p1 - p2) 4, 2b = (p0 + p2) - 2 p1 - 2a
-# 4, 2c = p2 - p0 1, then three FMAs on u and u / 2, 6, 15 a set; u / 2 1
-# once) or the Catmull-Rom weights of u once (11, their sum being 1) and a
-# 4-tap dot a set (7); lanczos3 its weights 30 once and the dot 7 a set;
-# the sum 1 a frame and part; remodulation the phase and its sincosf 21
-# once, the product 6 a complex frame (2 a real one). 'i8x4' scales each
-# transmit's sum once: 2 flops a frame and part per (pixel, transmit), 2 / N
-# a term, or, where the receivers are kept (keep_rx), the sum becomes an FMA
-# with s_m / 127, 1 more a frame and part.
+# The flops of a K1(e) / K2(e) call, as phase 18's bounds count them: the
+# least arithmetic the function needs, whatever implements it, an FMA 2
+# flops (the float32 peak's count), nothing for the storage format's
+# decode. Once per term: the delay (K1 4, K2 3) and the tap base (nearest
+# 1) and fraction (3 in all); the sampler on the rounded taps of each of
+# the term's s tap sets (s = F frames, 2 F for complex traces): linear 3 a
+# set (a difference and an FMA); cubic 6 a set, the Catmull-Rom cubic's
+# three FMAs in u, its coefficients depending on the taps alone and so
+# formed once per tap base (10 flops a tap base and part, _lp_layout_ops:
+# c1 2, c2 4, c3 4, as stencil_entry forms them); lanczos3 its weights 30
+# once and the dot 7 a set; the sum 1 a frame and part; remodulation the
+# phase and its sincosf 21 once, the product 6 a complex frame (2 a real
+# one). 'i8x4' scales each transmit's sum once: 2 flops a frame and part
+# per (pixel, transmit), 2 / N a term, or, where the receivers are kept
+# (keep_rx), the sum becomes an FMA with s_m / 127, 1 more a frame and
+# part. (An earlier count took the cubic per term, min(1 + 15 s, 11 +
+# 7 s): Horner on tap differences or the weights of u and a 4-tap dot, 24
+# flops a real K1 term.)
 
 
 def _lp_term_ops(precision, method, lut, F=1, cplx=False, rot=False, keep_rx=False, N=256):
     parts = 2 if cplx else 1
     sets = F * parts
-    sampler = {"nearest": 0, "linear": 3 * sets, "cubic": min(1 + 15 * sets, 11 + 7 * sets),
+    sampler = {"nearest": 0, "linear": 3 * sets, "cubic": 6 * sets,
                "lanczos3": 30 + 7 * sets}[method]
     sums = F * (2 if cplx or rot else 1)
     scale = (1.0 if keep_rx else 2.0 / N) * sums if precision == "i8x4" else 0.0
@@ -2300,13 +2335,25 @@ def _lp_term_ops(precision, method, lut, F=1, cplx=False, rot=False, keep_rx=Fal
     return (3 if lut else 4) + (1 if method == "nearest" else 3) + sampler + sums + scale + remod
 
 
-def _layout_parity_q(torch, das_cuda, lerrs, x, method, precision, where):
-    """The layout kernel's narrow entries against trace_layout_plain, bit
-    for bit (int16 bf16 bits or int8 taps)."""
+def _lp_layout_ops(method, samples):
+    """The flops of forming the cubic's coefficients once per tap base of
+    ``samples`` trace samples (parts and frames counted), 0 for the other
+    samplers (see _lp_term_ops)."""
+    return 10.0 * samples if method == "cubic" else 0.0
+
+
+def _layout_parity_q(torch, das_cuda, lerrs, x, method, precision, where, form=None):
+    """The layout kernel's entries at a reduced precision in ``form``
+    (default the rounded taps: int16 bf16 bits or int8 taps; 'f32c' the
+    float32 coefficients of the rounded taps, 'h16' the int8 taps'
+    coefficients as half-precision bits) against trace_layout_plain, bit
+    for bit."""
     sc = das_cuda.i8_scale(x) if precision == "i8x4" else None
-    got = das_cuda.trace_layout(x, method, precision=precision, scale=sc)
-    ref = das_cuda.trace_layout_plain(x, method, precision, sc)
+    got = das_cuda.trace_layout(x, method, precision=precision, scale=sc, form=form)
+    ref = das_cuda.trace_layout_plain(x, method, precision, sc, form)
     assert got.dtype == ref.dtype and torch.equal(got, ref), where
+    if got.dtype == torch.float32:
+        got, ref = got.view(torch.int32), ref.view(torch.int32)
     lerrs.add(got.to(torch.int32), ref.to(torch.int32), where)
 
 
@@ -2351,12 +2398,18 @@ def phase17(torch, qt, das_cuda, errs):
         return traces[cplx, fd]
 
     t = time.perf_counter()
+    nforms = 0
     for precision, methods in PREC_METHODS.items():
         for method in methods:
-            for cplx, fd in ((False, ()), (True, (3,))):
-                _layout_parity_q(torch, das_cuda, errs["das_layout"], trace(cplx, fd), method,
-                                 precision, f"phase17 layout {precision} {method} "
-                                            f"cplx={cplx} F={fd}")
+            forms = [None] + (["f32c"] if method == "cubic" else []) + (
+                ["h16"] if method == "cubic" and precision == "i8x4" else [])
+            for form in forms:  # the rounded taps, and the cubic's coefficient forms
+                for cplx, fd in ((False, ()), (True, (3,)), (False, (3,)), (True, ())):
+                    _layout_parity_q(torch, das_cuda, errs["das_layout"], trace(cplx, fd),
+                                     method, precision, f"phase17 layout {precision} {method} "
+                                                        f"{form or 'taps'} cplx={cplx} F={fd}",
+                                     form)
+                    nforms += 1
 
     def call(src, precision, method, cplx, rot, fd, **extra):
         xg = trace(cplx, fd)
@@ -2378,6 +2431,22 @@ def phase17(torch, qt, das_cuda, errs):
         assert r < TOL, (where, r)
         return r
 
+    # a real cubic call at 'bf16pair' or 'bf16' is the float32 term on the
+    # rounded taps' float32 layout: bit for bit das_sum(round_taps(x), 'f32')
+    same = 0
+    for precision in ("bf16pair", "bf16"):
+        for src in ("plane", "virtual", "tables"):
+            if src == "tables" and precision == "bf16":
+                continue
+            for fd in ((), (3,)):
+                for rot in (False, True):
+                    xg = trace(False, fd)
+                    kern, _, args, kw, _ = call(src, precision, "cubic", False, rot, fd)
+                    got = kern(*args, **kw)
+                    ref = kern(das_cuda.round_taps(xg, precision), *args[1:],
+                               **dict(kw, precision="f32"))
+                    assert torch.equal(got, ref), ("f32c bit for bit", precision, src, fd, rot)
+                    same += 1
     count, worst = 0, {}
     for pi_, (precision, methods) in enumerate(PREC_METHODS.items()):
         for mi, method in enumerate(methods):
@@ -2430,6 +2499,9 @@ def phase17(torch, qt, das_cuda, errs):
                 count += 1
     finally:
         del os.environ["QUPS_DAS_ACC16"]
+    print(f"phase17 layouts bit for bit: {nforms} (precision, sampler, form, trace type, "
+          f"frames); real cubic bf16pair/bf16 calls bit for bit equal to float32 on the "
+          f"rounded taps: {same}")
     print(f"phase17 K1(e), K2(e) vs plain: {count} calls in {time.perf_counter() - t:.1f} s; "
           "worst rel: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + "; QUPS_DAS_ACC16 (every value a bfloat16; share of values off by one bfloat16 "
@@ -2439,14 +2511,17 @@ def phase17(torch, qt, das_cuda, errs):
 def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
     """The headline (1024^2 px x 256 tx x 256 rx, T 4096, plane wave, real)
     at each reduced precision: K1(e) for bf16pair (every sampler), bf16
-    (cubic: the same kernel, its layout rounds half to even) and i8x4
-    (cubic, lanczos3), K2(e) for bf16pair and i8x4, the layout kernel
-    alone in each entry width; then the IQ headline (phase 14's traces,
-    4 frames, fmod 5 MHz) in bf16pair cubic and the headline's keep_rx in
-    i8x4 and with QUPS_DAS_ACC16 (float32 traces). CUDA events (mean of 3 after a warm-up; lanczos3 1), each beside
-    the float32 time (phases 4, 8, 14, 16), the plain version on every 64th
-    pixel and its bound. Returns {kernel: (ms, plain ms scaled, bound)} for
-    the JSON rows (bf16pair cubic)."""
+    (cubic: its layout rounds half to even) and i8x4 (cubic, lanczos3),
+    K2(e) for bf16pair and i8x4 (real cubic: the float32 term on the
+    float32 coefficients of the rounded taps), the layout kernel alone in
+    each entry form; then the IQ headline (phase 14's traces, 4 frames,
+    fmod 5 MHz) in bf16pair and i8x4 cubic (bf16 taps; the int8 taps'
+    half-precision coefficients) and the headline's keep_rx in i8x4,
+    bf16pair and with QUPS_DAS_ACC16 (float32 traces). CUDA events (mean of
+    3 after a warm-up; lanczos3 1), each beside the float32 time (phases
+    4, 8, 14, 16), the plain version on every 64th pixel and its bound
+    (_lp_term_ops, _lp_layout_ops). Returns {kernel: (ms, plain ms scaled,
+    bound)} for the JSON rows (bf16pair cubic)."""
     from qups_tpu_torch import bench
     from qups_tpu_torch.ops.das import delay_tables
 
@@ -2483,27 +2558,34 @@ def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
         name = "das_lut_k2e" if lut else "das_k1e"
         a, r = errs[name].add(got, ref, f"phase18 {kern} {precision} {method} every 64th pixel")
         assert r < TOL, (kern, precision, method, r)
-        unit = 1 if precision == "i8x4" else 2
-        lay = unit * {"nearest": 1, "linear": 2}.get(method, 4) * float(T) * N * M
+        form = das_cuda.entry_form(method, precision, False)
+        lay = das_cuda._UNIT[das_cuda.FORMS[form]].itemsize * float(T) * N * M * {
+            "nearest": 1, "linear": 2}.get(method, 4)
         ops = _lp_term_ops(precision, method, lut)
-        b = bound(ops * terms, F32_FLOPS, lay + 4.0 * I + (4.0 * I * (N + M) if lut else 0.0))
+        b = bound(ops * terms + _lp_layout_ops(method, float(T) * N * M), F32_FLOPS,
+                  4.0 * T * N * M + 4.0 * I + (4.0 * I * (N + M) if lut else 0.0))
         f32 = (k2_ms if lut else k1_ms)[method]
         print(f"phase18 {kern}(e) {precision:8s} {method:8s} 1024^2 x 256 x 256 T=4096: "
               f"{ms:.3f} ms (layout kernel included; float32 {f32:.3f} ms, x{ms / f32:.3f}); "
               f"{terms / (ms / 1e3):.4e} sums/s; plain on every 64th pixel "
               f"{t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}; bound {ops:.6g} flop "
-              f"per term, {lay / 2**30:.2f} GiB of entries")
+              f"per term + {_lp_layout_ops(method, 1):.0f} per tap base; entry form {form}, "
+              f"{lay / 2**30:.2f} GiB of entries")
         _share(f"phase18 {kern}(e) {precision} {method}", ms, b)
         if precision == "bf16pair" and method == "cubic":
             out[name] = (ms, 64 * t_plain * 1e3, b)
         del got, ref
-    for precision in ("f32", "bf16pair", "i8x4"):  # the layout kernel alone, cubic
+    # the layout kernel alone, cubic, in each entry form
+    for precision, form in (("f32", "f32"), ("bf16pair", "bf16"), ("i8x4", "i8"),
+                            ("bf16pair", "f32c"), ("i8x4", "f32c"), ("i8x4", "h16")):
         sc = das_cuda.i8_scale(xg) if precision == "i8x4" else None
-        ms = _ms(lambda: das_cuda.trace_layout(xg, "cubic", precision=precision, scale=sc))
-        unit = {"f32": 4, "bf16pair": 2, "i8x4": 1}[precision]
-        b = bound(0.0, F32_FLOPS, 4.0 * T * N * M + unit * 4.0 * T * N * M)
-        print(f"phase18 layout kernel alone, cubic, {precision}: {ms:.3f} ms")
-        _share(f"phase18 layout kernel, cubic, {precision}", ms, b)
+        ms = _ms(lambda: das_cuda.trace_layout(xg, "cubic", precision=precision, scale=sc,
+                                               form=form))
+        unit = das_cuda._UNIT[das_cuda.FORMS[form]].itemsize
+        b = bound(_lp_layout_ops("cubic", float(T) * N * M) if form in ("f32", "f32c", "h16")
+                  else 0.0, F32_FLOPS, 4.0 * T * N * M + unit * 4.0 * T * N * M)
+        print(f"phase18 layout kernel alone, cubic, {precision} {form}: {ms:.3f} ms")
+        _share(f"phase18 layout kernel, cubic, {precision} {form}", ms, b)
     # the headline's keep_rx in i8x4 (K1(e) in the keep kernel)
     kw = dict(fs=fs, tx_model="plane", method="cubic", keep_rx=True, precision="i8x4")
     ms = _ms(lambda: das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw), reps=2)
@@ -2513,11 +2595,26 @@ def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
     a, r = errs["das_k1e"].add(got, ref, "phase18 keep_rx i8x4 every 64th pixel")
     assert r < TOL, r
     ops = _lp_term_ops("i8x4", "cubic", False, keep_rx=True)
-    b = bound(ops * terms, F32_FLOPS, float(T) * N * M * 4 + 4.0 * I * N)
+    b = bound(ops * terms + _lp_layout_ops("cubic", float(T) * N * M), F32_FLOPS,
+              float(T) * N * M * 4 + 4.0 * I * N)
     print(f"phase18 keep_rx i8x4 (K1(e) keep kernel) cubic: {ms:.3f} ms (float32, phase 16: "
           f"{keep['das_k1c'][0]:.3f} ms); plain on every 64th pixel {t_plain * 1e3:.3f} ms; "
-          f"max_abs_err={a:.3e} rel={r:.3e}; bound {ops:.6g} flop per term")
+          f"max_abs_err={a:.3e} rel={r:.3e}; bound {ops:.6g} flop per term + 10 per tap base")
     _share("phase18 keep_rx i8x4", ms, b)
+    # and in bf16pair: the float32 unweighted keep_rx variant on the f32c layout
+    kw = dict(kw, precision="bf16pair")
+    ms = _ms(lambda: das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw), reps=2)
+    got = das_cuda.das_sum(xg, pig, pr, pv, nv, t0, cinv, **kw)[sub]
+    ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(xg, pig[sub], pr, pv, nv, t0,
+                                                                 cinv, **kw))
+    a, r = errs["das_k1e"].add(got, ref, "phase18 keep_rx bf16pair every 64th pixel")
+    assert r < TOL, r
+    ops = _lp_term_ops("bf16pair", "cubic", False, keep_rx=True)
+    b = bound(ops * terms + _lp_layout_ops("cubic", float(T) * N * M), F32_FLOPS,
+              float(T) * N * M * 4 + 4.0 * I * N)
+    print(f"phase18 keep_rx bf16pair (K1(e) keep kernel) cubic: {ms:.3f} ms; plain on every "
+          f"64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}")
+    _share("phase18 keep_rx bf16pair", ms, b)
     # the headline's keep_rx on float32 traces with QUPS_DAS_ACC16: the kept
     # sums stored as bfloat16 (2 of the output's 4 bytes a sum; K1(c)'s 14
     # flops a term, as phase 16)
@@ -2541,26 +2638,29 @@ def phase18(torch, das_cuda, k1_ms, k2_ms, iqh, iq_args, keep, errs):
           f"({chunks} store(s) a value; {share:.2e} of values one bfloat16 step off)")
     _share("phase18 keep_rx f32 ACC16", ms, b)
     del xg, got, ref, tau_rx, tau_tx
-    # the IQ headline in bf16pair cubic, 4 frames in one call
+    # the IQ headline in bf16pair and i8x4 cubic, 4 frames in one call
     iq, pigq, prq, pvq, nvq, subq = iq_args
     xq = iq.data
     F = xq.shape[3]
-    kw = dict(fs=iq.fs, tx_model="plane", method="cubic", fmod=FMOD, precision="bf16pair")
-    args = lambda rows=None: (xq, pigq if rows is None else pigq[rows], prq, pvq, nvq,  # noqa
-                              iq.t0, cinv)
-    ms = _ms(lambda: das_cuda.das_sum(*args(), **kw))
-    got = das_cuda.das_sum(*args(), **kw)[subq]
-    ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(*args(subq), **kw))
-    a, r = errs["das_k1e"].add(got, ref, "phase18 IQ bf16pair cubic every 64th pixel")
-    assert r < TOL, r
-    ops = _lp_term_ops("bf16pair", "cubic", False, F=F, cplx=True, rot=True)
-    b = bound(ops * terms, F32_FLOPS, 2.0 * 2 * 4 * xq.numel() + 8.0 * I * F)
-    print(f"phase18 IQ headline, K1(e) bf16pair cubic, 4 frames in one call, T' "
-          f"{xq.shape[0]}: {ms:.3f} ms (float32, phase 14: {iqh['das_k1b'][0]:.3f} ms); "
-          f"layout in {len(das_cuda.tx_chunks(xq, 'cubic', 'bf16pair'))} chunk(s); plain on "
-          f"every 64th pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}; bound "
-          f"{ops:.6g} flop per term")
-    _share("phase18 IQ bf16pair cubic", ms, b)
+    for precision in ("bf16pair", "i8x4"):
+        kw = dict(fs=iq.fs, tx_model="plane", method="cubic", fmod=FMOD, precision=precision)
+        args = lambda rows=None: (xq, pigq if rows is None else pigq[rows], prq, pvq,  # noqa
+                                  nvq, iq.t0, cinv)
+        ms = _ms(lambda: das_cuda.das_sum(*args(), **kw))
+        got = das_cuda.das_sum(*args(), **kw)[subq]
+        ref, t_plain = _sync_s(torch, lambda: das_cuda.das_sum_plain(*args(subq), **kw))
+        a, r = errs["das_k1e"].add(got, ref, f"phase18 IQ {precision} cubic every 64th pixel")
+        assert r < TOL, r
+        ops = _lp_term_ops(precision, "cubic", False, F=F, cplx=True, rot=True)
+        b = bound(ops * terms + _lp_layout_ops("cubic", 2.0 * xq.numel()), F32_FLOPS,
+                  8.0 * xq.numel() + 8.0 * I * F)
+        print(f"phase18 IQ headline, K1(e) {precision} cubic, 4 frames in one call, T' "
+              f"{xq.shape[0]}: {ms:.3f} ms (float32, phase 14: {iqh['das_k1b'][0]:.3f} ms); "
+              f"entry form {das_cuda.entry_form('cubic', precision, True)}, layout in "
+              f"{len(das_cuda.tx_chunks(xq, 'cubic', precision))} chunk(s); plain on every 64th "
+              f"pixel {t_plain * 1e3:.3f} ms; max_abs_err={a:.3e} rel={r:.3e}; bound "
+              f"{ops:.6g} flop per term + 10 per tap base and part")
+        _share(f"phase18 IQ {precision} cubic", ms, b)
     return out
 
 
@@ -4556,17 +4656,23 @@ def main():
          "on every 64th pixel, scaled; launches: phase 7's bfDAS keep_rx and c0-map DAS with "
          "a dense weight"),
         ("das_k1e", "qups_tpu_torch/csrc/das.cu (das_bf16.cu, das_i8.cu, das_keep_bf16.cu, "
-         "das_keep_i8.cu, das_keep_acc16.cu and their _iq twins)",
+         "das_keep_i8.cu, das_keep_acc16.cu and their _iq twins; real cubic traces: das.cu's "
+         "float32 variants on the narrow units' layout of float32 coefficients)",
          "qups_tpu/ops/das_pallas.py:174 (precisions: _pack_pairs :1346, _pack_quads :1323, "
          "_quad_mix :1309, bf16 :2628, acc16 :2592)", *lp["das_k1e"], None,
          "K1(e): the headline, 1024^2 px x 256 tx x 256 rx, T 4096, cubic, real, in bf16pair "
-         f"(bf16 taps, 8-byte entries; {_lp_term_ops('bf16pair', 'cubic', False):.6g} flop "
-         "per term, the least the cubic of four taps needs); the other widths, i8x4, the IQ "
-         "headline, keep_rx i8x4 and keep_rx with QUPS_DAS_ACC16 in phase 18's "
-         "lines; plain on every 64th pixel, scaled; launches: phase 3's DAS bf16pair, i8x4 "
-         "and coherence_image bf16pair"),
+         "(entry form f32c: the float32 Catmull-Rom coefficients of the bf16 taps, 16-byte "
+         "entries, read by the float32 term; bound "
+         f"{_lp_term_ops('bf16pair', 'cubic', False):.6g} flop per term + "
+         f"{_lp_layout_ops('cubic', 1):.0f} per tap base, the least the function needs: the "
+         "cubic's coefficients depend on the taps alone); the other samplers and widths, "
+         "i8x4, the layout in each form, the IQ headline in bf16pair and i8x4, keep_rx in "
+         "i8x4, bf16pair and with QUPS_DAS_ACC16 in phase 18's lines; plain on every 64th "
+         "pixel, scaled; launches: phase 3's DAS bf16pair, i8x4 and coherence_image "
+         "bf16pair"),
         ("das_lut_k2e", "qups_tpu_torch/csrc/das.cu (das_bf16.cu, das_i8.cu, das_keep_bf16.cu, "
-         "das_keep_i8.cu and their _iq twins)",
+         "das_keep_i8.cu and their _iq twins; real cubic traces: das.cu's float32 variants on "
+         "the narrow units' layout of float32 coefficients)",
          "qups_tpu/ops/das_pallas.py:1607 (precisions: das_lut_plan :1906-1910, per-call "
          "scale :2076-2083)", *lp["das_lut_k2e"], None,
          "K2(e): as K1(e) on the plane-wave geometric tables (+ 2 GiB of tables); launches: "

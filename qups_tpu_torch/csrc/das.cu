@@ -140,31 +140,49 @@
 // alternatives measured.
 //
 // Reduced-precision traces (K1(e), K2(e); the TPU kernel's precision modes,
-// das_pallas.py:1323-1354 and :2441-2479): the entry type Q is a template
-// parameter of Entry, sample(), the kernels and the layout kernel. F32 is
-// the float32 layout above, whose instantiations keep their code and
-// arguments. BF16 entries hold the taps as bfloat16 bits, 2 bytes each,
-// rounded by the layout kernel half away from zero ('bf16pair', the TPU
-// kernel's _pack_pairs) or half to even ('bf16'): nearest one sample,
-// linear (x[k], x[k+1]) in one 4-byte load, cubic and lanczos3 the four
-// taps x[k-1..k+2] in one 8-byte load. I8 entries hold the four taps as
-// int8, q = clip(rint(x 127 / s), -127, 127) with s one scale per transmit
-// (K1) or per call (K2, the same s for every transmit), in one 4-byte load
-// ('i8x4', _pack_quads; cubic and lanczos3 only). sample() widens the taps
-// (bf16: a shift; int8: a sign extension and a conversion) and forms the
-// sampler's weights from the fraction in float32; I8 takes s / 127 once
-// per (pixel, transmit, chunk of NC receivers) in the summed kernels, on
-// the transmit's sum over the chunk, and per term in the keep kernel,
-// folded into its transmit factor. Coefficients are not rounded: the coefficients of
-// rounded taps differ from rounded coefficients. F32X is the float32 layout
-// with the reduced-precision units' arguments: the keep kernel's kept sums
-// stored as bfloat16 (QUPS_DAS_ACC16, half the bytes of its output), which
-// the other entry types take too. These instantiations build in translation units of their own, one
-// per entry type and rotation (DAS_Q: das_bf16.cu, das_i8.cu,
-// das_keep_bf16.cu, das_keep_i8.cu, das_keep_acc16.cu and their _iq
-// twins), so the float32 units' variants stay as they were and the builds
-// run in parallel.
+// das_pallas.py:1323-1354 and :2441-2479): the layout kernel rounds each tap
+// as the precision says, 'bf16pair' to bfloat16 half away from zero (the
+// TPU kernel's _pack_pairs), 'bf16' half to even, 'i8x4' to the int8 q =
+// clip(rint(x 127 / s), -127, 127) with s one scale per transmit (K1) or per
+// call (K2, the same s for every transmit; _pack_quads), and writes the
+// rounded taps in one of the entry forms below; the weights, the rotation
+// and the sums stay float32. Which form a call's layout takes is
+// ops/das_cuda.py::entry_form's plan (reads() below says which variants
+// the units build for it). The time follows the instructions a term
+// issues, so a sampler's work that depends on the taps alone is done once
+// per tap base, in the layout, wherever the form can hold its result:
+// - Real cubic 'bf16pair' and 'bf16' traces, and real cubic 'i8x4' ones
+//   in the keep kernel: the float32 Catmull-Rom coefficients of the
+//   rounded taps (the int8 taps' times s / 127), the float32 layout's
+//   entry, read by the float32 instantiations unchanged: a term costs what
+//   a float32 term costs, and the keep kernel runs the float32 units'
+//   unweighted variants. (Coefficients are not rounded: the coefficients
+//   of rounded taps differ from rounded coefficients.)
+// - Cubic 'i8x4' traces otherwise (H16): the four coefficients of each
+//   part's int8 taps in IEEE half precision, 8 bytes a part, which beat
+//   16-byte float32 ones though a term widens them (PERF.md §6). They are
+//   multiples of 1/2 with |c0|, |c1| <= 127, |c2| <= 762, |c3| <= 508, so
+//   half precision (11 significant bits) holds them exactly; a term widens
+//   them and takes poly3.
+// - The rest keep the rounded taps (BF16: bfloat16 bits, 2 bytes each;
+//   I8: int8, 1 byte each): nearest one sample, linear (x[k], x[k+1]) in
+//   one 4-byte load, cubic (complex bf16 traces) and lanczos3 the four taps
+//   x[k-1..k+2] in one 8-byte (int8: 4-byte) load, from which sample()
+//   forms the sampler's weights of the fraction per term (a frame's terms
+//   share them); complex bf16 cubic traces with frames share the weights
+//   over 2 F tap sets, where 32-byte float32 entries lost (PERF.md §6).
+// H16 and I8 take s / 127 once per (pixel, transmit, chunk of NC
+// receivers) in the summed kernels, on the transmit's sum over the chunk,
+// and per term in the keep kernel, folded into its transmit factor. F32X is
+// the float32 layout with the reduced-precision units' arguments: the keep
+// kernel's kept sums stored as bfloat16 (QUPS_DAS_ACC16, half the bytes of
+// its output), which the other entry types take too. These instantiations
+// build in translation units of their own, one per rounding and rotation
+// (DAS_Q: das_bf16.cu, das_i8.cu (I8 and H16), das_keep_bf16.cu,
+// das_keep_i8.cu, das_keep_acc16.cu and their _iq twins), so the float32
+// units' variants stay as they were and the builds run in parallel.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,8 +192,8 @@ namespace {
 
 enum Src { PLANE = 0, DIVERGING = 1, VIRTUAL = 2, LUT = 3 };
 enum Method { NEAREST = 0, LINEAR = 1, CUBIC = 2, LANCZOS3 = 3 };
-// The entry types (ops/das_cuda.py _ENTRY): see the head of this file.
-enum Prec { F32 = 0, BF16 = 1, I8 = 2, F32X = 3 };
+// The entry types (ops/das_cuda.py FORMS): see the head of this file.
+enum Prec { F32 = 0, BF16 = 1, I8 = 2, F32X = 3, H16 = 4 };
 
 constexpr int P = 256;        // pixels per block, one per thread
 constexpr int NC = 32;        // receivers per chunk of the receive table
@@ -216,11 +234,29 @@ struct Args {
   int add;                        // 1: add the sum to what out holds
 };
 
-// The unit of a layout of entry type Q: a float, a bfloat16's bits, an int8.
+// The unit of a layout of entry type Q: a float, a bfloat16's bits, an int8,
+// a half's bits.
 template <int Q> struct UnitOf { using type = float; };
 template <> struct UnitOf<BF16> { using type = uint16_t; };
 template <> struct UnitOf<I8> { using type = uint8_t; };
+template <> struct UnitOf<H16> { using type = uint16_t; };
 template <int Q> using Unit = typename UnitOf<Q>::type;
+
+// The entry types whose sums take each transmit's s_m / 127 (int8 taps).
+__host__ __device__ constexpr bool per_tx_scale(int q) { return q == I8 || q == H16; }
+
+// Whether the kernels of entry type q read a layout of the sampler `method`
+// on complex (cplx) or real traces, in the keep kernel (keep) or the summed
+// ones: the forms of ops/das_cuda.py::entry_form (real cubic traces take
+// float32 coefficients, but the summed kernels' int8 ones H16; complex
+// cubic int8 ones H16), so the units build no variant that no plan
+// launches.
+__host__ __device__ constexpr bool reads(int q, int method, bool cplx, bool keep) {
+  return q == I8    ? method == LANCZOS3
+         : q == H16 ? method == CUBIC && (cplx || !keep)
+         : q == BF16 ? method != CUBIC || cplx
+                     : true;
+}
 
 // The reduced-precision units' arguments beside a kernel's own: qs the
 // dequantization scale s / 127 of each of the launch's transmits (I8), and
@@ -337,9 +373,27 @@ __device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 
 __device__ __forceinline__ float4 bf_taps(unsigned a, unsigned b) {
   return make_float4(bf_lo(a), bf_hi(a), bf_lo(b), bf_hi(b));
 }
+//
+// An int8 tap b is widened without a conversion: b + 128 (the byte's top
+// bit flipped) placed by __byte_perm in the mantissa of 2^23 is the float
+// 2^23 + 128 + b, from which one subtraction gives b exactly (a sign
+// extension and an I2F, the quarter-rate conversion, ran 0.6-2.2 % slower
+// at lanczos3, PERF.md §6).
 __device__ __forceinline__ float4 i8_taps(unsigned w) {
-  return make_float4((float)((int)(w << 24) >> 24), (float)((int)(w << 16) >> 24),
-                     (float)((int)(w << 8) >> 24), (float)((int)w >> 24));
+  const unsigned v = w ^ 0x80808080u;
+  constexpr float K = 8388736.f;  // 2^23 + 128
+  return make_float4(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650)) - K,
+                     __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7651)) - K,
+                     __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7652)) - K,
+                     __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7653)) - K);
+}
+
+// The four half-precision cubic coefficients c0..c3 of an 8-byte H16 entry
+// (words a = c0 | c1 << 16, b = c2 | c3 << 16), widened to float.
+__device__ __forceinline__ float4 h16_coeffs(unsigned a, unsigned b) {
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&a));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&b));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // v rounded to bfloat16, half to even, as torch's conversion rounds (a NaN
@@ -394,8 +448,8 @@ __device__ __forceinline__ unsigned row_origin(unsigned start,
 // for nearest, down (floor) for the others; subtracting 2^23 again is
 // exact, and so is the fraction u. The bits of 2^23 are subtracted from
 // the entry's offset in unsigned (wrapping) arithmetic as part of o (see
-// row_origin), so the offset costs one shift-add. BF16 and I8 entries:
-// see lp_sample.
+// row_origin), so the offset costs one shift-add. BF16, I8 and H16
+// entries: see lp_sample.
 template <int METHOD, typename V, int Q = F32>
 __device__ __forceinline__ V sample(const Unit<Q>* __restrict__ xm, unsigned o, float ti,
                                     unsigned S = Entry<METHOD, V>::E);
@@ -403,8 +457,9 @@ __device__ __forceinline__ V sample(const Unit<Q>* __restrict__ xm, unsigned o, 
 template <int METHOD, typename V, int Q>
 __device__ __forceinline__ V lp_sample(const Unit<Q>* __restrict__ e, float ti, float r) {
   constexpr bool CPLX = Entry<METHOD, V>::C == 2;
-  static_assert(Q == BF16 || (Q == I8 && (METHOD == CUBIC || METHOD == LANCZOS3)),
-                "int8 entries hold four taps");
+  static_assert(Q == BF16 || (Q == I8 && (METHOD == CUBIC || METHOD == LANCZOS3))
+                    || (Q == H16 && METHOD == CUBIC),
+                "int8 entries hold four taps, H16 entries a cubic's coefficients");
   if constexpr (METHOD == NEAREST) {
     if constexpr (CPLX) {
       const unsigned w = __ldg(reinterpret_cast<const unsigned*>(e));
@@ -424,6 +479,16 @@ __device__ __forceinline__ V lp_sample(const Unit<Q>* __restrict__ e, float ti, 
       } else {
         const unsigned q = __ldg(reinterpret_cast<const unsigned*>(e));
         c0 = fmaf(u, bf_hi(q) - bf_lo(q), bf_lo(q));
+      }
+    } else if constexpr (Q == H16) {
+      // the cubic's coefficients; complex: real, then imaginary
+      if constexpr (CPLX) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(e));
+        c0 = poly3(u, h16_coeffs(q.x, q.y));
+        c1 = poly3(u, h16_coeffs(q.z, q.w));
+      } else {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(e));
+        c0 = poly3(u, h16_coeffs(q.x, q.y));
       }
     } else {
       // the four taps x[k-1..k+2] and the sampler's weights; complex: real
@@ -463,7 +528,7 @@ __device__ __forceinline__ V sample(const Unit<Q>* __restrict__ xm, unsigned o, 
   constexpr bool CPLX = L::C == 2;
   const float r = METHOD == NEAREST ? __fadd_rn(ti, 0x1p23f) : __fadd_rd(ti, 0x1p23f);
   const Unit<Q>* __restrict__ e = xm + (o + (unsigned)__float_as_int(r) * S);
-  if constexpr (Q == BF16 || Q == I8) {
+  if constexpr (Q == BF16 || Q == I8 || Q == H16) {
     return lp_sample<METHOD, V, Q>(e, ti, r);
   } else if constexpr (METHOD == NEAREST) {
     return __ldg(reinterpret_cast<const V*>(e));
@@ -552,20 +617,20 @@ __device__ __forceinline__ float tx_term(const Args& a, int m, int64_t i, float 
 }
 
 // The dequantization scale of transmit m of the launch: s_m / 127 for I8
-// entries, else 1 (unused).
+// and H16 entries, else 1 (unused).
 template <int Q, class A>
 __device__ __forceinline__ float qscale(const A& a, int m) {
-  if constexpr (Q == I8) {
+  if constexpr (per_tx_scale(Q)) {
     return __ldg(a.lp.qs + m);
   } else {
     return 1.f;
   }
 }
 
-// A transmit's factor w of the keep kernel, I8: times s_m / 127.
+// A transmit's factor w of the keep kernel, I8 and H16: times s_m / 127.
 template <int Q, class A>
 __device__ __forceinline__ float tx_factor(const A& a, float w, int m) {
-  if constexpr (Q == I8) {
+  if constexpr (per_tx_scale(Q)) {
     return w * qscale<Q>(a, m);
   } else {
     return w;
@@ -627,8 +692,8 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const QArgs<Q, Args> a) {
         if (j < mc) TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
       for (int j = 0; j < mc; ++j) {
         const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m0 + j);
-        [[maybe_unused]] const float sc = qscale<Q>(a, m0 + j);  // I8: s_m / 127
-        [[maybe_unused]] V part{};  // I8: this transmit's sum over the chunk's receivers
+        [[maybe_unused]] const float sc = qscale<Q>(a, m0 + j);  // I8, H16: s_m / 127
+        [[maybe_unused]] V part{};  // I8, H16: this transmit's sum over the chunk's receivers
         const Unit<Q>* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
         // one term: the receiver whose trace starts at unit o of xm (as
         // row_origin gives it), r its entry of R
@@ -638,7 +703,7 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const QArgs<Q, Args> a) {
               : __fmul_rn(__fsub_rn(__fmul_rn(a.cinv, __fadd_rn(tx, r)), t0m), a.fs);
           const bool ok = ti >= 0.f && ti <= tmax;  // false for NaN
           const V v = sample<METHOD, V, Q>(xm, o, ok ? ti : 0.f);
-          if constexpr (Q == I8) {  // a discarded branch: F32's lambda captures no part
+          if constexpr (per_tx_scale(Q)) {  // discarded for F32: its lambda captures no part
             if (ok) part = part + v;
           } else {
             if (ok) acc = acc + v;
@@ -655,7 +720,7 @@ __global__ void __launch_bounds__(P, 1) das_kernel(const QArgs<Q, Args> a) {
           term(r.w, o + 3 * row);
         }
         for (; n < nc; ++n, o += row) term(R[p * RS + n], o);
-        if constexpr (Q == I8) acc = acc + scaled(part, sc);  // s_m / 127 once a chunk
+        if constexpr (per_tx_scale(Q)) acc = acc + scaled(part, sc);  // s_m / 127 once a chunk
       }
     }
   }
@@ -731,8 +796,8 @@ __global__ void __launch_bounds__(P, ROT == NO_ROT ? 1 : FRAMES_MIN_BLOCKS)
         if (j < mc) TX[j * P + p] = tx_term<SRC>(a, m0 + j, i, px, py, pz);
       for (int j = 0; j < mc; ++j) {
         const float tx = TX[j * P + p], t0m = __ldg(a.t0 + m0 + j);
-        [[maybe_unused]] const float sc = qscale<Q>(fa, m0 + j);  // I8: s_m / 127
-        [[maybe_unused]] A part[NF] = {};  // I8: the transmit's sums over the chunk
+        [[maybe_unused]] const float sc = qscale<Q>(fa, m0 + j);  // I8, H16: s_m / 127
+        [[maybe_unused]] A part[NF] = {};  // I8, H16: the transmit's sums over the chunk
         const Unit<Q>* __restrict__ xm = opaque(x + ((int64_t)(m0 + j) * a.N + n0) * a.row);
         // one term: the receiver whose trace starts at unit o of xm (as
         // row_origin gives it), r its entry of R
@@ -754,7 +819,7 @@ __global__ void __launch_bounds__(P, ROT == NO_ROT ? 1 : FRAMES_MIN_BLOCKS)
             if (f == 0 || f < fb) {
               const A v = rotate<ROT != NO_ROT>(
                   sample<METHOD, V, Q>(xm + f * E, o, ok ? ti : 0.f, S), cs, sn);
-              if constexpr (Q == I8) {
+              if constexpr (per_tx_scale(Q)) {
                 if (ok) part[f] = part[f] + v;
               } else {
                 if (ok) acc[f] = acc[f] + v;
@@ -774,7 +839,7 @@ __global__ void __launch_bounds__(P, ROT == NO_ROT ? 1 : FRAMES_MIN_BLOCKS)
           term(r.w, o + 3 * row);
         }
         for (; n < nc; ++n, o += row) term(R[p * RS + n], o);
-        if constexpr (Q == I8) {  // s_m / 127 once a chunk
+        if constexpr (per_tx_scale(Q)) {  // s_m / 127 once a chunk
 #pragma unroll
           for (int f = 0; f < NF; ++f) acc[f] = acc[f] + scaled(part[f], sc);
         }
@@ -942,7 +1007,7 @@ __device__ __forceinline__ float tx_multiline(const KeepArgs& k, int m, float la
   return fmaxf(0.f, __fsub_rn(1.f, __fdiv_rn(dl, k.dlat)));
 }
 
-// Entry types other than F32 (its reduced-precision units): I8 folds each
+// Entry types other than F32 (its reduced-precision units): I8 and H16 fold each
 // transmit's s_m / 127 into its transmit factor; with lp.acc16 out holds
 // the kept sums as bfloat16 (a pair for a complex sum), half the bytes of
 // float32, as the TPU kernel's QUPS_DAS_ACC16 keeps its kept-axis
@@ -1000,7 +1065,7 @@ __global__ void __launch_bounds__(
     P, keep_min_blocks(KEEP, sizeof(V) != sizeof(float) || ROT != NO_ROT, W, METHOD == LANCZOS3))
     das_keep_kernel(const QArgs<Q, KeepArgs> k) {
   using A = decltype(rotate<ROT != NO_ROT, V>(V{}, 1.f, 0.f));
-  constexpr bool SCALED = W || Q == I8;  // a term's sample times its factor w
+  constexpr bool SCALED = W || per_tx_scale(Q);  // a term's sample times its factor w
   const Args& a = k.fa.a;
   extern __shared__ __align__(16) float smem[];
   const bool has_wr = W && k.wr.p, has_wt = W && (k.wt.p || (k.tx_kinds & TX_MULTILINE));
@@ -1062,7 +1127,7 @@ __global__ void __launch_bounds__(
     // Each transmit m of the launch, in chunks of MC whose terms are formed
     // at once (K2's loads in flight together): body(m, tx, t0m, wtj, xm,
     // wdm), with tx its transmit term (NaN where its mask is 0), wtj its
-    // factor (the weight, I8 times s_m / 127), xm its traces at receiver n0
+    // factor (the weight, I8 and H16 times s_m / 127), xm its traces at receiver n0
     // and wdm the dense (i, n, m) weight at (i, n0, m), or null.
     auto transmits = [&](auto&& body) {
       for (int m0 = 0; m0 < a.M; m0 += MC) {
@@ -1278,15 +1343,24 @@ cudaError_t run_keep(const QArgs<Q, KeepArgs>& k, size_t smem, cudaStream_t s) {
 template <int SRC, typename V, int ROT, int Q>
 cudaError_t keep_by_method(int method, const QArgs<Q, KeepArgs>& k, size_t smem,
                            cudaStream_t s) {
+  constexpr bool CPLX = sizeof(V) != sizeof(float);
   switch (method) {
     case NEAREST:
-      if constexpr (Q != I8) return run_keep<SRC, NEAREST, V, ROT, Q>(k, smem, s);
+      if constexpr (reads(Q, NEAREST, CPLX, true))
+        return run_keep<SRC, NEAREST, V, ROT, Q>(k, smem, s);
       break;
     case LINEAR:
-      if constexpr (Q != I8) return run_keep<SRC, LINEAR, V, ROT, Q>(k, smem, s);
+      if constexpr (reads(Q, LINEAR, CPLX, true))
+        return run_keep<SRC, LINEAR, V, ROT, Q>(k, smem, s);
       break;
-    case CUBIC: return run_keep<SRC, CUBIC, V, ROT, Q>(k, smem, s);
-    case LANCZOS3: return run_keep<SRC, LANCZOS3, V, ROT, Q>(k, smem, s);
+    case CUBIC:
+      if constexpr (reads(Q, CUBIC, CPLX, true))
+        return run_keep<SRC, CUBIC, V, ROT, Q>(k, smem, s);
+      break;
+    case LANCZOS3:
+      if constexpr (reads(Q, LANCZOS3, CPLX, true))
+        return run_keep<SRC, LANCZOS3, V, ROT, Q>(k, smem, s);
+      break;
   }
   return cudaErrorInvalidValue;
 }
@@ -1333,15 +1407,21 @@ cudaError_t run(const QArgs<Q, FrameArgs>& fa, cudaStream_t s) {
 
 template <int SRC, typename V, int ROT, int Q>
 cudaError_t by_method(int method, const QArgs<Q, FrameArgs>& a, cudaStream_t s) {
+  constexpr bool CPLX = sizeof(V) != sizeof(float);
   switch (method) {
     case NEAREST:
-      if constexpr (Q != I8) return run<SRC, NEAREST, V, ROT, Q>(a, s);
+      if constexpr (reads(Q, NEAREST, CPLX, false)) return run<SRC, NEAREST, V, ROT, Q>(a, s);
       break;
     case LINEAR:
-      if constexpr (Q != I8) return run<SRC, LINEAR, V, ROT, Q>(a, s);
+      if constexpr (reads(Q, LINEAR, CPLX, false)) return run<SRC, LINEAR, V, ROT, Q>(a, s);
       break;
-    case CUBIC: return run<SRC, CUBIC, V, ROT, Q>(a, s);
-    case LANCZOS3: return run<SRC, LANCZOS3, V, ROT, Q>(a, s);
+    case CUBIC:
+      if constexpr (reads(Q, CUBIC, CPLX, false)) return run<SRC, CUBIC, V, ROT, Q>(a, s);
+      break;
+    case LANCZOS3:
+      if constexpr (reads(Q, LANCZOS3, CPLX, false))
+        return run<SRC, LANCZOS3, V, ROT, Q>(a, s);
+      break;
   }
   return cudaErrorInvalidValue;
 }
@@ -1405,23 +1485,53 @@ int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w
 // frames. It replaces what the TPU path does in XLA before its kernel (the
 // transpose and the packers _pack_pairs, _pack_quads of
 // qups_tpu/ops/das_pallas.py:2015-2023 and :2628-2642) and computes exactly
-// what ops/das_cuda.py::trace_layout_plain computes: the float32 stencil
-// entries with the round-to-nearest intrinsics, in stencil_entry's order;
-// the BF16 taps rounded half away from zero ((bits + 0x8000) >> 16,
-// _pack_pairs) or, with rne, half to even; the I8 taps rint(x * (127 / s))
-// clipped to +-127, 127 / s rounded to float32 (_pack_quads), s = qs[m].
+// what ops/das_cuda.py::trace_layout_plain computes. The tile holds the
+// traces; put_entry rounds an entry's taps as R says (round_tap: F32 as
+// they are; BF16 to bfloat16 half away from zero, (bits + 0x8000) >> 16 as
+// _pack_pairs, or with rne half to even; I8 rint(x * (127 / s)) clipped to
+// +-127, 127 / s rounded to float32 as _pack_quads, s = qs[m]; rounding the
+// tile's rows as they were loaded cost the bf16 taps' layout 1.2x, its
+// loads no longer in flight together) and writes them as Q's entries: F32 the
+// float32 stencil entries with the round-to-nearest intrinsics, in
+// stencil_entry's order (of int8 taps: each coefficient times s / 127),
+// BF16 and I8 the rounded taps' bits, H16 the cubic's coefficients of the
+// int8 taps in half precision (exact).
 constexpr int LT = 64;       // entries per layout block
 constexpr int LM = 32;       // transmits (frames) per layout block
 constexpr int LS = LT + 3;   // tile rows x[k0-1 .. k0+LT+1]; odd, so conflict-free
 
-template <int METHOD, int Q>
-__device__ __forceinline__ void put_entry(const float* q, Unit<Q>* __restrict__ dst, float inv,
-                                          int rne) {
-  // q[0..3] = x[k-1], x[k], x[k+1], x[k+2] (clamped)
+template <int R>
+__device__ __forceinline__ float round_tap(float v, float inv, int rne) {
+  if constexpr (R == BF16) {
+    return rne ? round_bf16(v) : __uint_as_float((__float_as_uint(v) + 0x8000u) & 0xFFFF0000u);
+  } else if constexpr (R == I8) {
+    return fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+  } else {
+    return v;
+  }
+}
+
+// The Catmull-Rom cubic's coefficients c0..c3 of the taps q[0..3], as
+// stencil_entry forms them (exact for int8 taps: multiples of 1/2 below
+// 2^10).
+__device__ __forceinline__ float4 cubic_coeffs(const float* q) {
+  return make_float4(
+      q[1], __fmul_rn(0.5f, __fsub_rn(q[2], q[0])),
+      __fadd_rn(__fsub_rn(q[0], __fmul_rn(2.5f, q[1])),
+                __fsub_rn(__fmul_rn(2.f, q[2]), __fmul_rn(0.5f, q[3]))),
+      __fadd_rn(__fmul_rn(1.5f, __fsub_rn(q[1], q[2])), __fmul_rn(0.5f, __fsub_rn(q[3], q[0]))));
+}
+
+template <int METHOD, int Q, int R>
+__device__ __forceinline__ void put_entry(const float* x, Unit<Q>* __restrict__ dst, float inv,
+                                          int rne, float dq) {
+  // q[0..3] = x[k-1], x[k], x[k+1], x[k+2] (clamped), rounded as R says
+  // (the samplers that read fewer taps round only those)
+  float q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = round_tap<R>(x[j], inv, rne);
   if constexpr (Q == BF16) {
-    auto h = [rne](float v) -> unsigned {
-      return rne ? __float_as_uint(round_bf16(v)) >> 16 : (__float_as_uint(v) + 0x8000u) >> 16;
-    };
+    auto h = [](float v) -> unsigned { return __float_as_uint(v) >> 16; };  // exact
     if constexpr (METHOD == NEAREST) {
       *dst = (uint16_t)h(q[1]);
     } else if constexpr (METHOD == LINEAR) {
@@ -1432,28 +1542,34 @@ __device__ __forceinline__ void put_entry(const float* q, Unit<Q>* __restrict__ 
     }
   } else if constexpr (Q == I8) {
     static_assert(METHOD == CUBIC || METHOD == LANCZOS3, "int8 entries hold four taps");
-    auto b = [inv](float v) -> unsigned {
-      return (unsigned)(int)fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f) & 0xFFu;
-    };
+    auto b = [](float v) -> unsigned { return (unsigned)(int)v & 0xFFu; };
     *reinterpret_cast<unsigned*>(dst) = b(q[0]) | b(q[1]) << 8 | b(q[2]) << 16 | b(q[3]) << 24;
+  } else if constexpr (Q == H16) {
+    static_assert(METHOD == CUBIC && R == I8, "H16 entries hold the cubic of int8 taps");
+    const float4 c = cubic_coeffs(q);
+    auto h = [](float lo, float hi) -> unsigned {
+      return (unsigned)__half_as_ushort(__float2half_rn(lo))
+             | (unsigned)__half_as_ushort(__float2half_rn(hi)) << 16;
+    };
+    *reinterpret_cast<uint2*>(dst) = make_uint2(h(c.x, c.y), h(c.z, c.w));
   } else if constexpr (METHOD == NEAREST) {
     dst[0] = q[1];
   } else if constexpr (METHOD == LINEAR) {
     *reinterpret_cast<float2*>(dst) = make_float2(q[1], __fsub_rn(q[2], q[1]));
   } else if constexpr (METHOD == CUBIC) {
-    *reinterpret_cast<float4*>(dst) = make_float4(
-        q[1], __fmul_rn(0.5f, __fsub_rn(q[2], q[0])),
-        __fadd_rn(__fsub_rn(q[0], __fmul_rn(2.5f, q[1])),
-                  __fsub_rn(__fmul_rn(2.f, q[2]), __fmul_rn(0.5f, q[3]))),
-        __fadd_rn(__fmul_rn(1.5f, __fsub_rn(q[1], q[2])), __fmul_rn(0.5f, __fsub_rn(q[3], q[0]))));
+    float4 c = cubic_coeffs(q);
+    if constexpr (R == I8)
+      c = make_float4(__fmul_rn(c.x, dq), __fmul_rn(c.y, dq), __fmul_rn(c.z, dq),
+                      __fmul_rn(c.w, dq));
+    *reinterpret_cast<float4*>(dst) = c;
   } else {
     *reinterpret_cast<float4*>(dst) = make_float4(q[0], q[1], q[2], q[3]);
   }
 }
 
 // qs (I8: each transmit's scale s) and rne (BF16: round half to even) are
-// unused by the F32 variants.
-template <int METHOD, int C, bool FR, int Q>
+// unused by the other roundings.
+template <int METHOD, int C, bool FR, int Q, int R>
 __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x,
                                                      Unit<Q>* __restrict__ out, int T, int N,
                                                      int M, int64_t ldm, int F,
@@ -1462,6 +1578,7 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
   __shared__ float tile[C][LM][LS];
   const int k0 = blockIdx.x * LT;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // the transmit of entry q of the last axis, and its scale's 127 / s and s / 127
   for (int n = blockIdx.z; n < N; n += gridDim.z) {
     for (int m0 = blockIdx.y * LM; m0 < M; m0 += gridDim.y * LM) {
       __syncthreads();  // the last tile's reads are done
@@ -1480,23 +1597,17 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
       }
       __syncthreads();
       for (int mm = w; mm < LM && m0 + mm < M; mm += 8) {
-        if constexpr (FR) {
-          const int m = (m0 + mm) / F, f = m0 + mm - m * F;
-          const float inv = Q == I8 ? __fdiv_rn(127.f, __ldg(qs + m)) : 0.f;
-          for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-            Unit<Q>* dst = out + ((((int64_t)m * N + n) * T + k0 + kk) * F + f) * (C * E);
+        // entry q of the last axis: frame f of transmit m; its scale's 127 / s
+        // and s / 127 (I8)
+        const int q = m0 + mm, m = FR ? q / F : q, f = q - m * F;
+        const float inv = R == I8 ? __fdiv_rn(127.f, __ldg(qs + m)) : 0.f;
+        const float dq = R == I8 && Q == F32 ? __fdiv_rn(__ldg(qs + m), 127.f) : 1.f;
+        for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
+          Unit<Q>* dst = out + (FR ? (((int64_t)m * N + n) * T + k0 + kk) * F + f
+                                   : ((int64_t)q * N + n) * T + k0 + kk) * (C * E);
 #pragma unroll
-            for (int c = 0; c < C; ++c)
-              put_entry<METHOD, Q>(&tile[c][mm][kk], dst + c * E, inv, rne);
-          }
-        } else {
-          const float inv = Q == I8 ? __fdiv_rn(127.f, __ldg(qs + m0 + mm)) : 0.f;
-          for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-            Unit<Q>* dst = out + (((int64_t)(m0 + mm) * N + n) * T + k0 + kk) * (C * E);
-#pragma unroll
-            for (int c = 0; c < C; ++c)
-              put_entry<METHOD, Q>(&tile[c][mm][kk], dst + c * E, inv, rne);
-          }
+          for (int c = 0; c < C; ++c)
+            put_entry<METHOD, Q, R>(&tile[c][mm][kk], dst + c * E, inv, rne, dq);
         }
       }
     }
@@ -1504,24 +1615,25 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
 }
 
 // F frames a transmit: the last axis holds M F entries, ldm F a row.
-template <int METHOD, bool FR, int Q>
+template <int METHOD, bool FR, int Q, int R>
 cudaError_t run_layout(const float* x, Unit<Q>* out, int T, int N, int M, int64_t ldm, int F,
                        int cplx, const float* qs, int rne, cudaStream_t s) {
   const int mt = (M + LM - 1) / LM;
   const dim3 grid((T + LT - 1) / LT, mt < 65535 ? mt : 65535, N < 65535 ? N : 65535);
   if (cplx)
-    layout_kernel<METHOD, 2, FR, Q><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
+    layout_kernel<METHOD, 2, FR, Q, R><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
   else
-    layout_kernel<METHOD, 1, FR, Q><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
+    layout_kernel<METHOD, 1, FR, Q, R><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
   return cudaGetLastError();
 }
 
-template <int METHOD, int Q = F32>
+// Entries of type Q of the taps rounded as R says (F32: as they are).
+template <int METHOD, int Q = F32, int R = F32>
 cudaError_t layout_frames(const float* x, void* out, int T, int N, int M, int64_t ldm, int F,
                           int cplx, cudaStream_t s, const float* qs = nullptr, int rne = 0) {
   Unit<Q>* o = static_cast<Unit<Q>*>(out);
-  return F == 1 ? run_layout<METHOD, false, Q>(x, o, T, N, M, ldm, 1, cplx, qs, rne, s)
-                : run_layout<METHOD, true, Q>(x, o, T, N, M * F, ldm * F, F, cplx, qs, rne, s);
+  return F == 1 ? run_layout<METHOD, false, Q, R>(x, o, T, N, M, ldm, 1, cplx, qs, rne, s)
+                : run_layout<METHOD, true, Q, R>(x, o, T, N, M * F, ldm * F, F, cplx, qs, rne, s);
 }
 
 int layout_check(int T, int N, int M, long long ldm, int F, int device) {
@@ -1577,6 +1689,20 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
 
 }  // namespace
 
+#ifdef DAS_Q
+// Call f with a launch's entry type prec as a compile-time constant: this
+// unit's DAS_Q or, in the I8 unit, H16 (both need qs); refuse any other.
+template <class Fn>
+int with_prec(int prec, const float* qs, Fn&& f) {
+  if (per_tx_scale(prec) && !qs) return (int)cudaErrorInvalidValue;
+  if (prec == DAS_Q) return f(std::integral_constant<int, DAS_Q>{});
+  if constexpr (DAS_Q == I8) {
+    if (prec == H16) return f(std::integral_constant<int, H16>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#endif
+
 // The entry points. This file builds as several translation units, so
 // that their variants compile in parallel: as das.cu, K1 and K2 without
 // remodulation and the layout kernel; with DAS_IQ defined (das_iq.cu), K1
@@ -1589,8 +1715,10 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
 // an entry type the same build that type alone: BF16 (das_bf16.cu:
 // das_k1_q, das_lut_k2_q and the layout kernel's das_layout_q;
 // das_bf16_iq.cu; das_keep_bf16.cu: das_keep_q; das_keep_bf16_iq.cu;
-// das_keep_bf16_iq_wide.cu), I8 (das_i8*.cu, das_keep_i8*.cu) and F32X
-// (das_keep_acc16*.cu).
+// das_keep_bf16_iq_wide.cu), I8 with H16 (das_i8*.cu, das_keep_i8*.cu)
+// and F32X (das_keep_acc16*.cu). The layouts of float32 coefficients of
+// rounded taps come from the narrow units' das_layout_q, and the float32
+// units' kernels read them.
 //
 // Each unit defines its entries once per rotation: without DAS_IQ
 // unrotated (das_k1, ...); with it the rotation by sincos_reduced (das_k1_iq,
@@ -1624,16 +1752,17 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
       method, cplx, rot, add, keep, on, om, of, I2, I3, wr, wt, wd, strides, rx_kinds,    \
       tx_kinds, ori, lat, lat_tx, prm
 #ifdef DAS_Q
-// das_keep on a layout of this unit's entry type DAS_Q: das_keep's
-// arguments, then prec (the entry type: 1 BF16, 2 I8, 3 F32X), qs (I8:
-// s_m / 127 of each of the launch's transmits, else null) and acc16 (1:
-// out holds the kept sums as bfloat16, a pair for a complex sum, its
-// strides in sums; keep_rx, keep_tx or both only).
+// das_keep on a layout of this unit's entry type DAS_Q (the I8 unit: or
+// H16): das_keep's arguments, then prec (the entry type: 1 BF16, 2 I8, 3
+// F32X, 4 H16), qs (I8, H16: s_m / 127 of each of the launch's transmits,
+// else null) and acc16 (1: out holds the kept sums as bfloat16, a pair for
+// a complex sum, its strides in sums; keep_rx, keep_tx or both only).
 #define KEEP_ENTRIES_(R, sfx)                                                             \
   extern "C" int das_keep_q##sfx(KEEP_ARGS, int prec, const float* qs, int acc16,         \
                                  int device, void* stream) {                              \
-    if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;          \
-    return keep_launch<DAS_Q, R>(KEEP_PASS, Lp{qs, acc16}, device, stream);               \
+    return with_prec(prec, qs, [&](auto q) {                                              \
+      return keep_launch<decltype(q)::value, R>(KEEP_PASS, Lp{qs, acc16}, device, stream); \
+    });                                                                                   \
   }
 #else
 // Launch das_keep_kernel on `stream` of device `device` for M transmits
@@ -1692,48 +1821,65 @@ int k2_entry(K2_ARGS, Lp lp, int device, void* stream) {
 }
 
 #ifdef DAS_Q
-// K1 and K2 on a layout of this unit's entry type DAS_Q (BF16, I8):
-// das_k1's and das_lut_k2's arguments, then prec (the entry type) and qs
-// (I8: s_m / 127 of each of the launch's transmits, else null).
+// K1 and K2 on a layout of this unit's entry type DAS_Q (BF16, I8; the I8
+// unit: or H16): das_k1's and das_lut_k2's arguments, then prec (the entry
+// type) and qs (I8, H16: s_m / 127 of each of the launch's transmits, else
+// null).
 #define Q_ENTRIES_(R, sfx)                                                                \
   extern "C" int das_k1_q##sfx(K1_ARGS, int prec, const float* qs, int device,            \
                                void* stream) {                                            \
-    if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;          \
-    return k1_entry<R, DAS_Q>(K1_PASS, Lp{qs, 0}, device, stream);                        \
+    return with_prec(prec, qs, [&](auto q) {                                              \
+      return k1_entry<R, decltype(q)::value>(K1_PASS, Lp{qs, 0}, device, stream);         \
+    });                                                                                   \
   }                                                                                       \
   extern "C" int das_lut_k2_q##sfx(K2_ARGS, int prec, const float* qs, int device,        \
                                    void* stream) {                                        \
-    if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;          \
-    return k2_entry<R, DAS_Q>(K2_PASS, Lp{qs, 0}, device, stream);                        \
+    return with_prec(prec, qs, [&](auto q) {                                              \
+      return k2_entry<R, decltype(q)::value>(K2_PASS, Lp{qs, 0}, device, stream);         \
+    });                                                                                   \
   }
 ROTATIONS_(Q_ENTRIES_)
 
 #ifndef DAS_IQ
-// The layout kernel for this unit's entry type: das_layout's arguments,
-// then prec (the entry type; I8: cubic and lanczos3 only), qs (I8: the
-// scale s of each of transmits 0 .. M-1, (M,) float32) and rne (BF16: 1
-// rounds half to even, 0 half away from zero); out (M, N, T, F, [2,] E)
-// units of 2 (BF16) or 1 (I8) bytes.
+// The layout kernel for this unit's rounding: das_layout's arguments, then
+// prec (the unit's entry type, DAS_Q: its rounding; I8: cubic and lanczos3
+// only), qs (I8: the scale s of each of transmits 0 .. M-1, (M,) float32),
+// rne (BF16: 1 rounds half to even, 0 half away from zero) and form, the
+// entry type written: DAS_Q (the rounded taps), F32 (cubic: the float32
+// coefficients of the rounded taps, of int8 taps times s / 127) or, in the
+// I8 unit, H16 (cubic: the coefficients of the int8 taps in half
+// precision); out (M, N, T, F, [2,] E) units of 2 (BF16, H16), 1 (I8) or 4
+// (F32) bytes.
 extern "C" int das_layout_q(const float* x, void* out, int T, int N, int M, long long ldm,
                             int F, int method, int cplx, int prec, const float* qs, int rne,
-                            int device, void* stream) {
+                            int form, int device, void* stream) {
   const int err = layout_check(T, N, M, ldm, F, device);
   if (err != (int)cudaSuccess) return err;
   if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (method == CUBIC && form == F32)
+    return (int)layout_frames<CUBIC, F32, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+  if constexpr (DAS_Q == I8) {
+    if (method == CUBIC && form == H16)
+      return (int)layout_frames<CUBIC, H16, I8>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+  }
+  if (form != DAS_Q) return (int)cudaErrorInvalidValue;
   switch (method) {
     case NEAREST:
       if constexpr (DAS_Q != I8)
-        return (int)layout_frames<NEAREST, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+        return (int)layout_frames<NEAREST, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs,
+                                                         rne);
       break;
     case LINEAR:
       if constexpr (DAS_Q != I8)
-        return (int)layout_frames<LINEAR, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+        return (int)layout_frames<LINEAR, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs,
+                                                        rne);
       break;
     case CUBIC:
-      return (int)layout_frames<CUBIC, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+      return (int)layout_frames<CUBIC, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
     case LANCZOS3:
-      return (int)layout_frames<LANCZOS3, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+      return (int)layout_frames<LANCZOS3, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs,
+                                                        rne);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -62,16 +62,24 @@ modes): 'bf16pair' rounds every tap the kernels read to bfloat16 half away
 from zero (the TPU kernel's ``_pack_pairs``), 'bf16' (K1 only) half to even
 (its ``prep_real``), 'i8x4' (cubic and lanczos3 only) quantizes the taps to
 int8 with one scale per transmit (K1) or per call (K2), ``_pack_quads``;
-the weights, the rotation and the sums stay float32. The layout kernel
-writes the rounded taps as narrow entries (:func:`trace_layout`: 2 bytes a
-bf16 tap, 1 an int8 tap) and the same kernel body reads them, built in the
-reduced-precision units, one per entry type (``csrc/das_bf16.cu``,
-``das_i8.cu``, ``das_keep_bf16.cu``, ``das_keep_i8.cu`` and their ``_iq``
-twins). ``QUPS_DAS_ACC16=1`` (read at each call, as the TPU package's
+the weights, the rotation and the sums stay float32. The layout kernel of
+the precision's unit (``csrc/das_bf16.cu``, ``das_i8.cu``) rounds the taps
+and writes them in the entry form :func:`entry_form` plans
+(:data:`FORMS`, :func:`trace_layout`): for cubic 'i8x4' traces the int8
+taps' coefficients in half precision (exact), read by the int8 units; for
+the other real cubic traces, and in the keep kernel for real cubic 'i8x4'
+ones, the float32 coefficients of the rounded taps (of int8 taps times s /
+127), read by the float32 kernels; so a cubic term costs a float32 term's
+instructions. Else the rounded taps (2 bytes a bf16 tap, 1 an int8 tap),
+read by the same kernel body built in the
+reduced-precision units (``csrc/das_bf16.cu``, ``das_i8.cu``,
+``das_keep_bf16.cu``, ``das_keep_i8.cu`` and their ``_iq`` twins).
+``QUPS_DAS_ACC16=1`` (read at each call, as the TPU package's
 ``das_tiled`` reads it) stores K1's kept sums (``keep_rx``, ``keep_tx``)
 as bfloat16, half the bytes of the kept output, and returns them widened
 to float32 (``das_keep_acc16.cu`` and its twin for float32 traces).
-``PREC_LAUNCHES`` counts K1's launches of those units and
+``PREC_LAUNCHES`` counts K1's launches at a reduced precision or with
+``QUPS_DAS_ACC16``, whichever unit's kernel serves them, and
 ``LUT_PREC_LAUNCHES`` K2's; such a launch counts in no other counter. The
 plain versions apply the same rounding (:func:`round_taps`) and the scale
 per term, as the keep kernel applies it (the summed kernels apply it once
@@ -110,8 +118,8 @@ LAYOUT_LAUNCHES = 0  # launches of the layout kernel, which K1 and K2 read
 KEEP_LAUNCHES = 0  # das_keep_kernel's K1 launches with a keep mode (K1(c))
 APOD_LAUNCHES = 0  # das_keep_kernel's K1 launches with weights (K1(d))
 LUT_KEEP_LAUNCHES = 0  # das_keep_kernel's K2 launches (K2(c), dense weights)
-PREC_LAUNCHES = 0  # K1 launches of the reduced-precision units (K1(e))
-LUT_PREC_LAUNCHES = 0  # K2 launches of the reduced-precision units (K2(e))
+PREC_LAUNCHES = 0  # K1 launches at a reduced precision (K1(e)), whatever unit serves them
+LUT_PREC_LAUNCHES = 0  # K2 launches at a reduced precision (K2(e))
 LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
 TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
 KEEP_FRAMES = 1  # the keep kernel's frames a launch (csrc/das.cu)
@@ -128,8 +136,18 @@ _TX_CODE = {"plane": 0, "diverging": 1, "virtual": 2}
 _METHOD_CODE = {"nearest": 0, "linear": 1, "cubic": 2, "lanczos3": 3}
 DTYPES = (torch.float32, torch.complex64)
 PRECISIONS = ("f32", "bf16pair", "bf16", "i8x4")  # the trace precisions of K1; K2 no bf16
-_ENTRY = {"f32": 0, "bf16pair": 1, "bf16": 1, "i8x4": 2}  # csrc/das.cu Prec
-_UNIT = {0: torch.float32, 1: torch.int16, 2: torch.int8}  # a layout's unit, by entry type
+# A precision's rounding of the taps (csrc/das.cu Prec of the unit whose
+# layout kernel rounds them): none, bfloat16, int8
+_ENTRY = {"f32": 0, "bf16pair": 1, "bf16": 1, "i8x4": 2}
+H16 = 4  # csrc/das.cu Prec: the cubic's coefficients of int8 taps in half precision
+# The entry forms of a layout, each with the entry type (csrc/das.cu Prec)
+# of its entries and so of the kernels that read it: 'f32' the float32
+# traces' entries; 'bf16', 'i8' the rounded taps; 'f32c' the float32 cubic
+# coefficients of the rounded taps (of int8 taps times s / 127), read by
+# the float32 kernels; 'h16' the cubic coefficients of int8 taps in half
+# precision, exact (:func:`entry_form` plans which a call takes)
+FORMS = {"f32": 0, "bf16": 1, "i8": 2, "f32c": 0, "h16": H16}
+_UNIT = {0: torch.float32, 1: torch.int16, 2: torch.int8, H16: torch.int16}  # by entry type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,9 +313,10 @@ def dense_apod(apod, pi, pr, nv, *, im_shape=None, orientations=None, lat=None,
 
 
 # The libraries of the reduced-precision entry types (csrc/das_<name>.cu,
-# csrc/das_keep_<name>.cu and their _iq twins), by entry type; F32X
-# (float32 entries with bfloat16 kept sums) has a keep kernel alone.
-_Q_LIBS = {1: "bf16", 2: "i8", 3: "acc16"}
+# csrc/das_keep_<name>.cu and their _iq twins), by entry type (H16 in the
+# int8 unit); F32X (float32 entries with bfloat16 kept sums) has a keep
+# kernel alone.
+_Q_LIBS = {1: "bf16", 2: "i8", 3: "acc16", H16: "i8"}
 F32X = 3  # csrc/das.cu Prec: float32 entries, the kept sums stored as bfloat16
 
 
@@ -373,9 +392,9 @@ def build_keep(iq: bool = False, wide: bool = False):
 
 def build_q(q: int, iq: bool = False, wide: bool = False):
     """Build (if needed) and load the reduced-precision unit of entry type
-    ``q`` (1 bf16: ``csrc/das_bf16.cu``, 2 int8: ``das_i8.cu``; their
-    ``_iq`` twins with ``iq``, ``wide`` as for :func:`build`), K1(e) and
-    K2(e); return ``(K1's entry point, nvcc log)``."""
+    ``q`` (1 bf16: ``csrc/das_bf16.cu``, 2 int8 and 4 H16: ``das_i8.cu``;
+    their ``_iq`` twins with ``iq``, ``wide`` as for :func:`build`), K1(e)
+    and K2(e); return ``(K1's entry point, nvcc log)``."""
     return _bind("das_" + _Q_LIBS[q], "das_k1_q", iq, _K1_ARGS + _LP + _DEV, wide)
 
 
@@ -386,8 +405,9 @@ def build_lut_q(q: int, iq: bool = False, wide: bool = False):
 
 def build_keep_q(q: int, iq: bool = False, wide: bool = False):
     """Build (if needed) and load the keep kernel's unit of entry type ``q``
-    (1 bf16: ``csrc/das_keep_bf16.cu``, 2 int8: ``das_keep_i8.cu``, 3
-    float32 with bfloat16 kept sums: ``das_keep_acc16.cu``; their ``_iq``
+    (1 bf16: ``csrc/das_keep_bf16.cu``, 2 int8 and 4 H16:
+    ``das_keep_i8.cu``, 3 float32 with bfloat16 kept sums:
+    ``das_keep_acc16.cu``; their ``_iq``
     twins with ``iq``, ``wide`` as for :func:`build_keep`); return ``(its
     entry point, nvcc log)``."""
     return _bind("das_keep_" + _Q_LIBS[q], "das_keep_q", iq,
@@ -520,19 +540,50 @@ def build_layout():
 
 
 def build_layout_q(q: int):
-    """The layout kernel's entry point for entry type ``q`` (``das_layout_q``)
-    in the library of :func:`build_q`."""
+    """The layout kernel's entry point for the rounding ``q`` (1 bf16, 2
+    int8: ``das_layout_q``) in the library of :func:`build_q`."""
     return _bind("das_" + _Q_LIBS[q], "das_layout_q", False,
                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + _DEV)[0]
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + _DEV)[0]
+
+
+def taps_form(precision: str) -> str:
+    """The entry form that holds the taps rounded to ``precision``."""
+    return {"f32": "f32", "bf16pair": "bf16", "bf16": "bf16", "i8x4": "i8"}[precision]
+
+
+def entry_form(method: str, precision: str, cplx: bool, keep: bool = False) -> str:
+    """The entry form (:data:`FORMS`) of the layout K1 and K2 read for
+    ``method`` at ``precision`` on complex (``cplx``) or real traces,
+    whatever the frames, in the keep kernel (``keep``: keep modes or
+    weights) or the summed ones (csrc/das.cu's ``reads`` builds these
+    variants). A cubic's coefficients depend on the taps alone, so they are
+    formed once per tap base, in the layout, and a term costs a float32
+    term's instructions: 'i8x4' takes the int8 taps' coefficients in half
+    precision ('h16', 8 bytes a part: 73.2 against 76.4 ms for float32
+    coefficients at the headline, PERF.md §6), but real traces in
+    the keep kernel the float32 coefficients ('f32c'), whose float32 keep
+    units have unweighted variants for every keep mode (keep_tx 81 against
+    178 ms); real 'bf16pair' and 'bf16' traces take 'f32c'; the rest keep
+    the rounded taps (:func:`taps_form`: complex bf16 cubic traces share
+    the weights of u over 2 F tap sets, where 'f32c' ran 535 against 400
+    ms at the IQ headline)."""
+    if precision != "f32" and method == "cubic":
+        if precision == "i8x4" and (cplx or not keep):
+            return "h16"
+        if not cplx:
+            return "f32c"
+    return taps_form(precision)
 
 
 def frames_per_launch(method: str, precision: str = "f32", cplx: bool = True) -> int:
     """The frames a launch of K1(b)/K2(b) (das_frames_kernel) takes for
     ``method`` at ``precision`` on complex (``cplx``) or real traces:
-    csrc/das.cu's ``frames_a_launch``, ``FRAMES_A_LAUNCH`` but one for
-    complex cubic float32 traces."""
-    return 1 if method == "cubic" and _ENTRY[precision] == 0 and cplx else FRAMES_A_LAUNCH
+    csrc/das.cu's ``frames_a_launch`` for the entry type of the call's
+    form (:func:`entry_form`), ``FRAMES_A_LAUNCH`` but one for complex cubic
+    float32 traces."""
+    q = FORMS[entry_form(method, precision, cplx)]
+    return 1 if method == "cubic" and q == 0 and cplx else FRAMES_A_LAUNCH
 
 
 def reduced_rotation(w: float, T: int, fs: float) -> bool:
@@ -566,38 +617,56 @@ def _frames(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(tuple(x.shape[:3]) + (-1,))
 
 
-def tx_chunks(x: torch.Tensor, method: str, precision: str = "f32"):
+def tx_chunks(x: torch.Tensor, method: str, precision: str = "f32",
+              form: Optional[str] = None):
     """The ranges ``(m0, m1)`` of transmits of traces ``x (T, N, M, *F)``
     that K1 and K2 lay out and sum at once: as few chunks as keep each
-    layout (every frame of its transmits, in the entry type of
-    ``precision``: 4, 2 or 1 bytes a unit) within ``LAYOUT_BYTES``, of sizes
+    layout (every frame of its transmits, in the entry form ``form``,
+    default the summed call's :func:`entry_form`: 4, 2 or 1 bytes a unit, 4 units
+    a cubic or lanczos3 entry of a part) within ``LAYOUT_BYTES``, of sizes
     within one of each other."""
     T, N, M = x.shape[:3]
     F = int(np.prod(x.shape[3:], dtype=np.int64))
+    form = form or entry_form(method, precision, x.is_complex())
     units = (2 if x.is_complex() else 1) * {"nearest": 1, "linear": 2}.get(method, 4)
-    per_tx = _UNIT[_ENTRY[precision]].itemsize * units * T * N * F
+    per_tx = _UNIT[FORMS[form]].itemsize * units * T * N * F
     k = -(-M // max(1, LAYOUT_BYTES // per_tx))
     return [(M * j // k, M * (j + 1) // k) for j in range(k)]
 
 
+def _check_form(method: str, precision: str, form: str) -> int:
+    """The entry type of ``form`` (:data:`FORMS`) for a layout of ``method``
+    at ``precision``; raise ``ValueError`` where no layout kernel writes
+    it: 'f32c' (not at 'f32') and 'h16' ('i8x4' alone) hold a cubic."""
+    check_precision(precision, method)
+    ok = form == taps_form(precision) or (method == "cubic" and (
+        (form == "f32c" and precision != "f32") or (form == "h16" and precision == "i8x4")))
+    if form not in FORMS or not ok:
+        raise ValueError(f"no {form!r} layout of {method} taps at precision {precision!r}")
+    return FORMS[form]
+
+
 def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: str = "f32",
-                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 scale: Optional[torch.Tensor] = None, form: Optional[str] = None
+                 ) -> torch.Tensor:
     """:func:`trace_layout_plain` of transmits ``m0:m1`` of ``x``: for a
-    CUDA tensor by the layout kernel of ``csrc/das.cu`` (``das_bf16.cu``,
-    ``das_i8.cu`` at a reduced precision; bit for bit the same), else by
-    the plain version.
-    ``scale``: the (M,) 'i8x4' scales of all of x's transmits."""
+    CUDA tensor by the layout kernel of ``csrc/das.cu`` (at a reduced
+    precision that of the unit that rounds its taps, ``das_bf16.cu`` or
+    ``das_i8.cu``, in any form; bit for bit the same), else by the plain
+    version. ``scale``: the (M,) 'i8x4' scales of all of x's transmits;
+    ``form``: the entry form (default :func:`taps_form`)."""
     global LAYOUT_LAUNCHES
     m1 = x.shape[2] if m1 is None else m1
     sc = None if scale is None else scale[m0:m1]
+    form = form or taps_form(precision)
     if not is_cuda(x):
-        return trace_layout_plain(x[:, :, m0:m1], method, precision, sc)
+        return trace_layout_plain(x[:, :, m0:m1], method, precision, sc, form)
     if x.dtype not in DTYPES or x.ndim not in (3, 4):
         raise ValueError(f"K1 and K2 take float32 or complex64 (T, N, M[, F]) traces, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected {METHODS}")
-    check_precision(precision, method)
+    q = _check_form(method, precision, form)
     prec = _ENTRY[precision]
     if precision == "i8x4" and (sc is None or sc.numel() != m1 - m0):
         raise ValueError("precision='i8x4' needs one scale per transmit")
@@ -615,14 +684,14 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: 
     else:
         shape = ((m1 - m0, N, T) + fd + ((2,) if cplx else ())
                  + ({"nearest": (), "linear": (2,)}.get(method, (4,))))
-        dtype = _UNIT[prec]
+        dtype = _UNIT[q]
     out = torch.empty(shape, dtype=dtype, device=x.device)
     args = (x.data_ptr() + m0 * F * x.element_size(), out.data_ptr(), T, N, m1 - m0, M, F,
             _METHOD_CODE[method], int(cplx))
     if prec:
         sc = None if sc is None else sc.to(device=x.device, dtype=torch.float32).contiguous()
         rc = build_layout_q(prec)(*args, prec, None if sc is None else sc.data_ptr(),
-                                  int(precision == "bf16"), *_nvcc.stream_args(x.device))
+                                  int(precision == "bf16"), q, *_nvcc.stream_args(x.device))
     else:
         rc = build_layout()(*args, *_nvcc.stream_args(x.device))
     if rc != 0:
@@ -632,7 +701,8 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: 
 
 
 def trace_layout_plain(x: torch.Tensor, method: str, precision: str = "f32",
-                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       scale: Optional[torch.Tensor] = None,
+                       form: Optional[str] = None) -> torch.Tensor:
     """Traces ``x (T, N, M[, F])`` (float32 or complex64) as the kernels
     read them with the sampler ``method``, contiguous on the device of
     ``x``, one trace per (m, n), a term's frames next to each other:
@@ -644,23 +714,28 @@ def trace_layout_plain(x: torch.Tensor, method: str, precision: str = "f32",
       ``(M, N, T[, F], 2, 2 | 4)``, the real part's entry, then the
       imaginary part's.
 
-    At a reduced ``precision`` the entries hold the rounded taps
-    (:func:`round_taps`, ``scale`` the (M,) 'i8x4' scales) as their bits,
-    int16 (bf16) or int8: nearest ``(M, N, T[, F][, 2])`` the sample,
-    linear ``(..., 2)`` ``(x[k], x[k+1])``, cubic and lanczos3 ``(..., 4)``
-    the four taps ``x[k-1..k+2]``.
+    At a reduced ``precision`` the taps are rounded first
+    (:func:`round_taps`, ``scale`` the (M,) 'i8x4' scales) and ``form``
+    (default :func:`taps_form`) says what the entries hold: 'bf16' and
+    'i8' the rounded taps as their bits, int16 (bf16) or int8: nearest
+    ``(M, N, T[, F][, 2])`` the sample, linear ``(..., 2)`` ``(x[k],
+    x[k+1])``, cubic and lanczos3 ``(..., 4)`` the four taps ``x[k-1..k+2]``;
+    'f32c' (cubic) the float32 stencil entries of the rounded taps, the
+    int8 taps' times ``s_m / 127`` (:func:`dequant`); 'h16' (cubic,
+    'i8x4') the stencil entries of the int8 taps in half precision, exact,
+    as int16 bits.
 
     Every base ``k`` in ``[0, T - 1]`` then reads what the taps that
     ``ops/interp.py`` gathers with its indices clamped to ``[0, T - 1]``
     give, with no clamp in the kernel."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected {METHODS}")
-    check_precision(precision, method)
-    prec = _ENTRY[precision]
+    form = form or taps_form(precision)
+    q = _check_form(method, precision, form)
     x = round_taps(x, precision, scale)
     xt = x.permute(2, 1, 0, *range(3, x.ndim))  # (M, N, T[, F])
     if method == "nearest":
-        if not prec:
+        if not q:
             return xt.contiguous()
         s = torch.view_as_real(xt) if x.is_complex() else xt
     else:
@@ -668,14 +743,18 @@ def trace_layout_plain(x: torch.Tensor, method: str, precision: str = "f32",
         T = x.shape[0]
         xr = torch.view_as_real(xp) if x.is_complex() else xp[..., None]  # (M, N, T + 3[, F], C)
         taps = [xr[:, :, j:j + T] for j in range(4)]
-        ent = taps[1:3] if prec and method == "linear" else taps if prec else \
+        ent = taps[1:3] if q and method == "linear" else taps if q in (1, 2) else \
             stencil_entry(taps, method)
         s = torch.stack(ent, -1)
+        if form == "f32c" and precision == "i8x4":
+            s = s * dequant(scale).reshape((-1,) + (1,) * (s.ndim - 1))
         s = s if x.is_complex() else s[..., 0, :]
-    if prec == 1:
+    if q == 1:
         s = s.to(torch.bfloat16).view(torch.int16)  # exact: the taps are rounded
-    elif prec == 2:
+    elif q == 2:
         s = s.to(torch.int8)
+    elif q == H16:
+        s = s.to(torch.float16).view(torch.int16)  # exact: see csrc/das.cu
     return s.contiguous()
 
 
@@ -708,9 +787,11 @@ def _t0_on(t0, M: int, dev) -> torch.Tensor:
     return torch.as_tensor(tx_t0(t0, M), device=dev)
 
 
-def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None, out=None):
+def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None, out=None,
+                   form=None):
     """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
-    ``precision`` (``scale``: its (M,) 'i8x4' scales) and call
+    ``precision`` in the entry form ``form`` (default the call's
+    :func:`entry_form`; ``scale``: its (M,) 'i8x4' scales) and call
     ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
     ``fb_max`` frames of each chunk: w = 2 pi fmod in float32, add 1 after
     the first chunk. With ``out``
@@ -724,12 +805,14 @@ def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None,
         rows = torch.empty((F, out.shape[0]), dtype=out.dtype, device=out.device)
         for f in range(F):
             _launch_frames(xF[..., f].contiguous(), method, fmod,
-                           lambda *a, r=rows[f]: launch(*a, o=r), 1, precision, scale)
+                           lambda *a, r=rows[f]: launch(*a, o=r), 1, precision, scale,
+                           form=form)
         out.copy_(rows.T)
         return
     w = _w(fmod)
-    for j, (m0, m1) in enumerate(tx_chunks(xF, method, precision)):
-        xl = trace_layout(xF, method, m0, m1, precision, scale)
+    form = form or entry_form(method, precision, x.is_complex())
+    for j, (m0, m1) in enumerate(tx_chunks(xF, method, precision, form)):
+        xl = trace_layout(xF, method, m0, m1, precision, scale, form)
         for f0 in range(0, F, fb_max):
             launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
         del xl  # the next chunk's layout may take its memory
@@ -854,11 +937,14 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
     out_bytes = (8 if cplx or iq else 4) // (2 if acc16 else 1)  # a kept sum in out
     of, om, on = I, F * I, Mp * F * I
     keep = int(keep_rx) + 2 * int(keep_tx)
-    prec = _ENTRY[precision] or (F32X if acc16 else 0)
-    lp = prec != 0  # a reduced-precision unit's launch
+    form = entry_form(method, precision, cplx, keep=True)
+    q = FORMS[form] or (F32X if acc16 else 0)  # the kernel's entry type
+    lp = q != 0  # a reduced-precision unit's launch
+    counted = precision != "f32" or acc16  # K1(e), K2(e)
     wide = rotation(fmod, T, fs) == "sincosf"
-    fn, _ = build_keep_q(prec, iq, wide) if lp else build_keep(iq, wide)
-    dq = None if scale is None else dequant(scale)
+    fn, _ = build_keep_q(q, iq, wide) if lp else build_keep(iq, wide)
+    # s_m / 127 a transmit, where the kernel scales (not folded into the layout)
+    dq = dequant(scale) if q in (2, H16) else None
     nul = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lut = k2 is not None
     if lut:
@@ -885,14 +971,14 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
                 int(cplx), int(iq), 0 if keep_tx else add, keep, on, om, of, im_shape[1],
                 im_shape[2], *ptrs, ctypes.addressof(sa), rx_bits, tx_bits, nul(ori),
                 nul(latg), None if ltg is None else ltg[m0:].data_ptr(), ctypes.addressof(pa),
-                *((prec, None if dq is None else dq[m0:].data_ptr(), int(acc16)) if lp else ()),
+                *((q, None if dq is None else dq[m0:].data_ptr(), int(acc16)) if lp else ()),
                 *_nvcc.stream_args(dev))
         if rc != 0:
             raise RuntimeError(f"{'K2' if lut else 'K1'} keep/apodization launch failed "
                                f"with cudaError {rc}")
-        if lp and lut:
+        if counted and lut:
             LUT_PREC_LAUNCHES += 1
-        elif lp:
+        elif counted:
             PREC_LAUNCHES += 1
         elif lut:
             LUT_KEEP_LAUNCHES += 1
@@ -900,7 +986,7 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
             KEEP_LAUNCHES += int(keep != 0)
             APOD_LAUNCHES += int(bool(kern or wts))
 
-    _launch_frames(x, method, fmod, launch, KEEP_FRAMES, precision, scale)
+    _launch_frames(x, method, fmod, launch, KEEP_FRAMES, precision, scale, form=form)
     if acc16:  # widened exactly to float32
         out = torch.view_as_complex(out.float()) if cplx or iq else out.float()
     return out.permute(3, 0, 1, 2).reshape((I, Np, Mp) + fd)
@@ -938,8 +1024,10 @@ def _acc16_plain(x, pi, pr, pv, nv, t0, cinv, apod, *, keep_rx, keep_tx, method,
 
     if keep_rx and keep_tx:
         return round_bf16_even(part(slice(None), slice(None)))
-    if keep_rx:
-        blocks = [(slice(None), slice(m0, m1)) for m0, m1 in tx_chunks(x, method, precision)]
+    if keep_rx:  # the keep kernel's layout chunks
+        form = entry_form(method, precision, x.is_complex(), keep=True)
+        blocks = [(slice(None), slice(m0, m1))
+                  for m0, m1 in tx_chunks(x, method, precision, form)]
     else:
         blocks = [(slice(n0, n0 + NC), slice(None)) for n0 in range(0, N, NC)]
     acc = None
@@ -1032,14 +1120,15 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     fd = tuple(x.shape[3:])
     out = torch.empty((I, int(np.prod(fd, dtype=np.int64))),
                       dtype=torch.complex64 if cplx or iq else torch.float32, device=dev)
-    prec = _ENTRY[precision]
+    form = entry_form(method, precision, cplx)
+    q = FORMS[form]  # the kernel's entry type
     wide = rotation(fmod, T, fs) == "sincosf"
-    fn, _ = build_q(prec, iq, wide) if prec else build(iq, wide)
-    dq = None if scale is None else dequant(scale)
+    fn, _ = build_q(q, iq, wide) if q else build(iq, wide)
+    dq = dequant(scale) if q in (2, H16) else None  # where the kernel scales
 
     def launch(xl, m0, m1, F, f0, fb, w, add, o=out):
         global LAUNCHES, PREC_LAUNCHES
-        lp = (prec, None if dq is None else dq[m0:].data_ptr()) if prec else ()
+        lp = (q, None if dq is None else dq[m0:].data_ptr()) if q else ()
         rc = fn(xl.data_ptr(), pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(),
                 nv[m0:].data_ptr(), t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, T,
                 F, f0, fb, float(np.float32(cinv)), float(np.float32(fs)), w,
@@ -1047,13 +1136,13 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
                 *_nvcc.stream_args(dev))
         if rc != 0:
             raise RuntimeError(f"K1 launch failed with cudaError {rc}")
-        if prec:
+        if precision != "f32":
             PREC_LAUNCHES += 1
         else:
             LAUNCHES += 1
 
     _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx),
-                   precision, scale, out)
+                   precision, scale, out, form)
     return out.view((I, 1, 1) + fd)
 
 
@@ -1121,27 +1210,28 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
     fd = tuple(x.shape[3:])
     out = torch.empty((I, int(np.prod(fd, dtype=np.int64))),
                       dtype=torch.complex64 if cplx or iq else torch.float32, device=dev)
-    prec = _ENTRY[precision]
+    form = entry_form(method, precision, cplx)
+    q = FORMS[form]  # the kernel's entry type
     wide = rotation(fmod, T, fs) == "sincosf"
-    fn = build_lut_q(prec, iq, wide) if prec else build_lut(iq, wide)
-    dq = None if scale is None else dequant(scale)
+    fn = build_lut_q(q, iq, wide) if q else build_lut(iq, wide)
+    dq = dequant(scale) if q in (2, H16) else None  # where the kernel scales
 
     def launch(xl, m0, m1, F, f0, fb, w, add, o=out):
         global LUT_LAUNCHES, LUT_PREC_LAUNCHES
-        lp = (prec, None if dq is None else dq[m0:].data_ptr()) if prec else ()
+        lp = (q, None if dq is None else dq[m0:].data_ptr()) if q else ()
         rc = fn(xl.data_ptr(), tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(),
                 t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, M, T, F, f0, fb,
                 float(np.float32(fs)), w, _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
         if rc != 0:
             raise RuntimeError(f"K2 launch failed with cudaError {rc}")
-        if prec:
+        if precision != "f32":
             LUT_PREC_LAUNCHES += 1
         else:
             LUT_LAUNCHES += 1
 
     _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx),
-                   precision, scale, out)
+                   precision, scale, out, form)
     return out.view((I, 1, 1) + fd)
 
 

@@ -670,18 +670,21 @@ def test_k1b_k2b_past_phase_max_take_sincosf(card, cplx, monkeypatch):
 @pytest.mark.parametrize("precision", ["f32", "bf16pair", "i8x4"])
 def test_k1b_k2b_launch_as_the_plan_says(card, precision):
     """K1(b) and K2(b) launch once per block of frames_per_launch(method,
-    precision) frames (LAUNCHES and LUT_LAUNCHES, or the reduced-precision
-    units' PREC_LAUNCHES and LUT_PREC_LAUNCHES), with and without fmod, for
-    F = 1 to 9, and the image matches the plain version."""
+    precision, cplx) frames (LAUNCHES and LUT_LAUNCHES, or, whatever entry
+    form and so whichever unit's kernel serves the call, PREC_LAUNCHES and
+    LUT_PREC_LAUNCHES at a reduced precision: real cubic traces on the
+    float32 variants), with and without fmod, for F = 1 to 9, complex and
+    real traces, and the image matches the plain version."""
     x, tau_rx, tau_tx, t0, fs = lut_problem(T=256, N=16, M=4, n=32)
     _, pi, pr, pv, nv, t0m = problem("plane", T=256, N=16, M=4, n=32)
     methods = ("cubic", "lanczos3") if precision == "i8x4" else METHODS
     k1c, k2c = ("PREC_LAUNCHES", "LUT_PREC_LAUNCHES") if precision != "f32" else (
         "LAUNCHES", "LUT_LAUNCHES")
-    for F in (1, 2, 4, 5, 9):
-        xf = frame_traces(x, (F,), True, seed=F).to(card)
+    for F, cplx in ((1, True), (2, True), (4, True), (5, True), (9, True), (1, False),
+                    (5, False)):
+        xf = frame_traces(x, (F,), cplx, seed=F).to(card)
         for method in methods:
-            blocks = -(-F // das_cuda.frames_per_launch(method, precision))
+            blocks = -(-F // das_cuda.frames_per_launch(method, precision, cplx))
             for fmod in (0.0, 1e6):
                 for kern, plain, args, kw, counter in (
                         (das_cuda.das_sum, das_cuda.das_sum_plain,
@@ -692,7 +695,8 @@ def test_k1b_k2b_launch_as_the_plan_says(card, precision):
                     before = getattr(das_cuda, counter)
                     got = kern(*args, **kw)
                     torch.cuda.synchronize()
-                    assert getattr(das_cuda, counter) == before + blocks, (F, method, fmod)
+                    assert getattr(das_cuda, counter) == before + blocks, (F, cplx, method,
+                                                                          fmod)
                     ref = plain(*args, **kw)
                     err = float((got - ref).abs().max()) / float(ref.abs().max())
                     assert err < 1e-4, (F, method, fmod, precision, err)
@@ -737,6 +741,65 @@ def test_layout_kernel_narrow_entries_match_plain(card, T, N, M, F):
                 got = das_cuda.trace_layout(xg, method, m0, m1, precision, sc)
                 assert torch.equal(got, das_cuda.trace_layout_plain(
                     xg[:, :, m0:m1], method, precision, None if sc is None else sc[m0:m1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,M,F", [(1, 3, 2, 1), (3, 2, 1, 5), (130, 5, 40, 1), (70, 2, 7, 3)])
+def test_layout_kernel_coefficient_forms_match_plain(card, T, N, M, F):
+    """The layout kernel's cubic coefficient forms against
+    trace_layout_plain, bit for bit: 'f32c', the float32 coefficients of
+    the taps rounded to bf16 half away from zero and half to even (exact
+    ties among them) and of the int8 taps times s_m / 127 (transmits 60
+    dB apart), and 'h16', the int8 taps' coefficients in half precision;
+    real and complex, one frame and several, whole and by a chunk of
+    transmits, each one launch."""
+    rng = np.random.default_rng(64)
+    x = rng.standard_normal((T, N, M, F)).astype(np.float32)
+    x *= np.logspace(0, -3, M, dtype=np.float32)[None, None, :, None]
+    b = x.reshape(-1).view(np.int32)
+    b[::5] = (b[::5] & ~0xFFFF) | 0x8000  # bf16 ties
+    for xa in (x, (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)):
+        xg = torch.as_tensor(xa, device=card)
+        s = das_cuda.i8_scale(xg)
+        for precision, form in (("bf16pair", "f32c"), ("bf16", "f32c"), ("i8x4", "f32c"),
+                                ("i8x4", "h16")):
+            sc = s if precision == "i8x4" else None
+            before = das_cuda.LAYOUT_LAUNCHES
+            got = das_cuda.trace_layout(xg, "cubic", precision=precision, scale=sc, form=form)
+            assert das_cuda.LAYOUT_LAUNCHES == before + 1
+            ref = das_cuda.trace_layout_plain(xg, "cubic", precision, sc, form)
+            assert got.dtype == ref.dtype == (torch.int16 if form == "h16" else torch.float32)
+            assert got.shape == ref.shape and torch.equal(got, ref), (precision, form)
+            m0, m1 = M // 3, M - M // 4
+            got = das_cuda.trace_layout(xg, "cubic", m0, m1, precision, sc, form)
+            assert torch.equal(got, das_cuda.trace_layout_plain(
+                xg[:, :, m0:m1], "cubic", precision, None if sc is None else sc[m0:m1], form))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16pair", "bf16"])
+def test_real_cubic_bf16_is_float32_on_rounded_taps(card, precision):
+    """A real cubic K1(e) call at 'bf16pair' or 'bf16' (K2(e): 'bf16pair')
+    is the float32 term on the float32 layout of the rounded taps: bit for
+    bit das_sum(round_taps(x), precision='f32'), one frame and 6 (two
+    launches), with fmod and without, each launch counted as K1(e)'s."""
+    x, tau_rx, tau_tx, t0, fs = lut_problem()
+    for fdims in ((), (6,)):
+        xf = frame_traces(x, fdims, False).to(card)
+        xq = das_cuda.round_taps(xf, precision)
+        calls = [(das_cuda.das_sum, problem(model)[1:6] + (CINV,), dict(fs=fs, tx_model=model),
+                  "PREC_LAUNCHES") for model in ("plane", "diverging", "virtual")]
+        if precision == "bf16pair":
+            calls.append((das_cuda.das_lut_sum, (tau_rx, tau_tx, t0), dict(fs=fs),
+                          "LUT_PREC_LAUNCHES"))
+        for kern, args, kw, counter in calls:
+            for fmod in (0.0, 1e6):
+                kw = dict(kw, method="cubic", fmod=fmod)
+                before = getattr(das_cuda, counter)
+                got = kern(xf, *args, precision=precision, **kw)
+                torch.cuda.synchronize()
+                assert getattr(das_cuda, counter) == before + (2 if fdims else 1)
+                assert torch.equal(got, kern(xq, *args, **kw)), (kern.__name__, fdims, fmod)
 
 
 @pytest.mark.cuda
@@ -827,9 +890,10 @@ def test_acc16_matches_plain(card, precision, keep, monkeypatch):
     x, pi, pr, pv, nv, t0 = problem("virtual", N=70, M=9, n=20)
     pi = pi[:300]
     xg = torch.as_tensor(x).to(card)
+    form = das_cuda.entry_form("cubic", precision, False, keep=True)  # f32c: 4-byte units
     monkeypatch.setattr(das_cuda, "LAYOUT_BYTES",
-                        3 * {"f32": 4, "bf16pair": 2, "i8x4": 1}[precision] * 4 * 512 * 70)
-    assert len(das_cuda.tx_chunks(xg, "cubic", precision)) == 3
+                        3 * das_cuda._UNIT[das_cuda.FORMS[form]].itemsize * 4 * 512 * 70)
+    assert len(das_cuda.tx_chunks(xg, "cubic", precision, form)) == 3
     kw = dict(fs=4e6, tx_model="virtual", method="cubic", precision=precision, **KEEPS[keep])
     before = _lp_counts()
     got = das_cuda.das_sum(xg, pi, pr, pv, nv, t0, CINV, **kw)

@@ -216,8 +216,10 @@ def test_keep_plan_of_plain_parts_matches_jax(keep, weights, src, monkeypatch):
                            ("i8x4", True)) for k in sorted(KEEPS) if k or not a])
 @pytest.mark.parametrize("fmod", [0.0, 2.5e6, 1e11], ids=["none", "reduced", "sincosf"])
 def test_keep_entry_follows_rotation_and_precision(fmod, precision, acc16, keep, monkeypatch):
-    """The unit and entry _das_keep binds: the precision's keep unit (acc16:
-    the float32 unit with bfloat16 kept sums, a keep mode only),
+    """The unit and entry _das_keep binds: the keep unit of the call's entry
+    form (real cubic traces: the float32 coefficients of the rounded taps,
+    the float32 unit at every precision; acc16: the float32 unit with
+    bfloat16 kept sums, a keep mode only),
     remodulating past fmod 0, by sincosf (the _iq_wide entries) where
     rotation() says the phases may pass PHASE_MAX; one launch a frame;
     acc16 passed to the unit."""
@@ -233,7 +235,12 @@ def test_keep_entry_follows_rotation_and_precision(fmod, precision, acc16, keep,
                              keep_rx=KEEPS[keep][0], keep_tx=KEEPS[keep][1], im_shape=None,
                              k1=k1, cinv=CINV, tx_model="plane", precision=precision,
                              scale=scale, acc16=acc16)
-    q = das_cuda._ENTRY[precision] or (das_cuda.F32X if acc16 else 0)
+    # the keep kernel's entry form: real cubic traces take the float32
+    # coefficients of the rounded taps at every precision, read by the
+    # float32 units
+    q = das_cuda.FORMS[das_cuda.entry_form("cubic", precision, False, keep=True)] or (
+        das_cuda.F32X if acc16 else 0)
+    assert q == (das_cuda.F32X if acc16 else 0)
     assert bound == [(q, fmod != 0, rot == "sincosf")]
     assert [(c["f0"], c["fb"]) for c in calls] == [(0, 1), (1, 1), (2, 1)]
     assert all(c["acc16"] == (int(acc16) if q else None) for c in calls)

@@ -347,10 +347,39 @@ def test_trace_dtypes_are_cast(dtype):
 
 
 def test_tx_chunks_count_entry_bytes(monkeypatch):
-    """The layout budget counts the narrow entries: at a budget that holds
-    one float32 cubic transmit, bf16 takes two a chunk, int8 four."""
+    """The layout budget counts each entry form's real bytes: at a budget
+    that holds one float32 cubic transmit, the rounded taps' forms take two
+    (bf16) or four (int8) a chunk, the float32 coefficients of rounded taps
+    (the plan's form for real cubic bf16 traces, and for real cubic int8
+    ones in the keep kernel) one, the int8 taps' half-precision
+    coefficients (the summed kernels' cubic 'i8x4') two; each chunk's
+    layout, as trace_layout_plain writes it, fits the budget."""
     x = torch.zeros((256, 16, 4))
-    monkeypatch.setattr(das_cuda, "LAYOUT_BYTES", 4 * 4 * 256 * 16)
+    xc = torch.zeros((256, 16, 4), dtype=torch.complex64)
+    budget = 4 * 4 * 256 * 16
+    monkeypatch.setattr(das_cuda, "LAYOUT_BYTES", budget)
     assert len(das_cuda.tx_chunks(x, "cubic")) == 4
-    assert len(das_cuda.tx_chunks(x, "cubic", "bf16pair")) == 2
-    assert len(das_cuda.tx_chunks(x, "cubic", "i8x4")) == 1
+    assert len(das_cuda.tx_chunks(x, "cubic", "bf16pair", "bf16")) == 2
+    assert len(das_cuda.tx_chunks(x, "cubic", "i8x4", "i8")) == 1
+    for precision in ("bf16pair", "bf16", "i8x4"):  # the plan's forms
+        for keep in (False, True):
+            form = das_cuda.entry_form("cubic", precision, False, keep)
+            assert form == ("h16" if precision == "i8x4" and not keep else "f32c")
+            assert len(das_cuda.tx_chunks(x, "cubic", precision, form)) == (
+                2 if form == "h16" else 4)
+        assert len(das_cuda.tx_chunks(x, "cubic", precision)) == (
+            2 if precision == "i8x4" else 4)
+        assert len(das_cuda.tx_chunks(x, "cubic", precision, "f32c")) == 4
+    assert len(das_cuda.tx_chunks(xc, "cubic", "i8x4")) == 4  # h16: 16 bytes a tap base
+    assert len(das_cuda.tx_chunks(xc, "cubic", "bf16pair")) == 4
+    assert len(das_cuda.tx_chunks(xc, "lanczos3", "i8x4")) == 2
+    assert len(das_cuda.tx_chunks(x, "linear", "bf16pair")) == 1
+    s = das_cuda.i8_scale(x + 1.0)
+    for xx in (x, xc):
+        for precision in ("bf16pair", "i8x4"):
+            for method, keep in (("cubic", False), ("cubic", True), ("lanczos3", False)):
+                form = das_cuda.entry_form(method, precision, xx.is_complex(), keep)
+                for m0, m1 in das_cuda.tx_chunks(xx, method, precision, form):
+                    lay = das_cuda.trace_layout_plain(xx[:, :, m0:m1] + 1.0, method, precision,
+                                                      s[m0:m1], form)
+                    assert 0 < lay.numel() * lay.element_size() <= budget

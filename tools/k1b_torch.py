@@ -29,6 +29,27 @@ timed with CUDA events, for the ``qups_tpu_torch`` package under ROOT
   the IQ headline and fmod, keep_tx and the fused call), each copy's keep
   kernel for plane waves and tables and the cubic sampler alone, built
   under ``_build/k1b_sweep/``;
+* ``lp``: the reduced trace precisions (K1(e), K2(e)): chip_smoke.py
+  phase 18's calls at the headline (K1 bf16pair every sampler, bf16
+  cubic, i8x4 cubic and lanczos3; K2 bf16pair every sampler, i8x4 cubic
+  and lanczos3; the float32 calls beside them), the layout kernel alone
+  in each entry form the package has (``das_cuda.FORMS``; else the rounded
+  taps), keep_rx and keep_tx in i8x4, keep_rx in bf16pair and with
+  ``QUPS_DAS_ACC16``, the IQ headline (4 frames, fmod 5 MHz, cubic) and
+  the PICMUS IQ call (phase 23's system: 128 elements, 75 plane waves, 4
+  frames, 512^2 px, seeded complex traces of T 1536 at 20.832 MHz, fmod
+  5.208 MHz, cubic) in float32, bf16pair and i8x4;
+* ``lpsweep``: K1(e)/K2(e)'s entry forms as shipped against alternatives
+  (``--lp-configs``, a JSON list of objects: ``form`` {"<method>
+  <real|complex> <precision>": form} the entry forms to launch instead of
+  ``das_cuda.entry_form``'s, from a copy of ``csrc/das.cu`` whose
+  ``reads`` builds every form; ``horner: true`` the rounded taps' cubic
+  as Horner on tap differences instead of the weights of u and a 4-tap
+  dot; ``i2f: true`` int8 taps widened by a sign extension and an
+  ``I2F`` instead of ``__byte_perm`` into a float's mantissa and one
+  subtraction; ``cases`` substrings, joined by ``|``; the keep calls
+  are not swept), the narrow units of each copy built under
+  ``_build/k1b_sweep/``;
 * ``sweep``: das_frames_kernel as shipped against alternatives, K1 at the
   IQ headline for every sampler x {real (the IQ traces' real part),
   complex} x {fmod, none}, 4 frames in one call (``--configs``, a JSON
@@ -49,7 +70,7 @@ variant the package builds and the card's name and power limit. Each time
 is the mean of ``--reps`` calls after one warm-up call (lanczos3 one).
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/k1b_torch.py [--root DIR] [--what iq summed keep sweep keepsweep]
+    python3 tools/k1b_torch.py [--root DIR] [--what iq summed keep sweep keepsweep lp lpsweep]
 
 To compare with another commit, unpack it (``git archive``) under a
 directory .gitignore lists and run this script with ``--root`` there and
@@ -57,7 +78,7 @@ here in turns (parent, change, change, parent); ``sweep`` needs this
 checkout's kernel plan, ``keepsweep`` its keep kernel. The last line is
 one JSON object: {"root", "card", "ms": {case: ms}, "bits": {case:
 sha256}, "sweep": {config: {case: ms}}, "keep_sweep": {config: {case:
-ms}}, "variants"}.
+ms}}, "lp_sweep": {config: {case: ms}}, "variants"}.
 """
 import argparse
 import hashlib
@@ -112,6 +133,45 @@ NO_PREFETCH = [
     (r"          if \(n0 > 0\) prev = kept_load<Q>\(k, out, i \+ m \* k\.om\);\n", ""),
     (r"n0 == 0 \? acc : prev \+ acc", "n0 == 0 ? acc : kept_load<Q>(k, out, i + m * k.om) + acc"),
 ]
+# the lp sweep's default configurations: the summed calls' forms not
+# shipped (the rounded taps for real cubic traces, float32 coefficients for
+# real cubic int8 taps, int8 taps for complex cubic ones, float32
+# coefficients for complex cubic bf16 traces) and the narrow samplers'
+# alternatives
+LP_SWEEP = [{"form": {"cubic real bf16pair": "bf16", "cubic real i8x4": "i8"},
+             "cases": "real cubic"},
+            {"form": {"cubic real i8x4": "f32c"}, "cases": "real cubic i8x4"},
+            {"form": {"cubic complex i8x4": "i8"}, "cases": "IQ cubic i8x4"},
+            {"form": {"cubic complex bf16pair": "f32c"}, "cases": "IQ cubic bf16pair"},
+            {"horner": True, "cases": "IQ cubic bf16pair"},
+            {"i2f": True, "cases": "lanczos3 i8x4"}]
+# a copy's reads(): every form of each entry type
+READS_ALL = [(r"(constexpr bool reads\(int q, int method, bool cplx, bool keep\) \{\s*return ).*?;",
+              lambda m: m.group(1) + "q == I8 ? method >= CUBIC : q == H16 ? method == CUBIC "
+              ": true;")]
+# the rounded taps' cubic as Horner on tap differences (2 c3, 2 c2, 2 c1,
+# then three FMAs in u and u / 2)
+HORNER = [(r"(template <int METHOD, typename V, int Q>\n__device__ __forceinline__ V lp_sample)",
+           lambda m: """template <int M_>
+__device__ __forceinline__ float tap_sample(float u, float4 w, float4 p) {
+  if constexpr (M_ == CUBIC) {
+    const float a = (p.w - p.x) + 3.f * (p.y - p.z);
+    const float b = (p.x + p.z) - 2.f * p.y - a;
+    return fmaf(0.5f * u, fmaf(u, fmaf(u, a, b), p.z - p.x), p.y);
+  } else {
+    return dot4(w, p);
+  }
+}
+
+""" + m.group(1)),
+          (r"const float4 w = METHOD == CUBIC \? cubic_w\(u\) : lanczos_w\(u\);",
+           "const float4 w = METHOD == CUBIC ? float4{} : lanczos_w(u);"),
+          (r"dot4\(w, (bf_taps|i8_taps)\(", r"tap_sample<METHOD>(u, w, \1(")]
+# int8 taps widened by a sign extension and a conversion (I2F)
+I2F = [(r"(__device__ __forceinline__ float4 i8_taps\(unsigned w\) \{\n).*?\n\}",
+        lambda m: m.group(1) + """  return make_float4((float)((int)(w << 24) >> 24), (float)((int)(w << 16) >> 24),
+                     (float)((int)(w << 8) >> 24), (float)((int)w >> 24));
+}""")]
 # the short rotation's reduction in one double-precision FMA
 DOUBLE_REDUCTION = """  const double xd = x;
   const double t = fma(xd, 0.63661977236758134308, 0x1.8p52);
@@ -163,6 +223,38 @@ def _plan_source(src: str, cfg: dict) -> str:
     return src
 
 
+def _lp_source(src: str, cfg: dict) -> str:
+    """das.cu with the edits of an lp sweep configuration: ``reads`` that
+    builds every form (``form``), Horner on tap differences (``horner``),
+    the sign extension and I2F widening of int8 taps (``i2f``)."""
+    subs = READS_ALL + (HORNER if cfg.get("horner") else []) + (I2F if cfg.get("i2f") else [])
+    for pat, rep in subs:
+        src, n = re.subn(pat, rep, src, flags=re.S)
+        assert n >= 1, pat
+    return src
+
+
+def _picmus_iq(torch, qt):
+    """chip_smoke.py phase 23's system (PICMUS PW75: an L11-4v's 128
+    elements, 75 plane waves over +-16 degrees, 512^2 px over x +-18 mm, z
+    10-50 mm) and seeded complex traces for it, (1536, 128, 75, 4)
+    complex64 at 4 fc = 20.832 MHz, t0 0: (traces, (pi, pr, pv, nv),
+    tx model, fs, fmod)."""
+    import numpy as np
+
+    fc, c0 = 5.208e6, 1540.0
+    xdc = qt.TransducerArray(numel=128, pitch=0.3e-3, fc=fc)
+    us = qt.UltrasoundSystem(
+        tx=xdc, rx=xdc, seq=qt.SequenceRadial(type="PW", angles=np.linspace(-16, 16, 75), c0=c0),
+        scan=qt.ScanCartesian(x=np.linspace(-18e-3, 18e-3, 512),
+                              z=np.linspace(10e-3, 50e-3, 512)), fs=4 * fc)
+    pv, nv, model = us._tx_geometry()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((1536, 128, 75, 4, 2), generator=g, device="cuda")
+    return (torch.view_as_complex(x), (us._pixels(), us.rx.positions().T, pv, nv), model,
+            4 * fc, fc)
+
+
 def _keep_source(src: str, cfg: dict) -> str:
     """das.cu with the keep kernel's edits ``cfg`` names (KEEP_CONSTANTS,
     ``shared``, ``prefetch``)."""
@@ -212,6 +304,9 @@ def main():
     ap.add_argument("--keep-configs", type=json.loads, default=KEEP_SWEEP,
                     help="the keep sweep's configurations, a JSON list of objects with any of "
                          + ", ".join(KEEP_CONSTANTS) + ", rxsums, prefetch, cases")
+    ap.add_argument("--lp-configs", type=json.loads, default=LP_SWEEP,
+                    help="the lp sweep's configurations, a JSON list of objects with any of "
+                         "form, horner, i2f, cases")
     ap.add_argument("--methods", nargs="+", default=None,
                     help="the samplers of iq (default all) and keep (default nearest cubic)")
     args = ap.parse_args()
@@ -234,7 +329,7 @@ def main():
                           text=True).stdout.strip()
     print(f"card: {card}; package: {root}", flush=True)
     res = {"root": root, "card": card, "ms": {}, "bits": {}, "sweep": {}, "keep_sweep": {},
-           "variants": {}}
+           "lp_sweep": {}, "variants": {}}
     builds = [("das", das_cuda.build), ("das_iq", lambda: das_cuda.build(iq=True))]
     keeping = "keep" in args.what or "keepsweep" in args.what
     if keeping:
@@ -242,8 +337,25 @@ def main():
                    ("das_keep_iq", lambda: das_cuda.build_keep(iq=True)),
                    ("das_keep_i8", lambda: das_cuda.build_keep_q(2)),
                    ("das_keep_acc16", lambda: das_cuda.build_keep_q(3))]
+    lp = "lp" in args.what or "lpsweep" in args.what
+    if lp:
+        builds += [("das_keep", das_cuda.build_keep), ("das_keep_acc16",
+                                                        lambda: das_cuda.build_keep_q(3))]
+        for q in (1, 2):
+            builds += [(f"das_q{q}", lambda q=q: das_cuda.build_q(q)),
+                       (f"das_q{q}_iq", lambda q=q: das_cuda.build_q(q, True)),
+                       (f"das_keep_q{q}", lambda q=q: das_cuda.build_keep_q(q))]
+    builds = list(dict(builds).items())
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source, at once
         logs = dict(zip([b[0] for b in builds], ex.map(lambda b: b[1]()[1], builds)))
+    if lp:
+        for lib in ("das_q1", "das_q1_iq", "das_q2", "das_q2_iq", "das_keep_q1", "das_keep_q2"):
+            f = cs.ptxas_functions(logs[lib])
+            if f:
+                regs = [v[0] for v in f.values()]
+                print(f"{lib}: {len(f)} kernel variants, {min(regs)}-{max(regs)} registers, "
+                      f"stack {max(v[1] for v in f.values())} bytes, spill stores "
+                      f"{max(v[2] for v in f.values())} bytes", flush=True)
     for lib in ("das", "das_iq"):
         res["variants"][lib] = _variants(cs, logs[lib], lib)
     if keeping:
@@ -445,7 +557,129 @@ def main():
             _nvcc._loaded.clear()
             _nvcc._loaded.update(shipped)
         keep_sweep("shipped, again", {})
+    if lp:
+        lp_cases = _lp_cases(args, cs, torch, qt, das_cuda, delay_tables, cinv)
+    if "lp" in args.what:
+        for name, (fn, n) in lp_cases.items():
+            timed(name, fn, n)
+    if "lpsweep" in args.what:
+        base = os.path.join(root, "qups_tpu_torch", "_build", "k1b_sweep")
+        csrc = os.path.join(root, "qups_tpu_torch", "csrc")
+        das_src = open(os.path.join(csrc, "das.cu")).read()
+        libs = ("das_bf16", "das_bf16_iq", "das_i8", "das_i8_iq")
+        copies, jobs = {}, []
+        for cfg in args.lp_configs:  # a copy of csrc/ a distinct edit
+            key = (bool(cfg.get("horner")), bool(cfg.get("i2f")))
+            if key not in copies:
+                d = Path(base) / ("lp_" + ("_".join(k for k, v in zip(("horner", "i2f"), key)
+                                                    if v) or "forms"))
+                shutil.rmtree(d, ignore_errors=True)
+                shutil.copytree(csrc, d)
+                src = _lp_source(das_src, cfg)
+                (d / "das.cu").write_text(src)
+                copies[key] = len(jobs)
+                jobs += [(d / f"{lib}.cu", src.encode()) for lib in libs]
+        with ThreadPoolExecutor(max(1, len(jobs))) as ex:  # one nvcc per source, at once
+            done = list(ex.map(lambda j: _nvcc._build(
+                j[0], j[1], [_nvcc.nvcc(), *_nvcc.flags(j[0].stem)]), jobs))
+        shipped = (das_cuda.entry_form, dict(_nvcc._loaded))
+
+        def lp_sweep(key, cfg):
+            names = [c for c in lp_cases if not c.startswith("keep")  # the shipped keep units
+                     and any(p in c for p in cfg.get("cases", "").split("|"))]
+            res["lp_sweep"][key] = {c: cs._ms(lp_cases[c][0], lp_cases[c][1]) for c in names}
+            print(f"lp sweep [{key}]: {res['lp_sweep'][key]}", flush=True)
+
+        lp_sweep("shipped", {"cases": "|".join(sorted({c.get("cases", "")
+                                                       for c in args.lp_configs}))})
+        for cfg in args.lp_configs:
+            key = _name(cfg)
+            i = copies[(bool(cfg.get("horner")), bool(cfg.get("i2f")))]
+            for j, lib in enumerate(libs):
+                _nvcc._loaded[lib] = done[i + j]
+                _variants(cs, done[i + j][1], f"lp sweep [{key}] {lib}")
+            forms = cfg.get("form", {})
+            das_cuda.entry_form = lambda m, p, c, keep=False, _f=forms: shipped[0](
+                m, p, c, keep) if keep else _f.get(f"{m} {'complex' if c else 'real'} {p}",
+                                                   shipped[0](m, p, c))
+            lp_sweep(key, cfg)
+            das_cuda.entry_form = shipped[0]
+            _nvcc._loaded.clear()
+            _nvcc._loaded.update(shipped[1])
+        lp_sweep("shipped, again", {"cases": "|".join(sorted({c.get("cases", "")
+                                                              for c in args.lp_configs}))})
     print(json.dumps(res))
+
+
+def _lp_cases(args, cs, torch, qt, das_cuda, delay_tables, cinv):
+    """{name: (call, reps)} of ``--what lp`` and ``lpsweep``: the headline's
+    K1(e)/K2(e) and float32 calls, the layout kernel in each form, the
+    keep calls, and the IQ headline and the PICMUS IQ call at each
+    precision (see the head of this file)."""
+    from qups_tpu_torch import bench
+
+    n, T, N, M, fs = 1024, 4096, 256, 256, 31.25e6
+    x0, pi, pr, pv, nv, t0 = bench.das_problem(T=T, N=N, M=M, n=n)
+    xg = torch.as_tensor(x0).cuda()
+    del x0
+    pig = torch.as_tensor(pi).cuda()
+    tau_rx, tau_tx = delay_tables(pi, pr, pv, nv, 1540.0, "plane", device="cuda")
+    reps = lambda m: 1 if m == "lanczos3" else args.reps  # noqa: E731
+    k1 = lambda m, xx=xg, **k: das_cuda.das_sum(  # noqa: E731
+        xx, pig, pr, pv, nv, t0, cinv, tx_model="plane", fs=fs, method=m, **k)
+    k2 = lambda m, xx=xg, **k: das_cuda.das_lut_sum(  # noqa: E731
+        xx, tau_rx, tau_tx, t0, fs=fs, method=m, **k)
+    takes = {"f32": METHODS, "bf16pair": METHODS, "bf16": ("cubic",),
+             "i8x4": ("cubic", "lanczos3")}
+    cases = {}
+    for kn, kern in (("K1", k1), ("K2", k2)):
+        for p, ms in takes.items():
+            for m in ms:
+                if not (kn == "K2" and p == "bf16"):
+                    cases[f"{kn} real {m} {p}"] = (lambda k=kern, m=m, p=p: k(m, precision=p),
+                                                    reps(m))
+    forms = getattr(das_cuda, "FORMS", None)
+    s8 = das_cuda.i8_scale(xg)
+    for p, form in (("f32", None), ("bf16pair", "bf16"), ("i8x4", "i8"), ("bf16pair", "f32c"),
+                    ("i8x4", "f32c"), ("i8x4", "h16")):
+        if form in ("f32c", "h16") and forms is None:
+            continue  # the parent's package: the rounded taps alone
+        kw = dict(precision=p, scale=s8 if p == "i8x4" else None)
+        if form in ("f32c", "h16"):
+            kw["form"] = form
+        cases[f"layout kernel alone real cubic {p} {form or 'f32'}"] = (
+            lambda kw=kw: das_cuda.trace_layout(xg, "cubic", **kw), args.reps)
+
+    def acc16(fn):
+        os.environ["QUPS_DAS_ACC16"] = "1"
+        try:
+            return fn()
+        finally:
+            del os.environ["QUPS_DAS_ACC16"]
+
+    cases.update({
+        "keep_rx real cubic i8x4": (lambda: k1("cubic", keep_rx=True, precision="i8x4"), 2),
+        "keep_tx real cubic i8x4": (lambda: k1("cubic", keep_tx=True, precision="i8x4"), 2),
+        "keep_rx real cubic bf16pair": (lambda: k1("cubic", keep_rx=True, precision="bf16pair"),
+                                        2),
+        "keep_rx real cubic f32 QUPS_DAS_ACC16": (lambda: acc16(lambda: k1("cubic",
+                                                                           keep_rx=True)), 2),
+        "keep_rx real cubic f32": (lambda: k1("cubic", keep_rx=True), 2)})
+    iq, (qpi, qpr, qpv, qnv), _ = cs.iq_headline(torch, qt)
+    qpig = torch.as_tensor(qpi).cuda()
+    xp, (ppi, ppr, ppv, pnv), model, pfs, pfc = _picmus_iq(torch, qt)
+    ppig = torch.as_tensor(ppi, dtype=torch.float32).cuda()
+    for p in ("f32", "bf16pair", "i8x4"):
+        for m in ("cubic", "lanczos3"):
+            if m == "lanczos3" and p != "i8x4":
+                continue
+            cases[f"IQ {m} {p} 4 frames fmod"] = (lambda m=m, p=p: das_cuda.das_sum(
+                iq.data, qpig, qpr, qpv, qnv, iq.t0, cinv, tx_model="plane", fs=iq.fs,
+                method=m, fmod=FMOD, precision=p), reps(m))
+        cases[f"PICMUS IQ cubic {p} 4 frames fmod"] = (lambda p=p: das_cuda.das_sum(
+            xp, ppig, ppr, ppv, pnv, 0.0, cinv, tx_model=model, fs=pfs, method="cubic",
+            fmod=pfc, precision=p), args.reps)
+    return cases
 
 
 if __name__ == "__main__":
