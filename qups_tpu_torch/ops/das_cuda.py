@@ -111,6 +111,7 @@ from . import _nvcc
 from .das import TX_MODELS, _lift5, das, das_lut, rx_distance
 from .interp import METHODS, fft_upsample
 from ..utils.backend import as_f32, default_device, is_cuda, refuse_tpu_contracts, tensor_on
+from ..utils.profiling import annotate
 
 LAUNCHES = 0  # K1 launches in this process
 LUT_LAUNCHES = 0  # K2 launches in this process
@@ -685,18 +686,19 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: 
         shape = ((m1 - m0, N, T) + fd + ((2,) if cplx else ())
                  + ({"nearest": (), "linear": (2,)}.get(method, (4,))))
         dtype = _UNIT[q]
-    out = torch.empty(shape, dtype=dtype, device=x.device)
-    args = (x.data_ptr() + m0 * F * x.element_size(), out.data_ptr(), T, N, m1 - m0, M, F,
-            _METHOD_CODE[method], int(cplx))
-    if prec:
-        sc = None if sc is None else sc.to(device=x.device, dtype=torch.float32).contiguous()
-        rc = build_layout_q(prec)(*args, prec, None if sc is None else sc.data_ptr(),
-                                  int(precision == "bf16"), q, *_nvcc.stream_args(x.device))
-    else:
-        rc = build_layout()(*args, *_nvcc.stream_args(x.device))
-    if rc != 0:
-        raise RuntimeError(f"layout kernel launch failed with cudaError {rc}")
-    LAYOUT_LAUNCHES += 1
+    with annotate("qups.das_cuda.layout"):
+        out = torch.empty(shape, dtype=dtype, device=x.device)
+        args = (x.data_ptr() + m0 * F * x.element_size(), out.data_ptr(), T, N, m1 - m0, M, F,
+                _METHOD_CODE[method], int(cplx))
+        if prec:
+            sc = None if sc is None else sc.to(device=x.device, dtype=torch.float32).contiguous()
+            rc = build_layout_q(prec)(*args, prec, None if sc is None else sc.data_ptr(),
+                                      int(precision == "bf16"), q, *_nvcc.stream_args(x.device))
+        else:
+            rc = build_layout()(*args, *_nvcc.stream_args(x.device))
+        if rc != 0:
+            raise RuntimeError(f"layout kernel launch failed with cudaError {rc}")
+        LAYOUT_LAUNCHES += 1
     return out
 
 
@@ -788,13 +790,14 @@ def _t0_on(t0, M: int, dev) -> torch.Tensor:
 
 
 def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None, out=None,
-                   form=None):
+                   form=None, span="qups.das_cuda.k1"):
     """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
     ``precision`` in the entry form ``form`` (default the call's
     :func:`entry_form`; ``scale``: its (M,) 'i8x4' scales) and call
     ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
-    ``fb_max`` frames of each chunk: w = 2 pi fmod in float32, add 1 after
-    the first chunk. With ``out``
+    ``fb_max`` frames of each chunk, each call in a span named ``span``
+    (:func:`~qups_tpu_torch.utils.annotate`): w = 2 pi fmod in float32, add
+    1 after the first chunk. With ``out``
     (K1's and K2's (I, F) sums) and one frame a launch, each frame runs as a
     one-frame call: its traces copied whole, laid out by chunks and summed
     by ``launch(..., o=row)`` into its row of an (F, I) buffer, which then
@@ -806,7 +809,7 @@ def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None,
         for f in range(F):
             _launch_frames(xF[..., f].contiguous(), method, fmod,
                            lambda *a, r=rows[f]: launch(*a, o=r), 1, precision, scale,
-                           form=form)
+                           form=form, span=span)
         out.copy_(rows.T)
         return
     w = _w(fmod)
@@ -814,7 +817,8 @@ def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None,
     for j, (m0, m1) in enumerate(tx_chunks(xF, method, precision, form)):
         xl = trace_layout(xF, method, m0, m1, precision, scale, form)
         for f0 in range(0, F, fb_max):
-            launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
+            with annotate(span):
+                launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
         del xl  # the next chunk's layout may take its memory
 
 
@@ -897,35 +901,36 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
     if k2 is not None and (kern or extra):
         raise TypeError("K2 takes dense apodization arrays; materialize a Fused descriptor "
                         "first (Fused.materialize)")
-    if extra:  # a second descriptor of a kind: its plain version, as a dense weight
-        dense += list(dense_apod(extra, k1[0], k1[1], k1[3], im_shape=im_shape,
-                                 orientations=orientations, lat=lat, device=dev))
-    wts = _dense_weights(dense, im_shape, N, M, dev)
-    rx_bits = sum(RX_KINDS[a.kind] for a in kern if a.kind in RX_KINDS)
-    tx_bits = sum(TX_KINDS[a.kind] for a in kern if a.kind in TX_KINDS)
-    prm = [0.0, np.inf, 0.0, 0.0, 1.0, 0.0, 0.0]  # 2 f, Dmax, cos theta, tol, dlat, xlo, xhi
-    for a in kern:
-        p = a.p
-        if a.kind == "aperture_growth":
-            prm[0], prm[1] = _f32(2.0 * p.get("f", 1.5)), _f32(p.get("Dmax", np.inf))
-            rx_bits |= 2 if np.isfinite(prm[1]) else 0  # AP_DMAX
-        elif a.kind == "acceptance_angle":
-            prm[2] = _f32(np.cos(np.radians(p.get("theta", 45.0))))
-        elif a.kind == "tx_scanline":
-            prm[3] = _param(a, "tol")
-        elif a.kind == "tx_multiline":
-            prm[4] = _param(a, "dlat")
-        elif a.kind == "tx_parallelogram":
-            prm[5], prm[6] = _param(a, "xlo"), _param(a, "xhi")
-    ori = _orientations(orientations, N, dev) if rx_bits else None
-    if tx_bits & 3:
-        latg = (k1[0][:, 0] if lat is None else as_f32(lat, dev).reshape(-1)).contiguous()
-        ltg = torch.as_tensor(lat_tx, device=dev)
-        if latg.numel() != I or ltg.numel() != M:
-            raise ValueError(f"lat ({latg.numel()}) and lat_tx ({ltg.numel()}) do not match "
-                             f"{I} pixels and {M} transmits")
-    else:
-        latg = ltg = None
+    with annotate("qups.das_cuda.operands"):
+        if extra:  # a second descriptor of a kind: its plain version, as a dense weight
+            dense += list(dense_apod(extra, k1[0], k1[1], k1[3], im_shape=im_shape,
+                                     orientations=orientations, lat=lat, device=dev))
+        wts = _dense_weights(dense, im_shape, N, M, dev)
+        rx_bits = sum(RX_KINDS[a.kind] for a in kern if a.kind in RX_KINDS)
+        tx_bits = sum(TX_KINDS[a.kind] for a in kern if a.kind in TX_KINDS)
+        prm = [0.0, np.inf, 0.0, 0.0, 1.0, 0.0, 0.0]  # 2 f, Dmax, cos theta, tol, dlat, xlo, xhi
+        for a in kern:
+            p = a.p
+            if a.kind == "aperture_growth":
+                prm[0], prm[1] = _f32(2.0 * p.get("f", 1.5)), _f32(p.get("Dmax", np.inf))
+                rx_bits |= 2 if np.isfinite(prm[1]) else 0  # AP_DMAX
+            elif a.kind == "acceptance_angle":
+                prm[2] = _f32(np.cos(np.radians(p.get("theta", 45.0))))
+            elif a.kind == "tx_scanline":
+                prm[3] = _param(a, "tol")
+            elif a.kind == "tx_multiline":
+                prm[4] = _param(a, "dlat")
+            elif a.kind == "tx_parallelogram":
+                prm[5], prm[6] = _param(a, "xlo"), _param(a, "xhi")
+        ori = _orientations(orientations, N, dev) if rx_bits else None
+        if tx_bits & 3:
+            latg = (k1[0][:, 0] if lat is None else as_f32(lat, dev).reshape(-1)).contiguous()
+            ltg = torch.as_tensor(lat_tx, device=dev)
+            if latg.numel() != I or ltg.numel() != M:
+                raise ValueError(f"lat ({latg.numel()}) and lat_tx ({ltg.numel()}) do not match "
+                                 f"{I} pixels and {M} transmits")
+        else:
+            latg = ltg = None
     cplx, iq = x.is_complex(), fmod != 0
     Np, Mp = (N if keep_rx else 1), (M if keep_tx else 1)
     if acc16:  # the kept sums as bfloat16, a pair for a complex sum: half the bytes
@@ -986,7 +991,8 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
             KEEP_LAUNCHES += int(keep != 0)
             APOD_LAUNCHES += int(bool(kern or wts))
 
-    _launch_frames(x, method, fmod, launch, KEEP_FRAMES, precision, scale, form=form)
+    _launch_frames(x, method, fmod, launch, KEEP_FRAMES, precision, scale, form=form,
+                   span="qups.das_cuda.k2" if lut else "qups.das_cuda.k1")
     if acc16:  # widened exactly to float32
         out = torch.view_as_complex(out.float()) if cplx or iq else out.float()
     return out.permute(3, 0, 1, 2).reshape((I, Np, Mp) + fd)
@@ -1102,11 +1108,12 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     _check_traces(x, "K1")
     dev = x.device
     T, N, M = x.shape[:3]
-    pi, pr, pv, nv = (as_f32(a, dev).reshape(-1, 3).contiguous()
-                      for a in (pi, pr, pv, nv))
-    if pr.shape[0] != N or pv.shape[0] != M or nv.shape[0] != M:
-        raise ValueError(f"geometry does not match traces (T, N, M) = {(T, N, M)}")
-    t0 = _t0_on(t0, M, dev)
+    with annotate("qups.das_cuda.operands"):
+        pi, pr, pv, nv = (as_f32(a, dev).reshape(-1, 3).contiguous()
+                          for a in (pi, pr, pv, nv))
+        if pr.shape[0] != N or pv.shape[0] != M or nv.shape[0] != M:
+            raise ValueError(f"geometry does not match traces (T, N, M) = {(T, N, M)}")
+        t0 = _t0_on(t0, M, dev)
     I = pi.shape[0]
     scale = i8_scale(x) if precision == "i8x4" else None
     if apod or keep_rx or keep_tx:
@@ -1194,12 +1201,13 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
     _check_traces(x, "K2")
     dev = x.device
     T, N, M = x.shape[:3]
-    tau_rx, tau_tx = (as_f32(a, dev).contiguous() for a in (tau_rx, tau_tx))
-    I = tau_rx.shape[0]
-    if tau_rx.shape != (I, N) or tau_tx.shape != (I, M):
-        raise ValueError(f"tables {tuple(tau_rx.shape)}, {tuple(tau_tx.shape)} do "
-                         f"not match traces (T, N, M) = {(T, N, M)}")
-    t0 = _t0_on(t0, M, dev)
+    with annotate("qups.das_cuda.operands"):
+        tau_rx, tau_tx = (as_f32(a, dev).contiguous() for a in (tau_rx, tau_tx))
+        I = tau_rx.shape[0]
+        if tau_rx.shape != (I, N) or tau_tx.shape != (I, M):
+            raise ValueError(f"tables {tuple(tau_rx.shape)}, {tuple(tau_tx.shape)} do "
+                             f"not match traces (T, N, M) = {(T, N, M)}")
+        t0 = _t0_on(t0, M, dev)
     scale = i8_scale(x, per_transmit=False) if precision == "i8x4" else None
     if apod or keep_rx or keep_tx:
         return _das_keep(x, I, t0, fs=fs, method=method, fmod=fmod, apod=apod,
@@ -1231,7 +1239,7 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
             LUT_LAUNCHES += 1
 
     _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx),
-                   precision, scale, out, form)
+                   precision, scale, out, form, span="qups.das_cuda.k2")
     return out.view((I, 1, 1) + fd)
 
 

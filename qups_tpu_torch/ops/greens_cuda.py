@@ -42,12 +42,12 @@ import ctypes
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import _nvcc
 from .conv import convd
 from .interp import interp1
 from ..utils.backend import default_device, is_cuda
+from ..utils.profiling import annotate
 
 LAUNCHES = 0  # K5 launches in this process
 FINISH_LAUNCHES = 0  # launches of the finish kernel
@@ -592,7 +592,7 @@ def greens_tiled(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
                                 kernel=kernel, device=device, **kw)
             acc = part if acc is None else acc + part
         return acc
-    with record_function("greens_tiled plan"):
+    with annotate("qups.greens_tiled.plan"):
         plan = plan_tiled_device(kern, ps, amp, pn, pv, device=device, **kw)
     if plan is None:
         return torch.zeros((T, np.shape(pn)[0], np.shape(pv)[0]),
@@ -603,11 +603,11 @@ def greens_tiled(kern, ps, amp, pn, pv, *, T: int, s0: float, t0k: float,
     # up before the splat: a copy from host memory waits for the queue
     kern = torch.as_tensor(plan["kern"], device=device)
     # accumulate the deposit grid over sub-element pairs, then convolve once
-    with record_function("greens_tiled splat"):
+    with annotate("qups.greens_tiled.splat"):
         grid = None
         for pnk in plan["pn"]:
             for pvk in plan["pv"]:
                 g = fill(*win, pnk, plan["ofs_pad"], pvk, **plan["st"])
                 grid = g if grid is None else grid + g
-    with record_function("greens_tiled finish"):
+    with annotate("qups.greens_tiled.finish"):
         return fin(grid, kern, T=T, P0=plan["P0"], ofs=plan["ofs"])

@@ -25,6 +25,7 @@ from . import greens_freq_cuda
 from .interp import interp1
 from ..utils.backend import as_f32, default_device
 from ..utils.maths import box_rbounds
+from ..utils.profiling import annotate
 
 _TWO_PI = 6.283185307179586
 _DB_PER_NP = 20.0 / np.log(10.0)  # 8.6859 dB per neper
@@ -40,55 +41,56 @@ def host_plan(kern, ps, pn, pv, *, T, s0, t0k, fs, cinv, fsr, rtol):
     """Kernel resampling, the wrap-free FFT length ``L`` and the kernel
     spectrum's synthesis band ``[k0, k1)``; float64 numpy, as
     ``qups_tpu.ops.greens_freq._host_plan``."""
-    kern = np.asarray(kern)
-    ps = np.asarray(ps, np.float32)
-    pn = np.asarray(pn, np.float32)
-    pv = np.asarray(pv, np.float32)
-    if pn.ndim == 2:
-        pn = pn[:, None, :]
-    if pv.ndim == 2:
-        pv = pv[:, None, :]
-    if fsr != 1.0:  # resample the kernel to the output rate (host, small)
-        Kn = int(np.ceil(kern.shape[0] / fsr))
-        q = torch.arange(Kn, dtype=torch.float32) * fsr
+    with annotate("qups.greens_freq.plan"):
+        kern = np.asarray(kern)
+        ps = np.asarray(ps, np.float32)
+        pn = np.asarray(pn, np.float32)
+        pv = np.asarray(pv, np.float32)
+        if pn.ndim == 2:
+            pn = pn[:, None, :]
+        if pv.ndim == 2:
+            pv = pv[:, None, :]
+        if fsr != 1.0:  # resample the kernel to the output rate (host, small)
+            Kn = int(np.ceil(kern.shape[0] / fsr))
+            q = torch.arange(Kn, dtype=torch.float32) * fsr
 
-        def res(kr):
-            return interp1(torch.as_tensor(np.asarray(kr, np.float32)), q,
-                           method="lanczos3").numpy()
+            def res(kr):
+                return interp1(torch.as_tensor(np.asarray(kr, np.float32)), q,
+                               method="lanczos3").numpy()
 
-        kern = res(kern.real) + 1j * res(kern.imag) if np.iscomplexobj(kern) \
-            else res(kern)
-    K = kern.shape[0]
+            kern = res(kern.real) + 1j * res(kern.imag) if np.iscomplexobj(kern) \
+                else res(kern)
+        K = kern.shape[0]
 
-    # [0, T) must be wrap-free: tails past L alias to [0, ...) unless
-    # L > dmax + K; deposits before 0 alias to [L + dmin, ...) unless
-    # L + dmin >= T. 8-bin guard for band-limited ringing.
-    r1lo, r1hi = box_rbounds(ps, pn)
-    r2lo, r2hi = box_rbounds(ps, pv)
-    dc = (t0k - s0) * fs
-    cinv = float(np.asarray(cinv).reshape(()))
-    dmin = cinv * (r1lo + r2lo) * fs + dc
-    dmax = cinv * (r1hi + r2hi) * fs + dc
-    L = int(max(T, dmax + K + 8, T - min(0.0, dmin) + 8))
-    L = 1 << int(np.ceil(np.log2(max(2, L))))
+        # [0, T) must be wrap-free: tails past L alias to [0, ...) unless
+        # L > dmax + K; deposits before 0 alias to [L + dmin, ...) unless
+        # L + dmin >= T. 8-bin guard for band-limited ringing.
+        r1lo, r1hi = box_rbounds(ps, pn)
+        r2lo, r2hi = box_rbounds(ps, pv)
+        dc = (t0k - s0) * fs
+        cinv = float(np.asarray(cinv).reshape(()))
+        dmin = cinv * (r1lo + r2lo) * fs + dc
+        dmax = cinv * (r1hi + r2hi) * fs + dc
+        L = int(max(T, dmax + K + 8, T - min(0.0, dmin) + 8))
+        L = 1 << int(np.ceil(np.log2(max(2, L))))
 
-    k = np.arange(L // 2 + 1)
-    ramp = np.exp(-2j * np.pi * k * dc / L)  # the scalar delay (t0k - s0)
+        k = np.arange(L // 2 + 1)
+        ramp = np.exp(-2j * np.pi * k * dc / L)  # the scalar delay (t0k - s0)
 
-    def spec(kr):
-        return np.fft.rfft(kr, n=L) * ramp
+        def spec(kr):
+            return np.fft.rfft(kr, n=L) * ramp
 
-    if np.iscomplexobj(kern):
-        Kr = spec(kern.real.astype(np.float64))
-        Ki = spec(kern.imag.astype(np.float64))
-        mag = np.abs(Kr) + np.abs(Ki)
-    else:
-        Kr, Ki = spec(kern.astype(np.float64)), None
-        mag = np.abs(Kr)
-    keep = np.nonzero(mag >= rtol * mag.max())[0]
-    k0, k1 = (int(keep[0]), int(keep[-1]) + 1) if keep.size else (0, 1)
-    phc = np.float32(2.0 * np.pi * cinv * fs / L)
-    return dict(ps=ps, pn=pn, pv=pv, phc=phc, L=L, k0=k0, k1=k1, Kr=Kr, Ki=Ki)
+        if np.iscomplexobj(kern):
+            Kr = spec(kern.real.astype(np.float64))
+            Ki = spec(kern.imag.astype(np.float64))
+            mag = np.abs(Kr) + np.abs(Ki)
+        else:
+            Kr, Ki = spec(kern.astype(np.float64)), None
+            mag = np.abs(Kr)
+        keep = np.nonzero(mag >= rtol * mag.max())[0]
+        k0, k1 = (int(keep[0]), int(keep[-1]) + 1) if keep.size else (0, 1)
+        phc = np.float32(2.0 * np.pi * cinv * fs / L)
+        return dict(ps=ps, pn=pn, pv=pv, phc=phc, L=L, k0=k0, k1=k1, Kr=Kr, Ki=Ki)
 
 
 def prologue(phc, ps, amp, pn, pv, *, R0: float, fsr: float, device):
@@ -96,19 +98,20 @@ def prologue(phc, ps, amp, pn, pv, *, R0: float, fsr: float, device):
     ``(q1, w1)`` (S, N, En) on the receive side and ``(q2, w2)`` (S, M, Em)
     on the transmit side with ``amp / fsr`` folded in; float32 on
     ``device``, as ``qups_tpu.ops.greens_freq_pallas._prologue``."""
-    ps, pn, pv = (as_f32(a, device) for a in (ps, pn, pv))
-    amp = as_f32(amp, device)
-    c = np.float32(phc) / np.float32(_TWO_PI)
+    with annotate("qups.greens_freq.prologue"):
+        ps, pn, pv = (as_f32(a, device) for a in (ps, pn, pv))
+        amp = as_f32(amp, device)
+        c = np.float32(phc) / np.float32(_TWO_PI)
 
-    def geom(pe):  # (E, Esub, 3) -> r (S, E, Esub)
-        d = ps[:, None, None, :] - pe[None]
-        return torch.sqrt(torch.sum(d * d, dim=-1))
+        def geom(pe):  # (E, Esub, 3) -> r (S, E, Esub)
+            d = ps[:, None, None, :] - pe[None]
+            return torch.sqrt(torch.sum(d * d, dim=-1))
 
-    r1, r2 = geom(pn), geom(pv)
-    w1 = 1.0 / torch.clamp(r1, min=R0) if R0 > 0 else torch.ones_like(r1)
-    w2 = (amp / fsr)[:, None, None] * (
-        1.0 / torch.clamp(r2, min=R0) if R0 > 0 else torch.ones_like(r2))
-    return float(c) * r1, w1, float(c) * r2, w2
+        r1, r2 = geom(pn), geom(pv)
+        w1 = 1.0 / torch.clamp(r1, min=R0) if R0 > 0 else torch.ones_like(r1)
+        w2 = (amp / fsr)[:, None, None] * (
+            1.0 / torch.clamp(r2, min=R0) if R0 > 0 else torch.ones_like(r2))
+        return float(c) * r1, w1, float(c) * r2, w2
 
 
 def synth(G: torch.Tensor, Kf: np.ndarray, *, L: int, k0: int,
@@ -116,11 +119,12 @@ def synth(G: torch.Tensor, Kf: np.ndarray, *, L: int, k0: int,
     """``irfft(KERN .* G)[:T]`` along the bin axis: G (F, N, M) complex64
     bins k0 .. k0+F-1, Kf the kernel spectrum (all L/2+1 bins). Returns
     (T, N, M) float32 on the device of ``G``."""
-    F, N, M = G.shape
-    kf = torch.as_tensor(np.asarray(Kf[k0:k0 + F], np.complex64), device=G.device)
-    full = torch.zeros((L // 2 + 1, N, M), dtype=torch.complex64, device=G.device)
-    full[k0:k0 + F] = G * kf[:, None, None]
-    return torch.fft.irfft(full, n=L, dim=0)[:T]
+    with annotate("qups.greens_freq.synth"):
+        F, N, M = G.shape
+        kf = torch.as_tensor(np.asarray(Kf[k0:k0 + F], np.complex64), device=G.device)
+        full = torch.zeros((L // 2 + 1, N, M), dtype=torch.complex64, device=G.device)
+        full[k0:k0 + F] = G * kf[:, None, None]
+        return torch.fft.irfft(full, n=L, dim=0)[:T]
 
 
 PRECISIONS = ("highest", "default", "bf16")

@@ -39,6 +39,7 @@ import torch
 
 from . import _nvcc
 from ..utils.backend import as_f32, default_device, is_cuda
+from ..utils.profiling import annotate
 
 LAUNCHES = 0  # K3 launches in this process
 # the same launches by sub-slice: 'a' float32, 'b' bf16 operands, 'c' the
@@ -154,16 +155,17 @@ def freq_gemm(q1: torch.Tensor, w1: torch.Tensor, q2: torch.Tensor,
         raise ValueError("K3 sizes must fit int32 and att must be finite")
     q1, w1, q2, w2 = (t.contiguous() for t in ops)
     dev = q1.device
-    out = torch.empty((F, N, M), dtype=torch.complex64, device=dev)
-    fn, _ = build()
-    sp = (dirs[0].data_ptr(), dirs[1].data_ptr()) if dirs else (None, None)
-    rc = fn(q1.data_ptr(), w1.data_ptr(), q2.data_ptr(), w2.data_ptr(), *sp,
-            out.data_ptr(), S, N, M, E1, E2, int(k0), int(F), float(att),
-            int(bool(bf16)), *_nvcc.stream_args(dev))
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed with cudaError {rc}")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[("b" if bf16 else "") + ("c" if dirs else "") or "a"] += 1
+    with annotate("qups.greens_freq.k3"):
+        out = torch.empty((F, N, M), dtype=torch.complex64, device=dev)
+        fn, _ = build()
+        sp = (dirs[0].data_ptr(), dirs[1].data_ptr()) if dirs else (None, None)
+        rc = fn(q1.data_ptr(), w1.data_ptr(), q2.data_ptr(), w2.data_ptr(), *sp,
+                out.data_ptr(), S, N, M, E1, E2, int(k0), int(F), float(att),
+                int(bool(bf16)), *_nvcc.stream_args(dev))
+        if rc != 0:
+            raise RuntimeError(f"K3 launch failed with cudaError {rc}")
+        LAUNCHES += 1
+        VARIANT_LAUNCHES[("b" if bf16 else "") + ("c" if dirs else "") or "a"] += 1
     return out
 
 

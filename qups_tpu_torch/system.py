@@ -85,6 +85,7 @@ from .parallel.mesh import (Mesh, das_sharded_pallas, fdtd_sharded, greens_freq_
 from .sim.fdtd import batch_chunk, kspace_sim_2d, kspace_sim_3d
 from .utils.backend import as_f32, default_device
 from .utils.maths import box_rbounds, gridded_interp, next_pow2
+from .utils.profiling import annotate
 
 PRECISIONS = ("auto", "f32", "bf16pair", "i8x4", "bf16")
 KERNELS = ("auto", "cuda", "plain")
@@ -240,71 +241,72 @@ class UltrasoundSystem:
             t_pk = t[int(chd.data[:, 0, 0].abs().argmax())]
             assert abs(t_pk - 2 * 20e-3 / 1540.0) < 1e-6
         """
-        device = _mesh_device(mesh) if mesh is not None else default_device(device)
-        on_cpu = device.type == "cpu"
-        if impl == "auto":
-            impl = "splat" if on_cpu else "freq"
-        if impl not in ("freq", "pallas", "splat", "dense"):
-            raise ValueError(f"unknown impl {impl!r}")
-        if mesh is not None and impl not in ("freq", "splat"):
-            raise ValueError(f"greens(mesh=...) shards impl='freq'|'splat' only; "
-                             f"impl={impl!r} would silently run single-device")
-        # the deposit basis stays cubic (the reference default); 'freq'
-        # names the transmit synthesis of focusTx, as in the JAX package
-        if method == "auto":
-            fmethod, method = ("cubic" if on_cpu else "freq"), "cubic"
-        elif method == "freq":
-            fmethod, method = "freq", "cubic"
-        else:
-            fmethod = method
-        ps, kern, pn, pv, kw = self._greens_problem(
-            scat, element_subdivisions, R0, fsk)
-        fs, s0 = kw["fs"], kw["s0"]
-        if impl == "freq":
-            fkw = dict(rtol=rtol, precision=precision, alpha0=float(scat.alpha0), **kw)
-            if mesh is not None:
-                x = greens_freq_sharded(mesh, kern, ps, scat.amp, pn, pv, engine=kernel, **fkw)
+        with annotate("qups.greens"):
+            device = _mesh_device(mesh) if mesh is not None else default_device(device)
+            on_cpu = device.type == "cpu"
+            if impl == "auto":
+                impl = "splat" if on_cpu else "freq"
+            if impl not in ("freq", "pallas", "splat", "dense"):
+                raise ValueError(f"unknown impl {impl!r}")
+            if mesh is not None and impl not in ("freq", "splat"):
+                raise ValueError(f"greens(mesh=...) shards impl='freq'|'splat' only; "
+                                 f"impl={impl!r} would silently run single-device")
+            # the deposit basis stays cubic (the reference default); 'freq'
+            # names the transmit synthesis of focusTx, as in the JAX package
+            if method == "auto":
+                fmethod, method = ("cubic" if on_cpu else "freq"), "cubic"
+            elif method == "freq":
+                fmethod, method = "freq", "cubic"
             else:
-                x = greens_freq(kern, ps, scat.amp, pn, pv, kernel=kernel, device=device,
-                                **fkw)
-            return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq,
-                                method=fmethod, device=device)
-        if float(scat.alpha0):
-            warnings.warn(
-                "greens: Scatterers.alpha0 attenuation requires the "
-                f"frequency-domain engine; impl={impl!r} ignores it",
-                stacklevel=2)
-        if impl == "pallas":
-            kw.update(method=method if method in ("linear", "cubic") else "cubic",
-                      kernel=kernel, device=device)
-            amp = np.asarray(scat.amp)
-            if not (np.iscomplexobj(kern) or np.iscomplexobj(amp)):
-                x = greens_tiled(kern, ps, amp, pn, pv, **kw)
+                fmethod = method
+            ps, kern, pn, pv, kw = self._greens_problem(
+                scat, element_subdivisions, R0, fsk)
+            fs, s0 = kw["fs"], kw["s0"]
+            if impl == "freq":
+                fkw = dict(rtol=rtol, precision=precision, alpha0=float(scat.alpha0), **kw)
+                if mesh is not None:
+                    x = greens_freq_sharded(mesh, kern, ps, scat.amp, pn, pv, engine=kernel, **fkw)
+                else:
+                    x = greens_freq(kern, ps, scat.amp, pn, pv, kernel=kernel, device=device,
+                                    **fkw)
                 return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq,
                                     method=fmethod, device=device)
-            # complex kernel or amplitudes: a splat pass per real amplitude
-            # part, joined as x1 + i x2; the JAX package then focuses with t0
-            # = s0 + dt0 taken in float64 (its _ri_focus), so the port does
-            cz = np.asarray(kern, np.complex64)
-            az = amp.astype(np.complex64)
-            x = greens_tiled(cz, ps, np.real(az), pn, pv, **kw)
-            if np.any(np.imag(az)):
-                x = x + 1j * greens_tiled(cz, ps, np.imag(az), pn, pv, **kw)
-            plan = self._focus_plan(fs, 3, self.seq)
-            if plan is None:
-                return ChannelData(data=x, fs=fs, t0=s0)
-            t2, w, dt0, pad = plan
-            chd = ChannelData(data=x, fs=fs, t0=s0 + dt0).zeropad(0, pad)
-            return self._focus_apply(chd, t2, w, fmethod)
-        kw.update(method=method)
-        if impl == "splat" and mesh is not None:
-            x = greens_sharded(mesh, kern, ps, scat.amp, pn, pv, block=block, **kw)
-        elif impl == "splat":
-            x = greens_splat(kern, ps, scat.amp, pn, pv, block=block, device=device, **kw)
-        else:
-            x = greens_dense(kern, ps, scat.amp, pn, pv, device=device, **kw)
-        chd = ChannelData(data=x, fs=fs, t0=s0)
-        return self.focusTx(chd, self.seq, method=fmethod, device=device)
+            if float(scat.alpha0):
+                warnings.warn(
+                    "greens: Scatterers.alpha0 attenuation requires the "
+                    f"frequency-domain engine; impl={impl!r} ignores it",
+                    stacklevel=2)
+            if impl == "pallas":
+                kw.update(method=method if method in ("linear", "cubic") else "cubic",
+                          kernel=kernel, device=device)
+                amp = np.asarray(scat.amp)
+                if not (np.iscomplexobj(kern) or np.iscomplexobj(amp)):
+                    x = greens_tiled(kern, ps, amp, pn, pv, **kw)
+                    return self.focusTx(ChannelData(data=x, fs=fs, t0=s0), self.seq,
+                                        method=fmethod, device=device)
+                # complex kernel or amplitudes: a splat pass per real amplitude
+                # part, joined as x1 + i x2; the JAX package then focuses with t0
+                # = s0 + dt0 taken in float64 (its _ri_focus), so the port does
+                cz = np.asarray(kern, np.complex64)
+                az = amp.astype(np.complex64)
+                x = greens_tiled(cz, ps, np.real(az), pn, pv, **kw)
+                if np.any(np.imag(az)):
+                    x = x + 1j * greens_tiled(cz, ps, np.imag(az), pn, pv, **kw)
+                plan = self._focus_plan(fs, 3, self.seq)
+                if plan is None:
+                    return ChannelData(data=x, fs=fs, t0=s0)
+                t2, w, dt0, pad = plan
+                chd = ChannelData(data=x, fs=fs, t0=s0 + dt0).zeropad(0, pad)
+                return self._focus_apply(chd, t2, w, fmethod)
+            kw.update(method=method)
+            if impl == "splat" and mesh is not None:
+                x = greens_sharded(mesh, kern, ps, scat.amp, pn, pv, block=block, **kw)
+            elif impl == "splat":
+                x = greens_splat(kern, ps, scat.amp, pn, pv, block=block, device=device, **kw)
+            else:
+                x = greens_dense(kern, ps, scat.amp, pn, pv, device=device, **kw)
+            chd = ChannelData(data=x, fs=fs, t0=s0)
+            return self.focusTx(chd, self.seq, method=fmethod, device=device)
 
     def _greens_problem(self, scat: Scatterers,
                         element_subdivisions: Tuple[int, int] = (1, 1),
@@ -312,36 +314,37 @@ class UltrasoundSystem:
         """Host-side set-up of :meth:`greens`: scatterer positions (S, 3),
         the convolved kernel, rx/tx sub-element positions (N|M, E, 3) and
         the simulators' keyword arguments (T, s0, t0k, fs, cinv, R0, fsr)."""
-        fs = float(self.fs)
-        fsk = float(fsk or fs)
-        c0 = float(scat.c0)
-        R0 = float(self.lmbda if R0 is None else R0)
+        with annotate("qups.greens.problem"):
+            fs = float(self.fs)
+            fsk = float(fsk or fs)
+            c0 = float(scat.c0)
+            R0 = float(self.lmbda if R0 is None else R0)
 
-        # sub-element positions (N, E, 3)
-        if element_subdivisions == (1, 1):
-            pn = self.rx.positions().T[:, None, :]
-            pv = self.tx.positions().T[:, None, :]
-        else:
-            pn = np.moveaxis(self.rx.bary_centers(element_subdivisions), 0, -1)
-            pv = np.moveaxis(self.tx.bary_centers(element_subdivisions), 0, -1)
+            # sub-element positions (N, E, 3)
+            if element_subdivisions == (1, 1):
+                pn = self.rx.positions().T[:, None, :]
+                pv = self.tx.positions().T[:, None, :]
+            else:
+                pn = np.moveaxis(self.rx.bary_centers(element_subdivisions), 0, -1)
+                pv = np.moveaxis(self.tx.bary_centers(element_subdivisions), 0, -1)
 
-        # convolved kernel waveform: rx impulse (x) tx impulse (x) seq pulse
-        wv = self.rx.impulse.conv(self.tx.impulse.conv(self.seq.pulse, fsk), fsk)
-        wv = dataclasses.replace(wv, fs=fsk)
-        kern = np.asarray(wv.samples)
+            # convolved kernel waveform: rx impulse (x) tx impulse (x) seq pulse
+            wv = self.rx.impulse.conv(self.tx.impulse.conv(self.seq.pulse, fsk), fsk)
+            wv = dataclasses.replace(wv, fs=fsk)
+            kern = np.asarray(wv.samples)
 
-        # time bounds from conservative box-to-box geometry: O(S + N) host work
-        ps = scat.pos  # (3, S)
-        rx_lo, rx_hi = box_rbounds(ps.T, pn)
-        tx_lo, tx_hi = box_rbounds(ps.T, pv)
-        tmin = (rx_lo + tx_lo) / c0 + wv.t0 - wv.duration
-        tmax = (rx_hi + tx_hi) / c0 + wv.tend
-        n0 = math.floor(tmin * fs)
-        T = math.ceil(tmax * fs) - n0 + 1
-        s0 = n0 / fs
-        kw = dict(T=T, s0=s0, t0k=float(wv.t0), fs=fs, cinv=1.0 / c0, R0=R0,
-                  fsr=fsk / fs)
-        return ps.T, kern, pn, pv, kw
+            # time bounds from conservative box-to-box geometry: O(S + N) host work
+            ps = scat.pos  # (3, S)
+            rx_lo, rx_hi = box_rbounds(ps.T, pn)
+            tx_lo, tx_hi = box_rbounds(ps.T, pv)
+            tmin = (rx_lo + tx_lo) / c0 + wv.t0 - wv.duration
+            tmax = (rx_hi + tx_hi) / c0 + wv.tend
+            n0 = math.floor(tmin * fs)
+            T = math.ceil(tmax * fs) - n0 + 1
+            s0 = n0 / fs
+            kw = dict(T=T, s0=s0, t0k=float(wv.t0), fs=fs, cinv=1.0 / c0, R0=R0,
+                      fsr=fsk / fs)
+            return ps.T, kern, pn, pv, kw
 
     # ---------------------------------------------------- transmit synthesis
     def _focus_plan(self, fs: float, ndim: int, seq: Sequence,
@@ -349,20 +352,21 @@ class UltrasoundSystem:
         """Host-side planning for :meth:`focusTx`: ``None`` for the true-FSA
         identity, else ``(t2, w, dt0, pad)``: the shaped delay and
         apodization tensors, the t0 shift and the zero-padding."""
-        tau = -seq.delays(self.tx)          # (M, M')
-        apd = seq.apodization(self.tx)      # (M, M')
-        if seq.type == "FSA" and not np.count_nonzero(tau) \
-                and np.array_equal(apd, np.eye(self.tx.numel)):
-            return None  # true FSA: identity
-        mask = apd.astype(bool) | np.zeros_like(tau, bool)
-        nmin = math.floor(np.min(tau[mask]) * fs)
-        nmax = math.ceil(np.max(tau[mask]) * fs)
-        tau = tau - nmin / fs
-        nd = max(ndim, 3)
-        M, Mp = tau.shape
-        t2 = -tau.reshape((1, 1, M) + (1,) * (nd - 3) + (Mp,))
-        w = apd.reshape((1, 1, M) + (1,) * (nd - 3) + (Mp,))
-        return t2, w, nmin / fs, (nmax - nmin) + buffer
+        with annotate("qups.focus_tx.plan"):
+            tau = -seq.delays(self.tx)          # (M, M')
+            apd = seq.apodization(self.tx)      # (M, M')
+            if seq.type == "FSA" and not np.count_nonzero(tau) \
+                    and np.array_equal(apd, np.eye(self.tx.numel)):
+                return None  # true FSA: identity
+            mask = apd.astype(bool) | np.zeros_like(tau, bool)
+            nmin = math.floor(np.min(tau[mask]) * fs)
+            nmax = math.ceil(np.max(tau[mask]) * fs)
+            tau = tau - nmin / fs
+            nd = max(ndim, 3)
+            M, Mp = tau.shape
+            t2 = -tau.reshape((1, 1, M) + (1,) * (nd - 3) + (Mp,))
+            w = apd.reshape((1, 1, M) + (1,) * (nd - 3) + (Mp,))
+            return t2, w, nmin / fs, (nmax - nmin) + buffer
 
     def focusTx(self, chd: ChannelData, seq: Optional[Sequence] = None,
                 method: str = "auto", buffer: int = 0, device=None) -> ChannelData:
@@ -390,16 +394,17 @@ class UltrasoundSystem:
             out = us.focusTx(chd, pw, device="cpu")   # 4 FSA transmits -> 1 PW
             assert out.data.shape[2] == 1
         """
-        seq = seq or self.seq
-        device = default_device(device)
-        chd = chd.replace(data=chd.data.to(device))
-        if method == "auto":
-            method = "cubic" if device.type == "cpu" else "freq"
-        plan = self._focus_plan(chd.fs, chd.data.ndim, seq, buffer)
-        if plan is None:
-            return chd
-        t2, w, dt0, pad = plan
-        return self._focus_apply(self._focus_t0(chd, dt0, pad), t2, w, method)
+        with annotate("qups.focus_tx"):
+            seq = seq or self.seq
+            device = default_device(device)
+            chd = chd.replace(data=chd.data.to(device))
+            if method == "auto":
+                method = "cubic" if device.type == "cpu" else "freq"
+            plan = self._focus_plan(chd.fs, chd.data.ndim, seq, buffer)
+            if plan is None:
+                return chd
+            t2, w, dt0, pad = plan
+            return self._focus_apply(self._focus_t0(chd, dt0, pad), t2, w, method)
 
     @staticmethod
     def _focus_t0(chd: ChannelData, dt0: float, pad: int) -> ChannelData:
@@ -725,37 +730,39 @@ class UltrasoundSystem:
             raise ValueError(f"unknown kernel {kernel!r}")
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}")
-        if method == "auto":
-            method = "cubic"
-        pv, nv, model = self._tx_geometry()
-        c0v = self.seq.c0 if c0 is None else c0
-        cinv = np.reciprocal(np.asarray(c0v, np.float32))
-        if cinv.ndim > 1:  # per-pixel map on the scan grid
-            cinv = cinv.reshape(-1)
-        apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
-        dev = default_device(device)
-        kw = dict(fmod=fmod, keep_tx=keep_tx, keep_rx=keep_rx, method=method,
-                  kernel=kernel, precision=precision)
-        if np.ndim(cinv) != 0 or (kernel == "auto" and dev.type != "cuda"):
-            apod_t = self._materialize(apod_t)
-        if bsize is None or chd.M <= bsize:
-            return self._das_block(chd.replace(data=chd.data.to(dev)), pv, nv,
-                                   model, cinv, apod_t, **kw)
-        xh = chd.data.cpu()
-        t0b = np.broadcast_to(chd.t0_host, (chd.M,))
-        acc, parts = None, []
-        for m0 in range(0, chd.M, bsize):
-            m1 = min(m0 + bsize, chd.M)
-            sub = ChannelData(data=xh[:, :, m0:m1].to(dev), fs=chd.fs,
-                              t0=t0b[m0:m1].reshape(1, 1, m1 - m0))
-            apod_b = tuple(_slice_tx_apod(a, m0, m1, chd.M) for a in apod_t)
-            img = self._das_block(sub, pv[m0:m1], nv[m0:m1], model, cinv,
-                                  apod_b, **kw)
-            if keep_tx:
-                parts.append(img)
-            else:
-                acc = img if acc is None else acc + img
-        return torch.cat(parts, dim=len(self.scan.shape) + 1) if keep_tx else acc
+        with annotate("qups.das"):
+            if method == "auto":
+                method = "cubic"
+            with annotate("qups.das.geometry"):
+                pv, nv, model = self._tx_geometry()
+                c0v = self.seq.c0 if c0 is None else c0
+                cinv = np.reciprocal(np.asarray(c0v, np.float32))
+                if cinv.ndim > 1:  # per-pixel map on the scan grid
+                    cinv = cinv.reshape(-1)
+            apod_t = tuple(apod if isinstance(apod, (tuple, list)) else (apod,))
+            dev = default_device(device)
+            kw = dict(fmod=fmod, keep_tx=keep_tx, keep_rx=keep_rx, method=method,
+                      kernel=kernel, precision=precision)
+            if np.ndim(cinv) != 0 or (kernel == "auto" and dev.type != "cuda"):
+                apod_t = self._materialize(apod_t)
+            if bsize is None or chd.M <= bsize:
+                return self._das_block(chd.replace(data=chd.data.to(dev)), pv, nv,
+                                       model, cinv, apod_t, **kw)
+            xh = chd.data.cpu()
+            t0b = np.broadcast_to(chd.t0_host, (chd.M,))
+            acc, parts = None, []
+            for m0 in range(0, chd.M, bsize):
+                m1 = min(m0 + bsize, chd.M)
+                sub = ChannelData(data=xh[:, :, m0:m1].to(dev), fs=chd.fs,
+                                  t0=t0b[m0:m1].reshape(1, 1, m1 - m0))
+                apod_b = tuple(_slice_tx_apod(a, m0, m1, chd.M) for a in apod_t)
+                img = self._das_block(sub, pv[m0:m1], nv[m0:m1], model, cinv,
+                                      apod_b, **kw)
+                if keep_tx:
+                    parts.append(img)
+                else:
+                    acc = img if acc is None else acc + img
+            return torch.cat(parts, dim=len(self.scan.shape) + 1) if keep_tx else acc
 
     def _materialize(self, apod_t) -> tuple:
         """``Fused`` descriptors as their dense arrays (``Fused.materialize``),
@@ -788,9 +795,10 @@ class UltrasoundSystem:
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; expected {METHODS}")
         x = chd.data
-        pi, pr = self._pixels(), self.rx.positions().T
-        im_shape = tuple(self.scan.shape)
-        fk = self._fused_operands(apod_t)
+        with annotate("qups.das.geometry"):
+            pi, pr = self._pixels(), self.rx.positions().T
+            im_shape = tuple(self.scan.shape)
+            fk = self._fused_operands(apod_t)
         if kernel == "cuda" or (kernel == "auto" and x.is_cuda):
             if not x.is_cuda:
                 raise ValueError("kernel='cuda' needs the traces on a CUDA device")

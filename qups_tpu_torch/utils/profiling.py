@@ -6,6 +6,12 @@ Chrome trace (open it in ``chrome://tracing`` or Perfetto; no tensorboard
 package needed); ``annotate`` names a region of that trace; ``Timer`` keeps
 named wall-clock sections and, given a CUDA tensor to wait for, stops its
 clock only once that tensor's device has finished.
+
+The port's own spans go through ``annotate``, named ``qups.<layer>[.<phase>]``
+(``qups.das``, ``qups.das.geometry``, ``qups.das_cuda.k1``, ...): ranges of
+whatever ``torch.profiler`` session is recording, on the clock of its device
+records, nested on the host as the calls nest. With no profiler recording a
+span costs one check.
 """
 from __future__ import annotations
 
@@ -74,7 +80,18 @@ class Timer:
             self.times[name] = self.times.get(name, 0.0) + (time.perf_counter() - t0)
 
 
+_OFF = contextlib.nullcontext()  # the span of every annotate while no profiler records
+
+
 def annotate(name: str):
     """A named region of the profiler's trace:
-    ``with annotate("das"): ...``."""
+    ``with annotate("das"): ...``. While no profiler records, the one
+    shared no-op context manager, which records nothing.
+
+    On the card the range also has a device side (the profiler's
+    ``gpu_user_annotation``), from the first to the last record launched
+    inside it and not inside a range nested in it: the profiler gives each
+    kernel to the innermost range around its launch."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)

@@ -1907,6 +1907,52 @@ def test_trace_records_the_kernel(card, tmp_path):
 
 
 @pytest.mark.cuda
+def test_k1_spans_line_up_with_the_device_records(card):
+    """usbench's TraceView over a traced das_sum: one qups.das_cuda.k1 range
+    a K1 launch (a real one-frame call, then a complex two-frame call with
+    fmod, one frame a launch), each das_kernel / das_frames_kernel record
+    inside the device side of those ranges, and no qups.* name among the
+    device records: the port's spans stay out of the busy union."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from usbench.trace import WINDOW, TraceView
+
+    I, N, M, T = 64, 8, 4, 256
+    g = torch.Generator().manual_seed(0)
+    pi = np.stack([np.linspace(-3e-3, 3e-3, I), np.zeros(I), np.linspace(5e-3, 15e-3, I)], 1)
+    pr = np.stack([np.linspace(-2e-3, 2e-3, N), np.zeros(N), np.zeros(N)], 1)
+    pv, nv = np.zeros((M, 3)), np.tile([0.0, 0.0, 1.0], (M, 1))
+    xr = torch.randn(T, N, M, generator=g).to(card)
+    xc = torch.randn(T, N, M, 2, dtype=torch.complex64, generator=g).to(card)
+    kw = dict(fs=20e6, tx_model="plane")
+    run = lambda: (das_cuda.das_sum(xr, pi, pr, pv, nv, 0.0, CINV, **kw),  # noqa: E731
+                   das_cuda.das_sum(xc, pi, pr, pv, nv, 0.0, CINV, fmod=5e6, **kw))
+    run()  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the same launches once before the window: the first records of a
+        # session can be lost while the profiler's device tracing starts
+        run()
+        torch.cuda.synchronize()
+        n0 = das_cuda.LAUNCHES
+        with record_function(WINDOW):
+            run()
+            torch.cuda.synchronize()
+    launches = das_cuda.LAUNCHES - n0
+    tv = TraceView(prof.events())
+    in_window = lambda s: tv.w0 <= s <= tv.w1  # noqa: E731
+    assert launches == 3
+    assert sum(n == "qups.das_cuda.k1" and in_window(s) for s, _, n in tv.cpu) == launches
+    k1 = [(s, t) for n, s, t in tv.device if "das_kernel" in n or "das_frames_kernel" in n]
+    sides = [(a, b) for a, b in tv.annotations["qups.das_cuda.k1"] if in_window(a)]
+    seen = (k1, sides, (tv.w0, tv.w1))  # what the trace held, where an assertion fails
+    assert len(k1) == launches, seen
+    assert all(any(a <= s and t <= b for a, b in sides) for s, t in k1), seen
+    assert tv.range_device_us("qups.das_cuda.k1") >= sum(t - s for s, t in k1), seen
+    assert not [n for n, _, _ in tv.device if n.startswith("qups.")]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw", [dict(), dict(precision="bf16pair"), dict(keep_rx=True),
                                 dict(post="cohfac"), dict(post="slsc")])
 def test_das_sharded_pallas_on_card(card, kw):

@@ -55,15 +55,15 @@ def _dev_us(evt, self_only=True):
     return 0.0
 
 
-RANGES = ("greens_tiled plan", "greens_tiled splat", "greens_tiled finish")
+RANGES = ("qups.greens_tiled.plan", "qups.greens_tiled.splat", "qups.greens_tiled.finish")
 
 
 def _on_device(torch, evt):
     """True for the device-side records (kernels, copies, memsets); the
-    host-side ops that launched them, and the device side of a named range,
-    carry the same device time again."""
+    host-side ops that launched them, and the device side of a named range
+    (the port's spans, ``qups.*``), carry the same device time again."""
     return (evt.device_type == torch.autograd.DeviceType.CUDA
-            and "Activity Buffer" not in evt.key and evt.key not in RANGES)
+            and "Activity Buffer" not in evt.key and not evt.key.startswith("qups."))
 
 
 def profile(torch, fn, reps):
@@ -240,7 +240,7 @@ def main():
             if e.key in RANGES and e.device_type == torch.autograd.DeviceType.CPU:
                 dev = sum(_dev_us(d, False) for d in full if d.key == e.key
                           and d.device_type == torch.autograd.DeviceType.CUDA)
-                say(f"        range {e.key:20s} host {e.cpu_time_total / 2e3:9.3f} ms, "
+                say(f"        range {e.key:24s} host {e.cpu_time_total / 2e3:9.3f} ms, "
                     f"device span {max(dev, _dev_us(e, False)) / 2e3:9.3f} ms per call "
                     "(from its first kernel's start to its last's end)")
 
