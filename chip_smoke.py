@@ -1752,8 +1752,11 @@ def phase12(torch, das_cuda, errs, lerrs):
                         p = srcs[src]
                         args, kw = (xg,) + p[:5] + (np.float32(1 / c0),), dict(
                             kw, fs=p[5], tx_model=src)
+                    # K1: the frames a launch from the tap stride of its pixels
+                    sigma = None if src == "tables" else das_cuda.tap_stride(
+                        args[1], args[6], kw["fs"])
                     blocks = -(-int(np.prod(fdims))
-                               // das_cuda.frames_per_launch(method, cplx=cplx))
+                               // das_cuda.frames_per_launch(method, cplx=cplx, sigma=sigma))
                     before = getattr(das_cuda, counter)
                     got = kern(*args, **kw)
                     torch.cuda.synchronize()
@@ -1810,13 +1813,12 @@ def phase12(torch, das_cuda, errs, lerrs):
           "sincosf variants of K1(b) and K2(b) within TOL of the plain version, every sampler")
 
 
-def _frames_launches(das_cuda, F, method, cplx):
+def _frames_launches(das_cuda, F, method, cplx, sigma=None):
     """K1(b)'s or K2(b)'s launches, and layouts, for one call of F frames
-    whose transmits fit one chunk: one a block of the plan's frames a
-    launch (one layout for them all), one a frame where the plan runs the
-    frames one at a time (a layout each)."""
-    fb = das_cuda.frames_per_launch(method, cplx=cplx)
-    return -(-F // fb), 1 if fb > 1 else F
+    whose layout fits one chunk: one a block of the plan's frames a launch
+    (K1: ``sigma``, the tap stride of its pixels), one layout for them all
+    (in blocks, or planes where the plan runs the frames one at a time)."""
+    return -(-F // das_cuda.frames_per_launch(method, cplx=cplx, sigma=sigma)), 1
 
 
 def _demo_frames(qt, us, F, step=0.3e-3):
@@ -1874,7 +1876,8 @@ def phase13(torch, qt, ops, errs):
           f"(first call) -> IQ {tuple(iq.data.shape)} {iq.data.dtype} at {iq.fs / 1e6} MHz on "
           f"{iq.data.device}; launches {launches}")
     assert iq.data.is_cuda and iq.data.is_complex() and iq.data.shape[2:] == (5, F)
-    (nc, lc), (nl, ll) = (_frames_launches(das_cuda, F, m, True) for m in ("cubic", "linear"))
+    (nc, lc), (nl, ll) = (_frames_launches(das_cuda, F, m, True, sg) for m, sg in (
+        ("cubic", None), ("linear", das_cuda.tap_stride(us._pixels(), 1 / 1540.0, 2 * iq.fs))))
     assert launches["das_k1b"] == nc + nl and launches["das_lut_k2b"] == 2 * nc, launches
     assert launches["das_layout"] == 3 * lc + ll and all(v > 0 for v in launches.values()), \
         launches
@@ -3486,7 +3489,7 @@ def phase23(torch, qt, ops, errs):
     1e-4 x max of the plain version on every 64th pixel; save_chd/load_chd
     of the IQ, then DAS again, bit for bit; save_checkpoint/
     load_checkpoint(like=) of the card images, back on the card bit for bit;
-    save_mat/load_mat of xdc, seq and scan, equal fields; a DAS inside
+    save_mat/load_mat of xdc, seq and scan, equal fields; the IQ DAS inside
     utils.trace with annotate('das') records das_frames_kernel under the
     annotation. Host seconds (utils.Timer) for savemat, load_verasonics and
     the channel map; the upload; DAS ms (CUDA events, mean of 3 after a
@@ -3582,8 +3585,10 @@ def phase23(torch, qt, ops, errs):
           f"{tm.times['channel map']:.3f} s (host clock); upload "
           f"{tm.times['upload'] * 1e3:.3f} ms; DAS RF, hilbert, downmix, DAS IQ on "
           f"{torch.cuda.get_device_name(0)}: {t_path:.3f} s (first call); launches {launches}")
-    n, nl = _frames_launches(das_cuda, F, "cubic", True)  # IQ; RF: one launch
-    assert launches == {"das_k1b": 1 + n, "das_layout": 1 + nl}, launches
+    n, nl = _frames_launches(das_cuda, F, "cubic", True)  # IQ
+    nrf, lrf = _frames_launches(das_cuda, F, "cubic", False,  # RF: PICMUS's tap stride
+                                das_cuda.tap_stride(us._pixels(), 1 / c0, g.fs))
+    assert launches == {"das_k1b": nrf + n, "das_layout": lrf + nl}, launches
     assert g.data.is_cuda and iq.data.is_cuda and iq.data.is_complex()
     for name, b, dt in (("RF", b_rf, torch.float32), ("IQ", b_iq, torch.complex64)):
         assert b.is_cuda and b.dtype == dt and b.shape == tuple(us.scan.shape) + (1, 1, F), \
@@ -3629,11 +3634,13 @@ def phase23(torch, qt, ops, errs):
         for k, v in (("xdc", us.rx), ("seq", us.seq), ("scan", us.scan)):
             assert type(mat[k]) is type(v), k
             _same_fields(qio.obj2dict(mat[k]), qio.obj2dict(v), k)
-        # the profiler's trace: K1(b) under the annotation
+        # the profiler's trace: K1(b) under the annotation (the IQ call's
+        # frames: das_frames_kernel's rotating variant; the RF call's run
+        # das_kernel, one frame a launch at PICMUS's tap stride)
         logdir = os.path.join(tmp, "trace")
         with trace(logdir):
             with annotate("das"):
-                us.DAS(g)
+                us.DAS(iq, fmod=fc)
         tfile = os.path.join(logdir, "trace.json")
         hits, kerns, cats = kernels_under(tfile, "das", "das_frames_kernel")
         trace_bytes = os.path.getsize(tfile)

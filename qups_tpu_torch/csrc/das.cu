@@ -73,20 +73,36 @@
 //   to what out holds. One chunk covers the main paths' sizes.
 // - Frames and remodulation (K1(b), K2(b)) run in das_frames_kernel, the
 //   same loops with a block of frames' sums per thread in registers (one
-//   launch per block of frames_a_launch frames; one frame with fmod a
-//   variant of its own): a term's delay, validity, tap base, fraction,
-//   weights and rotation are formed once for all its frames. The layout
-//   keeps a term's frames innermost, (M, N, T, F, entry), so a term's
-//   entries share cache lines at constant offsets. A block is 4 frames, but
-//   1 for complex cubic float32 traces (32-byte entries, a 128-byte line a
-//   tap base for 4 frames), which lost to one-frame calls in a block of 4 or
-//   2 at the IQ headline without fmod (473 and 437 against 385 ms) and, with
-//   fmod, at PICMUS's pixel pitch (2 a launch 45 ms against 27), where a
-//   warp's pixels span more tap bases; the wrapper runs those as one-frame
-//   calls on each frame's own layout (one frame a launch on the 4 frames'
-//   layout, at frame offsets, ran 1.04x slower with fmod and 1.25x without).
-//   A layout with the frames outside the time axis ran 1.4-5x slower with 2
-//   or 4 frames a launch. The rotating variants keep FRAMES_MIN_BLOCKS
+//   launch per block of frames; one frame with fmod a variant of its own):
+//   a term's delay, validity, tap base, fraction, weights and rotation are
+//   formed once for all its frames.
+// - Frames: the layout holds a call's frames in blocks of the frames a
+//   launch sums, (M, N, T, fb, entry) block after block (the last block
+//   short), so a launch reads its fb entries of a tap base side by side,
+//   fb E units apart (S) from the next tap base's. A warp's lanes are
+//   neighbouring pixels, whose tap bases lie up to sigma = 2 dx fs / c
+//   apart (dx the step between pixels): lanes' loads fall sigma fb E bytes
+//   apart, and past a sector or two each lane's load takes a cache line of
+//   its own. So K1 takes the largest block of 4, 2, 1 within the cap
+//   (frames_a_launch: FRAMES_A_LAUNCH, but 1 for complex cubic float32
+//   traces) whose span sigma fb E stays within FRAME_SPAN bytes
+//   (ops/das_cuda.py::frames_per_launch, from the first 32 pixels; K2 has
+//   no pixels and takes the cap). At PICMUS's pitch (sigma 1.91, 16 real
+//   cubic frames) 4 frames a launch on a layout of all 16 frames (a 256-byte
+//   tap stride) took 130.2 ms, on blocks of 4 61.4, of 2 54.8, one-frame
+//   calls on planes 47.9; at sigma 0.95 blocks of 4 won (42.4 against
+//   44.6 and 46.3). FRAME_SPAN lies between 30.5 bytes, where the larger
+//   block won or tied in every case swept but nearest real traces' 2-frame
+//   launch, and 61, where it won in 5 cases and lost in 3; over the sweep
+//   its picks took 1850 ms against 1792 for each case's best block and 2628
+//   on the layout of all frames (PERF.md §6, PR 23). Complex cubic
+//   float32 traces (32-byte entries) take one frame: blocks of 4 or 2 lost
+//   to one-frame calls at the IQ headline without fmod (473 and 437 against
+//   385 ms) and, with fmod, at PICMUS's pitch (45 against 27 ms; PR 17).
+//   Where the plan takes one frame a launch the wrapper runs one-frame calls
+//   on each frame's plane (das_kernel without fmod). A layout with the frames
+//   outside the time axis ran 1.4-5x slower with 2 or 4 frames a launch.
+//   The rotating variants keep FRAMES_MIN_BLOCKS
 //   blocks an SM (64 registers, no spills; at 72-73 registers, 3 blocks, the
 //   rotating complex cubic block ran 1.27x slower) and unroll FRAMES_UNROLL
 //   groups (1: 2 ran up to 1.22x slower with fmod); the unrotated ones keep
@@ -207,8 +223,13 @@ static_assert(NC % 4 == 0, "R is read four receivers at a time");
 // the frames a launch (FRAMES_A_LAUNCH, but one for complex cubic float32
 // traces; ops/das_cuda.py::frames_per_launch mirrors it) and, for the
 // rotating variants, the unroll of the receiver loop (groups of 4
-// receivers) and the least blocks an SM (__launch_bounds__).
+// receivers) and the least blocks an SM (__launch_bounds__). Within that
+// cap K1 takes the largest of 4, 2, 1 frames whose entries at a tap base
+// span at most FRAME_SPAN bytes times the tap bases between neighbouring
+// pixels (see "Frames" above; frames_per_launch applies it, as only the
+// wrapper sees the pixels; PERF.md §6, PR 23).
 constexpr int FRAMES_A_LAUNCH = 4;
+constexpr int FRAME_SPAN = 48;
 constexpr int FRAMES_UNROLL = 1;
 constexpr int FRAMES_MIN_BLOCKS = 4;
 // The largest |phase| the short rotation takes, in radians.
@@ -279,11 +300,6 @@ template <int Q, class B> QArgs<Q, B> with_lp(const B& b, Lp lp) {
   }
 }
 
-// x advanced by `units` units of entry type Q (x points at a layout).
-template <int Q> const float* xadv(const float* x, int64_t units) {
-  return reinterpret_cast<const float*>(reinterpret_cast<const Unit<Q>*>(x) + units);
-}
-
 // das_frames_kernel's arguments: Args (x and out at the launch's first
 // frame, out (I, ldo)) and the frames and remodulation. das_kernel takes
 // Args alone: a larger argument block cost its variants registers (K2's
@@ -291,7 +307,7 @@ template <int Q> const float* xadv(const float* x, int64_t units) {
 struct FrameArgs {
   Args a;
   int64_t ldo;                    // sums per pixel in out: F
-  int S, fb;                      // floats per tap base (F entries); frames here
+  int S, fb;                      // units per tap base (the layout's fl entries); frames here
   float w;                        // 2 pi fmod, rounded to float32
 };
 
@@ -1378,16 +1394,17 @@ cudaError_t keep_by_src(int src, int method, const QArgs<Q, KeepArgs>& k, size_t
 }
 #endif  // DAS_KEEP
 
-// One frame in all (ldo 1) without a rotation: das_kernel; with the short
-// rotation the frames kernel's one-frame variant. Else the frames kernel's
-// variant of NB frames a launch (ROT_SINCOSF, for phases past PHASE_MAX,
-// has that variant alone, for every call).
+// One frame in all (ldo 1) without a rotation, on a layout of one frame
+// (S = E): das_kernel; with the short rotation the frames kernel's
+// one-frame variant. Else the frames kernel's variant of NB frames a launch
+// (ROT_SINCOSF, for phases past PHASE_MAX, has that variant alone, for
+// every call).
 template <int SRC, int METHOD, typename V, int ROT, int Q>
 cudaError_t run(const QArgs<Q, FrameArgs>& fa, cudaStream_t s) {
   constexpr int NB = frames_a_launch(METHOD, Q, sizeof(V) != sizeof(float));
   const unsigned blocks = (unsigned)((fa.a.I + P - 1) / P);
   if constexpr (ROT == NO_ROT) {
-    if (fa.ldo == 1) {
+    if (fa.ldo == 1 && fa.S == Entry<METHOD, V>::E) {
       if constexpr (Q == F32) {
         das_kernel<SRC, METHOD, V><<<blocks, P, 0, s>>>(fa.a);
       } else {
@@ -1445,27 +1462,28 @@ bool reduced_range(float w, float fs, int T) {
          <= (double)PHASE_MAX;
 }
 
-// Frames f0 .. f0 + fb - 1 of F (fb at most the sampler's
-// frames_a_launch): x and out move to frame f0; with F = 1 the one-frame
-// variants run. ROT selects the rotation (Rot): the rotating variants' sums
-// are complex, and ROT_REDUCED refuses a launch whose phases may pass
-// PHASE_MAX. Q is the entry type of the layout at x, lp its arguments.
+// Frames f0 .. f0 + fb - 1 of out's F (fb at most the sampler's
+// frames_a_launch), read from a layout that holds fl >= fb frames a tap
+// base, x at the first of them (see "Frames" at the head of this file): out
+// moves to frame f0; with F = 1 the one-frame variants run. ROT selects the
+// rotation (Rot): the rotating variants' sums are complex, and ROT_REDUCED
+// refuses a launch whose phases may pass PHASE_MAX. Q is the entry type of
+// the layout at x, lp its arguments.
 template <int ROT, int Q>
-int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w, Lp lp,
-           int device, void* stream) {
+int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, int fl, float w,
+           Lp lp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a.I <= 0) return (int)cudaSuccess;
   if (a.N <= 0 || a.M <= 0 || a.T <= 0 || a.T > TMAX || method < NEAREST || method > LANCZOS3
       || F < 1 || f0 < 0 || fb < 1 || fb > frames_a_launch(method, Q, cplx) || f0 + fb > F
-      || (ROT == ROT_REDUCED && !reduced_range(w, a.fs, a.T)))
+      || fb > fl || (ROT == ROT_REDUCED && !reduced_range(w, a.fs, a.T)))
     return (int)cudaErrorInvalidValue;
   const int E = entry_floats(method, cplx);
-  a.row = (int64_t)a.T * F * E;
+  a.row = (int64_t)a.T * fl * E;
   if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
-  a.x = xadv<Q>(a.x, (int64_t)f0 * E);
   a.out = static_cast<char*>(a.out) + (int64_t)f0 * ((cplx || ROT) ? 8 : 4);
-  const QArgs<Q, FrameArgs> fa = with_lp<Q>(FrameArgs{a, F, F * E, fb, w}, lp);
+  const QArgs<Q, FrameArgs> fa = with_lp<Q>(FrameArgs{a, F, fl * E, fb, w}, lp);
   cudaStream_t s = (cudaStream_t)stream;
   err = cplx ? by_src<float2, ROT, Q>(src, method, fa, s)
              : by_src<float, ROT, Q>(src, method, fa, s);
@@ -1475,9 +1493,12 @@ int launch(int src, int method, int cplx, Args a, int F, int f0, int fb, float w
 // The layout kernel: traces x (T, N, ldm) of C floats (1 real, 2
 // complex64), of which entries 0..M-1 of the last axis are laid out as the
 // sampler METHOD reads them, out (M, N, T, C, E) units of entry type Q, E
-// the units of one entry of one component. With frames (FR), an entry q of
-// the last axis is frame f of transmit m, q = m F + f, and out is (M / F,
-// N, T, F, C, E): a term's frames next to each other. A block transposes
+// the units of one entry of one component. With frames (FR), x is (T, N,
+// ldm / F, F) and entry q = m Fg + j is frame j of the Fg frames at x of
+// transmit m, written in blocks of fb frames (the last block short where
+// fb does not divide Fg): out is, block after block, (M / Fg, N, T, fbb,
+// C, E) with fbb the block's frames, a term's frames of one block next to
+// each other (see "Frames" at the head of this file). A block transposes
 // tiles of LM entries q x LT entries k of one receiver through shared
 // memory: coalesced reads along q, 2- to 16-byte writes along k. The grid's
 // y and z (q tiles, receivers) hold at most 65535 blocks each, so a block
@@ -1572,20 +1593,23 @@ __device__ __forceinline__ void put_entry(const float* x, Unit<Q>* __restrict__ 
 template <int METHOD, int C, bool FR, int Q, int R>
 __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x,
                                                      Unit<Q>* __restrict__ out, int T, int N,
-                                                     int M, int64_t ldm, int F,
+                                                     int M, int64_t ldm, int F, int Fg, int fb,
                                                      const float* __restrict__ qs, int rne) {
   constexpr int E = Entry<METHOD, float>::E;
   __shared__ float tile[C][LM][LS];
   const int k0 = blockIdx.x * LT;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // the transmit of entry q of the last axis, and its scale's 127 / s and s / 127
+  const int64_t plane = (int64_t)(M / Fg) * N * T;  // entries of one frame of all transmits
   for (int n = blockIdx.z; n < N; n += gridDim.z) {
     for (int m0 = blockIdx.y * LM; m0 < M; m0 += gridDim.y * LM) {
       __syncthreads();  // the last tile's reads are done
       if (m0 + lane < M) {
+        // entry q's column of x: frame j of transmit m
+        const int q = m0 + lane;
+        const int64_t col = FR ? (int64_t)(q / Fg) * F + q % Fg : q;
         for (int r = w; r < LS; r += 8) {
           const int t = min(max(k0 - 1 + r, 0), T - 1);
-          const int64_t at = ((int64_t)t * N + n) * ldm + m0 + lane;
+          const int64_t at = ((int64_t)t * N + n) * ldm + col;
           if constexpr (C == 2) {
             const float2 v = __ldg(reinterpret_cast<const float2*>(x) + at);
             tile[0][lane][r] = v.x;
@@ -1597,13 +1621,15 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
       }
       __syncthreads();
       for (int mm = w; mm < LM && m0 + mm < M; mm += 8) {
-        // entry q of the last axis: frame f of transmit m; its scale's 127 / s
-        // and s / 127 (I8)
-        const int q = m0 + mm, m = FR ? q / F : q, f = q - m * F;
+        // entry q: frame j of transmit m, frame jb of block b of fbb frames;
+        // the transmit's scale's 127 / s and s / 127 (I8)
+        const int q = m0 + mm, m = FR ? q / Fg : q, j = FR ? q - m * Fg : 0;
+        const int b = FR ? j / fb : 0, jb = j - b * fb, fbb = FR ? min(fb, Fg - b * fb) : 1;
         const float inv = R == I8 ? __fdiv_rn(127.f, __ldg(qs + m)) : 0.f;
         const float dq = R == I8 && Q == F32 ? __fdiv_rn(__ldg(qs + m), 127.f) : 1.f;
         for (int kk = lane; kk < LT && k0 + kk < T; kk += 32) {
-          Unit<Q>* dst = out + (FR ? (((int64_t)m * N + n) * T + k0 + kk) * F + f
+          Unit<Q>* dst = out + (FR ? (int64_t)b * fb * plane
+                                         + (((int64_t)m * N + n) * T + k0 + kk) * fbb + jb
                                    : ((int64_t)q * N + n) * T + k0 + kk) * (C * E);
 #pragma unroll
           for (int c = 0; c < C; ++c)
@@ -1614,33 +1640,39 @@ __global__ void __launch_bounds__(256) layout_kernel(const float* __restrict__ x
   }
 }
 
-// F frames a transmit: the last axis holds M F entries, ldm F a row.
+// With frames, the last axis holds M Fg entries of the Fg frames at x of
+// each transmit's F, ldm F a row.
 template <int METHOD, bool FR, int Q, int R>
 cudaError_t run_layout(const float* x, Unit<Q>* out, int T, int N, int M, int64_t ldm, int F,
-                       int cplx, const float* qs, int rne, cudaStream_t s) {
+                       int Fg, int fb, int cplx, const float* qs, int rne, cudaStream_t s) {
   const int mt = (M + LM - 1) / LM;
   const dim3 grid((T + LT - 1) / LT, mt < 65535 ? mt : 65535, N < 65535 ? N : 65535);
   if (cplx)
-    layout_kernel<METHOD, 2, FR, Q, R><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
+    layout_kernel<METHOD, 2, FR, Q, R>
+        <<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, Fg, fb, qs, rne);
   else
-    layout_kernel<METHOD, 1, FR, Q, R><<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, qs, rne);
+    layout_kernel<METHOD, 1, FR, Q, R>
+        <<<grid, 256, 0, s>>>(x, out, T, N, M, ldm, F, Fg, fb, qs, rne);
   return cudaGetLastError();
 }
 
-// Entries of type Q of the taps rounded as R says (F32: as they are).
+// Entries of type Q of the taps rounded as R says (F32: as they are), of
+// frames 0 .. Fg - 1 at x of F, in blocks of fb.
 template <int METHOD, int Q = F32, int R = F32>
 cudaError_t layout_frames(const float* x, void* out, int T, int N, int M, int64_t ldm, int F,
-                          int cplx, cudaStream_t s, const float* qs = nullptr, int rne = 0) {
+                          int Fg, int fb, int cplx, cudaStream_t s, const float* qs = nullptr,
+                          int rne = 0) {
   Unit<Q>* o = static_cast<Unit<Q>*>(out);
-  return F == 1 ? run_layout<METHOD, false, Q, R>(x, o, T, N, M, ldm, 1, cplx, qs, rne, s)
-                : run_layout<METHOD, true, Q, R>(x, o, T, N, M * F, ldm * F, F, cplx, qs, rne, s);
+  return F == 1 ? run_layout<METHOD, false, Q, R>(x, o, T, N, M, ldm, 1, 1, 1, cplx, qs, rne, s)
+                : run_layout<METHOD, true, Q, R>(x, o, T, N, M * Fg, ldm * F, F, Fg, fb, cplx,
+                                                 qs, rne, s);
 }
 
-int layout_check(int T, int N, int M, long long ldm, int F, int device) {
+int layout_check(int T, int N, int M, long long ldm, int F, int Fg, int fb, int device) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (T <= 0 || N <= 0 || M <= 0 || F <= 0 || ldm < M || T > TMAX
-      || (int64_t)M * F >= (int64_t)1 << 31)
+  if (T <= 0 || N <= 0 || M <= 0 || F <= 0 || ldm < M || T > TMAX || Fg < 1 || Fg > F
+      || fb < 1 || fb > Fg || (int64_t)M * Fg >= (int64_t)1 << 31)
     return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
@@ -1651,17 +1683,18 @@ template <int Q, int ROT>
 int keep_launch(const float* x, const float* pix, const float* pr, const float* pv,
                 const float* nv, const float* taur, const float* taut, long long ldt,
                 const float* t0, void* out, long long I, int N, int M, int T, int F, int f0,
-                int fb, float cinv, float fs, float w, int src, int method, int cplx, int rot,
-                int add, int keep, long long on, long long om, long long of, int I2, int I3,
-                const float* wr, const float* wt, const float* wd, const long long* strides,
-                int rx_kinds, int tx_kinds, const float* ori, const float* lat,
-                const float* lat_tx, const float* prm, Lp lp, int device, void* stream) {
+                int fb, int fl, float cinv, float fs, float w, int src, int method, int cplx,
+                int rot, int add, int keep, long long on, long long om, long long of, int I2,
+                int I3, const float* wr, const float* wt, const float* wd,
+                const long long* strides, int rx_kinds, int tx_kinds, const float* ori,
+                const float* lat, const float* lat_tx, const float* prm, Lp lp, int device,
+                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (I <= 0) return (int)cudaSuccess;
   if (N <= 0 || M <= 0 || T <= 0 || T > TMAX || method < NEAREST || method > LANCZOS3
       || src < PLANE || src > LUT || keep < SUM || keep > KEEP_BOTH || F < 1 || f0 < 0
-      || fb != KEEP_FRAMES || f0 + fb > F || I2 < 1 || I3 < 1
+      || fb != KEEP_FRAMES || f0 + fb > F || fb > fl || I2 < 1 || I3 < 1
       || (src == LUT && ldt < M) || (src == LUT && (rx_kinds || tx_kinds))
       || (rot != 0) != (ROT != NO_ROT) || (ROT == ROT_REDUCED && !reduced_range(w, fs, T)))
     return (int)cudaErrorInvalidValue;
@@ -1669,12 +1702,12 @@ int keep_launch(const float* x, const float* pix, const float* pr, const float* 
   const int E = entry_floats(method, cplx);
   // a kept sum's bytes in out: float32 or complex64, half that as bfloat16
   const int64_t out_bytes = ((cplx || rot) ? 8 : 4) / (lp.acc16 ? 2 : 1);
-  Args a{xadv<Q>(x, (int64_t)f0 * E), pix, pr, pv, nv, taur, taut, t0,
+  Args a{x, pix, pr, pv, nv, taur, taut, t0,
          static_cast<char*>(out) + (int64_t)f0 * of * out_bytes, (int64_t)I,
-         (int64_t)T * F * E, (int64_t)ldt, N, M, T, cinv, fs, add};
+         (int64_t)T * fl * E, (int64_t)ldt, N, M, T, cinv, fs, add};
   if ((int64_t)NC * a.row >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
   const long long* s = strides;
-  KeepArgs k{FrameArgs{a, F, F * E, fb, w}, keep, on, om, of, I2, I3,
+  KeepArgs k{FrameArgs{a, F, fl * E, fb, w}, keep, on, om, of, I2, I3,
              Dense{wr, s[0], s[1], s[2], s[3], s[4]}, Dense{wt, s[5], s[6], s[7], s[8], s[9]},
              Dense{wd, s[10], s[11], s[12], s[13], s[14]}, rx_kinds, tx_kinds, ori, lat, lat_tx,
              prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], prm[6]};
@@ -1742,15 +1775,16 @@ int with_prec(int prec, const float* qs, Fn&& f) {
 #define KEEP_ARGS                                                                         \
   const float *x, const float *pix, const float *pr, const float *pv, const float *nv,    \
       const float *taur, const float *taut, long long ldt, const float *t0, void *out,    \
-      long long I, int N, int M, int T, int F, int f0, int fb, float cinv, float fs,      \
-      float w, int src, int method, int cplx, int rot, int add, int keep, long long on,   \
-      long long om, long long of, int I2, int I3, const float *wr, const float *wt,       \
-      const float *wd, const long long *strides, int rx_kinds, int tx_kinds,              \
-      const float *ori, const float *lat, const float *lat_tx, const float *prm
+      long long I, int N, int M, int T, int F, int f0, int fb, int fl, float cinv,        \
+      float fs, float w, int src, int method, int cplx, int rot, int add, int keep,       \
+      long long on, long long om, long long of, int I2, int I3, const float *wr,          \
+      const float *wt, const float *wd, const long long *strides, int rx_kinds,           \
+      int tx_kinds, const float *ori, const float *lat, const float *lat_tx,              \
+      const float *prm
 #define KEEP_PASS                                                                         \
-  x, pix, pr, pv, nv, taur, taut, ldt, t0, out, I, N, M, T, F, f0, fb, cinv, fs, w, src,  \
-      method, cplx, rot, add, keep, on, om, of, I2, I3, wr, wt, wd, strides, rx_kinds,    \
-      tx_kinds, ori, lat, lat_tx, prm
+  x, pix, pr, pv, nv, taur, taut, ldt, t0, out, I, N, M, T, F, f0, fb, fl, cinv, fs, w,   \
+      src, method, cplx, rot, add, keep, on, om, of, I2, I3, wr, wt, wd, strides,         \
+      rx_kinds, tx_kinds, ori, lat, lat_tx, prm
 #ifdef DAS_Q
 // das_keep on a layout of this unit's entry type DAS_Q (the I8 unit: or
 // H16): das_keep's arguments, then prec (the entry type: 1 BF16, 2 I8, 3
@@ -1766,13 +1800,14 @@ int with_prec(int prec, const float* qs, Fn&& f) {
   }
 #else
 // Launch das_keep_kernel on `stream` of device `device` for M transmits
-// and frame f0 of F (fb, the frames a launch, KEEP_FRAMES): K1 (src 0
-// plane, 1 diverging, 2
-// virtual; pix, pr, pv, nv, cinv) or K2 (src 3; taur (I, N), taut (I, ldt),
-// whose first M columns are these transmits'). x, t0, fs, w, method, cplx
-// as for das_k1; rot 1 for the remodulating entries (das_keep_iq, whose
-// phases must lie within PHASE_MAX, and das_keep_iq_wide, which refuse rot
-// 0, as das_keep refuses 1); out at frame 0 and
+// and frame f0 of F (fb, the frames a launch, KEEP_FRAMES; x at its
+// entries in a layout of fl frames a tap base, as for das_k1): K1 (src 0
+// plane, 1 diverging, 2 virtual; pix, pr, pv, nv, cinv) or K2 (src 3; taur
+// (I, N), taut (I, ldt), whose first M columns are these transmits'). x,
+// t0, fs, w, method, cplx as for das_k1; rot 1 for the remodulating
+// entries (das_keep_iq, whose phases must lie within PHASE_MAX, and
+// das_keep_iq_wide, which refuse rot 0, as das_keep refuses 1); out at
+// frame 0 and
 // the launch's first transmit, (N', M', F, I) with the strides on, om, of
 // (in sums: complex64 when cplx or rot, else float32), to which the sums
 // are added when add is 1 (summed and keep_rx only); keep 0 summed, 1 rx,
@@ -1795,21 +1830,22 @@ ROTATIONS_(KEEP_ENTRIES_)
 #define K1_ARGS                                                                           \
   const float *x, const float *pix, const float *pr, const float *pv, const float *nv,    \
       const float *t0, void *out, long long I, int N, int M, int T, int F, int f0, int fb, \
-      float cinv, float fs, float w, int tx_model, int method, int cplx, int add
-#define K1_PASS x, pix, pr, pv, nv, t0, out, I, N, M, T, F, f0, fb, cinv, fs, w, tx_model, \
-      method, cplx, add
+      int fl, float cinv, float fs, float w, int tx_model, int method, int cplx, int add
+#define K1_PASS x, pix, pr, pv, nv, t0, out, I, N, M, T, F, f0, fb, fl, cinv, fs, w,       \
+      tx_model, method, cplx, add
 #define K2_ARGS                                                                           \
   const float *x, const float *taur, const float *taut, const float *t0, void *out,       \
-      long long I, int N, int M, long long ldt, int T, int F, int f0, int fb, float fs,   \
-      float w, int method, int cplx, int add
-#define K2_PASS x, taur, taut, t0, out, I, N, M, ldt, T, F, f0, fb, fs, w, method, cplx, add
+      long long I, int N, int M, long long ldt, int T, int F, int f0, int fb, int fl,     \
+      float fs, float w, int method, int cplx, int add
+#define K2_PASS x, taur, taut, t0, out, I, N, M, ldt, T, F, f0, fb, fl, fs, w, method, cplx, \
+      add
 
 template <int ROT, int Q>
 int k1_entry(K1_ARGS, Lp lp, int device, void* stream) {
   if (tx_model < PLANE || tx_model > VIRTUAL) return (int)cudaErrorInvalidValue;
   const Args a{x, pix, pr, pv, nv, nullptr, nullptr, t0, out, (int64_t)I, 0, 0, N, M, T,
                cinv, fs, add};
-  return launch<ROT, Q>(tx_model, method, cplx, a, F, f0, fb, w, lp, device, stream);
+  return launch<ROT, Q>(tx_model, method, cplx, a, F, f0, fb, fl, w, lp, device, stream);
 }
 
 template <int ROT, int Q>
@@ -1817,7 +1853,7 @@ int k2_entry(K2_ARGS, Lp lp, int device, void* stream) {
   if (ldt < M) return (int)cudaErrorInvalidValue;
   const Args a{x, nullptr, nullptr, nullptr, nullptr, taur, taut, t0, out, (int64_t)I, 0,
                (int64_t)ldt, N, M, T, 0.f, fs, add};
-  return launch<ROT, Q>(LUT, method, cplx, a, F, f0, fb, w, lp, device, stream);
+  return launch<ROT, Q>(LUT, method, cplx, a, F, f0, fb, fl, w, lp, device, stream);
 }
 
 #ifdef DAS_Q
@@ -1848,38 +1884,41 @@ ROTATIONS_(Q_ENTRIES_)
 // entry type written: DAS_Q (the rounded taps), F32 (cubic: the float32
 // coefficients of the rounded taps, of int8 taps times s / 127) or, in the
 // I8 unit, H16 (cubic: the coefficients of the int8 taps in half
-// precision); out (M, N, T, F, [2,] E) units of 2 (BF16, H16), 1 (I8) or 4
-// (F32) bytes.
+// precision); out das_layout's blocks of units of 2 (BF16, H16), 1 (I8) or
+// 4 (F32) bytes.
 extern "C" int das_layout_q(const float* x, void* out, int T, int N, int M, long long ldm,
-                            int F, int method, int cplx, int prec, const float* qs, int rne,
-                            int form, int device, void* stream) {
-  const int err = layout_check(T, N, M, ldm, F, device);
+                            int F, int Fg, int fb, int method, int cplx, int prec,
+                            const float* qs, int rne, int form, int device, void* stream) {
+  const int err = layout_check(T, N, M, ldm, F, Fg, fb, device);
   if (err != (int)cudaSuccess) return err;
   if (prec != DAS_Q || (prec == I8 && !qs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (method == CUBIC && form == F32)
-    return (int)layout_frames<CUBIC, F32, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+    return (int)layout_frames<CUBIC, F32, DAS_Q>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s, qs,
+                                                  rne);
   if constexpr (DAS_Q == I8) {
     if (method == CUBIC && form == H16)
-      return (int)layout_frames<CUBIC, H16, I8>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+      return (int)layout_frames<CUBIC, H16, I8>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s, qs,
+                                                rne);
   }
   if (form != DAS_Q) return (int)cudaErrorInvalidValue;
   switch (method) {
     case NEAREST:
       if constexpr (DAS_Q != I8)
-        return (int)layout_frames<NEAREST, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs,
-                                                         rne);
+        return (int)layout_frames<NEAREST, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, Fg, fb, cplx,
+                                                         s, qs, rne);
       break;
     case LINEAR:
       if constexpr (DAS_Q != I8)
-        return (int)layout_frames<LINEAR, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs,
-                                                        rne);
+        return (int)layout_frames<LINEAR, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, Fg, fb, cplx,
+                                                        s, qs, rne);
       break;
     case CUBIC:
-      return (int)layout_frames<CUBIC, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs, rne);
+      return (int)layout_frames<CUBIC, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s,
+                                                     qs, rne);
     case LANCZOS3:
-      return (int)layout_frames<LANCZOS3, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, cplx, s, qs,
-                                                        rne);
+      return (int)layout_frames<LANCZOS3, DAS_Q, DAS_Q>(x, out, T, N, M, ldm, F, Fg, fb, cplx,
+                                                        s, qs, rne);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1888,9 +1927,10 @@ extern "C" int das_layout_q(const float* x, void* out, int T, int N, int M, long
 
 // Launch K1 on `stream` (a cudaStream_t) of device `device` for M
 // transmits and frames f0 .. f0 + fb - 1 (fb at most the sampler's frames a
-// launch, das_frames_kernel's plan) of F. x holds their traces in the
-// layout of `method` (das_layout's output, the frames where das_frames_kernel's
-// plan keeps them), float32, or complex64 when `cplx` is 1; pv, nv (M, 3) and t0 (M,)
+// launch, das_frames_kernel's plan) of F. x points at frame f0's entries in
+// the layout of `method` (das_layout's output) of these traces, float32, or
+// complex64 when `cplx` is 1, which holds fl >= fb frames a tap base (a
+// block of das_layout's; one frame: fl 1); pv, nv (M, 3) and t0 (M,)
 // theirs; out (I, F) of the sums' type (complex64 when `cplx` is 1 or for
 // the remodulating entries, else float32), to which the sums are added
 // when `add` is 1; w = 2 pi fmod (the remodulating entries; the other
@@ -1934,20 +1974,25 @@ extern "C" int das_sincos_probe(const float* x, void* out, int n, int device, vo
 }
 #else
 // Launch the layout kernel on `stream` of device `device`: x (T, N, ldm, F)
-// float32, or complex64 when `cplx` is 1, contiguous, of which transmits
-// 0 .. M-1 of the third axis are laid out; out the layout of `method` (0
-// nearest: the traces; 1 linear, 2 cubic, 3 lanczos3: stencils), (M, N, T,
-// F, [2,] E) floats. Returns the cudaError_t of the launch; 0 is success.
+// float32, or complex64 when `cplx` is 1, contiguous, from the first
+// transmit and frame to lay out, of which frames 0 .. Fg - 1 of transmits
+// 0 .. M - 1 are laid out in blocks of fb frames (the last short where fb
+// does not divide Fg; one block, fb = Fg = F, is all the frames); out the
+// layout of `method` (0 nearest: the traces; 1 linear, 2 cubic, 3
+// lanczos3: stencils), block after block (M, N, T, fbb, [2,] E) floats, fbb
+// the block's frames. Returns the cudaError_t of the launch; 0 is success.
 extern "C" int das_layout(const float* x, float* out, int T, int N, int M, long long ldm,
-                          int F, int method, int cplx, int device, void* stream) {
-  const int err = layout_check(T, N, M, ldm, F, device);
+                          int F, int Fg, int fb, int method, int cplx, int device,
+                          void* stream) {
+  const int err = layout_check(T, N, M, ldm, F, Fg, fb, device);
   if (err != (int)cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (method) {
-    case NEAREST: return (int)layout_frames<NEAREST>(x, out, T, N, M, ldm, F, cplx, s);
-    case LINEAR: return (int)layout_frames<LINEAR>(x, out, T, N, M, ldm, F, cplx, s);
-    case CUBIC: return (int)layout_frames<CUBIC>(x, out, T, N, M, ldm, F, cplx, s);
-    case LANCZOS3: return (int)layout_frames<LANCZOS3>(x, out, T, N, M, ldm, F, cplx, s);
+    case NEAREST: return (int)layout_frames<NEAREST>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s);
+    case LINEAR: return (int)layout_frames<LINEAR>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s);
+    case CUBIC: return (int)layout_frames<CUBIC>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s);
+    case LANCZOS3:
+      return (int)layout_frames<LANCZOS3>(x, out, T, N, M, ldm, F, Fg, fb, cplx, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,22 +25,25 @@ back. For a CPU tensor they run :func:`das_sum_plain` and
 ``LAUNCHES`` counts K1's launches and ``LUT_LAUNCHES`` K2's.
 
 Before a launch the wrapper writes the traces ``(T, N, M, F)`` into the
-kernels' edge-replicated layout for the sampler, a term's frames innermost
-(the traces transposed to ``(M, N, T, F)`` for nearest, stencil entries for
-the others):
-:func:`trace_layout`, which on the card launches the layout
-kernel of the same source (counted by ``LAYOUT_LAUNCHES``) and on the CPU
-runs its plain version :func:`trace_layout_plain`. A stencil holds 2 to 4
-times the traces' bytes, so the wrapper lays out and sums the transmits by
-chunks whose layout holds at most ``LAYOUT_BYTES`` (:func:`tx_chunks`; one
-transmit's layout where that alone is larger): a call's peak device memory
-is then the traces, the tables or geometry, the output and at most
-``LAYOUT_BYTES`` more (and one frame's traces, where the frames run one
-at a time). Each chunk is one launch of the layout kernel and, per block
-of frames (:func:`frames_per_launch`: by sampler, entry type and trace
-type), one of K1 or K2, which adds its sums to the chunks' before it;
-where the plan takes one frame a launch (complex cubic float32 traces),
-each frame runs as a one-frame call on its own layout.
+kernels' edge-replicated layout for the sampler (the traces transposed to
+``(M, N, T)`` for nearest, stencil entries for the others), in blocks of
+the frames a launch sums, a block's frames innermost, ``(M, N, T, fb,
+entry)`` block after block (:func:`layout_blocks`, which on the card
+launches the layout kernel of the same source, counted by
+``LAYOUT_LAUNCHES``, and on the CPU runs its plain version, each block
+:func:`trace_layout_plain` of its frames; :func:`trace_layout` is the
+layout of all the frames as one block). A stencil holds 2 to 4 times the
+traces' bytes, so the wrapper lays out and sums by chunks whose layout
+holds at most ``LAYOUT_BYTES`` (:func:`layout_chunks`: groups of whole
+blocks of every transmit, and the transmits of a block by
+:func:`tx_chunks` where one block alone is larger): a call's peak device
+memory is then the traces, the tables or geometry, the output and at most
+``LAYOUT_BYTES`` more. Each chunk is one launch of the layout kernel and,
+per block of frames (:func:`frames_per_launch`: by sampler, entry type and
+trace type, and for K1 the tap stride of its pixels), one of K1 or K2,
+which adds its sums to the chunks' before it; where the plan takes one
+frame a launch, each frame runs as a one-frame call on its plane of the
+layout.
 
 Keep modes and apodization (K1(c), K1(d), K2(c)) run in a third kernel of
 the same body, ``das_keep_kernel`` (``csrc/das_keep.cu``, its remodulating
@@ -125,6 +128,9 @@ LAYOUT_BYTES = 4 << 30  # the most a call's trace layout holds at once
 TMAX = 1 << 22  # the longest trace the kernels take (csrc/das.cu)
 KEEP_FRAMES = 1  # the keep kernel's frames a launch (csrc/das.cu)
 FRAMES_A_LAUNCH = 4  # K1(b)/K2(b)'s frames a launch but complex cubic float32's (csrc/das.cu)
+# the most bytes K1(b)'s block of entries at a tap base may span times the
+# tap bases between neighbouring pixels (frames_per_launch; csrc/das.cu)
+FRAME_SPAN = 48
 PHASE_MAX = 2.0 ** 20  # the largest |phase| [rad] of the short rotation (csrc/das.cu)
 NC = 32  # receivers per chunk of the receive table (csrc/das.cu)
 # keep_rx's receivers a sub-chunk, their sums in registers: real unweighted
@@ -345,13 +351,13 @@ def _bind(lib: str, name: str, iq: bool, args: list, wide: bool = False):
     return fn, log
 
 
-_K1_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+_K1_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 7
             + [ctypes.c_float] * 3 + [ctypes.c_int] * 4)
 _K2_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-            + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+            + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
             + [ctypes.c_int] * 3)
 _KEEP_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-              + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+              + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
               + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 
@@ -537,7 +543,7 @@ def stencil_entry(taps, method: str):
 def build_layout():
     """The layout kernel's entry point in the library of :func:`build`."""
     return _bind("das", "das_layout", False, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + _DEV)[0]
+                 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + _DEV)[0]
 
 
 def build_layout_q(q: int):
@@ -545,7 +551,7 @@ def build_layout_q(q: int):
     int8: ``das_layout_q``) in the library of :func:`build_q`."""
     return _bind("das_" + _Q_LIBS[q], "das_layout_q", False,
                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + _DEV)[0]
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + _DEV)[0]
 
 
 def taps_form(precision: str) -> str:
@@ -577,14 +583,52 @@ def entry_form(method: str, precision: str, cplx: bool, keep: bool = False) -> s
     return taps_form(precision)
 
 
-def frames_per_launch(method: str, precision: str = "f32", cplx: bool = True) -> int:
+def frames_per_launch(method: str, precision: str = "f32", cplx: bool = True,
+                      sigma: Optional[float] = None) -> int:
     """The frames a launch of K1(b)/K2(b) (das_frames_kernel) takes for
-    ``method`` at ``precision`` on complex (``cplx``) or real traces:
-    csrc/das.cu's ``frames_a_launch`` for the entry type of the call's
-    form (:func:`entry_form`), ``FRAMES_A_LAUNCH`` but one for complex cubic
-    float32 traces."""
-    q = FORMS[entry_form(method, precision, cplx)]
-    return 1 if method == "cubic" and q == 0 and cplx else FRAMES_A_LAUNCH
+    ``method`` at ``precision`` on complex (``cplx``) or real traces. The
+    cap is csrc/das.cu's ``frames_a_launch`` for the entry type of the
+    call's form (:func:`entry_form`): ``FRAMES_A_LAUNCH``, but one for
+    complex cubic float32 traces. With ``sigma``, the tap bases between
+    neighbouring pixels (:func:`tap_stride`; K1 alone has the pixels), the
+    largest of 4, 2, 1 within the cap whose block of entries at a tap base,
+    ``fb`` frames' :func:`entry_bytes`, times ``sigma`` spans at most
+    ``FRAME_SPAN`` bytes: neighbouring lanes of a warp then read their
+    frames from a few shared cache lines, where a wider block gives each
+    lane a line of its own at every load (PERF.md §6, PR 23, the sweep
+    that set ``FRAME_SPAN``)."""
+    form = entry_form(method, precision, cplx)
+    fb = 1 if method == "cubic" and FORMS[form] == 0 and cplx else FRAMES_A_LAUNCH
+    if sigma is not None:
+        while fb > 1 and sigma * fb * entry_bytes(method, form, cplx) > FRAME_SPAN:
+            fb //= 2
+    return fb
+
+
+def entry_bytes(method: str, form: str, cplx: bool) -> int:
+    """The bytes of one frame's entry at a tap base in a layout of ``form``
+    (:data:`FORMS`) for ``method``: a unit of the form's entry type (4, 2
+    or 1 bytes) times 1 (nearest), 2 (linear) or 4 units a part, times 2
+    parts for complex traces."""
+    units = {"nearest": 1, "linear": 2}.get(method, 4)
+    return _UNIT[FORMS[form]].itemsize * units * (2 if cplx else 1)
+
+
+def tap_stride(pi, cinv, fs) -> Optional[float]:
+    """sigma: the most tap bases between neighbouring pixels' delays,
+    ``2 |cinv| |fs|`` times the longest step between neighbouring pixels
+    among the first 32 of ``pi`` (I, 3), a warp's pixels; K1's plan of
+    frames a launch (:func:`frames_per_launch`). From host pixels alone
+    (numpy or a CPU tensor: 32 rows, no read of the card); ``None`` for
+    pixels on a device."""
+    if isinstance(pi, torch.Tensor):
+        if pi.device.type != "cpu":
+            return None
+        pi = pi.detach().numpy()
+    p = np.asarray(pi)
+    p = (p[:32] if p.ndim == 2 and p.shape[1] == 3 else p.reshape(-1, 3)[:32]).astype(np.float64)
+    step = float(np.sqrt((np.diff(p, axis=0) ** 2).sum(1)).max()) if len(p) > 1 else 0.0
+    return 2.0 * abs(float(cinv)) * abs(float(fs)) * step
 
 
 def reduced_rotation(w: float, T: int, fs: float) -> bool:
@@ -629,10 +673,27 @@ def tx_chunks(x: torch.Tensor, method: str, precision: str = "f32",
     T, N, M = x.shape[:3]
     F = int(np.prod(x.shape[3:], dtype=np.int64))
     form = form or entry_form(method, precision, x.is_complex())
-    units = (2 if x.is_complex() else 1) * {"nearest": 1, "linear": 2}.get(method, 4)
-    per_tx = _UNIT[FORMS[form]].itemsize * units * T * N * F
+    per_tx = entry_bytes(method, form, x.is_complex()) * T * N * F
     k = -(-M // max(1, LAYOUT_BYTES // per_tx))
     return [(M * j // k, M * (j + 1) // k) for j in range(k)]
+
+
+def layout_chunks(x: torch.Tensor, method: str, fb: int, precision: str = "f32",
+                  form: Optional[str] = None):
+    """The chunks ``(g0, g1, [(m0, m1), ...])`` in which K1 and K2 lay out
+    traces ``x (T, N, M, F)`` in blocks of ``fb`` frames: groups of whole
+    blocks, frames ``g0:g1``, as few as keep each group's layout of every
+    transmit within ``LAYOUT_BYTES`` (of sizes within a block of each
+    other), and each group's transmits in :func:`tx_chunks` (one chunk
+    unless one block of every transmit is larger). A call whose layout
+    fits is one chunk, frames ``0:F`` and transmits ``0:M``."""
+    T, N, M, F = x.shape
+    form = form or entry_form(method, precision, x.is_complex())
+    per_block = entry_bytes(method, form, x.is_complex()) * T * N * M * fb
+    nb = -(-F // fb)
+    g = -(-nb // max(1, LAYOUT_BYTES // per_block))
+    groups = [(min(F, fb * (nb * j // g)), min(F, fb * (nb * (j + 1) // g))) for j in range(g)]
+    return [(g0, g1, tx_chunks(x[..., g0:g1], method, precision, form)) for g0, g1 in groups]
 
 
 def _check_form(method: str, precision: str, form: str) -> int:
@@ -655,14 +716,41 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: 
     precision that of the unit that rounds its taps, ``das_bf16.cu`` or
     ``das_i8.cu``, in any form; bit for bit the same), else by the plain
     version. ``scale``: the (M,) 'i8x4' scales of all of x's transmits;
-    ``form``: the entry form (default :func:`taps_form`)."""
-    global LAYOUT_LAUNCHES
+    ``form``: the entry form (default :func:`taps_form`). Every frame is
+    one block: K1 and K2 read :func:`layout_blocks`."""
     m1 = x.shape[2] if m1 is None else m1
+    if not is_cuda(x):
+        sc = None if scale is None else scale[m0:m1]
+        return trace_layout_plain(x[:, :, m0:m1], method, precision, sc, form)
+    if x.ndim not in (3, 4):
+        raise ValueError(f"K1 and K2 take float32 or complex64 (T, N, M[, F]) traces, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    F = x.shape[3] if x.ndim == 4 else 1
+    (out,) = layout_blocks(_frames(x), method, m0, m1, 0, F, F, precision, scale, form)
+    return out.reshape(out.shape[:3] + x.shape[3:] + out.shape[4:])
+
+
+def layout_blocks(x: torch.Tensor, method: str, m0: int, m1: int, g0: int, g1: int, fb: int,
+                  precision: str = "f32", scale: Optional[torch.Tensor] = None,
+                  form: Optional[str] = None) -> list:
+    """The layout of transmits ``m0:m1`` and frames ``g0:g1`` of traces
+    ``x (T, N, M, F)`` in blocks of ``fb`` frames, the last short where
+    ``fb`` does not divide ``g1 - g0``: one tensor a block, ``(m1 - m0, N,
+    T, fbb, ...)``, :func:`trace_layout_plain` of the block's frames. A
+    launch then reads its block's entries ``fbb`` to a tap base, not the
+    call's F. For a CUDA tensor one launch of the layout kernel writes the
+    blocks one after the other into one buffer (counted by
+    ``LAYOUT_LAUNCHES``); else the plain version. ``scale``, ``form`` as
+    for :func:`trace_layout`."""
+    global LAYOUT_LAUNCHES
     sc = None if scale is None else scale[m0:m1]
     form = form or taps_form(precision)
+    fb = min(fb, g1 - g0)
+    blocks = [(b0, min(b0 + fb, g1)) for b0 in range(g0, g1, fb)]
     if not is_cuda(x):
-        return trace_layout_plain(x[:, :, m0:m1], method, precision, sc, form)
-    if x.dtype not in DTYPES or x.ndim not in (3, 4):
+        return [trace_layout_plain(x[:, :, m0:m1, b0:b1], method, precision, sc, form)
+                for b0, b1 in blocks]
+    if x.dtype not in DTYPES or x.ndim != 4:
         raise ValueError(f"K1 and K2 take float32 or complex64 (T, N, M[, F]) traces, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if method not in METHODS:
@@ -671,25 +759,26 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: 
     prec = _ENTRY[precision]
     if precision == "i8x4" and (sc is None or sc.numel() != m1 - m0):
         raise ValueError("precision='i8x4' needs one scale per transmit")
-    x = x.contiguous()
-    T, N, M = x.shape[:3]
-    fd = tuple(x.shape[3:])
-    F = int(np.prod(fd, dtype=np.int64))
-    if not 0 <= m0 < m1 <= M:
-        raise ValueError(f"transmits {m0}:{m1} not in 0:{M}")
+    T, N, M, F = x.shape
+    if not 0 <= m0 < m1 <= M or not 0 <= g0 < g1 <= F or fb < 1:
+        raise ValueError(f"transmits {m0}:{m1}, frames {g0}:{g1} in blocks of {fb} not in "
+                         f"0:{M}, 0:{F}")
+    mx, gx = m0, g0  # the first transmit and frame laid out, in x
+    if not x.is_contiguous():  # the kernel reads (T, N, M, F): this chunk's traces alone, once
+        x, mx, gx = x[:, :, m0:m1, g0:g1].contiguous(), 0, 0
     if T > TMAX:
         raise ValueError(f"K1 and K2 take traces of at most {TMAX} samples, got {T}")
     cplx = x.is_complex()
     if method == "nearest" and not prec:
-        shape, dtype = (m1 - m0, N, T) + fd, x.dtype
+        entry, dtype = (), x.dtype
     else:
-        shape = ((m1 - m0, N, T) + fd + ((2,) if cplx else ())
-                 + ({"nearest": (), "linear": (2,)}.get(method, (4,))))
+        entry = ((2,) if cplx else ()) + ({"nearest": (), "linear": (2,)}.get(method, (4,)))
         dtype = _UNIT[q]
+    plane = (m1 - m0) * N * T * int(np.prod(entry, dtype=np.int64))
     with annotate("qups.das_cuda.layout"):
-        out = torch.empty(shape, dtype=dtype, device=x.device)
-        args = (x.data_ptr() + m0 * F * x.element_size(), out.data_ptr(), T, N, m1 - m0, M, F,
-                _METHOD_CODE[method], int(cplx))
+        buf = torch.empty(plane * (g1 - g0), dtype=dtype, device=x.device)
+        args = (x.data_ptr() + (mx * x.shape[3] + gx) * x.element_size(), buf.data_ptr(), T, N,
+                m1 - m0, x.shape[2], x.shape[3], g1 - g0, fb, _METHOD_CODE[method], int(cplx))
         if prec:
             sc = None if sc is None else sc.to(device=x.device, dtype=torch.float32).contiguous()
             rc = build_layout_q(prec)(*args, prec, None if sc is None else sc.data_ptr(),
@@ -699,7 +788,8 @@ def trace_layout(x: torch.Tensor, method: str, m0: int = 0, m1=None, precision: 
         if rc != 0:
             raise RuntimeError(f"layout kernel launch failed with cudaError {rc}")
         LAYOUT_LAUNCHES += 1
-    return out
+    return [buf[plane * (b0 - g0):plane * (b1 - g0)].view((m1 - m0, N, T, b1 - b0) + entry)
+            for b0, b1 in blocks]
 
 
 def trace_layout_plain(x: torch.Tensor, method: str, precision: str = "f32",
@@ -790,36 +880,43 @@ def _t0_on(t0, M: int, dev) -> torch.Tensor:
 
 
 def _launch_frames(x, method, fmod, launch, fb_max, precision="f32", scale=None, out=None,
-                   form=None, span="qups.das_cuda.k1"):
-    """Lay out the chunks of transmits of ``x (T, N, M, *F)`` at
-    ``precision`` in the entry form ``form`` (default the call's
-    :func:`entry_form`; ``scale``: its (M,) 'i8x4' scales) and call
-    ``launch(layout, m0, m1, F, f0, fb, w, add)`` for each block of at most
-    ``fb_max`` frames of each chunk, each call in a span named ``span``
-    (:func:`~qups_tpu_torch.utils.annotate`): w = 2 pi fmod in float32, add
-    1 after the first chunk. With ``out``
-    (K1's and K2's (I, F) sums) and one frame a launch, each frame runs as a
-    one-frame call: its traces copied whole, laid out by chunks and summed
-    by ``launch(..., o=row)`` into its row of an (F, I) buffer, which then
-    fills ``out``."""
+                   form=None, span="qups.das_cuda.k1", block=None):
+    """Lay out the traces ``x (T, N, M, *F)`` at ``precision`` in the entry
+    form ``form`` (default the call's :func:`entry_form`; ``scale``: its
+    (M,) 'i8x4' scales) in blocks of ``block`` frames (default ``fb_max``),
+    by :func:`layout_chunks`, and call ``launch(layout, m0, m1, F, f0, fb,
+    fl, w, add)`` for each run of at most ``fb_max`` frames of each block
+    of each chunk, each call in a span named ``span``
+    (:func:`~qups_tpu_torch.utils.annotate`): ``layout`` the block from
+    frame f0 on, fl its frames (the layout's entries a tap base), w = 2 pi
+    fmod in float32, add 1 after the block's first chunk of transmits.
+    With ``out`` (K1's and K2's (I, F) sums) and one frame a launch, each
+    frame runs as a one-frame call, ``launch(..., 1, 0, 1, fl, w, add,
+    o=row)`` into its row of an (F, I) buffer, which then fills ``out``."""
     xF = _frames(x)
     F = xF.shape[3]
+    block = block or fb_max
+    rows = None
     if out is not None and fb_max == 1 and F > 1:
         rows = torch.empty((F, out.shape[0]), dtype=out.dtype, device=out.device)
-        for f in range(F):
-            _launch_frames(xF[..., f].contiguous(), method, fmod,
-                           lambda *a, r=rows[f]: launch(*a, o=r), 1, precision, scale,
-                           form=form, span=span)
-        out.copy_(rows.T)
-        return
     w = _w(fmod)
     form = form or entry_form(method, precision, x.is_complex())
-    for j, (m0, m1) in enumerate(tx_chunks(xF, method, precision, form)):
-        xl = trace_layout(xF, method, m0, m1, precision, scale, form)
-        for f0 in range(0, F, fb_max):
-            with annotate(span):
-                launch(xl, m0, m1, F, f0, min(fb_max, F - f0), w, int(j > 0))
-        del xl  # the next chunk's layout may take its memory
+    for g0, g1, chunks in layout_chunks(xF, method, block, precision, form):
+        for j, (m0, m1) in enumerate(chunks):
+            blocks = layout_blocks(xF, method, m0, m1, g0, g1, block, precision, scale, form)
+            for b0, xb in zip(range(g0, g1, block), blocks):
+                fl = xb.shape[3]
+                for f0 in range(b0, b0 + fl, fb_max):
+                    fb = min(fb_max, b0 + fl - f0)
+                    with annotate(span):
+                        if rows is None:
+                            launch(xb[:, :, :, f0 - b0:], m0, m1, F, f0, fb, fl, w, int(j > 0))
+                        else:
+                            launch(xb[:, :, :, f0 - b0:], m0, m1, 1, 0, 1, fl, w, int(j > 0),
+                                   o=rows[f0])
+            del blocks, xb  # the next chunk's layout may take its memory
+    if rows is not None:
+        out.copy_(rows.T)
 
 
 def _w(fmod) -> float:
@@ -957,7 +1054,7 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
     else:
         pi, pr, pv, nv = k1
 
-    def launch(xl, m0, m1, F, f0, fb, w, add):
+    def launch(xl, m0, m1, F, f0, fb, fl, w, add):
         global KEEP_LAUNCHES, APOD_LAUNCHES, LUT_KEEP_LAUNCHES, PREC_LAUNCHES
         global LUT_PREC_LAUNCHES
         strides, ptrs = [], []
@@ -971,7 +1068,7 @@ def _das_keep(x: torch.Tensor, I: int, t0: torch.Tensor, *, fs, method, fmod, ap
         geo = ((None,) * 4 + (tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(), M) if lut else
                (pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(), nv[m0:].data_ptr(), None,
                 None, 0))
-        rc = fn(xl.data_ptr(), *geo, t0[m0:].data_ptr(), o, I, N, m1 - m0, T, F, f0, fb,
+        rc = fn(xl.data_ptr(), *geo, t0[m0:].data_ptr(), o, I, N, m1 - m0, T, F, f0, fb, fl,
                 _f32(cinv), _f32(fs), w, 3 if lut else _TX_CODE[tx_model], _METHOD_CODE[method],
                 int(cplx), int(iq), 0 if keep_tx else add, keep, on, om, of, im_shape[1],
                 im_shape[2], *ptrs, ctypes.addressof(sa), rx_bits, tx_bits, nul(ori),
@@ -1014,7 +1111,7 @@ def _acc16_plain(x, pi, pr, pv, nv, t0, cinv, apod, *, keep_rx, keep_tx, method,
                  **kw) -> torch.Tensor:
     """K1's kept sums stored as bfloat16 where the kernel stores them:
     keep_rx once a launch, after the transmits of each layout chunk
-    (:func:`tx_chunks`) are added to the stored sums; keep_tx after each
+    (:func:`layout_chunks`) are added to the stored sums; keep_tx after each
     chunk of NC receivers is added; both once per term. ``x`` holds the
     rounded taps, ``apod`` the weights (the 'i8x4' scale among them)."""
     dev = x.device
@@ -1030,10 +1127,10 @@ def _acc16_plain(x, pi, pr, pv, nv, t0, cinv, apod, *, keep_rx, keep_tx, method,
 
     if keep_rx and keep_tx:
         return round_bf16_even(part(slice(None), slice(None)))
-    if keep_rx:  # the keep kernel's layout chunks
+    if keep_rx:  # the keep kernel's chunks of transmits, the same for each group of frames
         form = entry_form(method, precision, x.is_complex(), keep=True)
-        blocks = [(slice(None), slice(m0, m1))
-                  for m0, m1 in tx_chunks(x, method, precision, form)]
+        chunks = layout_chunks(_frames(x), method, KEEP_FRAMES, precision, form)[0][2]
+        blocks = [(slice(None), slice(m0, m1)) for m0, m1 in chunks]
     else:
         blocks = [(slice(n0, n0 + NC), slice(None)) for n0 in range(0, N, NC)]
     acc = None
@@ -1108,6 +1205,7 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     _check_traces(x, "K1")
     dev = x.device
     T, N, M = x.shape[:3]
+    pi_host = pi  # the pixels as given: the frames' plan reads 32 of them on the host
     with annotate("qups.das_cuda.operands"):
         pi, pr, pv, nv = (as_f32(a, dev).reshape(-1, 3).contiguous()
                           for a in (pi, pr, pv, nv))
@@ -1133,12 +1231,12 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
     fn, _ = build_q(q, iq, wide) if q else build(iq, wide)
     dq = dequant(scale) if q in (2, H16) else None  # where the kernel scales
 
-    def launch(xl, m0, m1, F, f0, fb, w, add, o=out):
+    def launch(xl, m0, m1, F, f0, fb, fl, w, add, o=out):
         global LAUNCHES, PREC_LAUNCHES
         lp = (q, None if dq is None else dq[m0:].data_ptr()) if q else ()
         rc = fn(xl.data_ptr(), pi.data_ptr(), pr.data_ptr(), pv[m0:].data_ptr(),
                 nv[m0:].data_ptr(), t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, T,
-                F, f0, fb, float(np.float32(cinv)), float(np.float32(fs)), w,
+                F, f0, fb, fl, float(np.float32(cinv)), float(np.float32(fs)), w,
                 _TX_CODE[tx_model], _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
         if rc != 0:
@@ -1148,7 +1246,9 @@ def das_sum(x: torch.Tensor, pi, pr, pv, nv, t0, cinv, *, fs: float,
         else:
             LAUNCHES += 1
 
-    _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx),
+    # the frames a launch from the tap stride of the host pixels (none without frames)
+    sigma = tap_stride(pi_host, cinv, fs) if out.shape[1] > 1 else None
+    _launch_frames(x, method, fmod, launch, frames_per_launch(method, precision, cplx, sigma),
                    precision, scale, out, form)
     return out.view((I, 1, 1) + fd)
 
@@ -1224,11 +1324,11 @@ def das_lut_sum(x: torch.Tensor, tau_rx, tau_tx, t0, *, fs: float,
     fn = build_lut_q(q, iq, wide) if q else build_lut(iq, wide)
     dq = dequant(scale) if q in (2, H16) else None  # where the kernel scales
 
-    def launch(xl, m0, m1, F, f0, fb, w, add, o=out):
+    def launch(xl, m0, m1, F, f0, fb, fl, w, add, o=out):
         global LUT_LAUNCHES, LUT_PREC_LAUNCHES
         lp = (q, None if dq is None else dq[m0:].data_ptr()) if q else ()
         rc = fn(xl.data_ptr(), tau_rx.data_ptr(), tau_tx[:, m0:].data_ptr(),
-                t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, M, T, F, f0, fb,
+                t0[m0:].data_ptr(), o.data_ptr(), I, N, m1 - m0, M, T, F, f0, fb, fl,
                 float(np.float32(fs)), w, _METHOD_CODE[method], int(cplx), add, *lp,
                 *_nvcc.stream_args(dev))
         if rc != 0:

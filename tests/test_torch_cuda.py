@@ -395,8 +395,9 @@ def test_k1b_k2b_match_plain(card, iq, frames):
     (2, 3)) and remodulation, real traces with fmod (complex sums), complex
     with and without, for every sampler and (K1) transmit model, delays off
     both ends of the traces, against their plain versions: one launch per
-    block of frames (the sampler's frames_per_launch), and the image (I, 1,
-    1, *F)."""
+    block of frames (the sampler's frames_per_launch; K1's from the tap
+    stride of its pixels, 1.98 here: 1, 2 or 4 frames by the entry's
+    bytes), and the image (I, 1, 1, *F)."""
     cplx, fmod = IQ[iq]
     fdims = FRAMES[frames]
     x, tau_rx, tau_tx, t0, fs = lut_problem()
@@ -409,9 +410,11 @@ def test_k1b_k2b_match_plain(card, iq, frames):
                       (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model=model),
                       "LAUNCHES"))
     for kern, plain, args, kw, counter in calls:
+        sigma = das_cuda.tap_stride(args[1], CINV, kw["fs"]) if counter == "LAUNCHES" else None
         for method in METHODS:
             kw = dict(kw, method=method, fmod=fmod)
-            blocks = -(-int(np.prod(fdims)) // das_cuda.frames_per_launch(method, cplx=cplx))
+            blocks = -(-int(np.prod(fdims)) // das_cuda.frames_per_launch(method, cplx=cplx,
+                                                                           sigma=sigma))
             before = getattr(das_cuda, counter)
             got = kern(*args, **kw)
             torch.cuda.synchronize()
@@ -612,6 +615,108 @@ def test_layout_kernel_frames_matches_plain(card, T, N, M, F):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,N,M,F", [(1, 3, 2, 3), (3, 2, 1, 5), (130, 5, 40, 3), (70, 2, 7, 9)])
+def test_layout_kernel_blocks_match_plain(card, T, N, M, F):
+    """The layout kernel's blocks of frames (layout_blocks: frames g0:g1
+    of transmits m0:m1 in blocks of 1, 2 or 4 frames, the last short, one
+    launch into one buffer) against their plain version, bit for bit, for
+    every sampler, real and complex, float32 and the narrow forms of real
+    cubic traces ('f32c' of bf16 taps, 'h16' of int8 taps) and of nearest
+    bf16 taps; and from traces whose time axis is innermost (as hilbert
+    leaves them), whose chunk is gathered first."""
+    rng = np.random.default_rng(65)
+    x = rng.standard_normal((T, N, M, F)).astype(np.float32)
+    cases = [(m, "f32", None) for m in METHODS] + [
+        ("cubic", "bf16pair", "f32c"), ("cubic", "i8x4", "h16"), ("nearest", "bf16pair", None)]
+    for xa, t_inner in ((x, False), ((x + 1j * rng.standard_normal(x.shape)).astype(
+            np.complex64), False), (x, True)):
+        xg = torch.as_tensor(xa, device=card)
+        if t_inner:
+            xg = xg.permute(3, 2, 1, 0).contiguous().permute(3, 2, 1, 0)
+            assert not xg.is_contiguous()
+        s = das_cuda.i8_scale(xg)
+        for method, precision, form in cases:
+            sc = s if precision == "i8x4" else None
+            for fb in (1, 2, 4):
+                for m0, m1, g0, g1 in ((0, M, 0, F), (M // 3, M - M // 4, F // 3, F)):
+                    before = das_cuda.LAYOUT_LAUNCHES
+                    got = das_cuda.layout_blocks(xg, method, m0, m1, g0, g1, fb, precision, sc,
+                                                 form)
+                    assert das_cuda.LAYOUT_LAUNCHES == before + 1
+                    ref = das_cuda.layout_blocks(xg.cpu(), method, m0, m1, g0, g1, fb,
+                                                 precision, None if sc is None else sc.cpu(),
+                                                 form)
+                    assert len(got) == len(ref) == -(-(g1 - g0) // min(fb, g1 - g0))
+                    where = (method, precision, fb, m0, g0, xa.dtype)
+                    assert all(a.shape == b.shape and torch.equal(a.cpu(), b)
+                               for a, b in zip(got, ref)), where
+                    assert all(a.data_ptr() == got[0].data_ptr() + a.element_size() * sum(
+                        b.numel() for b in got[:k]) for k, a in enumerate(got)), where
+                    if t_inner:  # the same bits as from the contiguous traces
+                        assert all(torch.equal(a, b) for a, b in zip(got, das_cuda.layout_blocks(
+                            xg.contiguous(), method, m0, m1, g0, g1, fb, precision, sc, form)))
+
+
+def _picmus_rf(card, n_z=64, F=16):
+    """PICMUS PW75's geometry at its pixel pitch (an L11-4v's 128 elements,
+    75 plane waves over +-16 degrees, 512 px over x +-18 mm: 70.5 um, 1.91
+    tap bases at 20.832 MHz) on ``n_z`` rows, and seeded real traces (1664,
+    128, 75, F) on the card, t0 0: (traces, pi, pr, pv, nv, t0, fs)."""
+    N, M, T, fs = 128, 75, 1664, 20.832e6
+    Z, X = np.meshgrid(np.linspace(10e-3, 50e-3, n_z), np.linspace(-18e-3, 18e-3, 512),
+                       indexing="ij")
+    pi = np.stack([X.ravel(), np.zeros(X.size), Z.ravel()], -1).astype(np.float32)
+    xe = (np.arange(N) - (N - 1) / 2) * 0.3e-3
+    pr = np.stack([xe, np.zeros(N), np.zeros(N)], -1).astype(np.float32)
+    th = np.radians(np.linspace(-16.0, 16.0, M))
+    nv = np.stack([np.sin(th), np.zeros(M), np.cos(th)], -1).astype(np.float32)
+    g = torch.Generator(device=card).manual_seed(23)
+    x = torch.randn((T, N, M, F), generator=g, device=card)
+    return x, pi, pr, np.zeros((M, 3), np.float32), nv, np.zeros(M, np.float32), fs
+
+
+@pytest.mark.cuda
+def test_k1b_blocks_at_picmus_pitch(card, monkeypatch):
+    """A 16-frame real cubic ensemble at PICMUS's pixel pitch (64 x 512 px,
+    all 128 x 75 traces) through das_sum: the tap stride 1.91 gives 1 frame
+    a launch (LAUNCHES 16 / 1: one-frame calls, each on its plane of the
+    layout), and the images equal bit for bit those of 4 frames a launch on
+    the layout of all 16 frames at once (the route before blocks, through
+    _launch_frames with fb_max 4 on trace_layout's order), as do those of 2
+    and 4 frames a launch on blocks of 2 and 4 (16 / fb launches); and they
+    match das_sum_plain (every 64th pixel) within 1e-4 of the peak."""
+    x, pi, pr, pv, nv, t0, fs = _picmus_rf(card)
+    kw = dict(fs=fs, tx_model="plane", method="cubic")
+    sigma = das_cuda.tap_stride(pi, CINV, fs)
+    fb = das_cuda.frames_per_launch("cubic", "f32", False, sigma)
+    assert abs(sigma - 1.907) < 0.01 and fb == 1
+    before = das_cuda.LAUNCHES
+    got = das_cuda.das_sum(x, pi, pr, pv, nv, t0, CINV, **kw)
+    torch.cuda.synchronize()
+    assert das_cuda.LAUNCHES == before + 16 // fb
+    assert torch.equal(got, das_cuda.das_sum(x, pi, pr, pv, nv, t0, CINV, **kw))
+    real = das_cuda._launch_frames
+    monkeypatch.setattr(das_cuda, "frames_per_launch", lambda *a, **k: 4)
+    monkeypatch.setattr(das_cuda, "_launch_frames",
+                        lambda *a, **k: real(*a, **k, block=x.shape[3]))
+    before = das_cuda.LAUNCHES
+    old = das_cuda.das_sum(x, pi, pr, pv, nv, t0, CINV, **kw)
+    torch.cuda.synchronize()
+    assert das_cuda.LAUNCHES == before + 4
+    monkeypatch.undo()
+    assert torch.equal(got, old)
+    for forced in (2, 4):  # the other blocks
+        monkeypatch.setattr(das_cuda, "frames_per_launch", lambda *a, _fb=forced, **k: _fb)
+        before = das_cuda.LAUNCHES
+        assert torch.equal(das_cuda.das_sum(x, pi, pr, pv, nv, t0, CINV, **kw), old), forced
+        assert das_cuda.LAUNCHES == before + 16 // forced
+        monkeypatch.undo()
+    ref = das_cuda.das_sum_plain(x, pi[::64], pr, pv, nv, t0, CINV, **kw)
+    sub = got[::64]
+    assert float((sub - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_k1b_rotation_probe_within_2e21(card):
     """K1(b)'s and K2(b)'s short rotation (sincos_reduced, through
     das_sincos_probe) against float64 sin and cos of the same float32
@@ -670,7 +775,8 @@ def test_k1b_k2b_past_phase_max_take_sincosf(card, cplx, monkeypatch):
 @pytest.mark.parametrize("precision", ["f32", "bf16pair", "i8x4"])
 def test_k1b_k2b_launch_as_the_plan_says(card, precision):
     """K1(b) and K2(b) launch once per block of frames_per_launch(method,
-    precision, cplx) frames (LAUNCHES and LUT_LAUNCHES, or, whatever entry
+    precision, cplx) frames (K1: from the tap stride of its pixels, 4.0
+    here) (LAUNCHES and LUT_LAUNCHES, or, whatever entry
     form and so whichever unit's kernel serves the call, PREC_LAUNCHES and
     LUT_PREC_LAUNCHES at a reduced precision: real cubic traces on the
     float32 variants), with and without fmod, for F = 1 to 9, complex and
@@ -684,13 +790,14 @@ def test_k1b_k2b_launch_as_the_plan_says(card, precision):
                     (5, False)):
         xf = frame_traces(x, (F,), cplx, seed=F).to(card)
         for method in methods:
-            blocks = -(-F // das_cuda.frames_per_launch(method, precision, cplx))
             for fmod in (0.0, 1e6):
-                for kern, plain, args, kw, counter in (
+                for kern, plain, args, kw, counter, sigma in (
                         (das_cuda.das_sum, das_cuda.das_sum_plain,
-                         (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model="plane"), k1c),
+                         (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model="plane"), k1c,
+                         das_cuda.tap_stride(pi, CINV, fs)),
                         (das_cuda.das_lut_sum, das_cuda.das_lut_sum_plain,
-                         (xf, tau_rx, tau_tx, t0), dict(fs=fs), k2c)):
+                         (xf, tau_rx, tau_tx, t0), dict(fs=fs), k2c, None)):
+                    blocks = -(-F // das_cuda.frames_per_launch(method, precision, cplx, sigma))
                     kw = dict(kw, method=method, fmod=fmod, precision=precision)
                     before = getattr(das_cuda, counter)
                     got = kern(*args, **kw)
@@ -781,8 +888,9 @@ def test_layout_kernel_coefficient_forms_match_plain(card, T, N, M, F):
 def test_real_cubic_bf16_is_float32_on_rounded_taps(card, precision):
     """A real cubic K1(e) call at 'bf16pair' or 'bf16' (K2(e): 'bf16pair')
     is the float32 term on the float32 layout of the rounded taps: bit for
-    bit das_sum(round_taps(x), precision='f32'), one frame and 6 (two
-    launches), with fmod and without, each launch counted as K1(e)'s."""
+    bit das_sum(round_taps(x), precision='f32'), one frame and 6 (a launch
+    a block of the plan's frames: K2 two, K1 by the tap stride of its
+    pixels), with fmod and without, each launch counted as K1(e)'s."""
     x, tau_rx, tau_tx, t0, fs = lut_problem()
     for fdims in ((), (6,)):
         xf = frame_traces(x, fdims, False).to(card)
@@ -793,12 +901,16 @@ def test_real_cubic_bf16_is_float32_on_rounded_taps(card, precision):
             calls.append((das_cuda.das_lut_sum, (tau_rx, tau_tx, t0), dict(fs=fs),
                           "LUT_PREC_LAUNCHES"))
         for kern, args, kw, counter in calls:
+            sigma = das_cuda.tap_stride(args[0], CINV, fs) if counter == "PREC_LAUNCHES" \
+                else None
+            blocks = -(-int(np.prod(fdims)) // das_cuda.frames_per_launch(
+                "cubic", precision, False, sigma))
             for fmod in (0.0, 1e6):
                 kw = dict(kw, method="cubic", fmod=fmod)
                 before = getattr(das_cuda, counter)
                 got = kern(xf, *args, precision=precision, **kw)
                 torch.cuda.synchronize()
-                assert getattr(das_cuda, counter) == before + (2 if fdims else 1)
+                assert getattr(das_cuda, counter) == before + blocks
                 assert torch.equal(got, kern(xq, *args, **kw)), (kern.__name__, fdims, fmod)
 
 
@@ -807,8 +919,9 @@ def test_real_cubic_bf16_is_float32_on_rounded_taps(card, precision):
 @pytest.mark.parametrize("precision", sorted(PREC_METHODS))
 def test_k1e_k2e_match_plain(card, precision, case):
     """K1(e) and K2(e) ('bf16' K1 only): every sampler the precision takes x
-    the three transmit models and perturbed tables x one frame and 6 (two
-    launches), real traces, real with fmod, complex with and without,
+    the three transmit models and perturbed tables x one frame and 6 (a
+    launch a block of the plan's frames: K1's by the tap stride of its
+    pixels), real traces, real with fmod, complex with and without,
     against their plain versions: the same rounded taps, so within float32
     roundings. Each launch counts in PREC_LAUNCHES or LUT_PREC_LAUNCHES
     and in no float32 counter."""
@@ -824,13 +937,16 @@ def test_k1e_k2e_match_plain(card, precision, case):
             calls.append((das_cuda.das_sum, das_cuda.das_sum_plain,
                           (xf, pi, pr, pv, nv, t0m, CINV), dict(fs=fs, tx_model=model), 0))
         for kern, plain, args, kw, which in calls:
+            sigma = None if which else das_cuda.tap_stride(args[1], CINV, fs)
             for method in PREC_METHODS[precision]:
                 kw = dict(kw, method=method, fmod=fmod, precision=precision)
+                blocks = -(-int(np.prod(fdims)) // das_cuda.frames_per_launch(
+                    method, precision, cplx, sigma))
                 before = _lp_counts()
                 got = kern(*args, **kw)
                 torch.cuda.synchronize()
                 delta = np.subtract(_lp_counts(), before)
-                assert delta[which] == (2 if fdims else 1) and delta.sum() == delta[which]
+                assert delta[which] == blocks and delta.sum() == delta[which]
                 ref = plain(*args, **kw)
                 assert got.shape == ref.shape and got.dtype == ref.dtype
                 err = float((got - ref).abs().max()) / float(ref.abs().max())
@@ -964,16 +1080,18 @@ def test_iq_ensemble_on_card(card):
     P = us.scan.positions().reshape(3, -1)
     for data in (iq.data, iq.data.real.contiguous()):
         chd = iq.replace(data=data)
-        calls = {"DAS": (lambda **k: us.DAS(chd, fmod=us.fc, **k), "LAUNCHES"),
-                 "bfDAS": (lambda **k: us.bfDAS(chd, fmod=us.fc, **k), "LUT_LAUNCHES"),
+        sigma = das_cuda.tap_stride(us._pixels(), 1 / 1540.0, chd.fs)
+        calls = {"DAS": (lambda **k: us.DAS(chd, fmod=us.fc, **k), "LAUNCHES", sigma),
+                 "bfDAS": (lambda **k: us.bfDAS(chd, fmod=us.fc, **k), "LUT_LAUNCHES", None),
                  "DAS c0 map": (lambda **k: us.DAS(chd, fmod=us.fc, c0=cmap, **k),
-                                "LUT_LAUNCHES"),
+                                "LUT_LAUNCHES", None),
                  "DAS cubic2x": (lambda **k: us.DAS(chd, fmod=us.fc, method="cubic2x", **k),
-                                 "LAUNCHES")}
-        for name, (fn, counter) in calls.items():
-            # one launch a block of the plan's frames (cubic2x: linear)
+                                 "LAUNCHES", 2 * sigma)}
+        for name, (fn, counter, sg) in calls.items():
+            # one launch a block of the plan's frames (cubic2x: linear at 2 fs;
+            # K1's from the tap stride of the scan's pixels)
             method = "linear" if "cubic2x" in name else "cubic"
-            n = -(-2 // das_cuda.frames_per_launch(method, cplx=data.is_complex()))
+            n = -(-2 // das_cuda.frames_per_launch(method, cplx=data.is_complex(), sigma=sg))
             before = getattr(das_cuda, counter)
             b = fn()
             torch.cuda.synchronize()
@@ -1836,8 +1954,11 @@ def test_vantage_workspace_on_card(card, tmp_path):
     iq = g.hilbert().downmix(fc)
     bi = us.DAS(iq, fmod=fc)
     torch.cuda.synchronize()
-    F = int(np.prod(iq.data.shape[3:]))  # RF: one launch; IQ: one a block of the plan's frames
-    n = 1 + -(-F // das_cuda.frames_per_launch("cubic", cplx=True))
+    # one launch a block of the plan's frames: RF's by the tap stride of the scan's pixels
+    F = int(np.prod(iq.data.shape[3:]))
+    sigma = das_cuda.tap_stride(us._pixels(), 1 / 1540.0, chd.fs)
+    n = -(-F // das_cuda.frames_per_launch("cubic", "f32", False, sigma)) + -(
+        -F // das_cuda.frames_per_launch("cubic", cplx=True))
     assert das_cuda.LAUNCHES == before + n and b.is_cuda and bi.is_cuda
     ref = us.DAS(chd, device="cpu")
     refi = us.DAS(chd.hilbert().downmix(fc), fmod=fc, device="cpu")
@@ -1873,13 +1994,14 @@ def test_io_round_trips_on_card(card, tmp_path):
 @pytest.mark.cuda
 def test_trace_records_the_kernel(card, tmp_path):
     """utils.trace on the card: the Chrome trace holds K1(b)'s
-    das_frames_kernel launched under annotate('das'); Timer with a CUDA
-    tensor as sync waits for it."""
+    das_frames_kernel launched under annotate('das') (2 frames in one
+    launch: the scan's pitch, 23.5 um, keeps the tap stride at 0.37);
+    Timer with a CUDA tensor as sync waits for it."""
     import json
 
     xdc = qt.TransducerArray(numel=16, pitch=0.3e-3, fc=3e6)
     us = qt.UltrasoundSystem(tx=xdc, rx=xdc, seq=qt.Sequence(type="FSA", numpulse=16),
-                             scan=qt.ScanCartesian(x=np.linspace(-3e-3, 3e-3, 32),
+                             scan=qt.ScanCartesian(x=np.linspace(-3e-3, 3e-3, 256),
                                                    z=np.linspace(10e-3, 20e-3, 32)))
     x = torch.randn(512, 16, 16, 2, device=card)
     chd = qt.ChannelData(data=x, fs=12e6, t0=0.0)

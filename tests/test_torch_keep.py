@@ -91,16 +91,17 @@ def _weights(kind, pi, pr, nv, rng):
 
 
 class _Recorder:
-    """das_keep's stand-in: records each launch's frames, transmits, add,
-    keep mode, rotation flag and w; returns 0 (cudaSuccess)."""
+    """das_keep's stand-in: records each launch's frames, the layout's
+    frames a tap base, transmits, add, keep mode, rotation flag and w;
+    returns 0 (cudaSuccess)."""
 
     def __init__(self, t0):
         self.t0, self.calls = t0, []
 
     def __call__(self, *a):
         self.calls.append(dict(m0=(a[8] - self.t0.data_ptr()) // 4, M=a[12], F=a[14],
-                               f0=a[15], fb=a[16], w=a[19], src=a[20], rot=a[23], add=a[24],
-                               keep=a[25], acc16=a[-3] if len(a) > 43 else None))
+                               f0=a[15], fb=a[16], fl=a[17], w=a[20], src=a[21], rot=a[24],
+                               add=a[25], keep=a[26], acc16=a[-3] if len(a) > 44 else None))
         return 0
 
 
@@ -147,15 +148,16 @@ CASES = [(keep, w, src) for keep in sorted(KEEPS) for w in ("none", "fused", "de
 
 @pytest.mark.parametrize("keep,weights,src", CASES)
 def test_keep_plan_of_plain_parts_matches_jax(keep, weights, src, monkeypatch):
-    """_das_keep's launches (two chunks of transmits: the layout budget cut
-    to 4 transmits; 5 frames or none; fmod by turns) composed of the plain
-    das / das_lut of each launch's transmits and frames, against the JAX
-    package's das / das_lut on the whole problem with the same dense
-    weights: within 1e-4 of the peak (2e-4 where the transmits are kept:
-    its largest value is one term's, and XLA rounds the delays with fused
-    multiply-adds, one ulp of delay moving a term by up to ~1e-4 of the
-    largest; tests/test_torch_apod.py). Every (transmit, frame) in one
-    launch, each launch one frame."""
+    """_das_keep's launches (the layout budget cut to 4 transmits of every
+    frame: with 5 frames two groups of frame planes, 2 and 3, of every
+    transmit; without frames two chunks of transmits; fmod by turns)
+    composed of the plain das / das_lut of each launch's transmits and
+    frames, against the JAX package's das / das_lut on the whole problem
+    with the same dense weights: within 1e-4 of the peak (2e-4 where the
+    transmits are kept: its largest value is one term's, and XLA rounds the
+    delays with fused multiply-adds, one ulp of delay moving a term by up to
+    ~1e-4 of the largest; tests/test_torch_apod.py). Every (transmit,
+    frame) in one launch, each launch one frame of a one-frame plane."""
     i = CASES.index((keep, weights, src))
     fd, cplx, fmod = [((), False, 0.0), ((5,), True, 2.5e6), ((5,), False, 0.0),
                       ((), True, 2.5e6)][i % 4]
@@ -178,9 +180,11 @@ def test_keep_plan_of_plain_parts_matches_jax(keep, weights, src, monkeypatch):
     bound, calls = _recorded(monkeypatch, xt, I, t0t, **geo, **kw)
     assert bound == [(0, fmod != 0, False)]
     F = int(np.prod(fd, dtype=np.int64))
-    assert [(c["m0"], c["f0"]) for c in calls] == [(m0, f) for m0 in (0, 3) for f in range(F)]
-    assert all(c["fb"] == das_cuda.KEEP_FRAMES and c["F"] == F and c["rot"] == int(fmod != 0)
-               and c["keep"] == int(keep_rx) + 2 * int(keep_tx) for c in calls)
+    assert [(c["m0"], c["f0"]) for c in calls] == (
+        [(0, f) for f in range(F)] if F > 1 else [(0, 0), (3, 0)])
+    assert all(c["fb"] == das_cuda.KEEP_FRAMES == c["fl"] and c["F"] == F
+               and c["rot"] == int(fmod != 0) and c["keep"] == int(keep_rx) + 2 * int(keep_tx)
+               for c in calls)
     assert sorted((c["m0"] + m, c["f0"] + f) for c in calls for m in range(c["M"])
                   for f in range(c["fb"])) == [(m, f) for m in range(M) for f in range(F)]
     xf = xt.reshape(T, N, M, F)

@@ -60,17 +60,32 @@ timed with CUDA events, for the ``qups_tpu_torch`` package under ROOT
   a copy of ``csrc/das.cu`` so edited, built under ``_build/k1b_sweep/``;
   ``copies: false`` the package's own kernels with one-frame launches on
   the 4 frames' layout at frame offsets instead of one-frame calls on
-  copies of each frame; ``cases`` a substring that names the cases to
+  each frame's plane of the layout; ``cases`` a substring that names the cases to
   time). The shipped package is timed before and after the
   configurations, and each configuration's rotation is held against
-  float64 over |phase| <= PHASE_MAX and <= 2^30.
+  float64 over |phase| <= PHASE_MAX and <= 2^30;
+* ``framesweep``: K1(b)'s frames a launch against the layout it reads,
+  fb in {1, 2, 4} x {"all": one layout of all the call's frames, each
+  launch at its frames' offset; "blocks": a layout in blocks of the
+  launch's frames}, beside the frames the package's rule picks from the
+  pixels' tap stride (``frames_per_launch``), at three pixel pitches:
+  PICMUS RF (``_picmus_grid``, 512^2 px over x +-18 mm, 70.5 um, 128 el, 75
+  PW, T 1664 at 20.832 MHz, 16 seeded frames: 1.91 tap bases between
+  neighbouring pixels), the same at half the pitch (x +-9 mm: 0.95) and
+  the IQ headline's (x +-12 mm over 1024 px at 7.8125 MHz: 0.24; its first
+  256 of 1024 rows, T' 1024, 256 x 256, 4 seeded frames); for real cubic
+  traces in float32, as 'f32c' (bf16pair) and 'h16' (i8x4), and nearest,
+  linear and lanczos3 on real and complex traces, no fmod; and keep_rx
+  (the keep kernel, one frame a launch) on the PICMUS RF ensemble on both
+  layouts.
 
 It prints the registers and stack frame of each das_frames_kernel
 variant the package builds and the card's name and power limit. Each time
 is the mean of ``--reps`` calls after one warm-up call (lanczos3 one).
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/k1b_torch.py [--root DIR] [--what iq summed keep sweep keepsweep lp lpsweep]
+    python3 tools/k1b_torch.py [--root DIR] [--what iq summed keep sweep keepsweep lp lpsweep
+                                            framesweep]
 
 To compare with another commit, unpack it (``git archive``) under a
 directory .gitignore lists and run this script with ``--root`` there and
@@ -78,7 +93,8 @@ here in turns (parent, change, change, parent); ``sweep`` needs this
 checkout's kernel plan, ``keepsweep`` its keep kernel. The last line is
 one JSON object: {"root", "card", "ms": {case: ms}, "bits": {case:
 sha256}, "sweep": {config: {case: ms}}, "keep_sweep": {config: {case:
-ms}}, "lp_sweep": {config: {case: ms}}, "variants"}.
+ms}}, "lp_sweep": {config: {case: ms}}, "frame_sweep": {case: {config:
+ms, "rule": fb}}, "variants"}.
 """
 import argparse
 import hashlib
@@ -255,6 +271,82 @@ def _picmus_iq(torch, qt):
             4 * fc, fc)
 
 
+def _picmus_grid(half_width=18e-3):
+    """PICMUS PW75's geometry (an L11-4v's 128 elements at 0.3 mm, 75
+    plane waves over +-16 degrees) and 512^2 px over x +-``half_width``, z
+    10-50 mm, x fastest: (pi, pr, pv, nv) float32."""
+    import numpy as np
+
+    N, M = 128, 75
+    Z, X = np.meshgrid(np.linspace(10e-3, 50e-3, 512),
+                       np.linspace(-half_width, half_width, 512), indexing="ij")
+    pi = np.stack([X.ravel(), np.zeros(X.size), Z.ravel()], -1).astype(np.float32)
+    xe = (np.arange(N) - (N - 1) / 2) * 0.3e-3
+    pr = np.stack([xe, np.zeros(N), np.zeros(N)], -1).astype(np.float32)
+    th = np.radians(np.linspace(-16.0, 16.0, M))
+    nv = np.stack([np.sin(th), np.zeros(M), np.cos(th)], -1).astype(np.float32)
+    return pi, pr, np.zeros((M, 3), np.float32), nv
+
+
+def _frame_sweep(args, cs, torch, das_cuda, cinv, res):
+    """``--what framesweep`` (see the head of this file): res["frame_sweep"]
+    {case: {"<fb> <layout>": ms, "rule": the package's fb}}."""
+    import numpy as np
+    from qups_tpu_torch import bench
+
+    shipped = (das_cuda.frames_per_launch, das_cuda._launch_frames)
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def traces(shape):
+        x = torch.randn(shape + (2,), generator=g, device="cuda")
+        return x[..., 0].contiguous(), torch.view_as_complex(x)
+
+    picmus = traces((1664, 128, 75, 16))
+    pitches = [("PICMUS RF", *_picmus_grid(), picmus, 20.832e6),
+               ("PICMUS half pitch", *_picmus_grid(9e-3), picmus, 20.832e6)]
+    pr, pv, nv = bench.plane_array(256, 256)
+    pitches.append(("IQ headline", bench.pixels(1024)[:256 * 1024], pr, pv, nv,
+                    traces((1024, 256, 256, 4)), 7.8125e6))
+    kinds = [("cubic", "f32", False), ("cubic", "bf16pair", False), ("cubic", "i8x4", False)]
+    kinds += [(m, "f32", c) for m in ("nearest", "linear", "lanczos3") for c in (False, True)]
+
+    def plan(fb, layout):
+        das_cuda.frames_per_launch = lambda *a, **k: fb
+        das_cuda._launch_frames = lambda *a, **k: shipped[1](
+            *a, **k, block=a[0].shape[3] if layout == "all" else None)
+
+    for name, pi, pr, pv, nv, (xr, xc), fs in pitches:
+        F = xr.shape[3]
+        sigma = das_cuda.tap_stride(pi, cinv, fs)
+        print(f"frame sweep {name}: {pi.shape[0]} px, tap stride {sigma:.3f}, {F} frames",
+              flush=True)
+        t0 = np.zeros(xr.shape[2], np.float32)
+        for method, precision, cplx in kinds:
+            case = f"{name} {method} {'complex' if cplx else 'real'} {precision}"
+            call = lambda: das_cuda.das_sum(  # noqa: E731
+                xc if cplx else xr, pi, pr, pv, nv, t0, cinv, fs=fs, tx_model="plane",
+                method=method, precision=precision)
+            row = {"rule": shipped[0](method, precision, cplx, sigma)}
+            for fb in (1, 2, 4):
+                for layout in ("all", "blocks") if fb < F else ("blocks",):
+                    plan(fb, layout)
+                    row[f"{fb} {layout}"] = cs._ms(call, 1 if method == "lanczos3" else args.reps)
+                    das_cuda.frames_per_launch, das_cuda._launch_frames = shipped
+            res["frame_sweep"][case] = row
+            print(f"frame sweep [{case}]: {row}", flush=True)
+        if name == "PICMUS RF":  # the keep kernel: one frame a launch
+            case = f"{name} keep_rx cubic real f32"
+            row = {"rule": das_cuda.KEEP_FRAMES}
+            for layout in ("all", "blocks"):
+                plan(das_cuda.KEEP_FRAMES, layout)
+                row[f"1 {layout}"] = cs._ms(lambda: das_cuda.das_sum(
+                    xr, pi, pr, pv, nv, t0, cinv, fs=fs, tx_model="plane", method="cubic",
+                    keep_rx=True), args.reps)
+                das_cuda.frames_per_launch, das_cuda._launch_frames = shipped
+            res["frame_sweep"][case] = row
+            print(f"frame sweep [{case}]: {row}", flush=True)
+
+
 def _keep_source(src: str, cfg: dict) -> str:
     """das.cu with the keep kernel's edits ``cfg`` names (KEEP_CONSTANTS,
     ``shared``, ``prefetch``)."""
@@ -329,7 +421,7 @@ def main():
                           text=True).stdout.strip()
     print(f"card: {card}; package: {root}", flush=True)
     res = {"root": root, "card": card, "ms": {}, "bits": {}, "sweep": {}, "keep_sweep": {},
-           "lp_sweep": {}, "variants": {}}
+           "lp_sweep": {}, "frame_sweep": {}, "variants": {}}
     builds = [("das", das_cuda.build), ("das_iq", lambda: das_cuda.build(iq=True))]
     keeping = "keep" in args.what or "keepsweep" in args.what
     if keeping:
@@ -338,6 +430,9 @@ def main():
                    ("das_keep_i8", lambda: das_cuda.build_keep_q(2)),
                    ("das_keep_acc16", lambda: das_cuda.build_keep_q(3))]
     lp = "lp" in args.what or "lpsweep" in args.what
+    if "framesweep" in args.what:
+        builds += [("das_keep", das_cuda.build_keep), ("das_q1", lambda: das_cuda.build_q(1)),
+                   ("das_q2", lambda: das_cuda.build_q(2))]
     if lp:
         builds += [("das_keep", das_cuda.build_keep), ("das_keep_acc16",
                                                         lambda: das_cuda.build_keep_q(3))]
@@ -421,8 +516,9 @@ def main():
         shipped = (das_cuda.frames_per_launch, das_cuda._launch_frames, dict(_nvcc._loaded))
 
         def launch_frames_on_one_layout(x, method, fmod, launch, fb_max, precision="f32",
-                                        scale=None, out=None):
-            return shipped[1](x, method, fmod, launch, fb_max, precision, scale)
+                                        scale=None, out=None, form=None):
+            return shipped[1](x, method, fmod, launch, fb_max, precision, scale, form=form,
+                              block=das_cuda._frames(x).shape[3])
 
         def sweep(key, cfg):
             names = [c for c in cases if cfg.get("cases", "") in c[0]]
@@ -557,6 +653,8 @@ def main():
             _nvcc._loaded.clear()
             _nvcc._loaded.update(shipped)
         keep_sweep("shipped, again", {})
+    if "framesweep" in args.what:
+        _frame_sweep(args, cs, torch, das_cuda, cinv, res)
     if lp:
         lp_cases = _lp_cases(args, cs, torch, qt, das_cuda, delay_tables, cinv)
     if "lp" in args.what:
